@@ -1,0 +1,377 @@
+// K3: attention residual branch for Hopper (sm_90a), first of its two
+// launches (the second is K1 with the residual epilogue for proj).
+//
+// Replaces the TPU kernel quantized_vit_tpu/ops/attention.py:
+// _attn_block_kernel (pallas_call in _attention_block, attention.py:667),
+// which computes x + proj(quant(softmax(q k^T s) v)) with
+// q/k/v = qkv(quant(LN(x))) and keeps the [M, 3D] qkv tensor out of HBM
+// (66 MB per block at batch 32). This kernel keeps that property: one
+// block per (head, image)
+//   1. LayerNorm statistics of the image's rows (fast-variance form);
+//   2. this head's q/k/v columns of the qkv GEMM, 112 rows at a time, with
+//      the A tile quantized from LN(x) on the fly (mma.sync m16n8k32 s8;
+//      the weight arrives n-major from the layer's plan; the next
+//      step's x and weight pieces load into registers during this step);
+//      dequant + bias, rounded to the residual dtype as the TPU scratch is
+//      (attention.py:469), kept in shared memory as f32;
+//   3. 8 query rows per warp at a time on the f64 tensor cores
+//      (mma.sync m8n8k4): q pre-scaled by sm_scale*log2e and rounded back to
+//      the qkv dtype, scores over the n_valid unmasked keys,
+//      p = exp2(min(s, 100)) with no row-max subtraction, p rounded to the v
+//      dtype for AV, p_sum from f32 p plus 1e-30, and the int8 levels
+//      round(o * (1/(p_sum*d))) (attention.py:164-231).
+// Only the int8 attention levels [B*N, H*hd] are written to memory.
+//
+// Bound on this card at ViT-B batch 32 (both launches): 31.4 G int8 ops
+// over 1,979 TOPS plus 4.25 G bf16 ops over 989 TFLOP/s (~20 us), against
+// ~23 MB moved: compute-bound. This version computes the attention in f64
+// (67 TFLOP/s on the f64 tensor cores against 989 for bf16) to stay
+// bit-exact with the plain version, and stages its GEMM tiles through
+// registers one step ahead, without TMA or wgmma, so it is far from it.
+
+#include "qvt_common.cuh"
+
+namespace {
+
+// 8 warps. The qkv GEMM takes 112 query rows (7 m16 tiles) per pass,
+// every warp all of them and 24 of the 192 columns (3 n8 tiles): two passes
+// at 208 rows. The attention gives each warp 8-row tiles of queries.
+constexpr int NT = 256, BMQ = 112, TMQ = BMQ / 16, BK = 64, SK = BK + 16;
+constexpr int HDMAX = 64;
+constexpr int NQKV = 3 * HDMAX;
+constexpr int KT = 4;  // key tiles per attention step
+
+// f32 row strides of q/k and of v in shared memory: hd + 4 and hd + 8 make
+// the f64 mma fragment loads below free of bank conflicts at hd % 32 == 0
+__host__ __device__ inline int q_stride(int hd) { return hd + 4; }
+__host__ __device__ inline int v_stride(int hd) { return hd + 8; }
+
+__host__ __device__ inline size_t smem_bytes(int n, int hd) {
+  return static_cast<size_t>(n) * (2 * q_stride(hd) + v_stride(hd)) *
+             sizeof(float) +
+         static_cast<size_t>(BMQ + NQKV) * SK +
+         static_cast<size_t>(2) * n * sizeof(float);
+}
+
+// D = A B + C on the f64 tensor cores: A 8x4 (a = A[lane/4][lane%4]),
+// B 4x8 (b = B[lane%4][lane/4]), C/D 8x8 (c0, c1 = C[lane/4][2*(lane%4)+i])
+__device__ __forceinline__ void dmma(double& c0, double& c1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+struct Args {
+  const void* x;
+  int x_dt;
+  qvt::WeightT wq;  // D x 3*H*hd levels, transposed: [3*H*hd][D(/2)]
+  const float* qs;
+  const float* qb;
+  const float* ln_g;
+  const float* ln_b;
+  const float* prm;  // act_d, act_t, out_d, out_t
+  int8_t* alv;
+  int B, n, D, heads, hd, n_valid;
+  float q_mul;
+  int qkv_dt;
+  int act_pow, out_pow;
+  float act_top, out_top, eps;
+};
+
+// Shared memory: q [n][hd+4] | k [n][hd+4] | v [n][hd+8] (f32) | As
+// [BMQ][SK] | Bs [NQKV][SK] | mu [n] | rs [n]
+__global__ void __launch_bounds__(NT) attn_kernel(Args a) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int n = a.n, hd = a.hd, D = a.D;
+  const int RQ = q_stride(hd), RV = v_stride(hd);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + n * RQ;
+  float* v_s = k_s + n * RQ;
+  int8_t* As = reinterpret_cast<int8_t*>(v_s + n * RV);
+  int8_t* Bs = As + BMQ * SK;
+  float* s_mu = reinterpret_cast<float*>(Bs + NQKV * SK);
+  float* s_rs = s_mu + n;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int HD = a.heads * hd;
+  const long long row0 = static_cast<long long>(b) * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float act_d = a.prm[0], act_t = a.prm[1];
+  const float out_d = a.prm[2], out_t = a.prm[3];
+
+  QVT_STAMP(0);
+  qvt::ln_stats(a.x, a.x_dt, row0, n, n, D, a.eps, s_mu, s_rs);
+  __syncthreads();
+  QVT_STAMP(1);
+
+  // this head's q/k/v: column j of the [n, 3*hd] tile is global qkv
+  // column part*HD + h*hd + jj
+  const int wn = warp * 24;
+  const bool w_vec = a.wq.vec_ok();
+  auto col_of = [&](int j) {  // qkv column of this head's tile column j
+    const int part = j / hd;
+    return part * HD + h * hd + (j - part * hd);
+  };
+  auto level = [&](int i, int k, float v) -> int8_t {  // quant(LN(x))
+    if (i >= n || k >= D) return 0;
+    float y = (v - s_mu[i]) * s_rs[i] * a.ln_g[k] + a.ln_b[k];
+    return qvt::quantize(y, act_d, act_t, a.act_top, a.act_pow, !a.act_pow);
+  };
+  // the GEMM's steps: row passes of BMQ rows x D in BK-deep steps
+  const int n_k = (D + BK - 1) / BK;
+  const int n_it = (n + BMQ - 1) / BMQ * n_k;
+  // Prefetch path: the next step's x rows (raw 16-byte pieces) and weight
+  // pieces load into registers while this step's tile product runs
+  const int xb = a.x_dt == qvt::DT_BF16 ? 2 : 4;
+  const int epp = 16 / xb;  // x elements per piece
+  const bool pre =
+      w_vec && (a.x_dt == qvt::DT_BF16 || a.x_dt == qvt::DT_F32) &&
+      D % epp == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
+  const int xpr = BK / epp, x_pieces = BMQ * xpr;
+  const char* xbytes = static_cast<const char*>(a.x);
+  constexpr int XR = BMQ * BK * 4 / 16 / NT;  // f32 pieces per thread
+  static_assert(NQKV * BK / 16 == 3 * NT, "three weight pieces a thread");
+  uint4 xr[XR], wr[3];
+  auto load = [&](int it) {
+    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
+#pragma unroll
+    for (int u = 0; u < XR; ++u) {
+      const int p = threadIdx.x + u * NT;
+      const int r = p / xpr, k = k0 + (p - r * xpr) * epp;
+      xr[u] = p < x_pieces && rt + r < n && k < D
+                  ? __ldg(reinterpret_cast<const uint4*>(
+                        xbytes + ((row0 + rt + r) * D + k) * xb))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int p = threadIdx.x + u * NT, j = p >> 2;
+      wr[u] = a.wq.vec16(k0 + (p & 3) * 16, j < 3 * hd ? col_of(j) : -1);
+    }
+  };
+  auto store = [&](int it) {
+    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
+#pragma unroll
+    for (int u = 0; u < XR; ++u) {
+      const int p = threadIdx.x + u * NT;
+      if (p >= x_pieces) break;
+      const int r = p / xpr, c = (p - r * xpr) * epp;
+      const uint32_t w[4] = {xr[u].x, xr[u].y, xr[u].z, xr[u].w};
+      uint32_t lv[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e >= epp) break;
+        const float v = xb == 2 ? __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u
+                                                        : w[e >> 1] << 16)
+                                : __uint_as_float(w[e]);
+        lv[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                          level(rt + r, k0 + c + e, v)))
+                      << (8 * (e & 3));
+      }
+      if (epp == 8)
+        *reinterpret_cast<uint2*>(As + r * SK + c) = make_uint2(lv[0], lv[1]);
+      else
+        *reinterpret_cast<uint32_t*>(As + r * SK + c) = lv[0];
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int p = threadIdx.x + u * NT;
+      *reinterpret_cast<uint4*>(Bs + (p >> 2) * SK + (p & 3) * 16) = wr[u];
+    }
+  };
+
+  int acc[TMQ][3][4];
+  if (pre) load(0);
+  for (int it = 0; it < n_it; ++it) {
+    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
+    if (k0 == 0) qvt::zero_acc(acc);
+    if (pre) {
+      store(it);
+    } else {
+      qvt::fill_rows(As, BMQ, SK, BK, [&](int r, int kk) -> int8_t {
+        const int i = rt + r, k = k0 + kk;
+        if (i >= n || k >= D) return 0;
+        return level(i, k, qvt::load_f(a.x, a.x_dt, (row0 + i) * D + k));
+      });
+      // this head's q/k/v weight columns: Bs[j][k] = Wqkv[k, col(j)]
+      if (w_vec)
+        qvt::fill_rows16(Bs, NQKV, SK, BK, [&](int j, int c) -> uint4 {
+          return a.wq.vec16(k0 + c, j < 3 * hd ? col_of(j) : -1);
+        });
+      else
+        qvt::fill_rows(Bs, NQKV, SK, BK, [&](int j, int kk) -> int8_t {
+          return a.wq.at(k0 + kk, j < 3 * hd ? col_of(j) : -1);
+        });
+    }
+    __syncthreads();
+    if (pre && it + 1 < n_it) load(it + 1);
+    qvt::warp_mma<TMQ, 3>(acc, As, SK, Bs, SK, BK, 0, wn, lane);
+    __syncthreads();
+    if (k0 + BK < D) continue;
+#pragma unroll
+    for (int i = 0; i < TMQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qi = rt + i * 16 + g + (r >= 2 ? 8 : 0);
+          const int col = wn + j * 8 + t * 2 + (r & 1);
+          if (qi >= n || col >= 3 * hd) continue;
+          const int part = col / hd, jj = col - part * hd;
+          const int gc = part * HD + h * hd + jj;
+          float y = static_cast<float>(acc[i][j][r]) * a.qs[gc];
+          if (a.qb) y = y + a.qb[gc];
+          float* dst = part == 0 ? q_s + qi * RQ
+                                 : part == 1 ? k_s + qi * RQ : v_s + qi * RV;
+          dst[jj] = qvt::round_to(y, a.qkv_dt);
+        }
+  }
+  __syncthreads();
+  QVT_STAMP(2);
+
+  // Attention on the f64 tensor cores. A warp takes 8 query rows at a
+  // time: S = q k^T over the keys in tiles of 8 (q pre-scaled by
+  // sm_scale*log2e and rounded to the qkv dtype), p = exp2(min(s, 100)) with
+  // masked keys at 0, then O += P V with p rounded to the v dtype. Every
+  // product is exact in f64 (bf16 and f32 operands), so after the single
+  // rounding to f32 the sums equal the plain version's
+  // (ops/attention.py:_dot_f32) whatever order the tensor cores add in;
+  // p_sum likewise.
+  const int KS = hd / 4, NTV = hd / 8;
+  const int key_tiles = (a.n_valid + 7) / 8;
+  const unsigned full = 0xffffffffu;
+  for (int mt = warp; mt * 8 < n; mt += NT / 32) {
+    const int qrow = mt * 8 + g;
+    double qa[HDMAX / 4];
+#pragma unroll
+    for (int ks = 0; ks < HDMAX / 4; ++ks)
+      qa[ks] = ks < KS && qrow < n
+                   ? static_cast<double>(qvt::round_to(
+                         q_s[qrow * RQ + ks * 4 + t] * a.q_mul, a.qkv_dt))
+                   : 0.0;
+    double o[HDMAX / 8][2];
+#pragma unroll
+    for (int nt = 0; nt < HDMAX / 8; ++nt) o[nt][0] = o[nt][1] = 0.0;
+    double psum = 0.0;
+    // KT key tiles per step, each score in two accumulator chains (even
+    // and odd k-steps): 2*KT independent mma chains in flight
+    for (int kt0 = 0; kt0 < key_tiles; kt0 += KT) {
+      double c[KT][2][2] = {};
+#pragma unroll
+      for (int ks = 0; ks < HDMAX / 4; ++ks) {
+        if (ks >= KS) break;
+#pragma unroll
+        for (int u = 0; u < KT; ++u) {
+          const int key = (kt0 + u) * 8 + g;
+          dmma(c[u][ks & 1][0], c[u][ks & 1][1], qa[ks],
+               kt0 + u < key_tiles && key < n
+                   ? static_cast<double>(k_s[key * RQ + ks * 4 + t])
+                   : 0.0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < KT; ++u) {
+        const int kt = kt0 + u;
+        if (kt >= key_tiles) break;
+        // scores of rows g, keys kt*8 + 2t + {0, 1}
+        double pb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const double sc = c[u][0][i] + c[u][1][i];
+          const float p = kt * 8 + 2 * t + i < a.n_valid
+                              ? exp2f(fminf(static_cast<float>(sc), 100.f))
+                              : 0.f;
+          pb[i] = qvt::round_to(p, a.qkv_dt);
+          psum += p;
+        }
+        // P as the A operand of two k-steps: lane (g, t) needs
+        // P[g][4h + t], held by lane (g, 2h + t/2) as its element t % 2
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int src = (lane & ~3) | (2 * hh + (t >> 1));
+          const double v0 = __shfl_sync(full, pb[0], src);
+          const double v1 = __shfl_sync(full, pb[1], src);
+          const double pa = (t & 1) ? v1 : v0;
+          const int vkey = kt * 8 + 4 * hh + t;
+#pragma unroll
+          for (int nt = 0; nt < HDMAX / 8; ++nt)
+            if (nt < NTV)
+              dmma(o[nt][0], o[nt][1], pa,
+                   vkey < n
+                       ? static_cast<double>(v_s[vkey * RV + nt * 8 + g])
+                       : 0.0);
+        }
+      }
+    }
+    psum += __shfl_xor_sync(full, psum, 1);
+    psum += __shfl_xor_sync(full, psum, 2);
+    if (qrow >= n) continue;
+    const float ps = static_cast<float>(psum) + 1e-30f;
+    int8_t* dst = a.alv + (row0 + qrow) * HD + h * hd + 2 * t;
+    const float inv = 1.0f / (ps * out_d);
+#pragma unroll
+    for (int nt = 0; nt < HDMAX / 8; ++nt) {
+      if (nt >= NTV) break;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float ov = static_cast<float>(o[nt][i]);
+        dst[nt * 8 + i] =
+            a.out_pow ? qvt::quantize(ov / ps, out_d, out_t, a.out_top, true,
+                                      false)
+                      : qvt::clip_round(ov * inv, a.out_top);
+      }
+    }
+  }
+  QVT_STAMPS_STORE(blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+}  // namespace
+
+extern "C" size_t qvt_attention_smem_bytes(int n, int hd) {
+  return smem_bytes(n, hd);
+}
+
+extern "C" int qvt_attention_heads(
+    const void* x, int x_dt, const void* wq, int wq_int4, const void* qs,
+    const void* qb, const void* ln_g, const void* ln_b, const void* prm,
+    void* alv, int B, int n, int D, int heads, int hd, int n_valid,
+    float q_mul, int qkv_dt, int act_pow, int out_pow, int act_top,
+    int out_top, float eps, void* stream) {
+  if (hd > HDMAX || hd % 8) return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.x = x;
+  a.x_dt = x_dt;
+  a.wq = qvt::WeightT{static_cast<const int8_t*>(wq), D, 3 * heads * hd,
+                      wq_int4};
+  a.qs = static_cast<const float*>(qs);
+  a.qb = static_cast<const float*>(qb);
+  a.ln_g = static_cast<const float*>(ln_g);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.prm = static_cast<const float*>(prm);
+  a.alv = static_cast<int8_t*>(alv);
+  a.B = B;
+  a.n = n;
+  a.D = D;
+  a.heads = heads;
+  a.hd = hd;
+  a.n_valid = n_valid;
+  a.q_mul = q_mul;
+  a.qkv_dt = qkv_dt;
+  a.act_pow = act_pow;
+  a.out_pow = out_pow;
+  a.act_top = static_cast<float>(act_top);
+  a.out_top = static_cast<float>(out_top);
+  a.eps = eps;
+  const size_t smem = qvt_attention_smem_bytes(n, hd);
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attn_kernel<<<dim3(heads, B), NT, smem,
+                static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

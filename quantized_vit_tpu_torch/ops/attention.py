@@ -1,0 +1,447 @@
+"""Whole attention residual branch (kernel K3) and its plain pieces.
+
+Port of ``quantized_vit_tpu/ops/attention.py``. :func:`attention_block`
+replaces ``_attention_block`` (``pallas_call`` at attention.py:667)::
+
+    x + proj(quant(softmax(q k^T * s) v)),  q/k/v = qkv(quant(LN(x)))
+
+Kernel design (``csrc/attention_block.cu``): one block per (head, image)
+does LN + quant of the image's rows, this head's q/k/v columns of the qkv
+GEMM (dequant + bias, rounded to ``float_dtype`` as the TPU scratch is),
+the scores, the exp2 softmax with deferred normalization, AV and the int8
+quantization, and writes only the int8 attention levels [B*N, H*hd]. The
+[M, 3D] qkv tensor never reaches device memory. Then K1
+(:func:`~.fused.run_matmul`, prologue None, epilogue residual) runs the
+proj GEMM: one ``attention_block`` call is two launches. As in
+``fused.py``, a call splits into the layer's side, prepared once
+(``plan_*``), and the launches (``run_*``).
+
+The attention numerics are attention.py:164-231: q pre-scaled by
+``sm_scale*log2e`` in f32 and cast back to the qkv dtype, masked keys at
+-1e30, ``p = exp2(min(s, 100))`` with no row-max subtraction, p cast to
+the v dtype for AV, ``p_sum`` from f32 p plus 1e-30, and
+``round(o_un * (1/(p_sum*d)))``.
+
+``int_attention`` (int8 score and AV products with dynamic per-head
+scales) runs in the plain version only; the kernel raises
+``NotImplementedError`` for it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import _build
+from .fused import (MatmulPlan, _f32, _params4, _quantize_f32,
+                    fused_quant_matmul_plain, plan_matmul, run_matmul,
+                    sum_f32)
+from .reference import int_dot
+
+_LOG2E = 1.4426950408889634
+
+
+def _dot_f32(a, b):
+    """f32 product of float operands, accumulated in float64 and rounded
+    once (bf16 and f32 products are exact there): the kernel sums in its
+    own order, and both then give the correctly rounded f32 dot."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
+def _dyn_int8(x):
+    """Dynamic symmetric per-tensor int8 quantization: (levels, scale)
+    with levels = round(x/scale) in [-127, 127] (attention.py:140-147)."""
+    x = x.to(torch.float32)
+    scale = torch.clamp_min(x.abs().max(), 1e-30) * (1.0 / 127.0)
+    lv = torch.clamp(torch.round(x * (1.0 / scale)), -127.0, 127.0)
+    return lv.to(torch.int8), scale
+
+
+def _n_keys(n: int, n_valid: int, itemsize: int) -> int:
+    """Key rows: keys past ``n_valid`` are masked, so the k/v slice stops
+    at the next 16-row (bf16) / 8-row (f32) boundary."""
+    sub = 16 if itemsize == 2 else 8
+    return min(n, -(-n_valid // sub) * sub)
+
+
+def _score_one_head(q, k, sm_scale, int_attention):
+    """Scores of one head in log2 units (attention.py:164-180)."""
+    if int_attention:
+        q_lv, q_s = _dyn_int8(q * sm_scale)
+        k_lv, k_s = _dyn_int8(k)
+        return int_dot(q_lv, k_lv.T).to(torch.float32) * (
+            q_s * k_s * _LOG2E)
+    qs = (q.to(torch.float32) * (sm_scale * _LOG2E)).to(q.dtype)
+    return _dot_f32(qs, k.T)
+
+
+def _softmax_av(s2, v, col, n_valid, int_attention):
+    """Masked exp2 softmax with deferred normalization: (o_un, p_sum)
+    (attention.py:183-231)."""
+    if col is not None:
+        s2 = torch.where(col < n_valid, s2, torch.full_like(s2, -1e30))
+    if int_attention:
+        p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+        p_lv = torch.round(p * 127.0).to(torch.int8)
+        v_lv, v_s = _dyn_int8(v)
+        o_un = int_dot(p_lv, v_lv).to(torch.float32) * v_s
+        p_sum = p_lv.to(torch.float32).sum(dim=-1, keepdim=True)
+        return o_un, p_sum
+    p = torch.exp2(torch.clamp_max(s2, 100.0))
+    pb = p.to(v.dtype)
+    o_un = _dot_f32(pb, v)
+    p_sum = sum_f32(p, -1) + 1e-30
+    return o_un, p_sum
+
+
+def attention_qkv_plain(qkv, *, heads, sm_scale, n_valid=None,
+                        out_d=None, out_t=None, out_top=None, out_pow=False,
+                        out_dtype=torch.bfloat16, int_attention=False):
+    """Multi-head attention on the raw fused-qkv layout [B, N, (3, H, hd)]:
+    a port of ``attention_qkv_xla`` (attention.py:887-947), vectorized over
+    (batch, head). The float dots and ``p_sum`` accumulate in float64 and
+    round once to f32 (see :func:`_dot_f32`). Returns [B, N, H*hd], int8
+    levels of the proj quantizer when ``out_d`` is given."""
+    b, n, three_hdim = qkv.shape
+    head_dim = three_hdim // (3 * heads)
+    if n_valid is None:
+        n_valid = n
+    nk = _n_keys(n, n_valid, qkv.element_size())
+    x = qkv.reshape(b, n, 3, heads, head_dim)
+    q, k, v = x[:, :, 0], x[:, :nk, 1], x[:, :nk, 2]  # [B, N|nk, H, hd]
+    if int_attention:
+        def dyn(z):  # per-(b, h) scale over the (n, hd) axes
+            z = z.to(torch.float32)
+            s = torch.clamp_min(z.abs().amax(dim=(1, 3), keepdim=True),
+                                1e-30) * (1.0 / 127.0)
+            lv = torch.clamp(torch.round(z * (1.0 / s)), -127.0, 127.0)
+            return lv.to(torch.int8), s
+
+        q_lv, q_s = dyn(q.to(torch.float32) * sm_scale)
+        k_lv, k_s = dyn(k)
+        s2 = torch.einsum("bnhd,bmhd->bhnm", q_lv.to(torch.float64),
+                          k_lv.to(torch.float64)).to(torch.int32)
+        s2 = s2.to(torch.float32) * (q_s.permute(0, 2, 1, 3)
+                                     * k_s.permute(0, 2, 1, 3) * _LOG2E)
+    else:
+        qs = (q.to(torch.float32) * (sm_scale * _LOG2E)).to(q.dtype)
+        s2 = torch.einsum("bnhd,bmhd->bhnm", qs.to(torch.float64),
+                          k.to(torch.float64)).to(torch.float32)
+    if n_valid < nk:
+        col = torch.arange(nk, device=qkv.device)
+        s2 = torch.where(col[None, None, None, :] < n_valid, s2,
+                         torch.full_like(s2, -1e30))
+    if int_attention:
+        p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+        p_lv = torch.round(p * 127.0).to(torch.int8)
+        v_lv, v_s = dyn(v)
+        o_un = torch.einsum("bhnm,bmhd->bnhd", p_lv.to(torch.float64),
+                            v_lv.to(torch.float64)).to(torch.int32)
+        o_un = o_un.to(torch.float32) * v_s
+        p_sum = p_lv.to(torch.float32).sum(dim=-1)
+    else:
+        p = torch.exp2(torch.clamp_max(s2, 100.0))
+        pb = p.to(qkv.dtype)
+        o_un = torch.einsum("bhnm,bmhd->bnhd", pb.to(torch.float64),
+                            v.to(torch.float64)).to(torch.float32)
+        p_sum = sum_f32(p, -1)[..., 0] + 1e-30
+    p_sum = p_sum.permute(0, 2, 1)[..., None]
+    dev = qkv.device
+    if out_d is not None and not out_pow:
+        top = float(out_top)
+        lv = torch.clamp(
+            torch.round(o_un * (1.0 / (p_sum * _f32(out_d, dev)))),
+            -top, top)
+        return lv.to(torch.int8).reshape(b, n, heads * head_dim)
+    o = (o_un / p_sum).reshape(b, n, heads * head_dim)
+    if out_d is not None:
+        return _quantize_f32(o, _f32(out_d, dev), _f32(out_t, dev),
+                             out_top, out_pow)
+    return o.to(out_dtype)
+
+
+def _heads_shapes(w_qkv, heads, fmt, act_top, out_top):
+    """(D, 3*H*hd, hd) of the qkv weight with ``heads`` heads."""
+    for name, v in (("act_top", act_top), ("out_top", out_top)):
+        if not (v or 0) >= 1:
+            raise ValueError(f"attention_block: positive {name} required")
+    d_in = w_qkv.shape[0] * (2 if fmt == "int4" else 1)
+    three = w_qkv.shape[1]
+    if three % (3 * heads):
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} ({fmt}) does not "
+                         f"split into {heads} heads")
+    return d_in, three, three // (3 * heads)
+
+
+def _heads_input(x, d_model):
+    b, n, d_x = x.shape
+    if d_x != d_model:
+        raise ValueError(f"x {tuple(x.shape)} does not fit a qkv weight of "
+                         f"input width {d_model}")
+    return b, n
+
+
+def _check_proj(w_proj, fmt_proj, hdim, d_model):
+    p_in = w_proj.shape[0] * (2 if fmt_proj == "int4" else 1)
+    if p_in != hdim or w_proj.shape[1] != d_model:
+        raise ValueError(f"w_proj {tuple(w_proj.shape)} ({fmt_proj}) vs "
+                         f"[{hdim}, {d_model}]")
+
+
+def attention_heads_plain(
+    x, w_qkv, qkv_scale, qkv_bias, *, ln_scale, ln_bias, ln_eps=1e-6,
+    heads, sm_scale, n_valid=None, act_d=None, act_t=None, act_top=None,
+    act_pow=False, out_d=None, out_t=None, out_top=None, out_pow=False,
+    fmt="int8", out_dtype=torch.bfloat16, int_attention=False,
+):
+    """Plain version of K3's launch: K1 with ``ln_quant`` (qkv in
+    ``out_dtype``) then :func:`attention_qkv_plain` with the proj layer's
+    quantizer. Returns the int8 attention levels [B*N, H*hd]."""
+    d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
+                                             out_top)
+    b, n = _heads_input(x, d_model)
+    qkv = fused_quant_matmul_plain(
+        x.reshape(b * n, d_model), w_qkv, qkv_scale, qkv_bias, fmt=fmt,
+        prologue="ln_quant", act_d=act_d, act_t=act_t, act_top=act_top,
+        act_pow=act_pow, ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+        out_dtype=out_dtype)
+    alv = attention_qkv_plain(
+        qkv.reshape(b, n, three), heads=heads, sm_scale=sm_scale,
+        n_valid=n_valid, out_d=out_d, out_t=out_t, out_top=out_top,
+        out_pow=out_pow, int_attention=int_attention)
+    return alv.reshape(b * n, heads * head_dim)
+
+
+# a lane keeps a quarter of a query row and of its output in f64 registers
+MAX_HEAD_DIM = 64
+SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+
+
+def heads_kernel_limit(n: Optional[int], head_dim: int) -> Optional[str]:
+    """Why K3 cannot take ``n`` tokens (None: any) of ``head_dim``, or
+    None if it can."""
+    if head_dim > MAX_HEAD_DIM or head_dim % 8:
+        return (f"attention_block kernel: head_dim {head_dim} must be a "
+                f"multiple of 8 and <= {MAX_HEAD_DIM}")
+    if n is None:
+        return None
+    # csrc/attention_block.cu:smem_bytes: f32 q/k/v (rows padded to hd+4,
+    # hd+4, hd+8), the GEMM tiles, LayerNorm statistics
+    smem = 4 * n * (3 * head_dim + 16) + (112 + 192) * 80 + 8 * n
+    if smem > SMEM_LIMIT:
+        return (f"attention_block kernel: {n} tokens x head_dim {head_dim} "
+                f"need {smem} B of shared memory > {SMEM_LIMIT} (the "
+                "image's q/k/v stay in one block's shared memory)")
+    return None
+
+
+def _raise_if(limit: Optional[str]) -> None:
+    if limit:
+        raise ValueError(limit)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadsPlan:
+    """One K3 call site, prepared once by :func:`plan_attention_heads`:
+    the qkv weight in the kernels' layout, the folded constants, the
+    quantizer scalars on the device, the static options."""
+
+    wq_t: torch.Tensor
+    int4: bool
+    d_model: int
+    heads: int
+    head_dim: int
+    qkv_scale: torch.Tensor
+    qkv_bias: Optional[torch.Tensor]
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    prm: torch.Tensor
+    q_mul: float
+    act_pow: bool
+    out_pow: bool
+    act_top: int
+    out_top: int
+    ln_eps: float
+
+
+def plan_attention_heads(
+    w_qkv, qkv_scale, qkv_bias, *, ln_scale, ln_bias, ln_eps=1e-6, heads,
+    sm_scale, act_d=None, act_t=None, act_top=None, act_pow=False,
+    out_d=None, out_t=None, out_top=None, out_pow=False, fmt="int8",
+    int_attention=False,
+) -> HeadsPlan:
+    """K3's layer-side work, done once: checks, the qkv weight copy into
+    the kernels' layout, the fold of attention.py:598-602 and the q
+    pre-scale. Arguments as :func:`attention_heads`; ``w_qkv`` must lie on
+    a CUDA device."""
+    if int_attention:
+        raise NotImplementedError(
+            "attention_block: the int_attention kernel path is not ported "
+            "yet; int_attention runs in attention_block_plain")
+    d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
+                                             out_top)
+    _raise_if(heads_kernel_limit(None, head_dim))
+    _build.require_cuda("attention_block", w_qkv)
+    dev = w_qkv.device
+    qkv_scale = torch.broadcast_to(_f32(qkv_scale, dev), (three,))
+    qkv_bias = None if qkv_bias is None else _f32(qkv_bias, dev).contiguous()
+    ln_scale, ln_bias = _f32(ln_scale, dev), _f32(ln_bias, dev)
+    if not act_pow:  # the fold of attention.py:598-602
+        inv_d = 1.0 / _f32(act_d, dev)
+        ln_scale = ln_scale * inv_d
+        ln_bias = ln_bias * inv_d
+    return HeadsPlan(
+        wq_t=_build.n_major(w_qkv), int4=fmt == "int4", d_model=d_model,
+        heads=heads, head_dim=head_dim, qkv_scale=qkv_scale.contiguous(),
+        qkv_bias=qkv_bias, ln_scale=ln_scale.contiguous(),
+        ln_bias=ln_bias.contiguous(),
+        prm=_params4(dev, act_d, act_t, out_d, out_t),
+        # q pre-scale: the Python double product rounded to f32, as JAX's
+        # weak-typed scalar is
+        q_mul=float(torch.tensor(sm_scale * _LOG2E, dtype=torch.float32)),
+        act_pow=bool(act_pow), out_pow=bool(out_pow), act_top=int(act_top),
+        out_top=int(out_top), ln_eps=float(ln_eps))
+
+
+def run_attention_heads(plan: HeadsPlan, x, *, n_valid=None,
+                        out_dtype=torch.bfloat16):
+    """Launches K3 on ``x`` [B, N, D] for a prepared layer (the only place
+    that launches it); returns the int8 attention levels [B*N, H*hd]."""
+    _build.require_cuda("attention_block", x)
+    b, n = _heads_input(x, plan.d_model)
+    _raise_if(heads_kernel_limit(n, plan.head_dim))
+    if n_valid is None:
+        n_valid = n
+    x = x.contiguous()
+    alv = torch.empty((b * n, plan.heads * plan.head_dim), dtype=torch.int8,
+                      device=x.device)
+    if alv.numel() == 0:
+        return alv
+    fn = _build.library("attention_block").qvt_attention_heads
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I,
+                   F, I, I, I, I, I, F, P]
+    fn.restype = I
+    code = fn(
+        x.data_ptr(), _build.dtype_code(x.dtype), plan.wq_t.data_ptr(),
+        int(plan.int4), plan.qkv_scale.data_ptr(), _build.ptr(plan.qkv_bias),
+        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+        plan.prm.data_ptr(), alv.data_ptr(), b, n, plan.d_model, plan.heads,
+        plan.head_dim, n_valid, plan.q_mul, _build.dtype_code(out_dtype),
+        int(plan.act_pow), int(plan.out_pow), plan.act_top, plan.out_top,
+        plan.ln_eps, _build.stream())
+    _build.check(code, "attention_block")
+    _build.count_launch("attention_block")
+    return alv
+
+
+def attention_heads(
+    x, w_qkv, qkv_scale, qkv_bias, *, ln_scale, ln_bias, ln_eps=1e-6,
+    heads, sm_scale, n_valid=None, act_d=None, act_t=None, act_top=None,
+    act_pow=False, out_d=None, out_t=None, out_top=None, out_pow=False,
+    fmt="int8", out_dtype=torch.bfloat16, int_attention=False,
+):
+    """K3's launch: LN + quant + this head's qkv columns + attention + int8
+    quantization per (head, image), writing only the attention levels
+    [B*N, H*hd] (the qkv tensor stays in shared memory). CPU tensors take
+    :func:`attention_heads_plain`; CUDA tensors
+    :func:`plan_attention_heads` then :func:`run_attention_heads`."""
+    layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+                 heads=heads, sm_scale=sm_scale, act_d=act_d, act_t=act_t,
+                 act_top=act_top, act_pow=act_pow, out_d=out_d, out_t=out_t,
+                 out_top=out_top, out_pow=out_pow, fmt=fmt,
+                 int_attention=int_attention)
+    if x.device.type == "cpu":
+        return attention_heads_plain(x, w_qkv, qkv_scale, qkv_bias,
+                                     n_valid=n_valid, out_dtype=out_dtype,
+                                     **layer)
+    return run_attention_heads(
+        plan_attention_heads(w_qkv, qkv_scale, qkv_bias, **layer), x,
+        n_valid=n_valid, out_dtype=out_dtype)
+
+
+def attention_block_plain(
+    x, w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale, proj_bias, *,
+    fmt_proj=None, **kw,
+):
+    """Plain PyTorch version of K3 with its proj: the chain the TPU kernel
+    replaces (bench.py:200-210) — :func:`attention_heads_plain`, then K1
+    with the ``residual`` epilogue. Keywords as :func:`attention_block`."""
+    fmt_proj = fmt_proj or kw.get("fmt", "int8")
+    b, n, d_model = x.shape
+    _check_proj(w_proj, fmt_proj, w_qkv.shape[1] // 3, d_model)
+    alv = attention_heads_plain(x, w_qkv, qkv_scale, qkv_bias, **kw)
+    out = fused_quant_matmul_plain(
+        alv, w_proj, proj_scale, proj_bias, fmt=fmt_proj, prologue=None,
+        epilogue="residual", residual=x.reshape(b * n, d_model),
+        out_dtype=kw.get("out_dtype", torch.bfloat16))
+    return out.reshape(b, n, d_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """A prepared attention branch: K3 (:class:`HeadsPlan`) and its proj
+    (K1, :class:`~.fused.MatmulPlan`)."""
+
+    heads: HeadsPlan
+    proj: MatmulPlan
+
+
+def plan_attention_block(w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale,
+                         proj_bias, *, fmt_proj=None, **layer):
+    """:func:`plan_attention_heads` and the proj's :func:`plan_matmul`
+    (prologue None, residual epilogue). Keywords as
+    :func:`attention_block`, without ``n_valid``/``out_dtype``."""
+    fmt_proj = fmt_proj or layer.get("fmt", "int8")
+    heads = plan_attention_heads(w_qkv, qkv_scale, qkv_bias, **layer)
+    _check_proj(w_proj, fmt_proj, w_qkv.shape[1] // 3, heads.d_model)
+    return AttentionPlan(heads=heads, proj=plan_matmul(
+        w_proj, proj_scale, proj_bias, fmt=fmt_proj, prologue=None,
+        epilogue="residual"))
+
+
+def run_attention_block(plan: AttentionPlan, x, *, n_valid=None,
+                        out_dtype=torch.bfloat16):
+    """``x + proj(attn(...))`` for a prepared branch: two launches."""
+    b, n, d_model = x.shape
+    alv = run_attention_heads(plan.heads, x, n_valid=n_valid,
+                              out_dtype=out_dtype)
+    out = run_matmul(plan.proj, alv, residual=x.reshape(b * n, d_model),
+                     out_dtype=out_dtype)
+    return out.reshape(b, n, d_model)
+
+
+def attention_block(
+    x, w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale, proj_bias, *,
+    ln_scale, ln_bias, ln_eps=1e-6, heads, sm_scale, n_valid=None,
+    act_d=None, act_t=None, act_top=None, act_pow=False,
+    out_d=None, out_t=None, out_top=None, out_pow=False,
+    fmt="int8", fmt_proj=None, out_dtype=torch.bfloat16,
+    int_attention=False,
+):
+    """``x + proj(attn(qkv(quant(LN(x)))))``: K3 (:func:`attention_heads`)
+    then K1 for proj, two launches.
+
+    x: [B, N, D]; w_qkv: [D, 3*H*hd] int8 or packed int4 (``fmt``);
+    w_proj: [H*hd, D] (``fmt_proj``, default ``fmt``). act_*: the qkv
+    layer's input quantizer; out_*: the proj layer's input quantizer.
+    ``out_dtype`` is the residual-stream (and qkv) dtype. Returns
+    [B, N, D]. CPU tensors take :func:`attention_block_plain`; CUDA
+    tensors :func:`plan_attention_block` then :func:`run_attention_block`.
+    """
+    layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+                 heads=heads, sm_scale=sm_scale, act_d=act_d, act_t=act_t,
+                 act_top=act_top, act_pow=act_pow, out_d=out_d, out_t=out_t,
+                 out_top=out_top, out_pow=out_pow, fmt=fmt,
+                 int_attention=int_attention)
+    args = (w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale, proj_bias)
+    if x.device.type == "cpu":
+        return attention_block_plain(x, *args, fmt_proj=fmt_proj,
+                                     n_valid=n_valid, out_dtype=out_dtype,
+                                     **layer)
+    return run_attention_block(
+        plan_attention_block(*args, fmt_proj=fmt_proj, **layer), x,
+        n_valid=n_valid, out_dtype=out_dtype)

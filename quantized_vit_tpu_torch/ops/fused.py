@@ -1,0 +1,557 @@
+"""Fused quantized matmul (kernel K1) and whole-MLP block (kernel K2).
+
+Port of ``quantized_vit_tpu/ops/fused.py``. The level math is the JAX
+package's, op for op, in f32: round-half-to-even (``torch.round``), the
+linear quantizer multiplies by ``1/d``, the pow quantizer is
+``sign * min(round(exp(t*log(max(|x|,1e-30))) / d), top)``, LayerNorm uses
+the fast-variance form, erf is the clamped odd polynomial, and GELU+quant
+uses the folded form. Sums that a kernel takes in its own order (the
+LayerNorm statistics here, the attention dots in ``attention.py``) run in
+float64 and round once to f32, in the kernels and the plain versions
+alike, so the two agree bit for bit. The constant folds (``1/d`` into
+LayerNorm gamma/beta, ``1/d`` or ``2**-0.5`` into the dequant scale/bias)
+run in f32, identically for the kernel (in its plan) and the plain
+version.
+
+Kernels (``csrc/fused_quant_matmul.cu``, ``csrc/fused_mlp.cu``):
+
+- :func:`fused_quant_matmul` replaces ``ops/fused.py:_fused_quant_matmul``
+  (``pallas_call`` at fused.py:556). Plain version:
+  :func:`fused_quant_matmul_plain` (port of ``fused_quant_matmul_xla``).
+- :func:`fused_mlp` replaces ``ops/fused.py:_fused_mlp`` (``pallas_call`` at
+  fused.py:977), with the hidden-chunk structure of
+  ``_fused_mlp_chunked_kernel``. Plain version: :func:`fused_mlp_plain`
+  (port of ``fused_mlp_xla``).
+
+Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises. A kernel call splits in two: the layer's
+side, done once (``plan_*``: checks, the weight copy into the kernels'
+n-major layout, the constant folds, the quantizer scalars on the device),
+and the launch on an input (``run_*``, which counts the launch). The
+wrapper does both per call; the forward keeps its plans
+(``serve/vit_int4.py:prepare_kernels``). The artifact keeps the JAX
+package's [K, N] layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .reference import int4_matmul_ref, int8_matmul_ref
+
+_SQRT2 = 2.0**0.5
+_ERF_COEFS = (
+    1.0820510812e+00, -2.8632930819e-01, 5.0755384214e-02,
+    -4.6024812456e-03, 1.6343068626e-04,
+)
+_PROLOGUES = {None: 0, "quant": 1, "ln_quant": 2, "gelu_quant": 3}
+_EPILOGUES = {None: 0, "residual": 1, "quant": 2, "gelu_quant": 3}
+
+
+def _f32(v, device) -> torch.Tensor:
+    """``v`` as an f32 tensor on ``device``. A Python or numpy scalar is
+    filled on the device: a host-to-device copy would make the host wait
+    for the stream and leave the card idle between launches."""
+    if not isinstance(v, torch.Tensor) and np.ndim(v) == 0:
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def _quantize_f32(x, d, t, top, act_pow: bool, folded: bool = False):
+    """LSFQ levels ``clip(round(|x|^t / d), -top, top) * sign`` in f32
+    (fused.py:51-78). ``folded``: 1/d is already in x's affine producer."""
+    x = x.to(torch.float32)
+    top_f = float(top)
+    if act_pow:
+        p = torch.exp(t * torch.log(torch.clamp_min(x.abs(), 1e-30)))
+        lv = torch.sign(x) * torch.clamp_max(torch.round(p / d), top_f)
+    elif folded:
+        lv = torch.clamp(torch.round(x), -top_f, top_f)
+    else:
+        lv = torch.clamp(torch.round(x * (1.0 / d)), -top_f, top_f)
+    return lv.to(torch.int8)
+
+
+def sum_f32(x, dim):
+    """f32 sum over ``dim`` taken in float64 and rounded once: the port's
+    kernels sum in another order than PyTorch does, and this makes both
+    give the correctly rounded f32 sum, so they agree bit for bit. (The
+    JAX package sums in f32; the port differs from it by that rounding
+    error, which flips a level only at a rounding tie.)"""
+    return torch.sum(x.to(torch.float64), dim=dim, keepdim=True).to(
+        torch.float32)
+
+
+def _layernorm_f32(x, gamma, beta, eps, k_real=None):
+    """LayerNorm in f32, fast-variance form ``max(E[x^2] - mu^2, 0)``
+    (fused.py:81-94), with the sums of :func:`sum_f32`. The inverse root
+    is ``1/sqrt`` (correctly rounded division and square root), the form
+    the CUDA kernels use too."""
+    x32 = x.to(torch.float32)
+    k = k_real if k_real is not None else x.shape[-1]
+    inv_k = 1.0 / float(k)
+    mu = sum_f32(x32, -1) * inv_k
+    mean2 = sum_f32(x32 * x32, -1) * inv_k
+    var = torch.clamp_min(mean2 - mu * mu, 0.0)
+    return (x32 - mu) * (1.0 / torch.sqrt(var + eps)) * gamma + beta
+
+
+def _erf_f32(x):
+    """erf as the clamped odd polynomial of fused.py:106-127, Horner in
+    f32 (never ``torch.erf``: the kernels and the JAX package use this)."""
+    v = torch.clamp(x, -3.0, 3.0)
+    v2 = v * v
+    acc = torch.full_like(v, _ERF_COEFS[-1])
+    for c in _ERF_COEFS[-2::-1]:
+        acc = acc * v2 + c
+    return acc * v
+
+
+def _gelu_f32(x):
+    return x * 0.5 * (1.0 + _erf_f32(x * (2.0**-0.5)))
+
+
+def _gelu_quant_folded(z, d, top):
+    """round(GELU(y)/d) levels from z = y/sqrt(2) (fused.py:138-152):
+    ``c2 = sqrt2*0.5/d; w = z*c2; round(w + w*erf(z))``."""
+    e = _erf_f32(z)
+    # tensor / tensor: a Python float over a tensor would become
+    # reciprocal(d) * c, which rounds differently from the f32 division
+    c2 = _f32(_SQRT2 * 0.5, d.device) / d
+    top_f = float(top)
+    w = z * c2
+    return torch.clamp(torch.round(w + w * e), -top_f, top_f).to(torch.int8)
+
+
+def _check_tops(name, prologue, epilogue, act_d, act_top, out_top):
+    # a missing/zero top would clip every level to 0 and emit all-zero
+    # int8 output
+    if (prologue in ("quant", "ln_quant", "gelu_quant") and act_d is not None
+            and not (act_top or 0) >= 1):
+        raise ValueError(f"{name}: {prologue!r} prologue needs a positive "
+                         f"act_top, got {act_top!r}")
+    if epilogue in ("quant", "gelu_quant") and not (out_top or 0) >= 1:
+        raise ValueError(f"{name}: {epilogue!r} epilogue needs a positive "
+                         f"out_top, got {out_top!r}")
+
+
+def _matmul_folds(device, n, scale, bias, prologue, act_d, act_pow,
+                  ln_scale, ln_bias, epilogue, out_d, out_pow):
+    """The wrapper-side constant folds of fused.py:459-476, in f32.
+    Returns (scale [n], bias [n] or None, ln_scale, ln_bias, act_folded,
+    out_folded)."""
+    scale = torch.broadcast_to(_f32(scale, device), (n,))
+    bias = None if bias is None else _f32(bias, device)
+    act_folded = prologue == "ln_quant" and not act_pow
+    if prologue == "ln_quant":
+        ln_scale, ln_bias = _f32(ln_scale, device), _f32(ln_bias, device)
+    if act_folded:
+        inv_d = 1.0 / _f32(act_d, device)
+        ln_scale = ln_scale * inv_d
+        ln_bias = ln_bias * inv_d
+    out_folded = epilogue in ("quant", "gelu_quant") and not out_pow
+    if out_folded:
+        f = (1.0 / _f32(out_d, device) if epilogue == "quant"
+             else _f32(2.0**-0.5, device))
+        scale = scale * f
+        if bias is not None:
+            bias = bias * f
+    return scale, bias, ln_scale, ln_bias, act_folded, out_folded
+
+
+def _weight_kn(w, fmt):
+    """(K, N) of a weight [K, N] int8 or packed int4 [K/2, N]."""
+    if fmt == "int4":
+        if w.dtype != torch.int8:
+            raise TypeError("packed int4 weights must be int8-typed")
+        return w.shape[0] * 2, w.shape[1]
+    if fmt == "int8":
+        return tuple(w.shape)
+    raise ValueError(f"unknown weight format {fmt!r}")
+
+
+def _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue, out_d,
+                    act_d):
+    k, n = _weight_kn(w, fmt)
+    if prologue not in _PROLOGUES:
+        raise ValueError(f"unknown prologue {prologue!r}")
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if prologue == "ln_quant" and (ln_scale is None or ln_bias is None):
+        raise ValueError("ln_quant prologue requires ln_scale/ln_bias")
+    if epilogue in ("quant", "gelu_quant") and out_d is None:
+        raise ValueError(f"{epilogue} epilogue requires out_d/out_t/out_top")
+    if prologue == "gelu_quant" and act_d is None:
+        raise ValueError("gelu_quant prologue requires act_d/act_top")
+    return k, n
+
+
+def _matmul_input(x, k, prologue, epilogue, residual):
+    """Checks x [M, K] (and the residual) against the layer; returns M."""
+    m, k_x = x.shape
+    if k_x != k:
+        raise ValueError(f"K mismatch: x {k_x} vs w {k}")
+    if prologue is None and x.dtype != torch.int8:
+        raise TypeError("prologue=None requires int8 level input")
+    if epilogue == "residual" and residual is None:
+        raise ValueError("residual epilogue requires residual array")
+    return m
+
+
+def fused_quant_matmul_plain(
+    x, w, scale, bias=None, *, fmt="int4", prologue="quant",
+    act_d=None, act_t=None, act_top=None, act_pow=False,
+    ln_scale=None, ln_bias=None, ln_eps=1e-6,
+    epilogue=None, residual=None,
+    out_d=None, out_t=None, out_top=None, out_pow=False,
+    out_dtype=torch.bfloat16,
+):
+    """Plain PyTorch version of K1: a port of ``fused_quant_matmul_xla``
+    (fused.py:1118-1179), the same f32 level math and folds."""
+    _check_tops("fused_quant_matmul", prologue, epilogue, act_d, act_top,
+                out_top)
+    k, n = _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue,
+                           out_d, act_d)
+    _matmul_input(x, k, prologue, epilogue, residual)
+    dev = x.device
+    scale, bias, ln_scale, ln_bias, act_folded, out_folded = _matmul_folds(
+        dev, n, scale, bias, prologue, act_d, act_pow, ln_scale, ln_bias,
+        epilogue, out_d, out_pow)
+    if prologue is None:
+        lv = x
+    elif prologue == "gelu_quant":
+        lv = _gelu_quant_folded(x.to(torch.float32), _f32(act_d, dev),
+                                act_top)
+    else:
+        xx = x
+        if prologue == "ln_quant":
+            xx = _layernorm_f32(xx, ln_scale, ln_bias, ln_eps,
+                                k_real=x.shape[-1])
+        lv = _quantize_f32(xx, _f32(act_d, dev), _f32(act_t, dev), act_top,
+                           act_pow, folded=act_folded)
+    acc = int4_matmul_ref(lv, w) if fmt == "int4" else int8_matmul_ref(lv, w)
+    out = acc.to(torch.float32) * scale
+    if bias is not None:
+        out = out + bias
+    if epilogue == "residual":
+        return (out + residual.to(torch.float32)).to(out_dtype)
+    if epilogue == "gelu_quant" and out_folded:
+        return _gelu_quant_folded(out, _f32(out_d, dev), out_top)
+    if epilogue in ("quant", "gelu_quant"):
+        if epilogue == "gelu_quant":
+            out = _gelu_f32(out)
+        return _quantize_f32(out, _f32(out_d, dev), _f32(out_t, dev),
+                             out_top, out_pow, folded=out_folded)
+    return out.to(out_dtype)
+
+
+def _params4(device, a_d, a_t, b_d, b_t) -> torch.Tensor:
+    """The kernels' four runtime quantizer scalars, one f32 device vector:
+    [act_d, act_t, out_d, out_t] (a missing one is 1.0, never read)."""
+    vals = [_f32(1.0 if v is None else v, device).reshape(())
+            for v in (a_d, a_t, b_d, b_t)]
+    return torch.stack(vals)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """One K1 call site, prepared once by :func:`plan_matmul`: the weight
+    in the kernels' layout (:func:`~._build.n_major`), the constants
+    folded, the quantizer scalars on the device, the static options."""
+
+    w_t: torch.Tensor
+    int4: bool
+    k: int
+    n: int
+    scale: torch.Tensor
+    bias: Optional[torch.Tensor]
+    ln_scale: Optional[torch.Tensor]
+    ln_bias: Optional[torch.Tensor]
+    prm: torch.Tensor
+    prologue: Optional[str]
+    epilogue: Optional[str]
+    act_pow: bool
+    out_pow: bool
+    act_folded: bool
+    out_folded: bool
+    act_top: int
+    out_top: int
+    ln_eps: float
+
+
+def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
+                act_d=None, act_t=None, act_top=None, act_pow=False,
+                ln_scale=None, ln_bias=None, ln_eps=1e-6, epilogue=None,
+                out_d=None, out_t=None, out_top=None,
+                out_pow=False) -> MatmulPlan:
+    """K1's layer-side work, done once: checks, the weight copy into the
+    kernels' layout and the folds of fused.py:459-476. Arguments as
+    :func:`fused_quant_matmul`; ``w`` must lie on a CUDA device."""
+    _check_tops("fused_quant_matmul", prologue, epilogue, act_d, act_top,
+                out_top)
+    k, n = _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue,
+                           out_d, act_d)
+    _build.require_cuda("fused_quant_matmul", w)
+    dev = w.device
+    scale, bias, ln_scale, ln_bias, act_folded, out_folded = _matmul_folds(
+        dev, n, scale, bias, prologue, act_d, act_pow, ln_scale, ln_bias,
+        epilogue, out_d, out_pow)
+    cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    return MatmulPlan(
+        w_t=_build.n_major(w), int4=fmt == "int4", k=k, n=n,
+        scale=cont(scale), bias=cont(bias), ln_scale=cont(ln_scale),
+        ln_bias=cont(ln_bias), prm=_params4(dev, act_d, act_t, out_d, out_t),
+        prologue=prologue, epilogue=epilogue, act_pow=bool(act_pow),
+        out_pow=bool(out_pow), act_folded=act_folded, out_folded=out_folded,
+        act_top=int(act_top or 0), out_top=int(out_top or 0),
+        ln_eps=float(ln_eps))
+
+
+def run_matmul(plan: MatmulPlan, x, *, residual=None,
+               out_dtype=torch.bfloat16):
+    """Launches K1 on ``x`` [M, K] for a prepared layer: the only place
+    that launches it."""
+    _build.require_cuda("fused_quant_matmul", x, residual)
+    m = _matmul_input(x, plan.k, plan.prologue, plan.epilogue, residual)
+    n = plan.n
+    x = x.contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+        if residual.shape != (m, n):
+            raise ValueError(f"residual {tuple(residual.shape)} vs ({m}, {n})")
+    out_int8 = plan.epilogue in ("quant", "gelu_quant")
+    out = torch.empty((m, n), dtype=torch.int8 if out_int8 else out_dtype,
+                      device=x.device)
+    if m == 0:
+        return out
+    fn = _build.library("fused_quant_matmul").qvt_fused_quant_matmul
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, P, P, P, P, P, I, P, P, I, I, I, I, I, I,
+                   I, I, I, I, I, I, F, P]
+    fn.restype = I
+    code = fn(
+        x.data_ptr(), _build.dtype_code(x.dtype), plan.w_t.data_ptr(),
+        int(plan.int4), plan.scale.data_ptr(), _build.ptr(plan.bias),
+        _build.ptr(plan.ln_scale), _build.ptr(plan.ln_bias),
+        _build.ptr(residual),
+        _build.dtype_code(residual.dtype) if residual is not None else 0,
+        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
+        m, plan.k, n, _PROLOGUES[plan.prologue], _EPILOGUES[plan.epilogue],
+        int(plan.act_pow), int(plan.out_pow), int(plan.act_folded),
+        int(plan.out_folded), plan.act_top, plan.out_top, plan.ln_eps,
+        _build.stream())
+    _build.check(code, "fused_quant_matmul")
+    _build.count_launch("fused_quant_matmul")
+    return out
+
+
+def fused_quant_matmul(
+    x, w, scale, bias=None, *, fmt="int4", prologue="quant",
+    act_d=None, act_t=None, act_top=None, act_pow=False,
+    ln_scale=None, ln_bias=None, ln_eps=1e-6,
+    epilogue=None, residual=None,
+    out_d=None, out_t=None, out_top=None, out_pow=False,
+    out_dtype=torch.bfloat16,
+):
+    """Fused quantized matmul (kernel K1).
+
+    x: [M, K], float (prologue ``quant``/``ln_quant``/``gelu_quant``) or
+    int8 levels (prologue None). w: [K//2, N] packed int4 (``fmt='int4'``)
+    or [K, N] int8. scale: scalar or [N] dequant scale; bias: [N] or None.
+    epilogue: None (``out_dtype``) | ``residual`` (+residual [M, N]) |
+    ``quant`` | ``gelu_quant`` (int8 levels of the next layer's quantizer
+    ``out_*``). CPU tensors take :func:`fused_quant_matmul_plain`; CUDA
+    tensors :func:`plan_matmul` then :func:`run_matmul` (a caller that
+    calls one layer repeatedly keeps the plan).
+    """
+    layer = dict(fmt=fmt, prologue=prologue, act_d=act_d, act_t=act_t,
+                 act_top=act_top, act_pow=act_pow, ln_scale=ln_scale,
+                 ln_bias=ln_bias, ln_eps=ln_eps, epilogue=epilogue,
+                 out_d=out_d, out_t=out_t, out_top=out_top, out_pow=out_pow)
+    if x.device.type == "cpu":
+        return fused_quant_matmul_plain(x, w, scale, bias, residual=residual,
+                                        out_dtype=out_dtype, **layer)
+    return run_matmul(plan_matmul(w, scale, bias, **layer), x,
+                      residual=residual, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# whole-MLP block: LN -> quant -> fc1 -> GELU -> quant -> fc2 -> +x
+# ---------------------------------------------------------------------------
+
+
+# the fc2 accumulator [32, K] of a block lives in registers
+MLP_MAX_K = 1024
+
+
+def mlp_kernel_limit(k: int) -> Optional[str]:
+    """Why K2 cannot take model width ``k``, or None if it can."""
+    if k > MLP_MAX_K:
+        return (f"fused_mlp kernel: width K={k} > {MLP_MAX_K} (its fc2 "
+                "accumulator row block lives in registers)")
+    return None
+
+
+def _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top):
+    """(K, hidden) of the MLP's weights, checked against each other."""
+    for name, v in (("act_top", act_top), ("hid_top", hid_top)):
+        if not (v or 0) >= 1:
+            raise ValueError(f"fused_mlp: positive {name} required, got "
+                             f"{v!r}")
+    k, hid = _weight_kn(w1, fmt)
+    h2, n2 = _weight_kn(w2, fmt2)
+    if h2 != hid or n2 != k:
+        raise ValueError(f"MLP shape mismatch: w1[{k},{hid}] w2[{h2},{n2}]")
+    return k, hid
+
+
+def _mlp_input(x, k):
+    m, k_x = x.shape
+    if k_x != k:
+        raise ValueError(f"MLP shape mismatch: x[{m},{k_x}] vs K={k}")
+    return m
+
+
+def fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
+                    ln_scale, ln_bias, ln_eps=1e-6,
+                    act_d=None, act_t=None, act_top=None, act_pow=False,
+                    hid_d=None, hid_t=None, hid_top=None, hid_pow=False,
+                    fmt="int8", fmt2=None, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K2: a port of ``fused_mlp_xla``
+    (fused.py:1095-1110), fc1 with the GELU+quant epilogue then fc2 with
+    the residual epilogue. ``fmt2``: w2's format (default ``fmt``)."""
+    fmt2 = fmt2 or fmt
+    _mlp_input(x, _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)[0])
+    hlv = fused_quant_matmul_plain(
+        x, w1, scale1, bias1, fmt=fmt, prologue="ln_quant",
+        act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
+        ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+        epilogue="gelu_quant", out_d=hid_d, out_t=hid_t, out_top=hid_top,
+        out_pow=hid_pow)
+    return fused_quant_matmul_plain(
+        hlv, w2, scale2, bias2, fmt=fmt2, prologue=None,
+        epilogue="residual", residual=x, out_dtype=out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpPlan:
+    """One K2 call site, prepared once by :func:`plan_mlp` (as
+    :class:`MatmulPlan`)."""
+
+    w1_t: torch.Tensor
+    w2_t: torch.Tensor
+    int4_1: bool
+    int4_2: bool
+    k: int
+    hid: int
+    scale1: torch.Tensor
+    bias1: torch.Tensor
+    scale2: torch.Tensor
+    bias2: torch.Tensor
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    prm: torch.Tensor
+    act_pow: bool
+    hid_pow: bool
+    act_top: int
+    hid_top: int
+    ln_eps: float
+
+
+def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
+             ln_eps=1e-6, act_d=None, act_t=None, act_top=None,
+             act_pow=False, hid_d=None, hid_t=None, hid_top=None,
+             hid_pow=False, fmt="int8", fmt2=None) -> MlpPlan:
+    """K2's layer-side work, done once: checks, both weight copies into
+    the kernels' layout and the folds of fused.py:874-891. Arguments as
+    :func:`fused_mlp`; the weights must lie on a CUDA device."""
+    fmt2 = fmt2 or fmt
+    k, hid = _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)
+    if fmt2 == "int4" and hid % 2:
+        raise ValueError("packed int4 w2 needs an even hidden width")
+    limit = mlp_kernel_limit(k)
+    if limit:
+        raise ValueError(limit)
+    _build.require_cuda("fused_mlp", w1, w2)
+    dev = w1.device
+    scale1 = torch.broadcast_to(_f32(scale1, dev), (hid,))
+    bias1 = (torch.zeros((hid,), dtype=torch.float32, device=dev)
+             if bias1 is None else _f32(bias1, dev))
+    scale2 = torch.broadcast_to(_f32(scale2, dev), (k,))
+    bias2 = (torch.zeros((k,), dtype=torch.float32, device=dev)
+             if bias2 is None else _f32(bias2, dev))
+    ln_scale, ln_bias = _f32(ln_scale, dev), _f32(ln_bias, dev)
+    if not act_pow:
+        inv_d = 1.0 / _f32(act_d, dev)
+        ln_scale = ln_scale * inv_d
+        ln_bias = ln_bias * inv_d
+    if not hid_pow:
+        scale1 = scale1 * _f32(2.0**-0.5, dev)
+        bias1 = bias1 * _f32(2.0**-0.5, dev)
+    return MlpPlan(
+        w1_t=_build.n_major(w1), w2_t=_build.n_major(w2),
+        int4_1=fmt == "int4", int4_2=fmt2 == "int4", k=k, hid=hid,
+        scale1=scale1.contiguous(), bias1=bias1.contiguous(),
+        scale2=scale2.contiguous(), bias2=bias2.contiguous(),
+        ln_scale=ln_scale.contiguous(), ln_bias=ln_bias.contiguous(),
+        prm=_params4(dev, act_d, act_t, hid_d, hid_t),
+        act_pow=bool(act_pow), hid_pow=bool(hid_pow), act_top=int(act_top),
+        hid_top=int(hid_top), ln_eps=float(ln_eps))
+
+
+def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
+    """Launches K2 on ``x`` [M, K] for a prepared MLP: the only place
+    that launches it."""
+    _build.require_cuda("fused_mlp", x)
+    m = _mlp_input(x, plan.k)
+    x = x.contiguous()
+    out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    fn = _build.library("fused_mlp").qvt_fused_mlp
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, P, P, P, I, P, P, P, P, P, P, I,
+                   I, I, I, I, I, I, I, F, P]
+    fn.restype = I
+    code = fn(
+        x.data_ptr(), _build.dtype_code(x.dtype),
+        plan.w1_t.data_ptr(), int(plan.int4_1), plan.scale1.data_ptr(),
+        plan.bias1.data_ptr(), plan.w2_t.data_ptr(), int(plan.int4_2),
+        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
+        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
+        m, plan.k, plan.hid, int(plan.act_pow), int(plan.hid_pow),
+        plan.act_top, plan.hid_top, plan.ln_eps, _build.stream())
+    _build.check(code, "fused_mlp")
+    _build.count_launch("fused_mlp")
+    return out
+
+
+def fused_mlp(x, w1, scale1, bias1, w2, scale2, bias2, *,
+              ln_scale, ln_bias, ln_eps=1e-6,
+              act_d=None, act_t=None, act_top=None, act_pow=False,
+              hid_d=None, hid_t=None, hid_top=None, hid_pow=False,
+              fmt="int8", fmt2=None, out_dtype=torch.bfloat16):
+    """``x + fc2(quant(GELU(fc1(quant(LN(x))))))`` in one kernel (K2).
+
+    x: [M, K] float residual stream. w1: [K, H] int8 or packed int4
+    [K/2, H] (``fmt``); w2: [H, K] int8 or packed int4 [H/2, K] (``fmt2``,
+    default ``fmt``: GETA mixed-precision exports mix them). act_*: fc1's
+    input quantizer; hid_*: fc2's input quantizer on the GELU output.
+    CPU tensors take :func:`fused_mlp_plain`; CUDA tensors
+    :func:`plan_mlp` then :func:`run_mlp`.
+    """
+    layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+                 act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
+                 hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow,
+                 fmt=fmt, fmt2=fmt2)
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2,
+                               out_dtype=out_dtype, **layer)
+    return run_mlp(plan_mlp(w1, scale1, bias1, w2, scale2, bias2, **layer),
+                   x, out_dtype=out_dtype)

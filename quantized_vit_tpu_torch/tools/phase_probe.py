@@ -1,0 +1,74 @@
+"""Per-block phase timing of the K3 and K2 kernels on the card.
+
+Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
+``csrc/qvt_common.cuh`` has thread 0 of each block record
+``%globaltimer`` at the phase boundaries the kernels mark with
+``QVT_STAMP``), runs each kernel once at the ViT-B batch-32 shapes on a
+prepared plan, and prints the mean time per block of each phase and the
+span of the launch:
+
+- ``attention_block``: LayerNorm statistics | qkv GEMM | attention;
+- ``fused_mlp``: LayerNorm + quant | hidden-chunk loop | epilogue.
+
+    python3 -m quantized_vit_tpu_torch.tools.phase_probe
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..ops import _build
+from ..ops.attention import plan_attention_heads, run_attention_heads
+from ..ops.fused import plan_mlp, run_mlp
+
+
+def main():
+    _build.use_probe_build()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, n, d, hid = 32, 208, 768, 3072
+    x = torch.randn((b * n, d), generator=g, device=dev).to(torch.bfloat16)
+    one = torch.ones((), device=dev)
+    d05 = torch.full((), 0.05, device=dev)
+    wq = torch.randint(-7, 8, (d, 3 * d), dtype=torch.int8, device=dev)
+    w1 = torch.randint(-7, 8, (d, hid), dtype=torch.int8, device=dev)
+    w2 = torch.randint(-7, 8, (hid, d), dtype=torch.int8, device=dev)
+    ln = dict(ln_scale=torch.ones(d, device=dev),
+              ln_bias=torch.zeros(d, device=dev))
+    q = dict(act_d=d05, act_t=one, act_top=7, fmt="int8", **ln)
+    heads = plan_attention_heads(wq, 1e-3 * one, None, heads=12,
+                                 sm_scale=0.125, out_d=d05, out_t=one,
+                                 out_top=7, **q)
+    mlp = plan_mlp(w1, 1e-3 * one, None, w2, 1e-3 * one, None, hid_d=d05,
+                   hid_t=one, hid_top=7, **q)
+    runs = {
+        "attention_block": (12 * b, lambda: run_attention_heads(
+            heads, x.reshape(b, n, d), n_valid=197),
+            ("LN statistics", "qkv GEMM", "attention")),
+        "fused_mlp": ((b * n + 31) // 32, lambda: run_mlp(mlp, x),
+                      ("LN + quant", "hidden chunks", "epilogue")),
+    }
+    buf = np.zeros(65536 * 4, np.uint64)
+    print(torch.cuda.get_device_name(0))
+    for stem, (blocks, fn, names) in runs.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        read = _build.library(stem).qvt_probe_read
+        read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+        code = read(buf.ctypes.data_as(ctypes.c_void_p))
+        if code:
+            raise RuntimeError(f"reading the stamps failed ({code})")
+        t = buf[: blocks * 4].reshape(blocks, 4).astype(np.int64)
+        t -= t[:, 0].min()
+        ph = np.diff(t, axis=1).mean(0) / 1e3
+        print(f"{stem}: {blocks} blocks, launch span {t[:, 3].max() / 1e3:.1f}"
+              " us; per block " + ", ".join(
+                  f"{nm} {v:.1f} us" for nm, v in zip(names, ph)))
+
+
+if __name__ == "__main__":
+    main()
