@@ -10,23 +10,33 @@ Phases, in order; any failure exits non-zero:
 1. build every CUDA kernel from ``quantized_vit_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel);
 2. hold each kernel (K1 ``fused_quant_matmul``, K2 ``fused_mlp``, K3
-   ``attention_block``, K4 ``patch_finalize``) against its plain PyTorch
-   version on the card, at the main path's ViT-B shapes and at small ragged
-   shapes, for packed int4 and int8 weights and for the linear (t = 1) and
-   pow (t != 1) quantizers, under the parity contract: int8 levels within 1
-   level at <= 0.5% of positions, the MLP block's output within 1e-5, the
-   attention branch within 0.1 everywhere and differing at <= 1% of
-   positions, the rest exact;
-3. one batch-32 bf16 forward of ViT-B/16 (random artifact from seed 0,
-   host-patchified input) through the kernels, with the launch counters set
-   to 0 just before and read just after; logits against the plain path;
-4. the serving CLI (``quantized_vit_tpu_torch.cli.serve``) on that artifact
-   saved by the port's writer: 64 requests at max batch 8, every answer
-   equal to a direct forward of the same image;
-5. timings with CUDA events (warm-up, then the median of 20 runs): each
-   kernel at its main-path shapes, its plain version, ``torch._int_mm`` on
-   its GEMM shapes (a yardstick the port never calls), the forward, and a
-   plain bf16 PyTorch ViT-B/16 forward of the same architecture.
+   ``attention_block``, K4 ``patch_finalize``, K5 ``block_stack``, K6
+   ``attention_qkv``) against its plain PyTorch version on the card, at
+   the main paths' ViT-B shapes and at small ragged shapes, for packed
+   int4 and int8 weights, the linear (t = 1) and pow (t != 1) quantizers,
+   both residual dtypes and ``int_attention`` on and off, under the parity
+   contract: int8 levels within 1 level at <= 0.5% of positions, the MLP
+   block's output within 1e-5, attention outputs (K3's branch, K6's float
+   output, K5's residual stream) within 0.1 everywhere and differing at
+   <= 1% of positions, the rest exact; each row says whether it is
+   bit-exact;
+3. the forwards (random artifact from seed 0, host-patchified input, bf16
+   residual stream), each with the launch counters set to 0 just before
+   and read just after, logits against the plain path: batch 32 (K3 + K2
+   route) for both weight storages, the chain at batch 1, 2 and 3 (K1 +
+   K6 + K1 + K2), ``int_attention`` on both routes (batch 4 and 2), and
+   the batch-1 latency entry (one K5 launch);
+4. the serving CLI's forward behind a batcher: single requests and pairs
+   (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
+   requests at max batch 8 on the artifact saved by the port's writer;
+   every answer equal to a direct forward of the same images;
+5. timings with CUDA events (warm-up, then the median of 20 runs, 200
+   under 1 ms): each kernel at its main-path shapes, its plain version,
+   ``torch._int_mm`` on its GEMM shapes and
+   ``scaled_dot_product_attention`` on K6's shapes (yardsticks the port
+   never calls), both routes' attention branch at batch 2 and 3, the
+   forwards, and a plain bf16 PyTorch ViT-B/16 forward of the same
+   architecture at batch 32, 1 and 2.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -49,6 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build")
 BATCH = 32
 ITERS = 20
+SHORT_ITERS = 200  # timed runs of anything under 1 ms
 # the main path's configuration; a CPU rehearsal (tests) shrinks these
 DEV = "cuda"
 CFG_KW: dict = {}
@@ -206,7 +217,7 @@ class Parity:
             ok = False
         self.rows.append({"kernel": kernel, "case": case, "check": kind,
                           "max_abs_err": mx, "share_differ": frac,
-                          "ok": ok})
+                          "bit_exact": mx == 0.0, "ok": ok})
         if not ok:
             self.failures.append(f"{kernel} {case}: max {mx} share {frac}")
         return mx, frac
@@ -291,7 +302,7 @@ class Parity:
     # -- K3 ---------------------------------------------------------------
 
     def k3(self, case, b, n, d, heads, n_valid, fmt, fmt_proj, pow_, seed,
-           stream=torch.bfloat16):
+           stream=torch.bfloat16, int_attn=False):
         from quantized_vit_tpu_torch.ops import (attention_block,
                                                  attention_block_plain,
                                                  attention_heads,
@@ -313,7 +324,7 @@ class Parity:
                       1.08 if pow_ else 1.0), act_top=127, act_pow=pow_,
                   out_d=self.scal(0.06), out_t=self.scal(
                       0.93 if pow_ else 1.0), out_top=31, out_pow=pow_,
-                  out_dtype=stream)
+                  out_dtype=stream, int_attention=int_attn)
         self.check("attention_block", case + ":levels", "levels",
                    attention_heads(x, wq, qs, qb, fmt=fmt, **kw),
                    attention_heads_plain(x, wq, qs, qb, fmt=fmt, **kw))
@@ -322,6 +333,92 @@ class Parity:
         want = attention_block_plain(x, wq, qs, qb, wp, ps, pb, fmt=fmt,
                                      fmt_proj=fmt_proj, **kw)
         return self.check("attention_block", case, "attention", got, want)
+
+    # -- K6 ---------------------------------------------------------------
+
+    def k6(self, case, b, n, heads, hd, n_valid, dtype, quant, int_attn,
+           seed):
+        """quant: None (float out), "lin" (t = 1) or "pow" (t != 1)."""
+        from quantized_vit_tpu_torch.ops import (attention_qkv,
+                                                 attention_qkv_plain)
+
+        rng = np.random.default_rng(seed)
+        qkv = self.t(rng.standard_normal((b, n, 3 * heads * hd)) * 0.7,
+                     dtype)
+        kw = dict(heads=heads, sm_scale=hd**-0.5, n_valid=n_valid,
+                  out_dtype=dtype, int_attention=int_attn)
+        if quant:
+            kw.update(out_d=self.scal(0.01), out_t=self.scal(
+                0.93 if quant == "pow" else 1.0), out_top=31,
+                out_pow=quant == "pow")
+        got = attention_qkv(qkv, **kw)
+        want = attention_qkv_plain(qkv, **kw)
+        return self.check("attention_qkv", case,
+                          "levels" if quant else "attention", got, want)
+
+    # -- K5 ---------------------------------------------------------------
+
+    def stack_operands(self, rng, depth, d, heads, hid, fmt, pow_):
+        """Stacked, folded K5 operands at artifact-like scales (weights
+        [L, K(/2), N]) and the static keywords."""
+        from quantized_vit_tpu_torch.quant import pack_int4
+
+        f32 = torch.float32
+
+        def w(k, n):
+            lv = torch.from_numpy(
+                rng.integers(-7, 8, (depth, k, n)).astype(np.int8))
+            return (pack_int4(lv, axis=1) if fmt == "int4" else lv).to(
+                self.dev)
+
+        def rows(n, scale, base=0.0):
+            return self.t(rng.standard_normal((depth, n)) * scale + base,
+                          f32)
+
+        def scal(v):
+            return torch.full((depth,), v, dtype=f32, device=self.dev)
+
+        t_a, t_h = (1.08, 0.93) if pow_ else (1.0, 1.0)
+        # LayerNorm gamma carries 1/d = 20 under the linear quantizer
+        g_sc, g_base = (0.1, 1.0) if pow_ else (2.0, 20.0)
+        ops = (w(d, 3 * d), rows(3 * d, 2e-4, 1e-3), rows(3 * d, 1e-2),
+               rows(d, g_sc, g_base), rows(d, 0.2), w(d, d),
+               rows(d, 2e-4, 1e-3), rows(d, 1e-2), rows(d, g_sc, g_base),
+               rows(d, 0.2), w(d, hid), rows(hid, 2e-4, 7e-4),
+               rows(hid, 1e-2), w(hid, d), rows(d, 2e-4, 1e-3),
+               rows(d, 1e-2), scal(0.05), scal(t_a), scal(0.05),
+               scal(t_h), scal(0.05), scal(t_a), scal(0.05), scal(t_h))
+        kw = dict(heads=heads, sm_scale=(d // heads)**-0.5, fmt=fmt,
+                  act_pow=pow_, out_pow=pow_, mlp_pow=pow_, hid_pow=pow_,
+                  act_top=7, out_top=7, mlp_top=7, hid_top=7)
+        return ops, kw
+
+    def k5(self, case, j, n, n_valid, d, heads, hid, depth, fmt, dtype,
+           pow_, seed):
+        from quantized_vit_tpu_torch.ops import (plan_block_stack,
+                                                 vit_block_stack,
+                                                 vit_block_stack_plain)
+
+        rng = np.random.default_rng(seed)
+        ops, kw = self.stack_operands(rng, depth, d, heads, hid, fmt, pow_)
+        x = self.t(rng.standard_normal((j * n, d)) * 0.5, dtype)
+        run = dict(n_valid=n_valid, out_dtype=dtype, j_imgs=j)
+        got = vit_block_stack(x, *ops, **kw, **run)
+        want = vit_block_stack_plain(plan_block_stack(*ops, **kw), x, **run)
+        return self.check("block_stack", case, "attention", got, want)
+
+    def k5_images(self, case, n, n_valid, d, heads, hid, depth, fmt, seed):
+        """j_imgs = 2 equals two j_imgs = 1 calls of the kernel, exactly."""
+        from quantized_vit_tpu_torch.ops import vit_block_stack
+
+        rng = np.random.default_rng(seed)
+        ops, kw = self.stack_operands(rng, depth, d, heads, hid, fmt, False)
+        x = self.t(rng.standard_normal((2 * n, d)) * 0.5, torch.bfloat16)
+        two = vit_block_stack(x, *ops, **kw, n_valid=n_valid, j_imgs=2)
+        one = torch.cat([vit_block_stack(x[i * n:(i + 1) * n], *ops, **kw,
+                                         n_valid=n_valid)
+                         for i in range(2)])
+        return self.check("block_stack", case, "exact", two, one)
 
     # -- K4 ---------------------------------------------------------------
 
@@ -340,6 +437,62 @@ class Parity:
         want = patch_finalize_plain(acc, pos, cls, sc, n_pad=n_pad,
                                     out_dtype=out_dtype)
         return self.check("patch_finalize", case, "exact", got, want)
+
+    def run_small_batch_kernels(self, cfg):
+        """K3 with int_attention, K6 and K5 at the small-batch routes'
+        shapes (ViT-B: batch 2-3 for K6, batch 1 at full depth for K5)
+        and at small ragged ones."""
+        _, _, d, n_real, n_pad, _, hid, _, heads = shapes(cfg)
+        hd = d // heads
+        b = BATCH
+        bf16, f32 = torch.bfloat16, torch.float32
+        for fmt in ("int4", "int8"):
+            self.k3(f"main[{b}x{n_pad}x{d},h{heads}]({fmt},int_attn)", b,
+                    n_pad, d, heads, n_real, fmt, fmt, False, 11,
+                    int_attn=True)
+            for pow_ in (False, True):
+                self.k3(f"small[3x40x96,h3]({fmt},{'pow' if pow_ else 'lin'}"
+                        ",int_attn)", 3, 40, 96, 3, 29, fmt, fmt, pow_, 12,
+                        int_attn=True)
+        self.k3("small[3x40x96,h3](f32,int_attn)", 3, 40, 96, 3, 29, "int8",
+                "int8", False, 13, f32, int_attn=True)
+        seed = 100
+        for bk in (2, 3):
+            for dt in (bf16, f32):
+                for quant in (None, "lin", "pow"):
+                    for int_attn in (False, True):
+                        seed += 1
+                        self.k6(f"main[{bk}x{n_pad},h{heads}x{hd}]"
+                                f"({str(dt)[6:]},{quant or 'float'},"
+                                f"{'int' if int_attn else 'f'}_attn)", bk,
+                                n_pad, heads, hd, n_real, dt, quant,
+                                int_attn, seed)
+        for quant in (None, "lin", "pow"):
+            for int_attn in (False, True):
+                seed += 1
+                tag = f"{quant or 'float'},{'int' if int_attn else 'f'}_attn"
+                self.k6(f"small[3x40,h3x32]({tag})", 3, 40, 3, 32, 29, bf16,
+                        quant, int_attn, seed)
+                self.k6(f"small[1x37,h2x24](f32,{tag})", 1, 37, 2, 24, 29,
+                        f32, quant, int_attn, seed)
+        for fmt in ("int4", "int8"):
+            for dt in (bf16, f32):
+                seed += 1
+                self.k5(f"main[1x{n_pad}x{d},h{heads},L{cfg.depth}]"
+                        f"({fmt},{str(dt)[6:]})", 1, n_pad, n_real, d, heads,
+                        hid, cfg.depth, fmt, dt, False, seed)
+        self.k5(f"main[1x{n_pad}x{d},h{heads},L{cfg.depth}](int4,pow)", 1,
+                n_pad, n_real, d, heads, hid, cfg.depth, "int4", bf16, True,
+                seed + 1)
+        for fmt in ("int4", "int8"):
+            self.k5(f"small[2x32x96,h3,L2]({fmt},j2)", 2, 32, 29, 96, 3, 160,
+                    2, fmt, bf16, False, 120)
+            self.k5_images(f"small[2x32x96,h3,L2]({fmt},j2=j1+j1)", 32, 29,
+                           96, 3, 160, 2, fmt, 121)
+        self.k5("small[1x40x64,h2,L3](int4,pow)", 1, 40, 37, 64, 2, 128, 3,
+                "int4", bf16, True, 122)
+        self.k5("small[1x40x64,h2,L3](int8,f32)", 1, 40, 37, 64, 2, 128, 3,
+                "int8", f32, False, 123)
 
     def run_all(self, cfg):
         t0 = time.time()
@@ -401,10 +554,12 @@ class Parity:
             self.k3(f"small[3x40x96,h3](f32,{fmt})", 3, 40, 96, 3, 29, fmt,
                     fmt, False, 8, torch.float32)
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
+        self.run_small_batch_kernels(cfg)
         sync()
         n_ok = sum(r["ok"] for r in self.rows)
-        log(f"[parity] {n_ok}/{len(self.rows)} cases pass "
-            f"({time.time() - t0:.1f} s)")
+        n_exact = sum(r["bit_exact"] for r in self.rows)
+        log(f"[parity] {n_ok}/{len(self.rows)} cases pass, {n_exact} "
+            f"bit-exact ({time.time() - t0:.1f} s)")
         for r in self.rows:
             if not r["ok"] or "small" not in r["case"]:
                 log(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']:18s} "
@@ -416,25 +571,76 @@ class Parity:
 # phase 3: the main path, one batch-32 forward
 # ---------------------------------------------------------------------------
 
-def expected_launches(depth):
-    """Launches of one forward: K1 for the patch embed, each block's proj
-    and the head; K2 and K3 once per block; K4 once."""
-    return {"fused_quant_matmul": 2 + depth, "fused_mlp": depth,
-            "attention_block": depth, "patch_finalize": 1}
+def expected_launches(depth, route="block"):
+    """Launches of one forward. ``block`` (batch >= 4): K1 for the patch
+    embed, each block's proj and the head, K2 and K3 once per block, K4
+    once. ``chain`` (batch 1-3): K1 also for each block's qkv, K6 in place
+    of K3. ``latency``: K1 twice, K4 and K5 once."""
+    none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
+            "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0}
+    if route == "latency":
+        return dict(none, fused_quant_matmul=2, block_stack=1)
+    if route == "chain":
+        return dict(none, fused_quant_matmul=2 + 2 * depth,
+                    fused_mlp=depth, attention_qkv=depth)
+    return dict(none, fused_quant_matmul=2 + depth, fused_mlp=depth,
+                attention_block=depth)
+
 
 # Logit tolerance vs the plain path: every kernel repeats its plain
 # version's f32 arithmetic (sums in f64), so the logits should agree to the
 # last bit; a rare level flip at a rounding tie in an early block moves a
 # logit by about scale*top*|w| ~ 1e-3*7*7 ~ 0.05 at most.
 LOGIT_TOL = 0.05
+CHAIN_BATCHES = (1, 2, 3)
+
+
+def check_forward(record, dev, tag, fn, plain, want_launches, batch, cfg):
+    """One forward through the kernels with the launch counters set to 0
+    just before and read just after; logits against ``plain``."""
+    from quantized_vit_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    logits = fn()
+    sync()
+    launches = dict(_build.LAUNCHES)
+    ref = plain()
+    sync()
+    d = (logits - ref).abs()
+    rec = {"forward": tag, "batch": batch, "launches": launches,
+           "logits_shape": list(logits.shape),
+           "max_abs_diff": float(d.max()),
+           "share_differ": float((d > 0).float().mean()),
+           "logits_equal": bool(torch.equal(logits, ref)),
+           "argmax_agree": float((logits.argmax(1) == ref.argmax(1))
+                                 .float().mean()),
+           "logit_absmax": float(ref.abs().max())}
+    record.setdefault("forward", []).append(rec)
+    log(f"[forward {tag} b{batch}] launches {launches} max|dlogit| "
+        f"{rec['max_abs_diff']:.3g} equal {rec['logits_equal']} "
+        f"|logit|max {rec['logit_absmax']:.3g}")
+    if dev.type == "cuda" and launches != want_launches:
+        raise Failed(f"forward {tag} b{batch} launches {launches} != "
+                     f"{want_launches}")
+    if (tuple(logits.shape) != (batch, cfg.num_classes)
+            or not torch.isfinite(logits).all()):
+        raise Failed(f"forward {tag} logits {tuple(logits.shape)} not "
+                     "finite or wrong shape")
+    if rec["max_abs_diff"] > LOGIT_TOL:
+        raise Failed(f"forward {tag} logits differ from the plain path by "
+                     f"{rec['max_abs_diff']} > {LOGIT_TOL}")
+    return launches
 
 
 def forward_phase(dev, record):
-    from quantized_vit_tpu_torch.models import ViTConfig
-    from quantized_vit_tpu_torch.ops import _build
+    """The batch-32 forward (K3 + K2 route) for both weight storages, the
+    chain forward at batch 1-3, ``int_attention`` on both routes, and the
+    batch-1 latency forward (K5)."""
     from quantized_vit_tpu_torch.serve import (prepare_kernels,
+                                               prepare_latency_artifact,
                                                random_vit_int4_artifact,
-                                               vit_int4_forward)
+                                               vit_int4_forward,
+                                               vit_int4_forward_latency)
     from quantized_vit_tpu_torch.utils import patchify_batch
 
     cfg = main_cfg()
@@ -442,49 +648,64 @@ def forward_phase(dev, record):
     images = rng.standard_normal(
         (BATCH, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
     x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
-    out = {"cfg": cfg, "x": x}
+    out = {"cfg": cfg, "x": x, "launches": {}}
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
     for pack in (False, True):
         art = random_vit_int4_artifact(cfg, seed=0, pack_weights=pack,
                                        device=dev)
-        kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
         # the weights' kernel layout and folded constants, once per
         # artifact (as the serve CLI does at load); no kernel launches
         t0 = time.perf_counter()
         plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
         sync()
         plan_ms = (time.perf_counter() - t0) * 1e3
-        _build.reset_launches()
-        logits = vit_int4_forward(art, x, cfg, plan=plan, **kw)
-        sync()
-        launches = dict(_build.LAUNCHES)
-        plain = vit_int4_forward(art, x, cfg, use_kernels=False, **kw)
-        sync()
-        d = (logits - plain).abs()
         tag = "int4-packed" if pack else "int8-stored"
-        rec = {"weights": tag, "launches": launches,
-               "prepare_kernels_host_ms": plan_ms,
-               "logits_shape": list(logits.shape),
-               "max_abs_diff": float(d.max()),
-               "share_differ": float((d > 0).float().mean()),
-               "argmax_agree": float((logits.argmax(1) == plain.argmax(1))
-                                     .float().mean()),
-               "logit_absmax": float(plain.abs().max())}
-        record.setdefault("forward", []).append(rec)
-        log(f"[forward b{BATCH} bf16 {tag}] launches {launches} "
-            f"max|dlogit| {rec['max_abs_diff']:.3g} share "
-            f"{rec['share_differ']:.3g} |logit|max {rec['logit_absmax']:.3g}")
-        want = expected_launches(cfg.depth)
-        if launches != want and dev.type == "cuda":
-            raise Failed(f"forward launches {launches} != {want}")
-        if (tuple(logits.shape) != (BATCH, cfg.num_classes)
-                or not torch.isfinite(logits).all()):
-            raise Failed(f"forward logits {tuple(logits.shape)} not finite "
-                         "or wrong shape")
-        if rec["max_abs_diff"] > LOGIT_TOL:
-            raise Failed(f"forward logits differ from the plain path by "
-                         f"{rec['max_abs_diff']} > {LOGIT_TOL}")
-        if not pack:
-            out.update(art=art, plan=plan, launches=launches)
+        launches = check_forward(
+            record, dev, tag,
+            lambda: vit_int4_forward(art, x, cfg, plan=plan, **kw),
+            lambda: vit_int4_forward(art, x, cfg, use_kernels=False, **kw),
+            expected_launches(cfg.depth), BATCH, cfg)
+        record["forward"][-1]["prepare_kernels_host_ms"] = plan_ms
+        if pack:
+            out["art_packed"] = art
+            continue
+        out.update(art=art, plan=plan)
+        out["launches"]["block"] = launches
+        # the chain route (the JAX gate: batch < 4), same artifact
+        for b in CHAIN_BATCHES:
+            xb = x[:b]
+            launches = check_forward(
+                record, dev, f"chain,{tag}",
+                lambda: vit_int4_forward(art, xb, cfg, plan=plan, **kw),
+                lambda: vit_int4_forward(art, xb, cfg, use_kernels=False,
+                                         **kw),
+                expected_launches(cfg.depth, "chain"), b, cfg)
+            out["launches"][f"chain_b{b}"] = launches
+        # int_attention (the variant bench.py times) on both routes
+        for b, route in ((4, "block"), (2, "chain")):
+            xb = x[:b]
+            check_forward(
+                record, dev, f"{route},int_attn,{tag}",
+                lambda: vit_int4_forward(art, xb, cfg, plan=plan,
+                                         int_attention=True, **kw),
+                lambda: vit_int4_forward(art, xb, cfg, use_kernels=False,
+                                         int_attention=True, **kw),
+                expected_launches(cfg.depth, route), b, cfg)
+    # the batch-1 latency entry on the packed artifact (the JAX package's
+    # latency format); the JAX bench demands its logits equal the chain's
+    art = out["art_packed"]
+    t0 = time.perf_counter()
+    lat, meta = prepare_latency_artifact(art, cfg)
+    sync()
+    lat_ms = (time.perf_counter() - t0) * 1e3
+    x1 = x[:1]
+    out["launches"]["latency"] = check_forward(
+        record, dev, "latency,int4-packed",
+        lambda: vit_int4_forward_latency(lat, x1, cfg, meta, **kw),
+        lambda: vit_int4_forward(art, x1, cfg, use_kernels=False, **kw),
+        expected_launches(cfg.depth, "latency"), 1, cfg)
+    record["forward"][-1]["prepare_latency_host_ms"] = lat_ms
+    out.update(lat=lat, meta=meta)
     return out
 
 
@@ -494,35 +715,68 @@ def forward_phase(dev, record):
 
 
 def serve_phase(dev, record, fwd):
+    """The serve CLI's forward behind a batcher: first a few requests one
+    at a time and in pairs (buckets 1 and 2, the chain with K6), then the
+    CLI's own burst of 64 requests at max batch 8. Every answer equals a
+    direct forward of the same images."""
     from quantized_vit_tpu_torch.artifact import (load_vit_int4_artifact,
                                                   save_vit_int4_artifact)
     from quantized_vit_tpu_torch.cli import serve
-    from quantized_vit_tpu_torch.serve import vit_int4_forward
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.serve import (ContinuousBatcher,
+                                               vit_int4_forward)
     from quantized_vit_tpu_torch.utils import patchify_batch
 
     art_dir = ART_DIR
     save_vit_int4_artifact(art_dir, fwd["art"], fwd["cfg"])
+    art, cfg = load_vit_int4_artifact(art_dir, device=dev)
+
+    def direct(images):
+        x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
+        return vit_int4_forward(art, x, cfg, float_dtype=serve.SERVE_DTYPE,
+                                images_layout="patches").cpu().numpy()
+
+    # small flushes: three single requests, then two pairs
+    forward, _ = serve.build_forward(serve.parse_args(
+        ["--artifact", art_dir, "--device", str(dev)]))
+    imgs = serve.request_images(cfg, 7, False)
+    batcher = ContinuousBatcher(forward, max_batch=8, max_delay_ms=5.0)
+    batcher.warmup(imgs[0])
+    _build.reset_launches()
+    small_equal = True
+    with batcher:
+        for i in range(3):
+            got = batcher.submit(imgs[i]).result(timeout=120)
+            small_equal &= bool(np.array_equal(got, direct(imgs[i:i + 1])[0]))
+        for i in (3, 5):
+            futs = [batcher.submit(imgs[i]), batcher.submit(imgs[i + 1])]
+            got = np.stack([f.result(timeout=120) for f in futs])
+            small_equal &= bool(np.array_equal(got, direct(imgs[i:i + 2])))
+    small = {"batch_hist": dict(batcher.stats["batch_hist"]),
+             "launches": dict(_build.LAUNCHES),
+             "answers_equal_direct": small_equal}
+    log(f"[serve small flushes] buckets {small['batch_hist']} launches "
+        f"{small['launches']} equal {small_equal}")
+
     t0 = time.time()
     res = serve.main(["--artifact", art_dir, "--requests", "64",
                       "--max-batch", "8", "--device", str(dev)])
-    art, cfg = load_vit_int4_artifact(art_dir, device=dev)
-    direct = []
-    for i in range(0, len(res["images"]), 8):
-        xb = torch.from_numpy(patchify_batch(res["images"][i:i + 8],
-                                             cfg.patch_size)).to(dev)
-        direct.append(vit_int4_forward(art, xb, cfg,
-                                       float_dtype=serve.SERVE_DTYPE,
-                                       images_layout="patches").cpu())
-    direct = torch.cat(direct).numpy()
-    equal = bool(np.array_equal(res["answers"], direct))
+    got = np.concatenate([direct(res["images"][i:i + 8])
+                          for i in range(0, len(res["images"]), 8)])
+    equal = bool(np.array_equal(res["answers"], got))
     summary = {k: v for k, v in res.items() if k not in ("images", "answers")}
     summary["answers_equal_direct"] = equal
-    summary["max_abs_diff"] = float(np.abs(res["answers"] - direct).max())
+    summary["max_abs_diff"] = float(np.abs(res["answers"] - got).max())
     summary["phase_s"] = round(time.time() - t0, 1)
+    summary["small_flushes"] = small
     record["serve"] = summary
     log(f"[serve] {summary}")
     if not equal or summary["batches"] < 64 // 8:
         raise Failed(f"serve answers differ from direct forwards: {summary}")
+    if not small_equal or not {1, 2} <= set(small["batch_hist"]):
+        raise Failed(f"small flushes: {small}")
+    if dev.type == "cuda" and small["launches"]["attention_qkv"] == 0:
+        raise Failed("buckets 1 and 2 did not run attention_qkv (K6)")
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +790,8 @@ def sync():
 
 
 def cuda_ms(fn, iters=ITERS, warmup=3):
-    """Median ms of ``iters`` timed runs (CUDA events), after warm-up."""
+    """Median ms of ``iters`` timed runs (CUDA events), after warm-up; at
+    least ``SHORT_ITERS`` runs when one run takes under 1 ms."""
     for _ in range(warmup):
         fn()
     if DEV != "cuda":  # CPU rehearsal: host clock, never a device number
@@ -544,6 +799,14 @@ def cuda_ms(fn, iters=ITERS, warmup=3):
         fn()
         return (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    if s.elapsed_time(e) < 1.0:
+        iters = max(iters, SHORT_ITERS)
     ev = []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
@@ -575,20 +838,28 @@ def int_mm_ms(shapes):
 def timing_phase(dev, record, fwd, peaks):
     from quantized_vit_tpu_torch.ops import (attention_heads,
                                              attention_heads_plain,
+                                             attention_qkv,
+                                             attention_qkv_plain,
                                              fused_mlp, fused_mlp_plain,
                                              fused_quant_matmul,
                                              fused_quant_matmul_plain,
                                              patch_finalize,
                                              patch_finalize_plain,
-                                             run_attention_heads, run_matmul,
-                                             run_mlp)
-    from quantized_vit_tpu_torch.serve import vit_int4_forward
+                                             run_attention_block,
+                                             run_attention_heads,
+                                             run_attention_qkv,
+                                             run_block_stack, run_matmul,
+                                             run_mlp, vit_block_stack_plain)
+    from quantized_vit_tpu_torch.serve import (vit_int4_forward,
+                                               vit_int4_forward_latency)
+    from quantized_vit_tpu_torch.serve.vit_int4 import _chain_attention
 
     int8_peak, bf16_peak, bw = peaks
     cfg, art, x = fwd["cfg"], fwd["art"], fwd["x"]
     b, p, d, n_real, n_pad, kp, hid, ncls, heads = shapes(cfg)
     hd = d // heads
     m = b * n_pad
+    nk = -(-n_real // 16) * 16  # key rows of the bf16 attention
     blk = art["blocks"][0]
     qkv_e, proj_e, fc1_e, fc2_e = (blk[k] for k in ("qkv", "proj", "fc1",
                                                     "fc2"))
@@ -611,6 +882,11 @@ def timing_phase(dev, record, fwd, peaks):
     pos = torch.randn((p, d), generator=g, device=DEV) * 0.02
     cls = torch.randn((d,), generator=g, device=DEV) * 0.02
     one = torch.ones((), device=DEV)
+    # K6's input: the chain's qkv tensor at batch 2 (and batch 32)
+    qkv2 = (torch.randn((2, n_pad, 3 * d), generator=g, device=DEV)
+            * 0.7).to(bf16)
+    qkv32 = (torch.randn((b, n_pad, 3 * d), generator=g, device=DEV)
+             * 0.7).to(bf16)
     pe = art["patch_embed"]
 
     def q(e):
@@ -631,6 +907,13 @@ def timing_phase(dev, record, fwd, peaks):
                    act_pow=qkv_e.act_pow, out_d=proj_e.act["d"],
                    out_t=proj_e.act["t"], out_top=proj_e.top,
                    out_pow=proj_e.act_pow, fmt=qkv_e.fmt, out_dtype=bf16)
+    qkv_kw = dict(heads=heads, sm_scale=hd**-0.5, n_valid=n_real,
+                  out_d=proj_e.act["d"], out_t=proj_e.act["t"],
+                  out_top=proj_e.top, out_pow=proj_e.act_pow, out_dtype=bf16)
+    lat, meta = fwd["lat"], fwd["meta"]
+    stack = lat["stack"]
+    x1 = xs[:n_pad]
+    x2 = xs[:2 * n_pad]  # the chain at batch 2
     # each site: (kernel call as the main path makes it, plain version).
     # On the card the kernel call is the launch on the forward's prepared
     # plan (run_*); the CPU rehearsal has no plan and calls the wrapper.
@@ -651,10 +934,22 @@ def timing_phase(dev, record, fwd, peaks):
             x3, qkv_e.w, qkv_e.scale, qkv_e.bias, **attn_kw),
         "embed": lambda: patch_finalize_plain(acc, pos, cls, one, n_pad=n_pad,
                                               out_dtype=bf16),
+        "qkv_attn_b2": lambda: attention_qkv_plain(qkv2, **qkv_kw),
+        "qkv_attn_b32": lambda: attention_qkv_plain(qkv32, **qkv_kw),
+        "stack_b1": lambda: vit_block_stack_plain(stack, x1, n_valid=n_real,
+                                                  out_dtype=bf16),
+        "chain_qkv_b2": lambda: fused_quant_matmul_plain(
+            x2, qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
+            prologue="ln_quant", ln_scale=blk["norm1"]["scale"],
+            ln_bias=blk["norm1"]["bias"], out_dtype=bf16, **q(qkv_e)),
+        "mlp_b2": lambda: fused_mlp_plain(
+            x2, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+            fc2_e.bias, **mlp_kw),
     }
     plan = fwd["plan"]
     if plan is not None:
         attn_p, mlp_p = plan.blocks[0]
+        k6_p = plan.chain[0][1]
         kern = {
             "patch_embed": lambda: run_matmul(
                 plan.embed["patches"][0], xpatch, out_dtype=torch.float32),
@@ -666,6 +961,15 @@ def timing_phase(dev, record, fwd, peaks):
             "heads": lambda: run_attention_heads(attn_p.heads, x3,
                                                  n_valid=n_real,
                                                  out_dtype=bf16),
+            "qkv_attn_b2": lambda: run_attention_qkv(
+                k6_p, qkv2, n_valid=n_real, out_dtype=bf16),
+            "qkv_attn_b32": lambda: run_attention_qkv(
+                k6_p, qkv32, n_valid=n_real, out_dtype=bf16),
+            "stack_b1": lambda: run_block_stack(stack, x1, n_valid=n_real,
+                                                out_dtype=bf16),
+            "chain_qkv_b2": lambda: run_matmul(plan.chain[0][0], x2,
+                                               out_dtype=bf16),
+            "mlp_b2": lambda: run_mlp(mlp_p, x2, out_dtype=bf16),
         }
     else:
         kern = {
@@ -684,93 +988,184 @@ def timing_phase(dev, record, fwd, peaks):
                 fc2_e.bias, **mlp_kw),
             "heads": lambda: attention_heads(
                 x3, qkv_e.w, qkv_e.scale, qkv_e.bias, **attn_kw),
+            "qkv_attn_b2": lambda: attention_qkv(qkv2, **qkv_kw),
+            "qkv_attn_b32": lambda: attention_qkv(qkv32, **qkv_kw),
+            "stack_b1": plain["stack_b1"],
+            "chain_qkv_b2": lambda: fused_quant_matmul(
+                x2, qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
+                prologue="ln_quant", ln_scale=blk["norm1"]["scale"],
+                ln_bias=blk["norm1"]["bias"], out_dtype=bf16, **q(qkv_e)),
+            "mlp_b2": lambda: fused_mlp(
+                x2, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+                fc2_e.bias, **mlp_kw),
         }
     kern["embed"] = lambda: patch_finalize(acc, pos, cls, one, n_pad=n_pad,
                                            out_dtype=bf16)
 
+    def sdpa(bk):
+        """scaled_dot_product_attention on K6's q/k/v shapes, bf16 (a
+        yardstick: no exp2 clamp, no quantizing epilogue)."""
+        import torch.nn.functional as F
+
+        qq = torch.randn((bk, heads, n_pad, hd), generator=g,
+                         device=DEV).to(bf16)
+        kk = torch.randn((bk, heads, nk, hd), generator=g,
+                         device=DEV).to(bf16)
+        return lambda: F.scaled_dot_product_attention(qq, kk, kk)
+
     w1b = 1 if pe.fmt == "int8" else 0.5
+    wpk = 0.5 if meta.fmt == "int4" else 1
+    w_blk = d * 3 * d + d * d + 2 * d * hid  # levels of one block's weights
+    attn_ops = 2 * heads * n_pad * nk * hd * 2  # one image's QK^T and PV
     sites = [
-        # kernel, site, launches/forward, bound, GEMMs
+        # kernel, site, launches/forward, bound, GEMMs, library call
         ("fused_quant_matmul", "patch_embed", 1,
          bound(b * p * kp * 4 + kp * d * w1b + b * p * d * 4,
-               2 * b * p * kp * d), [(b * p, kp, d)]),
+               2 * b * p * kp * d), [(b * p, kp, d)], None),
         ("fused_quant_matmul", "attn_proj", cfg.depth,
          bound(m * d + d * d * w1b + 2 * m * d * 2, 2 * m * d * d),
-         [(m, d, d)]),
+         [(m, d, d)], None),
         ("fused_quant_matmul", "head", 1,
          bound(b * d * 4 + d * ncls * w1b + b * ncls * 4, 2 * b * d * ncls),
-         [(b, d, ncls)]),
+         [(b, d, ncls)], None),
         ("fused_mlp", "mlp", cfg.depth,
          bound(2 * m * d * 2 + 2 * d * hid * w1b, 4 * m * d * hid),
-         [(m, d, hid), (m, hid, d)]),
+         [(m, d, hid), (m, hid, d)], None),
         ("attention_block", "heads", cfg.depth,
          bound(m * d * 2 + 3 * d * d * w1b + m * d, 2 * m * d * 3 * d,
-               2 * b * heads * n_pad * n_real * hd * 2),
-         [(m, d, 3 * d)]),
+               b * attn_ops), [(m, d, 3 * d)], None),
         ("patch_finalize", "embed", 1,
-         bound(b * p * d * 4 + p * d * 4 + d * 4 + m * d * 2), []),
+         bound(b * p * d * 4 + p * d * 4 + d * 4 + m * d * 2), [], None),
+        # K6 on the chain forward at batch 2 (12 launches), and at batch 32
+        ("attention_qkv", "qkv_attn_b2", cfg.depth,
+         bound(2 * n_pad * 3 * d * 2 + 2 * n_pad * d, 0, 2 * attn_ops), [],
+         sdpa(2)),
+        ("attention_qkv", "qkv_attn_b32", 0,
+         bound(b * n_pad * 3 * d * 2 + b * n_pad * d, 0, b * attn_ops), [],
+         sdpa(b)),
+        # the chain's K1 qkv and K2 at batch 2 (not on the batch-32
+        # forward: 0 launches there), to split the chain's time
+        ("fused_quant_matmul", "chain_qkv_b2", 0,
+         bound(2 * n_pad * d * 2 + 3 * d * d * w1b + 2 * n_pad * 3 * d * 2,
+               2 * 2 * n_pad * d * 3 * d), [(2 * n_pad, d, 3 * d)], None),
+        ("fused_mlp", "mlp_b2", 0,
+         bound(2 * 2 * n_pad * d * 2 + 2 * d * hid * w1b,
+               4 * 2 * n_pad * d * hid),
+         [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
+        # K5 on the latency forward: one launch, all the depth
+        ("block_stack", "stack_b1", 1,
+         bound(cfg.depth * w_blk * wpk + 2 * n_pad * d * 2,
+               cfg.depth * 2 * n_pad * w_blk, cfg.depth * attn_ops), [],
+         None),
     ]
     per_site = []
-    for name, site, nl, (bms, by), gemms in sites:
+    for name, site, nl, (bms, by), gemms, lib in sites:
         ms = cuda_ms(kern[site])
         pms = cuda_ms(plain[site], iters=5, warmup=1)
         ims = int_mm_ms(gemms) if gemms else None
+        lms = cuda_ms(lib) if lib is not None else None
         per_site.append({"kernel": name, "site": site, "launches": nl,
                          "us": ms * 1e3, "plain_us": pms * 1e3,
                          "bound_us": bms * 1e3, "bound_by": by,
-                         "int_mm_us": None if ims is None else ims * 1e3})
+                         "int_mm_us": None if ims is None else ims * 1e3,
+                         "library_us": None if lms is None else lms * 1e3})
         log(f"[time] {name:18s} {site:12s} {ms * 1e3:9.1f} us  plain "
             f"{pms * 1e3:9.1f}  bound {bms * 1e3:7.1f} ({by})  _int_mm "
-            f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}")
+            f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}  library "
+            f"{'n/a' if lms is None else f'{lms * 1e3:.1f}'}")
     record["per_site"] = per_site
 
-    ms_fwd = cuda_ms(lambda: vit_int4_forward(
-        art, x, cfg, float_dtype=bf16, images_layout="patches", plan=plan))
+    # the attention branch of both routes at batch 2 and 3: K3 (alone and
+    # with its K1 proj) against K1 qkv + K6 + K1 proj, on the same plans
+    if plan is not None:
+        routes = {}
+        for bk in (2, 3):
+            xb = xs[:bk * n_pad]
+            x3b = xb.reshape(bk, n_pad, d)
+            r = routes[f"b{bk}"] = {
+                "k3_ms": cuda_ms(lambda: run_attention_heads(
+                    attn_p.heads, x3b, n_valid=n_real, out_dtype=bf16)),
+                "block_ms": cuda_ms(lambda: run_attention_block(
+                    attn_p, x3b, n_valid=n_real, out_dtype=bf16)),
+                "chain_ms": cuda_ms(lambda: _chain_attention(
+                    plan.chain[0], attn_p, xb, b=bk, n_pad=n_pad,
+                    n_real=n_real, float_dtype=bf16, int_attention=False))}
+            log(f"[time] attention branch b{bk}: K3 {r['k3_ms'] * 1e3:.1f}"
+                f" us, K3+K1 {r['block_ms'] * 1e3:.1f} us, K1+K6+K1 "
+                f"{r['chain_ms'] * 1e3:.1f} us")
+        record["attention_routes"] = routes
+
+    kw = dict(float_dtype=bf16, images_layout="patches")
+    ms_fwd = cuda_ms(lambda: vit_int4_forward(art, x, cfg, plan=plan, **kw))
     ms_bf16 = cuda_ms(bf16_vit_forward(cfg, x))
+    small = {"latency_b1_ms": cuda_ms(lambda: vit_int4_forward_latency(
+        lat, x[:1], cfg, meta, **kw))}
+    for bk in CHAIN_BATCHES:
+        small[f"chain_b{bk}_ms"] = cuda_ms(lambda: vit_int4_forward(
+            art, x[:bk], cfg, plan=plan, **kw))
+    for bk in (1, 2):
+        small[f"bf16_torch_b{bk}_ms"] = cuda_ms(bf16_vit_forward(cfg,
+                                                                 x[:bk]))
     record["forward_timing"] = {
         "batch": b, "ms_per_batch": ms_fwd, "img_per_s": b / ms_fwd * 1e3,
         "bf16_torch_ms_per_batch": ms_bf16,
         "bf16_torch_img_per_s": b / ms_bf16 * 1e3,
         "ratio_vs_bf16": ms_bf16 / ms_fwd,
-        "kernel_ms_sum": sum(s["us"] * s["launches"] for s in per_site)
-        / 1e3}
+        "kernel_ms_sum": sum(s["us"] * s["launches"] for s in per_site
+                             if s["kernel"] not in ("attention_qkv",
+                                                    "block_stack")) / 1e3,
+        **small}
     log(f"[time] forward b{b} bf16: {ms_fwd:.3f} ms/batch "
         f"({b / ms_fwd * 1e3:.1f} img/s); plain bf16 torch ViT-B/16 "
         f"{ms_bf16:.3f} ms ({b / ms_bf16 * 1e3:.1f} img/s); ratio "
         f"{ms_bf16 / ms_fwd:.3f}")
+    log("[time] small batches (ms): " + ", ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in small.items()))
 
     rel = {"fused_quant_matmul": (
                "quantized_vit_tpu_torch/csrc/fused_quant_matmul.cu",
-               "quantized_vit_tpu/ops/fused.py:556"),
+               "quantized_vit_tpu/ops/fused.py:556", "block"),
            "fused_mlp": ("quantized_vit_tpu_torch/csrc/fused_mlp.cu",
-                         "quantized_vit_tpu/ops/fused.py:977"),
+                         "quantized_vit_tpu/ops/fused.py:977", "block"),
            "attention_block": (
                "quantized_vit_tpu_torch/csrc/attention_block.cu",
-               "quantized_vit_tpu/ops/attention.py:667"),
+               "quantized_vit_tpu/ops/attention.py:667", "block"),
            "patch_finalize": (
                "quantized_vit_tpu_torch/csrc/patch_finalize.cu",
-               "quantized_vit_tpu/ops/patch.py:52")}
+               "quantized_vit_tpu/ops/patch.py:52", "block"),
+           "attention_qkv": (
+               "quantized_vit_tpu_torch/csrc/attention_qkv.cu",
+               "quantized_vit_tpu/ops/attention.py:859", "chain_b2"),
+           "block_stack": (
+               "quantized_vit_tpu_torch/csrc/block_stack.cu",
+               "quantized_vit_tpu/ops/block_stack.py:341", "latency")}
     kernels = []
-    for name, (src, rep) in rel.items():
+    for name, (src, rep, path) in rel.items():
         ss = [s for s in per_site if s["kernel"] == name]
         errs = [r for r in record["parity"]
                 if r["kernel"] == name and "small" not in r["case"]]
-        tot = lambda key: sum(s[key] * s["launches"] for s in ss) / 1e3
-        im = [s["int_mm_us"] for s in ss]
+        tot = lambda key: sum(s[key] * s["launches"] for s in ss
+                              if s["launches"]) / 1e3
+        # the sites on the kernel's own forward (launches > 0)
+        im = [s["int_mm_us"] for s in ss if s["launches"]]
+        lib = [s["library_us"] for s in ss if s["launches"]]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": fwd["launches"][name],
+            # counted on the forward that runs the kernel: the batch-32
+            # forward, the chain forward at batch 2, the latency forward
+            "launches": fwd["launches"][path][name],
             "max_abs_err": max(r["max_abs_err"] for r in errs),
             "share_differ": max(r["share_differ"] for r in errs),
+            "bit_exact": all(r["bit_exact"] for r in errs),
             # per forward: the kernel's launches at their main-path shapes
             "ms": tot("us"), "plain_ms": tot("plain_us"),
             "bound_ms": tot("bound_us"),
             "bound_by": max(ss, key=lambda s: s["bound_us"] * s["launches"])
             ["bound_by"],
-            "library_ms": None,
-            "int_mm_ms": (None if any(v is None for v in im) else
-                          sum(v * s["launches"] for v, s in zip(im, ss))
-                          / 1e3),
+            "library_ms": (None if not lib or any(v is None for v in lib)
+                           else tot("library_us")),
+            "int_mm_ms": (None if not im or any(v is None for v in im)
+                          else tot("int_mm_us")),
             "us_per_launch": {s["site"]: s["us"] for s in ss},
             "bound_us_per_launch": {s["site"]: s["bound_us"] for s in ss},
         })

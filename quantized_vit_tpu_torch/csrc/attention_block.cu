@@ -14,12 +14,9 @@
 //      step's x and weight pieces load into registers during this step);
 //      dequant + bias, rounded to the residual dtype as the TPU scratch is
 //      (attention.py:469), kept in shared memory as f32;
-//   3. 8 query rows per warp at a time on the f64 tensor cores
-//      (mma.sync m8n8k4): q pre-scaled by sm_scale*log2e and rounded back to
-//      the qkv dtype, scores over the n_valid unmasked keys,
-//      p = exp2(min(s, 100)) with no row-max subtraction, p rounded to the v
-//      dtype for AV, p_sum from f32 p plus 1e-30, and the int8 levels
-//      round(o * (1/(p_sum*d))) (attention.py:164-231).
+//   3. the attention of this head on the f64 tensor cores, float or
+//      int_attention (attention_core.cuh, shared with K5 and K6), and the
+//      int8 levels round(o * (1/(p_sum*d))) (attention.py:164-231).
 // Only the int8 attention levels [B*N, H*hd] are written to memory.
 //
 // Bound on this card at ViT-B batch 32 (both launches): 31.4 G int8 ops
@@ -29,7 +26,7 @@
 // bit-exact with the plain version, and stages its GEMM tiles through
 // registers one step ahead, without TMA or wgmma, so it is far from it.
 
-#include "qvt_common.cuh"
+#include "attention_core.cuh"
 
 namespace {
 
@@ -37,31 +34,15 @@ namespace {
 // every warp all of them and 24 of the 192 columns (3 n8 tiles): two passes
 // at 208 rows. The attention gives each warp 8-row tiles of queries.
 constexpr int NT = 256, BMQ = 112, TMQ = BMQ / 16, BK = 64, SK = BK + 16;
-constexpr int HDMAX = 64;
+constexpr int HDMAX = qvt::ATT_HDMAX;
 constexpr int NQKV = 3 * HDMAX;
-constexpr int KT = 4;  // key tiles per attention step
-
-// f32 row strides of q/k and of v in shared memory: hd + 4 and hd + 8 make
-// the f64 mma fragment loads below free of bank conflicts at hd % 32 == 0
-__host__ __device__ inline int q_stride(int hd) { return hd + 4; }
-__host__ __device__ inline int v_stride(int hd) { return hd + 8; }
 
 __host__ __device__ inline size_t smem_bytes(int n, int hd) {
-  return static_cast<size_t>(n) * (2 * q_stride(hd) + v_stride(hd)) *
+  return static_cast<size_t>(n) *
+             (2 * qvt::att_q_stride(hd) + qvt::att_v_stride(hd)) *
              sizeof(float) +
          static_cast<size_t>(BMQ + NQKV) * SK +
          static_cast<size_t>(2) * n * sizeof(float);
-}
-
-// D = A B + C on the f64 tensor cores: A 8x4 (a = A[lane/4][lane%4]),
-// B 4x8 (b = B[lane%4][lane/4]), C/D 8x8 (c0, c1 = C[lane/4][2*(lane%4)+i])
-__device__ __forceinline__ void dmma(double& c0, double& c1, double a,
-                                     double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(c0), "+d"(c1)
-      : "d"(a), "d"(b));
 }
 
 struct Args {
@@ -74,8 +55,9 @@ struct Args {
   const float* ln_b;
   const float* prm;  // act_d, act_t, out_d, out_t
   int8_t* alv;
-  int B, n, D, heads, hd, n_valid;
-  float q_mul;
+  int B, n, D, heads, hd, n_valid, nk;
+  float q_mul, sm_scale;
+  bool int_attn;
   int qkv_dt;
   int act_pow, out_pow;
   float act_top, out_top, eps;
@@ -86,7 +68,7 @@ struct Args {
 __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
   extern __shared__ __align__(16) int8_t smem[];
   const int n = a.n, hd = a.hd, D = a.D;
-  const int RQ = q_stride(hd), RV = v_stride(hd);
+  const int RQ = qvt::att_q_stride(hd), RV = qvt::att_v_stride(hd);
   float* q_s = reinterpret_cast<float*>(smem);
   float* k_s = q_s + n * RQ;
   float* v_s = k_s + n * RQ;
@@ -233,99 +215,35 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
   __syncthreads();
   QVT_STAMP(2);
 
-  // Attention on the f64 tensor cores. A warp takes 8 query rows at a
-  // time: S = q k^T over the keys in tiles of 8 (q pre-scaled by
-  // sm_scale*log2e and rounded to the qkv dtype), p = exp2(min(s, 100)) with
-  // masked keys at 0, then O += P V with p rounded to the v dtype. Every
-  // product is exact in f64 (bf16 and f32 operands), so after the single
-  // rounding to f32 the sums equal the plain version's
-  // (ops/attention.py:_dot_f32) whatever order the tensor cores add in;
-  // p_sum likewise.
-  const int KS = hd / 4, NTV = hd / 8;
-  const int key_tiles = (a.n_valid + 7) / 8;
-  const unsigned full = 0xffffffffu;
-  for (int mt = warp; mt * 8 < n; mt += NT / 32) {
-    const int qrow = mt * 8 + g;
-    double qa[HDMAX / 4];
-#pragma unroll
-    for (int ks = 0; ks < HDMAX / 4; ++ks)
-      qa[ks] = ks < KS && qrow < n
-                   ? static_cast<double>(qvt::round_to(
-                         q_s[qrow * RQ + ks * 4 + t] * a.q_mul, a.qkv_dt))
-                   : 0.0;
-    double o[HDMAX / 8][2];
-#pragma unroll
-    for (int nt = 0; nt < HDMAX / 8; ++nt) o[nt][0] = o[nt][1] = 0.0;
-    double psum = 0.0;
-    // KT key tiles per step, each score in two accumulator chains (even
-    // and odd k-steps): 2*KT independent mma chains in flight
-    for (int kt0 = 0; kt0 < key_tiles; kt0 += KT) {
-      double c[KT][2][2] = {};
-#pragma unroll
-      for (int ks = 0; ks < HDMAX / 4; ++ks) {
-        if (ks >= KS) break;
-#pragma unroll
-        for (int u = 0; u < KT; ++u) {
-          const int key = (kt0 + u) * 8 + g;
-          dmma(c[u][ks & 1][0], c[u][ks & 1][1], qa[ks],
-               kt0 + u < key_tiles && key < n
-                   ? static_cast<double>(k_s[key * RQ + ks * 4 + t])
-                   : 0.0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < KT; ++u) {
-        const int kt = kt0 + u;
-        if (kt >= key_tiles) break;
-        // scores of rows g, keys kt*8 + 2t + {0, 1}
-        double pb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const double sc = c[u][0][i] + c[u][1][i];
-          const float p = kt * 8 + 2 * t + i < a.n_valid
-                              ? exp2f(fminf(static_cast<float>(sc), 100.f))
-                              : 0.f;
-          pb[i] = qvt::round_to(p, a.qkv_dt);
-          psum += p;
-        }
-        // P as the A operand of two k-steps: lane (g, t) needs
-        // P[g][4h + t], held by lane (g, 2h + t/2) as its element t % 2
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int src = (lane & ~3) | (2 * hh + (t >> 1));
-          const double v0 = __shfl_sync(full, pb[0], src);
-          const double v1 = __shfl_sync(full, pb[1], src);
-          const double pa = (t & 1) ? v1 : v0;
-          const int vkey = kt * 8 + 4 * hh + t;
-#pragma unroll
-          for (int nt = 0; nt < HDMAX / 8; ++nt)
-            if (nt < NTV)
-              dmma(o[nt][0], o[nt][1], pa,
-                   vkey < n
-                       ? static_cast<double>(v_s[vkey * RV + nt * 8 + g])
-                       : 0.0);
-        }
-      }
-    }
-    psum += __shfl_xor_sync(full, psum, 1);
-    psum += __shfl_xor_sync(full, psum, 2);
-    if (qrow >= n) continue;
-    const float ps = static_cast<float>(psum) + 1e-30f;
-    int8_t* dst = a.alv + (row0 + qrow) * HD + h * hd + 2 * t;
-    const float inv = 1.0f / (ps * out_d);
-#pragma unroll
-    for (int nt = 0; nt < HDMAX / 8; ++nt) {
-      if (nt >= NTV) break;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float ov = static_cast<float>(o[nt][i]);
-        dst[nt * 8 + i] =
-            a.out_pow ? qvt::quantize(ov / ps, out_d, out_t, a.out_top, true,
-                                      false)
-                      : qvt::clip_round(ov * inv, a.out_top);
-      }
-    }
-  }
+  // 3. the attention of this head (attention_core.cuh), 8 query rows per
+  // warp at a time, writing the int8 levels of the proj quantizer
+  qvt::AttnArgs at;
+  at.q = q_s;
+  at.k = k_s;
+  at.v = v_s;
+  at.rq = RQ;
+  at.rv = RV;
+  at.nq = n;
+  at.n_kv = a.nk;  // keys past nk are masked (attention.py:_n_keys)
+  at.n_valid = a.n_valid;
+  at.hd = hd;
+  at.q_mul = a.q_mul;
+  at.sm_scale = a.sm_scale;
+  at.qkv_dt = a.qkv_dt;
+  at.int_attn = a.int_attn;
+  if (a.int_attn)  // scales over all n query rows and the nk key rows
+    at.is = qvt::attn_int_scales(q_s, k_s, v_s, RQ, RV, n, a.nk, hd,
+                                 a.sm_scale);
+  at.out_mode = a.out_pow ? qvt::ATT_OUT_POW : qvt::ATT_OUT_LEVELS;
+  at.out = a.alv;
+  at.out_dt = qvt::DT_INT8;
+  at.out_stride = HD;
+  at.out_row0 = row0;
+  at.out_col0 = h * hd;
+  at.out_d = out_d;
+  at.out_t = out_t;
+  at.out_top = a.out_top;
+  qvt::attention_rows(at, warp, NT / 32);
   QVT_STAMPS_STORE(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
@@ -338,10 +256,11 @@ extern "C" size_t qvt_attention_smem_bytes(int n, int hd) {
 extern "C" int qvt_attention_heads(
     const void* x, int x_dt, const void* wq, int wq_int4, const void* qs,
     const void* qb, const void* ln_g, const void* ln_b, const void* prm,
-    void* alv, int B, int n, int D, int heads, int hd, int n_valid,
-    float q_mul, int qkv_dt, int act_pow, int out_pow, int act_top,
-    int out_top, float eps, void* stream) {
-  if (hd > HDMAX || hd % 8) return static_cast<int>(cudaErrorInvalidValue);
+    void* alv, int B, int n, int D, int heads, int hd, int n_valid, int nk,
+    float q_mul, float sm_scale, int int_attn, int qkv_dt, int act_pow,
+    int out_pow, int act_top, int out_top, float eps, void* stream) {
+  if (hd > HDMAX || hd % 8 || nk > n || n_valid > nk)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;
   a.x_dt = x_dt;
@@ -359,7 +278,10 @@ extern "C" int qvt_attention_heads(
   a.heads = heads;
   a.hd = hd;
   a.n_valid = n_valid;
+  a.nk = nk;
   a.q_mul = q_mul;
+  a.sm_scale = sm_scale;
+  a.int_attn = int_attn != 0;
   a.qkv_dt = qkv_dt;
   a.act_pow = act_pow;
   a.out_pow = out_pow;

@@ -325,8 +325,10 @@ __device__ __forceinline__ void ln_stats(const void* x, int dt, long long row0,
 
 // Phase stamps (tools/phase_probe.py builds with -DQVT_PROBE): thread 0 of
 // each block records %globaltimer at the kernel's phase boundaries into
-// qvt_clk[block * 4 + 0..3], read back by qvt_probe_read. Without
-// QVT_PROBE every macro is empty and the kernels are unchanged.
+// qvt_clk[block * 4 + 0..3], read back by qvt_probe_read; in a cooperative
+// kernel, thread 0 of block 0 records stamp i after each grid barrier
+// (QVT_GRID_STAMP). Without QVT_PROBE every macro is empty and the kernels
+// are unchanged.
 #ifdef QVT_PROBE
 __device__ unsigned long long qvt_clk[65536 * 4];
 __device__ __forceinline__ unsigned long long qvt_now() {
@@ -354,7 +356,15 @@ extern "C" int qvt_probe_read(void* out) {
       qc[3] = qvt_now();                              \
     }                                                 \
   } while (0)
+#define QVT_GRID_STAMP(i)                        \
+  do {                                           \
+    if (blockIdx.x == 0 && threadIdx.x == 0)     \
+      qvt_clk[i] = qvt_now();                    \
+  } while (0)
 #else
+#define QVT_GRID_STAMP(i) \
+  do {                    \
+  } while (0)
 #define QVT_STAMP(i) \
   do {               \
   } while (0)

@@ -13,7 +13,8 @@ non-zero code. Nothing here runs at import time: the CPU tests import every
 module and there is no ``nvcc`` there.
 
 The kernels read every weight in one layout, :func:`n_major`; the plans of
-``fused.py`` and ``attention.py`` make that copy once per layer.
+``fused.py``, ``attention.py`` and ``block_stack.py`` make that copy once
+per layer.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_quant_matmul.cu", "fused_mlp.cu", "attention_block.cu",
-           "patch_finalize.cu")
+           "patch_finalize.cu", "attention_qkv.cu", "block_stack.cu")
 # -fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as the plain PyTorch version's separate ops do (a contracted FMA
 # moves a value by an ulp and can flip a level at a rounding tie)
@@ -45,7 +46,8 @@ _flags = list(NVCC_FLAGS)
 
 # launches per kernel, raised by each wrapper where it launches its kernel
 LAUNCHES: Dict[str, int] = {"fused_quant_matmul": 0, "fused_mlp": 0,
-                            "attention_block": 0, "patch_finalize": 0}
+                            "attention_block": 0, "patch_finalize": 0,
+                            "attention_qkv": 0, "block_stack": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -155,6 +157,7 @@ def stream() -> int:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+LL = ctypes.c_longlong
 
 # element-type codes shared with csrc/qvt_common.cuh
 DTYPE_CODE = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -167,10 +170,11 @@ def dtype_code(dt: torch.dtype) -> int:
 
 
 def n_major(w: torch.Tensor) -> torch.Tensor:
-    """A weight [K, N] (or packed int4 [K/2, N]) as the kernels read it:
-    transposed, n-major with k contiguous (the tensor-core B operand's
-    layout, so a weight tile fills with 16-byte loads). A copy."""
-    return w.t().contiguous()
+    """A weight [K, N] (or packed int4 [K/2, N]; or a stack [L, K(/2), N])
+    as the kernels read it: its last two axes transposed, n-major with k
+    contiguous (the tensor-core B operand's layout, so a weight tile fills
+    with 16-byte loads). A copy."""
+    return w.transpose(-1, -2).contiguous()
 
 
 def require_cuda(name: str, *tensors) -> None:

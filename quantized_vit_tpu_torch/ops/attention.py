@@ -22,9 +22,15 @@ The attention numerics are attention.py:164-231: q pre-scaled by
 the v dtype for AV, ``p_sum`` from f32 p plus 1e-30, and
 ``round(o_un * (1/(p_sum*d)))``.
 
-``int_attention`` (int8 score and AV products with dynamic per-head
-scales) runs in the plain version only; the kernel raises
-``NotImplementedError`` for it.
+``int_attention`` (int8 score and AV products with dynamic per-(image,
+head) scales, attention.py:140-147) runs in the kernels as in the plain
+versions.
+
+:func:`attention_qkv` (kernel K6, ``csrc/attention_qkv.cu``) replaces
+``_attention_qkv`` (``pallas_call`` at attention.py:859): the attention of
+the batch 1-3 chain on the raw fused-qkv tensor a K1 ``ln_quant`` launch
+wrote. K3, K5 and K6 share one attention core
+(``csrc/attention_core.cuh``).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused import (MatmulPlan, _f32, _params4, _quantize_f32,
+from .fused import (MatmulPlan, _f32, _params4, _quantize_f32, fold_ln,
                     fused_quant_matmul_plain, plan_matmul, run_matmul,
                     sum_f32)
 from .reference import int_dot
@@ -196,10 +202,12 @@ def attention_heads_plain(
     heads, sm_scale, n_valid=None, act_d=None, act_t=None, act_top=None,
     act_pow=False, out_d=None, out_t=None, out_top=None, out_pow=False,
     fmt="int8", out_dtype=torch.bfloat16, int_attention=False,
+    prefolded=False,
 ):
     """Plain version of K3's launch: K1 with ``ln_quant`` (qkv in
     ``out_dtype``) then :func:`attention_qkv_plain` with the proj layer's
-    quantizer. Returns the int8 attention levels [B*N, H*hd]."""
+    quantizer. Returns the int8 attention levels [B*N, H*hd].
+    ``prefolded``: LN1 carries the fold of ``fused.fold_ln`` already."""
     d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
                                              out_top)
     b, n = _heads_input(x, d_model)
@@ -207,7 +215,7 @@ def attention_heads_plain(
         x.reshape(b * n, d_model), w_qkv, qkv_scale, qkv_bias, fmt=fmt,
         prologue="ln_quant", act_d=act_d, act_t=act_t, act_top=act_top,
         act_pow=act_pow, ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, prefolded=prefolded)
     alv = attention_qkv_plain(
         qkv.reshape(b, n, three), heads=heads, sm_scale=sm_scale,
         n_valid=n_valid, out_d=out_d, out_t=out_t, out_top=out_top,
@@ -218,6 +226,7 @@ def attention_heads_plain(
 # a lane keeps a quarter of a query row and of its output in f64 registers
 MAX_HEAD_DIM = 64
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+_RED = 3 * 32 * 4  # attention_core.cuh:attn_int_scales' static reduction
 
 
 def heads_kernel_limit(n: Optional[int], head_dim: int) -> Optional[str]:
@@ -229,8 +238,9 @@ def heads_kernel_limit(n: Optional[int], head_dim: int) -> Optional[str]:
     if n is None:
         return None
     # csrc/attention_block.cu:smem_bytes: f32 q/k/v (rows padded to hd+4,
-    # hd+4, hd+8), the GEMM tiles, LayerNorm statistics
-    smem = 4 * n * (3 * head_dim + 16) + (112 + 192) * 80 + 8 * n
+    # hd+4, hd+8), the GEMM tiles, LayerNorm statistics, and the
+    # int_attention scale reduction (attention_core.cuh)
+    smem = 4 * n * (3 * head_dim + 16) + (112 + 192) * 80 + 8 * n + _RED
     if smem > SMEM_LIMIT:
         return (f"attention_block kernel: {n} tokens x head_dim {head_dim} "
                 f"need {smem} B of shared memory > {SMEM_LIMIT} (the "
@@ -260,6 +270,7 @@ class HeadsPlan:
     ln_bias: torch.Tensor
     prm: torch.Tensor
     q_mul: float
+    sm_scale: float
     act_pow: bool
     out_pow: bool
     act_top: int
@@ -267,20 +278,20 @@ class HeadsPlan:
     ln_eps: float
 
 
+def _f32_value(v: float) -> float:
+    """A Python double rounded to f32, as JAX's weak-typed scalar is."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
 def plan_attention_heads(
     w_qkv, qkv_scale, qkv_bias, *, ln_scale, ln_bias, ln_eps=1e-6, heads,
     sm_scale, act_d=None, act_t=None, act_top=None, act_pow=False,
     out_d=None, out_t=None, out_top=None, out_pow=False, fmt="int8",
-    int_attention=False,
 ) -> HeadsPlan:
     """K3's layer-side work, done once: checks, the qkv weight copy into
     the kernels' layout, the fold of attention.py:598-602 and the q
-    pre-scale. Arguments as :func:`attention_heads`; ``w_qkv`` must lie on
-    a CUDA device."""
-    if int_attention:
-        raise NotImplementedError(
-            "attention_block: the int_attention kernel path is not ported "
-            "yet; int_attention runs in attention_block_plain")
+    pre-scale. Arguments as :func:`attention_heads` (``int_attention`` is
+    chosen per launch); ``w_qkv`` must lie on a CUDA device."""
     d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
                                              out_top)
     _raise_if(heads_kernel_limit(None, head_dim))
@@ -288,26 +299,21 @@ def plan_attention_heads(
     dev = w_qkv.device
     qkv_scale = torch.broadcast_to(_f32(qkv_scale, dev), (three,))
     qkv_bias = None if qkv_bias is None else _f32(qkv_bias, dev).contiguous()
-    ln_scale, ln_bias = _f32(ln_scale, dev), _f32(ln_bias, dev)
-    if not act_pow:  # the fold of attention.py:598-602
-        inv_d = 1.0 / _f32(act_d, dev)
-        ln_scale = ln_scale * inv_d
-        ln_bias = ln_bias * inv_d
+    ln_scale, ln_bias = fold_ln(ln_scale, ln_bias, act_d, act_pow, dev)
     return HeadsPlan(
         wq_t=_build.n_major(w_qkv), int4=fmt == "int4", d_model=d_model,
         heads=heads, head_dim=head_dim, qkv_scale=qkv_scale.contiguous(),
         qkv_bias=qkv_bias, ln_scale=ln_scale.contiguous(),
         ln_bias=ln_bias.contiguous(),
         prm=_params4(dev, act_d, act_t, out_d, out_t),
-        # q pre-scale: the Python double product rounded to f32, as JAX's
-        # weak-typed scalar is
-        q_mul=float(torch.tensor(sm_scale * _LOG2E, dtype=torch.float32)),
+        # q pre-scale: the Python double product rounded to f32
+        q_mul=_f32_value(sm_scale * _LOG2E), sm_scale=_f32_value(sm_scale),
         act_pow=bool(act_pow), out_pow=bool(out_pow), act_top=int(act_top),
         out_top=int(out_top), ln_eps=float(ln_eps))
 
 
 def run_attention_heads(plan: HeadsPlan, x, *, n_valid=None,
-                        out_dtype=torch.bfloat16):
+                        out_dtype=torch.bfloat16, int_attention=False):
     """Launches K3 on ``x`` [B, N, D] for a prepared layer (the only place
     that launches it); returns the int8 attention levels [B*N, H*hd]."""
     _build.require_cuda("attention_block", x)
@@ -322,17 +328,18 @@ def run_attention_heads(plan: HeadsPlan, x, *, n_valid=None,
         return alv
     fn = _build.library("attention_block").qvt_attention_heads
     P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I,
-                   F, I, I, I, I, I, F, P]
+    fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                   F, F, I, I, I, I, I, I, F, P]
     fn.restype = I
     code = fn(
         x.data_ptr(), _build.dtype_code(x.dtype), plan.wq_t.data_ptr(),
         int(plan.int4), plan.qkv_scale.data_ptr(), _build.ptr(plan.qkv_bias),
         plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
         plan.prm.data_ptr(), alv.data_ptr(), b, n, plan.d_model, plan.heads,
-        plan.head_dim, n_valid, plan.q_mul, _build.dtype_code(out_dtype),
-        int(plan.act_pow), int(plan.out_pow), plan.act_top, plan.out_top,
-        plan.ln_eps, _build.stream())
+        plan.head_dim, n_valid, _n_keys(n, n_valid, out_dtype.itemsize),
+        plan.q_mul, plan.sm_scale, int(int_attention),
+        _build.dtype_code(out_dtype), int(plan.act_pow), int(plan.out_pow),
+        plan.act_top, plan.out_top, plan.ln_eps, _build.stream())
     _build.check(code, "attention_block")
     _build.count_launch("attention_block")
     return alv
@@ -352,15 +359,14 @@ def attention_heads(
     layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
                  heads=heads, sm_scale=sm_scale, act_d=act_d, act_t=act_t,
                  act_top=act_top, act_pow=act_pow, out_d=out_d, out_t=out_t,
-                 out_top=out_top, out_pow=out_pow, fmt=fmt,
-                 int_attention=int_attention)
+                 out_top=out_top, out_pow=out_pow, fmt=fmt)
+    run = dict(n_valid=n_valid, out_dtype=out_dtype,
+               int_attention=int_attention)
     if x.device.type == "cpu":
-        return attention_heads_plain(x, w_qkv, qkv_scale, qkv_bias,
-                                     n_valid=n_valid, out_dtype=out_dtype,
+        return attention_heads_plain(x, w_qkv, qkv_scale, qkv_bias, **run,
                                      **layer)
     return run_attention_heads(
-        plan_attention_heads(w_qkv, qkv_scale, qkv_bias, **layer), x,
-        n_valid=n_valid, out_dtype=out_dtype)
+        plan_attention_heads(w_qkv, qkv_scale, qkv_bias, **layer), x, **run)
 
 
 def attention_block_plain(
@@ -404,11 +410,12 @@ def plan_attention_block(w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale,
 
 
 def run_attention_block(plan: AttentionPlan, x, *, n_valid=None,
-                        out_dtype=torch.bfloat16):
+                        out_dtype=torch.bfloat16, int_attention=False):
     """``x + proj(attn(...))`` for a prepared branch: two launches."""
     b, n, d_model = x.shape
     alv = run_attention_heads(plan.heads, x, n_valid=n_valid,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype,
+                              int_attention=int_attention)
     out = run_matmul(plan.proj, alv, residual=x.reshape(b * n, d_model),
                      out_dtype=out_dtype)
     return out.reshape(b, n, d_model)
@@ -435,13 +442,138 @@ def attention_block(
     layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
                  heads=heads, sm_scale=sm_scale, act_d=act_d, act_t=act_t,
                  act_top=act_top, act_pow=act_pow, out_d=out_d, out_t=out_t,
-                 out_top=out_top, out_pow=out_pow, fmt=fmt,
-                 int_attention=int_attention)
+                 out_top=out_top, out_pow=out_pow, fmt=fmt)
     args = (w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale, proj_bias)
+    run = dict(n_valid=n_valid, out_dtype=out_dtype,
+               int_attention=int_attention)
     if x.device.type == "cpu":
-        return attention_block_plain(x, *args, fmt_proj=fmt_proj,
-                                     n_valid=n_valid, out_dtype=out_dtype,
+        return attention_block_plain(x, *args, fmt_proj=fmt_proj, **run,
                                      **layer)
     return run_attention_block(
-        plan_attention_block(*args, fmt_proj=fmt_proj, **layer), x,
-        n_valid=n_valid, out_dtype=out_dtype)
+        plan_attention_block(*args, fmt_proj=fmt_proj, **layer), x, **run)
+
+
+# ---------------------------------------------------------------------------
+# K6: attention on the raw fused-qkv tensor (the batch 1-3 chain)
+# ---------------------------------------------------------------------------
+
+
+def qkv_kernel_limit(n: Optional[int], head_dim: int,
+                     itemsize: int = 2) -> Optional[str]:
+    """Why K6 cannot take ``n`` tokens (None: any) of ``head_dim`` with a
+    qkv dtype of ``itemsize`` bytes, or None if it can."""
+    if head_dim > MAX_HEAD_DIM or head_dim % 8:
+        return (f"attention_qkv kernel: head_dim {head_dim} must be a "
+                f"multiple of 8 and <= {MAX_HEAD_DIM}")
+    if n is None:
+        return None
+    # csrc/attention_qkv.cu:smem_bytes: f32 q of every row, k/v of the
+    # nk key rows (no more than n), and the scale reduction
+    smem = 4 * n * (3 * head_dim + 16) + _RED
+    if smem > SMEM_LIMIT:
+        return (f"attention_qkv kernel: {n} tokens x head_dim {head_dim} "
+                f"need {smem} B of shared memory > {SMEM_LIMIT} (one "
+                "head's q/k/v stay in one block's shared memory)")
+    return None
+
+
+def _qkv_head_dim(qkv_width, heads):
+    """head_dim of a fused-qkv tensor of width 3*H*hd."""
+    if qkv_width % (3 * heads):
+        raise ValueError(f"qkv width {qkv_width} does not split into "
+                         f"3 x {heads} heads")
+    return qkv_width // (3 * heads)
+
+
+def _check_out_top(out_d, out_top):
+    # attention.py:796-808: a missing top would clip every level to 0
+    if out_d is not None and not (out_top or 0) >= 1:
+        raise ValueError("attention_qkv: out_d given but out_top is "
+                         f"{out_top!r}; the quantize epilogue needs the "
+                         "layer's positive top level")
+
+
+@dataclasses.dataclass(frozen=True)
+class QkvAttentionPlan:
+    """One K6 call site, prepared once by :func:`plan_attention_qkv`: the
+    proj quantizer's scalars on the device and the static options."""
+
+    heads: int
+    prm: torch.Tensor  # out_d, out_t (1.0 without a quantizer)
+    quantize: bool
+    out_pow: bool
+    out_top: int
+    q_mul: float
+    sm_scale: float
+
+
+def plan_attention_qkv(device, *, heads, sm_scale, out_d=None, out_t=None,
+                       out_top=None, out_pow=False) -> QkvAttentionPlan:
+    """K6's layer-side work, done once. Arguments as
+    :func:`attention_qkv`; ``device`` is the CUDA device it launches on."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"attention_qkv: the CUDA kernel needs a CUDA "
+                         f"device, got {dev}")
+    _check_out_top(out_d, out_top)
+    return QkvAttentionPlan(
+        heads=int(heads), prm=_params4(dev, out_d, out_t, None, None),
+        quantize=out_d is not None, out_pow=bool(out_pow),
+        out_top=int(out_top or 0), q_mul=_f32_value(sm_scale * _LOG2E),
+        sm_scale=_f32_value(sm_scale))
+
+
+def run_attention_qkv(plan: QkvAttentionPlan, qkv, *, n_valid=None,
+                      out_dtype=torch.bfloat16, int_attention=False):
+    """Launches K6 on ``qkv`` [B, N, 3*H*hd] for a prepared call site (the
+    only place that launches it); returns [B, N, H*hd]."""
+    _build.require_cuda("attention_qkv", qkv)
+    b, n, width = qkv.shape
+    hd = _qkv_head_dim(width, plan.heads)
+    _raise_if(qkv_kernel_limit(n, hd, qkv.element_size()))
+    if n_valid is None:
+        n_valid = n
+    qkv = qkv.contiguous()
+    out = torch.empty((b, n, plan.heads * hd),
+                      dtype=torch.int8 if plan.quantize else out_dtype,
+                      device=qkv.device)
+    if out.numel() == 0:
+        return out
+    mode = (2 if not plan.quantize else 1 if plan.out_pow else 0)
+    fn = _build.library("attention_qkv").qvt_attention_qkv
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, I, P, I, I, I, I, I, I, F, F, I, I, P]
+    fn.restype = I
+    code = fn(
+        qkv.data_ptr(), _build.dtype_code(qkv.dtype), out.data_ptr(),
+        _build.dtype_code(out.dtype), mode, plan.prm.data_ptr(), b, n,
+        plan.heads, hd, n_valid, _n_keys(n, n_valid, qkv.element_size()),
+        plan.q_mul, plan.sm_scale, int(int_attention), plan.out_top,
+        _build.stream())
+    _build.check(code, "attention_qkv")
+    _build.count_launch("attention_qkv")
+    return out
+
+
+def attention_qkv(qkv, *, heads, sm_scale, n_valid=None, out_d=None,
+                  out_t=None, out_top=None, out_pow=False,
+                  out_dtype=torch.bfloat16, int_attention=False):
+    """Multi-head attention on the raw fused-qkv layout (kernel K6).
+
+    qkv: [B, N, (3, H, hd)] in the residual dtype. Returns [B, N, H*hd]:
+    the proj layer's int8 levels with ``out_d``/``out_t``/``out_top``
+    (``out_pow``: the pow quantizer), else floats in ``out_dtype``. CPU
+    tensors take :func:`attention_qkv_plain`; CUDA tensors
+    :func:`plan_attention_qkv` then :func:`run_attention_qkv`."""
+    _qkv_head_dim(qkv.shape[-1], heads)
+    _check_out_top(out_d, out_top)
+    quant = dict(out_d=out_d, out_t=out_t, out_top=out_top, out_pow=out_pow)
+    run = dict(n_valid=n_valid, out_dtype=out_dtype,
+               int_attention=int_attention)
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, heads=heads, sm_scale=sm_scale,
+                                   **quant, **run)
+    _build.require_cuda("attention_qkv", qkv)  # before planning on it
+    return run_attention_qkv(
+        plan_attention_qkv(qkv.device, heads=heads, sm_scale=sm_scale,
+                           **quant), qkv, **run)

@@ -140,24 +140,45 @@ def _check_tops(name, prologue, epilogue, act_d, act_top, out_top):
                          f"out_top, got {out_top!r}")
 
 
-def _matmul_folds(device, n, scale, bias, prologue, act_d, act_pow,
-                  ln_scale, ln_bias, epilogue, out_d, out_pow):
-    """The wrapper-side constant folds of fused.py:459-476, in f32.
-    Returns (scale [n], bias [n] or None, ln_scale, ln_bias, act_folded,
-    out_folded)."""
-    scale = torch.broadcast_to(_f32(scale, device), (n,))
-    bias = None if bias is None else _f32(bias, device)
-    act_folded = prologue == "ln_quant" and not act_pow
-    if prologue == "ln_quant":
-        ln_scale, ln_bias = _f32(ln_scale, device), _f32(ln_bias, device)
-    if act_folded:
+def fold_ln(ln_scale, ln_bias, act_d, act_pow: bool, device):
+    """LayerNorm gamma/beta in f32, with the quantizer's 1/d folded in when
+    it is linear (fused.py:459-466): the LN + quant prologue then rounds
+    LN(x) straight to levels. The one place this fold is made."""
+    ln_scale, ln_bias = _f32(ln_scale, device), _f32(ln_bias, device)
+    if not act_pow:
         inv_d = 1.0 / _f32(act_d, device)
         ln_scale = ln_scale * inv_d
         ln_bias = ln_bias * inv_d
+    return ln_scale, ln_bias
+
+
+def fold_gelu(scale, bias, device):
+    """fc1's dequant scale/bias with 2**-0.5 folded in for the folded GELU
+    + quant epilogue (fused.py:470-476, :885-891). The one place this fold
+    is made."""
+    f = _f32(2.0**-0.5, device)
+    return scale * f, None if bias is None else bias * f
+
+
+def _matmul_folds(device, n, scale, bias, prologue, act_d, act_pow,
+                  ln_scale, ln_bias, epilogue, out_d, out_pow,
+                  prefolded=False):
+    """The wrapper-side constant folds of fused.py:459-476, in f32.
+    Returns (scale [n], bias [n] or None, ln_scale, ln_bias, act_folded,
+    out_folded). ``prefolded``: the constants carry the folds already (a
+    folded block stack's operands); only the flags are set."""
+    scale = torch.broadcast_to(_f32(scale, device), (n,))
+    bias = None if bias is None else _f32(bias, device)
+    act_folded = prologue == "ln_quant" and not act_pow
     out_folded = epilogue in ("quant", "gelu_quant") and not out_pow
-    if out_folded:
-        f = (1.0 / _f32(out_d, device) if epilogue == "quant"
-             else _f32(2.0**-0.5, device))
+    if prefolded:
+        return scale, bias, ln_scale, ln_bias, act_folded, out_folded
+    if prologue == "ln_quant":
+        ln_scale, ln_bias = fold_ln(ln_scale, ln_bias, act_d, act_pow, device)
+    if out_folded and epilogue == "gelu_quant":
+        scale, bias = fold_gelu(scale, bias, device)
+    elif out_folded:
+        f = 1.0 / _f32(out_d, device)
         scale = scale * f
         if bias is not None:
             bias = bias * f
@@ -209,10 +230,11 @@ def fused_quant_matmul_plain(
     ln_scale=None, ln_bias=None, ln_eps=1e-6,
     epilogue=None, residual=None,
     out_d=None, out_t=None, out_top=None, out_pow=False,
-    out_dtype=torch.bfloat16,
+    out_dtype=torch.bfloat16, prefolded=False,
 ):
     """Plain PyTorch version of K1: a port of ``fused_quant_matmul_xla``
-    (fused.py:1118-1179), the same f32 level math and folds."""
+    (fused.py:1118-1179), the same f32 level math and folds
+    (``prefolded``: the constants already carry them)."""
     _check_tops("fused_quant_matmul", prologue, epilogue, act_d, act_top,
                 out_top)
     k, n = _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue,
@@ -221,7 +243,7 @@ def fused_quant_matmul_plain(
     dev = x.device
     scale, bias, ln_scale, ln_bias, act_folded, out_folded = _matmul_folds(
         dev, n, scale, bias, prologue, act_d, act_pow, ln_scale, ln_bias,
-        epilogue, out_d, out_pow)
+        epilogue, out_d, out_pow, prefolded)
     if prologue is None:
         lv = x
     elif prologue == "gelu_quant":
@@ -288,10 +310,12 @@ def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
                 act_d=None, act_t=None, act_top=None, act_pow=False,
                 ln_scale=None, ln_bias=None, ln_eps=1e-6, epilogue=None,
                 out_d=None, out_t=None, out_top=None,
-                out_pow=False) -> MatmulPlan:
+                out_pow=False, w_t=None) -> MatmulPlan:
     """K1's layer-side work, done once: checks, the weight copy into the
     kernels' layout and the folds of fused.py:459-476. Arguments as
-    :func:`fused_quant_matmul`; ``w`` must lie on a CUDA device."""
+    :func:`fused_quant_matmul`; ``w`` must lie on a CUDA device. ``w_t``:
+    ``w`` already in the kernels' layout (another plan's copy, shared
+    instead of copied again)."""
     _check_tops("fused_quant_matmul", prologue, epilogue, act_d, act_top,
                 out_top)
     k, n = _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue,
@@ -303,7 +327,8 @@ def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
         epilogue, out_d, out_pow)
     cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
     return MatmulPlan(
-        w_t=_build.n_major(w), int4=fmt == "int4", k=k, n=n,
+        w_t=_build.n_major(w) if w_t is None else w_t,
+        int4=fmt == "int4", k=k, n=n,
         scale=cont(scale), bias=cont(bias), ln_scale=cont(ln_scale),
         ln_bias=cont(ln_bias), prm=_params4(dev, act_d, act_t, out_d, out_t),
         prologue=prologue, epilogue=epilogue, act_pow=bool(act_pow),
@@ -421,10 +446,13 @@ def fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
                     ln_scale, ln_bias, ln_eps=1e-6,
                     act_d=None, act_t=None, act_top=None, act_pow=False,
                     hid_d=None, hid_t=None, hid_top=None, hid_pow=False,
-                    fmt="int8", fmt2=None, out_dtype=torch.bfloat16):
+                    fmt="int8", fmt2=None, out_dtype=torch.bfloat16,
+                    prefolded=False):
     """Plain PyTorch version of K2: a port of ``fused_mlp_xla``
     (fused.py:1095-1110), fc1 with the GELU+quant epilogue then fc2 with
-    the residual epilogue. ``fmt2``: w2's format (default ``fmt``)."""
+    the residual epilogue. ``fmt2``: w2's format (default ``fmt``).
+    ``prefolded``: LN2 and fc1's scale/bias carry the folds of
+    :func:`fold_ln` and :func:`fold_gelu` already."""
     fmt2 = fmt2 or fmt
     _mlp_input(x, _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)[0])
     hlv = fused_quant_matmul_plain(
@@ -432,7 +460,7 @@ def fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
         act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
         ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
         epilogue="gelu_quant", out_d=hid_d, out_t=hid_t, out_top=hid_top,
-        out_pow=hid_pow)
+        out_pow=hid_pow, prefolded=prefolded)
     return fused_quant_matmul_plain(
         hlv, w2, scale2, bias2, fmt=fmt2, prologue=None,
         epilogue="residual", residual=x, out_dtype=out_dtype)
@@ -485,14 +513,9 @@ def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
     scale2 = torch.broadcast_to(_f32(scale2, dev), (k,))
     bias2 = (torch.zeros((k,), dtype=torch.float32, device=dev)
              if bias2 is None else _f32(bias2, dev))
-    ln_scale, ln_bias = _f32(ln_scale, dev), _f32(ln_bias, dev)
-    if not act_pow:
-        inv_d = 1.0 / _f32(act_d, dev)
-        ln_scale = ln_scale * inv_d
-        ln_bias = ln_bias * inv_d
+    ln_scale, ln_bias = fold_ln(ln_scale, ln_bias, act_d, act_pow, dev)
     if not hid_pow:
-        scale1 = scale1 * _f32(2.0**-0.5, dev)
-        bias1 = bias1 * _f32(2.0**-0.5, dev)
+        scale1, bias1 = fold_gelu(scale1, bias1, dev)
     return MlpPlan(
         w1_t=_build.n_major(w1), w2_t=_build.n_major(w2),
         int4_1=fmt == "int4", int4_2=fmt2 == "int4", k=k, hid=hid,

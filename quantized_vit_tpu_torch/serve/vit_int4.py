@@ -1,13 +1,22 @@
 """ViT W4A4 integer serving forward (port of
 ``quantized_vit_tpu/serve/vit_int4.py``).
 
-One forward runs four kernels: :func:`~..ops.fused.fused_quant_matmul` (K1)
-for the patch embed and the head, :func:`~..ops.patch.patch_finalize` (K4)
-once, and per block :func:`~..ops.attention.attention_block` (K3, whose
-proj GEMM is K1) then :func:`~..ops.fused.fused_mlp` (K2). Every batch
-size takes that route: the JAX package's TPU gates (batch >= 4, the VMEM
-fit predicates, the MLP alignment test, the ViT-H chain tiles) do not
-carry over, and its batch 1-3 routes are not ported yet.
+:func:`vit_int4_forward` runs, per transformer block, one of the JAX
+package's two single-device routes (:func:`uses_chain`, the gate of
+vit_int4.py:272): a batch of 4 or more takes
+:func:`~..ops.attention.attention_block` (K3, whose proj GEMM is K1) then
+:func:`~..ops.fused.fused_mlp` (K2); a batch of 1-3 takes the chain, K1
+with the LayerNorm + quant prologue writing qkv, then
+:func:`~..ops.attention.attention_qkv` (K6), then K1 with the residual
+epilogue for proj, then K2. The patch embed and the head are K1, the
+token stream K4 (:func:`~..ops.patch.patch_finalize`). The JAX package's
+TPU-only gates (the mixed-``fmt`` test, the VMEM fit predicates, the MLP
+alignment test, the ViT-H chain tiles) do not carry over.
+
+:func:`vit_int4_forward_latency` is the batch-1 latency entry: K1 (patch
+embed), K4, one launch of K5 (:func:`~..ops.block_stack.vit_block_stack`,
+the whole block stack) and K1 (head), from the stacked artifact of
+:func:`prepare_latency_artifact`.
 
 Each weight operand carries its own format (packed int4 or int8), so
 GETA mixed-precision exports stay on the kernels. The kernels run from a
@@ -24,19 +33,24 @@ multiple of ``n_align`` (197 -> 208); padded keys are masked.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.vit import ViTConfig
-from ..ops.attention import (AttentionPlan, attention_block_plain,
-                             heads_kernel_limit, plan_attention_block,
-                             run_attention_block)
-from ..ops.fused import (MatmulPlan, MlpPlan, fused_mlp_plain,
-                         fused_quant_matmul_plain, mlp_kernel_limit,
-                         plan_matmul, plan_mlp, run_matmul, run_mlp)
+from ..ops.attention import (AttentionPlan, QkvAttentionPlan,
+                             attention_block_plain, heads_kernel_limit,
+                             plan_attention_block, plan_attention_qkv,
+                             run_attention_block, run_attention_qkv)
+from ..ops.block_stack import (StackPlan, plan_block_stack,
+                               run_block_stack, stack_kernel_limit,
+                               vit_block_stack_plain)
+from ..ops.fused import (MatmulPlan, MlpPlan, fold_gelu, fold_ln,
+                         fused_mlp_plain, fused_quant_matmul_plain,
+                         mlp_kernel_limit, plan_matmul, plan_mlp, run_matmul,
+                         run_mlp)
 from ..ops.patch import patch_finalize, patch_finalize_plain
 from ..quant.packing import pack_int4
 
@@ -185,13 +199,26 @@ def _quant_layer(entry: QLayerArtifact):
                 act_pow=entry.act_pow)
 
 
+# the smallest batch that takes K3 + K2; smaller batches take the chain
+# (the JAX package's gate, vit_int4.py:272, measured on its TPU; this
+# card's times for both routes are in PERF.md)
+BLOCK_ROUTE_MIN_BATCH = 4
+
+
+def uses_chain(batch: int) -> bool:
+    """True when a forward of ``batch`` images runs the chain (K1 qkv, K6,
+    K1 proj) rather than K3 + K1 for its attention branch."""
+    return batch < BLOCK_ROUTE_MIN_BATCH
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
     """An artifact prepared for the CUDA kernels, once
-    (:func:`prepare_kernels`): each K1/K2/K3 call site of the forward
+    (:func:`prepare_kernels`): each K1/K2/K3/K6 call site of the forward
     with its weight copied into the kernels' layout and its constants
     folded, and K4's rows. It holds its own copy of every weight, beside
-    the artifact's."""
+    the artifact's; a block's qkv weight once, shared by K3's plan and the
+    chain's K1 plan."""
 
     # per images_layout: the patch embed's K1 plan, then K4's positional
     # rows and scale ("nhwc": K1 returns the exact accumulators, K4
@@ -199,26 +226,40 @@ class KernelPlan:
     embed: Dict[str, Tuple[MatmulPlan, torch.Tensor, torch.Tensor]]
     cls_row: torch.Tensor
     blocks: List[Tuple[AttentionPlan, MlpPlan]]
+    # per block, the chain's qkv K1 plan (LayerNorm + quant prologue) and
+    # its K6 plan; its proj is the AttentionPlan's
+    chain: List[Tuple[MatmulPlan, QkvAttentionPlan]]
     head: Optional[MatmulPlan]
 
 
-def kernel_limits(cfg: ViTConfig, n_align: int = 16) -> List[str]:
-    """Why the CUDA kernels cannot serve ``cfg`` (empty if they can)."""
+def kernel_limits(cfg: ViTConfig, n_align: int = 16,
+                  latency: bool = False) -> List[str]:
+    """Why the CUDA kernels cannot serve ``cfg`` (empty if they can):
+    those of K2 and K3 (which cover K6's), or with ``latency`` those of K5
+    for the batch-1 entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
-    return [lim for lim in (heads_kernel_limit(n_pad, hd),
-                            mlp_kernel_limit(cfg.embed_dim)) if lim]
+    if latency:
+        lims = (stack_kernel_limit(n_pad, cfg.embed_dim,
+                                   int(cfg.embed_dim * cfg.mlp_ratio), hd,
+                                   n_valid=cfg.num_tokens),)
+    else:
+        lims = (heads_kernel_limit(n_pad, hd), mlp_kernel_limit(cfg.embed_dim))
+    return [lim for lim in lims if lim]
 
 
-def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
-    """The artifact's kernel plans (its tensors on a CUDA device). Raises a
-    ValueError naming each kernel limit that ``cfg`` exceeds."""
-    limits = kernel_limits(cfg)
+def _raise_limits(limits: List[str]) -> None:
     if limits:
         raise ValueError("the CUDA kernels cannot serve this configuration "
                          "(ROADMAP.md, kernel limits): " + "; ".join(limits))
-    hd = art["pos_embed"].shape[-1] // cfg.num_heads
-    sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
+
+
+def _sm_scale(cfg: ViTConfig, hd: int) -> float:
+    return cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
+
+
+def _embed_head_plans(art, cfg: ViTConfig):
+    """(embed plans per images_layout, cls row, head plan) of K1/K4."""
     pe = art["patch_embed"]
     patch_embed = plan_matmul(pe.w, pe.scale, pe.bias, **_quant_layer(pe))
     one = torch.ones((), dtype=torch.float32, device=pe.w.device)
@@ -230,22 +271,81 @@ def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
                                      scale=torch.ones_like(patch_embed.scale)),
                  pos_acc.contiguous(), pe.scale),
     }
-    blocks = []
+    he = art.get("head")
+    head = (None if he is None
+            else plan_matmul(he.w, he.scale, he.bias, **_quant_layer(he)))
+    return embed, cls_row.contiguous(), head
+
+
+def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
+    """The artifact's kernel plans (its tensors on a CUDA device). Raises a
+    ValueError naming each kernel limit that ``cfg`` exceeds."""
+    _raise_limits(kernel_limits(cfg))
+    hd = art["pos_embed"].shape[-1] // cfg.num_heads
+    sm_scale = _sm_scale(cfg, hd)
+    embed, cls_row, head = _embed_head_plans(art, cfg)
+    blocks, chain = [], []
     for blk in art["blocks"]:
         qkv_e, proj_e = blk["qkv"], blk["proj"]
         fc1_e, fc2_e = blk["fc1"], blk["fc2"]
-        blocks.append((
-            plan_attention_block(
-                qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
-                proj_e.bias, fmt_proj=proj_e.fmt,
-                **_attention_layer(blk, hd, sm_scale)),
-            plan_mlp(fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
-                     fc2_e.bias, **_mlp_layer(blk))))
-    he = art.get("head")
-    return KernelPlan(
-        embed=embed, cls_row=cls_row.contiguous(), blocks=blocks,
-        head=None if he is None else plan_matmul(he.w, he.scale, he.bias,
-                                                 **_quant_layer(he)))
+        layer = _attention_layer(blk, hd, sm_scale)
+        attn = plan_attention_block(
+            qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
+            proj_e.bias, fmt_proj=proj_e.fmt, **layer)
+        blocks.append((attn, plan_mlp(
+            fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+            fc2_e.bias, **_mlp_layer(blk))))
+        chain.append((
+            plan_matmul(qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
+                        prologue="ln_quant", act_d=layer["act_d"],
+                        act_t=layer["act_t"], act_top=layer["act_top"],
+                        act_pow=layer["act_pow"],
+                        ln_scale=layer["ln_scale"],
+                        ln_bias=layer["ln_bias"], w_t=attn.heads.wq_t),
+            plan_attention_qkv(
+                qkv_e.w.device, heads=layer["heads"], sm_scale=sm_scale,
+                out_d=layer["out_d"], out_t=layer["out_t"],
+                out_top=layer["out_top"], out_pow=layer["out_pow"])))
+    return KernelPlan(embed=embed, cls_row=cls_row, blocks=blocks,
+                      chain=chain, head=head)
+
+
+def _embed_kernels(embed, cls_row, xp, b: int, cfg: ViTConfig, dim: int,
+                   n_pad: int, float_dtype, images_layout: str):
+    """Patch embed (K1) + token stream (K4) on prepared plans."""
+    pe_plan, pos_patch, pe_scale = embed[images_layout]
+    acc = run_matmul(pe_plan, xp, out_dtype=torch.float32)
+    return patch_finalize(acc.reshape(b, cfg.num_patches, dim), pos_patch,
+                          cls_row, pe_scale, n_pad=n_pad,
+                          out_dtype=float_dtype)
+
+
+def _logits(art, x2d, b: int, n_pad: int, n_real: int, dim: int,
+            head: Optional[MatmulPlan]):
+    """cls row -> final LayerNorm -> (pre-logits) -> head (K1 on ``head``
+    when given, else its plain version)."""
+    x = x2d.reshape(b, n_pad, dim)[:, n_real - 1]  # cls row (last real row)
+    x = _layernorm(x, art["norm"]).to(torch.float32)
+    if "pre_logits" in art:
+        x = torch.tanh(x @ art["pre_logits"]["kernel"]
+                       + art["pre_logits"]["bias"])
+    if "head" in art:
+        x = (run_matmul(head, x, out_dtype=torch.float32) if head is not None
+             else _qmatmul(x, art["head"], torch.float32))
+    return x
+
+
+def _chain_attention(chain, attn: AttentionPlan, x2d, *, b: int, n_pad: int,
+                     n_real: int, float_dtype, int_attention: bool):
+    """The chain's attention branch: K1 (LN + quant prologue) writes qkv in
+    the residual dtype, K6 the proj levels, K1 proj + residual."""
+    qkv_plan, attn_plan = chain
+    qkv = run_matmul(qkv_plan, x2d, out_dtype=float_dtype)
+    alv = run_attention_qkv(attn_plan, qkv.reshape(b, n_pad, -1),
+                            n_valid=n_real, out_dtype=float_dtype,
+                            int_attention=int_attention)
+    return run_matmul(attn.proj, alv.reshape(b * n_pad, -1), residual=x2d,
+                      out_dtype=float_dtype)
 
 
 @torch.no_grad()
@@ -264,9 +364,10 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
     parity); level math is always f32. Returns f32 logits [B, classes].
 
     Tensors off the CPU run the CUDA kernels unless ``use_kernels`` is
-    False; ``plan`` is the artifact's :func:`prepare_kernels`, made here
-    when not given (a caller that serves many batches keeps it). CPU
-    tensors take the plain versions.
+    False, on the route :func:`uses_chain` picks for the batch; ``plan`` is
+    the artifact's :func:`prepare_kernels`, made here when not given (a
+    caller that serves many batches keeps it). CPU tensors take the plain
+    versions.
     """
     b = images.shape[0]
     if input_scale is not None:
@@ -276,26 +377,27 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
     n_pad = _round_up(n_real, n_align)
     dim = art["pos_embed"].shape[-1]
     hd = dim // cfg.num_heads
-    sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
+    sm_scale = _sm_scale(cfg, hd)
     xp = _patches_2d(images, cfg, images_layout)
     if use_kernels and images.device.type != "cpu":
-        if int_attention:
-            raise NotImplementedError(
-                "int_attention has no kernel path yet; pass "
-                "use_kernels=False")
         plan = plan or prepare_kernels(art, cfg)
-        pe_plan, pos_patch, pe_scale = plan.embed[images_layout]
-        acc = run_matmul(pe_plan, xp, out_dtype=torch.float32)
-        x2d = patch_finalize(acc.reshape(b, cfg.num_patches, dim), pos_patch,
-                             plan.cls_row, pe_scale, n_pad=n_pad,
-                             out_dtype=float_dtype)
-        for attn, mlp in plan.blocks:
-            x2d = run_attention_block(
-                attn, x2d.reshape(b, n_pad, dim), n_valid=n_real,
-                out_dtype=float_dtype).reshape(b * n_pad, dim)
+        x2d = _embed_kernels(plan.embed, plan.cls_row, xp, b, cfg, dim,
+                             n_pad, float_dtype, images_layout)
+        chain = uses_chain(b)
+        for (attn, mlp), chain_plans in zip(plan.blocks, plan.chain):
+            if chain:
+                x2d = _chain_attention(
+                    chain_plans, attn, x2d, b=b, n_pad=n_pad, n_real=n_real,
+                    float_dtype=float_dtype, int_attention=int_attention)
+            else:
+                x2d = run_attention_block(
+                    attn, x2d.reshape(b, n_pad, dim), n_valid=n_real,
+                    out_dtype=float_dtype,
+                    int_attention=int_attention).reshape(b * n_pad, dim)
             x2d = run_mlp(mlp, x2d, out_dtype=float_dtype)
+        head = plan.head
     else:
-        plan = None
+        head = None
         x2d = _embed_tokens(art, images, cfg, float_dtype, images_layout,
                             n_pad)
         for blk in art["blocks"]:
@@ -303,15 +405,158 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
                              dim=dim, hd=hd, sm_scale=sm_scale,
                              float_dtype=float_dtype,
                              int_attention=int_attention)
-    x = x2d.reshape(b, n_pad, dim)[:, n_real - 1]  # cls row (last real row)
-    x = _layernorm(x, art["norm"]).to(torch.float32)
-    if "pre_logits" in art:
-        x = torch.tanh(x @ art["pre_logits"]["kernel"]
-                       + art["pre_logits"]["bias"])
-    if "head" in art:
-        x = (run_matmul(plan.head, x, out_dtype=torch.float32) if plan
-             else _qmatmul(x, art["head"], torch.float32))
-    return x
+    return _logits(art, x2d, b, n_pad, n_real, dim, head)
+
+
+# ---------------------------------------------------------------------------
+# batch-1 latency entry: the whole block stack in one launch (K5)
+# ---------------------------------------------------------------------------
+
+
+class StackMeta(NamedTuple):
+    """Static metadata of the stacked blocks (vit_int4.py:533-545)."""
+
+    fmt: str
+    heads: int
+    act_top: int
+    out_top: int
+    mlp_top: int
+    hid_top: int
+    act_pow: bool
+    out_pow: bool
+    mlp_pow: bool
+    hid_pow: bool
+
+
+def _blocks_uniform(blocks) -> bool:
+    """True when every block shares geometry and static quantizer metadata
+    (vit_int4.py:408-419)."""
+    def sig(b):
+        return tuple(
+            (k, b[k].fmt, b[k].act_pow, b[k].top, b[k].bias is not None,
+             tuple(b[k].w.shape))
+            for k in ("qkv", "proj", "fc1", "fc2"))
+    s0 = sig(blocks[0])
+    return all(sig(b) == s0 for b in blocks[1:])
+
+
+def prepare_latency_artifact(art, cfg: ViTConfig):
+    """The batch-1 latency artifact, once per artifact (vit_int4.py:548-643):
+    the blocks stacked for K5 (:class:`~..ops.block_stack.StackPlan`, the
+    weights n-major) with the folds of the per-block plans
+    (``fused.fold_ln``: 1/d into LN gamma/beta when the quantizer is
+    linear; ``fused.fold_gelu``: 2**-0.5 into fc1's dequant), and on a CUDA
+    device the K1/K4 plans of the patch embed and the head.
+
+    Returns (latency artifact, :class:`StackMeta`). Refuses a stack whose
+    static metadata differs between blocks, and mixed weight formats
+    within a block, as the JAX function does."""
+    blocks = art["blocks"]
+    if not _blocks_uniform(blocks):
+        raise ValueError("per-block static metadata differs; the "
+                         "megakernel needs a uniform stack")
+    b0 = blocks[0]
+    fmt = b0["qkv"].fmt
+    if any(b0[k].fmt != fmt for k in ("proj", "fc1", "fc2")):
+        raise ValueError("mixed weight formats within a block; the "
+                         "megakernel needs one fmt (use the chain path)")
+    dev = b0["qkv"].w.device
+    if dev.type == "cuda":
+        _raise_limits(kernel_limits(cfg, latency=True))
+    hd = cfg.embed_dim // cfg.num_heads
+    heads = b0["qkv"].w.shape[1] // (3 * hd)
+    meta = StackMeta(
+        fmt, heads, b0["qkv"].top, b0["proj"].top, b0["fc1"].top,
+        b0["fc2"].top, b0["qkv"].act_pow, b0["proj"].act_pow,
+        b0["fc1"].act_pow, b0["fc2"].act_pow)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def vec(a, n):
+        return (torch.zeros((n,), dtype=torch.float32, device=dev)
+                if a is None else torch.broadcast_to(f32(a), (n,)))
+
+    rows: Dict[str, list] = {}
+    for blk in blocks:
+        qkv_e, proj_e = blk["qkv"], blk["proj"]
+        fc1_e, fc2_e = blk["fc1"], blk["fc2"]
+        three, hid = qkv_e.w.shape[1], fc1_e.w.shape[1]
+        d = proj_e.w.shape[1]
+        g1, be1 = fold_ln(blk["norm1"]["scale"], blk["norm1"]["bias"],
+                          qkv_e.act["d"], qkv_e.act_pow, dev)
+        g2, be2 = fold_ln(blk["norm2"]["scale"], blk["norm2"]["bias"],
+                          fc1_e.act["d"], fc1_e.act_pow, dev)
+        s1, b1 = vec(fc1_e.scale, hid), vec(fc1_e.bias, hid)
+        if not fc2_e.act_pow:  # the folded GELU handoff
+            s1, b1 = fold_gelu(s1, b1, dev)
+        for k, v in (
+                ("wq", qkv_e.w), ("qs", vec(qkv_e.scale, three)),
+                ("qb", vec(qkv_e.bias, three)), ("l1g", g1), ("l1b", be1),
+                ("wp", proj_e.w), ("ps", vec(proj_e.scale, d)),
+                ("pb", vec(proj_e.bias, d)), ("l2g", g2), ("l2b", be2),
+                ("w1", fc1_e.w), ("s1", s1), ("b1", b1), ("w2", fc2_e.w),
+                ("s2", vec(fc2_e.scale, d)), ("b2", vec(fc2_e.bias, d)),
+                ("act_d", f32(qkv_e.act["d"])), ("act_t", f32(qkv_e.act["t"])),
+                ("out_d", f32(proj_e.act["d"])),
+                ("out_t", f32(proj_e.act["t"])),
+                ("mlp_d", f32(fc1_e.act["d"])), ("mlp_t", f32(fc1_e.act["t"])),
+                ("hid_d", f32(fc2_e.act["d"])),
+                ("hid_t", f32(fc2_e.act["t"]))):
+            rows.setdefault(k, []).append(v)
+    st = {k: torch.stack(v) for k, v in rows.items()}
+    stack = plan_block_stack(
+        st["wq"], st["qs"], st["qb"], st["l1g"], st["l1b"], st["wp"],
+        st["ps"], st["pb"], st["l2g"], st["l2b"], st["w1"], st["s1"],
+        st["b1"], st["w2"], st["s2"], st["b2"], st["act_d"], st["act_t"],
+        st["out_d"], st["out_t"], st["mlp_d"], st["mlp_t"], st["hid_d"],
+        st["hid_t"], heads=heads, sm_scale=_sm_scale(cfg, hd), fmt=fmt,
+        act_pow=meta.act_pow, out_pow=meta.out_pow, mlp_pow=meta.mlp_pow,
+        hid_pow=meta.hid_pow, act_top=meta.act_top, out_top=meta.out_top,
+        mlp_top=meta.mlp_top, hid_top=meta.hid_top)
+    out = {k: v for k, v in art.items() if k != "blocks"}
+    out["stack"] = stack
+    if dev.type == "cuda":
+        out["kernels"] = _embed_head_plans(art, cfg)
+    return out, meta
+
+
+@torch.no_grad()
+def vit_int4_forward_latency(art, images, cfg: ViTConfig, meta: StackMeta,
+                             float_dtype=torch.bfloat16,
+                             images_layout: str = "patches"):
+    """Batch-1 latency forward (vit_int4.py:651-701): K1 patch embed, K4,
+    ONE launch of K5 over the whole block stack, the final LayerNorm and
+    K1 head; the same logits as :func:`vit_int4_forward`.
+
+    art: the latency artifact of :func:`prepare_latency_artifact`;
+    images: batch 1 ([1, H, W, C] or the patches layout). The tokens are
+    padded to 208 where the JAX entry pads to 224: the key rows (208) and
+    the real query rows are the same, so the logits are too. CPU tensors
+    take the plain versions."""
+    b = images.shape[0]
+    if b != 1:
+        raise ValueError(f"latency megakernel is batch-1 only, got {b}")
+    n_real = cfg.num_tokens
+    n_pad = _round_up(n_real, 16)
+    dim = art["pos_embed"].shape[-1]
+    stack: StackPlan = art["stack"]
+    if meta.heads != stack.heads or meta.fmt != ("int4" if stack.int4
+                                                 else "int8"):
+        raise ValueError(f"StackMeta {meta} does not describe this stack")
+    run = dict(n_valid=n_real, out_dtype=float_dtype)
+    if images.device.type != "cpu":
+        embed, cls_row, head = art["kernels"]
+        x2d = _embed_kernels(embed, cls_row,
+                             _patches_2d(images, cfg, images_layout), b,
+                             cfg, dim, n_pad, float_dtype, images_layout)
+        x2d = run_block_stack(stack, x2d, **run)
+    else:
+        head = None
+        x2d = vit_block_stack_plain(
+            stack, _embed_tokens(art, images, cfg, float_dtype,
+                                 images_layout, n_pad), **run)
+    return _logits(art, x2d, b, n_pad, n_real, dim, head)
 
 
 def random_vit_int4_artifact(cfg: ViTConfig, seed: int = 0,

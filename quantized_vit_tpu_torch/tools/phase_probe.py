@@ -1,14 +1,18 @@
-"""Per-block phase timing of the K3 and K2 kernels on the card.
+"""Per-block phase timing of the K3 and K2 kernels, and per-phase timing
+of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
 ``%globaltimer`` at the phase boundaries the kernels mark with
-``QVT_STAMP``), runs each kernel once at the ViT-B batch-32 shapes on a
-prepared plan, and prints the mean time per block of each phase and the
-span of the launch:
+``QVT_STAMP``, and thread 0 of K5's block 0 after each grid barrier,
+``QVT_GRID_STAMP``), runs each kernel once on a prepared plan, and prints:
 
-- ``attention_block``: LayerNorm statistics | qkv GEMM | attention;
-- ``fused_mlp``: LayerNorm + quant | hidden-chunk loop | epilogue.
+- ``attention_block`` (ViT-B batch 32), per block: LayerNorm statistics |
+  qkv GEMM | attention, and the span of the launch;
+- ``fused_mlp`` (ViT-B batch 32), per block: LayerNorm + quant |
+  hidden-chunk loop | epilogue, and the span;
+- ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
+  block, mean over the 12: each phase from one grid barrier to the next.
 
     python3 -m quantized_vit_tpu_torch.tools.phase_probe
 """
@@ -22,7 +26,13 @@ import torch
 
 from ..ops import _build
 from ..ops.attention import plan_attention_heads, run_attention_heads
+from ..ops.block_stack import run_block_stack
 from ..ops.fused import plan_mlp, run_mlp
+from ..models import ViTConfig
+from ..serve import prepare_latency_artifact, random_vit_int4_artifact
+
+_STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
+                 "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
 
 def main():
@@ -68,6 +78,31 @@ def main():
         print(f"{stem}: {blocks} blocks, launch span {t[:, 3].max() / 1e3:.1f}"
               " us; per block " + ", ".join(
                   f"{nm} {v:.1f} us" for nm, v in zip(names, ph)))
+    stack_phases(buf)
+
+
+def stack_phases(buf):
+    cfg = ViTConfig()
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True)
+    stack = prepare_latency_artifact(art, cfg)[0]["stack"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((208, cfg.embed_dim), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    for _ in range(3):
+        run_block_stack(stack, x, n_valid=cfg.num_tokens)
+    torch.cuda.synchronize()
+    read = _build.library("block_stack").qvt_probe_read
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    if read(buf.ctypes.data_as(ctypes.c_void_p)):
+        raise RuntimeError("reading the stamps failed")
+    n = 7 * cfg.depth
+    t = buf[: n + 1].astype(np.int64)
+    ph = np.diff(t).reshape(cfg.depth, 7).mean(0) / 1e3
+    print(f"block_stack: depth {cfg.depth}, stamped span "
+          f"{(t[n] - t[0]) / 1e3:.1f} us; per transformer block "
+          + ", ".join(f"{nm} {v:.1f} us"
+                      for nm, v in zip(_STACK_PHASES, ph))
+          + f"; total {ph.sum():.1f} us")
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import torch
 from quantized_vit_tpu_torch import resolve_device
 from quantized_vit_tpu_torch.models import ViTConfig
 from quantized_vit_tpu_torch.ops import attention as ta
+from quantized_vit_tpu_torch.ops import block_stack as tb
 from quantized_vit_tpu_torch.ops import fused as tf
 from quantized_vit_tpu_torch.ops import patch as tp
 
@@ -88,7 +89,8 @@ def _never(*a, **k):
 
 @pytest.mark.parametrize("kernel", ["fused_quant_matmul", "fused_mlp",
                                     "attention_block", "attention_heads",
-                                    "patch_finalize"])
+                                    "patch_finalize", "attention_qkv",
+                                    "vit_block_stack"])
 def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                                                         monkeypatch):
     for mod, name in ((tf, "fused_quant_matmul_plain"),
@@ -96,7 +98,9 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                       (ta, "attention_block_plain"),
                       (ta, "attention_heads_plain"),
                       (ta, "fused_quant_matmul_plain"),
-                      (tp, "patch_finalize_plain")):
+                      (tp, "patch_finalize_plain"),
+                      (ta, "attention_qkv_plain"),
+                      (tb, "vit_block_stack_plain")):
         monkeypatch.setattr(mod, name, _never)
     i8 = torch.int8
     one = torch.tensor(1.0)
@@ -117,6 +121,19 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                 args += (_meta(16, 16, dtype=i8), one, None)
             fn(*args, ln_scale=_meta(16), ln_bias=_meta(16), heads=2,
                sm_scale=0.25, out_d=one, out_t=one, out_top=7, **q)
+        elif kernel == "attention_qkv":
+            ta.attention_qkv(_meta(2, 8, 48), heads=2, sm_scale=0.25,
+                             out_d=one, out_t=one, out_top=7)
+        elif kernel == "vit_block_stack":
+            # one block of width 32, 2 heads, hidden 64, int8 weights
+            w = lambda k, n: _meta(1, k, n, dtype=i8)  # noqa: E731
+            vec = _meta(1, 32)
+            sc = [_meta(1)] * 8
+            tb.vit_block_stack(
+                _meta(8, 32), w(32, 96), _meta(1, 96), _meta(1, 96), vec,
+                vec, w(32, 32), vec, vec, vec, vec, w(32, 64), _meta(1, 64),
+                _meta(1, 64), w(64, 32), vec, vec, *sc, heads=2,
+                sm_scale=0.25, fmt="int8")
         else:
             tp.patch_finalize(_meta(2, 4, 16), _meta(4, 16), _meta(16), one,
                               n_pad=8)

@@ -210,6 +210,29 @@ def test_fused_mlp_plain_matches_jax(fmt, pow_):
         assert d.max() <= 0.05
 
 
+@pytest.mark.parametrize("pow_", [False, True], ids=["lin", "pow"])
+def test_fused_mlp_plain_prefolded_equals_folding(pow_):
+    """``prefolded``: fed the constants that fold_ln/fold_gelu make (a
+    folded block stack's operands), the plain MLP equals the call that
+    folds them itself, bit for bit."""
+    m, k, hid = 24, 64, 96
+    x, w1, b1, w2, b2, kw = _mlp_inputs(11 + pow_, m, k, hid, pow_)
+    tkw = _to_t(kw)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    w1t, w2t = torch.from_numpy(w1), torch.from_numpy(w2)
+    s1, b1t = torch.full((hid,), 1e-3), torch.from_numpy(b1)
+    s2, b2t = torch.tensor(1e-3), torch.from_numpy(b2)
+    want = tf.fused_mlp_plain(xt, w1t, s1, b1t, w2t, s2, b2t, fmt="int8",
+                              **tkw)
+    g, b = tf.fold_ln(tkw["ln_scale"], tkw["ln_bias"], tkw["act_d"], pow_,
+                      "cpu")
+    fs1, fb1 = (s1, b1t) if pow_ else tf.fold_gelu(s1, b1t, "cpu")
+    got = tf.fused_mlp_plain(xt, w1t, fs1, fb1, w2t, s2, b2t, fmt="int8",
+                             prefolded=True,
+                             **dict(tkw, ln_scale=g, ln_bias=b))
+    assert torch.equal(got, want)
+
+
 def test_fused_mlp_mixed_formats_match_jax_chain():
     """GETA mixed-precision export: w1 int8, w2 packed int4. The JAX
     reference is its XLA chain with a format per layer."""

@@ -94,9 +94,15 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     chip_smoke.run(record)
     names = [k["name"] for k in record["kernels"]]
     assert names == ["fused_quant_matmul", "fused_mlp", "attention_block",
-                     "patch_finalize"]
+                     "patch_finalize", "attention_qkv", "block_stack"]
     assert all(r["ok"] for r in record["parity"])
     assert record["serve"]["answers_equal_direct"]
+    small = record["serve"]["small_flushes"]
+    assert small["answers_equal_direct"]
+    assert {1, 2} <= set(small["batch_hist"])
+    routes = {(f["forward"], f["batch"]) for f in record["forward"]}
+    assert {("chain,int8-stored", b) for b in (1, 2, 3)} <= routes
+    assert ("latency,int4-packed", 1) in routes
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in record["kernels"])
