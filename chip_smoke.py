@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the ViT-B/16 W4A4 serving path on one GPU.
+"""Drive the PyTorch + CUDA port on one GPU: the ViT-B/16 W4A4 serving
+paths and the ViT-B/16 QAT + GETA training path.
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -36,7 +37,26 @@ Phases, in order; any failure exits non-zero:
    ``scaled_dot_product_attention`` on K6's shapes (yardsticks the port
    never calls), both routes' attention branch at batch 2 and 3, the
    forwards, and a plain bf16 PyTorch ViT-B/16 forward of the same
-   architecture at batch 32, 1 and 2.
+   architecture at batch 32, 1 and 2;
+6. training: ViT-B/16 at full width, batch 32, seeded synthetic NHWC
+   images, ``QuantConfig(enabled=True, fused_vjp=True)`` at 32 bits, GETA
+   with ``cli/train.py``'s defaults over a 13-step schedule (warmup,
+   range projection with a bit ramp-down, two pruning periods, fix) driven
+   by ``TrainLoop.train_one_epoch``, with the launch counters set to 0
+   just before and read just after: every loss finite, K7
+   (``quant_bwd``) launched 100 times per step, the target group sparsity
+   reached, the bit layout frozen; then ``evaluate`` on held-out arrays, a
+   checkpoint round trip, and one step with K7 against the same step with
+   the plain chain (losses equal, every gradient but the quantizer
+   scalars' bit-identical, those within K7's contract); K7's parity cases
+   run in phase 2 (grad_x bit-exact, each sum within 1e-5 of its
+   summands' L1 mass). Timings: K7's device time over the training run
+   (torch.profiler's CUDA trace of the run), K7 and its plain version on
+   the inputs of every quantizer site of one training step (CUDA events,
+   and the kernels' own device time from torch.profiler), the whole step
+   with K7 and with the plain chain in turns, a profile of each, and a
+   plain PyTorch ViT-B/16 training step (f32 and bf16 autocast,
+   ``torch.optim.Adam``) as the yardstick.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -45,6 +65,7 @@ last line, and writes the full record to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -71,6 +92,19 @@ PEAKS = {
     "PCIe": (1513e12, 756e12, 2.0e12),
     "NVL": (1671e12, 835e12, 3.9e12),
 }
+# f32 FLOP/s outside the tensor cores (data sheet): K7's operations
+F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12, "NVL": 60e12}
+# the training phase's schedule: warmup (step 1), range projection (2-11,
+# one bit ramp-down at step 4), two pruning periods (boundaries at steps 6
+# and 9, commits at 7 and 10), fix (12-13); the cli/train.py defaults
+TRAIN_STEPS = 13
+GETA_KW = dict(lr=1e-4, lr_quant=1e-3, variant="adam", weight_decay=0.0,
+               target_group_sparsity=0.5, group_divisible=1,
+               start_projection_step=1, projection_steps=4,
+               projection_periods=2, start_pruning_step=5, pruning_steps=6,
+               pruning_periods=2, bit_reduction=4.0, min_bit_wt=4.0,
+               max_bit_wt=32.0, min_bit_act=4.0, max_bit_act=32.0)
+TRAIN_CKPT = os.path.join(ROOT, "build", "smoke_train_ckpt")
 
 
 def log(*a):
@@ -158,6 +192,8 @@ def run(record):
     fwd = forward_phase(dev, record)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
+    del fwd
+    train_phase(dev, record, peaks)
 
 
 def main_cfg():
@@ -494,6 +530,87 @@ class Parity:
         self.k5("small[1x40x64,h2,L3](int8,f32)", 1, 40, 37, 64, 2, 128, 3,
                 "int8", f32, False, 123)
 
+    # -- K7 ---------------------------------------------------------------
+
+    def k7(self, case, x, g, d, q_m, t, q_s=0.0, clip=(-2.0, 2.0)):
+        """K7 against its plain version: grad_x bit-exact, each of the
+        three sums within 1e-5 of the L1 mass of its summands."""
+        from quantized_vit_tpu_torch.ops.quant_vjp import (
+            lsfq_nonlinear_bwd_fused, lsfq_nonlinear_bwd_plain,
+            nonlinear_bwd_terms)
+
+        kw = dict(clip_lo=clip[0], clip_hi=clip[1], q_s=q_s)
+        d, q_m, t = (torch.full((1,), float(v), device=self.dev)
+                     for v in (d, q_m, t))
+        got = lsfq_nonlinear_bwd_fused(x, g, d, q_m, t, **kw)
+        want = lsfq_nonlinear_bwd_plain(x, g, d, q_m, t, **kw)
+        l1 = [float(v.abs().sum(dtype=torch.float64))
+              for v in nonlinear_bwd_terms(x, g, d, q_m, t, **kw)[1:]]
+        gx_max, gx_share = float_diff(got[0], want[0])
+        errs = [abs(float(a) - float(b)) for a, b in zip(got[1:], want[1:])]
+        finite = bool(torch.isfinite(got[0]).all()) and all(
+            np.isfinite(float(v)) for v in got[1:])
+        ok = (gx_max == 0.0 and finite
+              and all(e <= 1e-5 * m for e, m in zip(errs, l1)))
+        self.rows.append({
+            "kernel": "quant_bwd", "case": case, "check": "k7",
+            "max_abs_err": max([gx_max] + errs), "share_differ": gx_share,
+            "bit_exact": gx_max == 0.0 and max(errs) == 0.0, "ok": ok,
+            "sum_err_over_l1": max(e / m if m else e
+                                   for e, m in zip(errs, l1)),
+            "grad_x_exact": gx_max == 0.0})
+        if not ok:
+            self.failures.append(f"quant_bwd {case}: grad_x max {gx_max}, "
+                                 f"sum errors {errs} vs L1 {l1}")
+
+    def run_quant_bwd(self, cfg):
+        """K7 at every distinct site shape of the training step (weights
+        near 4-bit scales, activations near 8-bit, t != 1, and t = 1 at
+        two of them), an edge-mask tile with values at q_s, at q_m and at
+        +-clip, a q_m <= q_s overlap, ragged element counts (not divisible
+        by 4), a non-contiguous g and an unaligned x."""
+        gen = torch.Generator(device=self.dev).manual_seed(70)
+        dev = self.dev
+
+        def randn(shape, scale):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        seen = set()
+        for site, shape, _ in k7_sites(cfg):
+            if shape in seen:
+                continue
+            seen.add(shape)
+            weight = site.endswith("_wt")
+            x = randn(shape, 0.02 if weight else 1.2)
+            g = randn(shape, 1e-3)
+            q_m = float(x.abs().max()) * 0.9 if weight else 1.1
+            d = q_m / 7 if weight else 0.07
+            tag = f"main[{'x'.join(map(str, shape))}]({site})"
+            self.k7(tag + "(t!=1)", x, g, d, q_m, 0.94 if weight else 1.06)
+            if site in ("qkv_act", "fc1_wt"):
+                self.k7(tag + "(t=1)", x, g, d, q_m, 1.0)
+        base = torch.tensor([0.0, 1e-8, 0.5, 1.0, 1.5, 2.0, 2.5, -0.5, -1.0,
+                             -2.0, -3.0, 0.99, 1.01, -1e-8, 0.0, 0.0],
+                            device=dev)
+        x = base.repeat(8, 8)  # [8, 128]: q_s = 0, q_m = 1, clip = +-2
+        for t in (1.0, 1.06):
+            self.k7(f"small[8x128](edges,t={t})", x, torch.cos(x * 3.0),
+                    0.05, 1.0, t)
+        x = randn((64, 96), 0.6)
+        for t in (1.0, 1.06):
+            self.k7(f"small[64x96](q_m<=q_s,t={t})", x, randn((64, 96), 1.0),
+                    0.02, 0.3, t, q_s=0.5)
+        for shape in ((7, 13), (3, 5, 7), (1,), (5, 1001)):
+            x = randn(shape, 1.2)
+            self.k7(f"small[{'x'.join(map(str, shape))}](ragged)", x,
+                    randn(shape, 1.0), 0.07, 1.1, 1.06)
+        x = randn((64, 96), 1.2)
+        self.k7("small[64x96](g non-contiguous)", x,
+                randn((96, 64), 1.0).t(), 0.07, 1.1, 1.06)
+        buf = randn((1 + 40 * 100,), 1.2)
+        self.k7("small[40x100](x unaligned)", buf[1:].reshape(40, 100),
+                randn((40, 100), 1.0), 0.07, 1.1, 0.97)
+
     def run_all(self, cfg):
         t0 = time.time()
         seed = 0
@@ -555,6 +672,7 @@ class Parity:
                     fmt, False, 8, torch.float32)
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
+        self.run_quant_bwd(cfg)
         sync()
         n_ok = sum(r["ok"] for r in self.rows)
         n_exact = sum(r["bit_exact"] for r in self.rows)
@@ -567,6 +685,21 @@ class Parity:
                     f"share {r['share_differ']:.2e}")
 
 
+def k7_sites(cfg):
+    """(site, shape, launches per training step) of every nonlinear
+    quantizer of the ViT training step at BATCH: K7 runs once for each
+    weight quantizer and once for each activation quantizer."""
+    b, p, d, n_real, _, kp, hid, ncls, _ = shapes(cfg)
+    ps, rows, depth = cfg.patch_size, b * n_real, cfg.depth
+    return [("patch_act", (b * p, kp), 1),
+            ("patch_wt", (ps, ps, cfg.in_channels, d), 1),
+            ("qkv_act", (rows, d), depth), ("qkv_wt", (d, 3 * d), depth),
+            ("proj_act", (rows, d), depth), ("proj_wt", (d, d), depth),
+            ("fc1_act", (rows, d), depth), ("fc1_wt", (d, hid), depth),
+            ("fc2_act", (rows, hid), depth), ("fc2_wt", (hid, d), depth),
+            ("head_act", (b, d), 1), ("head_wt", (d, ncls), 1)]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path, one batch-32 forward
 # ---------------------------------------------------------------------------
@@ -577,7 +710,8 @@ def expected_launches(depth, route="block"):
     once. ``chain`` (batch 1-3): K1 also for each block's qkv, K6 in place
     of K3. ``latency``: K1 twice, K4 and K5 once."""
     none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
-            "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0}
+            "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
+            "quant_bwd": 0}
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
     if route == "chain":
@@ -1170,6 +1304,612 @@ def timing_phase(dev, record, fwd, peaks):
             "bound_us_per_launch": {s["site"]: s["bound_us"] for s in ss},
         })
     record["kernels"] = kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 6: QAT + GETA training, full width
+# ---------------------------------------------------------------------------
+
+
+class StepProbe:
+    """The optimizer as the training loop sees it: per step, the K7
+    launches of the step's backward (read when the loop clips the
+    gradients), GETA.step's host time (until it returns) and its time to
+    the end of its device work, and the schedule's state after the step."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.rows = []
+        self._seen = 0
+        self._gc_ms = 0.0
+        self._gc_t0 = 0.0
+
+    def gc_callback(self, phase, info):
+        """Python's garbage collections, timed (a share of GETA.step's
+        host time)."""
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            self._gc_ms += (time.perf_counter() - self._gc_t0) * 1e3
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def _active(self):
+        return any(st["active_redundant"] for st in self.opt.state.values())
+
+    def clip_grads(self, grads):
+        from quantized_vit_tpu_torch.ops import _build
+
+        n = _build.LAUNCHES["quant_bwd"]
+        self.rows.append({"k7_launches": n - self._seen})
+        self._seen = n
+        return self.opt.clip_grads(grads)
+
+    def step(self, params, grads):
+        active = self._active()
+        self._gc_ms = 0.0
+        t0 = time.perf_counter()
+        out = self.opt.step(params, grads)
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        o = self.opt
+        self.rows[-1].update(
+            step=o.num_steps, geta_host_ms=(t1 - t0) * 1e3,
+            geta_ms=(t2 - t0) * 1e3, gc_ms=self._gc_ms,
+            max_bit_wt=o.max_bit_wt,
+            pruning_period=o.curr_pruning_period,
+            prune_mode=active or self._active(),
+            n_pruned=len(o.pruned_group_idxes),
+            bits_frozen=bool(o.bit_layers))
+        return out
+
+
+def phase_of(n):
+    g = GETA_KW
+    if n <= g["start_projection_step"]:
+        return "warmup"
+    if n > g["start_pruning_step"] + g["pruning_steps"]:
+        return "fix"
+    return "range"
+
+
+def train_phase(dev, record, peaks):
+    """ViT-B/16 QAT (fused_vjp: K7 for every nonlinear quantizer's
+    backward) with GETA at batch BATCH, driven by TrainLoop through
+    warmup, range projection, two pruning periods and fix; then evaluate,
+    a checkpoint round trip, the plain chain against K7 on one step, and
+    the timings."""
+    import dataclasses
+
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.models import (QuantConfig,
+                                                VisionTransformer, apply,
+                                                flatten_tree,
+                                                init_quant_params_tree,
+                                                tree_map)
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.opt import (GETA, load_checkpoint,
+                                             save_checkpoint)
+    from quantized_vit_tpu_torch.utils import (ArrayDataset, DataLoader,
+                                               TrainLoop, evaluate)
+
+    t_phase = time.time()
+    base = main_cfg()
+    cfg = dataclasses.replace(
+        base, quant=QuantConfig(enabled=True, fused_vjp=True))
+    model = VisionTransformer(cfg, seed=0, device=dev)
+    # the quantizer scalars at 32 bits, as cli/train.py initialises them
+    params = init_quant_params_tree(
+        tree_map(lambda p: p.detach().clone(), model.param_tree()),
+        init_bits=32.0)
+    rng = np.random.default_rng(0)
+    hw = (cfg.img_size, cfg.img_size, cfg.in_channels)
+    images = rng.standard_normal((TRAIN_STEPS * BATCH, *hw),
+                                 dtype=np.float32)
+    labels = rng.integers(0, cfg.num_classes, TRAIN_STEPS * BATCH)
+    held_x = rng.standard_normal((2 * BATCH - 3, *hw), dtype=np.float32)
+    held_y = rng.integers(0, cfg.num_classes, 2 * BATCH - 3)
+
+    oto = OTO(model, params)
+    oto.mark_unprunable_by_param_names(["patch_embed", "pos_embed",
+                                        "cls_token", "head"])
+    opt = oto.geta(**GETA_KW)
+    probe = StepProbe(opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def train_apply(p, x, g):
+        return apply(model, p, x, deterministic=False, generator=g)
+
+    loop = TrainLoop(apply_fn=train_apply, optimizer=probe,
+                     num_classes=cfg.num_classes, device=dev)
+    loader = DataLoader(ArrayDataset(images, labels), BATCH, shuffle=True,
+                        seed=0)
+    gc.callbacks.append(probe.gc_callback)
+    _build.reset_launches()
+    try:
+        # under a CUDA trace: K7's device time over the launches counted
+        (params, tm), kern = traced(
+            lambda: loop.train_one_epoch(params, loader, 0, gen))
+    finally:
+        gc.callbacks.remove(probe.gc_callback)
+    launches = dict(_build.LAUNCHES)
+    steps = tm["steps"]
+    ev = evaluate(lambda p, x: apply(model, p, x), params,
+                  DataLoader(ArrayDataset(held_x, held_y), BATCH,
+                             pad_last=True), device=dev)
+    metrics = opt.compute_metrics(params)
+    bits_now = opt.bitwidth_dict(params)
+    out = {"steps": steps, "losses": tm["step_losses"],
+           "seconds": tm["seconds"], "per_step": probe.rows,
+           "phases": [phase_of(r["step"]) for r in probe.rows],
+           "launches": launches, "eval": ev,
+           "group_sparsity": metrics["group_sparsity"],
+           "num_zero_groups": metrics["num_zero_groups"],
+           "target_redundant_groups": opt.target_num_redundant_groups,
+           "bit_layers_frozen": opt.bit_layers == bits_now,
+           "bit_layers": opt.bit_layers, "k7_trace": k7_in_trace(kern)}
+    del kern
+    record["train"] = out
+    log(f"[train] {steps} steps, losses {[round(v, 4) for v in out['losses']]}"
+        f", {tm['seconds']:.1f} s; phases {out['phases']}")
+    for r in probe.rows:
+        log(f"  step {r['step']:2d} K7 {r['k7_launches']:3d} GETA host "
+            f"{r['geta_host_ms']:.1f} ms (gc {r['gc_ms']:.1f}) total "
+            f"{r['geta_ms']:.1f} ms "
+            f"max_bit {r['max_bit_wt']} period {r['pruning_period']} prune "
+            f"{r['prune_mode']} pruned {r['n_pruned']}")
+    log(f"[train] K7 in the run's trace: {out['k7_trace']}")
+    log(f"[train] sparsity {metrics['group_sparsity']:.4f} "
+        f"({metrics['num_zero_groups']} of {opt.total_num_groups} groups, "
+        f"target {opt.target_num_redundant_groups}); eval {ev}")
+    per_step = sum(n for _, _, n in k7_sites(cfg))
+    if steps != TRAIN_STEPS or not all(np.isfinite(out["losses"])):
+        raise Failed(f"training: {steps} steps, losses {out['losses']}")
+    if not all(np.isfinite([ev["loss"], ev["top1"], ev["top5"]])):
+        raise Failed(f"evaluate: {ev}")
+    if dev.type == "cuda" and (
+            any(r["k7_launches"] != per_step for r in probe.rows)
+            or launches["quant_bwd"] != per_step * steps):
+        raise Failed(f"K7 launches per step "
+                     f"{[r['k7_launches'] for r in probe.rows]} != "
+                     f"{per_step}")
+    if metrics["num_zero_groups"] != opt.target_num_redundant_groups:
+        raise Failed(f"group sparsity: {metrics['num_zero_groups']} zero "
+                     f"groups, target {opt.target_num_redundant_groups}")
+    ramps = [r["max_bit_wt"] for r in probe.rows]
+    if (set(out["phases"]) != {"warmup", "range", "fix"}
+            or min(ramps) >= GETA_KW["max_bit_wt"]
+            or probe.rows[-1]["pruning_period"] < 2
+            or sum(r["prune_mode"] for r in probe.rows) < 2
+            or not opt.bit_layers or not out["bit_layers_frozen"]):
+        raise Failed(f"schedule not walked: {probe.rows}")
+
+    # checkpoint round trip
+    path = os.path.join(TRAIN_CKPT, f"ckpt_{opt.num_steps}")
+    save_checkpoint(path, params, opt.state_dict(), {"steps": steps})
+    params2, state2, extra2 = load_checkpoint(path, device=dev)
+    opt2 = GETA(oto.node_groups, params2, opt.cfg)
+    opt2.load_state_dict(state2)
+    flat, flat2 = flatten_tree(params), flatten_tree(params2)
+    m1, m12 = flatten_tree(opt.m1), flatten_tree(opt2.m1)
+    ckpt_ok = (set(flat) == set(flat2)
+               and all(torch.equal(flat[k], flat2[k]) for k in flat)
+               and all(torch.equal(m1[k], m12[k]) for k in m1)
+               and opt2.num_steps == opt.num_steps
+               and opt2.bit_layers == opt.bit_layers
+               and opt2.pruned_group_idxes == opt.pruned_group_idxes
+               and extra2 == {"steps": steps})
+    out["checkpoint_roundtrip"] = ckpt_ok
+    log(f"[train] checkpoint round trip {ckpt_ok}")
+    if not ckpt_ok:
+        raise Failed("checkpoint round trip")
+    del params2, opt2, state2, flat2, m12
+
+    # the plain chain against K7 on one step: same params, batch and card
+    x0 = torch.from_numpy(images[:BATCH]).to(dev)
+    y0 = torch.from_numpy(labels[:BATCH]).to(dev)
+    model_plain = VisionTransformer(dataclasses.replace(
+        base, quant=QuantConfig(enabled=True, fused_vjp=False)), device=dev)
+    loop_plain = TrainLoop(
+        apply_fn=lambda p, x, g: apply(model_plain, p, x,
+                                       deterministic=False, generator=g),
+        optimizer=opt, num_classes=cfg.num_classes, device=dev)
+    out["plain_vs_k7"], sites = compare_plain_step(loop, loop_plain, params,
+                                                   x0, y0)
+    if not out["plain_vs_k7"]["ok"]:
+        raise Failed(f"plain chain vs K7 step: {out['plain_vs_k7']}")
+
+    train_timing(dev, record, peaks, cfg, loop, loop_plain, opt, params,
+                 x0, y0, steps, sites)
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    log(f"[train] phase {out['phase_s']} s")
+
+
+def compare_plain_step(loop, loop_plain, params, x, y):
+    """One step's loss and gradients with K7 and with the plain chain:
+    the losses equal, every gradient but the quantizer scalars'
+    bit-identical, each d/q_m/t gradient within 1e-5 of the L1 mass of its
+    summands (recorded from the plain chain's terms). Returns the result
+    and the step's quantizer sites: the inputs of each backward, (path,
+    (x, g, d, q_m, t), keywords), for the timings."""
+    from quantized_vit_tpu_torch.models import flatten_tree
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.ops import quant_vjp
+
+    ptr_path = {v.data_ptr(): k for k, v in flatten_tree(params).items()
+                if k.rsplit("/", 1)[-1].startswith("d_quant")}
+    masses = {}
+    sites = []
+    plain = quant_vjp.lsfq_nonlinear_bwd_plain
+
+    def recording(x_, g_, d_, q_m_, t_, **kw):
+        terms = quant_vjp.nonlinear_bwd_terms(x_, g_, d_, q_m_, t_, **kw)
+        path = ptr_path[d_.data_ptr()]
+        masses[path] = [float(v.abs().sum(dtype=torch.float64))
+                        for v in terms[1:]]
+        sites.append((path, (x_, g_, d_, q_m_, t_), kw))
+        return plain(x_, g_, d_, q_m_, t_, **kw)
+
+    before = _build.LAUNCHES["quant_bwd"]
+    loss_f, _, grads_f = loop.loss_and_grads(params, x, y)
+    sync()
+    k7_launches = _build.LAUNCHES["quant_bwd"] - before
+    quant_vjp.lsfq_nonlinear_bwd_plain = recording
+    try:
+        loss_p, _, grads_p = loop_plain.loss_and_grads(params, x, y)
+        sync()
+    finally:
+        quant_vjp.lsfq_nonlinear_bwd_plain = plain
+    gf, gp = flatten_tree(grads_f), flatten_tree(grads_p)
+    exact = scalar_exact = 0
+    differ, worst = [], 0.0
+    for k in gf:
+        layer, _, leaf = k.rpartition("/")
+        if leaf.startswith(("d_quant", "q_m", "t_quant")):
+            suffix = leaf.rsplit("_", 1)[-1]
+            which = ("d_quant", "q_m", "t_quant").index(
+                leaf[:-len(suffix) - 1])
+            mass = masses[f"{layer}/d_quant_{suffix}"][which]
+            err = float((gf[k] - gp[k]).abs().max())
+            scalar_exact += err == 0.0
+            worst = max(worst, err / mass if mass else err)
+            if err > 1e-5 * mass:
+                differ.append(k)
+        elif torch.equal(gf[k], gp[k]):
+            exact += 1
+        else:
+            differ.append(k)
+    n_scalar = sum(1 for k in gf if k.rsplit("/", 1)[-1].startswith(
+        ("d_quant", "q_m", "t_quant")))
+    res = {"loss_equal": bool(torch.equal(loss_f, loss_p)),
+           "loss": float(loss_f), "grads_bit_identical": exact,
+           "grads_other": len(gf) - n_scalar,
+           "quant_scalar_grads": n_scalar,
+           "quant_scalar_grads_exact": scalar_exact,
+           "quant_scalar_max_err_over_l1": worst,
+           "k7_launches": k7_launches, "failing": differ[:10]}
+    res["ok"] = (res["loss_equal"] and not differ
+                 and len(masses) == n_scalar // 3)
+    log(f"[train] plain chain vs K7 step: {res}")
+    return res, sites
+
+
+def time_k7_sites(record, peaks, sites):
+    """K7 and its plain version on the inputs of every quantizer site of
+    one training step (``compare_plain_step``'s capture), grouped by
+    shape: per launch, the median over the group's sites of CUDA events
+    around one call, and the kernels' device time from one torch.profiler
+    trace of the whole group; with the bound; and each summed over the
+    step's launches."""
+    from quantized_vit_tpu_torch.ops.quant_vjp import (
+        lsfq_nonlinear_bwd_fused, lsfq_nonlinear_bwd_plain)
+
+    bw = peaks[2]
+    f32_peak = next((v for k, v in F32_PEAKS.items()
+                     if k in record["device"]), F32_PEAKS["SXM"])
+    groups = {}
+    for site in sites:
+        groups.setdefault(tuple(site[1][0].shape), []).append(site)
+    by_shape = {}
+    for shape, ss in groups.items():
+        n = int(np.prod(shape))
+        # 12 bytes per element (x, g read; grad_x written); 25 f32
+        # operations per element (the TPU kernel's cost estimate)
+        t_mem, t_ops = 12 * n / bw, 25 * n / f32_peak
+
+        def each(fn):
+            return lambda: [fn(*a, **kw) for _, a, kw in ss]
+
+        k7 = each(lsfq_nonlinear_bwd_fused)
+        pl = each(lsfq_nonlinear_bwd_plain)
+        dev_k7 = kernel_device_us(k7, reps=5)
+        dev_pl = kernel_device_us(pl, reps=2)
+        by_shape[shape] = {
+            "sites": [p.rsplit("/", 1)[0] + "/" + p.rsplit("_", 1)[-1]
+                      for p, _, _ in ss],
+            "us": statistics.median(
+                cuda_ms(lambda: lsfq_nonlinear_bwd_fused(*a, **kw)) * 1e3
+                for _, a, kw in ss),
+            # the kernels' own time on the card, without the host work
+            # between launches that the events above enclose
+            "device_us": None if dev_k7 is None else dev_k7 / len(ss),
+            "plain_us": statistics.median(
+                cuda_ms(lambda: lsfq_nonlinear_bwd_plain(*a, **kw),
+                        iters=5, warmup=1) * 1e3 for _, a, kw in ss),
+            "plain_device_us": None if dev_pl is None else dev_pl / len(ss),
+            "bound_us": max(t_mem, t_ops) * 1e6,
+            "bound_by": "bytes" if t_mem >= t_ops else "operations"}
+    per_step = {}  # ms over the step's launches; None off the card
+    for k in ("us", "device_us", "plain_us", "plain_device_us", "bound_us"):
+        vals = [v[k] and v[k] * len(v["sites"]) for v in by_shape.values()]
+        per_step[k] = None if None in vals else sum(vals) / 1e3
+    for shape, v in by_shape.items():
+        log(f"[time] quant_bwd {'x'.join(map(str, shape)):16s} "
+            f"{v['us']:8.1f} us (device {v['device_us']})  plain "
+            f"{v['plain_us']:8.1f} (device {v['plain_device_us']})  bound "
+            f"{v['bound_us']:6.1f} ({v['bound_by']})  {len(v['sites'])} "
+            f"sites")
+    log(f"[time] quant_bwd on one step's {len(sites)} sites (ms): {per_step}")
+    return by_shape, per_step
+
+
+def train_timing(dev, record, peaks, cfg, loop, loop_plain, opt, params, x,
+                 y, steps, sites):
+    """K7 per launch at each quantizer site of a training step, on that
+    step's inputs, against its bound and its plain version; the whole
+    training step with K7 and with the plain chain (in turns: plain, K7,
+    K7, plain); a plain PyTorch ViT-B/16 training step (f32 and bf16
+    autocast, torch.optim.Adam) as the yardstick."""
+    by_shape, per_step = time_k7_sites(record, peaks, sites)
+    sites.clear()  # the captured activations and cotangents
+
+    def step_times(lp):
+        """ms of forward + backward, clip_grads, GETA.step (host share
+        and to the end of its device work), one step."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if dev.type == "cuda" else None
+        sync()
+        h0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        _, _, grads = lp.loss_and_grads(params, x, y)
+        if ev:
+            ev[1].record()
+        grads = opt.clip_grads(grads)
+        sync()
+        h1 = time.perf_counter()
+        opt.step(params, grads)  # a fix-phase step; the result is dropped
+        h2 = time.perf_counter()
+        if ev:
+            ev[2].record()
+        sync()
+        h3 = time.perf_counter()
+        fb = ev[0].elapsed_time(ev[1]) if ev else (h1 - h0) * 1e3
+        return {"fwd_bwd_ms": fb, "to_geta_ms": (h1 - h0) * 1e3,
+                "geta_host_ms": (h2 - h1) * 1e3,
+                "geta_ms": (h3 - h1) * 1e3, "step_ms": (h3 - h0) * 1e3}
+
+    reps = 3 if dev.type == "cuda" else 1
+    runs = {"plain": [], "k7": []}
+    step_times(loop)  # warm-up
+    step_times(loop_plain)
+    for which in ("plain", "k7", "k7", "plain"):
+        lp = loop if which == "k7" else loop_plain
+        runs[which] += [step_times(lp) for _ in range(reps)]
+    step = {w: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+            for w, rs in runs.items()}
+    prof = {w: profile_step(lambda: step_times(lp))
+            for w, lp in (("k7", loop), ("plain", loop_plain))}
+    for w, pr in prof.items():
+        if pr is not None:  # against the step without the profiler
+            pr["idle_share_of_step"] = max(
+                0.0, 1.0 - pr["kernel_ms"] / step[w]["step_ms"])
+    yard = {"f32_ms": cuda_ms(torch_vit_train_step(cfg, x, y, False),
+                              iters=5, warmup=2),
+            "bf16_autocast_ms": cuda_ms(torch_vit_train_step(cfg, x, y, True),
+                                        iters=5, warmup=2)}
+    record["train_timing"] = {"k7_by_shape": {
+        "x".join(map(str, s)): v for s, v in by_shape.items()},
+        "k7_per_step_ms": per_step, "step": step, "runs": runs,
+        "step_profile": prof,
+        "torch_vit_train_step": yard, "batch": BATCH}
+    log(f"[time] train step b{BATCH}: K7 {step['k7']} ; plain chain "
+        f"{step['plain']} ; plain PyTorch ViT step f32 "
+        f"{yard['f32_ms']:.1f} ms, bf16 autocast "
+        f"{yard['bf16_autocast_ms']:.1f} ms")
+    for w, pr in prof.items():
+        if pr is not None:
+            log(f"[time] {w} step profile: wall {pr['wall_ms']:.1f} ms, "
+                f"kernels {pr['kernel_ms']:.1f} ms ({pr['kernels']} "
+                f"launches), idle {pr['idle_share']:.3f} (of the "
+                f"unprofiled step {pr['idle_share_of_step']:.3f}); top "
+                f"{[(n[:40], round(ms, 2), c) for n, ms, c in pr['top']]}")
+
+    errs = [r for r in record["parity"]
+            if r["kernel"] == "quant_bwd" and "small" not in r["case"]]
+    train = record["train"]
+    trace = train["k7_trace"]
+    per_run = sorted({r["k7_launches"] for r in train["per_step"]})
+    plain_step = (per_step["plain_device_us"] if per_step["plain_device_us"]
+                  is not None else per_step["plain_us"])
+    by = lambda key: {"x".join(map(str, s)): v[key]  # noqa: E731
+                      for s, v in by_shape.items()}
+    record["kernels"].append({
+        "name": "quant_bwd", "route": "cuda",
+        "source": "quantized_vit_tpu_torch/csrc/quant_bwd.cu",
+        "replaces": "quantized_vit_tpu/ops/quant_vjp.py:172",
+        # counted over the training run (TRAIN_STEPS steps)
+        "launches": train["launches"]["quant_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in errs),
+        "share_differ": max(r["share_differ"] for r in errs),
+        "bit_exact": all(r["bit_exact"] for r in errs),
+        # K7's device time over those launches, from the run's CUDA trace
+        # (off the card: one step's sites timed with events, times steps)
+        "ms": trace["device_ms"] if trace else per_step["us"] * steps,
+        "ms_from": ("trace of the training run" if trace
+                    else "one step's sites x steps"),
+        # the run launched no plain chain: the plain version's device time
+        # on one training step's site inputs, times the run's steps
+        "plain_ms": plain_step * steps,
+        "plain_ms_from": "one step's sites x steps",
+        # every step quantizes the same sites (the launch check holds it)
+        "bound_ms": per_step["bound_us"] * steps, "bound_by": "bytes",
+        "library_ms": None,
+        "launches_per_step": per_run[0] if len(per_run) == 1 else per_run,
+        "ms_per_step": {
+            "trace": trace["device_ms"] / steps if trace else None,
+            "sites_device": per_step["device_us"],
+            "sites_events": per_step["us"],
+            "profiled_step": (prof["k7"] or {}).get("quant_bwd_ms")},
+        "device_us_per_launch": by("device_us"),
+        "us_per_launch": by("us"), "plain_us_per_launch": by("plain_us"),
+        "bound_us_per_launch": by("bound_us"),
+    })
+
+
+def _kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def traced(fn):
+    """``fn()`` under torch.profiler's CUDA trace: (its result, the
+    trace's kernel events); no trace (None) off the card."""
+    if DEV != "cuda":
+        return fn(), None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    return out, _kernel_events(prof)
+
+
+def k7_in_trace(kern):
+    """K7's launches (its main kernel's count) and device ms (both of its
+    kernels) in a trace's kernel events; None without them."""
+    k7 = [e for e in kern or () if "quant_bwd" in e.name]
+    if not k7:
+        return None
+    return {"launches": sum("quant_bwd_kernel" in e.name for e in k7),
+            "device_ms": sum(e.device_time_total for e in k7) / 1e3,
+            "kernels_in_trace": len(kern)}
+
+
+def kernel_device_us(fn, reps: int = 20):
+    """The summed device time of every kernel ``fn`` launches, per call,
+    from torch.profiler's CUDA trace; None off the card or when the trace
+    holds no device time."""
+    if DEV != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(3):  # a trace now and then comes back empty: retry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        tot = sum(e.device_time_total for e in _kernel_events(prof))
+        if tot > 0:
+            return tot / reps
+    return None
+
+
+def profile_step(fn):
+    """One call of ``fn`` (a whole training step) under torch.profiler:
+    wall ms, the summed time of its kernels, their count, the card's idle
+    share of the wall time, K7's device ms and the ten kernels that took
+    the most time; None off the card or when the trace holds no device
+    time."""
+    if DEV != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = _kernel_events(prof)
+    if not kern:
+        return None
+    by_name = {}
+    for e in kern:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    k7 = k7_in_trace(kern)
+    return {"wall_ms": wall, "kernel_ms": busy, "kernels": len(kern),
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "quant_bwd_ms": k7["device_ms"] if k7 else 0.0,
+            "top": [(n, ms, c) for n, (ms, c) in top]}
+
+
+def torch_vit_train_step(cfg, x, y, bf16: bool):
+    """One training step of a plain unquantized PyTorch ViT of the same
+    architecture (nn.Linear / LayerNorm / scaled_dot_product_attention,
+    torch.optim.Adam), f32 or under bf16 autocast: a yardstick, never
+    called by the port."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    d, heads = cfg.embed_dim, cfg.num_heads
+    hid = int(d * cfg.mlp_ratio)
+    torch.manual_seed(1)
+
+    class Block(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.n1, self.n2 = nn.LayerNorm(d, 1e-6), nn.LayerNorm(d, 1e-6)
+            self.qkv, self.proj = nn.Linear(d, 3 * d), nn.Linear(d, d)
+            self.fc1, self.fc2 = nn.Linear(d, hid), nn.Linear(hid, d)
+
+        def forward(self, t):
+            b, n, _ = t.shape
+            qkv = self.qkv(self.n1(t)).reshape(
+                b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+            t = t + self.proj(o.transpose(1, 2).reshape(b, n, d))
+            return t + self.fc2(F.gelu(self.fc1(self.n2(t))))
+
+    class ViT(nn.Module):
+        def __init__(self):
+            super().__init__()
+            p = cfg.patch_size
+            self.pe = nn.Conv2d(cfg.in_channels, d, p, p)
+            self.cls = nn.Parameter(torch.zeros(1, 1, d))
+            self.pos = nn.Parameter(torch.randn(1, cfg.num_tokens, d) * .02)
+            self.blocks = nn.ModuleList(Block() for _ in range(cfg.depth))
+            self.norm = nn.LayerNorm(d, 1e-6)
+            self.head = nn.Linear(d, cfg.num_classes)
+
+        def forward(self, img):
+            t = self.pe(img.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+            t = torch.cat([self.cls.expand(t.shape[0], 1, d), t], 1)
+            t = t + self.pos
+            for blk in self.blocks:
+                t = blk(t)
+            return self.head(self.norm(t)[:, 0])
+
+    net = ViT().to(x.device)
+    adam = torch.optim.Adam(net.parameters(), lr=1e-4)
+    dt = torch.bfloat16 if bf16 else torch.float32
+
+    def step():
+        adam.zero_grad(set_to_none=True)
+        with torch.autocast(x.device.type, dtype=dt, enabled=bf16):
+            loss = F.cross_entropy(net(x), y.long())
+        loss.backward()
+        adam.step()
+
+    return step
 
 
 def bf16_vit_forward(cfg, x):

@@ -33,7 +33,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_quant_matmul.cu", "fused_mlp.cu", "attention_block.cu",
-           "patch_finalize.cu", "attention_qkv.cu", "block_stack.cu")
+           "patch_finalize.cu", "attention_qkv.cu", "block_stack.cu",
+           "quant_bwd.cu")
 # -fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as the plain PyTorch version's separate ops do (a contracted FMA
 # moves a value by an ulp and can flip a level at a rounding tie)
@@ -47,7 +48,8 @@ _flags = list(NVCC_FLAGS)
 # launches per kernel, raised by each wrapper where it launches its kernel
 LAUNCHES: Dict[str, int] = {"fused_quant_matmul": 0, "fused_mlp": 0,
                             "attention_block": 0, "patch_finalize": 0,
-                            "attention_qkv": 0, "block_stack": 0}
+                            "attention_qkv": 0, "block_stack": 0,
+                            "quant_bwd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

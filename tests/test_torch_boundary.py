@@ -35,8 +35,15 @@ assert chip_smoke.main() != 0  # no card here: exits non-zero
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "quantized_vit_tpu" or m.startswith("quantized_vit_tpu."))
-print(len(mods), "modules;", "loaded:", bad)
-sys.exit(1 if bad or len(mods) < 15 else 0)
+# the training slice's modules are among those scanned
+slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
+          "models.vit", "opt.groups", "graph.builders", "opt.importance",
+          "opt.geta", "graph.oto", "utils.losses", "utils.guards",
+          "utils.data", "utils.native_prep", "utils.training",
+          "opt.checkpoint"}
+missing = {m for m in slice_ if pkg.__name__ + "." + m not in mods}
+print(len(mods), "modules;", "loaded:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(mods) < 38 else 0)
 """
 
 
@@ -76,6 +83,30 @@ def test_default_device_raises_without_cuda(tmp_path):
         load_vit_int4_artifact(str(tmp_path))
     with pytest.raises(RuntimeError):
         load_artifact_tree(str(tmp_path))
+    # the training entry points default to the card as well
+    from quantized_vit_tpu_torch.models import (QuantConfig, QuantConv,
+                                                QuantDense,
+                                                VisionTransformer)
+    from quantized_vit_tpu_torch.models.vit import LayerNorm
+    from quantized_vit_tpu_torch.opt import load_checkpoint, save_checkpoint
+    from quantized_vit_tpu_torch.utils import TrainLoop, evaluate
+
+    with pytest.raises(RuntimeError):
+        VisionTransformer(cfg)
+    q = QuantConfig(enabled=True, fused_vjp=True)
+    with pytest.raises(RuntimeError):
+        QuantDense(4, 4, q)
+    with pytest.raises(RuntimeError):
+        QuantConv(3, 4, (2, 2), config=q)
+    with pytest.raises(RuntimeError):
+        LayerNorm(4)
+    save_checkpoint(str(tmp_path / "ckpt"), {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError):
+        load_checkpoint(str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError):
+        TrainLoop(apply_fn=None, optimizer=None, num_classes=10)
+    with pytest.raises(RuntimeError):
+        evaluate(None, {}, [(None, None, None)])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -185,3 +216,21 @@ def test_forward_names_the_kernel_limits_it_exceeds(name):
                          images_layout="patches")
     for want in wants:
         assert want in str(err.value)
+
+
+def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):
+    """K7's wrapper, and the fused quantizer's autograd backward that calls
+    it, on a non-CPU tensor raise instead of running the plain chain."""
+    from quantized_vit_tpu_torch.ops import quant_vjp as tq
+    from quantized_vit_tpu_torch.quant import lsfq_nonlinear_fused
+
+    monkeypatch.setattr(tq, "lsfq_nonlinear_bwd_plain", _never)
+    one = _meta(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.lsfq_nonlinear_bwd_fused(_meta(8, 1000), _meta(8, 1000), one,
+                                    one, one, clip_lo=-2.0, clip_hi=2.0)
+    x = _meta(768, 1000).requires_grad_()  # the head weight: no width gate
+    d, q_m, t = (_meta(1).requires_grad_() for _ in range(3))
+    y = lsfq_nonlinear_fused(x, d, q_m, t, -2.0, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        y.sum().backward()

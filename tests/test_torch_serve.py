@@ -82,7 +82,9 @@ def test_serve_cli_refuses_mesh(tmp_path):
 def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     """Every phase of chip_smoke.py at a tiny size on the CPU (the kernel
     wrappers take their plain versions there, so the comparisons are
-    trivially equal; what this checks is the script's control flow)."""
+    trivially equal; what this checks is the script's control flow), the
+    training phase included: 13 GETA steps through warmup, range
+    projection, two pruning periods and fix, to the target sparsity."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
@@ -90,11 +92,28 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "ITERS", 2)
     monkeypatch.setattr(chip_smoke, "CFG_KW", SMALL)
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
+    monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     record = {"device": "cpu"}
     chip_smoke.run(record)
     names = [k["name"] for k in record["kernels"]]
     assert names == ["fused_quant_matmul", "fused_mlp", "attention_block",
-                     "patch_finalize", "attention_qkv", "block_stack"]
+                     "patch_finalize", "attention_qkv", "block_stack",
+                     "quant_bwd"]
+    train = record["train"]
+    assert train["steps"] == chip_smoke.TRAIN_STEPS
+    assert set(train["phases"]) == {"warmup", "range", "fix"}
+    assert train["num_zero_groups"] == train["target_redundant_groups"] > 0
+    assert train["bit_layers_frozen"] and train["checkpoint_roundtrip"]
+    assert train["plain_vs_k7"]["ok"]
+    assert {"k7", "plain"} == set(record["train_timing"]["step"])
+    # K7 timed on the inputs of every quantizer site of one step
+    timed = sum(len(v["sites"]) for v in
+                record["train_timing"]["k7_by_shape"].values())
+    assert timed == sum(n for _, _, n in chip_smoke.k7_sites(
+        chip_smoke.main_cfg()))
+    k7 = record["kernels"][-1]
+    assert all(isinstance(k7[f], float) and k7[f] > 0
+               for f in ("ms", "plain_ms", "bound_ms"))
     assert all(r["ok"] for r in record["parity"])
     assert record["serve"]["answers_equal_direct"]
     small = record["serve"]["small_flushes"]
