@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the ViT-B/16 W4A4 serving
-paths and the ViT-B/16 QAT + GETA training path.
+paths, ViT-H/14 serving with int8-stored levels, and the ViT-B/16 QAT +
+GETA training path.
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -12,32 +13,38 @@ Phases, in order; any failure exits non-zero:
    ``nvcc`` per source, in parallel);
 2. hold each kernel (K1 ``fused_quant_matmul``, K2 ``fused_mlp``, K3
    ``attention_block``, K4 ``patch_finalize``, K5 ``block_stack``, K6
-   ``attention_qkv``) against its plain PyTorch version on the card, at
-   the main paths' ViT-B shapes and at small ragged shapes, for packed
-   int4 and int8 weights, the linear (t = 1) and pow (t != 1) quantizers,
-   both residual dtypes and ``int_attention`` on and off, under the parity
-   contract: int8 levels within 1 level at <= 0.5% of positions, the MLP
-   block's output within 1e-5, attention outputs (K3's branch, K6's float
-   output, K5's residual stream) within 0.1 everywhere and differing at
-   <= 1% of positions, the rest exact; each row says whether it is
-   bit-exact;
+   ``attention_qkv``, K8 ``fused_mlp_chunked``) against its plain PyTorch
+   version on the card, at the main paths' ViT-B shapes, at ViT-H/14's
+   (K8 at 272 and 544 rows, K3 and K6 at head_dim 80) and at small ragged
+   shapes, for packed int4 and int8 weights, the linear (t = 1) and pow
+   (t != 1) quantizers, both residual dtypes and ``int_attention`` on and
+   off, under the parity contract: int8 levels within 1 level at <= 0.5%
+   of positions, the MLP block's output (K2, K8) within 1e-5, attention
+   outputs (K3's branch, K6's float output, K5's residual stream) within
+   0.1 everywhere and differing at <= 1% of positions, the rest exact;
+   each row says whether it is bit-exact;
 3. the forwards (random artifact from seed 0, host-patchified input, bf16
    residual stream), each with the launch counters set to 0 just before
-   and read just after, logits against the plain path: batch 32 (K3 + K2
-   route) for both weight storages, the chain at batch 1, 2 and 3 (K1 +
-   K6 + K1 + K2), ``int_attention`` on both routes (batch 4 and 2), and
-   the batch-1 latency entry (one K5 launch);
+   and read just after, logits against the plain path: ViT-B/16 at batch
+   32 (K3 + K2 route) for both weight storages, the chain at batch 1, 2
+   and 3 (K1 + K6 + K1, then K2, or K8 at batch 3 where the JAX routing
+   streams int8 weights), ``int_attention`` on both routes (batch 4 and
+   2), and the batch-1 latency entry (one K5 launch); then ViT-H/14 at
+   full width and depth 32 (int8-stored levels) at batch 1 and 2 (K1 +
+   K6 + K1 + K8 per block) and 32 (K3 + K1 proj + the K1 fc1/fc2 chain);
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
    every answer equal to a direct forward of the same images;
 5. timings with CUDA events (warm-up, then the median of 20 runs, 200
-   under 1 ms): each kernel at its main-path shapes, its plain version,
+   under 1 ms): each kernel at its main-path shapes (ViT-B's, and
+   ViT-H/14's: K8 at batch 1 and 2, K1's embed, chain qkv and fc1/fc2
+   chain, K3 at batch 32, K6 at batch 1 and 2), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
    ``scaled_dot_product_attention`` on K6's shapes (yardsticks the port
    never calls), both routes' attention branch at batch 2 and 3, the
-   forwards, and a plain bf16 PyTorch ViT-B/16 forward of the same
-   architecture at batch 32, 1 and 2;
+   forwards, and a plain bf16 PyTorch ViT forward of the same
+   architecture (ViT-B/16 at batch 32, 1 and 2; ViT-H/14 at 1, 2, 32);
 6. training: ViT-B/16 at full width, batch 32, seeded synthetic NHWC
    images, ``QuantConfig(enabled=True, fused_vjp=True)`` at 32 bits, GETA
    with ``cli/train.py``'s defaults over a 13-step schedule (warmup,
@@ -84,6 +91,12 @@ SHORT_ITERS = 200  # timed runs of anything under 1 ms
 # the main path's configuration; a CPU rehearsal (tests) shrinks these
 DEV = "cuda"
 CFG_KW: dict = {}
+# the ViT-H/14 serving phase: the published widths (Dosovitskiy et al.
+# 2021, Table 1: D 1280, 16 heads, MLP 5120, patch 14 at 224 px) at full
+# depth, int8-stored levels; a rehearsal shrinks these too
+VIT_H_KW: dict = dict(patch_size=14, embed_dim=1280, depth=32, num_heads=16,
+                      num_classes=1000)
+VIT_H_BATCHES = (1, 2, 32)
 ART_DIR = os.path.join(ROOT, "build", "smoke_artifact")  # serve phase
 
 # H100 data-sheet peaks (dense): int8 TOP/s, bf16 FLOP/s, HBM bytes/s
@@ -190,6 +203,7 @@ def run(record):
         raise Failed("kernel parity: " + "; ".join(parity.failures[:8]))
 
     fwd = forward_phase(dev, record)
+    fwd["vit_h"] = vit_h_phase(dev, record)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
     del fwd
@@ -200,6 +214,20 @@ def main_cfg():
     from quantized_vit_tpu_torch.models import ViTConfig
 
     return ViTConfig(**CFG_KW)  # ViT-B/16 unless a rehearsal shrinks it
+
+
+def vit_h_cfg():
+    from quantized_vit_tpu_torch.models import ViTConfig
+
+    return ViTConfig(**VIT_H_KW)  # ViT-H/14 unless a rehearsal shrinks it
+
+
+def vit_h_shapes(cfg):
+    """(patches, D, real tokens, padded tokens, hidden, heads) of the
+    ViT-H/14 phase."""
+    n_pad = -(-cfg.num_tokens // 16) * 16
+    return (cfg.num_patches, cfg.embed_dim, cfg.num_tokens, n_pad,
+            int(cfg.embed_dim * cfg.mlp_ratio), cfg.num_heads)
 
 
 def shapes(cfg):
@@ -314,8 +342,12 @@ class Parity:
     # -- K2 ---------------------------------------------------------------
 
     def k2(self, case, m, k, hid, fmt, fmt2, pow_, seed,
-           stream=torch.bfloat16):
-        from quantized_vit_tpu_torch.ops import fused_mlp, fused_mlp_plain
+           stream=torch.bfloat16, kernel="fused_mlp", bias=True):
+        """K2 (or, with ``kernel="fused_mlp_chunked"``, K8 on int8
+        weights) launched on its own plan, against fused_mlp_plain."""
+        from quantized_vit_tpu_torch.ops import (fused_mlp_plain, plan_mlp,
+                                                 plan_mlp_chunked, run_mlp,
+                                                 run_mlp_chunked)
 
         rng = np.random.default_rng(seed)
         f32 = torch.float32
@@ -324,16 +356,27 @@ class Parity:
         w2 = self.weight(rng, hid, k, fmt2)
         s1, b1 = self.scal(1e-3), self.t(rng.standard_normal(hid) * 0.01, f32)
         s2, b2 = self.scal(1e-3), self.t(rng.standard_normal(k) * 0.01, f32)
+        if not bias:
+            b1 = b2 = None
         kw = dict(ln_scale=self.t(rng.standard_normal(k) * 0.1 + 1, f32),
                   ln_bias=self.t(rng.standard_normal(k) * 0.01, f32),
                   act_d=self.scal(0.05), act_t=self.scal(
                       1.08 if pow_ else 1.0), act_top=127, act_pow=pow_,
                   hid_d=self.scal(0.05), hid_t=self.scal(
                       0.93 if pow_ else 1.0), hid_top=127, hid_pow=pow_,
-                  fmt=fmt, fmt2=fmt2, out_dtype=stream)
-        got = fused_mlp(x, w1, s1, b1, w2, s2, b2, **kw)
-        want = fused_mlp_plain(x, w1, s1, b1, w2, s2, b2, **kw)
-        return self.check("fused_mlp", case, "mlp", got, want)
+                  fmt=fmt, fmt2=fmt2)
+        want = fused_mlp_plain(x, w1, s1, b1, w2, s2, b2, out_dtype=stream,
+                               **kw)
+        if self.dev.type != "cuda":  # CPU rehearsal: the plain version
+            got = fused_mlp_plain(x, w1, s1, b1, w2, s2, b2,
+                                  out_dtype=stream, **kw)
+        elif kernel == "fused_mlp":
+            got = run_mlp(plan_mlp(w1, s1, b1, w2, s2, b2, **kw), x,
+                          out_dtype=stream)
+        else:
+            got = run_mlp_chunked(plan_mlp_chunked(w1, s1, b1, w2, s2, b2,
+                                                   **kw), x, out_dtype=stream)
+        return self.check(kernel, case, "mlp", got, want)
 
     # -- K3 ---------------------------------------------------------------
 
@@ -611,6 +654,70 @@ class Parity:
         self.k7("small[40x100](x unaligned)", buf[1:].reshape(40, 100),
                 randn((40, 100), 1.0), 0.07, 1.1, 0.97)
 
+    def run_vit_h_kernels(self):
+        """K8 against its plain version at ViT-H/14's MLP shapes (batch 1
+        and 2: 272 and 544 rows, K 1280, H 5120), at ViT-B's batch-3 chain
+        shape (the JAX routing streams int8 weights there too) and at small
+        ragged ones (off the 16-byte paths, one row tile, many), for the
+        linear and pow quantizers, both residual dtypes, with and without
+        bias; K3 and K6 at head_dim 80 (ViT-H's 272 tokens and a ragged
+        40), int_attention on and off."""
+        vh = vit_h_cfg()
+        _, d, n_real, n_pad, hid, heads = vit_h_shapes(vh)
+        hd = d // heads
+        bf16, f32 = torch.bfloat16, torch.float32
+        k8 = dict(kernel="fused_mlp_chunked")
+        seed = 300
+        for b in (1, 2):
+            for pow_ in (False, True):
+                for stream in (bf16, f32):
+                    seed += 1
+                    tag = (f"{'pow' if pow_ else 'lin'},"
+                           f"{str(stream)[6:]}")
+                    self.k2(f"main[{b * n_pad}x{d}x{hid}]({tag})",
+                            b * n_pad, d, hid, "int8", "int8", pow_, seed,
+                            stream, **k8)
+            self.k2(f"main[{b * n_pad}x{d}x{hid}](lin,bf16,no bias)",
+                    b * n_pad, d, hid, "int8", "int8", False, seed + 50,
+                    bf16, bias=False, **k8)
+        _, _, bd, _, bn_pad, _, bhid, _, _ = shapes(main_cfg())
+        self.k2(f"vit_b_chain_b3[{3 * bn_pad}x{bd}x{bhid}](lin,bf16)",
+                3 * bn_pad, bd, bhid, "int8", "int8", False, 360, bf16, **k8)
+        for i, (m, k, h) in enumerate(((45, 96, 160), (96, 128, 512),
+                                       (50, 72, 40), (1, 64, 96))):
+            for pow_ in (False, True):
+                self.k2(f"small[{m}x{k}x{h}]({'pow' if pow_ else 'lin'})",
+                        m, k, h, "int8", "int8", pow_, 370 + 2 * i + pow_,
+                        f32 if pow_ else bf16, bias=not pow_, **k8)
+        for int_attn in (False, True):
+            tag = "int_attn" if int_attn else "f_attn"
+            self.k3(f"vit_h[2x{n_pad}x{d},h{heads}](int8,{tag})", 2, n_pad,
+                    d, heads, n_real, "int8", "int8", False, 380 + int_attn,
+                    int_attn=int_attn)
+            self.k3(f"small[3x40x{2 * hd},h2](int8,pow,{tag})", 3, 40,
+                    2 * hd, 2, 29, "int8", "int8", True, 382 + int_attn,
+                    int_attn=int_attn)
+            self.k3(f"small[3x40x{2 * hd},h2](f32,{tag})", 3, 40, 2 * hd, 2,
+                    29, "int4", "int4", False, 384 + int_attn, f32,
+                    int_attn=int_attn)
+        seed = 400
+        for b in (1, 2):
+            for dt in (bf16, f32):
+                for quant in (None, "lin", "pow"):
+                    for int_attn in (False, True):
+                        seed += 1
+                        self.k6(f"vit_h[{b}x{n_pad},h{heads}x{hd}]"
+                                f"({str(dt)[6:]},{quant or 'float'},"
+                                f"{'int' if int_attn else 'f'}_attn)", b,
+                                n_pad, heads, hd, n_real, dt, quant,
+                                int_attn, seed)
+        for quant in (None, "lin", "pow"):
+            for int_attn in (False, True):
+                seed += 1
+                self.k6(f"small[3x40,h2x{hd}]({quant or 'float'},"
+                        f"{'int' if int_attn else 'f'}_attn)", 3, 40, 2, hd,
+                        29, bf16, quant, int_attn, seed)
+
     def run_all(self, cfg):
         t0 = time.time()
         seed = 0
@@ -672,6 +779,7 @@ class Parity:
                     fmt, False, 8, torch.float32)
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
+        self.run_vit_h_kernels()
         self.run_quant_bwd(cfg)
         sync()
         n_ok = sum(r["ok"] for r in self.rows)
@@ -704,21 +812,26 @@ def k7_sites(cfg):
 # phase 3: the main path, one batch-32 forward
 # ---------------------------------------------------------------------------
 
-def expected_launches(depth, route="block"):
+def expected_launches(depth, route="block", mlp="fused_mlp"):
     """Launches of one forward. ``block`` (batch >= 4): K1 for the patch
-    embed, each block's proj and the head, K2 and K3 once per block, K4
-    once. ``chain`` (batch 1-3): K1 also for each block's qkv, K6 in place
-    of K3. ``latency``: K1 twice, K4 and K5 once."""
+    embed, each block's proj and the head, K3 once per block, K4 once.
+    ``chain`` (batch 1-3): K1 also for each block's qkv, K6 in place of
+    K3. The MLP once per block: ``fused_mlp`` (K2), ``fused_mlp_chunked``
+    (K8), or ``chain``, two K1 launches (fc1, fc2). ``latency``: K1 twice,
+    K4 and K5 once."""
     none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
             "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
-            "quant_bwd": 0}
+            "quant_bwd": 0, "fused_mlp_chunked": 0}
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
-    if route == "chain":
-        return dict(none, fused_quant_matmul=2 + 2 * depth,
-                    fused_mlp=depth, attention_qkv=depth)
-    return dict(none, fused_quant_matmul=2 + depth, fused_mlp=depth,
-                attention_block=depth)
+    out = dict(none, fused_quant_matmul=2 + depth * (2 if route == "chain"
+                                                     else 1))
+    out["attention_qkv" if route == "chain" else "attention_block"] = depth
+    if mlp == "chain":
+        out["fused_quant_matmul"] += 2 * depth
+    else:
+        out[mlp] = depth
+    return out
 
 
 # Logit tolerance vs the plain path: every kernel repeats its plain
@@ -727,6 +840,13 @@ def expected_launches(depth, route="block"):
 # logit by about scale*top*|w| ~ 1e-3*7*7 ~ 0.05 at most.
 LOGIT_TOL = 0.05
 CHAIN_BATCHES = (1, 2, 3)
+# the MLP kernel of the ViT-B chain forwards (int8-stored levels, bf16):
+# the JAX routing (fused.py:916-929) streams the weights in hidden chunks
+# at batch 3, whose 624 rows leave the resident TPU kernel a 128-row tile
+CHAIN_MLP = {1: "fused_mlp", 2: "fused_mlp", 3: "fused_mlp_chunked"}
+# ViT-H/14's MLP per batch (int8, bf16): K8 at 272 and 544 rows, the K1
+# chain above 576 (vit_int4.py:323-356)
+VIT_H_MLP = {1: "fused_mlp_chunked", 2: "fused_mlp_chunked"}
 
 
 def check_forward(record, dev, tag, fn, plain, want_launches, batch, cfg):
@@ -813,7 +933,7 @@ def forward_phase(dev, record):
                 lambda: vit_int4_forward(art, xb, cfg, plan=plan, **kw),
                 lambda: vit_int4_forward(art, xb, cfg, use_kernels=False,
                                          **kw),
-                expected_launches(cfg.depth, "chain"), b, cfg)
+                expected_launches(cfg.depth, "chain", CHAIN_MLP[b]), b, cfg)
             out["launches"][f"chain_b{b}"] = launches
         # int_attention (the variant bench.py times) on both routes
         for b, route in ((4, "block"), (2, "chain")):
@@ -840,6 +960,48 @@ def forward_phase(dev, record):
         expected_launches(cfg.depth, "latency"), 1, cfg)
     record["forward"][-1]["prepare_latency_host_ms"] = lat_ms
     out.update(lat=lat, meta=meta)
+    return out
+
+
+def vit_h_phase(dev, record):
+    """ViT-H/14 at full width and depth (int8-stored levels from seed 0,
+    host-patchified input, bf16 residual stream) through the forward at
+    batch 1, 2 and 32, each with the launch counters set to 0 just before
+    and read just after, logits against the plain path: batch 1 and 2 run
+    K1 qkv + K6 + K1 proj + K8 per block, batch 32 K3 + K1 proj + the
+    K1 fc1/fc2 chain."""
+    from quantized_vit_tpu_torch.serve import (prepare_kernels,
+                                               random_vit_int4_artifact,
+                                               vit_int4_forward)
+
+    cfg = vit_h_cfg()
+    t0 = time.perf_counter()
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
+                                   device=dev)
+    sync()
+    art_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
+    sync()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(5)
+    kp = cfg.patch_size**2 * cfg.in_channels
+    x = torch.from_numpy(rng.standard_normal(
+        (max(VIT_H_BATCHES), cfg.num_patches, kp)).astype(np.float32)).to(dev)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    out = {"cfg": cfg, "art": art, "plan": plan, "x": x, "launches": {}}
+    for b in VIT_H_BATCHES:
+        xb = x[:b]
+        route = "chain" if b < 4 else "block"
+        out["launches"][f"vith_b{b}"] = check_forward(
+            record, dev, "vit_h14,int8-stored",
+            lambda: vit_int4_forward(art, xb, cfg, plan=plan, **kw),
+            lambda: vit_int4_forward(art, xb, cfg, use_kernels=False, **kw),
+            expected_launches(cfg.depth, route, VIT_H_MLP.get(b, "chain")),
+            b, cfg)
+    record["vit_h"] = {"config": dict(VIT_H_KW), "artifact_s": art_s,
+                       "prepare_kernels_host_ms": plan_ms}
+    log(f"[vit_h] artifact {art_s:.1f} s, prepare_kernels {plan_ms:.1f} ms")
     return out
 
 
@@ -1082,7 +1244,7 @@ def timing_phase(dev, record, fwd, peaks):
     }
     plan = fwd["plan"]
     if plan is not None:
-        attn_p, mlp_p = plan.blocks[0]
+        attn_p, mlp_p = plan.blocks[0][0], plan.blocks[0][1].resident
         k6_p = plan.chain[0][1]
         kern = {
             "patch_embed": lambda: run_matmul(
@@ -1192,6 +1354,7 @@ def timing_phase(dev, record, fwd, peaks):
                cfg.depth * 2 * n_pad * w_blk, cfg.depth * attn_ops), [],
          None),
     ]
+    sites += vit_h_sites(fwd["vit_h"], kern, plain, bound)
     per_site = []
     for name, site, nl, (bms, by), gemms, lib in sites:
         ms = cuda_ms(kern[site])
@@ -1247,7 +1410,9 @@ def timing_phase(dev, record, fwd, peaks):
         "ratio_vs_bf16": ms_bf16 / ms_fwd,
         "kernel_ms_sum": sum(s["us"] * s["launches"] for s in per_site
                              if s["kernel"] not in ("attention_qkv",
-                                                    "block_stack")) / 1e3,
+                                                    "block_stack",
+                                                    "fused_mlp_chunked")
+                             ) / 1e3,
         **small}
     log(f"[time] forward b{b} bf16: {ms_fwd:.3f} ms/batch "
         f"({b / ms_fwd * 1e3:.1f} img/s); plain bf16 torch ViT-B/16 "
@@ -1255,6 +1420,18 @@ def timing_phase(dev, record, fwd, peaks):
         f"{ms_bf16 / ms_fwd:.3f}")
     log("[time] small batches (ms): " + ", ".join(
         f"{k[:-3]} {v:.3f}" for k, v in small.items()))
+    vh = fwd["vit_h"]
+    vh_t = {}
+    for bk in VIT_H_BATCHES:
+        vh_t[f"b{bk}_ms"] = cuda_ms(lambda: vit_int4_forward(
+            vh["art"], vh["x"][:bk], vh["cfg"], plan=vh["plan"], **kw))
+        vh_t[f"bf16_torch_b{bk}_ms"] = cuda_ms(bf16_vit_forward(
+            vh["cfg"], vh["x"][:bk]))
+        vh_t[f"ratio_vs_bf16_b{bk}"] = (vh_t[f"bf16_torch_b{bk}_ms"]
+                                        / vh_t[f"b{bk}_ms"])
+    record["vit_h"]["forward_timing"] = vh_t
+    log("[time] ViT-H/14 forwards (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in vh_t.items()))
 
     rel = {"fused_quant_matmul": (
                "quantized_vit_tpu_torch/csrc/fused_quant_matmul.cu",
@@ -1272,7 +1449,11 @@ def timing_phase(dev, record, fwd, peaks):
                "quantized_vit_tpu/ops/attention.py:859", "chain_b2"),
            "block_stack": (
                "quantized_vit_tpu_torch/csrc/block_stack.cu",
-               "quantized_vit_tpu/ops/block_stack.py:341", "latency")}
+               "quantized_vit_tpu/ops/block_stack.py:341", "latency"),
+           "fused_mlp_chunked": (
+               "quantized_vit_tpu_torch/csrc/fused_mlp_chunked.cu",
+               "quantized_vit_tpu/ops/fused.py:1065", "vith_b1")}
+    launches = dict(fwd["launches"], **fwd["vit_h"]["launches"])
     kernels = []
     for name, (src, rep, path) in rel.items():
         ss = [s for s in per_site if s["kernel"] == name]
@@ -1287,7 +1468,7 @@ def timing_phase(dev, record, fwd, peaks):
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             # counted on the forward that runs the kernel: the batch-32
             # forward, the chain forward at batch 2, the latency forward
-            "launches": fwd["launches"][path][name],
+            "launches": launches[path][name],
             "max_abs_err": max(r["max_abs_err"] for r in errs),
             "share_differ": max(r["share_differ"] for r in errs),
             "bit_exact": all(r["bit_exact"] for r in errs),
@@ -1304,6 +1485,138 @@ def timing_phase(dev, record, fwd, peaks):
             "bound_us_per_launch": {s["site"]: s["bound_us"] for s in ss},
         })
     record["kernels"] = kernels
+
+
+def vit_h_sites(vh, kern, plain, bound):
+    """The ViT-H/14 phase's timing sites, added to ``kern``/``plain``: K8
+    per launch at batch 1 (32 launches a forward) and 2; K1's patch embed
+    (K = 588), chain qkv and fc1/fc2 chain at batch 32; K3 at batch 32 and
+    K6 at batch 1 and 2 (head_dim 80). Only K8's batch-1 site counts
+    launches: the ViT-B forward's per-forward totals stay ViT-B's."""
+    from quantized_vit_tpu_torch.ops import (attention_heads_plain,
+                                             attention_qkv_plain,
+                                             fused_mlp_plain,
+                                             fused_quant_matmul_plain,
+                                             run_attention_heads,
+                                             run_attention_qkv, run_matmul,
+                                             run_mlp_chunked)
+    from quantized_vit_tpu_torch.serve.vit_int4 import (_attention_layer,
+                                                        _mlp_layer)
+
+    cfg, art, plan = vh["cfg"], vh["art"], vh["plan"]
+    p, d, n_real, n_pad, hid, heads = vit_h_shapes(cfg)
+    hd = d // heads
+    kp = cfg.patch_size**2 * cfg.in_channels
+    bb = max(VIT_H_BATCHES)
+    mb = bb * n_pad
+    bf16 = torch.bfloat16
+    blk = art["blocks"][0]
+    g = torch.Generator(device=DEV).manual_seed(3)
+    xs = torch.randn((mb, d), generator=g, device=DEV).to(bf16)
+    hlv = torch.randint(-7, 8, (mb, hid), dtype=torch.int8, device=DEV,
+                        generator=g)
+    qkvs = {b: (torch.randn((b, n_pad, 3 * d), generator=g, device=DEV)
+                * 0.7).to(bf16) for b in (1, 2)}
+    xpatch = vh["x"][:bb].reshape(bb * p, kp)
+    mlp_kw = dict(_mlp_layer(blk), out_dtype=bf16)
+    attn_kw = dict(_attention_layer(blk, hd, hd**-0.5), n_valid=n_real,
+                   out_dtype=bf16)
+    qkv_kw = dict(heads=heads, sm_scale=hd**-0.5, n_valid=n_real,
+                  out_d=blk["proj"].act["d"], out_t=blk["proj"].act["t"],
+                  out_top=blk["proj"].top, out_pow=blk["proj"].act_pow,
+                  out_dtype=bf16)
+    e = {k: blk[k] for k in ("qkv", "fc1", "fc2")}
+    pe = art["patch_embed"]
+
+    def q(le):
+        return dict(act_d=le.act["d"], act_t=le.act["t"], act_top=le.top,
+                    act_pow=le.act_pow)
+
+    def mlp_plain(m):
+        return lambda: fused_mlp_plain(
+            xs[:m], e["fc1"].w, e["fc1"].scale, e["fc1"].bias, e["fc2"].w,
+            e["fc2"].scale, e["fc2"].bias, **mlp_kw)
+
+    plain.update({
+        "vith_mlp_b1": mlp_plain(n_pad), "vith_mlp_b2": mlp_plain(2 * n_pad),
+        "vith_patch_embed_b32": lambda: fused_quant_matmul_plain(
+            xpatch, pe.w, pe.scale, pe.bias, fmt=pe.fmt, prologue="quant",
+            out_dtype=torch.float32, **q(pe)),
+        "vith_chain_qkv_b2": lambda: fused_quant_matmul_plain(
+            xs[:2 * n_pad], e["qkv"].w, e["qkv"].scale, e["qkv"].bias,
+            fmt="int8", prologue="ln_quant", ln_scale=blk["norm1"]["scale"],
+            ln_bias=blk["norm1"]["bias"], out_dtype=bf16, **q(e["qkv"])),
+        "vith_fc1_b32": lambda: fused_quant_matmul_plain(
+            xs, e["fc1"].w, e["fc1"].scale, e["fc1"].bias, fmt="int8",
+            prologue="ln_quant", ln_scale=blk["norm2"]["scale"],
+            ln_bias=blk["norm2"]["bias"], epilogue="gelu_quant",
+            out_d=e["fc2"].act["d"], out_t=e["fc2"].act["t"],
+            out_top=e["fc2"].top, out_pow=e["fc2"].act_pow, **q(e["fc1"])),
+        "vith_fc2_b32": lambda: fused_quant_matmul_plain(
+            hlv, e["fc2"].w, e["fc2"].scale, e["fc2"].bias, fmt="int8",
+            prologue=None, epilogue="residual", residual=xs, out_dtype=bf16),
+        "vith_heads_b32": lambda: attention_heads_plain(
+            xs.reshape(bb, n_pad, d), e["qkv"].w, e["qkv"].scale,
+            e["qkv"].bias, **attn_kw),
+        "vith_qkv_attn_b1": lambda: attention_qkv_plain(qkvs[1], **qkv_kw),
+        "vith_qkv_attn_b2": lambda: attention_qkv_plain(qkvs[2], **qkv_kw),
+    })
+    if plan is None:  # CPU rehearsal: the plain versions
+        kern.update({k: plain[k] for k in plain if k.startswith("vith_")})
+    else:
+        attn_p, mlps = plan.blocks[0]
+        kern.update({
+            "vith_mlp_b1": lambda: run_mlp_chunked(mlps.chunked, xs[:n_pad],
+                                                   out_dtype=bf16),
+            "vith_mlp_b2": lambda: run_mlp_chunked(
+                mlps.chunked, xs[:2 * n_pad], out_dtype=bf16),
+            "vith_patch_embed_b32": lambda: run_matmul(
+                plan.embed["patches"][0], xpatch, out_dtype=torch.float32),
+            "vith_chain_qkv_b2": lambda: run_matmul(
+                plan.chain[0][0], xs[:2 * n_pad], out_dtype=bf16),
+            "vith_fc1_b32": lambda: run_matmul(mlps.fc1, xs),
+            "vith_fc2_b32": lambda: run_matmul(mlps.fc2, hlv, residual=xs,
+                                               out_dtype=bf16),
+            "vith_heads_b32": lambda: run_attention_heads(
+                attn_p.heads, xs.reshape(bb, n_pad, d), n_valid=n_real,
+                out_dtype=bf16),
+            "vith_qkv_attn_b1": lambda: run_attention_qkv(
+                plan.chain[0][1], qkvs[1], n_valid=n_real, out_dtype=bf16),
+            "vith_qkv_attn_b2": lambda: run_attention_qkv(
+                plan.chain[0][1], qkvs[2], n_valid=n_real, out_dtype=bf16),
+        })
+    nk = -(-n_real // 16) * 16
+    attn_ops = 2 * heads * n_pad * nk * hd * 2  # one image's QK^T and PV
+
+    def mlp_bound(m):
+        return bound(2 * m * d * 2 + 2 * d * hid, 4 * m * d * hid)
+
+    return [
+        ("fused_mlp_chunked", "vith_mlp_b1", cfg.depth, mlp_bound(n_pad),
+         [(n_pad, d, hid), (n_pad, hid, d)], None),
+        ("fused_mlp_chunked", "vith_mlp_b2", 0, mlp_bound(2 * n_pad),
+         [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
+        ("fused_quant_matmul", "vith_patch_embed_b32", 0,
+         bound(bb * p * kp * 4 + kp * d + bb * p * d * 4,
+               2 * bb * p * kp * d), [(bb * p, kp, d)], None),
+        ("fused_quant_matmul", "vith_chain_qkv_b2", 0,
+         bound(2 * n_pad * d * 2 + 3 * d * d + 2 * n_pad * 3 * d * 2,
+               2 * 2 * n_pad * d * 3 * d), [(2 * n_pad, d, 3 * d)], None),
+        ("fused_quant_matmul", "vith_fc1_b32", 0,
+         bound(mb * d * 2 + d * hid + mb * hid, 2 * mb * d * hid),
+         [(mb, d, hid)], None),
+        ("fused_quant_matmul", "vith_fc2_b32", 0,
+         bound(mb * hid + hid * d + 2 * mb * d * 2, 2 * mb * hid * d),
+         [(mb, hid, d)], None),
+        ("attention_block", "vith_heads_b32", 0,
+         bound(mb * d * 2 + 3 * d * d + mb * d, 2 * mb * d * 3 * d,
+               bb * attn_ops), [(mb, d, 3 * d)], None),
+        ("attention_qkv", "vith_qkv_attn_b1", 0,
+         bound(n_pad * 3 * d * 2 + n_pad * d, 0, attn_ops), [], None),
+        ("attention_qkv", "vith_qkv_attn_b2", 0,
+         bound(2 * n_pad * 3 * d * 2 + 2 * n_pad * d, 0, 2 * attn_ops), [],
+         None),
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@
 //      the weight arrives n-major from the layer's plan; the next
 //      step's x and weight pieces load into registers during this step);
 //      dequant + bias, rounded to the residual dtype as the TPU scratch is
-//      (attention.py:469), kept in shared memory as f32;
+//      (attention.py:469), kept in shared memory in that dtype (bf16 or
+//      f32: 139 KB of q/k/v at ViT-H's 272 tokens x head_dim 80 in bf16);
 //   3. the attention of this head on the f64 tensor cores, float or
 //      int_attention (attention_core.cuh, shared with K5 and K6), and the
 //      int8 levels round(o * (1/(p_sum*d))) (attention.py:164-231).
@@ -31,17 +32,20 @@
 namespace {
 
 // 8 warps. The qkv GEMM takes 112 query rows (7 m16 tiles) per pass,
-// every warp all of them and 24 of the 192 columns (3 n8 tiles): two passes
-// at 208 rows. The attention gives each warp 8-row tiles of queries.
+// every warp all of them and TN n8 tiles of the 3*hd columns: TN = 3 (192
+// columns) for head_dim <= 64, 4 (256) for head_dim <= 80. Two passes at
+// 208 rows, three at 272. The attention gives each warp 8-row tiles of
+// queries.
 constexpr int NT = 256, BMQ = 112, TMQ = BMQ / 16, BK = 64, SK = BK + 16;
-constexpr int HDMAX = qvt::ATT_HDMAX;
-constexpr int NQKV = 3 * HDMAX;
 
+__host__ __device__ constexpr int tn_of(int hdm) { return (3 * hdm + 63) / 64; }
+
+template <typename T, int HDM>
 __host__ __device__ inline size_t smem_bytes(int n, int hd) {
   return static_cast<size_t>(n) *
-             (2 * qvt::att_q_stride(hd) + qvt::att_v_stride(hd)) *
-             sizeof(float) +
-         static_cast<size_t>(BMQ + NQKV) * SK +
+             (2 * qvt::att_q_stride_t<T>(hd) + qvt::att_v_stride(hd)) *
+             sizeof(T) +
+         static_cast<size_t>(BMQ + 64 * tn_of(HDM)) * SK +
          static_cast<size_t>(2) * n * sizeof(float);
 }
 
@@ -63,15 +67,17 @@ struct Args {
   float act_top, out_top, eps;
 };
 
-// Shared memory: q [n][hd+4] | k [n][hd+4] | v [n][hd+8] (f32) | As
-// [BMQ][SK] | Bs [NQKV][SK] | mu [n] | rs [n]
+// Shared memory: q [n][RQ] | k [n][RQ] | v [n][RV] (T, the qkv dtype) |
+// As [BMQ][SK] | Bs [64*TN][SK] | mu [n] | rs [n]
+template <typename T, int HDM>
 __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
+  constexpr int TN = tn_of(HDM), NQKV = 64 * TN;
   extern __shared__ __align__(16) int8_t smem[];
   const int n = a.n, hd = a.hd, D = a.D;
-  const int RQ = qvt::att_q_stride(hd), RV = qvt::att_v_stride(hd);
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = q_s + n * RQ;
-  float* v_s = k_s + n * RQ;
+  const int RQ = qvt::att_q_stride_t<T>(hd), RV = qvt::att_v_stride(hd);
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + n * RQ;
+  T* v_s = k_s + n * RQ;
   int8_t* As = reinterpret_cast<int8_t*>(v_s + n * RV);
   int8_t* Bs = As + BMQ * SK;
   float* s_mu = reinterpret_cast<float*>(Bs + NQKV * SK);
@@ -92,7 +98,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
 
   // this head's q/k/v: column j of the [n, 3*hd] tile is global qkv
   // column part*HD + h*hd + jj
-  const int wn = warp * 24;
+  const int wn = warp * TN * 8;
   const bool w_vec = a.wq.vec_ok();
   auto col_of = [&](int j) {  // qkv column of this head's tile column j
     const int part = j / hd;
@@ -116,8 +122,8 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
   const int xpr = BK / epp, x_pieces = BMQ * xpr;
   const char* xbytes = static_cast<const char*>(a.x);
   constexpr int XR = BMQ * BK * 4 / 16 / NT;  // f32 pieces per thread
-  static_assert(NQKV * BK / 16 == 3 * NT, "three weight pieces a thread");
-  uint4 xr[XR], wr[3];
+  static_assert(NQKV * BK / 16 == TN * NT, "TN weight pieces a thread");
+  uint4 xr[XR], wr[TN];
   auto load = [&](int it) {
     const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
 #pragma unroll
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
                   : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int u = 0; u < 3; ++u) {
+    for (int u = 0; u < TN; ++u) {
       const int p = threadIdx.x + u * NT, j = p >> 2;
       wr[u] = a.wq.vec16(k0 + (p & 3) * 16, j < 3 * hd ? col_of(j) : -1);
     }
@@ -160,13 +166,13 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
         *reinterpret_cast<uint32_t*>(As + r * SK + c) = lv[0];
     }
 #pragma unroll
-    for (int u = 0; u < 3; ++u) {
+    for (int u = 0; u < TN; ++u) {
       const int p = threadIdx.x + u * NT;
       *reinterpret_cast<uint4*>(Bs + (p >> 2) * SK + (p & 3) * 16) = wr[u];
     }
   };
 
-  int acc[TMQ][3][4];
+  int acc[TMQ][TN][4];
   if (pre) load(0);
   for (int it = 0; it < n_it; ++it) {
     const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
@@ -191,13 +197,13 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
     }
     __syncthreads();
     if (pre && it + 1 < n_it) load(it + 1);
-    qvt::warp_mma<TMQ, 3>(acc, As, SK, Bs, SK, BK, 0, wn, lane);
+    qvt::warp_mma<TMQ, TN>(acc, As, SK, Bs, SK, BK, 0, wn, lane);
     __syncthreads();
     if (k0 + BK < D) continue;
 #pragma unroll
     for (int i = 0; i < TMQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
+      for (int j = 0; j < TN; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int qi = rt + i * 16 + g + (r >= 2 ? 8 : 0);
@@ -207,9 +213,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
           const int gc = part * HD + h * hd + jj;
           float y = static_cast<float>(acc[i][j][r]) * a.qs[gc];
           if (a.qb) y = y + a.qb[gc];
-          float* dst = part == 0 ? q_s + qi * RQ
-                                 : part == 1 ? k_s + qi * RQ : v_s + qi * RV;
-          dst[jj] = qvt::round_to(y, a.qkv_dt);
+          T* dst = part == 0 ? q_s + qi * RQ
+                             : part == 1 ? k_s + qi * RQ : v_s + qi * RV;
+          qvt::att_st(dst + jj, y);
         }
   }
   __syncthreads();
@@ -217,7 +223,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
 
   // 3. the attention of this head (attention_core.cuh), 8 query rows per
   // warp at a time, writing the int8 levels of the proj quantizer
-  qvt::AttnArgs at;
+  qvt::AttnArgs<T> at;
   at.q = q_s;
   at.k = k_s;
   at.v = v_s;
@@ -243,14 +249,21 @@ __global__ void __launch_bounds__(NT) attn_kernel(Args a) {
   at.out_d = out_d;
   at.out_t = out_t;
   at.out_top = a.out_top;
-  qvt::attention_rows(at, warp, NT / 32);
+  qvt::attention_rows<HDM>(at, warp, NT / 32);
   QVT_STAMPS_STORE(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 }  // namespace
 
-extern "C" size_t qvt_attention_smem_bytes(int n, int hd) {
-  return smem_bytes(n, hd);
+template <typename T, int HDM>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, HDM>(a.n, a.hd);
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_kernel<T, HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attn_kernel<T, HDM><<<dim3(a.heads, a.B), NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int qvt_attention_heads(
@@ -259,7 +272,8 @@ extern "C" int qvt_attention_heads(
     void* alv, int B, int n, int D, int heads, int hd, int n_valid, int nk,
     float q_mul, float sm_scale, int int_attn, int qkv_dt, int act_pow,
     int out_pow, int act_top, int out_top, float eps, void* stream) {
-  if (hd > HDMAX || hd % 8 || nk > n || n_valid > nk)
+  if (hd > qvt::ATT_HDMAX || hd % 8 || nk > n || n_valid > nk ||
+      (qkv_dt != qvt::DT_BF16 && qkv_dt != qvt::DT_F32))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;
@@ -288,12 +302,9 @@ extern "C" int qvt_attention_heads(
   a.act_top = static_cast<float>(act_top);
   a.out_top = static_cast<float>(out_top);
   a.eps = eps;
-  const size_t smem = qvt_attention_smem_bytes(n, hd);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  attn_kernel<<<dim3(heads, B), NT, smem,
-                static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (qkv_dt == qvt::DT_BF16)
+    return hd <= 64 ? launch<__nv_bfloat16, 64>(a, st)
+                    : launch<__nv_bfloat16, 80>(a, st);
+  return hd <= 64 ? launch<float, 64>(a, st) : launch<float, 80>(a, st);
 }

@@ -1,7 +1,8 @@
 // The attention phase shared by K3 (attention_block.cu), K6
 // (attention_qkv.cu) and K5 (block_stack.cu): one head's attention over
-// q/k/v rows already in shared memory (f32 values, rounded to the qkv
-// dtype), with the int8 or float epilogue of
+// q/k/v rows already in shared memory (values rounded to the qkv dtype,
+// held as f32 or, for a bf16 qkv dtype, as bf16: the same values in half
+// the space), with the int8 or float epilogue of
 // quantized_vit_tpu/ops/attention.py:164-231 and :277-289.
 //
 // Float path (attention.py:_score_one_head / _softmax_av with
@@ -20,7 +21,9 @@
 // levels.
 //
 // Both run on the f64 tensor cores (mma.sync m8n8k4), a warp taking 8
-// query rows at a time. Every product of bf16 or f32 values, and of int8
+// query rows at a time. A lane keeps hd/4 q values and hd/4 outputs in
+// f64 registers; the functions take the head-dim bound HDM (64 or 80) as a
+// template argument, so a narrower head keeps the smaller register set. Every product of bf16 or f32 values, and of int8
 // levels, is exact in f64, and every sum here stays far inside f64's
 // exact range for the levels (|s| <= 127*127*hd, |o| <= 127*127*nk), so
 // after the single rounding to f32 the results equal the plain version's
@@ -31,13 +34,28 @@
 
 namespace qvt {
 
-constexpr int ATT_HDMAX = 64;  // a lane keeps hd/4 q values, hd/4 outputs
+constexpr int ATT_HDMAX = 80;  // the widest head (HDM) instantiated
 constexpr int ATT_KT = 4;      // key tiles per attention step
 
-// f32 row strides of q/k and of v in shared memory: hd + 4 and hd + 8 make
-// the f64 mma fragment loads free of bank conflicts at hd % 32 == 0
+// Row strides (elements) of q/k and of v in shared memory, free of bank
+// conflicts for the f64 mma fragment loads at hd = 64 and 80: f32 rows
+// hd + 4 and hd + 8, bf16 rows hd + 8 for both
 __host__ __device__ inline int att_q_stride(int hd) { return hd + 4; }
 __host__ __device__ inline int att_v_stride(int hd) { return hd + 8; }
+template <typename T>
+__host__ __device__ inline int att_q_stride_t(int hd) {
+  return sizeof(T) == 2 ? hd + 8 : hd + 4;
+}
+
+__device__ __forceinline__ float att_ld(const float* p) { return *p; }
+__device__ __forceinline__ float att_ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+// v as the element type T (bf16: round to nearest even)
+__device__ __forceinline__ void att_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void att_st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // the dynamic int8 scales of one (image, head) (attention.py:140-147)
 struct IntScales {
@@ -48,10 +66,11 @@ struct IntScales {
 
 enum { ATT_OUT_LEVELS = 0, ATT_OUT_POW = 1, ATT_OUT_FLOAT = 2 };
 
+template <typename T = float>
 struct AttnArgs {
-  const float* q;  // query rows (stride rq), the first of them row 0
-  const float* k;  // key rows (stride rq)
-  const float* v;  // value rows (stride rv)
+  const T* q;  // query rows (stride rq), the first of them row 0
+  const T* k;  // key rows (stride rq)
+  const T* v;  // value rows (stride rv)
   int rq, rv;
   int nq;       // query rows present
   int n_kv;     // key/value rows present
@@ -88,22 +107,25 @@ __device__ __forceinline__ double dyn_level(float x, float inv) {
 }
 
 // Block-wide: the dynamic scales of one head from its nq query rows and
-// nk key/value rows in shared memory. Every thread of the block calls it.
-__device__ __forceinline__ IntScales attn_int_scales(const float* q,
-                                                     const float* k,
-                                                     const float* v, int rq,
+// nk key/value rows in shared memory; q_max is this thread's max of
+// |q * sm_scale| over query rows held elsewhere (0 if none). Every thread
+// of the block calls it.
+template <typename T>
+__device__ __forceinline__ IntScales attn_int_scales(const T* q, const T* k,
+                                                     const T* v, int rq,
                                                      int rv, int nq, int nk,
-                                                     int hd, float sm_scale) {
+                                                     int hd, float sm_scale,
+                                                     float q_max = 0.f) {
   __shared__ float red[3][32];
-  float m[3] = {0.f, 0.f, 0.f};
+  float m[3] = {q_max, 0.f, 0.f};
   for (int i = threadIdx.x; i < nq * hd; i += blockDim.x) {
     const int r = i / hd, c = i - r * hd;
-    m[0] = fmaxf(m[0], fabsf(q[r * rq + c] * sm_scale));
+    m[0] = fmaxf(m[0], fabsf(att_ld(q + r * rq + c) * sm_scale));
   }
   for (int i = threadIdx.x; i < nk * hd; i += blockDim.x) {
     const int r = i / hd, c = i - r * hd;
-    m[1] = fmaxf(m[1], fabsf(k[r * rq + c]));
-    m[2] = fmaxf(m[2], fabsf(v[r * rv + c]));
+    m[1] = fmaxf(m[1], fabsf(att_ld(k + r * rq + c)));
+    m[2] = fmaxf(m[2], fabsf(att_ld(v + r * rv + c)));
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -131,8 +153,8 @@ __device__ __forceinline__ IntScales attn_int_scales(const float* q,
   return r;
 }
 
-template <bool INT>
-__device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
+template <bool INT, int HDM, typename T>
+__device__ __forceinline__ void attention_rows_impl(const AttnArgs<T>& a,
                                                     int warp, int nwarps) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -147,12 +169,12 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
   };
   for (int mt = warp; mt * 8 < a.nq; mt += nwarps) {
     const int qrow = mt * 8 + g;
-    double qa[ATT_HDMAX / 4];
+    double qa[HDM / 4];
 #pragma unroll
-    for (int ks = 0; ks < ATT_HDMAX / 4; ++ks) {
+    for (int ks = 0; ks < HDM / 4; ++ks) {
       qa[ks] = 0.0;
       if (ks < KS && qrow < a.nq) {
-        const float qv = a.q[qrow * a.rq + ks * 4 + t];
+        const float qv = att_ld(a.q + qrow * a.rq + ks * 4 + t);
         qa[ks] = INT ? dyn_level(qv * a.sm_scale, a.is.q_inv)
                      : static_cast<double>(round_to(qv * a.q_mul, a.qkv_dt));
       }
@@ -164,14 +186,14 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
       for (int u = 0; u < ATT_KT; ++u)
         c[u][0][0] = c[u][0][1] = c[u][1][0] = c[u][1][1] = 0.0;
 #pragma unroll
-      for (int ks = 0; ks < ATT_HDMAX / 4; ++ks) {
+      for (int ks = 0; ks < HDM / 4; ++ks) {
         if (ks >= KS) break;
 #pragma unroll
         for (int u = 0; u < ATT_KT; ++u) {
           const int key = (kt0 + u) * 8 + g;
           double kb = 0.0;
           if (kt0 + u < key_tiles && key < a.n_kv) {
-            const float kv = a.k[key * a.rq + ks * 4 + t];
+            const float kv = att_ld(a.k + key * a.rq + ks * 4 + t);
             kb = INT ? dyn_level(kv, a.is.k_inv) : static_cast<double>(kv);
           }
           dmma(c[u][ks & 1][0], c[u][ks & 1][1], qa[ks], kb);
@@ -198,9 +220,9 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
       rmax = fmaxf(rmax, __shfl_xor_sync(full, rmax, 1));
       rmax = fmaxf(rmax, __shfl_xor_sync(full, rmax, 2));
     }
-    double o[ATT_HDMAX / 8][2];
+    double o[HDM / 8][2];
 #pragma unroll
-    for (int nt = 0; nt < ATT_HDMAX / 8; ++nt) o[nt][0] = o[nt][1] = 0.0;
+    for (int nt = 0; nt < HDM / 8; ++nt) o[nt][0] = o[nt][1] = 0.0;
     double psum = 0.0;
     for (int kt0 = 0; kt0 < key_tiles; kt0 += ATT_KT) {
       double c[ATT_KT][2][2];
@@ -240,11 +262,11 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
           const double pa = (t & 1) ? v1 : v0;
           const int vkey = kt * 8 + 4 * hh + t;
 #pragma unroll
-          for (int nt = 0; nt < ATT_HDMAX / 8; ++nt) {
+          for (int nt = 0; nt < HDM / 8; ++nt) {
             if (nt >= NTV) break;
             double vb = 0.0;
             if (vkey < a.n_kv) {
-              const float vv = a.v[vkey * a.rv + nt * 8 + g];
+              const float vv = att_ld(a.v + vkey * a.rv + nt * 8 + g);
               vb = INT ? dyn_level(vv, a.is.v_inv) : static_cast<double>(vv);
             }
             dmma(o[nt][0], o[nt][1], pa, vb);
@@ -261,7 +283,7 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
         (a.out_row0 + qrow) * a.out_stride + a.out_col0 + 2 * t;
     const float inv = 1.0f / (ps * a.out_d);
 #pragma unroll
-    for (int nt = 0; nt < ATT_HDMAX / 8; ++nt) {
+    for (int nt = 0; nt < HDM / 8; ++nt) {
       if (nt >= NTV) break;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -281,13 +303,15 @@ __device__ __forceinline__ void attention_rows_impl(const AttnArgs& a,
 }
 
 // The attention of the query rows [0, a.nq): 8-row tiles warp, warp +
-// nwarps, ... of the calling warp. a.is must be set when a.int_attn.
-__device__ __forceinline__ void attention_rows(const AttnArgs& a, int warp,
+// nwarps, ... of the calling warp, for head_dim <= HDM. a.is must be set
+// when a.int_attn.
+template <int HDM, typename T>
+__device__ __forceinline__ void attention_rows(const AttnArgs<T>& a, int warp,
                                                int nwarps) {
   if (a.int_attn)
-    attention_rows_impl<true>(a, warp, nwarps);
+    attention_rows_impl<true, HDM>(a, warp, nwarps);
   else
-    attention_rows_impl<false>(a, warp, nwarps);
+    attention_rows_impl<false, HDM>(a, warp, nwarps);
 }
 
 }  // namespace qvt

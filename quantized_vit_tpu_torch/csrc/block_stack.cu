@@ -54,6 +54,7 @@ constexpr int NT = 256, NW = NT / 32;
 constexpr int BM = 32, BN = 64, BK = 64, SK = BK + 16;
 constexpr int QT = 8 * NW;    // query rows per attention unit
 constexpr int MAX_D = 1024;   // a lane keeps D/32 values of a row
+constexpr int HDMAX = 64;     // the attention core's head bound here
 constexpr int MAX_PER_LANE = MAX_D / 32;
 
 // quantizer scalars, rows of the [8][L] prm array
@@ -281,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) stack_kernel(Args a) {
                 __ldcg(src + static_cast<long long>(q0) * W);
         }
         __syncthreads();
-        qvt::AttnArgs at;
+        qvt::AttnArgs<> at;
         at.q = q_s;
         at.k = k_s;
         at.v = v_s;
@@ -304,7 +305,7 @@ __global__ void __launch_bounds__(NT, 1) stack_kernel(Args a) {
         at.out_d = P[P_OUT_D * L + l];
         at.out_t = P[P_OUT_T * L + l];
         at.out_top = a.out_top;
-        qvt::attention_rows(at, warp, NW);
+        qvt::attention_rows<HDMAX>(at, warp, NW);
         __syncthreads();  // the next unit refills q/k/v
       }
     }
@@ -444,7 +445,7 @@ extern "C" int qvt_block_stack(
     int nk, int D, int heads, int hd, int hid, float q_mul, int act_pow,
     int out_pow, int mlp_pow, int hid_pow, int act_top, int out_top,
     int mlp_top, int hid_top, float eps, int grid, void* stream) {
-  if (hd > qvt::ATT_HDMAX || hd % 8 || D > MAX_D || D % 32 || hid % 32 ||
+  if (hd > HDMAX || hd % 8 || D > MAX_D || D % 32 || hid % 32 ||
       (heads * hd) % 32 || nk > n || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;

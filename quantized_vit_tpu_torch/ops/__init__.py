@@ -1,10 +1,10 @@
 """The CUDA kernels (built from ``csrc/``) and their plain versions.
 
-Each serving kernel's wrapper (``fused_quant_matmul``, ``fused_mlp``,
-``attention_block``/``attention_heads``, ``patch_finalize``,
-``attention_qkv``, ``vit_block_stack``) takes CPU tensors to its plain
-version; on CUDA tensors it prepares the layer (``plan_*``) and launches
-(``run_*``). The training kernel, the quantizer backward
+Each serving kernel's wrapper (``fused_quant_matmul``, ``fused_mlp``
+for K2 and K8, ``attention_block``/``attention_heads``,
+``patch_finalize``, ``attention_qkv``, ``vit_block_stack``) takes CPU
+tensors to its plain version; on CUDA tensors it prepares the layer
+(``plan_*``) and launches (``run_*``). The training kernel, the quantizer backward
 ``lsfq_nonlinear_bwd_fused`` (K7), does the same with its plain version
 ``lsfq_nonlinear_bwd_plain``."""
 
@@ -20,7 +20,8 @@ from .block_stack import (StackPlan, plan_block_stack, run_block_stack,
                           vit_block_stack, vit_block_stack_plain)
 from .fused import (MatmulPlan, MlpPlan, fused_mlp, fused_mlp_plain,
                     fused_quant_matmul, fused_quant_matmul_plain, plan_matmul,
-                    plan_mlp, run_matmul, run_mlp)
+                    plan_mlp, plan_mlp_chunked, run_matmul, run_mlp,
+                    run_mlp_chunked)
 from .patch import patch_finalize, patch_finalize_plain
 from .quant_vjp import lsfq_nonlinear_bwd_fused, lsfq_nonlinear_bwd_plain
 from .reference import int4_matmul_ref, int8_matmul_ref, quant_linear_ref
@@ -35,6 +36,7 @@ __all__ = ["LAUNCHES", "reset_launches", "AttentionPlan", "HeadsPlan",
            "vit_block_stack", "vit_block_stack_plain", "MatmulPlan",
            "MlpPlan", "fused_mlp", "fused_mlp_plain", "fused_quant_matmul",
            "fused_quant_matmul_plain", "plan_matmul", "plan_mlp",
-           "run_matmul", "run_mlp", "patch_finalize", "patch_finalize_plain",
+           "plan_mlp_chunked", "run_matmul", "run_mlp", "run_mlp_chunked",
+           "patch_finalize", "patch_finalize_plain",
            "lsfq_nonlinear_bwd_fused", "lsfq_nonlinear_bwd_plain",
            "int4_matmul_ref", "int8_matmul_ref", "quant_linear_ref"]

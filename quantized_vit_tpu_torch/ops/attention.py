@@ -7,9 +7,10 @@ replaces ``_attention_block`` (``pallas_call`` at attention.py:667)::
 
 Kernel design (``csrc/attention_block.cu``): one block per (head, image)
 does LN + quant of the image's rows, this head's q/k/v columns of the qkv
-GEMM (dequant + bias, rounded to ``float_dtype`` as the TPU scratch is),
-the scores, the exp2 softmax with deferred normalization, AV and the int8
-quantization, and writes only the int8 attention levels [B*N, H*hd]. The
+GEMM (dequant + bias, rounded to ``float_dtype`` as the TPU scratch is,
+and kept in shared memory in that dtype), the scores, the exp2 softmax
+with deferred normalization, AV and the int8 quantization, and writes
+only the int8 attention levels [B*N, H*hd]. The
 [M, 3D] qkv tensor never reaches device memory. Then K1
 (:func:`~.fused.run_matmul`, prologue None, epilogue residual) runs the
 proj GEMM: one ``attention_block`` call is two launches. As in
@@ -224,26 +225,43 @@ def attention_heads_plain(
 
 
 # a lane keeps a quarter of a query row and of its output in f64 registers
-MAX_HEAD_DIM = 64
+# (attention_core.cuh, instantiated for head_dim <= 64 and <= 80)
+MAX_HEAD_DIM = 80
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 _RED = 3 * 32 * 4  # attention_core.cuh:attn_int_scales' static reduction
 
 
-def heads_kernel_limit(n: Optional[int], head_dim: int) -> Optional[str]:
-    """Why K3 cannot take ``n`` tokens (None: any) of ``head_dim``, or
-    None if it can."""
+def _qkv_row_bytes(head_dim: int, itemsize: int):
+    """(q/k row, v row) bytes in shared memory (attention_core.cuh:
+    att_q_stride_t, att_v_stride): f32 rows hd+4 and hd+8, bf16 rows hd+8."""
+    rq = head_dim + (8 if itemsize == 2 else 4)
+    return rq * itemsize, (head_dim + 8) * itemsize
+
+
+def _check_head_dim(kernel: str, head_dim: int) -> Optional[str]:
     if head_dim > MAX_HEAD_DIM or head_dim % 8:
-        return (f"attention_block kernel: head_dim {head_dim} must be a "
-                f"multiple of 8 and <= {MAX_HEAD_DIM}")
-    if n is None:
-        return None
-    # csrc/attention_block.cu:smem_bytes: f32 q/k/v (rows padded to hd+4,
-    # hd+4, hd+8), the GEMM tiles, LayerNorm statistics, and the
-    # int_attention scale reduction (attention_core.cuh)
-    smem = 4 * n * (3 * head_dim + 16) + (112 + 192) * 80 + 8 * n + _RED
+        return (f"{kernel} kernel: head_dim {head_dim} must be a multiple "
+                f"of 8 and <= {MAX_HEAD_DIM}")
+    return None
+
+
+def heads_kernel_limit(n: Optional[int], head_dim: int,
+                       itemsize: int = 2) -> Optional[str]:
+    """Why K3 cannot take ``n`` tokens (None: any) of ``head_dim`` with a
+    qkv (residual) dtype of ``itemsize`` bytes, or None if it can."""
+    err = _check_head_dim("attention_block", head_dim)
+    if err or n is None:
+        return err
+    # csrc/attention_block.cu:smem_bytes: q/k/v in the qkv dtype, the GEMM
+    # tiles (64*TN weight rows, TN = 3 to head_dim 64, else 4),
+    # LayerNorm statistics, and the int_attention scale reduction
+    rq, rv = _qkv_row_bytes(head_dim, itemsize)
+    tn = 3 if head_dim <= 64 else 4
+    smem = n * (2 * rq + rv) + (112 + 64 * tn) * 80 + 8 * n + _RED
     if smem > SMEM_LIMIT:
+        dt = "bf16" if itemsize == 2 else "f32"
         return (f"attention_block kernel: {n} tokens x head_dim {head_dim} "
-                f"need {smem} B of shared memory > {SMEM_LIMIT} (the "
+                f"({dt}) need {smem} B of shared memory > {SMEM_LIMIT} (the "
                 "image's q/k/v stay in one block's shared memory)")
     return None
 
@@ -318,7 +336,7 @@ def run_attention_heads(plan: HeadsPlan, x, *, n_valid=None,
     that launches it); returns the int8 attention levels [B*N, H*hd]."""
     _build.require_cuda("attention_block", x)
     b, n = _heads_input(x, plan.d_model)
-    _raise_if(heads_kernel_limit(n, plan.head_dim))
+    _raise_if(heads_kernel_limit(n, plan.head_dim, out_dtype.itemsize))
     if n_valid is None:
         n_valid = n
     x = x.contiguous()
@@ -462,18 +480,19 @@ def qkv_kernel_limit(n: Optional[int], head_dim: int,
                      itemsize: int = 2) -> Optional[str]:
     """Why K6 cannot take ``n`` tokens (None: any) of ``head_dim`` with a
     qkv dtype of ``itemsize`` bytes, or None if it can."""
-    if head_dim > MAX_HEAD_DIM or head_dim % 8:
-        return (f"attention_qkv kernel: head_dim {head_dim} must be a "
-                f"multiple of 8 and <= {MAX_HEAD_DIM}")
-    if n is None:
-        return None
-    # csrc/attention_qkv.cu:smem_bytes: f32 q of every row, k/v of the
-    # nk key rows (no more than n), and the scale reduction
-    smem = 4 * n * (3 * head_dim + 16) + _RED
+    err = _check_head_dim("attention_qkv", head_dim)
+    if err or n is None:
+        return err
+    # csrc/attention_qkv.cu:smem_bytes: in the qkv dtype, k/v of the nk
+    # key rows (no more than n) and q of one query split, which is at
+    # least one 8-row tile; and the scale reduction
+    rq, rv = _qkv_row_bytes(head_dim, itemsize)
+    smem = n * (rq + rv) + 8 * rq + _RED
     if smem > SMEM_LIMIT:
+        dt = "bf16" if itemsize == 2 else "f32"
         return (f"attention_qkv kernel: {n} tokens x head_dim {head_dim} "
-                f"need {smem} B of shared memory > {SMEM_LIMIT} (one "
-                "head's q/k/v stay in one block's shared memory)")
+                f"({dt}) need {smem} B of shared memory > {SMEM_LIMIT} (one "
+                "head's k/v stay in one block's shared memory)")
     return None
 
 

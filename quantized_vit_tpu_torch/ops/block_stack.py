@@ -34,11 +34,12 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .attention import (MAX_HEAD_DIM, SMEM_LIMIT, _LOG2E, _f32_value,
+from .attention import (SMEM_LIMIT, _LOG2E, _f32_value,
                         _n_keys, attention_block_plain)
 from .fused import _f32, fused_mlp_plain
 
 MAX_D = 1024  # a lane of a row phase keeps D/32 values of a row
+MAX_HEAD_DIM = 64  # csrc/block_stack.cu:HDMAX, the attention core's bound
 MAX_IMAGES = 4  # j_imgs, as the TPU kernel takes it
 _QT = 64  # query rows per attention unit (csrc/block_stack.cu:QT)
 

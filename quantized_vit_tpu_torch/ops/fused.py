@@ -13,15 +13,23 @@ LayerNorm gamma/beta, ``1/d`` or ``2**-0.5`` into the dequant scale/bias)
 run in f32, identically for the kernel (in its plan) and the plain
 version.
 
-Kernels (``csrc/fused_quant_matmul.cu``, ``csrc/fused_mlp.cu``):
+Kernels:
 
 - :func:`fused_quant_matmul` replaces ``ops/fused.py:_fused_quant_matmul``
   (``pallas_call`` at fused.py:556). Plain version:
   :func:`fused_quant_matmul_plain` (port of ``fused_quant_matmul_xla``).
-- :func:`fused_mlp` replaces ``ops/fused.py:_fused_mlp`` (``pallas_call`` at
-  fused.py:977), with the hidden-chunk structure of
-  ``_fused_mlp_chunked_kernel``. Plain version: :func:`fused_mlp_plain`
-  (port of ``fused_mlp_xla``).
+- :func:`run_mlp` (K2, ``csrc/fused_mlp.cu``) replaces
+  ``ops/fused.py:_fused_mlp`` (``pallas_call`` at fused.py:977), with the
+  hidden-chunk structure of ``_fused_mlp_chunked_kernel``.
+- :func:`run_mlp_chunked` (K8, ``csrc/fused_mlp_chunked.cu``) replaces
+  ``ops/fused.py:_fused_mlp_chunked`` (``pallas_call`` at fused.py:1065):
+  the same function for int8 weights too big to stay resident (ViT-H),
+  its hidden dimension split over blocks.
+- :func:`fused_mlp` picks K2 or K8 as ``_fused_mlp`` does
+  (:func:`mlp_auto_hid_block`). Plain version of both:
+  :func:`fused_mlp_plain` (port of ``fused_mlp_xla``): the JAX package's
+  resident and chunked kernels compute the same function, bit for bit
+  (tests/ops/test_fused.py:245-283).
 
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises. A kernel call splits in two: the layer's
@@ -412,6 +420,8 @@ def fused_quant_matmul(
 
 # the fc2 accumulator [32, K] of a block lives in registers
 MLP_MAX_K = 1024
+# K8's 16 warps keep K/16 fc2 columns each in registers
+MLP_CHUNKED_MAX_K = 1280
 
 
 def mlp_kernel_limit(k: int) -> Optional[str]:
@@ -419,6 +429,94 @@ def mlp_kernel_limit(k: int) -> Optional[str]:
     if k > MLP_MAX_K:
         return (f"fused_mlp kernel: width K={k} > {MLP_MAX_K} (its fc2 "
                 "accumulator row block lives in registers)")
+    return None
+
+
+def mlp_chunked_kernel_limit(k: int, fmt: str = "int8",
+                             fmt2: Optional[str] = None) -> Optional[str]:
+    """Why K8 cannot take model width ``k`` with these weight formats, or
+    None if it can."""
+    if fmt != "int8" or (fmt2 or fmt) != "int8":
+        return ("fused_mlp_chunked kernel: int8 weights only (packed int4 "
+                "pairs hidden rows h and h + H/2 in one byte, fused.py:"
+                "930-932)")
+    if k > MLP_CHUNKED_MAX_K:
+        return (f"fused_mlp_chunked kernel: width K={k} > "
+                f"{MLP_CHUNKED_MAX_K} (its fc2 accumulator row block lives "
+                "in registers)")
+    return None
+
+
+# The JAX package's MLP gate, shape arithmetic only (fused.py:330-343,
+# :779-813, :916-929): which of its kernels, resident or hidden-chunked, a
+# shape takes. The TPU's M tiles and VMEM budget decide the route; the
+# CUDA kernels tile in their own way.
+_BLOCK_M_CANDIDATES = (896, 832, 576, 448, 416, 288, 224, 128, 64, 32)
+# a resident M tile under this streams the weights instead
+BIG_WEIGHT_BM = 224
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _pick_bm(cap: int, fits) -> int:
+    """Largest fitting M tile, preferring tiles that divide ``cap``
+    (fused.py:_pick_bm)."""
+    for c in _BLOCK_M_CANDIDATES:
+        if c <= cap and cap % c == 0 and fits(c):
+            return c
+    return next((c for c in _BLOCK_M_CANDIDATES if c <= cap and fits(c)),
+                32)
+
+
+def _mlp_auto_stripes(hid: int) -> int:
+    """Hidden stripes of the resident TPU kernel (fused.py:779-783)."""
+    return (8 if hid % (8 * 128) == 0 else
+            4 if hid % (4 * 128) == 0 else (2 if hid % 256 == 0 else 1))
+
+
+def _mlp_resident_fits(k: int, hid: int, fmt: str, x_itemsize: int,
+                       out_itemsize: int, n_stripes: int):
+    """The resident TPU kernel's VMEM fit predicate (fused.py:786-799)."""
+    w_bytes = (k * hid + hid * k) * (1.5 if fmt == "int4" else 1)
+    budget = 14 * 2**20
+
+    def fits(bm):
+        stream = 2 * (bm * k * x_itemsize + bm * k * out_itemsize)
+        stack = bm * k * 4 * 2 + bm * (hid // n_stripes) * 4 * 2
+        return stream + stack + w_bytes <= budget
+
+    return fits
+
+
+def fused_mlp_resident_bm(k: int, hid: int, fmt: str = "int8",
+                          x_itemsize: int = 2, out_itemsize: int = 2) -> int:
+    """The M tile the resident TPU kernel would pick at these widths,
+    unconstrained by M (fused.py:802-813); under :data:`BIG_WEIGHT_BM` the
+    MLP counts as big-weight (serve/vit_int4.py:338-343)."""
+    fits = _mlp_resident_fits(k, hid, fmt, x_itemsize, out_itemsize,
+                              _mlp_auto_stripes(hid))
+    return next((c for c in _BLOCK_M_CANDIDATES if fits(c)), 32)
+
+
+def mlp_auto_hid_block(m: int, k: int, hid: int, fmt: str = "int8",
+                       x_itemsize: int = 2,
+                       out_itemsize: int = 2) -> Optional[int]:
+    """The hidden chunk with which ``_fused_mlp`` streams the weights when
+    the caller pins neither ``block_m`` nor ``hid_block`` (fused.py:
+    916-929): int8 weights whose resident M tile at ``m`` rows falls under
+    :data:`BIG_WEIGHT_BM`. None: the resident kernel."""
+    if fmt != "int8":
+        return None
+    fits = _mlp_resident_fits(k, hid, fmt, x_itemsize, out_itemsize,
+                              _mlp_auto_stripes(hid))
+    if _pick_bm(_round_up(m, 32), fits) >= BIG_WEIGHT_BM:
+        return None
+    for n_h in (4, 8, 2):
+        hb = hid // n_h
+        if hid % n_h == 0 and hb % 256 == 0:
+            return hb
     return None
 
 
@@ -491,21 +589,20 @@ class MlpPlan:
     ln_eps: float
 
 
-def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
-             ln_eps=1e-6, act_d=None, act_t=None, act_top=None,
-             act_pow=False, hid_d=None, hid_t=None, hid_top=None,
-             hid_pow=False, fmt="int8", fmt2=None) -> MlpPlan:
-    """K2's layer-side work, done once: checks, both weight copies into
-    the kernels' layout and the folds of fused.py:874-891. Arguments as
-    :func:`fused_mlp`; the weights must lie on a CUDA device."""
+def _plan_mlp(name, limit, w1, scale1, bias1, w2, scale2, bias2, *,
+              ln_scale, ln_bias, ln_eps, act_d, act_t, act_top, act_pow,
+              hid_d, hid_t, hid_top, hid_pow, fmt, fmt2, w1_t,
+              w2_t) -> MlpPlan:
+    """The layer-side work of K2 and K8 (``limit``: the kernel's width
+    limit of :func:`mlp_kernel_limit` or :func:`mlp_chunked_kernel_limit`)."""
     fmt2 = fmt2 or fmt
     k, hid = _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)
     if fmt2 == "int4" and hid % 2:
         raise ValueError("packed int4 w2 needs an even hidden width")
-    limit = mlp_kernel_limit(k)
-    if limit:
-        raise ValueError(limit)
-    _build.require_cuda("fused_mlp", w1, w2)
+    err = limit(k)
+    if err:
+        raise ValueError(err)
+    _build.require_cuda(name, w1, w2)
     dev = w1.device
     scale1 = torch.broadcast_to(_f32(scale1, dev), (hid,))
     bias1 = (torch.zeros((hid,), dtype=torch.float32, device=dev)
@@ -517,7 +614,8 @@ def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
     if not hid_pow:
         scale1, bias1 = fold_gelu(scale1, bias1, dev)
     return MlpPlan(
-        w1_t=_build.n_major(w1), w2_t=_build.n_major(w2),
+        w1_t=_build.n_major(w1) if w1_t is None else w1_t,
+        w2_t=_build.n_major(w2) if w2_t is None else w2_t,
         int4_1=fmt == "int4", int4_2=fmt2 == "int4", k=k, hid=hid,
         scale1=scale1.contiguous(), bias1=bias1.contiguous(),
         scale2=scale2.contiguous(), bias2=bias2.contiguous(),
@@ -525,6 +623,40 @@ def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
         prm=_params4(dev, act_d, act_t, hid_d, hid_t),
         act_pow=bool(act_pow), hid_pow=bool(hid_pow), act_top=int(act_top),
         hid_top=int(hid_top), ln_eps=float(ln_eps))
+
+
+def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
+             ln_eps=1e-6, act_d=None, act_t=None, act_top=None,
+             act_pow=False, hid_d=None, hid_t=None, hid_top=None,
+             hid_pow=False, fmt="int8", fmt2=None, w1_t=None,
+             w2_t=None) -> MlpPlan:
+    """K2's layer-side work, done once: checks, both weight copies into
+    the kernels' layout and the folds of fused.py:874-891. Arguments as
+    :func:`fused_mlp`; the weights must lie on a CUDA device. ``w1_t`` /
+    ``w2_t``: the weights already in the kernels' layout (another plan's
+    copies, shared instead of copied again)."""
+    return _plan_mlp("fused_mlp", mlp_kernel_limit, w1, scale1, bias1, w2,
+                     scale2, bias2, ln_scale=ln_scale, ln_bias=ln_bias,
+                     ln_eps=ln_eps, act_d=act_d, act_t=act_t,
+                     act_top=act_top, act_pow=act_pow, hid_d=hid_d,
+                     hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow, fmt=fmt,
+                     fmt2=fmt2, w1_t=w1_t, w2_t=w2_t)
+
+
+def plan_mlp_chunked(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
+                     ln_bias, ln_eps=1e-6, act_d=None, act_t=None,
+                     act_top=None, act_pow=False, hid_d=None, hid_t=None,
+                     hid_top=None, hid_pow=False, fmt="int8", fmt2=None,
+                     w1_t=None, w2_t=None) -> MlpPlan:
+    """K8's layer-side work, done once, as :func:`plan_mlp` (int8 weights
+    only)."""
+    return _plan_mlp(
+        "fused_mlp_chunked",
+        lambda k: mlp_chunked_kernel_limit(k, fmt, fmt2), w1, scale1, bias1,
+        w2, scale2, bias2, ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+        act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
+        hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow, fmt=fmt,
+        fmt2=fmt2, w1_t=w1_t, w2_t=w2_t)
 
 
 def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
@@ -555,20 +687,80 @@ def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
     return out
 
 
+def run_mlp_chunked(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
+    """Launches K8 on ``x`` [M, K] for a prepared int8 MLP: the only place
+    that launches it. The kernel splits the hidden dimension over blocks
+    (its own split, from M and the card's co-resident blocks), so it needs
+    an int32 scratch of S x M x K for the split's partial sums."""
+    _build.require_cuda("fused_mlp_chunked", x)
+    if plan.int4_1 or plan.int4_2:
+        raise ValueError(mlp_chunked_kernel_limit(plan.k, "int4"))
+    m = _mlp_input(x, plan.k)
+    x = x.contiguous()
+    out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _build.library("fused_mlp_chunked")
+    P, I, F = _build.P, _build.I, _build.F
+    lib.qvt_fused_mlp_chunked_splits.argtypes = [I, I, I]
+    lib.qvt_fused_mlp_chunked_splits.restype = I
+    splits = lib.qvt_fused_mlp_chunked_splits(m, plan.k, plan.hid)
+    if splits < 1:
+        _build.check(-splits or 1, "fused_mlp_chunked")
+    part = (torch.empty((splits, m, plan.k), dtype=torch.int32,
+                        device=x.device) if splits > 1 else None)
+    fn = lib.qvt_fused_mlp_chunked
+    fn.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I,
+                   I, I, I, I, F, P]
+    fn.restype = I
+    code = fn(
+        x.data_ptr(), _build.dtype_code(x.dtype), plan.w1_t.data_ptr(),
+        plan.scale1.data_ptr(), plan.bias1.data_ptr(), plan.w2_t.data_ptr(),
+        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
+        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
+        _build.ptr(part), m, plan.k, plan.hid, splits, int(plan.act_pow),
+        int(plan.hid_pow), plan.act_top, plan.hid_top, plan.ln_eps,
+        _build.stream())
+    _build.check(code, "fused_mlp_chunked")
+    _build.count_launch("fused_mlp_chunked")
+    return out
+
+
 def fused_mlp(x, w1, scale1, bias1, w2, scale2, bias2, *,
               ln_scale, ln_bias, ln_eps=1e-6,
               act_d=None, act_t=None, act_top=None, act_pow=False,
               hid_d=None, hid_t=None, hid_top=None, hid_pow=False,
-              fmt="int8", fmt2=None, out_dtype=torch.bfloat16):
-    """``x + fc2(quant(GELU(fc1(quant(LN(x))))))`` in one kernel (K2).
+              fmt="int8", fmt2=None, out_dtype=torch.bfloat16,
+              block_m=None, hid_block=None):
+    """``x + fc2(quant(GELU(fc1(quant(LN(x))))))`` in one kernel: K2, or
+    K8 for weights streamed in hidden chunks.
 
     x: [M, K] float residual stream. w1: [K, H] int8 or packed int4
     [K/2, H] (``fmt``); w2: [H, K] int8 or packed int4 [H/2, K] (``fmt2``,
     default ``fmt``: GETA mixed-precision exports mix them). act_*: fc1's
     input quantizer; hid_*: fc2's input quantizer on the GELU output.
-    CPU tensors take :func:`fused_mlp_plain`; CUDA tensors
-    :func:`plan_mlp` then :func:`run_mlp`.
+    ``block_m`` / ``hid_block`` select the kernel as the JAX function's
+    do (fused.py:916-942): an explicit ``hid_block`` (int8 only, dividing
+    H) takes K8; with neither, int8 weights too big to stay resident at
+    this M take K8 (:func:`mlp_auto_hid_block`); a ``block_m`` keeps K2.
+    The CUDA kernels tile by their own sizes, not by these. CPU tensors
+    take :func:`fused_mlp_plain`; CUDA tensors :func:`plan_mlp` then
+    :func:`run_mlp`, or :func:`plan_mlp_chunked` then
+    :func:`run_mlp_chunked`.
     """
+    fmt2 = fmt2 or fmt
+    k, hid = _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)
+    if hid_block is None and block_m is None and fmt2 == fmt:
+        hid_block = mlp_auto_hid_block(
+            _mlp_input(x, k), k, hid, fmt, x.element_size(),
+            torch.empty((), dtype=out_dtype).element_size())
+    chunked = hid_block is not None and hid_block != hid
+    if chunked:
+        if fmt != "int8" or fmt2 != "int8":
+            raise ValueError("hid_block chunking supports fmt='int8' only")
+        if hid % hid_block:
+            raise ValueError(f"hid_block={hid_block} must divide H={hid}")
     layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
                  act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
                  hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow,
@@ -576,5 +768,8 @@ def fused_mlp(x, w1, scale1, bias1, w2, scale2, bias2, *,
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2,
                                out_dtype=out_dtype, **layer)
-    return run_mlp(plan_mlp(w1, scale1, bias1, w2, scale2, bias2, **layer),
-                   x, out_dtype=out_dtype)
+    args = (w1, scale1, bias1, w2, scale2, bias2)
+    if chunked:
+        return run_mlp_chunked(plan_mlp_chunked(*args, **layer), x,
+                               out_dtype=out_dtype)
+    return run_mlp(plan_mlp(*args, **layer), x, out_dtype=out_dtype)

@@ -1,17 +1,24 @@
 """ViT W4A4 integer serving forward (port of
 ``quantized_vit_tpu/serve/vit_int4.py``).
 
-:func:`vit_int4_forward` runs, per transformer block, one of the JAX
-package's two single-device routes (:func:`uses_chain`, the gate of
-vit_int4.py:272): a batch of 4 or more takes
-:func:`~..ops.attention.attention_block` (K3, whose proj GEMM is K1) then
-:func:`~..ops.fused.fused_mlp` (K2); a batch of 1-3 takes the chain, K1
-with the LayerNorm + quant prologue writing qkv, then
-:func:`~..ops.attention.attention_qkv` (K6), then K1 with the residual
-epilogue for proj, then K2. The patch embed and the head are K1, the
-token stream K4 (:func:`~..ops.patch.patch_finalize`). The JAX package's
-TPU-only gates (the mixed-``fmt`` test, the VMEM fit predicates, the MLP
-alignment test, the ViT-H chain tiles) do not carry over.
+:func:`vit_int4_forward` runs, per transformer block, the JAX
+package's single-device routes. Attention (:func:`uses_chain`, the gate
+of vit_int4.py:272): a batch of 4 or more takes
+:func:`~..ops.attention.attention_block` (K3, whose proj GEMM is K1); a
+batch of 1-3 takes the chain, K1 with the LayerNorm + quant prologue
+writing qkv, then :func:`~..ops.attention.attention_qkv` (K6), then K1
+with the residual epilogue for proj. MLP (:func:`mlp_route`, the gates of
+vit_int4.py:323-404 and fused.py:916-929): K2 (``fused_mlp``); K8
+(``fused_mlp_chunked``) for int8 weights too big to stay resident at the
+batch's rows (ViT-H/14 at batch 1-2); or, for big-weight MLPs above 576
+rows, the two-kernel chain, K1 with the LayerNorm + quant prologue and
+the GELU + quant epilogue for fc1, then K1 with the residual epilogue for
+fc2. The patch embed and the head are K1, the token stream K4
+(:func:`~..ops.patch.patch_finalize`). The JAX package's TPU-only gates
+(the mixed-``fmt`` tests, the attention kernel's VMEM fit predicate, the
+MLP alignment test) and its TPU tiles (the chain's ``chain_bm`` 544/288,
+the resident kernel's pinned 832/416) do not carry over as such; the
+VMEM arithmetic and the pins that decide the MLP route do.
 
 :func:`vit_int4_forward_latency` is the batch-1 latency entry: K1 (patch
 embed), K4, one launch of K5 (:func:`~..ops.block_stack.vit_block_stack`,
@@ -43,14 +50,18 @@ from ..models.vit import ViTConfig
 from ..ops.attention import (AttentionPlan, QkvAttentionPlan,
                              attention_block_plain, heads_kernel_limit,
                              plan_attention_block, plan_attention_qkv,
-                             run_attention_block, run_attention_qkv)
+                             qkv_kernel_limit, run_attention_block,
+                             run_attention_qkv)
 from ..ops.block_stack import (StackPlan, plan_block_stack,
                                run_block_stack, stack_kernel_limit,
                                vit_block_stack_plain)
-from ..ops.fused import (MatmulPlan, MlpPlan, fold_gelu, fold_ln,
-                         fused_mlp_plain, fused_quant_matmul_plain,
-                         mlp_kernel_limit, plan_matmul, plan_mlp, run_matmul,
-                         run_mlp)
+from ..ops import _build
+from ..ops.fused import (BIG_WEIGHT_BM, MatmulPlan, MlpPlan, fold_gelu,
+                         fold_ln, fused_mlp_plain, fused_mlp_resident_bm,
+                         fused_quant_matmul_plain, mlp_auto_hid_block,
+                         mlp_chunked_kernel_limit, mlp_kernel_limit,
+                         plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
+                         run_mlp, run_mlp_chunked)
 from ..ops.patch import patch_finalize, patch_finalize_plain
 from ..quant.packing import pack_int4
 
@@ -151,7 +162,8 @@ def _embed_tokens(art, images, cfg: ViTConfig, float_dtype,
 def _vit_block(x2d, blk, *, b: int, n_pad: int, n_real: int, dim: int,
                hd: int, sm_scale: float, float_dtype, int_attention: bool):
     """One transformer block (plain versions): the attention residual
-    branch (K3) then the MLP residual branch (K2)."""
+    branch (K3's) then the MLP residual branch (K2's, which K8 and the
+    big-weight chain compute too)."""
     qkv_e, proj_e = blk["qkv"], blk["proj"]
     fc1_e, fc2_e = blk["fc1"], blk["fc2"]
     x2d = attention_block_plain(
@@ -182,7 +194,7 @@ def _attention_layer(blk, hd: int, sm_scale: float):
 
 
 def _mlp_layer(blk):
-    """K2's layer arguments of one block."""
+    """K2's (and K8's) layer arguments of one block."""
     fc1_e, fc2_e = blk["fc1"], blk["fc2"]
     return dict(
         ln_scale=blk["norm2"]["scale"], ln_bias=blk["norm2"]["bias"],
@@ -211,44 +223,165 @@ def uses_chain(batch: int) -> bool:
     return batch < BLOCK_ROUTE_MIN_BATCH
 
 
+# the MLP routes of :func:`mlp_route`, named by the kernel that runs them
+MLP_RESIDENT, MLP_CHUNKED, MLP_CHAIN = ("fused_mlp", "fused_mlp_chunked",
+                                        "chain")
+# a big-weight MLP over this many rows takes the chain (vit_int4.py:346)
+BIG_WEIGHT_CHAIN_ROWS = 576
+# the resident TPU kernel's measured M tiles at two int8 geometries
+# (vit_int4.py:367-381): a pinned tile keeps the resident kernel, never
+# the hidden-chunked one
+_PINNED_MLP_BM = {(768, 3072): 832, (1024, 4096): 416}
+
+
+def mlp_route(m: int, k: int, hid: int, fmt: str, fmt2: Optional[str] = None,
+              itemsize: int = 2) -> str:
+    """The kernel the JAX package runs for an MLP of ``m`` rows, width
+    ``k``, hidden ``hid`` and weight formats ``fmt``/``fmt2`` with a
+    residual stream of ``itemsize`` bytes (vit_int4.py:323-404 and
+    fused.py:916-929): :data:`MLP_CHAIN` for a big-weight MLP (resident M
+    tile under 224 rows) over 576 rows, :data:`MLP_CHUNKED` where
+    ``_fused_mlp`` streams int8 weights in hidden chunks, else
+    :data:`MLP_RESIDENT`. Mixed formats, which the JAX package sends to the
+    chain, stay on K2 (it takes them)."""
+    fmt2 = fmt2 or fmt
+    big = fused_mlp_resident_bm(k, hid, fmt, itemsize,
+                                itemsize) < BIG_WEIGHT_BM
+    if big and m > BIG_WEIGHT_CHAIN_ROWS:
+        return MLP_CHAIN
+    pinned = _PINNED_MLP_BM.get((k, hid))
+    if fmt == "int8" and pinned and m % pinned == 0:
+        return MLP_RESIDENT
+    if fmt == fmt2 and mlp_auto_hid_block(m, k, hid, fmt, itemsize,
+                                          itemsize):
+        return MLP_CHUNKED
+    return MLP_RESIDENT
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpPlans:
+    """One block's MLP, prepared for each route of :func:`mlp_route`, all
+    on one n-major copy of each weight: K2 (None past its width limit),
+    K8 (None unless both weights are int8 and K8 takes the width), and
+    the chain's two K1 launches (fc1 with the LayerNorm + quant prologue
+    and the GELU + quant epilogue; fc2 with the residual epilogue)."""
+
+    resident: Optional[MlpPlan]
+    chunked: Optional[MlpPlan]
+    fc1: MatmulPlan
+    fc2: MatmulPlan
+    k: int
+    hid: int
+    fmt: str
+    fmt2: str
+
+
+def _plan_mlps(blk) -> MlpPlans:
+    """A block's :class:`MlpPlans`."""
+    fc1_e, fc2_e = blk["fc1"], blk["fc2"]
+    layer = _mlp_layer(blk)
+    k, hid = fc2_e.w.shape[1], fc1_e.w.shape[1]
+    w1_t, w2_t = _build.n_major(fc1_e.w), _build.n_major(fc2_e.w)
+    args = (fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+            fc2_e.bias)
+    return MlpPlans(
+        resident=None if mlp_kernel_limit(k) else plan_mlp(
+            *args, w1_t=w1_t, w2_t=w2_t, **layer),
+        chunked=None if mlp_chunked_kernel_limit(
+            k, fc1_e.fmt, fc2_e.fmt) else plan_mlp_chunked(
+                *args, w1_t=w1_t, w2_t=w2_t, **layer),
+        fc1=plan_matmul(
+            fc1_e.w, fc1_e.scale, fc1_e.bias, fmt=fc1_e.fmt,
+            prologue="ln_quant", act_d=layer["act_d"], act_t=layer["act_t"],
+            act_top=layer["act_top"], act_pow=layer["act_pow"],
+            ln_scale=layer["ln_scale"], ln_bias=layer["ln_bias"],
+            epilogue="gelu_quant", out_d=layer["hid_d"],
+            out_t=layer["hid_t"], out_top=layer["hid_top"],
+            out_pow=layer["hid_pow"], w_t=w1_t),
+        fc2=plan_matmul(fc2_e.w, fc2_e.scale, fc2_e.bias, fmt=fc2_e.fmt,
+                        prologue=None, epilogue="residual", w_t=w2_t),
+        k=k, hid=hid, fmt=fc1_e.fmt, fmt2=fc2_e.fmt)
+
+
+def _run_mlps(plans: MlpPlans, x2d, float_dtype):
+    """The MLP residual branch on the route :func:`mlp_route` picks for
+    ``x2d``'s rows; raises when that route's kernel cannot take the
+    block."""
+    route = mlp_route(x2d.shape[0], plans.k, plans.hid, plans.fmt,
+                      plans.fmt2, x2d.element_size())
+    if route == MLP_CHAIN:
+        hlv = run_matmul(plans.fc1, x2d)
+        return run_matmul(plans.fc2, hlv, residual=x2d,
+                          out_dtype=float_dtype)
+    if route == MLP_CHUNKED:
+        if plans.chunked is None:
+            _raise_limits([mlp_chunked_kernel_limit(plans.k, plans.fmt,
+                                                    plans.fmt2)])
+        return run_mlp_chunked(plans.chunked, x2d, out_dtype=float_dtype)
+    if plans.resident is None:
+        _raise_limits([mlp_kernel_limit(plans.k)])
+    return run_mlp(plans.resident, x2d, out_dtype=float_dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
     """An artifact prepared for the CUDA kernels, once
-    (:func:`prepare_kernels`): each K1/K2/K3/K6 call site of the forward
-    with its weight copied into the kernels' layout and its constants
-    folded, and K4's rows. It holds its own copy of every weight, beside
-    the artifact's; a block's qkv weight once, shared by K3's plan and the
-    chain's K1 plan."""
+    (:func:`prepare_kernels`): each K1/K2/K3/K6/K8 call site of the
+    forward with its weight copied into the kernels' layout and its
+    constants folded, and K4's rows. It holds its own copy of every
+    weight, beside the artifact's; a block's qkv weight once, shared by
+    K3's plan and the chain's K1 plan, and its fc1 and fc2 weights once,
+    shared by the plans of every MLP route (:class:`MlpPlans`)."""
 
     # per images_layout: the patch embed's K1 plan, then K4's positional
     # rows and scale ("nhwc": K1 returns the exact accumulators, K4
     # applies the dequant scale and the conv bias folded into the rows)
     embed: Dict[str, Tuple[MatmulPlan, torch.Tensor, torch.Tensor]]
     cls_row: torch.Tensor
-    blocks: List[Tuple[AttentionPlan, MlpPlan]]
+    blocks: List[Tuple[AttentionPlan, MlpPlans]]
     # per block, the chain's qkv K1 plan (LayerNorm + quant prologue) and
     # its K6 plan; its proj is the AttentionPlan's
     chain: List[Tuple[MatmulPlan, QkvAttentionPlan]]
     head: Optional[MatmulPlan]
 
 
-def kernel_limits(cfg: ViTConfig, n_align: int = 16,
-                  latency: bool = False) -> List[str]:
-    """Why the CUDA kernels cannot serve ``cfg`` (empty if they can):
-    those of K2 and K3 (which cover K6's), or with ``latency`` those of K5
-    for the batch-1 entry."""
+# kernel_limits with no batch checks the routes of batches 1 to this; the
+# gates of uses_chain and mlp_route reach each of their kernels below it
+ROUTE_BATCHES = 64
+
+
+def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
+                  *, batch: Optional[int] = None, fmt: str = "int4",
+                  float_dtype=torch.float32) -> List[str]:
+    """Why the CUDA kernels cannot serve ``cfg`` with ``fmt`` weights and a
+    ``float_dtype`` residual stream (empty if they can): the limits of the
+    kernels on the routes a forward of ``batch`` images takes (None: any
+    batch), K3 or K6 for attention and K2 or K8 for the MLP; or, with
+    ``latency``, those of K5 for the batch-1 entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
+    hid = int(cfg.embed_dim * cfg.mlp_ratio)
     if latency:
-        lims = (stack_kernel_limit(n_pad, cfg.embed_dim,
-                                   int(cfg.embed_dim * cfg.mlp_ratio), hd,
-                                   n_valid=cfg.num_tokens),)
+        lims = [stack_kernel_limit(n_pad, cfg.embed_dim, hid, hd,
+                                   n_valid=cfg.num_tokens)]
     else:
-        lims = (heads_kernel_limit(n_pad, hd), mlp_kernel_limit(cfg.embed_dim))
-    return [lim for lim in lims if lim]
+        itemsize = torch.empty((), dtype=float_dtype).element_size()
+        lims = []
+        for b in (range(1, ROUTE_BATCHES + 1) if batch is None
+                  else (batch,)):
+            lims.append(qkv_kernel_limit(n_pad, hd, itemsize) if uses_chain(b)
+                        else heads_kernel_limit(n_pad, hd, itemsize))
+            route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
+                              itemsize=itemsize)
+            if route == MLP_RESIDENT:
+                lims.append(mlp_kernel_limit(cfg.embed_dim))
+            elif route == MLP_CHUNKED:
+                lims.append(mlp_chunked_kernel_limit(cfg.embed_dim, fmt))
+    return list(dict.fromkeys(lim for lim in lims if lim))
 
 
-def _raise_limits(limits: List[str]) -> None:
+def _raise_limits(limits: List[Optional[str]]) -> None:
+    limits = [lim for lim in limits if lim]
     if limits:
         raise ValueError("the CUDA kernels cannot serve this configuration "
                          "(ROADMAP.md, kernel limits): " + "; ".join(limits))
@@ -278,10 +411,13 @@ def _embed_head_plans(art, cfg: ViTConfig):
 
 
 def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
-    """The artifact's kernel plans (its tensors on a CUDA device). Raises a
-    ValueError naming each kernel limit that ``cfg`` exceeds."""
-    _raise_limits(kernel_limits(cfg))
+    """The artifact's kernel plans (its tensors on a CUDA device), for the
+    routes of every batch. Raises a ValueError when ``cfg``'s head_dim
+    exceeds the attention kernels' bound; the limits that depend on the
+    batch and the residual dtype are checked by the forward
+    (:func:`kernel_limits`)."""
     hd = art["pos_embed"].shape[-1] // cfg.num_heads
+    _raise_limits([heads_kernel_limit(None, hd)])
     sm_scale = _sm_scale(cfg, hd)
     embed, cls_row, head = _embed_head_plans(art, cfg)
     blocks, chain = [], []
@@ -292,9 +428,7 @@ def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
         attn = plan_attention_block(
             qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
             proj_e.bias, fmt_proj=proj_e.fmt, **layer)
-        blocks.append((attn, plan_mlp(
-            fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
-            fc2_e.bias, **_mlp_layer(blk))))
+        blocks.append((attn, _plan_mlps(blk)))
         chain.append((
             plan_matmul(qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
                         prologue="ln_quant", act_d=layer["act_d"],
@@ -364,10 +498,11 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
     parity); level math is always f32. Returns f32 logits [B, classes].
 
     Tensors off the CPU run the CUDA kernels unless ``use_kernels`` is
-    False, on the route :func:`uses_chain` picks for the batch; ``plan`` is
-    the artifact's :func:`prepare_kernels`, made here when not given (a
-    caller that serves many batches keeps it). CPU tensors take the plain
-    versions.
+    False, on the routes :func:`uses_chain` and :func:`mlp_route` pick for
+    the batch (a ValueError names the kernel limits they exceed,
+    :func:`kernel_limits`); ``plan`` is the artifact's
+    :func:`prepare_kernels`, made here when not given (a caller that
+    serves many batches keeps it). CPU tensors take the plain versions.
     """
     b = images.shape[0]
     if input_scale is not None:
@@ -380,6 +515,9 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
     sm_scale = _sm_scale(cfg, hd)
     xp = _patches_2d(images, cfg, images_layout)
     if use_kernels and images.device.type != "cpu":
+        _raise_limits(kernel_limits(cfg, n_align, batch=b,
+                                    fmt=art["blocks"][0]["fc1"].fmt,
+                                    float_dtype=float_dtype))
         plan = plan or prepare_kernels(art, cfg)
         x2d = _embed_kernels(plan.embed, plan.cls_row, xp, b, cfg, dim,
                              n_pad, float_dtype, images_layout)
@@ -394,7 +532,7 @@ def vit_int4_forward(art, images, cfg: ViTConfig,
                     attn, x2d.reshape(b, n_pad, dim), n_valid=n_real,
                     out_dtype=float_dtype,
                     int_attention=int_attention).reshape(b * n_pad, dim)
-            x2d = run_mlp(mlp, x2d, out_dtype=float_dtype)
+            x2d = _run_mlps(mlp, x2d, float_dtype)
         head = plan.head
     else:
         head = None

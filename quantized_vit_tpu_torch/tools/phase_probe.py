@@ -1,5 +1,5 @@
-"""Per-block phase timing of the K3 and K2 kernels, and per-phase timing
-of K5, on the card.
+"""Per-block phase timing of the K3, K2 and K8 kernels, and per-phase
+timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
@@ -11,6 +11,9 @@ Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
   qkv GEMM | attention, and the span of the launch;
 - ``fused_mlp`` (ViT-B batch 32), per block: LayerNorm + quant |
   hidden-chunk loop | epilogue, and the span;
+- ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
+  LayerNorm + quant | its hidden slice's chunk loop | partial sums, grid
+  barrier and epilogue, and the span;
 - ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
   block, mean over the 12: each phase from one grid barrier to the next.
 
@@ -27,7 +30,8 @@ import torch
 from ..ops import _build
 from ..ops.attention import plan_attention_heads, run_attention_heads
 from ..ops.block_stack import run_block_stack
-from ..ops.fused import plan_mlp, run_mlp
+from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
+                         run_mlp_chunked)
 from ..models import ViTConfig
 from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 
@@ -61,13 +65,31 @@ def main():
         "fused_mlp": ((b * n + 31) // 32, lambda: run_mlp(mlp, x),
                       ("LN + quant", "hidden chunks", "epilogue")),
     }
+    # K8 at ViT-H/14's widths, batch 1 and 2 (272 token rows an image)
+    dh, hh = 1280, 5120
+    w1h = torch.randint(-7, 8, (dh, hh), dtype=torch.int8, device=dev)
+    w2h = torch.randint(-7, 8, (hh, dh), dtype=torch.int8, device=dev)
+    chunked = plan_mlp_chunked(
+        w1h, 1e-3 * one, None, w2h, 1e-3 * one, None, hid_d=d05, hid_t=one,
+        hid_top=7, act_d=d05, act_t=one, act_top=7, fmt="int8",
+        ln_scale=torch.ones(dh, device=dev),
+        ln_bias=torch.zeros(dh, device=dev))
+    splits = _build.library("fused_mlp_chunked").qvt_fused_mlp_chunked_splits
+    splits.argtypes, splits.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for bk in (1, 2):
+        xh = torch.randn((bk * 272, dh), generator=g, device=dev).to(
+            torch.bfloat16)
+        runs[f"fused_mlp_chunked:b{bk}"] = (
+            splits(bk * 272, dh, hh) * ((bk * 272 + 31) // 32),
+            lambda xh=xh: run_mlp_chunked(chunked, xh),
+            ("LN + quant", "hidden slice", "partials + barrier + epilogue"))
     buf = np.zeros(65536 * 4, np.uint64)
     print(torch.cuda.get_device_name(0))
-    for stem, (blocks, fn, names) in runs.items():
+    for name, (blocks, fn, names) in runs.items():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        read = _build.library(stem).qvt_probe_read
+        read = _build.library(name.split(":")[0]).qvt_probe_read
         read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
         code = read(buf.ctypes.data_as(ctypes.c_void_p))
         if code:
@@ -75,7 +97,7 @@ def main():
         t = buf[: blocks * 4].reshape(blocks, 4).astype(np.int64)
         t -= t[:, 0].min()
         ph = np.diff(t, axis=1).mean(0) / 1e3
-        print(f"{stem}: {blocks} blocks, launch span {t[:, 3].max() / 1e3:.1f}"
+        print(f"{name}: {blocks} blocks, launch span {t[:, 3].max() / 1e3:.1f}"
               " us; per block " + ", ".join(
                   f"{nm} {v:.1f} us" for nm, v in zip(names, ph)))
     stack_phases(buf)

@@ -119,6 +119,7 @@ def _never(*a, **k):
 
 
 @pytest.mark.parametrize("kernel", ["fused_quant_matmul", "fused_mlp",
+                                    "fused_mlp_chunked",
                                     "attention_block", "attention_heads",
                                     "patch_finalize", "attention_qkv",
                                     "vit_block_stack"])
@@ -140,11 +141,13 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
         if kernel == "fused_quant_matmul":
             tf.fused_quant_matmul(_meta(8, 16), _meta(8, 4, dtype=i8), one,
                                   **q)
-        elif kernel == "fused_mlp":
+        elif kernel in ("fused_mlp", "fused_mlp_chunked"):
+            # an explicit hid_block takes K8, as the JAX function's does
+            hb = 16 if kernel == "fused_mlp_chunked" else None
             tf.fused_mlp(_meta(8, 16), _meta(16, 32, dtype=i8), one, None,
                          _meta(32, 16, dtype=i8), one, None,
                          ln_scale=_meta(16), ln_bias=_meta(16), hid_d=one,
-                         hid_t=one, hid_top=7, **q)
+                         hid_t=one, hid_top=7, hid_block=hb, **q)
         elif kernel in ("attention_block", "attention_heads"):
             fn = getattr(ta, kernel)
             args = (_meta(2, 8, 16), _meta(16, 48, dtype=i8), one, None)
@@ -189,13 +192,26 @@ def test_forward_kernel_path_never_reaches_plain(monkeypatch):
 
 
 # configurations the JAX package serves that exceed the CUDA kernels'
-# limits (ROADMAP.md "Kernel limits"), each with what it exceeds
+# limits (ROADMAP.md "Kernel limits"), each with the batch, weight format
+# and residual dtype that reach the limit, and what it exceeds
 _OVER_LIMITS = {
-    # ViT-H/14: D 1280 > K2's 1024; head_dim 80 > K3's 64
-    "vit_h14": (dict(patch_size=14, embed_dim=1280, depth=1, num_heads=16,
-                     mlp_ratio=4.0), ["K=1280 > 1024", "head_dim 80"]),
-    # ViT-B/16 at 384 px: 577 tokens (592 padded) overflow K3's shared memory
-    "vit_b16_384": (dict(img_size=384, depth=1), ["592 tokens"]),
+    # ViT-H/14 with packed int4 weights at batch 1: the JAX package's
+    # resident MLP kernel (K2 here), whose width limit is 1024
+    "vit_h14_int4": (dict(patch_size=14, embed_dim=1280, depth=1,
+                          num_heads=16, mlp_ratio=4.0),
+                     dict(batch=1, fmt="int4", float_dtype=torch.bfloat16),
+                     ["K=1280 > 1024"]),
+    # ViT-H/14 with an f32 residual stream at batch 32: K3 keeps the
+    # image's q/k/v in f32 (272 tokens x head_dim 80 overflow)
+    "vit_h14_f32": (dict(patch_size=14, embed_dim=1280, depth=1,
+                         num_heads=16, mlp_ratio=4.0),
+                    dict(batch=32, fmt="int8", float_dtype=torch.float32),
+                    ["272 tokens x head_dim 80 (f32)"]),
+    # ViT-B/16 at 384 px, batch 32: 577 tokens (592 padded) overflow K3's
+    # shared memory even in bf16
+    "vit_b16_384": (dict(img_size=384, depth=1),
+                    dict(batch=32, fmt="int8", float_dtype=torch.bfloat16),
+                    ["592 tokens"]),
 }
 
 
@@ -205,17 +221,34 @@ def test_forward_names_the_kernel_limits_it_exceeds(name):
                                                random_vit_int4_artifact,
                                                vit_int4_forward)
 
-    kw, wants = _OVER_LIMITS[name]
+    kw, route, wants = _OVER_LIMITS[name]
     cfg = ViTConfig(**kw)
-    assert len(kernel_limits(cfg)) == len(wants)
+    assert len(kernel_limits(cfg, **route)) == len(wants)
     assert kernel_limits(ViTConfig()) == []  # ViT-B/16 at 224 px fits
-    art = random_vit_int4_artifact(cfg, pack_weights=False, device="meta")
+    art = random_vit_int4_artifact(cfg, pack_weights=route["fmt"] == "int4",
+                                   device="meta")
     kp = cfg.patch_size**2 * cfg.in_channels
     with pytest.raises(ValueError, match="kernel limits") as err:
-        vit_int4_forward(art, _meta(1, cfg.num_patches, kp), cfg,
+        vit_int4_forward(art, _meta(route["batch"], cfg.num_patches, kp),
+                         cfg, float_dtype=route["float_dtype"],
                          images_layout="patches")
     for want in wants:
         assert want in str(err.value)
+
+
+def test_vit_h14_int8_serves_at_every_batch():
+    """ViT-H/14 with int8-stored levels and a bf16 residual stream: no
+    kernel limit at any batch (K6 + K8 at batch 1-2, K3 + the K1 chain
+    from batch 3 on); in f32 only K3 (batch 4 and more) is refused."""
+    from quantized_vit_tpu_torch.serve import kernel_limits
+
+    cfg = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
+    assert kernel_limits(cfg, fmt="int8", float_dtype=torch.bfloat16) == []
+    for b in (1, 2, 3):
+        assert kernel_limits(cfg, batch=b, fmt="int8") == []
+    assert kernel_limits(cfg, batch=4, fmt="int8") == kernel_limits(
+        cfg, fmt="int8")
+    assert len(kernel_limits(cfg, fmt="int8")) == 1
 
 
 def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):

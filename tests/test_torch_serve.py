@@ -91,6 +91,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "BATCH", 4)
     monkeypatch.setattr(chip_smoke, "ITERS", 2)
     monkeypatch.setattr(chip_smoke, "CFG_KW", SMALL)
+    # ViT-H/14's phase at head_dim 80, shrunk: 4 patches of 14, 2 heads
+    monkeypatch.setattr(chip_smoke, "VIT_H_KW", dict(
+        img_size=28, patch_size=14, embed_dim=160, depth=2, num_heads=2,
+        num_classes=10))
+    monkeypatch.setattr(chip_smoke, "VIT_H_BATCHES", (1, 2, 4))
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     record = {"device": "cpu"}
@@ -98,7 +103,9 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     names = [k["name"] for k in record["kernels"]]
     assert names == ["fused_quant_matmul", "fused_mlp", "attention_block",
                      "patch_finalize", "attention_qkv", "block_stack",
-                     "quant_bwd"]
+                     "fused_mlp_chunked", "quant_bwd"]
+    assert [f["batch"] for f in record["forward"]
+            if f["forward"].startswith("vit_h14")] == [1, 2, 4]
     train = record["train"]
     assert train["steps"] == chip_smoke.TRAIN_STEPS
     assert set(train["phases"]) == {"warmup", "range", "fix"}
