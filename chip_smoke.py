@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the ViT-B/16 W4A4 serving
-paths, ViT-H/14 serving with int8-stored levels, and the ViT-B/16 QAT +
-GETA training path.
+paths, ViT-H/14 serving with int8-stored levels, the kernel-level entry
+points that the JAX package's bench and tools drive, and the ViT-B/16
+QAT + GETA training path.
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -13,15 +14,19 @@ Phases, in order; any failure exits non-zero:
    ``nvcc`` per source, in parallel);
 2. hold each kernel (K1 ``fused_quant_matmul``, K2 ``fused_mlp``, K3
    ``attention_block``, K4 ``patch_finalize``, K5 ``block_stack``, K6
-   ``attention_qkv``, K8 ``fused_mlp_chunked``) against its plain PyTorch
-   version on the card, at the main paths' ViT-B shapes, at ViT-H/14's
-   (K8 at 272 and 544 rows, K3 and K6 at head_dim 80) and at small ragged
+   ``attention_qkv``, K8 ``fused_mlp_chunked``, K9 ``attention_qkv_proj``,
+   K10-K12 ``int4_matmul``, ``int8_matmul``, ``quant_matmul_fa``) against
+   its plain PyTorch version on the card, at the main paths' ViT-B shapes,
+   at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
+   K9 at bench.py's preamble shapes, K10-K12 at tools/profile_kernels.py's
+   four ViT-B layer shapes, and at small ragged
    shapes, for packed int4 and int8 weights, the linear (t = 1) and pow
    (t != 1) quantizers, both residual dtypes and ``int_attention`` on and
    off, under the parity contract: int8 levels within 1 level at <= 0.5%
    of positions, the MLP block's output (K2, K8) within 1e-5, attention
-   outputs (K3's branch, K6's float output, K5's residual stream) within
-   0.1 everywhere and differing at <= 1% of positions, the rest exact;
+   outputs (K3's and K9's branch, K6's float output, K5's residual
+   stream) within 0.1 everywhere and differing at <= 1% of positions, the
+   rest exact;
    each row says whether it is bit-exact;
 3. the forwards (random artifact from seed 0, host-patchified input, bf16
    residual stream), each with the launch counters set to 0 just before
@@ -32,6 +37,12 @@ Phases, in order; any failure exits non-zero:
    2), and the batch-1 latency entry (one K5 launch); then ViT-H/14 at
    full width and depth 32 (int8-stored levels) at batch 1 and 2 (K1 +
    K6 + K1 + K8 per block) and 32 (K3 + K1 proj + the K1 fc1/fc2 chain);
+3b. the kernel-level paths at full width, each with the launch counters
+   checked: bench.py's parity preamble (K9), tools/exp_vith.py's ViT-H/14
+   attention branch at batch 8 (K1 qkv + K9 against K3's branch),
+   tools/profile_kernels.py's GEMMs (K10-K12 at ViT-B's layer shapes) and
+   the LSFQ pipeline of tests/ops/test_int4_matmul.py at fc1's width
+   (K10 and K12 against the fake-quant float product, within 1e-4);
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
@@ -39,10 +50,13 @@ Phases, in order; any failure exits non-zero:
 5. timings with CUDA events (warm-up, then the median of 20 runs, 200
    under 1 ms): each kernel at its main-path shapes (ViT-B's, and
    ViT-H/14's: K8 at batch 1 and 2, K1's embed, chain qkv and fc1/fc2
-   chain, K3 at batch 32, K6 at batch 1 and 2), its plain version,
+   chain, K3 at batch 32, K6 at batch 1 and 2; K9 at ViT-H's batch 8 and
+   ViT-B's 32, K10-K12 at ViT-B's layer shapes), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
-   ``scaled_dot_product_attention`` on K6's shapes (yardsticks the port
-   never calls), both routes' attention branch at batch 2 and 3, the
+   ``scaled_dot_product_attention`` on K6's and K9's shapes (yardsticks
+   the port never calls; beside K9 also K6 + K1 and K3's branch, beside
+   K12 K1 with its quant prologue), both routes' attention branch at
+   batch 2 and 3, the
    forwards, and a plain bf16 PyTorch ViT forward of the same
    architecture (ViT-B/16 at batch 32, 1 and 2; ViT-H/14 at 1, 2, 32);
 6. training: ViT-B/16 at full width, batch 32, seeded synthetic NHWC
@@ -97,6 +111,11 @@ CFG_KW: dict = {}
 VIT_H_KW: dict = dict(patch_size=14, embed_dim=1280, depth=32, num_heads=16,
                       num_classes=1000)
 VIT_H_BATCHES = (1, 2, 32)
+# the kernel-level paths of bench.py and the JAX package's tools: the ViT-H
+# attention branch at tools/exp_vith.py's batch 8, and the GEMMs at
+# tools/profile_kernels.py's M = 8 images of ViT-B/16's padded tokens
+VIT_H_BRANCH_BATCH = 8
+PROFILE_BATCH = 8
 ART_DIR = os.path.join(ROOT, "build", "smoke_artifact")  # serve phase
 
 # H100 data-sheet peaks (dense): int8 TOP/s, bf16 FLOP/s, HBM bytes/s
@@ -204,6 +223,7 @@ def run(record):
 
     fwd = forward_phase(dev, record)
     fwd["vit_h"] = vit_h_phase(dev, record)
+    fwd["paths"] = kernel_paths_phase(dev, record, fwd)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
     del fwd
@@ -228,6 +248,15 @@ def vit_h_shapes(cfg):
     n_pad = -(-cfg.num_tokens // 16) * 16
     return (cfg.num_patches, cfg.embed_dim, cfg.num_tokens, n_pad,
             int(cfg.embed_dim * cfg.mlp_ratio), cfg.num_heads)
+
+
+def profile_shapes(cfg):
+    """(layer, M, K, N) of tools/profile_kernels.py's GEMMs: ViT-B/16's
+    qkv, proj, fc1 and fc2 at M = PROFILE_BATCH x the padded tokens."""
+    _, _, d, _, n_pad, _, hid, _, _ = shapes(cfg)
+    m = PROFILE_BATCH * n_pad
+    return [("qkv", m, d, 3 * d), ("proj", m, d, d), ("fc1", m, d, hid),
+            ("fc2", m, hid, d)]
 
 
 def shapes(cfg):
@@ -573,6 +602,179 @@ class Parity:
         self.k5("small[1x40x64,h2,L3](int8,f32)", 1, 40, 37, 64, 2, 128, 3,
                 "int8", f32, False, 123)
 
+    # -- K9 ---------------------------------------------------------------
+
+    def k9(self, case, b, n, heads, hd, d, n_valid, dtype, fmt, quant,
+           int_attn, seed, bias=True, x_scale=0.7, out_d=0.01, out_top=31,
+           scale=2e-3):
+        """K9 (attention + proj) against its plain version (K6's plain
+        levels, then K1's plain residual epilogue); quant "lin" (t = 1) or
+        "pow" (t != 1)."""
+        from quantized_vit_tpu_torch.ops import (attention_qkv_proj,
+                                                 attention_qkv_proj_plain)
+
+        rng = np.random.default_rng(seed)
+        f32 = torch.float32
+        qkv = self.t(rng.standard_normal((b, n, 3 * heads * hd)) * x_scale,
+                     dtype)
+        w = self.weight(rng, heads * hd, d, fmt)
+        res = self.t(rng.standard_normal((b, n, d)) * 0.5, dtype)
+        pb = self.t(rng.standard_normal(d) * 0.01, f32) if bias else None
+        kw = dict(heads=heads, sm_scale=hd**-0.5, n_valid=n_valid,
+                  out_d=self.scal(out_d), out_t=self.scal(
+                      0.93 if quant == "pow" else 1.0), out_top=out_top,
+                  out_pow=quant == "pow", fmt=fmt, out_dtype=dtype,
+                  int_attention=int_attn)
+        got = attention_qkv_proj(qkv, w, self.scal(scale), pb, res, **kw)
+        want = attention_qkv_proj_plain(qkv, w, self.scal(scale), pb, res,
+                                        **kw)
+        return self.check("attention_qkv_proj", case, "attention", got, want)
+
+    def run_qkv_proj_kernels(self, cfg):
+        """K9 at bench.py's parity-preamble shapes (bench.py:165-185), at
+        ViT-B/16's batch 32 and ViT-H/14's batch 8 (tools/exp_vith.py's B;
+        272 padded tokens, as the port's forward pads them), and at small
+        ragged shapes (an odd head count, masked keys, heads off the
+        16-byte paths): int8 and packed int4 weights, t = 1 and t != 1,
+        ``int_attention`` off and on, with and without bias, bf16 and
+        f32."""
+        bf16, f32 = torch.bfloat16, torch.float32
+        for i, fmt in enumerate(("int8", "int4")):
+            self.k9(f"bench[2x64x384,h2](bf16,{fmt})", 2, 64, 2, 64, 256, 50,
+                    bf16, fmt, "lin", False, 500 + i, x_scale=0.1,
+                    out_d=0.05, out_top=7, scale=1e-3)
+        b, _, d, n_real, n_pad, _, _, _, heads = shapes(cfg)
+        hd = d // heads
+        tag = f"vit_b[{b}x{n_pad},h{heads}x{hd}]"
+        seed = 510
+        for fmt in ("int8", "int4"):
+            for quant in ("lin", "pow"):
+                seed += 1
+                self.k9(f"{tag}({fmt},{quant},bf16)", b, n_pad, heads, hd, d,
+                        n_real, bf16, fmt, quant, False, seed)
+            self.k9(f"{tag}({fmt},lin,bf16,int_attn)", b, n_pad, heads, hd,
+                    d, n_real, bf16, fmt, "lin", True, seed + 10)
+        self.k9(f"{tag}(int8,lin,f32,no bias)", b, n_pad, heads, hd, d,
+                n_real, f32, "int8", "lin", False, 530, bias=False)
+        _, d, n_real, n_pad, _, heads = vit_h_shapes(vit_h_cfg())
+        hd = d // heads
+        bh = VIT_H_BRANCH_BATCH
+        tag = f"vit_h[{bh}x{n_pad},h{heads}x{hd}]"
+        for i, (fmt, quant, dt, ia, bias) in enumerate((
+                ("int8", "lin", bf16, False, True),
+                ("int4", "lin", bf16, False, True),
+                ("int8", "pow", bf16, False, False),
+                ("int8", "lin", bf16, True, True),
+                ("int8", "lin", f32, False, True),
+                ("int4", "pow", f32, True, False))):
+            opts = (",int_attn" if ia else "") + ("" if bias else ",no bias")
+            self.k9(f"{tag}({fmt},{quant},{str(dt)[6:]}{opts})", bh, n_pad,
+                    heads, hd, d, n_real, dt, fmt, quant, ia, 540 + i,
+                    bias=bias)
+        seed = 560
+        for quant in ("lin", "pow"):
+            for ia in (False, True):
+                seed += 1
+                t = f"{quant},{'int' if ia else 'f'}_attn"
+                self.k9(f"small[3x40,h3x32,D96](int4,bf16,{t})", 3, 40, 3, 32,
+                        96, 29, bf16, "int4", quant, ia, seed)
+                self.k9(f"small[1x37,h2x24,D72](int8,f32,{t})", 1, 37, 2, 24,
+                        72, 29, f32, "int8", quant, ia, seed + 10,
+                        bias=not ia)
+                self.k9(f"small[2x40,h3x24,D72](int4,bf16,{t})", 2, 40, 3, 24,
+                        72, 40, bf16, "int4", quant, ia, seed + 20)
+
+    # -- K10-K12 ----------------------------------------------------------
+
+    def int_mm(self, kernel, case, m, k, n, seed, *, fmt="int4",
+               x_dtype=None, act_pow=False, out_dtype=torch.float32,
+               requant_top=None, bias=True, scalar=False):
+        """One of the integer GEMMs (``int4_matmul``, ``int8_matmul``,
+        ``quant_matmul_fa``) against its plain version: float outputs
+        exact, requantized levels under the levels contract. Inputs as
+        tools/profile_kernels.py makes them (levels in [-7, 7], a float x
+        at 0.1 with d 0.05 and top 7); int8_matmul's levels span int8."""
+        from quantized_vit_tpu_torch.ops import (int4_matmul,
+                                                 int4_matmul_plain,
+                                                 int8_matmul,
+                                                 int8_matmul_plain,
+                                                 quant_matmul_fa,
+                                                 quant_matmul_fa_plain)
+        from quantized_vit_tpu_torch.quant import pack_int4
+
+        rng = np.random.default_rng(seed)
+        f32 = torch.float32
+        lo = -127 if kernel == "int8_matmul" else -7
+        if kernel == "quant_matmul_fa":
+            x = self.t(rng.standard_normal((m, k)) * 0.1, x_dtype)
+        else:
+            x = self.t(rng.integers(lo, -lo + 1, (m, k)).astype(np.int8))
+        w = self.t(rng.integers(lo, -lo + 1, (k, n)).astype(np.int8))
+        if fmt == "int4":
+            w = pack_int4(w, axis=0)
+        sc = (self.scal(1e-3) if scalar else
+              self.t(rng.random(n) * 0.01 + 1e-3, f32))
+        if requant_top is not None:
+            sc = sc * 2.0
+        b = self.t(rng.standard_normal(n) * 0.01, f32) if bias else None
+        if kernel == "int4_matmul":
+            kw = dict(out_dtype=out_dtype, requant_top=requant_top)
+            got = int4_matmul(x, w, sc, b, **kw)
+            want = int4_matmul_plain(x, w, sc, b, **kw)
+        elif kernel == "int8_matmul":
+            got = int8_matmul(x, w, sc, b, out_dtype=out_dtype)
+            want = int8_matmul_plain(x, w, sc, b, out_dtype=out_dtype)
+        else:
+            q = (self.scal(0.05), self.scal(1.08 if act_pow else 1.0),
+                 torch.full((), 7, dtype=torch.int32, device=self.dev))
+            kw = dict(fmt=fmt, act_pow=act_pow, out_dtype=out_dtype)
+            got = quant_matmul_fa(x, w, sc, b, *q, **kw)
+            want = quant_matmul_fa_plain(x, w, sc, b, *q, **kw)
+        return self.check(kernel, case, "levels" if requant_top else "exact",
+                          got, want)
+
+    def run_int_matmul_kernels(self, cfg):
+        """K10-K12 at tools/profile_kernels.py's four ViT-B/16 layer shapes
+        (qkv, proj, fc1, fc2) at M = 8 images x the padded tokens (1664):
+        int4_matmul with f32 out and with the requant epilogue,
+        int8_matmul with f32 and bf16 out, quant_matmul_fa for int4 and
+        int8 weights, act_pow off and on, bf16 x to bf16 out (the tool's
+        case) and f32 to f32; then tests/ops/test_int4_matmul.py's ragged
+        shapes and a scalar scale without bias."""
+        bf16, f32 = torch.bfloat16, torch.float32
+        seed = 600
+        for label, m, k, n in profile_shapes(cfg):
+            tag = f"profile_{label}[{m}x{k}x{n}]"
+            seed += 10
+            self.int_mm("int4_matmul", tag + "(f32)", m, k, n, seed)
+            self.int_mm("int4_matmul", tag + "(requant 7)", m, k, n,
+                        seed + 1, requant_top=7)
+            for i, dt in enumerate((f32, bf16)):
+                self.int_mm("int8_matmul", tag + f"({str(dt)[6:]})", m, k, n,
+                            seed + 2 + i, fmt="int8", out_dtype=dt)
+            for fmt in ("int4", "int8"):
+                for pw in (False, True):
+                    for dt in (bf16, f32):
+                        self.int_mm("quant_matmul_fa",
+                                    tag + f"({fmt},{'pow' if pw else 'lin'},"
+                                    f"{str(dt)[6:]})", m, k, n, seed + 4,
+                                    fmt=fmt, x_dtype=dt, act_pow=pw,
+                                    out_dtype=dt)
+        for m, k, n in ((8, 64, 128), (197, 768, 768), (100, 250, 130)):
+            self.int_mm("int4_matmul", f"small[{m}x{k}x{n}]", m, k, n, 650)
+            self.int_mm("int4_matmul", f"small[{m}x{k}x{n}](requant 7)", m,
+                        k, n, 651, requant_top=7)
+        for m, k, n in ((64, 128, 128), (197, 768, 256), (33, 40, 24)):
+            self.int_mm("int8_matmul", f"small[{m}x{k}x{n}]", m, k, n, 652,
+                        fmt="int8", bias=m % 2 == 1)
+        self.int_mm("int4_matmul", "small[32x128x64](scalar scale, no bias)",
+                    32, 128, 64, 653, scalar=True, bias=False)
+        for m, k, n in ((24, 64, 48), (7, 40, 20), (50, 250, 130)):
+            for fmt in ("int4", "int8"):
+                self.int_mm("quant_matmul_fa", f"small[{m}x{k}x{n}]({fmt})",
+                            m, k, n, 654, fmt=fmt, x_dtype=f32, act_pow=True,
+                            scalar=fmt == "int8", bias=fmt == "int4")
+
     # -- K7 ---------------------------------------------------------------
 
     def k7(self, case, x, g, d, q_m, t, q_s=0.0, clip=(-2.0, 2.0)):
@@ -780,6 +982,8 @@ class Parity:
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
         self.run_vit_h_kernels()
+        self.run_qkv_proj_kernels(cfg)
+        self.run_int_matmul_kernels(cfg)
         self.run_quant_bwd(cfg)
         sync()
         n_ok = sum(r["ok"] for r in self.rows)
@@ -821,7 +1025,8 @@ def expected_launches(depth, route="block", mlp="fused_mlp"):
     K4 and K5 once."""
     none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
             "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
-            "quant_bwd": 0, "fused_mlp_chunked": 0}
+            "quant_bwd": 0, "fused_mlp_chunked": 0, "attention_qkv_proj": 0,
+            "int4_matmul": 0, "int8_matmul": 0, "quant_matmul_fa": 0}
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
     out = dict(none, fused_quant_matmul=2 + depth * (2 if route == "chain"
@@ -1003,6 +1208,206 @@ def vit_h_phase(dev, record):
                        "prepare_kernels_host_ms": plan_ms}
     log(f"[vit_h] artifact {art_s:.1f} s, prepare_kernels {plan_ms:.1f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the kernel-level paths of bench.py and the JAX package's tools
+# ---------------------------------------------------------------------------
+
+
+def run_path(dev, tag, fn, want):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after; on the card the launches must be ``want`` (kernel: count).
+    Returns the result and every counter."""
+    from quantized_vit_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out = fn()
+    sync()
+    launches = dict(_build.LAUNCHES)
+    got = {k: v for k, v in launches.items() if v}
+    log(f"[path {tag}] launches {got}")
+    if dev.type == "cuda" and got != want:
+        raise Failed(f"path {tag}: launches {got} != {want}")
+    return out, launches
+
+
+def path_check(rec, tag, got, want, tol=None):
+    """``got`` against ``want`` into ``rec[tag]``: the attention contract
+    (within 0.1, differing at <= 1% of positions) or, with ``tol``,
+    allclose at rtol = atol = tol; raises Failed otherwise."""
+    mx, share = float_diff(got, want)
+    if tol is None:
+        ok = mx <= 0.1 and share <= 0.01
+    else:
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+    ok = ok and tuple(got.shape) == tuple(want.shape) and bool(
+        torch.isfinite(got.float()).all())
+    rec[tag] = {"max_abs_diff": mx, "share_differ": share,
+                "bit_equal": mx == 0.0, "ok": ok}
+    log(f"  {tag}: max {mx:.3g} share {share:.2e} equal {mx == 0.0} ok {ok}")
+    if not ok:
+        raise Failed(f"{tag}: max {mx}, share {share}")
+
+
+def kernel_paths_phase(dev, record, fwd):
+    """The kernel-level entry points as bench.py and the JAX package's
+    tools drive them, at full width, each path with the launch counters
+    set to 0 just before and read just after:
+
+    - bench.py's parity preamble (bench.py:165-185): K9 on qkv
+      [2, 64, 384] against its plain pair;
+    - tools/exp_vith.py: the ViT-H/14 attention branch at batch 8 on block
+      0 of the seed-0 artifact and seeded input, K1 qkv (LayerNorm + quant
+      prologue, bf16 out) then K9, against K3's branch (its heads launch
+      and its K1 proj) on the same x: one function of the same weights,
+      so within the attention contract;
+    - tools/profile_kernels.py: at ViT-B/16's four layer shapes,
+      quant_matmul_fa (int4, bf16 x and out, t = 1), int4_matmul (f32
+      out) and int8_matmul on the same levels with int8 weights, each
+      exact against its plain version;
+    - tests/ops/test_int4_matmul.py:89-120 at ViT-B/16's fc1 (768 ->
+      3072) on M = 1664 seeded rows: 4-bit LSFQ levels through
+      int4_matmul, the float x through quant_matmul_fa, both within 1e-4
+      of the fake-quant float product.
+    """
+    from quantized_vit_tpu_torch.ops import (attention_block,
+                                             attention_qkv_proj,
+                                             attention_qkv_proj_plain,
+                                             fused_quant_matmul, int4_matmul,
+                                             int4_matmul_plain, int8_matmul,
+                                             int8_matmul_plain,
+                                             quant_matmul_fa,
+                                             quant_matmul_fa_plain)
+    from quantized_vit_tpu_torch.quant import (init_quant_params,
+                                               lsfq_levels, lsfq_nonlinear,
+                                               lsfq_top_level, pack_int4)
+    from quantized_vit_tpu_torch.serve.vit_int4 import _attention_layer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, launches = {}, {}
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x.to(dtype) if dtype else x
+
+    def scal(v):
+        return torch.full((), v, dtype=f32, device=dev)
+
+    # bench.py's parity preamble
+    rng = np.random.default_rng(7)
+    qkv = t(rng.standard_normal((2, 64, 3 * 128)) * 0.1, bf16)
+    wp = t(rng.integers(-7, 8, (128, 256)).astype(np.int8))
+    bp = t(rng.standard_normal(256) * 0.01, f32)
+    resp = t(rng.standard_normal((2, 64, 256)) * 0.1, bf16)
+    akw = dict(heads=2, sm_scale=0.125, n_valid=50, out_d=scal(0.05),
+               out_t=scal(1.0), out_top=7, fmt="int8")
+    got, launches["bench_preamble"] = run_path(
+        dev, "bench_preamble",
+        lambda: attention_qkv_proj(qkv, wp, scal(1e-3), bp, resp, **akw),
+        {"attention_qkv_proj": 1})
+    path_check(rec, "bench_preamble", got, attention_qkv_proj_plain(
+        qkv, wp, scal(1e-3), bp, resp, **akw))
+
+    # tools/exp_vith.py: the ViT-H/14 attention branch at batch 8
+    vh = fwd["vit_h"]
+    _, d, n_real, n_pad, _, heads = vit_h_shapes(vh["cfg"])
+    hd = d // heads
+    bh = VIT_H_BRANCH_BATCH
+    blk = vh["art"]["blocks"][0]
+    qkv_e, proj_e = blk["qkv"], blk["proj"]
+    layer = _attention_layer(blk, hd, hd**-0.5)
+    x = t(np.random.default_rng(9).standard_normal((bh * n_pad, d)) * 0.5,
+          bf16)
+    x3 = x.reshape(bh, n_pad, d)
+    proj_q = {k: layer[k] for k in ("heads", "sm_scale", "out_d", "out_t",
+                                    "out_top", "out_pow")}
+
+    def k1_k9():
+        q = fused_quant_matmul(
+            x, qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
+            prologue="ln_quant", act_d=layer["act_d"], act_t=layer["act_t"],
+            act_top=layer["act_top"], act_pow=layer["act_pow"],
+            ln_scale=layer["ln_scale"], ln_bias=layer["ln_bias"],
+            out_dtype=bf16)
+        return attention_qkv_proj(
+            q.reshape(bh, n_pad, -1), proj_e.w, proj_e.scale, proj_e.bias,
+            x3, n_valid=n_real, fmt=proj_e.fmt, out_dtype=bf16, **proj_q)
+
+    tag = f"vith_branch_b{bh}"
+    k9_out, launches[tag] = run_path(
+        dev, tag + " K1+K9", k1_k9,
+        {"fused_quant_matmul": 1, "attention_qkv_proj": 1})
+    k3_out, launches[tag + "_k3"] = run_path(
+        dev, tag + " K3 branch",
+        lambda: attention_block(
+            x3, qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
+            proj_e.bias, fmt_proj=proj_e.fmt, n_valid=n_real,
+            out_dtype=bf16, **layer),
+        {"attention_block": 1, "fused_quant_matmul": 1})
+    path_check(rec, tag + " K1+K9 vs K3 branch", k9_out, k3_out)
+
+    # tools/profile_kernels.py's GEMMs at ViT-B/16's layer shapes
+    rng = np.random.default_rng(0)
+    gemm = []
+    for label, m, k, n in profile_shapes(main_cfg()):
+        w_lv = t(rng.integers(-7, 8, (k, n)).astype(np.int8))
+        gemm.append((label, t(rng.standard_normal((m, k)) * 0.1, bf16),
+                     t(rng.integers(-7, 8, (m, k)).astype(np.int8)), w_lv,
+                     pack_int4(w_lv, axis=0),
+                     t(rng.standard_normal(n) * 0.01, f32)))
+    fa_q = (scal(0.05), scal(1.0),
+            torch.full((), 7, dtype=torch.int32, device=dev))
+    sc = scal(1e-3)
+
+    def profile():
+        return [(quant_matmul_fa(xf, wp4, sc, b, *fa_q, fmt="int4",
+                                 act_pow=False, out_dtype=bf16),
+                 int4_matmul(xl, wp4, sc, b, out_dtype=f32),
+                 int8_matmul(xl, w8, sc, b, out_dtype=f32))
+                for _, xf, xl, w8, wp4, b in gemm]
+
+    outs, launches["profile_kernels"] = run_path(
+        dev, "profile_kernels", profile,
+        {k: len(gemm) for k in ("quant_matmul_fa", "int4_matmul",
+                                "int8_matmul")})
+    for (label, xf, xl, w8, wp4, b), (fa, i4, i8) in zip(gemm, outs):
+        path_check(rec, f"profile_{label} quant_matmul_fa", fa,
+                   quant_matmul_fa_plain(xf, wp4, sc, b, *fa_q, fmt="int4",
+                                         act_pow=False, out_dtype=bf16), 0.0)
+        path_check(rec, f"profile_{label} int4_matmul", i4,
+                   int4_matmul_plain(xl, wp4, sc, b), 0.0)
+        path_check(rec, f"profile_{label} int8_matmul", i8,
+                   int8_matmul_plain(xl, w8, sc, b), 0.0)
+    del gemm, outs
+
+    # the LSFQ pipeline at fc1's width
+    _, m, k, n = profile_shapes(main_cfg())[2]
+    rng = np.random.default_rng(8)
+    xa = t(rng.standard_normal((m, k)) * 0.5, f32)
+    wa = t(rng.standard_normal((k, n)) * 0.05, f32)
+    d_w, qm_w, t_w = init_quant_params(wa, num_bits=4, nonlinear=True)
+    d_a, qm_a, t_a = init_quant_params(xa, num_bits=4, nonlinear=True)
+    clip = torch.tensor([-2.0, 2.0], device=dev)
+    float_out = (lsfq_nonlinear(xa, d_a, qm_a, t_a, clip)
+                 @ lsfq_nonlinear(wa, d_w, qm_w, t_w, clip))
+    w_packed = pack_int4(lsfq_levels(wa, d_w, qm_w, t_w).to(torch.int8))
+    x_lv = lsfq_levels(xa, d_a, qm_a, t_a).to(torch.int8)
+    scale = (d_w * d_a)[0]
+    top = lsfq_top_level(d_a, qm_a, t_a)[0]
+    (i4, fa), launches["lsfq_fc1"] = run_path(
+        dev, "lsfq_fc1",
+        lambda: (int4_matmul(x_lv, w_packed, scale),
+                 quant_matmul_fa(xa, w_packed, scale, None, d_a[0], t_a[0],
+                                 top, act_pow=True)),
+        {"int4_matmul": 1, "quant_matmul_fa": 1})
+    path_check(rec, f"lsfq_fc1[{m}x{k}x{n}] int4_matmul", i4, float_out,
+               1e-4)
+    path_check(rec, f"lsfq_fc1[{m}x{k}x{n}] quant_matmul_fa", fa,
+               float_out, 1e-4)
+    record["paths"] = {"checks": rec, "launches": launches}
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1299,15 +1704,7 @@ def timing_phase(dev, record, fwd, peaks):
                                            out_dtype=bf16)
 
     def sdpa(bk):
-        """scaled_dot_product_attention on K6's q/k/v shapes, bf16 (a
-        yardstick: no exp2 clamp, no quantizing epilogue)."""
-        import torch.nn.functional as F
-
-        qq = torch.randn((bk, heads, n_pad, hd), generator=g,
-                         device=DEV).to(bf16)
-        kk = torch.randn((bk, heads, nk, hd), generator=g,
-                         device=DEV).to(bf16)
-        return lambda: F.scaled_dot_product_attention(qq, kk, kk)
+        return sdpa_call(bk, heads, n_pad, nk, hd, g)
 
     w1b = 1 if pe.fmt == "int8" else 0.5
     wpk = 0.5 if meta.fmt == "int4" else 1
@@ -1355,21 +1752,28 @@ def timing_phase(dev, record, fwd, peaks):
          None),
     ]
     sites += vit_h_sites(fwd["vit_h"], kern, plain, bound)
+    sites += path_sites(fwd, kern, plain, bound)
     per_site = []
-    for name, site, nl, (bms, by), gemms, lib in sites:
+    for name, site, nl, (bms, by), gemms, lib, *extra in sites:
         ms = cuda_ms(kern[site])
         pms = cuda_ms(plain[site], iters=5, warmup=1)
         ims = int_mm_ms(gemms) if gemms else None
         lms = cuda_ms(lib) if lib is not None else None
+        # yardsticks the port never calls beside the kernel: K1 with the
+        # quant prologue at K12's shapes, K6 + K1 and K3's branch at K9's
+        yard = {k: cuda_ms(fn) * 1e3 for k, fn in (extra[0] if extra
+                                                    else {}).items()}
         per_site.append({"kernel": name, "site": site, "launches": nl,
                          "us": ms * 1e3, "plain_us": pms * 1e3,
                          "bound_us": bms * 1e3, "bound_by": by,
                          "int_mm_us": None if ims is None else ims * 1e3,
-                         "library_us": None if lms is None else lms * 1e3})
+                         "library_us": None if lms is None else lms * 1e3,
+                         "yardsticks_us": yard})
         log(f"[time] {name:18s} {site:12s} {ms * 1e3:9.1f} us  plain "
             f"{pms * 1e3:9.1f}  bound {bms * 1e3:7.1f} ({by})  _int_mm "
             f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}  library "
-            f"{'n/a' if lms is None else f'{lms * 1e3:.1f}'}")
+            f"{'n/a' if lms is None else f'{lms * 1e3:.1f}'}"
+            + "".join(f"  {k} {v:.1f}" for k, v in yard.items()))
     record["per_site"] = per_site
 
     # the attention branch of both routes at batch 2 and 3: K3 (alone and
@@ -1409,10 +1813,10 @@ def timing_phase(dev, record, fwd, peaks):
         "bf16_torch_img_per_s": b / ms_bf16 * 1e3,
         "ratio_vs_bf16": ms_bf16 / ms_fwd,
         "kernel_ms_sum": sum(s["us"] * s["launches"] for s in per_site
-                             if s["kernel"] not in ("attention_qkv",
-                                                    "block_stack",
-                                                    "fused_mlp_chunked")
-                             ) / 1e3,
+                             if s["kernel"] in ("fused_quant_matmul",
+                                                "fused_mlp",
+                                                "attention_block",
+                                                "patch_finalize")) / 1e3,
         **small}
     log(f"[time] forward b{b} bf16: {ms_fwd:.3f} ms/batch "
         f"({b / ms_fwd * 1e3:.1f} img/s); plain bf16 torch ViT-B/16 "
@@ -1452,8 +1856,22 @@ def timing_phase(dev, record, fwd, peaks):
                "quantized_vit_tpu/ops/block_stack.py:341", "latency"),
            "fused_mlp_chunked": (
                "quantized_vit_tpu_torch/csrc/fused_mlp_chunked.cu",
-               "quantized_vit_tpu/ops/fused.py:1065", "vith_b1")}
-    launches = dict(fwd["launches"], **fwd["vit_h"]["launches"])
+               "quantized_vit_tpu/ops/fused.py:1065", "vith_b1"),
+           "attention_qkv_proj": (
+               "quantized_vit_tpu_torch/csrc/attention_proj.cu",
+               "quantized_vit_tpu/ops/attention.py:770",
+               f"vith_branch_b{VIT_H_BRANCH_BATCH}"),
+           "int4_matmul": ("quantized_vit_tpu_torch/csrc/int_matmul.cu",
+                           "quantized_vit_tpu/ops/int4_matmul.py:193",
+                           "profile_kernels"),
+           "int8_matmul": ("quantized_vit_tpu_torch/csrc/int_matmul.cu",
+                           "quantized_vit_tpu/ops/int4_matmul.py:273",
+                           "profile_kernels"),
+           "quant_matmul_fa": ("quantized_vit_tpu_torch/csrc/int_matmul.cu",
+                               "quantized_vit_tpu/ops/int4_matmul.py:480",
+                               "profile_kernels")}
+    launches = dict(fwd["launches"], **fwd["vit_h"]["launches"],
+                    **fwd["paths"]["launches"])
     kernels = []
     for name, (src, rep, path) in rel.items():
         ss = [s for s in per_site if s["kernel"] == name]
@@ -1466,9 +1884,10 @@ def timing_phase(dev, record, fwd, peaks):
         lib = [s["library_us"] for s in ss if s["launches"]]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            # counted on the forward that runs the kernel: the batch-32
-            # forward, the chain forward at batch 2, the latency forward
-            "launches": launches[path][name],
+            # counted on the path that runs the kernel: the batch-32
+            # forward, the chain forward at batch 2, the latency forward,
+            # ViT-H/14's forward at batch 1, the kernel paths of phase 3b
+            "launches": launches[path][name], "path": path,
             "max_abs_err": max(r["max_abs_err"] for r in errs),
             "share_differ": max(r["share_differ"] for r in errs),
             "bit_exact": all(r["bit_exact"] for r in errs),
@@ -1485,6 +1904,181 @@ def timing_phase(dev, record, fwd, peaks):
             "bound_us_per_launch": {s["site"]: s["bound_us"] for s in ss},
         })
     record["kernels"] = kernels
+
+
+def k9_site_calls(blk, plan, qkv, x3, hd, n_real):
+    """(K9, its plain version, K6 + K1, K3's branch) on block ``blk``'s
+    layers, as calls on ``qkv`` [B, N, 3D] and the residual ``x3``; on the
+    card each kernel launches on a plan (K6, K3 and the proj K1 on the
+    forward's ``plan``), in a CPU rehearsal the wrappers take their plain
+    versions."""
+    from quantized_vit_tpu_torch.ops import (
+        attention_block, attention_qkv, attention_qkv_proj,
+        attention_qkv_proj_plain, fused_quant_matmul,
+        plan_attention_qkv_proj, run_attention_block, run_attention_qkv,
+        run_attention_qkv_proj, run_matmul)
+    from quantized_vit_tpu_torch.serve.vit_int4 import _attention_layer
+
+    bf16 = torch.bfloat16
+    qkv_e, proj_e = blk["qkv"], blk["proj"]
+    layer = _attention_layer(blk, hd, hd**-0.5)
+    q = {k: layer[k] for k in ("heads", "sm_scale", "out_d", "out_t",
+                               "out_top", "out_pow")}
+    kq = dict(n_valid=n_real, out_dtype=bf16)
+    proj = (proj_e.w, proj_e.scale, proj_e.bias)
+    m = x3.shape[0] * x3.shape[1]
+    x2 = x3.reshape(m, -1)
+
+    def plain():
+        return attention_qkv_proj_plain(qkv, *proj, x3, fmt=proj_e.fmt, **q,
+                                        **kq)
+
+    if plan is None:
+        def k9():
+            return attention_qkv_proj(qkv, *proj, x3, fmt=proj_e.fmt, **q,
+                                      **kq)
+
+        def k6_k1():
+            alv = attention_qkv(qkv, **q, **kq)
+            return fused_quant_matmul(alv.reshape(m, -1), *proj,
+                                      fmt=proj_e.fmt, prologue=None,
+                                      epilogue="residual", residual=x2,
+                                      out_dtype=bf16)
+
+        def k3():
+            return attention_block(x3, qkv_e.w, qkv_e.scale, qkv_e.bias,
+                                   *proj, fmt_proj=proj_e.fmt, **layer, **kq)
+
+        return k9, plain, k6_k1, k3
+    attn_p, k6_p = plan.blocks[0][0], plan.chain[0][1]
+    k9_p = plan_attention_qkv_proj(*proj, fmt=proj_e.fmt, **q)
+
+    def k6_k1():
+        alv = run_attention_qkv(k6_p, qkv, **kq)
+        return run_matmul(attn_p.proj, alv.reshape(m, -1), residual=x2,
+                          out_dtype=bf16)
+
+    return (lambda: run_attention_qkv_proj(k9_p, qkv, x3, **kq), plain,
+            k6_k1, lambda: run_attention_block(attn_p, x3, **kq))
+
+
+def path_sites(fwd, kern, plain, bound):
+    """The timing sites of phase 3b's kernels, added to ``kern``/``plain``:
+    K9 at ViT-H/14's batch 8 (its launch on the exp_vith path) and
+    ViT-B/16's batch 32, with SDPA + ``torch._int_mm`` on the proj as the
+    library yardstick and, beside it, K6 + K1 (the function's plain
+    structure on kernels) and K3's branch; K10-K12 at profile_kernels'
+    four shapes (one launch each on that path), ``torch._int_mm`` as the
+    library call and, for K12, K1 with the quant prologue (1/d, not the
+    division) as a yardstick."""
+    from quantized_vit_tpu_torch.ops import (fused_quant_matmul,
+                                             int4_matmul_plain,
+                                             int8_matmul_plain,
+                                             plan_int_matmul, plan_matmul,
+                                             quant_matmul_fa_plain,
+                                             run_int_matmul, run_matmul)
+    from quantized_vit_tpu_torch.quant import pack_int4
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=DEV).manual_seed(11)
+    sites = []
+    vh = fwd["vit_h"]
+    vb = shapes(fwd["cfg"])
+    for site, art, plan, b, d, n_real, n_pad, heads, nl in (
+            (f"k9_vith_b{VIT_H_BRANCH_BATCH}", vh["art"], vh["plan"],
+             VIT_H_BRANCH_BATCH, *vit_h_shapes(vh["cfg"])[1:4],
+             vit_h_shapes(vh["cfg"])[5], 1),
+            (f"k9_vitb_b{BATCH}", fwd["art"], fwd["plan"], BATCH, vb[2],
+             vb[3], vb[4], vb[8], 0)):
+        hd = d // heads
+        nk = -(-n_real // 16) * 16
+        m = b * n_pad
+        qkv = (torch.randn((b, n_pad, 3 * d), generator=g, device=DEV)
+               * 0.7).to(bf16)
+        x3 = torch.randn((b, n_pad, d), generator=g, device=DEV).to(bf16)
+        kern[site], plain[site], k6_k1, k3 = k9_site_calls(
+            art["blocks"][0], plan, qkv, x3, hd, n_real)
+        proj_e = art["blocks"][0]["proj"]
+        alv = torch.randint(-7, 8, (m, d), dtype=torch.int8, device=DEV,
+                            generator=g)
+        wt = torch.randint(-7, 8, (d, d), dtype=torch.int8, device=DEV,
+                           generator=g).t()
+        attn = sdpa_call(b, heads, n_pad, nk, hd, g)
+
+        def lib(attn=attn, alv=alv, wt=wt):
+            attn()
+            return torch._int_mm(alv, wt)
+
+        wb = d * d * (0.5 if proj_e.fmt == "int4" else 1)
+        attn_ops = b * 2 * heads * n_pad * nk * hd * 2
+        sites.append((
+            "attention_qkv_proj", site, nl,
+            bound(m * 3 * d * 2 + 2 * m * d * 2 + wb + 8 * d, 2 * m * d * d,
+                  attn_ops), [], lib, {"k6_k1": k6_k1, "k3_branch": k3}))
+    sc = torch.full((), 1e-3, device=DEV)
+    fa_q = dict(act_d=torch.full((), 0.05, device=DEV),
+                act_t=torch.full((), 1.0, device=DEV), act_top=7,
+                act_pow=False)
+    for label, m, k, n in profile_shapes(fwd["cfg"]):
+        xf = (torch.randn((m, k), generator=g, device=DEV) * 0.1).to(bf16)
+        xl = torch.randint(-7, 8, (m, k), dtype=torch.int8, device=DEV,
+                           generator=g)
+        w8 = torch.randint(-7, 8, (k, n), dtype=torch.int8, device=DEV,
+                           generator=g)
+        w4 = pack_int4(w8, axis=0)
+        bias = torch.randn((n,), generator=g, device=DEV) * 0.01
+        fa_args = (fa_q["act_d"], fa_q["act_t"], fa_q["act_top"])
+        plain.update({
+            f"int4_{label}": lambda xl=xl, w4=w4, bias=bias:
+                int4_matmul_plain(xl, w4, sc, bias),
+            f"int8_{label}": lambda xl=xl, w8=w8, bias=bias:
+                int8_matmul_plain(xl, w8, sc, bias),
+            f"fa_{label}": lambda xf=xf, w4=w4, bias=bias:
+                quant_matmul_fa_plain(xf, w4, sc, bias, *fa_args, fmt="int4",
+                                      act_pow=False, out_dtype=bf16)})
+        if DEV != "cuda":  # CPU rehearsal: the plain versions
+            for kk in ("int4", "int8", "fa"):
+                kern[f"{kk}_{label}"] = plain[f"{kk}_{label}"]
+            k1 = (lambda xf=xf, w4=w4, bias=bias: fused_quant_matmul(
+                xf, w4, sc, bias, fmt="int4", prologue="quant",
+                out_dtype=bf16, **fa_q))
+        else:
+            p4 = plan_int_matmul(w4, sc, bias, fmt="int4")
+            p8 = plan_int_matmul(w8, sc, bias, fmt="int8")
+            pfa = plan_int_matmul(w4, sc, bias, fmt="int4", **fa_q)
+            p1 = plan_matmul(w4, sc, bias, fmt="int4", prologue="quant",
+                             **fa_q)
+            kern.update({
+                f"int4_{label}": lambda p4=p4, xl=xl: run_int_matmul(p4, xl),
+                f"int8_{label}": lambda p8=p8, xl=xl: run_int_matmul(p8, xl),
+                f"fa_{label}": lambda pfa=pfa, xf=xf: run_int_matmul(
+                    pfa, xf, out_dtype=bf16)})
+            k1 = (lambda p1=p1, xf=xf: run_matmul(p1, xf, out_dtype=bf16))
+        ops = 2 * m * k * n
+        mm = (lambda xl=xl, w8t=w8.t().contiguous().t():
+              torch._int_mm(xl, w8t))
+        sites += [
+            ("int4_matmul", f"int4_{label}", 1,
+             bound(m * k + k * n / 2 + m * n * 4 + 8 * n, ops), [], mm),
+            ("int8_matmul", f"int8_{label}", 1,
+             bound(m * k + k * n + m * n * 4 + 8 * n, ops), [], mm),
+            ("quant_matmul_fa", f"fa_{label}", 1,
+             bound(m * k * 2 + k * n / 2 + m * n * 2 + 8 * n, ops), [], mm,
+             {"k1_quant": k1})]
+    return sites
+
+
+def sdpa_call(b, heads, nq, nk, hd, g):
+    """scaled_dot_product_attention on q [b, heads, nq, hd] and k = v
+    [b, heads, nk, hd] in bf16: a yardstick (no exp2 clamp, no quantizing
+    epilogue) the port never calls."""
+    import torch.nn.functional as F
+
+    qq = torch.randn((b, heads, nq, hd), generator=g, device=DEV).to(
+        torch.bfloat16)
+    kk = torch.randn((b, heads, nk, hd), generator=g, device=DEV).to(
+        torch.bfloat16)
+    return lambda: F.scaled_dot_product_attention(qq, kk, kk)
 
 
 def vit_h_sites(vh, kern, plain, bound):
@@ -1612,10 +2206,11 @@ def vit_h_sites(vh, kern, plain, bound):
          bound(mb * d * 2 + 3 * d * d + mb * d, 2 * mb * d * 3 * d,
                bb * attn_ops), [(mb, d, 3 * d)], None),
         ("attention_qkv", "vith_qkv_attn_b1", 0,
-         bound(n_pad * 3 * d * 2 + n_pad * d, 0, attn_ops), [], None),
+         bound(n_pad * 3 * d * 2 + n_pad * d, 0, attn_ops), [],
+         sdpa_call(1, heads, n_pad, nk, hd, g)),
         ("attention_qkv", "vith_qkv_attn_b2", 0,
          bound(2 * n_pad * 3 * d * 2 + 2 * n_pad * d, 0, 2 * attn_ops), [],
-         None),
+         sdpa_call(2, heads, n_pad, nk, hd, g)),
     ]
 
 

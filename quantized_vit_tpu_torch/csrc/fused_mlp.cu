@@ -53,15 +53,6 @@ struct Args {
   float act_top, hid_top, eps;
 };
 
-// 16 bytes global -> shared without passing through registers; a false
-// `valid` writes zeros (src-size 0, nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
 // Shared memory: lvA [BM][Kp+16] | Hs [BM][SK] | two buffers of
 // { B1s [HC][Kp+16] | B2s [64*TN2][SK] } | mu [BM] | rs [BM]
 template <int TN2>
@@ -126,15 +117,17 @@ __global__ void __launch_bounds__(NT) mlp_kernel(Args a) {
       const int j = idx / kq, k = (idx - j * kq) * 16;
       const int h = hid(c, j);
       const bool ok = h >= 0 && k < K;
-      cp_async16(b1s + j * ska + k,
-                 a.w1.wt + (ok ? static_cast<long long>(h) * K + k : 0), ok);
+      qvt::cp_async16(
+          b1s + j * ska + k,
+          a.w1.wt + (ok ? static_cast<long long>(h) * K + k : 0), ok);
     }
     for (int idx = threadIdx.x; idx < 64 * TN2 * (HC / 16); idx += NT) {
       const int n = idx / (HC / 16), j0 = (idx - n * (HC / 16)) * 16;
       const int h = hid(c, j0);
       const bool ok = h >= 0 && n < K;
-      cp_async16(b2s + n * SK + j0,
-                 a.w2.wt + (ok ? static_cast<long long>(n) * H + h : 0), ok);
+      qvt::cp_async16(
+          b2s + n * SK + j0,
+          a.w2.wt + (ok ? static_cast<long long>(n) * H + h : 0), ok);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };

@@ -75,13 +75,6 @@ struct Args {
   float act_top, hid_top, eps;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
 // byte offset of 16-byte piece p (0, 1) of w2 chunk row n: the halves
 // swap on every other group of four rows
 __device__ __forceinline__ int b2_off(int n, int p) {
@@ -156,15 +149,17 @@ __global__ void __launch_bounds__(NT, 1) mlp_chunked_kernel(Args a) {
       const int j = idx / kq, k = (idx - j * kq) * 16;
       const int h = hid(c, j);
       const bool ok = h >= 0 && k < K;
-      cp_async16(b1s + j * sa + k,
-                 a.w1.wt + (ok ? static_cast<long long>(h) * K + k : 0), ok);
+      qvt::cp_async16(
+          b1s + j * sa + k,
+          a.w1.wt + (ok ? static_cast<long long>(h) * K + k : 0), ok);
     }
     for (int idx = threadIdx.x; idx < n2 * 2; idx += NT) {
       const int n = idx >> 1, p = idx & 1;
       const int h = hid(c, p * 16);
       const bool ok = h >= 0 && n < K;
-      cp_async16(b2s + b2_off(n, p),
-                 a.w2.wt + (ok ? static_cast<long long>(n) * H + h : 0), ok);
+      qvt::cp_async16(
+          b2s + b2_off(n, p),
+          a.w2.wt + (ok ? static_cast<long long>(n) * H + h : 0), ok);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };

@@ -134,6 +134,15 @@ struct WeightT {
   }
 };
 
+// 16 bytes global -> shared without passing through registers; a false
+// `valid` writes zeros (src-size 0, nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
 __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
                                        uint32_t b1) {

@@ -30,8 +30,11 @@ versions.
 :func:`attention_qkv` (kernel K6, ``csrc/attention_qkv.cu``) replaces
 ``_attention_qkv`` (``pallas_call`` at attention.py:859): the attention of
 the batch 1-3 chain on the raw fused-qkv tensor a K1 ``ln_quant`` launch
-wrote. K3, K5 and K6 share one attention core
-(``csrc/attention_core.cuh``).
+wrote. :func:`attention_qkv_proj` (kernel K9, ``csrc/attention_proj.cu``)
+replaces ``_attention_qkv_proj`` (``pallas_call`` at attention.py:770): the
+same attention with the proj GEMM, dequant and residual in the same
+launch, the int8 levels kept in shared memory. K3, K5, K6 and K9 share one
+attention core (``csrc/attention_core.cuh``).
 """
 
 from __future__ import annotations
@@ -596,3 +599,202 @@ def attention_qkv(qkv, *, heads, sm_scale, n_valid=None, out_d=None,
     return run_attention_qkv(
         plan_attention_qkv(qkv.device, heads=heads, sm_scale=sm_scale,
                            **quant), qkv, **run)
+
+
+# ---------------------------------------------------------------------------
+# K9: attention + proj on the raw fused-qkv tensor, one launch
+# ---------------------------------------------------------------------------
+
+
+def _check_qkv_proj(w, fmt, hdim, residual, b, n):
+    """The proj weight [H*hd(/2), D] against the heads and the residual
+    [B, N, D] (attention.py:732-739); returns D."""
+    d_out = w.shape[1]
+    _check_proj(w, fmt, hdim, d_out)
+    if tuple(residual.shape) != (b, n, d_out):
+        raise ValueError(f"residual {tuple(residual.shape)} vs ({b}, {n}, "
+                         f"{d_out})")
+    return d_out
+
+
+def attention_qkv_proj_plain(qkv, w, scale, bias, residual, *, heads,
+                             sm_scale, n_valid=None, out_d=None, out_t=None,
+                             out_top=None, out_pow=False, fmt="int8",
+                             out_dtype=torch.bfloat16, int_attention=False):
+    """Plain PyTorch version of K9: the pair the TPU kernel replaces
+    (bench.py:173-185): :func:`attention_qkv_plain` with the proj
+    quantizer's levels, then K1's plain version with the ``residual``
+    epilogue. Arguments as :func:`attention_qkv_proj`."""
+    b, n, width = qkv.shape
+    hdim = _qkv_head_dim(width, heads) * heads
+    d_out = _check_qkv_proj(w, fmt, hdim, residual, b, n)
+    alv = attention_qkv_plain(
+        qkv, heads=heads, sm_scale=sm_scale, n_valid=n_valid, out_d=out_d,
+        out_t=1.0 if out_t is None else out_t, out_top=out_top,
+        out_pow=out_pow, int_attention=int_attention)
+    out = fused_quant_matmul_plain(
+        alv.reshape(b * n, hdim), w, scale, bias, fmt=fmt, prologue=None,
+        epilogue="residual", residual=residual.reshape(b * n, d_out),
+        out_dtype=out_dtype)
+    return out.reshape(b, n, d_out)
+
+
+# csrc/attention_proj.cu: a block takes 64 query rows, or 32 or 16 where
+# more overflow shared memory; its proj GEMM streams two weight buffers of
+# 256 columns x 80 bytes through the k/v space
+_PROJ_ROWS = (64, 32, 16)
+_PROJ_WBUF = 2 * 256 * 80
+
+
+def qkv_proj_kernel_limit(n: Optional[int], heads: int, head_dim: int,
+                          itemsize: int = 2) -> Optional[str]:
+    """Why K9 cannot take ``n`` tokens (None: any) of ``heads`` heads of
+    ``head_dim`` with a qkv dtype of ``itemsize`` bytes, or None if it
+    can."""
+    err = _check_head_dim("attention_qkv_proj", head_dim)
+    if err or n is None:
+        return err
+    # csrc/attention_proj.cu:smem_bytes: one head's k/v of the nk key rows
+    # (no more than n) or the weight buffers, the tile's q rows in the qkv
+    # dtype and its int8 levels [rows, round_up(H*hd, 64) + 16]; and the
+    # scale reduction
+    rq, rv = _qkv_row_bytes(head_dim, itemsize)
+    region = max(n * (rq + rv), _PROJ_WBUF)
+    level_row = -(-heads * head_dim // 64) * 64 + 16
+    smem = [region + r * (rq + level_row) + _RED for r in _PROJ_ROWS]
+    if min(smem) > SMEM_LIMIT:
+        dt = "bf16" if itemsize == 2 else "f32"
+        return (f"attention_qkv_proj kernel: {n} tokens x {heads} heads of "
+                f"{head_dim} ({dt}) need {min(smem)} B of shared memory > "
+                f"{SMEM_LIMIT} (one head's k/v and a 16-row tile of levels "
+                "stay in one block's shared memory)")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class QkvProjPlan:
+    """One K9 call site, prepared once by :func:`plan_attention_qkv_proj`:
+    the proj weight in the kernels' layout, its scale [D] and bias, the
+    proj quantizer's scalars on the device and the static options."""
+
+    heads: int
+    w_t: torch.Tensor
+    int4: bool
+    hdim: int
+    d_out: int
+    scale: torch.Tensor
+    bias: Optional[torch.Tensor]
+    prm: torch.Tensor  # out_d, out_t
+    out_pow: bool
+    out_top: int
+    q_mul: float
+    sm_scale: float
+
+
+def _check_qkv_proj_top(out_top):
+    # attention.py:695-704: the levels need the proj layer's positive top
+    if not (out_top or 0) >= 1:
+        raise ValueError("attention_qkv_proj: positive out_top required")
+
+
+def plan_attention_qkv_proj(w, scale, bias=None, *, heads, sm_scale,
+                            out_d, out_t=None, out_top, out_pow=False,
+                            fmt="int8") -> QkvProjPlan:
+    """K9's layer-side work, done once: the proj weight copy into the
+    kernels' layout, scale and bias on the device, the quantizer's scalars.
+    Arguments as :func:`attention_qkv_proj`; ``w`` must lie on a CUDA
+    device."""
+    _check_qkv_proj_top(out_top)
+    if w.dtype != torch.int8:
+        raise TypeError("attention_qkv_proj: w_proj must be int8-typed")
+    _build.require_cuda("attention_qkv_proj", w)
+    dev = w.device
+    d_out = w.shape[1]
+    hdim = w.shape[0] * (2 if fmt == "int4" else 1)
+    if hdim % heads:
+        raise ValueError(f"w_proj {tuple(w.shape)} ({fmt}) does not split "
+                         f"into {heads} heads")
+    _raise_if(qkv_proj_kernel_limit(None, heads, hdim // heads))
+    return QkvProjPlan(
+        heads=int(heads), w_t=_build.n_major(w), int4=fmt == "int4",
+        hdim=hdim, d_out=d_out,
+        scale=torch.broadcast_to(_f32(scale, dev), (d_out,)).contiguous(),
+        bias=None if bias is None else _f32(bias, dev).contiguous(),
+        prm=_params4(dev, out_d, 1.0 if out_t is None else out_t, None,
+                     None),
+        out_pow=bool(out_pow), out_top=int(out_top),
+        q_mul=_f32_value(sm_scale * _LOG2E), sm_scale=_f32_value(sm_scale))
+
+
+def run_attention_qkv_proj(plan: QkvProjPlan, qkv, residual, *,
+                           n_valid=None, out_dtype=torch.bfloat16,
+                           int_attention=False):
+    """Launches K9 on ``qkv`` [B, N, 3*H*hd] and ``residual`` [B, N, D]
+    for a prepared call site (the only place that launches it); returns
+    the new residual stream [B, N, D]."""
+    _build.require_cuda("attention_qkv_proj", qkv, residual)
+    b, n, width = qkv.shape
+    hd = _qkv_head_dim(width, plan.heads)
+    if hd * plan.heads != plan.hdim:
+        raise ValueError(f"qkv width {width} vs the proj weight's "
+                         f"{plan.hdim} inputs")
+    if tuple(residual.shape) != (b, n, plan.d_out):
+        raise ValueError(f"residual {tuple(residual.shape)} vs ({b}, {n}, "
+                         f"{plan.d_out})")
+    _raise_if(qkv_proj_kernel_limit(n, plan.heads, hd, qkv.element_size()))
+    if n_valid is None:
+        n_valid = n
+    qkv, residual = qkv.contiguous(), residual.contiguous()
+    out = torch.empty((b, n, plan.d_out), dtype=out_dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.library("attention_proj").qvt_attention_qkv_proj
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
+                   F, F, I, I, I, P]
+    fn.restype = I
+    code = fn(
+        qkv.data_ptr(), _build.dtype_code(qkv.dtype), plan.w_t.data_ptr(),
+        int(plan.int4), plan.scale.data_ptr(), _build.ptr(plan.bias),
+        residual.data_ptr(), _build.dtype_code(residual.dtype),
+        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out_dtype),
+        b, n, plan.heads, hd, plan.d_out, n_valid,
+        _n_keys(n, n_valid, qkv.element_size()), plan.q_mul, plan.sm_scale,
+        int(int_attention), int(plan.out_pow), plan.out_top, _build.stream())
+    _build.check(code, "attention_qkv_proj")
+    _build.count_launch("attention_qkv_proj")
+    return out
+
+
+def attention_qkv_proj(qkv, w, scale, bias, residual, *, heads, sm_scale,
+                       n_valid=None, out_d=None, out_t=None, out_top=None,
+                       out_pow=False, fmt="int8", out_dtype=torch.bfloat16,
+                       int_attention=False):
+    """Attention on the raw fused-qkv tensor, quantized to the proj
+    layer's int8 levels, then the proj GEMM + dequant + residual: one
+    launch (kernel K9).
+
+    qkv: [B, N, (3, H, hd)] in the residual dtype; w: the proj weight
+    [H*hd, D] int8 levels or packed int4 [H*hd/2, D] (``fmt``); scale:
+    scalar or [D]; bias: [D] or None; residual: [B, N, D]. out_*: the proj
+    layer's input quantizer (``out_top`` a positive int). Returns the new
+    residual stream [B, N, D] in ``out_dtype``. CPU tensors take
+    :func:`attention_qkv_proj_plain`; CUDA tensors
+    :func:`plan_attention_qkv_proj` then :func:`run_attention_qkv_proj`."""
+    if out_top is not None and not isinstance(out_top, int):
+        out_top = int(out_top)
+    _check_qkv_proj_top(out_top)
+    b, n, width = qkv.shape
+    _check_qkv_proj(w, fmt, _qkv_head_dim(width, heads) * heads, residual,
+                    b, n)
+    quant = dict(out_d=out_d, out_t=out_t, out_top=out_top, out_pow=out_pow)
+    run = dict(n_valid=n_valid, out_dtype=out_dtype,
+               int_attention=int_attention)
+    if qkv.device.type == "cpu":
+        return attention_qkv_proj_plain(qkv, w, scale, bias, residual,
+                                        heads=heads, sm_scale=sm_scale,
+                                        fmt=fmt, **quant, **run)
+    return run_attention_qkv_proj(
+        plan_attention_qkv_proj(w, scale, bias, heads=heads,
+                                sm_scale=sm_scale, fmt=fmt, **quant),
+        qkv, residual, **run)

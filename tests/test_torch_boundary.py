@@ -5,6 +5,7 @@ plain version (a ``meta`` tensor stands in for a CUDA tensor here), and
 the forward names the kernel limits a configuration exceeds before it
 prepares anything."""
 
+import importlib
 import os
 import shutil
 import subprocess
@@ -19,6 +20,9 @@ from quantized_vit_tpu_torch.ops import attention as ta
 from quantized_vit_tpu_torch.ops import block_stack as tb
 from quantized_vit_tpu_torch.ops import fused as tf
 from quantized_vit_tpu_torch.ops import patch as tp
+
+# ops.int4_matmul, the module (the package exports a function by its name)
+tim = importlib.import_module("quantized_vit_tpu_torch.ops.int4_matmul")
 
 torch.set_num_threads(1)
 
@@ -122,7 +126,9 @@ def _never(*a, **k):
                                     "fused_mlp_chunked",
                                     "attention_block", "attention_heads",
                                     "patch_finalize", "attention_qkv",
-                                    "vit_block_stack"])
+                                    "vit_block_stack", "attention_qkv_proj",
+                                    "int4_matmul", "int8_matmul",
+                                    "quant_matmul_fa"])
 def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                                                         monkeypatch):
     for mod, name in ((tf, "fused_quant_matmul_plain"),
@@ -132,7 +138,11 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                       (ta, "fused_quant_matmul_plain"),
                       (tp, "patch_finalize_plain"),
                       (ta, "attention_qkv_plain"),
-                      (tb, "vit_block_stack_plain")):
+                      (tb, "vit_block_stack_plain"),
+                      (ta, "attention_qkv_proj_plain"),
+                      (tim, "int4_matmul_plain"),
+                      (tim, "int8_matmul_plain"),
+                      (tim, "quant_matmul_fa_plain")):
         monkeypatch.setattr(mod, name, _never)
     i8 = torch.int8
     one = torch.tensor(1.0)
@@ -158,6 +168,20 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
         elif kernel == "attention_qkv":
             ta.attention_qkv(_meta(2, 8, 48), heads=2, sm_scale=0.25,
                              out_d=one, out_t=one, out_top=7)
+        elif kernel == "attention_qkv_proj":
+            ta.attention_qkv_proj(_meta(2, 8, 48), _meta(16, 24, dtype=i8),
+                                  one, None, _meta(2, 8, 24), heads=2,
+                                  sm_scale=0.25, out_d=one, out_t=one,
+                                  out_top=7)
+        elif kernel == "int4_matmul":
+            tim.int4_matmul(_meta(8, 16, dtype=i8), _meta(8, 4, dtype=i8),
+                            one)
+        elif kernel == "int8_matmul":
+            tim.int8_matmul(_meta(8, 16, dtype=i8), _meta(16, 4, dtype=i8),
+                            one)
+        elif kernel == "quant_matmul_fa":
+            tim.quant_matmul_fa(_meta(8, 16), _meta(8, 4, dtype=i8), one,
+                                None, one, one, 7)
         elif kernel == "vit_block_stack":
             # one block of width 32, 2 heads, hidden 64, int8 weights
             w = lambda k, n: _meta(1, k, n, dtype=i8)  # noqa: E731
@@ -267,3 +291,24 @@ def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):
     y = lsfq_nonlinear_fused(x, d, q_m, t, -2.0, 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         y.sum().backward()
+
+
+def test_qkv_proj_kernel_limit_follows_shared_memory():
+    """K9's limit (ops/attention.py:qkv_proj_kernel_limit): head_dim 80
+    taken and 96 refused; ViT-H/14's 272 tokens x 16 heads of 80 fit in
+    bf16 with 64-row tiles and in f32 with 16-row ones (csrc/
+    attention_proj.cu:smem_bytes: one head's k/v, the tile's q rows and
+    its int8 levels), 592 tokens (a 384-px patch-16 model) do not in
+    f32."""
+    lim = ta.qkv_proj_kernel_limit
+    assert lim(None, 16, 80) is None and lim(272, 16, 80) is None
+    assert "head_dim 96" in lim(None, 16, 96)
+    assert "head_dim 96" in lim(272, 16, 96)
+    assert lim(272, 16, 80, itemsize=4) is None
+    assert lim(208, 12, 64, itemsize=4) is None
+    assert "shared memory" in lim(592, 12, 64, itemsize=4)
+    rq, rv = ta._qkv_row_bytes(80, 4)
+    f32_32 = 272 * (rq + rv) + 32 * (rq + 1296) + ta._RED
+    assert f32_32 > ta.SMEM_LIMIT  # 32-row tiles overflow, 16-row fit
+    rq, rv = ta._qkv_row_bytes(80, 2)
+    assert 272 * (rq + rv) + 64 * (rq + 1296) + ta._RED <= ta.SMEM_LIMIT

@@ -96,6 +96,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
         img_size=28, patch_size=14, embed_dim=160, depth=2, num_heads=2,
         num_classes=10))
     monkeypatch.setattr(chip_smoke, "VIT_H_BATCHES", (1, 2, 4))
+    # phase 3b: ViT-H's attention branch at batch 8 and the GEMMs at M =
+    # 8 x 16 rows keep their batches at these widths
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     record = {"device": "cpu"}
@@ -103,7 +105,16 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     names = [k["name"] for k in record["kernels"]]
     assert names == ["fused_quant_matmul", "fused_mlp", "attention_block",
                      "patch_finalize", "attention_qkv", "block_stack",
-                     "fused_mlp_chunked", "quant_bwd"]
+                     "fused_mlp_chunked", "attention_qkv_proj",
+                     "int4_matmul", "int8_matmul", "quant_matmul_fa",
+                     "quant_bwd"]
+    # phase 3b's kernel paths at the shrunk widths, every check passed
+    paths = record["paths"]
+    assert set(paths["launches"]) == {"bench_preamble", "vith_branch_b8",
+                                      "vith_branch_b8_k3", "profile_kernels",
+                                      "lsfq_fc1"}
+    assert len(paths["checks"]) == 2 + 3 * 4 + 2
+    assert all(c["ok"] for c in paths["checks"].values())
     assert [f["batch"] for f in record["forward"]
             if f["forward"].startswith("vit_h14")] == [1, 2, 4]
     train = record["train"]
