@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the ViT-B/16 W4A4 serving
 paths, ViT-H/14 serving with int8-stored levels, the kernel-level entry
-points that the JAX package's bench and tools drive, and the ViT-B/16
+points that the JAX package's bench and tools drive, FSDP serving with
+in-kernel weight gathers (processes sharing the card), and the ViT-B/16
 QAT + GETA training path.
 
 Run from the repository root (no arguments; one CUDA card):
@@ -15,8 +16,13 @@ Phases, in order; any failure exits non-zero:
 2. hold each kernel (K1 ``fused_quant_matmul``, K2 ``fused_mlp``, K3
    ``attention_block``, K4 ``patch_finalize``, K5 ``block_stack``, K6
    ``attention_qkv``, K8 ``fused_mlp_chunked``, K9 ``attention_qkv_proj``,
-   K10-K12 ``int4_matmul``, ``int8_matmul``, ``quant_matmul_fa``) against
-   its plain PyTorch version on the card, at the main paths' ViT-B shapes,
+   K10-K12 ``int4_matmul``, ``int8_matmul``, ``quant_matmul_fa``, K13
+   ``flash_attention``, K14 ``gather_rows``, K15 ``fused_mlp_gather``)
+   against its plain PyTorch version on the card, at the main paths' ViT-B
+   shapes (K13 at its path's ViT-B and ViT-H shapes and a ragged one, in
+   bf16, f32 and mixed q/v dtypes; K14 on a ViT-B block's weights as
+   int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
+   ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
    K9 at bench.py's preamble shapes, K10-K12 at tools/profile_kernels.py's
    four ViT-B layer shapes, and at small ragged
@@ -42,7 +48,16 @@ Phases, in order; any failure exits non-zero:
    attention branch at batch 8 (K1 qkv + K9 against K3's branch),
    tools/profile_kernels.py's GEMMs (K10-K12 at ViT-B's layer shapes) and
    the LSFQ pipeline of tests/ops/test_int4_matmul.py at fc1's width
-   (K10 and K12 against the fake-quant float product, within 1e-4);
+   (K10 and K12 against the fake-quant float product, within 1e-4), and
+   K13 on the q/k/v of block 0 of the seed-0 artifacts (ViT-B/16 batch
+   32, ViT-H/14 batch 1 and 8; float and int8 outputs);
+3c. FSDP serving (serve/vit_fsdp.py) on the batch-32 forward's artifact
+   and images: at tp = 1 in this process, at tp = 2 as two spawned
+   processes sharing the card (gloo, CUDA IPC, interprocess events),
+   each run's launches checked (1 K14, 12 K15, 12 K3, 14 K1, 1 K4) and
+   its logits bit-equal to ``vit_int4_forward``'s; the spawned groups
+   (tp = 2 and 4) also hold K14 and K15 against the full weights and
+   ``fused_mlp_plain``, each process under a deadline;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
@@ -53,10 +68,13 @@ Phases, in order; any failure exits non-zero:
    chain, K3 at batch 32, K6 at batch 1 and 2; K9 at ViT-H's batch 8 and
    ViT-B's 32, K10-K12 at ViT-B's layer shapes), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
-   ``scaled_dot_product_attention`` on K6's and K9's shapes (yardsticks
-   the port never calls; beside K9 also K6 + K1 and K3's branch, beside
-   K12 K1 with its quant prologue), both routes' attention branch at
-   batch 2 and 3, the
+   ``scaled_dot_product_attention`` on K6's, K9's and K13's shapes
+   (yardsticks the port never calls; beside K9 also K6 + K1 and K3's
+   branch, beside K12 K1 with its quant prologue, beside K15 K2 on the
+   same plan), ``torch.cat`` beside K14, K15's overlap sweep
+   (tools/exp_rdma_overlap.py's question: K2 alone, then K15 gathering
+   4-31 MB), the FSDP forward at tp = 1 against ``vit_int4_forward``,
+   both routes' attention branch at batch 2 and 3, the
    forwards, and a plain bf16 PyTorch ViT forward of the same
    architecture (ViT-B/16 at batch 32, 1 and 2; ViT-H/14 at 1, 2, 32);
 6. training: ViT-B/16 at full width, batch 32, seeded synthetic NHWC
@@ -116,6 +134,20 @@ VIT_H_BATCHES = (1, 2, 32)
 # tools/profile_kernels.py's M = 8 images of ViT-B/16's padded tokens
 VIT_H_BRANCH_BATCH = 8
 PROFILE_BATCH = 8
+# K13's kernel path: q/k/v of block 0 at ViT-B/16 batch 32 (BATCH) and
+# ViT-H/14 batch 1 and 8
+K13_VIT_H_BATCHES = (1, 8)
+# the FSDP phase (serve/vit_fsdp.py): its forward at tp = 1 in this
+# process and at FSDP_TP in spawned processes sharing the card; the
+# gathers' parity rows at each of GATHER_TPS (tp > 1 spawned); K15 at
+# ragged row counts beside the batch's; the overlap sweep's dummy shards
+# (tools/exp_rdma_overlap.py:97-121)
+FSDP_TP = 2
+GATHER_TPS = (1, 2, 4)
+K15_RAGGED_M = (96, 1000)
+OVERLAP_MB = (4, 8, 16, 31)
+FSDP_TP_ITERS = 5
+SPAWN_TIMEOUT_S = 300
 ART_DIR = os.path.join(ROOT, "build", "smoke_artifact")  # serve phase
 
 # H100 data-sheet peaks (dense): int8 TOP/s, bf16 FLOP/s, HBM bytes/s
@@ -224,6 +256,7 @@ def run(record):
     fwd = forward_phase(dev, record)
     fwd["vit_h"] = vit_h_phase(dev, record)
     fwd["paths"] = kernel_paths_phase(dev, record, fwd)
+    fwd["fsdp"] = fsdp_phase(dev, record, parity, fwd)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
     del fwd
@@ -284,6 +317,35 @@ def float_diff(got, want):
     return float(d.max()) if d.numel() else 0.0, float((d > 0).float().mean())
 
 
+def raw_bytes(t):
+    """A tensor's bytes (the gathers copy them opaquely)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def parity_row(kernel, case, kind, got, want):
+    """One parity row under the contract of ``kind``: ``levels`` (within
+    1 level at <= 0.5% of positions), ``mlp`` (within 1e-5),
+    ``attention`` (within 0.1, differing at <= 1% of positions), else
+    exact; every value finite."""
+    if kind == "levels":
+        mx, frac = level_diff(got, want)
+        ok = mx <= 1 and frac <= 0.005
+    elif kind == "mlp":
+        mx, frac = float_diff(got, want)
+        ok = mx <= 1e-5
+    elif kind == "attention":
+        mx, frac = float_diff(got, want)
+        ok = mx <= 0.1 and frac <= 0.01
+    else:  # exact
+        mx, frac = float_diff(got, want)
+        ok = mx == 0.0 and got.shape == want.shape
+    if not torch.isfinite(got.float()).all():
+        ok = False
+    return {"kernel": kernel, "case": case, "check": kind,
+            "max_abs_err": mx, "share_differ": frac, "bit_exact": mx == 0.0,
+            "ok": ok}
+
+
 class Parity:
     """Kernel-vs-plain cases; each row: kernel, case, max diff, share of
     positions that differ, pass."""
@@ -294,26 +356,16 @@ class Parity:
         self.failures = []
 
     def check(self, kernel, case, kind, got, want):
-        if kind == "levels":
-            mx, frac = level_diff(got, want)
-            ok = mx <= 1 and frac <= 0.005
-        elif kind == "mlp":
-            mx, frac = float_diff(got, want)
-            ok = mx <= 1e-5
-        elif kind == "attention":
-            mx, frac = float_diff(got, want)
-            ok = mx <= 0.1 and frac <= 0.01
-        else:  # exact
-            mx, frac = float_diff(got, want)
-            ok = mx == 0.0
-        if not torch.isfinite(got.float()).all():
-            ok = False
-        self.rows.append({"kernel": kernel, "case": case, "check": kind,
-                          "max_abs_err": mx, "share_differ": frac,
-                          "bit_exact": mx == 0.0, "ok": ok})
-        if not ok:
-            self.failures.append(f"{kernel} {case}: max {mx} share {frac}")
-        return mx, frac
+        row = parity_row(kernel, case, kind, got, want)
+        self.add(row)
+        return row["max_abs_err"], row["share_differ"]
+
+    def add(self, row):
+        self.rows.append(row)
+        if not row["ok"]:
+            self.failures.append(f"{row['kernel']} {row['case']}: max "
+                                 f"{row['max_abs_err']} share "
+                                 f"{row['share_differ']}")
 
     # -- data -------------------------------------------------------------
 
@@ -920,6 +972,83 @@ class Parity:
                         f"{'int' if int_attn else 'f'}_attn)", 3, 40, 2, hd,
                         29, bf16, quant, int_attn, seed)
 
+    # -- K13 --------------------------------------------------------------
+
+    def k13(self, case, b, h, n, hd, n_valid, dts, quant, seed):
+        """K13 on seeded q/k/v [b, h, n, hd] (``dts``: q/k dtype, v
+        dtype) against its plain version; ``quant``: None (float out in
+        v's dtype), "lin" (t = 1) or "pow" (t != 1) int8 levels."""
+        from quantized_vit_tpu_torch.ops import (flash_attention,
+                                                 flash_attention_plain)
+
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        q, k, v = (torch.randn((b, h, n, hd), generator=g,
+                               device=self.dev).to(dt)
+                   for dt in (dts[0], dts[0], dts[1]))
+        kw = dict(sm_scale=hd**-0.5, n_valid=n_valid, out_dtype=dts[1])
+        if quant:
+            kw.update(out_d=self.scal(0.02), out_t=self.scal(
+                0.93 if quant == "pow" else 1.0), out_top=31,
+                out_pow=quant == "pow")
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        return self.check("flash_attention", case,
+                          "levels" if quant else "attention", got, want)
+
+    # -- K14, K15 at tp = 1 (tp > 1: fsdp_phase's spawned processes) ------
+
+    def k15(self, case, m, cfg, seed, pow_=False, stream=torch.bfloat16):
+        """K15 (tp = 1) with ViT-B's four int8 weight shards to gather:
+        the MLP against fused_mlp_plain, each gathered weight against its
+        shard, byte for byte."""
+        rows = mlp_gather_case(self.dev, None, cfg, m, seed, pow_, stream)
+        for row in rows:
+            self.add(dict(row, case=case + row["case"]))
+
+    def run_gather_kernels(self, cfg):
+        """K13 at K13's path shapes (ViT-B/16 batch 32: 208 tokens, 197
+        real; ViT-H/14 batch 1 and 8: 272, 257, head_dim 80) in bf16, f32
+        and mixed q/v dtypes, float and int8 outputs, t = 1 and t != 1,
+        and at a ragged 50 tokens (37 real); K14 on ViT-B's four block
+        weights (int8, packed int4 and bf16 bytes) and K15 at the batch's
+        rows and ragged ones, at tp = 1."""
+        b, _, d, n_real, n_pad, _, _, _, heads = shapes(cfg)
+        vh = vit_h_cfg()
+        _, dh, nh_real, nh_pad, _, hh = vit_h_shapes(vh)
+        bf16, f32 = torch.bfloat16, torch.float32
+        seed = 800
+        for tag, bb, h, n, hd, nv in (
+                (f"vit_b[{b}x{heads}x{n_pad}x{d // heads}]", b, heads, n_pad,
+                 d // heads, n_real),
+                *((f"vit_h[{bk}x{hh}x{nh_pad}x{dh // hh}]", bk, hh, nh_pad,
+                   dh // hh, nh_real) for bk in K13_VIT_H_BATCHES)):
+            for quant in (None, "lin", "pow"):
+                seed += 1
+                self.k13(f"{tag}(bf16,{quant or 'float'})", bb, h, n, hd, nv,
+                         (bf16, bf16), quant, seed)
+        vb = (b, heads, n_pad, d // heads, n_real)
+        for dts in ((f32, f32), (f32, bf16), (bf16, f32)):
+            for quant in (None, "lin"):
+                seed += 1
+                dt = f"{str(dts[0])[6:]}/{str(dts[1])[6:]}"
+                self.k13(f"vit_b[{b}x{heads}x{n_pad}x{d // heads}]({dt},"
+                         f"{quant or 'float'})", *vb, dts, quant, seed)
+        for dts in ((bf16, bf16), (f32, f32), (f32, bf16)):
+            for quant in (None, "lin", "pow"):
+                seed += 1
+                dt = f"{str(dts[0])[6:]}/{str(dts[1])[6:]}"
+                self.k13(f"ragged[3x2x50x72]({dt},{quant or 'float'})", 3, 2,
+                         50, 72, 37, dts, quant, seed)
+        for kind in ("int8", "int4", "bf16"):
+            for row in gather_case(self.dev, None, cfg, kind, 900):
+                self.add(row)
+        m = b * n_pad
+        self.k15(f"main[{m}x{d}]", m, cfg, 910)
+        for i, mr in enumerate(K15_RAGGED_M):
+            self.k15(f"ragged[{mr}x{d}]", mr, cfg, 911 + i)
+        self.k15(f"ragged[{K15_RAGGED_M[0]}x{d}](pow,f32)", K15_RAGGED_M[0],
+                 cfg, 915, pow_=True, stream=f32)
+
     def run_all(self, cfg):
         t0 = time.time()
         seed = 0
@@ -984,6 +1113,7 @@ class Parity:
         self.run_vit_h_kernels()
         self.run_qkv_proj_kernels(cfg)
         self.run_int_matmul_kernels(cfg)
+        self.run_gather_kernels(cfg)
         self.run_quant_bwd(cfg)
         sync()
         n_ok = sum(r["ok"] for r in self.rows)
@@ -1022,13 +1152,20 @@ def expected_launches(depth, route="block", mlp="fused_mlp"):
     ``chain`` (batch 1-3): K1 also for each block's qkv, K6 in place of
     K3. The MLP once per block: ``fused_mlp`` (K2), ``fused_mlp_chunked``
     (K8), or ``chain``, two K1 launches (fc1, fc2). ``latency``: K1 twice,
-    K4 and K5 once."""
+    K4 and K5 once. ``fsdp``: the FSDP forward (a process's batch >= 4),
+    the block route with K15 for the MLP and one K14 (block 0's
+    gather)."""
     none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
             "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
             "quant_bwd": 0, "fused_mlp_chunked": 0, "attention_qkv_proj": 0,
-            "int4_matmul": 0, "int8_matmul": 0, "quant_matmul_fa": 0}
+            "int4_matmul": 0, "int8_matmul": 0, "quant_matmul_fa": 0,
+            "flash_attention": 0, "gather_rows": 0, "fused_mlp_gather": 0}
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
+    if route == "fsdp":
+        return dict(none, fused_quant_matmul=2 + depth,
+                    attention_block=depth, gather_rows=1,
+                    fused_mlp_gather=depth)
     out = dict(none, fused_quant_matmul=2 + depth * (2 if route == "chain"
                                                      else 1))
     out["attention_qkv" if route == "chain" else "attention_block"] = depth
@@ -1232,12 +1369,15 @@ def run_path(dev, tag, fn, want):
     return out, launches
 
 
-def path_check(rec, tag, got, want, tol=None):
+def path_check(rec, tag, got, want, tol=None, levels=False):
     """``got`` against ``want`` into ``rec[tag]``: the attention contract
-    (within 0.1, differing at <= 1% of positions) or, with ``tol``,
-    allclose at rtol = atol = tol; raises Failed otherwise."""
+    (within 0.1, differing at <= 1% of positions), with ``levels`` the
+    levels contract (within 1 level at <= 0.5% of positions) or, with
+    ``tol``, allclose at rtol = atol = tol; raises Failed otherwise."""
     mx, share = float_diff(got, want)
-    if tol is None:
+    if levels:
+        ok = mx <= 1 and share <= 0.005
+    elif tol is None:
         ok = mx <= 0.1 and share <= 0.01
     else:
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
@@ -1270,11 +1410,18 @@ def kernel_paths_phase(dev, record, fwd):
     - tests/ops/test_int4_matmul.py:89-120 at ViT-B/16's fc1 (768 ->
       3072) on M = 1664 seeded rows: 4-bit LSFQ levels through
       int4_matmul, the float x through quant_matmul_fa, both within 1e-4
-      of the fake-quant float product.
+      of the fake-quant float product;
+    - K13 (``flash_attention``, which nothing in the JAX package calls) on
+      the q/k/v of block 0 of the seed-0 artifacts (:func:`block0_qkv`),
+      ViT-B/16 at batch 32 and ViT-H/14 at batch 1 and 8, the bf16 output
+      (attention contract) and the proj's int8 levels (levels contract)
+      against its plain version.
     """
     from quantized_vit_tpu_torch.ops import (attention_block,
                                              attention_qkv_proj,
                                              attention_qkv_proj_plain,
+                                             flash_attention,
+                                             flash_attention_plain,
                                              fused_quant_matmul, int4_matmul,
                                              int4_matmul_plain, int8_matmul,
                                              int8_matmul_plain,
@@ -1406,8 +1553,324 @@ def kernel_paths_phase(dev, record, fwd):
                1e-4)
     path_check(rec, f"lsfq_fc1[{m}x{k}x{n}] quant_matmul_fa", fa,
                float_out, 1e-4)
+
+    # K13's kernel path (nothing in the JAX package calls it): q/k/v of
+    # block 0 of the seed-0 artifacts, ViT-B/16 at batch 32 and ViT-H/14
+    # at batch 1 and 8, the float output and the proj's int8 levels
+    k13 = {}
+    for tag, cfg_, art, plan, b, seed in (
+            (f"k13_vitb_b{BATCH}", fwd["cfg"], fwd["art"], fwd["plan"], BATCH,
+             0),
+            *((f"k13_vith_b{bk}", vh["cfg"], vh["art"], vh["plan"], bk, 5)
+              for bk in K13_VIT_H_BATCHES)):
+        q, k, v, kw = block0_qkv(dev, cfg_, art, plan, b, seed)
+        k13[tag] = (q, k, v, kw)
+        proj_e = art["blocks"][0]["proj"]
+        for quant in (False, True):
+            qkw = dict(kw, out_d=proj_e.act["d"], out_t=proj_e.act["t"],
+                       out_top=proj_e.top, out_pow=proj_e.act_pow) \
+                if quant else kw
+            ptag = tag + (":int8" if quant else "")
+            got, launches[ptag] = run_path(
+                dev, ptag, lambda qkw=qkw: flash_attention(q, k, v, **qkw),
+                {"flash_attention": 1})
+            path_check(rec, f"{ptag} [{'x'.join(map(str, q.shape))}]", got,
+                       flash_attention_plain(q, k, v, **qkw),
+                       levels=quant)
     record["paths"] = {"checks": rec, "launches": launches}
-    return {"launches": launches}
+    return {"launches": launches, "k13": k13}
+
+
+def block0_qkv(dev, cfg, art, plan, b, seed):
+    """q, k, v [b, H, N, hd] (bf16) of block 0 on ``b`` seeded
+    host-patchified images: the embedded tokens (K1 + K4) through K1 with
+    the LayerNorm + quant prologue (the chain's qkv launch), split and
+    permuted; with K13's keywords (scale, n_valid, bf16 out)."""
+    from quantized_vit_tpu_torch.ops import run_matmul
+    from quantized_vit_tpu_torch.serve.vit_int4 import (_embed_kernels,
+                                                        _embed_tokens,
+                                                        _qmatmul)
+
+    n_real = cfg.num_tokens
+    n_pad = -(-n_real // 16) * 16
+    d, heads = cfg.embed_dim, cfg.num_heads
+    hd = d // heads
+    kp = cfg.patch_size**2 * cfg.in_channels
+    xp = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, cfg.num_patches, kp)).astype(np.float32)).to(dev)
+    bf16 = torch.bfloat16
+    blk = art["blocks"][0]
+    if plan is not None:
+        x2d = _embed_kernels(plan.embed, plan.cls_row,
+                             xp.reshape(b * cfg.num_patches, kp), b, cfg, d,
+                             n_pad, bf16, "patches")
+        qkv = run_matmul(plan.chain[0][0], x2d, out_dtype=bf16)
+    else:
+        x2d = _embed_tokens(art, xp, cfg, bf16, "patches", n_pad)
+        qkv = _qmatmul(x2d, blk["qkv"], bf16, prologue="ln_quant",
+                       ln_scale=blk["norm1"]["scale"],
+                       ln_bias=blk["norm1"]["bias"])
+    q, k, v = qkv.reshape(b, n_pad, 3, heads, hd).permute(
+        2, 0, 3, 1, 4).contiguous()
+    return q, k, v, dict(sm_scale=hd**-0.5, n_valid=n_real, out_dtype=bf16)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: FSDP serving, the forward with in-kernel weight gathers
+# ---------------------------------------------------------------------------
+
+
+def vit_b_block_weights(cfg, kind, seed, dev):
+    """One block's four weights as the FSDP forward gathers them (qkv
+    [D, 3D], proj [D, D], fc1 [D, hid], fc2 [hid, D]): int8 levels,
+    packed int4 bytes ([K/2, N]) or bf16 values (the int8 shapes)."""
+    d, hid = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    shp = [(d, 3 * d), (d, d), (d, hid), (hid, d)]
+    rng = np.random.default_rng(seed)
+    if kind == "bf16":
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                .to(dev, torch.bfloat16) for s in shp]
+    if kind == "int4":
+        shp = [(k // 2, n) for k, n in shp]
+    return [torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8))
+            .to(dev) for s in shp]
+
+
+def _rows_of(t, rank, tp):
+    r = t.shape[0] // tp
+    return t[rank * r:(rank + 1) * r].contiguous()
+
+
+_BLOCK_NAMES = ("qkv", "proj", "fc1", "fc2")
+
+
+def gather_case(dev, peers, cfg, kind, seed):
+    """K14 (``gather_rows``) of this process's row shards of one block's
+    four weights (:func:`vit_b_block_weights`): each result against the
+    full weight, the shards concatenated in rank order, byte for byte."""
+    from quantized_vit_tpu_torch.ops import gather_rows
+
+    rank, tp = (0, 1) if peers is None else (peers.rank, peers.tp)
+    full = vit_b_block_weights(cfg, kind, seed, dev)
+    got = gather_rows([_rows_of(f, rank, tp) for f in full], peers=peers)
+    return [parity_row(
+        "gather_rows", f"block.{nm}[{'x'.join(map(str, f.shape))}]({kind},"
+        f"tp={tp},rank={rank})", "exact", raw_bytes(g), raw_bytes(f))
+        for nm, g, f in zip(_BLOCK_NAMES, got, full)]
+
+
+def mlp_gather_case(dev, peers, cfg, m, seed, pow_=False,
+                    stream=torch.bfloat16):
+    """K15 (``fused_mlp_gather``) on ``m`` seeded rows of the main width
+    with this process's shards of one block's int8 weights: the MLP
+    against ``fused_mlp_plain``, each gathered weight against the full
+    one, byte for byte. Rows' cases start with "(tp=..)"."""
+    from quantized_vit_tpu_torch.ops import fused_mlp_gather, fused_mlp_plain
+
+    rank, tp = (0, 1) if peers is None else (peers.rank, peers.tp)
+    d, hid = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    rng = np.random.default_rng(seed)
+    f32 = torch.float32
+
+    def t(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x.to(dt) if dt else x
+
+    def scal(v):
+        return torch.full((), v, dtype=f32, device=dev)
+
+    x = t(rng.standard_normal((m, d)) * 0.5, stream)
+    w1 = t(rng.integers(-7, 8, (d, hid)).astype(np.int8))
+    w2 = t(rng.integers(-7, 8, (hid, d)).astype(np.int8))
+    args = (x, w1, scal(1e-3), t(rng.standard_normal(hid) * 0.01, f32), w2,
+            scal(1e-3), t(rng.standard_normal(d) * 0.01, f32))
+    kw = dict(ln_scale=t(rng.standard_normal(d) * 0.1 + 1, f32),
+              ln_bias=t(rng.standard_normal(d) * 0.01, f32),
+              act_d=scal(0.05), act_t=scal(1.08 if pow_ else 1.0),
+              act_top=127, act_pow=pow_, hid_d=scal(0.05),
+              hid_t=scal(0.93 if pow_ else 1.0), hid_top=127, hid_pow=pow_,
+              fmt="int8", out_dtype=stream)
+    full = vit_b_block_weights(cfg, "int8", seed + 1, dev)
+    y, gath = fused_mlp_gather(
+        *args, next_shards=[_rows_of(f, rank, tp) for f in full],
+        peers=peers, **kw)
+    tag = f"(tp={tp},rank={rank})"
+    return [parity_row("fused_mlp_gather", tag, "mlp", y,
+                       fused_mlp_plain(*args, **kw))] + [
+        parity_row("fused_mlp_gather", f"{tag}:gather.{nm}", "exact",
+                   raw_bytes(g), raw_bytes(f))
+        for nm, g, f in zip(_BLOCK_NAMES, gath, full)]
+
+
+def fsdp_rank(peers, cfg, x_np, iters):
+    """This process's FSDP forward of ``x_np`` (host-patchified, the whole
+    batch) on its shard of the seed-0 int8-stored artifact (bf16
+    residual stream): the logits, the launches of one forward (counters
+    set to 0 just before, read just after), and the host time of
+    ``iters`` forwards, each started after a host barrier and ended by a
+    synchronize."""
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.serve import (prepare_fsdp_rdma_kernels,
+                                               random_vit_int4_artifact,
+                                               shard_fsdp_rdma_artifact,
+                                               vit_int4_forward_fsdp_rdma)
+
+    dev = peers.device
+    cuda = dev.type == "cuda"
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
+                                   device=dev)
+    fart = shard_fsdp_rdma_artifact(art, peers.rank, peers.tp)
+    del art
+    x = torch.from_numpy(x_np).to(dev)
+    plan = prepare_fsdp_rdma_kernels(fart, cfg, peers) if cuda else None
+
+    def fwd():
+        return vit_int4_forward_fsdp_rdma(
+            fart, x, cfg, peers, float_dtype=torch.bfloat16,
+            images_layout="patches", plan=plan)
+
+    def done():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    peers.barrier()
+    _build.reset_launches()
+    logits = fwd()
+    done()
+    launches = dict(_build.LAUNCHES)
+    ms = []
+    for _ in range(iters):
+        peers.barrier()
+        t0 = time.perf_counter()
+        fwd()
+        done()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"logits": logits.float().cpu().numpy(), "launches": launches,
+            "ms": ms, "shard_bytes": sum(
+                b[k].w.numel() * b[k].w.element_size()
+                for b in fart["blocks"] for k in _BLOCK_NAMES)}
+
+
+def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
+    """One of tp processes sharing the card (``run_processes``): the gloo
+    group, then each case, in order on every process: ("gather", kind,
+    seed), ("mlp_gather", name, m, seed) or ("fsdp", x, iters). Returns
+    the parity rows and the FSDP forward's result."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from quantized_vit_tpu_torch.models import ViTConfig
+    from quantized_vit_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peers = initialize_distributed(init_method, tp, rank, device=dev)
+    cfg = ViTConfig(**cfg_kw)
+    out = {"rows": []}
+    try:
+        for case in cases:
+            if case[0] == "gather":
+                out["rows"] += gather_case(peers.device, peers, cfg, *case[1:])
+            elif case[0] == "mlp_gather":
+                name, m, seed = case[1:]
+                out["rows"] += [dict(r, case=name + r["case"]) for r in
+                                mlp_gather_case(peers.device, peers, cfg, m,
+                                                seed)]
+            else:
+                out["fsdp"] = fsdp_rank(peers, cfg, *case[1:])
+    finally:
+        peers.close()
+    return out
+
+
+def fsdp_phase(dev, record, parity, fwd):
+    """The FSDP forward of serve/vit_fsdp.py on the main path's artifact
+    (seed 0, int8-stored levels, bf16 residual stream) and batch, each run
+    with the launch counters set to 0 just before and read just after,
+    logits against ``vit_int4_forward`` on the same artifact and images,
+    bit for bit: at tp = 1 in this process (K1, K4, K14 once, then per
+    block K3 + K1 proj and K15), and at FSDP_TP as spawned processes
+    sharing the card, BATCH / FSDP_TP images each. The same spawned
+    groups (every tp of GATHER_TPS above 1) hold K14 and K15 against the
+    full weights and ``fused_mlp_plain``; their rows join phase 2's."""
+    from quantized_vit_tpu_torch.parallel import run_processes
+    from quantized_vit_tpu_torch.serve import (prepare_fsdp_rdma_kernels,
+                                               shard_fsdp_rdma_artifact,
+                                               vit_int4_forward,
+                                               vit_int4_forward_fsdp_rdma)
+
+    cfg, art, x = fwd["cfg"], fwd["art"], fwd["x"]
+    _, _, d, _, n_pad, _, _, _, _ = shapes(cfg)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    ref = vit_int4_forward(art, x, cfg, plan=fwd["plan"], **kw)
+    sync()
+    t0 = time.perf_counter()
+    fart = shard_fsdp_rdma_artifact(art, 0, 1)
+    fplan = prepare_fsdp_rdma_kernels(fart, cfg) if dev.type == "cuda" \
+        else None
+    sync()
+    rec = {"prepare_host_ms": (time.perf_counter() - t0) * 1e3}
+    want = expected_launches(cfg.depth, "fsdp")
+    launches = {"fsdp_tp1": check_forward(
+        record, dev, "fsdp_rdma,tp=1,int8-stored",
+        lambda: vit_int4_forward_fsdp_rdma(fart, x, cfg, plan=fplan, **kw),
+        lambda: ref, want, BATCH, cfg)}
+    if not record["forward"][-1]["logits_equal"]:
+        raise Failed("FSDP forward at tp=1: logits differ from "
+                     "vit_int4_forward's")
+    rows = []
+    for tp in sorted(set(GATHER_TPS + (FSDP_TP,)) - {1}):
+        cases = [("gather", k, 900) for k in ("int8", "int4", "bf16")]
+        if tp == FSDP_TP:
+            m = BATCH * n_pad
+            cases += [("mlp_gather", f"main[{m}x{d}]", m, 910)] + [
+                ("mlp_gather", f"ragged[{mr}x{d}]", mr, 911 + i)
+                for i, mr in enumerate(K15_RAGGED_M)]
+            cases.append(("fsdp", x.cpu().numpy(), FSDP_TP_ITERS))
+        t0 = time.time()
+        try:
+            res = run_processes(spawned_worker, tp,
+                                os.path.join(OUT_DIR, "dist"),
+                                args=(DEV, dict(CFG_KW), cases),
+                                timeout_s=SPAWN_TIMEOUT_S)
+        except RuntimeError as e:
+            raise Failed(f"spawned processes at tp={tp}: {e}")
+        rec[f"spawn_tp{tp}_s"] = round(time.time() - t0, 1)
+        for r in res:
+            rows += r["rows"]
+        if tp != FSDP_TP:
+            continue
+        fs = [r["fsdp"] for r in res]
+        got = torch.from_numpy(np.concatenate([f["logits"] for f in fs]))
+        equal = bool(torch.equal(got, ref.float().cpu()))
+        rec[f"tp{tp}"] = {
+            "logits_equal": equal,
+            "max_abs_diff": float((got - ref.float().cpu()).abs().max()),
+            "launches_per_rank": [f["launches"] for f in fs],
+            "shard_bytes_per_rank": [f["shard_bytes"] for f in fs],
+            # host time, barrier to synchronize: two time-sliced contexts
+            # on one card, not a scaling number
+            "wall_ms_per_rank": [statistics.median(f["ms"]) for f in fs]}
+        launches[f"fsdp_tp{tp}"] = fs[0]["launches"]
+        log(f"[fsdp tp={tp}] logits equal {equal}, launches "
+            f"{[{k: v for k, v in f['launches'].items() if v} for f in fs]}"
+            f", wall {rec[f'tp{tp}']['wall_ms_per_rank']} ms "
+            f"({rec[f'spawn_tp{tp}_s']} s spawned)")
+        if not equal:
+            raise Failed(f"FSDP forward at tp={tp}: logits differ from "
+                         f"vit_int4_forward's by {rec[f'tp{tp}']}")
+        if dev.type == "cuda" and any(f["launches"] != want for f in fs):
+            raise Failed(f"FSDP forward at tp={tp}: launches "
+                         f"{[f['launches'] for f in fs]} != {want}")
+    for row in rows:
+        parity.add(row)
+    bad = [r for r in rows if not r["ok"]]
+    log(f"[fsdp] {len(rows) - len(bad)}/{len(rows)} spawned parity rows "
+        f"pass, {sum(r['bit_exact'] for r in rows)} bit-exact")
+    if bad:
+        raise Failed("spawned parity: " + "; ".join(
+            f"{r['kernel']} {r['case']}: max {r['max_abs_err']}"
+            for r in bad[:8]))
+    record["fsdp"] = rec
+    return {"launches": launches, "fart": fart, "plan": fplan}
 
 
 # ---------------------------------------------------------------------------
@@ -1552,6 +2015,7 @@ def timing_phase(dev, record, fwd, peaks):
                                              run_block_stack, run_matmul,
                                              run_mlp, vit_block_stack_plain)
     from quantized_vit_tpu_torch.serve import (vit_int4_forward,
+                                               vit_int4_forward_fsdp_rdma,
                                                vit_int4_forward_latency)
     from quantized_vit_tpu_torch.serve.vit_int4 import _chain_attention
 
@@ -1753,6 +2217,7 @@ def timing_phase(dev, record, fwd, peaks):
     ]
     sites += vit_h_sites(fwd["vit_h"], kern, plain, bound)
     sites += path_sites(fwd, kern, plain, bound)
+    sites += fsdp_sites(fwd, kern, plain, bound, xs)
     per_site = []
     for name, site, nl, (bms, by), gemms, lib, *extra in sites:
         ms = cuda_ms(kern[site])
@@ -1837,6 +2302,18 @@ def timing_phase(dev, record, fwd, peaks):
     log("[time] ViT-H/14 forwards (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in vh_t.items()))
 
+    # the FSDP forward at tp = 1 against vit_int4_forward on this card;
+    # tp = 2's host wall time is fsdp_phase's (two contexts time-sliced)
+    fs = fwd["fsdp"]
+    ms_fsdp = cuda_ms(lambda: vit_int4_forward_fsdp_rdma(
+        fs["fart"], x, cfg, plan=fs["plan"], **kw))
+    record["fsdp"]["forward_timing"] = {
+        "tp1_ms": ms_fsdp, "vit_int4_forward_ms": ms_fwd,
+        "ratio_vs_single_device": ms_fwd / ms_fsdp}
+    log(f"[time] FSDP forward tp=1 b{b}: {ms_fsdp:.3f} ms (single-device "
+        f"forward {ms_fwd:.3f} ms)")
+    record["overlap"] = overlap_sweep(cfg)
+
     rel = {"fused_quant_matmul": (
                "quantized_vit_tpu_torch/csrc/fused_quant_matmul.cu",
                "quantized_vit_tpu/ops/fused.py:556", "block"),
@@ -1869,9 +2346,19 @@ def timing_phase(dev, record, fwd, peaks):
                            "profile_kernels"),
            "quant_matmul_fa": ("quantized_vit_tpu_torch/csrc/int_matmul.cu",
                                "quantized_vit_tpu/ops/int4_matmul.py:480",
-                               "profile_kernels")}
+                               "profile_kernels"),
+           "flash_attention": (
+               "quantized_vit_tpu_torch/csrc/flash_attention.cu",
+               "quantized_vit_tpu/ops/attention.py:119",
+               f"k13_vitb_b{BATCH}"),
+           "gather_rows": ("quantized_vit_tpu_torch/csrc/ring_gather.cu",
+                           "quantized_vit_tpu/ops/ring_gather.py:154",
+                           "fsdp_tp1"),
+           "fused_mlp_gather": (
+               "quantized_vit_tpu_torch/csrc/ring_gather.cu",
+               "quantized_vit_tpu/ops/ring_gather.py:314", "fsdp_tp1")}
     launches = dict(fwd["launches"], **fwd["vit_h"]["launches"],
-                    **fwd["paths"]["launches"])
+                    **fwd["paths"]["launches"], **fwd["fsdp"]["launches"])
     kernels = []
     for name, (src, rep, path) in rel.items():
         ss = [s for s in per_site if s["kernel"] == name]
@@ -2066,6 +2553,139 @@ def path_sites(fwd, kern, plain, bound):
              bound(m * k * 2 + k * n / 2 + m * n * 2 + 8 * n, ops), [], mm,
              {"k1_quant": k1})]
     return sites
+
+
+def fsdp_sites(fwd, kern, plain, bound, xs):
+    """The timing sites of K13, K14 and K15, added to ``kern``/``plain``:
+    K13 on its path's q/k/v (ViT-B/16 batch 32: the launch of its path;
+    ViT-H/14 batch 1 and 8) with ``scaled_dot_product_attention`` on the
+    same q/k/v as the library call (no mask: the padded keys count); K14
+    on block 0's gather of the FSDP forward at tp = 1 (one launch a
+    forward), ``torch.cat`` of the shards as the library call; K15 on
+    block 0's MLP + gather of block 1 at the batch's rows (12 launches a
+    forward), K2 on the same plan as a yardstick (no PyTorch call
+    computes it)."""
+    import torch.nn.functional as F
+
+    from quantized_vit_tpu_torch.ops import (flash_attention,
+                                             flash_attention_plain,
+                                             fused_mlp_gather_plain,
+                                             gather_rows_plain,
+                                             run_gather_rows, run_mlp,
+                                             run_mlp_gather)
+    from quantized_vit_tpu_torch.serve.vit_fsdp import (_SHARDED, _logical,
+                                                        _mlp_args,
+                                                        _with_weights)
+
+    sites = []
+    for site, (q, k, v, kw) in fwd["paths"]["k13"].items():
+        kern[site] = lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v,
+                                                                  **kw)
+        plain[site] = lambda q=q, k=k, v=v, kw=kw: flash_attention_plain(
+            q, k, v, **kw)
+        b, h, n, hd = q.shape
+        nbytes = 4 * q.numel() * q.element_size()
+        sites.append((
+            "flash_attention", site, int(site == f"k13_vitb_b{BATCH}"),
+            bound(nbytes, 0, 2 * b * h * n * n * hd * 2), [],
+            lambda q=q, k=k, v=v, kw=kw: F.scaled_dot_product_attention(
+                q, k, v, scale=kw["sm_scale"])))
+    fs = fwd["fsdp"]
+    fart, plan = fs["fart"], fs["plan"]
+    blk0, blk1 = fart["blocks"][0], fart["blocks"][1]
+    shards0 = [blk0[k].w for k in _SHARDED]
+    shards1 = [blk1[k].w for k in _SHARDED]
+    moved = sum(s.numel() * s.element_size() for s in shards1)
+    full0 = _with_weights(blk0, [_logical(s) for s in shards0])
+    args, layer = _mlp_args(full0)
+    plain["gather_b0"] = lambda: gather_rows_plain(shards0)
+    plain["mlp_gather"] = lambda: fused_mlp_gather_plain(
+        xs, *args, next_shards=shards1, out_dtype=torch.bfloat16, **layer)
+    yard = {}
+    if plan is not None:
+        _, _, mlp0, gather1 = plan.blocks[0]
+        kern["gather_b0"] = lambda: run_gather_rows(plan.boot)
+        kern["mlp_gather"] = lambda: run_mlp_gather(
+            mlp0, gather1, xs, out_dtype=torch.bfloat16)
+        yard["k2_same_plan"] = lambda: run_mlp(mlp0, xs,
+                                               out_dtype=torch.bfloat16)
+    else:
+        kern["gather_b0"] = plain["gather_b0"]
+        kern["mlp_gather"] = plain["mlp_gather"]
+    m, d = xs.shape
+    hid = args[0].shape[1]
+    sites += [
+        ("gather_rows", "gather_b0", 1, bound(2 * moved), [],
+         lambda: [torch.cat([s]) for s in shards0]),
+        ("fused_mlp_gather", "mlp_gather", fwd["cfg"].depth,
+         bound(2 * m * d * 2 + 2 * d * hid + 2 * moved, 4 * m * d * hid),
+         [(m, d, hid), (m, hid, d)], None, yard)]
+    return sites
+
+
+def overlap_sweep(cfg):
+    """tools/exp_rdma_overlap.py's single-chip question (:80-134) on this
+    card at tp = 1: K2 alone at M = BATCH x the padded tokens (the
+    script's 32 x 208, D 768, hidden 3072, int8, t = 1, top 7), then K15
+    on the same plan gathering 4, 8, 16 and 31 MB of dummy int8 shards,
+    and K14 alone on the same shards. A flat K15 time means the copy
+    hides under the MLP. (Its AOT leg, a TPU v5e topology compile, has no
+    counterpart on this card.)"""
+    from quantized_vit_tpu_torch.ops import (fused_mlp_gather_plain,
+                                             fused_mlp_plain, plan_gather_rows,
+                                             plan_mlp, run_gather_rows,
+                                             run_mlp, run_mlp_gather)
+
+    _, _, d, _, n_pad, _, hid, _, _ = shapes(cfg)
+    m = BATCH * n_pad
+    rng = np.random.default_rng(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def t(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+        return x.to(dt) if dt else x
+
+    def scal(v):
+        return torch.full((), v, dtype=f32, device=DEV)
+
+    x = t(rng.standard_normal((m, d)) * 0.2, bf16)
+    w1 = t(rng.integers(-7, 8, (d, hid)).astype(np.int8))
+    w2 = t(rng.integers(-7, 8, (hid, d)).astype(np.int8))
+    args = (w1, scal(1e-3), t(rng.standard_normal(hid) * 0.01, f32), w2,
+            scal(1e-3), t(rng.standard_normal(d) * 0.01, f32))
+    kw = dict(ln_scale=torch.ones((d,), device=DEV),
+              ln_bias=torch.zeros((d,), device=DEV), act_d=scal(0.05),
+              act_t=scal(1.0), act_top=7, act_pow=False, hid_d=scal(0.05),
+              hid_t=scal(1.0), hid_top=7, hid_pow=False, fmt="int8")
+    cuda = DEV == "cuda"
+    plan = plan_mlp(*args, **kw) if cuda else None
+    out = {"m": m, "k": d, "hid": hid,
+           "k2_us": 1e3 * cuda_ms(
+               (lambda: run_mlp(plan, x)) if cuda else
+               (lambda: fused_mlp_plain(x, *args, **kw))), "sweep": {}}
+    for mb in OVERLAP_MB:
+        rows = (mb * 2**20) // d
+        rows -= rows % 32
+        dummy = torch.randint(-7, 8, (rows, d), dtype=torch.int8, device=DEV)
+        if cuda:
+            gp = plan_gather_rows([dummy])
+            k15 = cuda_ms(lambda: run_mlp_gather(plan, gp, x))
+            k14 = cuda_ms(lambda: run_gather_rows(gp))
+            del gp
+        else:
+            k15 = cuda_ms(lambda: fused_mlp_gather_plain(
+                x, *args, next_shards=[dummy], **kw))
+            k14 = None
+        out["sweep"][f"{mb}MB"] = {
+            "k15_us": k15 * 1e3, "k15_minus_k2_us": k15 * 1e3 - out["k2_us"],
+            "k14_alone_us": None if k14 is None else k14 * 1e3,
+            "bytes": rows * d}
+        del dummy
+    log(f"[time] overlap sweep (M {m}): K2 {out['k2_us']:.1f} us; " +
+        ", ".join(f"K15 + {k} {v['k15_us']:.1f} us (K14 alone "
+                  f"{v['k14_alone_us'] or 0:.1f})"
+                  for k, v in out["sweep"].items()))
+    return out
 
 
 def sdpa_call(b, heads, nq, nk, hd, g):

@@ -4,8 +4,10 @@
 Loads a ViT INT4 artifact, starts the :class:`ContinuousBatcher`, fires
 ``--requests`` synthetic requests (distinct images from a fixed seed) and
 reports throughput, latency and batch occupancy as one JSON line. It
-serves the bf16 residual stream (``SERVE_DTYPE``), the configuration
-``bench.py`` measures.
+serves an f32 residual stream (``SERVE_DTYPE``), as the JAX CLI's
+single-device branch does (it calls ``vit_int4_forward`` with its f32
+default, quantized_vit_tpu/cli/serve.py:129-146), so the two CLIs answer
+alike on one artifact; bf16 is the JAX CLI's mesh branch, not ported.
 
     python -m quantized_vit_tpu_torch.cli.serve --artifact DIR [--device cuda]
 """
@@ -19,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-SERVE_DTYPE = torch.bfloat16  # the residual stream's dtype
+SERVE_DTYPE = torch.float32  # the residual stream's dtype
 
 
 def parse_args(argv=None):
@@ -34,8 +36,10 @@ def parse_args(argv=None):
                    help="multi-device serving (not ported: must stay 0)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
-    p.add_argument("--no-kernels", action="store_true",
-                   help="plain PyTorch ops instead of the CUDA kernels")
+    p.add_argument("--no-kernels", "--no-pallas", dest="no_kernels",
+                   action="store_true",
+                   help="plain PyTorch ops instead of the CUDA kernels "
+                        "(--no-pallas: the JAX CLI's name of this flag)")
     p.add_argument("--input-uint8", action="store_true",
                    help="serve uint8 pixel inputs; cast and scale by 1/255 "
                         "on the device")

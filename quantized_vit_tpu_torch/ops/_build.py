@@ -14,7 +14,8 @@ module and there is no ``nvcc`` there.
 
 The kernels read every weight in one layout, :func:`n_major`; the plans of
 ``fused.py``, ``attention.py``, ``block_stack.py`` and ``int4_matmul.py``
-make that copy once per layer.
+make that copy once per layer (the FSDP forward gathers its weights in
+that layout, ``serve/vit_fsdp.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_quant_matmul.cu", "fused_mlp.cu", "attention_block.cu",
            "patch_finalize.cu", "attention_qkv.cu", "block_stack.cu",
            "quant_bwd.cu", "fused_mlp_chunked.cu", "attention_proj.cu",
-           "int_matmul.cu")
+           "int_matmul.cu", "flash_attention.cu", "ring_gather.cu")
 # -fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as the plain PyTorch version's separate ops do (a contracted FMA
 # moves a value by an ulp and can flip a level at a rounding tie)
@@ -52,7 +53,9 @@ LAUNCHES: Dict[str, int] = {"fused_quant_matmul": 0, "fused_mlp": 0,
                             "attention_qkv": 0, "block_stack": 0,
                             "quant_bwd": 0, "fused_mlp_chunked": 0,
                             "attention_qkv_proj": 0, "int4_matmul": 0,
-                            "int8_matmul": 0, "quant_matmul_fa": 0}
+                            "int8_matmul": 0, "quant_matmul_fa": 0,
+                            "flash_attention": 0, "gather_rows": 0,
+                            "fused_mlp_gather": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -35,6 +35,14 @@ replaces ``_attention_qkv_proj`` (``pallas_call`` at attention.py:770): the
 same attention with the proj GEMM, dequant and residual in the same
 launch, the int8 levels kept in shared memory. K3, K5, K6 and K9 share one
 attention core (``csrc/attention_core.cuh``).
+
+:func:`flash_attention` (kernel K13, ``csrc/flash_attention.cu``)
+replaces ``_flash_attention`` (``pallas_call`` at attention.py:119):
+softmax(q k^T * scale) v on q/k/v [B, H, N, hd] with the TPU kernel's own
+numerics (the scale after the dot, ``exp`` of the row-max-shifted scores,
+a true division by the row sum, p cast to v's dtype), not the core's; a
+block per (image, head, tile of query rows). Plain version:
+:func:`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -308,11 +316,15 @@ def plan_attention_heads(
     w_qkv, qkv_scale, qkv_bias, *, ln_scale, ln_bias, ln_eps=1e-6, heads,
     sm_scale, act_d=None, act_t=None, act_top=None, act_pow=False,
     out_d=None, out_t=None, out_top=None, out_pow=False, fmt="int8",
+    wq_t=None,
 ) -> HeadsPlan:
     """K3's layer-side work, done once: checks, the qkv weight copy into
     the kernels' layout, the fold of attention.py:598-602 and the q
     pre-scale. Arguments as :func:`attention_heads` (``int_attention`` is
-    chosen per launch); ``w_qkv`` must lie on a CUDA device."""
+    chosen per launch); ``w_qkv`` must lie on a CUDA device. ``wq_t``:
+    ``w_qkv`` already in the kernels' layout (:func:`~._build.n_major`;
+    another plan's copy, or a buffer a gather fills), used instead of a
+    copy."""
     d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
                                              out_top)
     _raise_if(heads_kernel_limit(None, head_dim))
@@ -322,7 +334,8 @@ def plan_attention_heads(
     qkv_bias = None if qkv_bias is None else _f32(qkv_bias, dev).contiguous()
     ln_scale, ln_bias = fold_ln(ln_scale, ln_bias, act_d, act_pow, dev)
     return HeadsPlan(
-        wq_t=_build.n_major(w_qkv), int4=fmt == "int4", d_model=d_model,
+        wq_t=_build.n_major(w_qkv) if wq_t is None else wq_t,
+        int4=fmt == "int4", d_model=d_model,
         heads=heads, head_dim=head_dim, qkv_scale=qkv_scale.contiguous(),
         qkv_bias=qkv_bias, ln_scale=ln_scale.contiguous(),
         ln_bias=ln_bias.contiguous(),
@@ -418,16 +431,20 @@ class AttentionPlan:
 
 
 def plan_attention_block(w_qkv, qkv_scale, qkv_bias, w_proj, proj_scale,
-                         proj_bias, *, fmt_proj=None, **layer):
+                         proj_bias, *, fmt_proj=None, wq_t=None, wp_t=None,
+                         **layer):
     """:func:`plan_attention_heads` and the proj's :func:`plan_matmul`
     (prologue None, residual epilogue). Keywords as
-    :func:`attention_block`, without ``n_valid``/``out_dtype``."""
+    :func:`attention_block`, without ``n_valid``/``out_dtype``; ``wq_t``
+    / ``wp_t``: the weights already in the kernels' layout (as
+    :func:`~.fused.plan_mlp`'s ``w1_t``/``w2_t``)."""
     fmt_proj = fmt_proj or layer.get("fmt", "int8")
-    heads = plan_attention_heads(w_qkv, qkv_scale, qkv_bias, **layer)
+    heads = plan_attention_heads(w_qkv, qkv_scale, qkv_bias, wq_t=wq_t,
+                                 **layer)
     _check_proj(w_proj, fmt_proj, w_qkv.shape[1] // 3, heads.d_model)
     return AttentionPlan(heads=heads, proj=plan_matmul(
         w_proj, proj_scale, proj_bias, fmt=fmt_proj, prologue=None,
-        epilogue="residual"))
+        epilogue="residual", w_t=wp_t))
 
 
 def run_attention_block(plan: AttentionPlan, x, *, n_valid=None,
@@ -798,3 +815,120 @@ def attention_qkv_proj(qkv, w, scale, bias, residual, *, heads, sm_scale,
         plan_attention_qkv_proj(w, scale, bias, heads=heads,
                                 sm_scale=sm_scale, fmt=fmt, **quant),
         qkv, residual, **run)
+
+
+# ---------------------------------------------------------------------------
+# K13: standalone attention on q/k/v [B, H, N, hd]
+# ---------------------------------------------------------------------------
+
+
+# csrc/flash_attention.cu keeps a thread's outputs in f64 registers,
+# instantiated for head_dim <= 64, 80 and 128
+FLASH_MAX_HEAD_DIM = 128
+
+
+def flash_kernel_limit(head_dim: int) -> Optional[str]:
+    """Why K13 cannot take ``head_dim``, or None if it can (it takes any
+    token count: a block holds a tile of query rows, 32 or fewer)."""
+    if head_dim > FLASH_MAX_HEAD_DIM:
+        return (f"flash_attention kernel: head_dim {head_dim} > "
+                f"{FLASH_MAX_HEAD_DIM}")
+    return None
+
+
+def _check_flash(q, k, v, out_d, out_top):
+    """Shape and dtype checks of flash_attention (and the ``out_top``
+    check of attention.py:65-76)."""
+    if not (q.dim() == 4 and q.shape == k.shape == v.shape):
+        raise ValueError(f"flash_attention: q/k/v must share one shape "
+                         f"[B, H, N, hd], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (q, k, v):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"flash_attention: q/k/v must be f32 or bf16, "
+                            f"got {t.dtype}")
+    if out_d is not None and not (out_top or 0) >= 1:
+        raise ValueError(
+            "flash_attention: out_d given but out_top is "
+            f"{out_top!r}; the quantize epilogue needs the layer's positive "
+            "top level (QLayerArtifact.top)")
+
+
+def flash_attention_plain(q, k, v, *, sm_scale, n_valid=None, out_d=None,
+                          out_t=None, out_top=None, out_pow=False,
+                          out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K13: a port of ``flash_attention_xla``
+    (attention.py:950-969) with the TPU kernel's cast of p to v's dtype
+    (attention.py:55; the XLA mirror casts to q's, ROADMAP.md C1.6). The
+    dots and the row sum accumulate in float64 and round once to f32."""
+    n = q.shape[2]
+    s = _dot_f32(q, k.transpose(-1, -2)) * _f32_value(sm_scale)
+    if n_valid is not None and n_valid < n:
+        col = torch.arange(n, device=q.device)
+        s = torch.where(col < n_valid, s, torch.full_like(s, -1e30))
+    s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / sum_f32(p, -1)
+    o = _dot_f32(p.to(v.dtype), v)
+    if out_d is not None:
+        dev = q.device
+        return _quantize_f32(o, _f32(out_d, dev), _f32(out_t, dev), out_top,
+                             out_pow)
+    return o.to(out_dtype)
+
+
+def run_flash_attention(q, k, v, *, sm_scale, n_valid=None, out_d=None,
+                        out_t=None, out_top=None, out_pow=False,
+                        out_dtype=torch.bfloat16):
+    """Launches K13 on CUDA q/k/v [B, H, N, hd] (the only place that
+    launches it); arguments as :func:`flash_attention`."""
+    _build.require_cuda("flash_attention", q, k, v)
+    _check_flash(q, k, v, out_d, out_top)
+    b, h, n, hd = q.shape
+    _raise_if(flash_kernel_limit(hd))
+    quantize = out_d is not None
+    out = torch.empty((b, h, n, hd),
+                      dtype=torch.int8 if quantize else out_dtype,
+                      device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    prm = (_params4(q.device, out_d, out_t, None, None) if quantize
+           else None)
+    fn = _build.library("flash_attention").qvt_flash_attention
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, I, P, I, P, I, P, I, I, I, I, I, F, I, I, P]
+    fn.restype = I
+    code = fn(
+        q.data_ptr(), _build.dtype_code(q.dtype), k.data_ptr(),
+        _build.dtype_code(k.dtype), v.data_ptr(), _build.dtype_code(v.dtype),
+        out.data_ptr(), _build.dtype_code(out.dtype), _build.ptr(prm), b, h,
+        n, hd, n if n_valid is None else int(n_valid),
+        _f32_value(sm_scale), int(out_top or 0), int(out_pow),
+        _build.stream())
+    _build.check(code, "flash_attention")
+    _build.count_launch("flash_attention")
+    return out
+
+
+def flash_attention(q, k, v, *, sm_scale, n_valid=None, out_d=None,
+                    out_t=None, out_top=None, out_pow=False,
+                    out_dtype=torch.bfloat16):
+    """softmax(q k^T * sm_scale) v per (image, head) (kernel K13).
+
+    q/k/v: [B, H, N, hd], f32 or bf16 (each its own). ``n_valid``: the
+    real token count (keys at or past it are masked; default all).
+    ``out_d``/``out_t``/``out_top`` (``out_pow``: the pow quantizer): the
+    output is quantized to int8 LSFQ levels; ``out_top`` must then be a
+    positive int (a ValueError otherwise, as attention.py:65-76). Returns
+    [B, H, N, hd] in ``out_dtype``, or int8. CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel
+    (:func:`run_flash_attention`)."""
+    if out_top is not None and not isinstance(out_top, int):
+        out_top = int(out_top)
+    _check_flash(q, k, v, out_d, out_top)
+    kw = dict(sm_scale=sm_scale, n_valid=n_valid, out_d=out_d, out_t=out_t,
+              out_top=out_top, out_pow=out_pow, out_dtype=out_dtype)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    return run_flash_attention(q, k, v, **kw)

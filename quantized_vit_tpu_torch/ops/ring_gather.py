@@ -1,0 +1,341 @@
+"""The in-kernel weight all-gather of FSDP serving: kernels K14 and K15.
+
+Port of ``quantized_vit_tpu/ops/ring_gather.py``. The row shards of the
+'model' axis are gathered back to whole weights by the processes of a
+:class:`~..parallel.Peers` (one per shard; ``peers=None`` is tp = 1).
+
+- :func:`gather_rows` (K14, ``csrc/ring_gather.cu``) replaces
+  ``gather_rows`` (``pallas_call`` at ring_gather.py:154): each shard
+  [R_j, N_j] becomes [R_j * tp, N_j] in rank order. Each process copies
+  its shard into its own row slot and pushes it into the same slot of
+  every peer's output, through the peers' buffers that CUDA IPC mapped
+  into it; the bytes are copied opaquely (int8 levels, packed int4,
+  bf16). Plain version: :func:`gather_rows_plain` (a gloo all-gather of
+  the bytes).
+- :func:`fused_mlp_gather` (K15) replaces ``fused_mlp_gather``
+  (``pallas_call`` at ring_gather.py:314): K2's MLP block
+  (:func:`~.fused.run_mlp`'s numerics, from the same device code) and, in
+  the same launch, the gather of the next block's shards. Plain version:
+  :func:`fused_mlp_gather_plain`.
+
+Ordering. The TPU kernel's neighbour barrier (no device writes into a
+peer's buffer while the peer's earlier kernels may still read it) and
+its semaphore drain (nobody reads a gathered buffer before every push
+into it landed) become :meth:`~..parallel.Peers.fence` before and after
+the launch: each process records an interprocess event on its stream, a
+gloo barrier orders the records on the host, and each stream waits on its
+peers' events. No kernel spins on another process: two processes sharing
+one card time-slice, and a spinning kernel could hold its slice.
+
+As in ``fused.py``, a call splits into the prepared side (``plan_*``: the
+checks, the copy jobs, the IPC mapping of the peers' outputs) and the
+launch (``run_*``, which counts it). The wrappers plan and run per call;
+the FSDP forward keeps its plans (``serve/vit_fsdp.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+from .fused import (MlpPlan, _mlp_auto_stripes, _mlp_input, _mlp_shapes,
+                    fused_mlp_plain, mlp_kernel_limit, plan_mlp)
+
+# csrc/ring_gather.cu: copy jobs a launch takes (shards x destinations)
+MAX_JOBS = 64
+# copy blocks per launch: one per 64 KB moved, at most a card's SMs for
+# K14 and half of them for K15 (its MLP holds the rest)
+_COPY_BYTES_PER_BLOCK = 65536
+_K14_MAX_BLOCKS, _K15_MAX_BLOCKS = 132, 64
+
+
+def _sublane(dtype) -> int:
+    """Rows of the TPU's sublane tile for ``dtype`` (ring_gather.py:65)."""
+    return {1: 32, 2: 16}.get(torch.empty((), dtype=dtype).element_size(), 8)
+
+
+def check_row_shards(shards: Sequence[torch.Tensor]) -> None:
+    """Every shard's ROW count must be a multiple of the sublane tile (32
+    rows int8 / 16 bf16 / 8 f32), as the JAX function demands
+    (ring_gather.py:69-78). The CUDA kernel copies any byte count; the
+    check keeps the two packages' shards interchangeable."""
+    for s in shards:
+        sub = _sublane(s.dtype)
+        if s.shape[0] % sub:
+            raise ValueError(
+                f"row shard rows {s.shape[0]} not a multiple of the "
+                f"{str(s.dtype)[6:]} sublane tile {sub}")
+
+
+def _tp(peers) -> Tuple[int, int]:
+    return (0, 1) if peers is None else (peers.rank, peers.tp)
+
+
+def _gathered_shape(s, tp):
+    return (s.shape[0] * tp, *s.shape[1:])
+
+
+def gather_rows_plain(shards: Sequence[torch.Tensor], peers=None):
+    """Plain version of K14 on CPU tensors: each shard's bytes gathered
+    over the peers' gloo group in rank order (a copy at tp = 1)."""
+    import torch.distributed as dist
+
+    check_row_shards(shards)
+    _, tp = _tp(peers)
+    outs = []
+    for s in shards:
+        s = s.contiguous()
+        if tp == 1:
+            outs.append(s.clone())
+            continue
+        raw = s.reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(tp)]
+        dist.all_gather(parts, raw)
+        outs.append(torch.cat(parts).view(s.dtype).reshape(
+            _gathered_shape(s, tp)))
+    return outs
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """One gather, prepared once by :func:`plan_gather_rows`: the output
+    buffers, the copy jobs (this process's shard bytes into its row slot
+    of its own and every peer's output) as C arrays, and the tensors they
+    point into, held here so that none is freed while the plan lives."""
+
+    outs: Tuple[torch.Tensor, ...]
+    src: ctypes.Array
+    dst: ctypes.Array
+    nbytes: ctypes.Array
+    n_jobs: int
+    moved: int  # bytes this process writes
+    peers: object
+    keep: tuple
+
+
+def _c_ll(vals):
+    return (ctypes.c_longlong * max(1, len(vals)))(*vals)
+
+
+def plan_gather_rows(shards: Sequence[torch.Tensor],
+                     outs: Optional[Sequence[torch.Tensor]] = None,
+                     peers=None, peer_outs=None) -> GatherPlan:
+    """K14's prepared side. ``shards``: this process's row shards (CUDA,
+    contiguous); ``outs``: the output buffers [R_j * tp, N_j] (allocated
+    here when None); ``peer_outs[p]``: peer p's outputs mapped into this
+    process (exchanged here through ``peers`` when None: a collective
+    call, every peer makes it)."""
+    check_row_shards(shards)
+    rank, tp = _tp(peers)
+    shards = tuple(s.contiguous() for s in shards)
+    _build.require_cuda("gather_rows", *shards)
+    if outs is None:
+        outs = [torch.empty(_gathered_shape(s, tp), dtype=s.dtype,
+                            device=s.device) for s in shards]
+    outs = tuple(outs)
+    for s, o in zip(shards, outs):
+        if (tuple(o.shape) != _gathered_shape(s, tp) or o.dtype != s.dtype
+                or not o.is_contiguous()):
+            raise ValueError(f"gather output {tuple(o.shape)} {o.dtype} vs "
+                             f"shard {tuple(s.shape)} {s.dtype} at tp={tp}")
+    _build.require_cuda("gather_rows", *outs)
+    if tp > 1 and peer_outs is None:
+        peer_outs = peers.open(list(outs))
+    src, dst, nbytes = [], [], []
+    for j, s in enumerate(shards):
+        nb = s.numel() * s.element_size()
+        targets = [outs[j]] + ([peer_outs[p][j] for p in range(tp)
+                                if p != rank] if tp > 1 else [])
+        for o in targets:
+            src.append(s.data_ptr())
+            dst.append(o.data_ptr() + rank * nb)
+            nbytes.append(nb)
+    if len(src) > MAX_JOBS:
+        raise ValueError(f"gather_rows: {len(src)} copy jobs > {MAX_JOBS} "
+                         "(shards x processes)")
+    return GatherPlan(outs=outs, src=_c_ll(src), dst=_c_ll(dst),
+                      nbytes=_c_ll(nbytes), n_jobs=len(src),
+                      moved=sum(nbytes), peers=peers,
+                      keep=(shards, peer_outs))
+
+
+def _copy_blocks(moved: int, cap: int) -> int:
+    return max(1, min(cap, -(-moved // _COPY_BYTES_PER_BLOCK)))
+
+
+def _fence(plan: Optional[GatherPlan]) -> None:
+    if plan is not None and plan.peers is not None and plan.peers.tp > 1:
+        plan.peers.fence()
+
+
+def run_gather_rows(plan: GatherPlan) -> Tuple[torch.Tensor, ...]:
+    """Launches K14 for a prepared gather (the only place that launches
+    it), between two fences at tp > 1; returns the gathered outputs."""
+    _fence(plan)
+    lib = _build.library("ring_gather")
+    fn = lib.qvt_gather_rows
+    P, I = _build.P, _build.I
+    fn.argtypes = [P, P, P, I, I, P]
+    fn.restype = I
+    code = fn(plan.src, plan.dst, plan.nbytes, plan.n_jobs,
+              _copy_blocks(plan.moved, _K14_MAX_BLOCKS), _build.stream())
+    _build.check(code, "gather_rows")
+    _build.count_launch("gather_rows")
+    _fence(plan)
+    return plan.outs
+
+
+def gather_rows(shards: Sequence[torch.Tensor], *, peers=None):
+    """Push all-gather of row shards over the peers (kernel K14).
+
+    shards[j]: this process's [R_j, N_j] rows; returns [R_j * tp, N_j]
+    per shard, tiled in rank order (``peers=None``: tp = 1, a copy). Equal
+    to ``jax.lax.all_gather(x, axis, axis=0, tiled=True)``. At tp > 1
+    every peer calls it with its own shards. CPU tensors take
+    :func:`gather_rows_plain`; CUDA tensors :func:`plan_gather_rows` then
+    :func:`run_gather_rows` (a caller that gathers into the same buffers
+    repeatedly keeps the plan)."""
+    shards = list(shards)
+    check_row_shards(shards)
+    if not shards:
+        return []
+    if all(s.device.type == "cpu" for s in shards):
+        return gather_rows_plain(shards, peers)
+    return list(run_gather_rows(plan_gather_rows(shards, peers=peers)))
+
+
+# ---------------------------------------------------------------------------
+# K15: the MLP block + the gather of the next block's shards
+# ---------------------------------------------------------------------------
+
+
+def mlp_gather_kernel_limit(k: int) -> Optional[str]:
+    """Why K15 cannot take model width ``k`` (K2's limit: its MLP row
+    blocks are K2's), or None if it can."""
+    err = mlp_kernel_limit(k)
+    return err and err.replace("fused_mlp kernel", "fused_mlp_gather "
+                               "kernel (K2's MLP blocks)")
+
+
+def _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
+                      block_m):
+    """The refusals of ring_gather.py:225-234 and :260-262."""
+    if not (isinstance(act_top, int) and act_top >= 1):
+        raise ValueError(f"positive static act_top required, got {act_top!r}")
+    if not (isinstance(hid_top, int) and hid_top >= 1):
+        raise ValueError(f"positive static hid_top required, got {hid_top!r}")
+    if fmt != "int8":
+        raise ValueError(
+            "fused_mlp_gather computes in the unpacked-int8 serving "
+            f"format (got fmt={fmt!r}); gathered BYTES may be any format")
+    check_row_shards(shards)
+    k, hid = _mlp_shapes(w1, w2, fmt, fmt, act_top, hid_top)
+    n_stripes = stripes or _mlp_auto_stripes(hid)
+    if hid % n_stripes:
+        raise ValueError(f"stripes={n_stripes} does not divide {hid}")
+    if block_m is not None and block_m < 1:
+        raise ValueError(f"block_m={block_m} must be positive")
+    return k
+
+
+def fused_mlp_gather_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
+                           ln_scale, ln_bias, next_shards=(), peers=None,
+                           ln_eps=1e-6, act_d=None, act_t=None, act_top=None,
+                           act_pow=False, hid_d=None, hid_t=None,
+                           hid_top=None, hid_pow=False, fmt="int8",
+                           out_dtype=torch.bfloat16, block_m=None,
+                           stripes=None):
+    """Plain version of K15: :func:`~.fused.fused_mlp_plain` and
+    :func:`gather_rows_plain` of ``next_shards``. Returns (mlp_out,
+    [gathered weights])."""
+    shards = list(next_shards)
+    _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
+                      block_m)
+    y = fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2,
+                        ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+                        act_d=act_d, act_t=act_t, act_top=act_top,
+                        act_pow=act_pow, hid_d=hid_d, hid_t=hid_t,
+                        hid_top=hid_top, hid_pow=hid_pow, fmt=fmt,
+                        out_dtype=out_dtype)
+    return y, gather_rows_plain(shards, peers)
+
+
+def run_mlp_gather(plan: MlpPlan, gather: Optional[GatherPlan], x, *,
+                   out_dtype=torch.bfloat16):
+    """Launches K15 on ``x`` [M, K] for a prepared int8 MLP (K2's
+    :class:`~.fused.MlpPlan`) and a prepared gather of the next block's
+    shards (None: no shards), between two fences at tp > 1: the only
+    place that launches it. Returns (mlp_out, gathered outputs)."""
+    _build.require_cuda("fused_mlp_gather", x)
+    if plan.int4_1 or plan.int4_2:
+        raise ValueError("fused_mlp_gather computes in the unpacked-int8 "
+                         "serving format")
+    m = _mlp_input(x, plan.k)
+    x = x.contiguous()
+    out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
+    _fence(gather)
+    empty = _c_ll([])
+    fn = _build.library("ring_gather").qvt_fused_mlp_gather
+    P, I, F = _build.P, _build.I, _build.F
+    fn.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                   I, F, P, P, P, I, I, P]
+    fn.restype = I
+    code = fn(
+        x.data_ptr(), _build.dtype_code(x.dtype), plan.w1_t.data_ptr(),
+        plan.scale1.data_ptr(), plan.bias1.data_ptr(), plan.w2_t.data_ptr(),
+        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
+        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
+        m, plan.k, plan.hid, int(plan.act_pow), int(plan.hid_pow),
+        plan.act_top, plan.hid_top, plan.ln_eps,
+        gather.src if gather else empty, gather.dst if gather else empty,
+        gather.nbytes if gather else empty,
+        gather.n_jobs if gather else 0,
+        _copy_blocks(gather.moved, _K15_MAX_BLOCKS) if gather else 0,
+        _build.stream())
+    _build.check(code, "fused_mlp_gather")
+    _build.count_launch("fused_mlp_gather")
+    _fence(gather)
+    return out, (list(gather.outs) if gather else [])
+
+
+def fused_mlp_gather(x, w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
+                     ln_bias, next_shards: Sequence[torch.Tensor] = (),
+                     peers=None, ln_eps=1e-6, act_d=None, act_t=None,
+                     act_top=None, act_pow=False, hid_d=None, hid_t=None,
+                     hid_top=None, hid_pow=False, fmt="int8",
+                     out_dtype=torch.bfloat16, block_m=None, stripes=None):
+    """:func:`~.fused.fused_mlp` that also all-gathers ``next_shards`` (the
+    NEXT block's row shards) over ``peers`` in the same launch (kernel
+    K15).
+
+    Returns (mlp_out, [gathered weights]): the MLP bit for bit as K2
+    computes it, the gather as :func:`gather_rows`. Int8 weights only
+    (``fmt``; the gathered bytes may be any format); ``act_top`` and
+    ``hid_top`` positive ints; ``stripes`` must divide the hidden width
+    and ``block_m`` be positive, as the JAX function demands, though the
+    CUDA kernel tiles by its own 32-row blocks. CPU tensors take
+    :func:`fused_mlp_gather_plain`; CUDA tensors :func:`~.fused.plan_mlp`
+    and :func:`plan_gather_rows`, then :func:`run_mlp_gather`."""
+    shards = list(next_shards)
+    k = _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
+                          block_m)
+    layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
+                 act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
+                 hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow,
+                 fmt=fmt)
+    if x.device.type == "cpu":
+        return fused_mlp_gather_plain(x, w1, scale1, bias1, w2, scale2,
+                                      bias2, next_shards=shards, peers=peers,
+                                      out_dtype=out_dtype, **layer)
+    _build.require_cuda("fused_mlp_gather", x)
+    err = mlp_gather_kernel_limit(k)
+    if err:
+        raise ValueError(err)
+    plan = plan_mlp(w1, scale1, bias1, w2, scale2, bias2, **layer)
+    gather = plan_gather_rows(shards, peers=peers) if shards else None
+    return run_mlp_gather(plan, gather, x, out_dtype=out_dtype)

@@ -1,4 +1,5 @@
-"""Serving: INT4 ViT forward and continuous batching."""
+"""Serving: INT4 ViT forward (single device, and FSDP over the processes
+of a 'model' axis) and continuous batching."""
 
 from .batching import ContinuousBatcher
 from .vit_int4 import (KernelPlan, QLayerArtifact, StackMeta,
@@ -6,8 +7,14 @@ from .vit_int4 import (KernelPlan, QLayerArtifact, StackMeta,
                        prepare_kernels, prepare_latency_artifact,
                        random_vit_int4_artifact, uses_chain,
                        vit_int4_forward, vit_int4_forward_latency)
+from .vit_fsdp import (FsdpRdmaPlan, prepare_fsdp_rdma_artifact,
+                       prepare_fsdp_rdma_kernels, shard_fsdp_rdma_artifact,
+                       vit_int4_forward_fsdp_rdma)
 
 __all__ = ["ContinuousBatcher", "KernelPlan", "QLayerArtifact", "StackMeta",
            "artifact_from_numpy", "kernel_limits", "prepare_kernels",
            "prepare_latency_artifact", "random_vit_int4_artifact",
-           "uses_chain", "vit_int4_forward", "vit_int4_forward_latency"]
+           "uses_chain", "vit_int4_forward", "vit_int4_forward_latency",
+           "FsdpRdmaPlan", "prepare_fsdp_rdma_artifact",
+           "prepare_fsdp_rdma_kernels", "shard_fsdp_rdma_artifact",
+           "vit_int4_forward_fsdp_rdma"]

@@ -63,6 +63,7 @@ from ..ops.fused import (BIG_WEIGHT_BM, MatmulPlan, MlpPlan, fold_gelu,
                          plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
                          run_mlp, run_mlp_chunked)
 from ..ops.patch import patch_finalize, patch_finalize_plain
+from ..ops.ring_gather import mlp_gather_kernel_limit
 from ..quant.packing import pack_int4
 
 
@@ -352,12 +353,15 @@ ROUTE_BATCHES = 64
 
 def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
                   *, batch: Optional[int] = None, fmt: str = "int4",
-                  float_dtype=torch.float32) -> List[str]:
+                  float_dtype=torch.float32,
+                  fsdp_rdma: bool = False) -> List[str]:
     """Why the CUDA kernels cannot serve ``cfg`` with ``fmt`` weights and a
     ``float_dtype`` residual stream (empty if they can): the limits of the
     kernels on the routes a forward of ``batch`` images takes (None: any
-    batch), K3 or K6 for attention and K2 or K8 for the MLP; or, with
-    ``latency``, those of K5 for the batch-1 entry."""
+    batch), K3 or K6 for attention and K2 or K8 for the MLP (K15 for every
+    batch with ``fsdp_rdma``, the FSDP forward of ``serve/vit_fsdp.py``,
+    whose ``batch`` is a process's share); or, with ``latency``, those of
+    K5 for the batch-1 entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
     hid = int(cfg.embed_dim * cfg.mlp_ratio)
@@ -373,7 +377,9 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
                         else heads_kernel_limit(n_pad, hd, itemsize))
             route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
                               itemsize=itemsize)
-            if route == MLP_RESIDENT:
+            if fsdp_rdma:
+                lims.append(mlp_gather_kernel_limit(cfg.embed_dim))
+            elif route == MLP_RESIDENT:
                 lims.append(mlp_kernel_limit(cfg.embed_dim))
             elif route == MLP_CHUNKED:
                 lims.append(mlp_chunked_kernel_limit(cfg.embed_dim, fmt))
@@ -422,26 +428,35 @@ def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
     embed, cls_row, head = _embed_head_plans(art, cfg)
     blocks, chain = [], []
     for blk in art["blocks"]:
-        qkv_e, proj_e = blk["qkv"], blk["proj"]
-        fc1_e, fc2_e = blk["fc1"], blk["fc2"]
-        layer = _attention_layer(blk, hd, sm_scale)
-        attn = plan_attention_block(
-            qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
-            proj_e.bias, fmt_proj=proj_e.fmt, **layer)
+        attn, chain_plans = plan_block_attention(blk, hd, sm_scale)
         blocks.append((attn, _plan_mlps(blk)))
-        chain.append((
-            plan_matmul(qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
-                        prologue="ln_quant", act_d=layer["act_d"],
-                        act_t=layer["act_t"], act_top=layer["act_top"],
-                        act_pow=layer["act_pow"],
-                        ln_scale=layer["ln_scale"],
-                        ln_bias=layer["ln_bias"], w_t=attn.heads.wq_t),
-            plan_attention_qkv(
-                qkv_e.w.device, heads=layer["heads"], sm_scale=sm_scale,
-                out_d=layer["out_d"], out_t=layer["out_t"],
-                out_top=layer["out_top"], out_pow=layer["out_pow"])))
+        chain.append(chain_plans)
     return KernelPlan(embed=embed, cls_row=cls_row, blocks=blocks,
                       chain=chain, head=head)
+
+
+def plan_block_attention(blk, hd: int, sm_scale: float, wq_t=None,
+                         wp_t=None):
+    """A block's attention plans for both routes: K3's
+    :class:`~..ops.attention.AttentionPlan` (with its K1 proj) and the
+    chain's (K1 qkv, K6) plans, on one n-major qkv weight. ``wq_t`` /
+    ``wp_t``: the qkv and proj weights already in the kernels' layout
+    (the FSDP forward's gathered buffers), used instead of copies."""
+    qkv_e, proj_e = blk["qkv"], blk["proj"]
+    layer = _attention_layer(blk, hd, sm_scale)
+    attn = plan_attention_block(
+        qkv_e.w, qkv_e.scale, qkv_e.bias, proj_e.w, proj_e.scale,
+        proj_e.bias, fmt_proj=proj_e.fmt, wq_t=wq_t, wp_t=wp_t, **layer)
+    return attn, (
+        plan_matmul(qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
+                    prologue="ln_quant", act_d=layer["act_d"],
+                    act_t=layer["act_t"], act_top=layer["act_top"],
+                    act_pow=layer["act_pow"], ln_scale=layer["ln_scale"],
+                    ln_bias=layer["ln_bias"], w_t=attn.heads.wq_t),
+        plan_attention_qkv(
+            qkv_e.w.device, heads=layer["heads"], sm_scale=sm_scale,
+            out_d=layer["out_d"], out_t=layer["out_t"],
+            out_top=layer["out_top"], out_pow=layer["out_pow"]))
 
 
 def _embed_kernels(embed, cls_row, xp, b: int, cfg: ViTConfig, dim: int,

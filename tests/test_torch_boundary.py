@@ -20,6 +20,7 @@ from quantized_vit_tpu_torch.ops import attention as ta
 from quantized_vit_tpu_torch.ops import block_stack as tb
 from quantized_vit_tpu_torch.ops import fused as tf
 from quantized_vit_tpu_torch.ops import patch as tp
+from quantized_vit_tpu_torch.ops import ring_gather as trg
 
 # ops.int4_matmul, the module (the package exports a function by its name)
 tim = importlib.import_module("quantized_vit_tpu_torch.ops.int4_matmul")
@@ -39,15 +40,17 @@ assert chip_smoke.main() != 0  # no card here: exits non-zero
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "quantized_vit_tpu" or m.startswith("quantized_vit_tpu."))
-# the training slice's modules are among those scanned
+# the training slice's modules and the FSDP slice's are among those
+# scanned
 slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
           "models.vit", "opt.groups", "graph.builders", "opt.importance",
           "opt.geta", "graph.oto", "utils.losses", "utils.guards",
           "utils.data", "utils.native_prep", "utils.training",
-          "opt.checkpoint"}
+          "opt.checkpoint", "ops.ring_gather", "serve.vit_fsdp",
+          "parallel", "parallel.distributed", "parallel.peers"}
 missing = {m for m in slice_ if pkg.__name__ + "." + m not in mods}
 print(len(mods), "modules;", "loaded:", bad, "missing:", missing)
-sys.exit(1 if bad or missing or len(mods) < 38 else 0)
+sys.exit(1 if bad or missing or len(mods) < 42 else 0)
 """
 
 
@@ -111,6 +114,13 @@ def test_default_device_raises_without_cuda(tmp_path):
         TrainLoop(apply_fn=None, optimizer=None, num_classes=10)
     with pytest.raises(RuntimeError):
         evaluate(None, {}, [(None, None, None)])
+    # the FSDP slice's process group takes the card as its device
+    from quantized_vit_tpu_torch.parallel import initialize_distributed
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize_distributed()
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize_distributed(device="cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -128,7 +138,8 @@ def _never(*a, **k):
                                     "patch_finalize", "attention_qkv",
                                     "vit_block_stack", "attention_qkv_proj",
                                     "int4_matmul", "int8_matmul",
-                                    "quant_matmul_fa"])
+                                    "quant_matmul_fa", "flash_attention",
+                                    "gather_rows", "fused_mlp_gather"])
 def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                                                         monkeypatch):
     for mod, name in ((tf, "fused_quant_matmul_plain"),
@@ -142,7 +153,11 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
                       (ta, "attention_qkv_proj_plain"),
                       (tim, "int4_matmul_plain"),
                       (tim, "int8_matmul_plain"),
-                      (tim, "quant_matmul_fa_plain")):
+                      (tim, "quant_matmul_fa_plain"),
+                      (ta, "flash_attention_plain"),
+                      (trg, "gather_rows_plain"),
+                      (trg, "fused_mlp_gather_plain"),
+                      (trg, "fused_mlp_plain")):
         monkeypatch.setattr(mod, name, _never)
     i8 = torch.int8
     one = torch.tensor(1.0)
@@ -182,6 +197,18 @@ def test_wrappers_never_reach_plain_for_non_cpu_tensors(kernel,
         elif kernel == "quant_matmul_fa":
             tim.quant_matmul_fa(_meta(8, 16), _meta(8, 4, dtype=i8), one,
                                 None, one, one, 7)
+        elif kernel == "flash_attention":
+            q = _meta(2, 2, 8, 16)
+            ta.flash_attention(q, q, q, sm_scale=0.25, out_d=one, out_t=one,
+                               out_top=7)
+        elif kernel == "gather_rows":
+            trg.gather_rows([_meta(32, 16, dtype=i8)])
+        elif kernel == "fused_mlp_gather":
+            trg.fused_mlp_gather(
+                _meta(8, 16), _meta(16, 32, dtype=i8), one, None,
+                _meta(32, 16, dtype=i8), one, None, ln_scale=_meta(16),
+                ln_bias=_meta(16), next_shards=[_meta(32, 16, dtype=i8)],
+                hid_d=one, hid_t=one, hid_top=7, **q)
         elif kernel == "vit_block_stack":
             # one block of width 32, 2 heads, hidden 64, int8 weights
             w = lambda k, n: _meta(1, k, n, dtype=i8)  # noqa: E731
@@ -312,3 +339,57 @@ def test_qkv_proj_kernel_limit_follows_shared_memory():
     assert f32_32 > ta.SMEM_LIMIT  # 32-row tiles overflow, 16-row fit
     rq, rv = ta._qkv_row_bytes(80, 2)
     assert 272 * (rq + rv) + 64 * (rq + 1296) + ta._RED <= ta.SMEM_LIMIT
+
+
+def test_fsdp_forward_kernel_path_never_reaches_plain(monkeypatch):
+    """The FSDP forward on non-CPU tensors prepares its kernel plans and
+    raises there (a meta tensor is no CUDA tensor), never running a plain
+    version or a gloo gather."""
+    from quantized_vit_tpu_torch.serve import (random_vit_int4_artifact,
+                                               shard_fsdp_rdma_artifact,
+                                               vit_int4_forward_fsdp_rdma)
+    from quantized_vit_tpu_torch.serve import vit_fsdp as sf
+
+    for name in ("attention_block_plain", "fused_mlp_gather_plain",
+                 "gather_rows_plain"):
+        monkeypatch.setattr(sf, name, _never)
+    cfg = ViTConfig(img_size=32, embed_dim=64, depth=2, num_heads=4,
+                    num_classes=10)
+    art = random_vit_int4_artifact(cfg, pack_weights=False, device="meta")
+    fart = shard_fsdp_rdma_artifact(art, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        vit_int4_forward_fsdp_rdma(fart, _meta(2, 4, 768), cfg,
+                                   images_layout="patches")
+
+
+def test_serve_cli_answers_f32_like_the_jax_cli(tmp_path):
+    """ROADMAP.md C2.1: the port's serve CLI serves an f32 residual stream
+    on the single-device path, as the JAX CLI does, so the two CLIs give
+    the same logits on one artifact (within 1e-4, the port's f32 forward
+    tolerance, tests/test_torch_vit_int4.py); JAX's ``--no-pallas`` is
+    accepted as ``--no-kernels``."""
+    import numpy as np
+
+    from quantized_vit_tpu.cli import serve as j_serve
+    from quantized_vit_tpu_torch.artifact import save_vit_int4_artifact
+    from quantized_vit_tpu_torch.cli import serve
+    from quantized_vit_tpu_torch.serve import random_vit_int4_artifact
+
+    cfg = ViTConfig(img_size=32, patch_size=16, embed_dim=64, depth=2,
+                    num_heads=4, num_classes=10)
+    save_vit_int4_artifact(str(tmp_path), random_vit_int4_artifact(
+        cfg, seed=2, device="cpu"), cfg)
+    images = np.random.default_rng(2).standard_normal(
+        (3, 32, 32, 3)).astype(np.float32)
+    j_forward, _, _ = j_serve.build_forward(j_serve.parse_args(
+        ["--artifact", str(tmp_path)]))
+    want = np.asarray(j_forward(images))
+    assert serve.SERVE_DTYPE == torch.float32
+    for flag in ([], ["--no-kernels"], ["--no-pallas"]):
+        args = serve.parse_args(["--artifact", str(tmp_path), "--device",
+                                 "cpu"] + flag)
+        assert args.no_kernels == bool(flag)
+        forward, _ = serve.build_forward(args)
+        got = forward(images)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

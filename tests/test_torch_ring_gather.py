@@ -1,0 +1,220 @@
+"""Port parity: the FSDP weight gathers (kernels K14 ``gather_rows`` and
+K15 ``fused_mlp_gather``), against the JAX package's Pallas kernels in
+interpret mode on the conftest's CPU mesh (remote DMAs simulated,
+``InterpretParams(dma_execution_mode="eager")``, as
+tests/ops/test_ring_gather.py runs them).
+
+The port runs tp > 1 as tp gloo processes (``run_processes``), all of
+one tp's cases in one spawned group (a spawn costs seconds); each process
+returns what ``gather_rows`` (its plain version on CPU tensors) and
+``fused_mlp_gather`` gave. Tolerances: gathers byte-exact; the MLP output
+(f32) bit-exact against the port's ``fused_mlp_plain`` (the same
+function), and within 1e-5 of the JAX kernel's (the MLP block's contract,
+bench.py:129-132: the same integer sums and level math, but XLA contracts
+the f32 dequant epilogue ``acc * s + b`` into a multiply-add, a last-ulp
+difference).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from quantized_vit_tpu.ops.ring_gather import check_row_shards as j_check
+from quantized_vit_tpu.ops.ring_gather import fused_mlp_gather as j_mlp_gather
+from quantized_vit_tpu.ops.ring_gather import gather_rows as j_gather
+from quantized_vit_tpu_torch.ops import (check_row_shards, fused_mlp_gather,
+                                         fused_mlp_gather_plain,
+                                         fused_mlp_plain, gather_rows,
+                                         gather_rows_plain)
+from quantized_vit_tpu_torch.parallel import run_processes
+
+from tests import torch_workers as tw
+
+torch.set_num_threads(1)
+
+IP = pltpu.InterpretParams(dma_execution_mode="eager")
+# shards of tests/ops/test_ring_gather.py:43-45 (int8: any byte, so int8
+# levels and packed int4 alike) and bf16 rows: [rows per rank, cols]
+GATHER = {"int8": ([(32, 256), (64, 128)], "int8", 0),
+          "bf16": ([(16, 96), (48, 64)], "bf16", 1)}
+# fused_mlp_gather at m = 32 (one row block, the JAX test's), 96 (three
+# 32-row blocks) and 72 (ragged: three blocks, the last padded)
+MLP_M = (32, 96, 72)
+MLP_SHARDS = [(32, 128), (64, 128)]
+
+
+def _mesh(tp):
+    return Mesh(np.array(jax.devices()[:tp]).reshape(tp), ("model",))
+
+
+def _full(kind, tp):
+    shapes, dtype, seed = GATHER[kind]
+    return tw.full_arrays([(r * tp, c) for r, c in shapes], dtype, seed)
+
+
+def _jax_gather(full, tp):
+    """JAX gather_rows in interpret mode on ``full``'s row shards."""
+    mesh = _mesh(tp)
+    jf = [jnp.asarray(tw.as_numpy(f)) for f in full]
+
+    def body(*shards):
+        return tuple(j_gather(shards, axis_name="model", tp=tp,
+                              interpret=IP))
+
+    fn = jax.shard_map(body, mesh=mesh,
+                       in_specs=(P("model", None),) * len(jf),
+                       out_specs=(P(),) * len(jf), check_vma=False)
+    return [np.asarray(o) for o in fn(*[
+        jax.device_put(a, NamedSharding(mesh, P("model", None)))
+        for a in jf])]
+
+
+def _jax_mlp_gather(m, tp, shards_full):
+    """JAX fused_mlp_gather (32-row programs) in interpret mode."""
+    x, w1, w2, b1, b2, g, be = tw.mlp_inputs(11 + m, m)
+    mesh = _mesh(tp)
+    kw = dict(ln_scale=jnp.asarray(g), ln_bias=jnp.asarray(be),
+              act_d=jnp.float32(0.05), act_t=jnp.float32(1.0), act_top=127,
+              hid_d=jnp.float32(0.05), hid_t=jnp.float32(1.0), hid_top=127,
+              out_dtype=jnp.float32)
+    nxt = [jnp.asarray(f.numpy()) for f in shards_full]
+
+    def body(x, *sh):
+        y, gath = j_mlp_gather(
+            x, jnp.asarray(w1), jnp.float32(1e-3), jnp.asarray(b1),
+            jnp.asarray(w2), jnp.float32(1e-3), jnp.asarray(b2),
+            next_shards=list(sh), axis_name="model", tp=tp, fmt="int8",
+            block_m=32, interpret=IP, **kw)
+        return (y, *gath)
+
+    fn = jax.shard_map(body, mesh=mesh,
+                       in_specs=(P(),) + (P("model", None),) * len(nxt),
+                       out_specs=(P(),) * (1 + len(nxt)), check_vma=False)
+    outs = fn(jnp.asarray(x, jnp.bfloat16), *[
+        jax.device_put(a, NamedSharding(mesh, P("model", None)))
+        for a in nxt])
+    return np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+
+
+def _cases(tp):
+    cases = [("gather", k, *GATHER[k]) for k in GATHER]
+    if tp == 2:
+        cases += [("mlp_gather", f"mlp{m}", m, MLP_SHARDS, 11 + m)
+                  for m in MLP_M]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Every case at tp = 2 and 4, one spawned gloo group per tp."""
+    return {tp: run_processes(tw.run_cases, tp,
+                              str(tmp_path_factory.mktemp(f"tp{tp}")),
+                              args=(_cases(tp),), timeout_s=240)
+            for tp in (2, 4)}
+
+
+@pytest.mark.parametrize("kind", sorted(GATHER))
+@pytest.mark.parametrize("tp", [2, 4])
+def test_gather_rows_plain_matches_jax_interpret(spawned, tp, kind):
+    """Every rank's gather_rows (and gather_rows_plain) equals the JAX
+    kernel's all-gather in interpret mode and the full arrays, byte for
+    byte."""
+    full = _full(kind, tp)
+    want = _jax_gather(full, tp)
+    for f, w in zip(full, want):
+        np.testing.assert_array_equal(tw.as_numpy(f), w)
+    for rank, res in enumerate(spawned[tp]):
+        got, plain = res[kind]
+        for g, p, w in zip(got, plain, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"rank {rank}")
+            np.testing.assert_array_equal(p, w, err_msg=f"rank {rank}")
+
+
+def test_gather_rows_tp1_is_a_copy():
+    full = _full("int8", 1)
+    got = gather_rows(full)
+    assert all(torch.equal(g, f) and g.data_ptr() != f.data_ptr()
+               for g, f in zip(got, full))
+    assert gather_rows([]) == []
+
+
+@pytest.mark.parametrize("m", MLP_M)
+def test_fused_mlp_gather_matches_jax_interpret_tp2(spawned, m):
+    """K15's plain version at tp = 2, more than one 32-row program
+    (ROADMAP.md C1.3): the MLP output equals the port's fused_mlp_plain
+    bit for bit on every rank and the JAX kernel's within 1e-5, the
+    gathered shards equal the full arrays."""
+    full = tw.full_arrays([(r * 2, c) for r, c in MLP_SHARDS], "int8",
+                          11 + m + 1)
+    y_want, g_want = _jax_mlp_gather(m, 2, full)
+    args, kw = tw.mlp_torch(11 + m, m)
+    plain = fused_mlp_plain(*args, **kw).numpy()
+    np.testing.assert_allclose(plain, y_want, rtol=0, atol=1e-5)
+    for rank, res in enumerate(spawned[2]):
+        y, gath = res[f"mlp{m}"]
+        np.testing.assert_array_equal(y, plain, err_msg=f"rank {rank}")
+        for g, gw, f in zip(gath, g_want, full):
+            np.testing.assert_array_equal(g, gw)
+            np.testing.assert_array_equal(g, f.numpy())
+
+
+@pytest.mark.parametrize("m", [96, 1])
+def test_fused_mlp_gather_tp1_matches_jax_interpret(m):
+    """At tp = 1 (tools/exp_rdma_overlap.py's single-chip harness): the
+    CPU wrapper equals fused_mlp_plain and the JAX kernel, the gather is
+    a copy."""
+    full = tw.full_arrays(MLP_SHARDS, "int8", 11 + m + 1)
+    y_want, g_want = _jax_mlp_gather(m, 1, full)
+    args, kw = tw.mlp_torch(11 + m, m)
+    y, gath = fused_mlp_gather(*args, next_shards=full, **kw)
+    np.testing.assert_allclose(y.numpy(), y_want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(y.numpy(),
+                                  fused_mlp_plain(*args, **kw).numpy())
+    for g, gw in zip(gath, g_want):
+        np.testing.assert_array_equal(g.numpy(), gw)
+    y2, gath2 = fused_mlp_gather_plain(*args, next_shards=[], **kw)
+    assert torch.equal(y2, y) and gath2 == []
+
+
+def test_row_shard_validation_matches_jax():
+    """check_row_shards refuses rows off the sublane tile with the JAX
+    error (tests/ops/test_ring_gather.py:59-63), for each dtype."""
+    for rows, dt, jdt in ((24, torch.int8, jnp.int8),
+                          (8, torch.bfloat16, jnp.bfloat16),
+                          (4, torch.float32, jnp.float32)):
+        with pytest.raises(ValueError, match="sublane"):
+            check_row_shards([torch.zeros((rows, 128), dtype=dt)])
+        with pytest.raises(ValueError, match="sublane"):
+            j_check([jnp.zeros((rows, 128), jdt)])
+    check_row_shards([torch.zeros((64, 128), dtype=torch.int8),
+                      torch.zeros((16, 128), dtype=torch.bfloat16),
+                      torch.zeros((8, 4), dtype=torch.float32)])
+    with pytest.raises(ValueError, match="sublane"):
+        gather_rows_plain([torch.zeros((24, 128), dtype=torch.int8)])
+
+
+def test_fused_mlp_gather_refusals_match_jax():
+    """fmt != int8, a non-positive or non-int top, misaligned shards and
+    stripes that do not divide the hidden width raise, as in JAX
+    (ring_gather.py:225-234, :260-262)."""
+    args, kw = tw.mlp_torch(3, 32)
+    for bad in (dict(fmt="int4"), dict(act_top=0), dict(hid_top=None),
+                dict(act_top=7.0), dict(stripes=3),
+                dict(next_shards=[torch.zeros((24, 8), dtype=torch.int8)])):
+        with pytest.raises(ValueError):
+            fused_mlp_gather(*args, **{**kw, **bad})
+    with pytest.raises(ValueError, match="int8"):
+        fused_mlp_gather(*args, **{**kw, "fmt": "int4"})
+    with pytest.raises(ValueError, match="int8"):
+        j_mlp_gather(
+            jnp.zeros((32, 128), jnp.bfloat16),
+            jnp.zeros((64, 128), jnp.int8), 1e-3, None,
+            jnp.zeros((64, 128), jnp.int8), 1e-3, None,
+            next_shards=[], axis_name="model", tp=2, fmt="int4",
+            ln_scale=jnp.ones(128), ln_bias=jnp.zeros(128),
+            act_d=0.05, act_top=7, hid_d=0.05, hid_top=7)

@@ -5,6 +5,8 @@ does not change a result), and ``chip_smoke.py`` runs all its phases as a
 CPU rehearsal at a tiny size (plain versions only, no timings of a card).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -90,12 +92,17 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
     monkeypatch.setattr(chip_smoke, "BATCH", 4)
     monkeypatch.setattr(chip_smoke, "ITERS", 2)
-    monkeypatch.setattr(chip_smoke, "CFG_KW", SMALL)
+    # width 128: the FSDP phase's packed int4 rows (64) split into two
+    # tile-aligned shards of 32
+    monkeypatch.setattr(chip_smoke, "CFG_KW", dict(SMALL, embed_dim=128))
     # ViT-H/14's phase at head_dim 80, shrunk: 4 patches of 14, 2 heads
     monkeypatch.setattr(chip_smoke, "VIT_H_KW", dict(
         img_size=28, patch_size=14, embed_dim=160, depth=2, num_heads=2,
         num_classes=10))
     monkeypatch.setattr(chip_smoke, "VIT_H_BATCHES", (1, 2, 4))
+    # the FSDP phase: tp = 2 as two spawned gloo processes (128 rows do
+    # not split into 4 tile-aligned shards of packed int4)
+    monkeypatch.setattr(chip_smoke, "GATHER_TPS", (1, 2))
     # phase 3b: ViT-H's attention branch at batch 8 and the GEMMs at M =
     # 8 x 16 rows keep their batches at these widths
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
@@ -107,16 +114,29 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
                      "patch_finalize", "attention_qkv", "block_stack",
                      "fused_mlp_chunked", "attention_qkv_proj",
                      "int4_matmul", "int8_matmul", "quant_matmul_fa",
+                     "flash_attention", "gather_rows", "fused_mlp_gather",
                      "quant_bwd"]
     # phase 3b's kernel paths at the shrunk widths, every check passed
     paths = record["paths"]
+    k13 = {f"k13_{m}{s}" for m in ("vitb_b4", "vith_b1", "vith_b8")
+           for s in ("", ":int8")}
     assert set(paths["launches"]) == {"bench_preamble", "vith_branch_b8",
                                       "vith_branch_b8_k3", "profile_kernels",
-                                      "lsfq_fc1"}
-    assert len(paths["checks"]) == 2 + 3 * 4 + 2
+                                      "lsfq_fc1"} | k13
+    assert len(paths["checks"]) == 2 + 3 * 4 + 2 + len(k13)
     assert all(c["ok"] for c in paths["checks"].values())
     assert [f["batch"] for f in record["forward"]
             if f["forward"].startswith("vit_h14")] == [1, 2, 4]
+    # phase 3c: the FSDP forward at tp = 1 and 2 equals the single-device
+    # one; the spawned processes' parity rows joined phase 2's
+    fsdp = [f for f in record["forward"] if f["forward"].startswith("fsdp")]
+    assert len(fsdp) == 1 and fsdp[0]["logits_equal"]
+    assert record["fsdp"]["tp2"]["logits_equal"]
+    assert {re.search(r"tp=(\d+)", r["case"]).group(1)
+            for r in record["parity"]
+            if r["kernel"] in ("gather_rows", "fused_mlp_gather")} == {"1",
+                                                                       "2"}
+    assert set(record["overlap"]["sweep"]) == {"4MB", "8MB", "16MB", "31MB"}
     train = record["train"]
     assert train["steps"] == chip_smoke.TRAIN_STEPS
     assert set(train["phases"]) == {"warmup", "range", "fix"}

@@ -1,0 +1,124 @@
+"""Process bodies of the port's multi-process CPU tests (tp gloo
+processes started by ``quantized_vit_tpu_torch.parallel.run_processes``).
+
+This module imports torch, numpy and the port only: a spawned process
+imports it afresh, and JAX would add seconds to every start. Every
+result is numpy (``run_processes`` returns plain pickles).
+"""
+
+import numpy as np
+import torch
+
+from quantized_vit_tpu_torch.models import ViTConfig
+from quantized_vit_tpu_torch.ops import (fused_mlp_gather, gather_rows,
+                                         gather_rows_plain)
+from quantized_vit_tpu_torch.parallel import initialize_distributed
+from quantized_vit_tpu_torch.serve import (random_vit_int4_artifact,
+                                           shard_fsdp_rdma_artifact,
+                                           vit_int4_forward_fsdp_rdma)
+
+
+def full_arrays(shapes, dtype: str, seed: int):
+    """Seeded full arrays [rows, cols] (int8 levels, or bf16 values)."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int8":
+        return [torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8))
+                for s in shapes]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        torch.bfloat16) for s in shapes]
+
+
+def _whole(shard_shapes, tp):
+    return [(r * tp, c) for r, c in shard_shapes]
+
+
+def rows_of(t, rank, tp):
+    r = t.shape[0] // tp
+    return t[rank * r:(rank + 1) * r].contiguous()
+
+
+def as_numpy(t):
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def mlp_inputs(seed: int, m: int, k: int = 128, hid: int = 128):
+    """tests/ops/test_ring_gather.py:66-80's MLP inputs at ``m`` rows."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * 0.3).astype(np.float32)
+    w1 = rng.integers(-7, 8, (k, hid)).astype(np.int8)
+    w2 = rng.integers(-7, 8, (hid, k)).astype(np.int8)
+    b1 = (rng.standard_normal(hid) * 0.01).astype(np.float32)
+    b2 = (rng.standard_normal(k) * 0.01).astype(np.float32)
+    g = (rng.standard_normal(k) * 0.1 + 1.0).astype(np.float32)
+    be = (rng.standard_normal(k) * 0.01).astype(np.float32)
+    return x, w1, w2, b1, b2, g, be
+
+
+def mlp_torch(seed, m):
+    """(positional, keyword) arguments of fused_mlp_gather on CPU tensors
+    from :func:`mlp_inputs`."""
+    x, w1, w2, b1, b2, g, be = (torch.from_numpy(a)
+                                for a in mlp_inputs(seed, m))
+    one = torch.tensor(1.0)
+    args = (x.to(torch.bfloat16), w1, torch.tensor(1e-3), b1, w2,
+            torch.tensor(1e-3), b2)
+    kw = dict(ln_scale=g, ln_bias=be, act_d=torch.tensor(0.05), act_t=one,
+              act_top=127, hid_d=torch.tensor(0.05), hid_t=one, hid_top=127,
+              out_dtype=torch.float32)
+    return args, kw
+
+
+def run_cases(rank, tp, init_method, cases):
+    """Each case, in this process of the gloo group; returns
+    {name: result}. Kinds:
+
+    - ("gather", name, shapes, dtype, seed): gather_rows (its plain
+      version here) of this rank's row shards (``shapes``: a shard's
+      [rows, cols] per array) of seeded full arrays;
+    - ("mlp_gather", name, m, shapes, seed): fused_mlp_gather on
+      :func:`mlp_inputs` with this rank's shards of seeded int8 arrays;
+    - ("fsdp", name, cfg_kw, seed, images, float_dtype): the FSDP forward
+      of this rank's shard of the seeded int8 artifact, with the shard's
+      block-weight bytes.
+    """
+    torch.set_num_threads(1)
+    peers = initialize_distributed(init_method, tp, rank, device="cpu")
+    out = {}
+    try:
+        for case in cases:
+            kind, name = case[0], case[1]
+            if kind == "gather":
+                shapes, dtype, seed = case[2:]
+                full = full_arrays(_whole(shapes, tp), dtype, seed)
+                shards = [rows_of(f, rank, tp) for f in full]
+                got = gather_rows(shards, peers=peers)
+                plain = gather_rows_plain(shards, peers)
+                out[name] = ([as_numpy(g) for g in got],
+                             [as_numpy(g) for g in plain])
+            elif kind == "mlp_gather":
+                m, shapes, seed = case[2:]
+                args, kw = mlp_torch(seed, m)
+                full = full_arrays(_whole(shapes, tp), "int8", seed + 1)
+                y, gath = fused_mlp_gather(
+                    *args, next_shards=[rows_of(f, rank, tp) for f in full],
+                    peers=peers, **kw)
+                out[name] = (y.numpy(), [g.numpy() for g in gath])
+            elif kind == "fsdp":
+                cfg_kw, seed, images, float_dtype = case[2:]
+                cfg = ViTConfig(**cfg_kw)
+                art = random_vit_int4_artifact(cfg, seed=seed,
+                                               pack_weights=False,
+                                               device="cpu")
+                fart = shard_fsdp_rdma_artifact(art, rank, tp)
+                logits = vit_int4_forward_fsdp_rdma(
+                    fart, torch.from_numpy(images), cfg, peers,
+                    float_dtype=getattr(torch, float_dtype))
+                nbytes = sum(b[k].w.numel() * b[k].w.element_size()
+                             for b in fart["blocks"]
+                             for k in ("qkv", "proj", "fc1", "fc2"))
+                out[name] = (logits.numpy(), nbytes)
+            else:
+                raise ValueError(f"unknown case kind {kind!r}")
+    finally:
+        peers.close()
+    return out
