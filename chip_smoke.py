@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero:
    ``flash_attention``, K14 ``gather_rows``, K15 ``fused_mlp_gather``)
    against its plain PyTorch version on the card, at the main paths' ViT-B
    shapes (K13 at its path's ViT-B and ViT-H shapes and a ragged one, in
-   bf16, f32 and mixed q/v dtypes; K14 on a ViT-B block's weights as
+   bf16, f32 and mixed q/v dtypes, then at 592 tokens, head_dim 128 and 20
+   and wherever else its nine (query tile, head bound) instantiations
+   need; K14 on a ViT-B block's weights as
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
@@ -980,6 +982,8 @@ class Parity:
         v's dtype), "lin" (t = 1) or "pow" (t != 1) int8 levels."""
         from quantized_vit_tpu_torch.ops import (flash_attention,
                                                  flash_attention_plain)
+        from quantized_vit_tpu_torch.ops.attention import (_card_shape,
+                                                           flash_tile_rows)
 
         g = torch.Generator(device=self.dev).manual_seed(seed)
         q, k, v = (torch.randn((b, h, n, hd), generator=g,
@@ -992,8 +996,10 @@ class Parity:
                 out_pow=quant == "pow")
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
-        return self.check("flash_attention", case,
-                          "levels" if quant else "attention", got, want)
+        self.check("flash_attention", case,
+                   "levels" if quant else "attention", got, want)
+        self.rows[-1]["qt"] = flash_tile_rows(
+            b, h, n, hd, *(_card_shape(q.device.index) if q.is_cuda else ()))
 
     # -- K14, K15 at tp = 1 (tp > 1: fsdp_phase's spawned processes) ------
 
@@ -1005,13 +1011,16 @@ class Parity:
         for row in rows:
             self.add(dict(row, case=case + row["case"]))
 
-    def run_gather_kernels(self, cfg):
+    def run_flash_kernels(self, cfg):
         """K13 at K13's path shapes (ViT-B/16 batch 32: 208 tokens, 197
         real; ViT-H/14 batch 1 and 8: 272, 257, head_dim 80) in bf16, f32
         and mixed q/v dtypes, float and int8 outputs, t = 1 and t != 1,
-        and at a ragged 50 tokens (37 real); K14 on ViT-B's four block
-        weights (int8, packed int4 and bf16 bytes) and K15 at the batch's
-        rows and ragged ones, at tp = 1."""
+        and at a ragged 50 tokens (37 real); then at a 384-px ViT-B/16's
+        592 tokens, ViT-B/16 batch 2, ViT-H/14 batch 2 and batch 1 in f32,
+        head_dim 80 and 128 at the tiles those leave out, and a head_dim of
+        20 (rows off the 16-byte grid: the element-by-element staging), so
+        every (tile, head bound) instantiation runs. Each row records its
+        tile."""
         b, _, d, n_real, n_pad, _, _, _, heads = shapes(cfg)
         vh = vit_h_cfg()
         _, dh, nh_real, nh_pad, _, hh = vit_h_shapes(vh)
@@ -1039,6 +1048,50 @@ class Parity:
                 dt = f"{str(dts[0])[6:]}/{str(dts[1])[6:]}"
                 self.k13(f"ragged[3x2x50x72]({dt},{quant or 'float'})", 3, 2,
                          50, 72, 37, dts, quant, seed)
+        # the ViT-B/16 widths at 384 px (577 tokens padded to 592) and at
+        # batch 2; ViT-H/14 at batch 2, and at batch 1 in f32
+        n384 = (384 // cfg.patch_size)**2 + 1
+        n384_pad = -(-n384 // 16) * 16
+        for quant in (None, "lin"):
+            self.k13(f"vit_b384[{b}x{heads}x{n384_pad}x{d // heads}]"
+                     f"(bf16,{quant or 'float'})", b, heads, n384_pad,
+                     d // heads, n384, (bf16, bf16), quant, 830 + bool(quant))
+        self.k13(f"vit_b[2x{heads}x{n_pad}x{d // heads}](bf16,float)", 2,
+                 heads, n_pad, d // heads, n_real, (bf16, bf16), None, 832)
+        self.k13(f"vit_h[2x{hh}x{nh_pad}x{dh // hh}](bf16,float)", 2, hh,
+                 nh_pad, dh // hh, nh_real, (bf16, bf16), None, 833)
+        for i, (dts, quant) in enumerate((((f32, f32), None),
+                                          ((f32, bf16), "lin"))):
+            dt = f"{str(dts[0])[6:]}/{str(dts[1])[6:]}"
+            self.k13(f"vit_h[1x{hh}x{nh_pad}x{dh // hh}]({dt},"
+                     f"{quant or 'float'})", 1, hh, nh_pad, dh // hh,
+                     nh_real, dts, quant, 834 + i)
+        # the tiles the path shapes leave out (64 rows at head bound 80 and
+        # 128, 16 at 64 and 128), head_dim 128 at ragged tokens, and a
+        # head_dim of 20 (rows off the 16-byte grid)
+        seed = 840
+        for shape, cases in (
+                ((4, 16, 144, 80, 140), (((bf16, bf16), None),
+                                         ((f32, f32), "lin"))),
+                ((4, 8, 197, 128, 190), (((bf16, bf16), None),
+                                         ((bf16, bf16), "pow"),
+                                         ((f32, f32), None))),
+                ((32, 16, 40, 128, 37), (((bf16, bf16), None),
+                                         ((f32, f32), "lin"))),
+                ((1, 2, 40, 128, 33), (((bf16, bf16), None),)),
+                ((2, 3, 45, 20, 41), (((bf16, bf16), None),
+                                      ((f32, bf16), "lin"),
+                                      ((bf16, f32), "pow")))):
+            for dts, quant in cases:
+                seed += 1
+                dt = f"{str(dts[0])[6:]}/{str(dts[1])[6:]}"
+                self.k13(f"ragged[{'x'.join(map(str, shape[:4]))}]({dt},"
+                         f"{quant or 'float'})", *shape, dts, quant, seed)
+
+    def run_gather_kernels(self, cfg):
+        """K14 on ViT-B's four block weights (int8, packed int4 and bf16
+        bytes) and K15 at the batch's rows and ragged ones, at tp = 1."""
+        b, _, d, _, n_pad, *_ = shapes(cfg)
         for kind in ("int8", "int4", "bf16"):
             for row in gather_case(self.dev, None, cfg, kind, 900):
                 self.add(row)
@@ -1047,7 +1100,7 @@ class Parity:
         for i, mr in enumerate(K15_RAGGED_M):
             self.k15(f"ragged[{mr}x{d}]", mr, cfg, 911 + i)
         self.k15(f"ragged[{K15_RAGGED_M[0]}x{d}](pow,f32)", K15_RAGGED_M[0],
-                 cfg, 915, pow_=True, stream=f32)
+                 cfg, 915, pow_=True, stream=torch.float32)
 
     def run_all(self, cfg):
         t0 = time.time()
@@ -1113,6 +1166,7 @@ class Parity:
         self.run_vit_h_kernels()
         self.run_qkv_proj_kernels(cfg)
         self.run_int_matmul_kernels(cfg)
+        self.run_flash_kernels(cfg)
         self.run_gather_kernels(cfg)
         self.run_quant_bwd(cfg)
         sync()
@@ -2234,6 +2288,14 @@ def timing_phase(dev, record, fwd, peaks):
                          "int_mm_us": None if ims is None else ims * 1e3,
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
+        if name == "flash_attention":  # how much of the time is the host's
+            split = host_split(kern[site], ms * 1e3)
+            per_site[-1].update(split)
+            dev, share = split["device_us"], split["card_share"]
+            log(f"[time] {name:18s} {site:12s} host {split['host_us']:.1f} "
+                f"us a call; on the card "
+                f"{'n/a' if dev is None else f'{dev:.1f}'} us, "
+                f"{'n/a' if share is None else f'{share:.3f}'} of the time")
         log(f"[time] {name:18s} {site:12s} {ms * 1e3:9.1f} us  plain "
             f"{pms * 1e3:9.1f}  bound {bms * 1e3:7.1f} ({by})  _int_mm "
             f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}  library "
@@ -3324,6 +3386,24 @@ def k7_in_trace(kern):
     return {"launches": sum("quant_bwd_kernel" in e.name for e in k7),
             "device_ms": sum(e.device_time_total for e in k7) / 1e3,
             "kernels_in_trace": len(kern)}
+
+
+def host_split(fn, us, reps: int = 50):
+    """Where the ``us`` of one timed call of ``fn`` go: ``host_us``, the
+    host's time to issue one call (``reps`` calls back to back on the host
+    clock, with no wait for the card), ``device_us``, its kernels' device
+    time (:func:`kernel_device_us`), and ``card_share``, device_us / us
+    (the rest of ``us`` is the card waiting for the host)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e6 / reps
+    sync()
+    dev = kernel_device_us(fn)
+    return {"host_us": host, "device_us": dev,
+            "card_share": None if dev is None else dev / us}
 
 
 def kernel_device_us(fn, reps: int = 20):

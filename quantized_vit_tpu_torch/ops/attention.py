@@ -48,6 +48,7 @@ block per (image, head, tile of query rows). Plain version:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -822,17 +823,79 @@ def attention_qkv_proj(qkv, w, scale, bias, residual, *, heads, sm_scale,
 # ---------------------------------------------------------------------------
 
 
-# csrc/flash_attention.cu keeps a thread's outputs in f64 registers,
-# instantiated for head_dim <= 64, 80 and 128
+# csrc/flash_attention.cu pads head_dim to a bound of 64, 80 or 128 (one
+# instantiation each) and takes a tile of FLASH_TILES query rows a block,
+# with K and V streaming in chunks of FLASH_KEY_CHUNK keys
 FLASH_MAX_HEAD_DIM = 128
+FLASH_TILES = (64, 32, 16)
+FLASH_KEY_CHUNK = 64
+# a block's most shared memory (csrc/flash_attention.cu:SMEM_MAX); a
+# block's 256 threads take at most 128 registers each
+# (__launch_bounds__(256, 2)), so an SM holds at most two blocks
+_SMEM_MAX = 232448
+# the H100 SXM's SMs and shared memory an SM (a block reserves 1 KB
+# more): flash_tile_rows' defaults, the launch passes the card's own
+_H100_SMS = 132
+_H100_SM_SMEM = 233472
 
 
-def flash_kernel_limit(head_dim: int) -> Optional[str]:
-    """Why K13 cannot take ``head_dim``, or None if it can (it takes any
-    token count: a block holds a tile of query rows, 32 or fewer)."""
+def flash_smem_bytes(qt: int, n: int, hd: int) -> int:
+    """K13's shared memory at ``qt`` query rows a block, all f32: the
+    tile's q rows (the head bound + 4 floats apart), two key chunks (+ 8)
+    and the tile's score rows (round8(n) + 4), as
+    ``csrc/flash_attention.cu:smem_bytes`` computes it."""
+    hdm = 64 if hd <= 64 else 80 if hd <= 80 else 128
+    lds = -(-n // 8) * 8 + 4
+    return 4 * (qt * (hdm + 4) + 2 * FLASH_KEY_CHUNK * (hdm + 8) + qt * lds)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_tile_rows(b: int, h: int, n: int, hd: int, sms: int = _H100_SMS,
+                    sm_smem: int = _H100_SM_SMEM) -> int:
+    """K13's query rows a block, one of :data:`FLASH_TILES` (0 where no
+    tile fits in a block's shared memory), on a card of ``sms`` SMs with
+    ``sm_smem`` bytes of shared memory each (default the H100 SXM's). Of
+    the fitting tiles whose grid (ceil(n / qt) x h x b) gives every SM a
+    block, the one that keeps the most query rows on an SM: qt times the
+    blocks an SM holds by shared memory, at most two; on a tie the smaller
+    tile, for its warps. Where no tile's grid fills the SMs, the smallest
+    fitting tile (the most blocks). On the H100 at ViT-B/16 batch 32 that
+    is 64 (two 106-KB blocks an SM); at ViT-H/14 batch 8 and 1 it is 32
+    (a 64-row block takes 134 KB and sits alone)."""
+    fits = [qt for qt in FLASH_TILES
+            if flash_smem_bytes(qt, n, hd) <= _SMEM_MAX]
+    full = [qt for qt in fits if -(-n // qt) * h * b >= sms]
+    if not full:
+        return fits[-1] if fits else 0
+
+    def rows_per_sm(qt):
+        return qt * min(2, sm_smem // (flash_smem_bytes(qt, n, hd) + 1024))
+
+    return max(full, key=lambda qt: (rows_per_sm(qt), -qt))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_shape(index: int):
+    """The SMs and shared memory an SM of CUDA device ``index``."""
+    prop = torch.cuda.get_device_properties(index)
+    return prop.multi_processor_count, prop.shared_memory_per_multiprocessor
+
+
+def flash_kernel_limit(head_dim: int,
+                       n_tokens: Optional[int] = None) -> Optional[str]:
+    """Why K13 cannot take ``head_dim`` (or ``n_tokens`` tokens), or None
+    if it can. head_dim <= 128; the tokens are bounded by a 16-row tile's
+    f32 score rows beside the q tile and two key chunks in a block's
+    shared memory: up to 2,984 tokens at head_dim <= 64, 2,840 at <= 80,
+    2,408 at <= 128."""
     if head_dim > FLASH_MAX_HEAD_DIM:
         return (f"flash_attention kernel: head_dim {head_dim} > "
                 f"{FLASH_MAX_HEAD_DIM}")
+    if (n_tokens is not None
+            and flash_smem_bytes(16, n_tokens, head_dim) > _SMEM_MAX):
+        return (f"flash_attention kernel: {n_tokens} tokens at head_dim "
+                f"{head_dim} need {flash_smem_bytes(16, n_tokens, head_dim)}"
+                f" bytes of shared memory at 16 query rows (> {_SMEM_MAX})")
     return None
 
 
@@ -877,15 +940,27 @@ def flash_attention_plain(q, k, v, *, sm_scale, n_valid=None, out_d=None,
     return o.to(out_dtype)
 
 
+def _flash_library():
+    """K13's library, its entry point's C signature set on first use."""
+    lib = _build.library("flash_attention")
+    if lib.qvt_flash_attention.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_flash_attention.argtypes = [P, I, P, I, P, I, P, I, P, I, I,
+                                            I, I, I, I, F, I, I, P]
+        lib.qvt_flash_attention.restype = I
+    return lib
+
+
 def run_flash_attention(q, k, v, *, sm_scale, n_valid=None, out_d=None,
                         out_t=None, out_top=None, out_pow=False,
                         out_dtype=torch.bfloat16):
     """Launches K13 on CUDA q/k/v [B, H, N, hd] (the only place that
-    launches it); arguments as :func:`flash_attention`."""
+    launches it) at :func:`flash_tile_rows`' tile for the card; arguments
+    as :func:`flash_attention`."""
     _build.require_cuda("flash_attention", q, k, v)
     _check_flash(q, k, v, out_d, out_top)
     b, h, n, hd = q.shape
-    _raise_if(flash_kernel_limit(hd))
+    _raise_if(flash_kernel_limit(hd, n))
     quantize = out_d is not None
     out = torch.empty((b, h, n, hd),
                       dtype=torch.int8 if quantize else out_dtype,
@@ -895,17 +970,14 @@ def run_flash_attention(q, k, v, *, sm_scale, n_valid=None, out_d=None,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     prm = (_params4(q.device, out_d, out_t, None, None) if quantize
            else None)
-    fn = _build.library("flash_attention").qvt_flash_attention
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, I, P, I, P, I, I, I, I, I, F, I, I, P]
-    fn.restype = I
-    code = fn(
+    code = _flash_library().qvt_flash_attention(
         q.data_ptr(), _build.dtype_code(q.dtype), k.data_ptr(),
         _build.dtype_code(k.dtype), v.data_ptr(), _build.dtype_code(v.dtype),
         out.data_ptr(), _build.dtype_code(out.dtype), _build.ptr(prm), b, h,
         n, hd, n if n_valid is None else int(n_valid),
-        _f32_value(sm_scale), int(out_top or 0), int(out_pow),
-        _build.stream())
+        flash_tile_rows(b, h, n, hd, *_card_shape(q.device.index)),
+        _f32_value(sm_scale),
+        int(out_top or 0), int(out_pow), _build.stream())
     _build.check(code, "flash_attention")
     _build.count_launch("flash_attention")
     return out
@@ -926,9 +998,9 @@ def flash_attention(q, k, v, *, sm_scale, n_valid=None, out_d=None,
     (:func:`run_flash_attention`)."""
     if out_top is not None and not isinstance(out_top, int):
         out_top = int(out_top)
-    _check_flash(q, k, v, out_d, out_top)
     kw = dict(sm_scale=sm_scale, n_valid=n_valid, out_d=out_d, out_t=out_t,
               out_top=out_top, out_pow=out_pow, out_dtype=out_dtype)
     if q.device.type == "cpu":
+        _check_flash(q, k, v, out_d, out_top)
         return flash_attention_plain(q, k, v, **kw)
     return run_flash_attention(q, k, v, **kw)

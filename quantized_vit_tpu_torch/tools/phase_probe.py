@@ -1,5 +1,5 @@
-"""Per-block phase timing of the K3, K2 and K8 kernels, and per-phase
-timing of K5, on the card.
+"""Per-block phase timing of the K3, K2, K8 and K13 kernels, and
+per-phase timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
@@ -14,6 +14,10 @@ Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 - ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
   LayerNorm + quant | its hidden slice's chunk loop | partial sums, grid
   barrier and epilogue, and the span;
+- ``flash_attention`` (random bf16 q/k/v at K13's path shapes: ViT-B/16
+  batch 32, ViT-H/14 batch 8 and 1, each at the query tile
+  ``flash_tile_rows`` picks), per block: staging + scores | softmax |
+  P.V + epilogue, and the span;
 - ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
   block, mean over the 12: each phase from one grid barrier to the next.
 
@@ -28,7 +32,9 @@ import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.attention import plan_attention_heads, run_attention_heads
+from ..ops.attention import (_card_shape, flash_tile_rows,
+                             plan_attention_heads, run_attention_heads,
+                             run_flash_attention)
 from ..ops.block_stack import run_block_stack
 from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
                          run_mlp_chunked)
@@ -83,6 +89,17 @@ def main():
             splits(bk * 272, dh, hh) * ((bk * 272 + 31) // 32),
             lambda xh=xh: run_mlp_chunked(chunked, xh),
             ("LN + quant", "hidden slice", "partials + barrier + epilogue"))
+    for tag, (bk, hk, nk, hdk, nv) in (("vitb_b32", (32, 12, 208, 64, 197)),
+                                       ("vith_b8", (8, 16, 272, 80, 257)),
+                                       ("vith_b1", (1, 16, 272, 80, 257))):
+        qkv = [torch.randn((bk, hk, nk, hdk), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3)]
+        qt = flash_tile_rows(bk, hk, nk, hdk, *_card_shape(0))
+        runs[f"flash_attention:{tag}"] = (
+            -(-nk // qt) * hk * bk,
+            lambda qkv=qkv, hdk=hdk, nv=nv: run_flash_attention(
+                *qkv, sm_scale=hdk**-0.5, n_valid=nv),
+            (f"staging + scores (qt {qt})", "softmax", "P.V + epilogue"))
     buf = np.zeros(65536 * 4, np.uint64)
     print(torch.cuda.get_device_name(0))
     for name, (blocks, fn, names) in runs.items():
