@@ -26,8 +26,11 @@ Phases, in order; any failure exits non-zero:
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
-   K9 at bench.py's preamble shapes, K10-K12 at tools/profile_kernels.py's
-   four ViT-B layer shapes, and at small ragged
+   K9 at bench.py's preamble shapes and, launched at set layouts, at every
+   (query rows, qkv dtype, head bound) instantiation with cluster sizes 1
+   to 8 (ragged last tiles, odd head counts, columns split unevenly
+   against the proj's 256-column pass), K10-K12 at
+   tools/profile_kernels.py's four ViT-B layer shapes, and at small ragged
    shapes, for packed int4 and int8 weights, the linear (t = 1) and pow
    (t != 1) quantizers, both residual dtypes and ``int_attention`` on and
    off, under the parity contract: int8 levels within 1 level at <= 0.5%
@@ -660,12 +663,16 @@ class Parity:
 
     def k9(self, case, b, n, heads, hd, d, n_valid, dtype, fmt, quant,
            int_attn, seed, bias=True, x_scale=0.7, out_d=0.01, out_top=31,
-           scale=2e-3):
+           scale=2e-3, layout=None):
         """K9 (attention + proj) against its plain version (K6's plain
         levels, then K1's plain residual epilogue); quant "lin" (t = 1) or
-        "pow" (t != 1)."""
+        "pow" (t != 1). ``layout`` (query rows, cluster size): launched at
+        that layout (``_launch_qkv_proj``) instead of the picker's; a CPU
+        rehearsal takes the wrapper (its plain version)."""
         from quantized_vit_tpu_torch.ops import (attention_qkv_proj,
                                                  attention_qkv_proj_plain)
+        from quantized_vit_tpu_torch.ops.attention import (
+            _launch_qkv_proj, plan_attention_qkv_proj)
 
         rng = np.random.default_rng(seed)
         f32 = torch.float32
@@ -679,10 +686,51 @@ class Parity:
                       0.93 if quant == "pow" else 1.0), out_top=out_top,
                   out_pow=quant == "pow", fmt=fmt, out_dtype=dtype,
                   int_attention=int_attn)
-        got = attention_qkv_proj(qkv, w, self.scal(scale), pb, res, **kw)
+        if layout is None or self.dev.type != "cuda":
+            got = attention_qkv_proj(qkv, w, self.scal(scale), pb, res, **kw)
+        else:
+            run = {k: kw.pop(k) for k in ("n_valid", "out_dtype",
+                                          "int_attention")}
+            got = _launch_qkv_proj(plan_attention_qkv_proj(
+                w, self.scal(scale), pb, **kw), qkv, res, *layout, **run)
+            kw.update(run)
         want = attention_qkv_proj_plain(qkv, w, self.scal(scale), pb, res,
                                         **kw)
         return self.check("attention_qkv_proj", case, "attention", got, want)
+
+    def run_qkv_proj_layouts(self):
+        """K9 at every (query rows R, qkv dtype, head bound) instantiation,
+        each at cluster sizes G the picker can reach (1 to 8): ViT-H/14
+        widths at 272 tokens (ragged last 32-row tile: 8 x 32 + 16) with G
+        8, 4, 2 and 1, so the 1280 columns split 160 (packed int4), 320 and
+        640 a block against the 256-column pass; ViT-B/16 widths at 208
+        tokens (6 x 32 + 16) with G 3, 6, 1 and 2; odd head counts (3 heads
+        with G 3 and 1, 5 heads of 80 with G 5); masked keys and
+        ``int_attention`` on some rows."""
+        bf16, f32 = torch.bfloat16, torch.float32
+        seed = 600
+        for dt, cases in ((bf16, ((32, 8, 3), (16, 4, 6), (32, 2, 1))),
+                          (f32, ((32, 8, 3), (16, 4, 6), (16, 1, 2)))):
+            dn = str(dt)[6:]
+            for rows, gh, gb in cases:
+                seed += 1
+                fmt = "int4" if gh == 8 else "int8"
+                ia = dt == f32 and rows == 32
+                self.k9(f"layout[R{rows},G{gh}](2x272,h16x80,{fmt},{dn}"
+                        f"{',int_attn' if ia else ''})", 2, 272, 16, 80,
+                        1280, 257, dt, fmt, "lin" if rows == 32 else "pow",
+                        ia, seed, layout=(rows, gh))
+                self.k9(f"layout[R{rows},G{gb}](2x208,h12x64,int4,{dn}"
+                        f"{',int_attn' if rows == 16 else ''})", 2, 208, 12,
+                        64, 768, 197, dt, "int4", "lin", rows == 16,
+                        seed + 50, layout=(rows, gb))
+        for rows, g, dt in ((16, 3, bf16), (32, 1, f32), (32, 3, f32)):
+            seed += 1
+            self.k9(f"layout[R{rows},G{g}](3x40,h3x32,int8,{str(dt)[6:]})",
+                    3, 40, 3, 32, 96, 29, dt, "int8", "pow", g == 1, seed,
+                    layout=(rows, g))
+        self.k9("layout[R32,G5](2x100,h5x80,int4,bf16)", 2, 100, 5, 80, 400,
+                90, bf16, "int4", "lin", False, 690, layout=(32, 5))
 
     def run_qkv_proj_kernels(self, cfg):
         """K9 at bench.py's parity-preamble shapes (bench.py:165-185), at
@@ -1165,6 +1213,7 @@ class Parity:
         self.run_small_batch_kernels(cfg)
         self.run_vit_h_kernels()
         self.run_qkv_proj_kernels(cfg)
+        self.run_qkv_proj_layouts()
         self.run_int_matmul_kernels(cfg)
         self.run_flash_kernels(cfg)
         self.run_gather_kernels(cfg)

@@ -74,9 +74,14 @@
 // bytes. An exact kernel cannot use the bf16 rate: its own ceiling is the
 // FP64 tensor cores' 67 TFLOP/s, 63 us for those 4.25 GFLOP.
 
+#include "fp64_mma.cuh"
 #include "qvt_common.cuh"
 
 namespace {
+
+using qvt::dmma;
+using qvt::warp_grid;
+using qvt::WarpGrid;
 
 constexpr int NT = 256, NW = NT / 32, KC = 64;
 constexpr int SMEM_MAX = 232448;
@@ -109,40 +114,6 @@ size_t smem_bytes(int qt, int N, int hd) {
           static_cast<size_t>(2) * KC * (hdm + 8) +
           static_cast<size_t>(qt) * score_ld(N)) *
          sizeof(float);
-}
-
-// The warps' layout over an mt x nt grid of 16 x 8 tiles: wr x wc warps
-// (wr | mt, wc | nt, wr * wc <= NW), fewest tiles for the busiest warp,
-// then fewest fragment loads per k-step.
-struct WarpGrid {
-  int wr, wc;
-};
-__host__ __device__ constexpr WarpGrid warp_grid(int mt, int nt) {
-  WarpGrid best = {1, 1};
-  int tiles = mt * nt + 1, loads = 1 << 20;
-  for (int wr = 1; wr <= NW; ++wr)
-    for (int wc = 1; wr * wc <= NW; ++wc) {
-      if (mt % wr != 0 || nt % wc != 0) continue;
-      const int ti = (mt / wr) * (nt / wc), lo = mt / wr + nt / wc;
-      if (ti < tiles || (ti == tiles && lo < loads)) {
-        best.wr = wr;
-        best.wc = wc;
-        tiles = ti;
-        loads = lo;
-      }
-    }
-  return best;
-}
-
-// d = a.b + d on the FP64 tensor cores, m16n8k4. Fragments (one warp,
-// g = lane/4, t = lane%4): a[i] = A[g + 8i][t] of the 16 x 4 A; b =
-// B[t][g] of the 4 x 8 B; d[i] = D[g + 8(i/2)][2t + i%2] of the 16 x 8 D.
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2],
-                                     double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 
 // One operand of [B, H, N, hd]: its 16-byte path needs whole vectors per

@@ -334,7 +334,8 @@ __device__ __forceinline__ void ln_stats(const void* x, int dt, long long row0,
 
 // Phase stamps (tools/phase_probe.py builds with -DQVT_PROBE): thread 0 of
 // each block records %globaltimer at the kernel's phase boundaries into
-// qvt_clk[block * 4 + 0..3], read back by qvt_probe_read; in a cooperative
+// qvt_clk[block * 4 + 0..3], read back by qvt_probe_read (and zeroed by
+// qvt_probe_clear); in a cooperative
 // kernel, thread 0 of block 0 records stamp i after each grid barrier
 // (QVT_GRID_STAMP). Without QVT_PROBE every macro is empty and the kernels
 // are unchanged.
@@ -348,6 +349,12 @@ __device__ __forceinline__ unsigned long long qvt_now() {
 extern "C" int qvt_probe_read(void* out) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, qvt_clk, sizeof(qvt_clk)));
+}
+extern "C" int qvt_probe_clear() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, qvt_clk);
+  return static_cast<int>(e != cudaSuccess ? e
+                                           : cudaMemset(p, 0, sizeof(qvt_clk)));
 }
 // stamp i of 0..2, after all threads reach it
 #define QVT_STAMP(i)  \
@@ -370,7 +377,42 @@ extern "C" int qvt_probe_read(void* out) {
     if (blockIdx.x == 0 && threadIdx.x == 0)     \
       qvt_clk[i] = qvt_now();                    \
   } while (0)
+// Accumulated phases, for a kernel whose phases repeat (a loop over heads
+// or passes): QVT_PHASES_BEGIN starts the block's clock, QVT_PHASE(i) adds
+// the time since the previous mark to phase i (< 6), QVT_PHASES_STORE
+// writes start, end and the six sums to qvt_clk[block * 8 + 0..7]. Every
+// mark is a barrier of the block.
+#define QVT_PHASES_BEGIN()                                       \
+  __syncthreads();                                               \
+  unsigned long long qvt_ph[6] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull}; \
+  const unsigned long long qvt_start = qvt_now();                \
+  unsigned long long qvt_last = qvt_start
+#define QVT_PHASE(i)                              \
+  do {                                            \
+    __syncthreads();                              \
+    const unsigned long long qvt_n = qvt_now();   \
+    qvt_ph[i] += qvt_n - qvt_last;                \
+    qvt_last = qvt_n;                             \
+  } while (0)
+#define QVT_PHASES_STORE(block)                         \
+  do {                                                  \
+    if (threadIdx.x == 0) {                             \
+      unsigned long long* qc = qvt_clk + (block) * 8;   \
+      qc[0] = qvt_start;                                \
+      qc[1] = qvt_last;                                 \
+      for (int qi = 0; qi < 6; ++qi) qc[2 + qi] = qvt_ph[qi]; \
+    }                                                   \
+  } while (0)
 #else
+#define QVT_PHASES_BEGIN() \
+  do {                     \
+  } while (0)
+#define QVT_PHASE(i) \
+  do {               \
+  } while (0)
+#define QVT_PHASES_STORE(block) \
+  do {                          \
+  } while (0)
 #define QVT_GRID_STAMP(i) \
   do {                    \
   } while (0)

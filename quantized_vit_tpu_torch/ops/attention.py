@@ -47,6 +47,7 @@ block per (image, head, tile of query rows). Plain version:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -241,6 +242,18 @@ def attention_heads_plain(
 MAX_HEAD_DIM = 80
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 _RED = 3 * 32 * 4  # attention_core.cuh:attn_int_scales' static reduction
+# the H100 SXM's SMs and shared memory an SM (a block reserves 1 KB
+# more): the tile pickers' defaults (flash_tile_rows, qkv_proj_layout), the
+# launches pass the card's own
+_H100_SMS = 132
+_H100_SM_SMEM = 233472
+
+
+@functools.lru_cache(maxsize=None)
+def _card_shape(index: int):
+    """The SMs and shared memory an SM of CUDA device ``index``."""
+    prop = torch.cuda.get_device_properties(index)
+    return prop.multi_processor_count, prop.shared_memory_per_multiprocessor
 
 
 def _qkv_row_bytes(head_dim: int, itemsize: int):
@@ -657,36 +670,93 @@ def attention_qkv_proj_plain(qkv, w, scale, bias, residual, *, heads,
     return out.reshape(b, n, d_out)
 
 
-# csrc/attention_proj.cu: a block takes 64 query rows, or 32 or 16 where
-# more overflow shared memory; its proj GEMM streams two weight buffers of
-# 256 columns x 80 bytes through the k/v space
-_PROJ_ROWS = (64, 32, 16)
-_PROJ_WBUF = 2 * 256 * 80
+# csrc/attention_proj.cu: a cluster of G blocks (G | H, G <= 8) takes one
+# (image, tile of QKV_PROJ_TILES query rows), each block H/G heads; the
+# head_dim bound is 64 or 80 (one instantiation each)
+QKV_PROJ_TILES = (32, 16)
+QKV_PROJ_MAX_CLUSTER = 8  # the portable cluster size
+_QKV_PROJ_WBUF = 256 * 80  # a weight chunk: 256 columns x 80 B
+_QKV_PROJ_STATIC = 3 * 8 * 4 + 2 * 8 * 4  # the scale reduction, two heads'
 
 
-def qkv_proj_kernel_limit(n: Optional[int], heads: int, head_dim: int,
-                          itemsize: int = 2) -> Optional[str]:
-    """Why K9 cannot take ``n`` tokens (None: any) of ``heads`` heads of
-    ``head_dim`` with a qkv dtype of ``itemsize`` bytes, or None if it
-    can."""
+def qkv_proj_smem_bytes(rows: int, head_dim: int, hdim: int,
+                        itemsize: int = 2) -> int:
+    """K9's shared memory a block at ``rows`` query rows, for heads of
+    ``head_dim``, H*hd = ``hdim`` and a qkv dtype of ``itemsize`` bytes, as
+    ``csrc/attention_proj.cu:smem_bytes`` (plus its static arrays) computes
+    it: the int8 level tile [rows, round_up(hdim, 64) + 16], then the
+    larger of the attention's space (q as f32; chunks of 64 keys, 32 at 16
+    rows, in the qkv dtype, three in bf16 and two in f32; the f32 p tile
+    and the per-warp row partials) and the proj's weight buffers (three,
+    two at 16 rows). No token count enters: K and V stream in chunks."""
+    kc = 64 if rows >= 32 else 32
+    hdm = 64 if head_dim <= 64 else 80
+    kvb = 3 if itemsize == 2 else 2
+    attn = (4 * rows * (hdm + 4) + kvb * kc * (hdm + 8) * itemsize
+            + 4 * rows * (kc + 4) + 12 * 8 * rows)
+    weights = (3 if rows >= 32 else 2) * _QKV_PROJ_WBUF
+    return (rows * (-(-hdim // 64) * 64 + 16) + max(attn, weights)
+            + _QKV_PROJ_STATIC)
+
+
+def qkv_proj_kernel_limit(heads: int, head_dim: int) -> Optional[str]:
+    """Why K9 cannot take ``heads`` heads of ``head_dim``, or None if it
+    can. Any token count and qkv dtype: the limit is head_dim <= 80 (a
+    multiple of 8) and a 16-row tile's levels [16, H*hd] beside the weight
+    buffers (H*hd up to 11,904; the tile's attention space, f32 or bf16,
+    is smaller than those buffers)."""
     err = _check_head_dim("attention_qkv_proj", head_dim)
-    if err or n is None:
+    if err:
         return err
-    # csrc/attention_proj.cu:smem_bytes: one head's k/v of the nk key rows
-    # (no more than n) or the weight buffers, the tile's q rows in the qkv
-    # dtype and its int8 levels [rows, round_up(H*hd, 64) + 16]; and the
-    # scale reduction
-    rq, rv = _qkv_row_bytes(head_dim, itemsize)
-    region = max(n * (rq + rv), _PROJ_WBUF)
-    level_row = -(-heads * head_dim // 64) * 64 + 16
-    smem = [region + r * (rq + level_row) + _RED for r in _PROJ_ROWS]
-    if min(smem) > SMEM_LIMIT:
-        dt = "bf16" if itemsize == 2 else "f32"
-        return (f"attention_qkv_proj kernel: {n} tokens x {heads} heads of "
-                f"{head_dim} ({dt}) need {min(smem)} B of shared memory > "
-                f"{SMEM_LIMIT} (one head's k/v and a 16-row tile of levels "
-                "stay in one block's shared memory)")
+    smem = qkv_proj_smem_bytes(16, head_dim, heads * head_dim, 4)
+    if smem > SMEM_LIMIT:
+        return (f"attention_qkv_proj kernel: {heads} heads of {head_dim} "
+                f"need {smem} B of shared memory > {SMEM_LIMIT} (a 16-row "
+                "tile's int8 levels of every head stay in one block)")
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def qkv_proj_layout(b: int, n: int, heads: int, head_dim: int,
+                    itemsize: int = 2, sms: int = _H100_SMS,
+                    sm_smem: int = _H100_SM_SMEM):
+    """K9's (query rows R a cluster, blocks G a cluster) for ``b`` images
+    of ``n`` tokens, ``heads`` heads of ``head_dim`` and a qkv dtype of
+    ``itemsize`` bytes, on a card of ``sms`` SMs with ``sm_smem`` bytes of
+    shared memory each (default the H100 SXM's); (0, 0) where no tile
+    fits.
+
+    R: 32 where two such blocks fit an SM's shared memory, else the
+    largest of :data:`QKV_PROJ_TILES` that fits (16 rows stream 32-key
+    chunks, slower at every cluster size). G (G | H, G <=
+    :data:`QKV_PROJ_MAX_CLUSTER`): the fewest heads a block walks in turn
+    over the whole grid, waves x H/G, a wave being the blocks that many
+    SMs hold (two at most); on a tie the smaller cluster. On the H100 that
+    is G 8 at ViT-H/14 batch 8 (576 blocks of 2 heads) and G 1 at ViT-B/16
+    batch 32 (224 blocks already fill the SMs; every G walks 12 heads a
+    wave): the fastest layouts of ``tools/qkv_proj_design.py`` there."""
+    hdim = heads * head_dim
+
+    def smem(r):
+        return qkv_proj_smem_bytes(r, head_dim, hdim, itemsize)
+
+    def per_sm(r):
+        return min(2, sm_smem // (smem(r) + 1024))
+
+    fits = [r for r in QKV_PROJ_TILES
+            if smem(r) <= SMEM_LIMIT and per_sm(r) >= 1]
+    if not fits:
+        return (0, 0)
+    two = [r for r in fits if per_sm(r) >= 2]
+    rows = (two or fits)[0]
+    slots = sms * per_sm(rows)
+
+    def walk(g):
+        return -(-(-(-n // rows) * b * g) // slots) * (heads // g)
+
+    g = min((g for g in range(1, QKV_PROJ_MAX_CLUSTER + 1)
+             if heads % g == 0), key=lambda g: (walk(g), g))
+    return (rows, g)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -732,7 +802,7 @@ def plan_attention_qkv_proj(w, scale, bias=None, *, heads, sm_scale,
     if hdim % heads:
         raise ValueError(f"w_proj {tuple(w.shape)} ({fmt}) does not split "
                          f"into {heads} heads")
-    _raise_if(qkv_proj_kernel_limit(None, heads, hdim // heads))
+    _raise_if(qkv_proj_kernel_limit(heads, hdim // heads))
     return QkvProjPlan(
         heads=int(heads), w_t=_build.n_major(w), int4=fmt == "int4",
         hdim=hdim, d_out=d_out,
@@ -744,12 +814,53 @@ def plan_attention_qkv_proj(w, scale, bias=None, *, heads, sm_scale,
         q_mul=_f32_value(sm_scale * _LOG2E), sm_scale=_f32_value(sm_scale))
 
 
+def _qkv_proj_library():
+    """K9's library, its entry points' C signatures set on first use."""
+    lib = _build.library("attention_proj")
+    if lib.qvt_attention_qkv_proj.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_attention_qkv_proj.argtypes = [
+            P, I, P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, F, F,
+            I, I, I, P]
+        lib.qvt_attention_qkv_proj.restype = I
+        lib.qvt_attention_qkv_proj_clusters.argtypes = [
+            I, I, I, I, I, ctypes.POINTER(I)]
+        lib.qvt_attention_qkv_proj_clusters.restype = I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def qkv_proj_clusters(index: int, dtype_code: int, heads: int,
+                      head_dim: int, rows: int, cluster: int) -> int:
+    """The clusters of K9's layout (``rows``, ``cluster``) that CUDA device
+    ``index`` holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(index):
+        got = ctypes.c_int(0)
+        _build.check(_qkv_proj_library().qvt_attention_qkv_proj_clusters(
+            dtype_code, heads, head_dim, rows, cluster, ctypes.byref(got)),
+            "attention_qkv_proj")
+        return got.value
+
+
+def _check_qkv_proj_cluster(qkv, heads, head_dim, rows, cluster):
+    """Raises, naming the layout, where the card of ``qkv`` cannot
+    schedule K9's cluster (nothing else is launched in its place)."""
+    if not qkv_proj_clusters(qkv.device.index, _build.dtype_code(qkv.dtype),
+                             heads, head_dim, rows, cluster):
+        smem = qkv_proj_smem_bytes(rows, head_dim, heads * head_dim,
+                                   qkv.element_size())
+        raise ValueError(
+            f"attention_qkv_proj kernel: a cluster of {cluster} blocks of "
+            f"{rows} query rows ({smem} B of shared memory each) cannot be "
+            "scheduled on this card")
+
+
 def run_attention_qkv_proj(plan: QkvProjPlan, qkv, residual, *,
                            n_valid=None, out_dtype=torch.bfloat16,
                            int_attention=False):
     """Launches K9 on ``qkv`` [B, N, 3*H*hd] and ``residual`` [B, N, D]
-    for a prepared call site (the only place that launches it); returns
-    the new residual stream [B, N, D]."""
+    for a prepared call site, at the layout :func:`qkv_proj_layout`
+    picks; returns the new residual stream [B, N, D]."""
     _build.require_cuda("attention_qkv_proj", qkv, residual)
     b, n, width = qkv.shape
     hd = _qkv_head_dim(width, plan.heads)
@@ -759,26 +870,40 @@ def run_attention_qkv_proj(plan: QkvProjPlan, qkv, residual, *,
     if tuple(residual.shape) != (b, n, plan.d_out):
         raise ValueError(f"residual {tuple(residual.shape)} vs ({b}, {n}, "
                          f"{plan.d_out})")
-    _raise_if(qkv_proj_kernel_limit(n, plan.heads, hd, qkv.element_size()))
+    rows, cluster = qkv_proj_layout(b, n, plan.heads, hd,
+                                    qkv.element_size(),
+                                    *_card_shape(qkv.device.index))
+    _check_qkv_proj_cluster(qkv, plan.heads, hd, rows, cluster)
+    return _launch_qkv_proj(plan, qkv, residual, rows, cluster,
+                            n_valid=n_valid, out_dtype=out_dtype,
+                            int_attention=int_attention)
+
+
+def _launch_qkv_proj(plan: QkvProjPlan, qkv, residual, rows, cluster, *,
+                     n_valid=None, out_dtype=torch.bfloat16,
+                     int_attention=False):
+    """K9 at the layout (``rows`` query rows, ``cluster`` blocks a
+    cluster) on checked CUDA operands: the launch itself, counted under
+    ``attention_qkv_proj``. The layout sweeps of
+    ``tools/qkv_proj_design.py`` and ``chip_smoke.py`` call it with
+    layouts other than the picker's."""
+    b, n, _ = qkv.shape
+    hd = plan.hdim // plan.heads
     if n_valid is None:
         n_valid = n
     qkv, residual = qkv.contiguous(), residual.contiguous()
     out = torch.empty((b, n, plan.d_out), dtype=out_dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    fn = _build.library("attention_proj").qvt_attention_qkv_proj
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
-                   F, F, I, I, I, P]
-    fn.restype = I
-    code = fn(
+    code = _qkv_proj_library().qvt_attention_qkv_proj(
         qkv.data_ptr(), _build.dtype_code(qkv.dtype), plan.w_t.data_ptr(),
         int(plan.int4), plan.scale.data_ptr(), _build.ptr(plan.bias),
         residual.data_ptr(), _build.dtype_code(residual.dtype),
         plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out_dtype),
         b, n, plan.heads, hd, plan.d_out, n_valid,
-        _n_keys(n, n_valid, qkv.element_size()), plan.q_mul, plan.sm_scale,
-        int(int_attention), int(plan.out_pow), plan.out_top, _build.stream())
+        _n_keys(n, n_valid, qkv.element_size()), rows, cluster, plan.q_mul,
+        plan.sm_scale, int(int_attention), int(plan.out_pow), plan.out_top,
+        _build.stream())
     _build.check(code, "attention_qkv_proj")
     _build.count_launch("attention_qkv_proj")
     return out
@@ -833,10 +958,6 @@ FLASH_KEY_CHUNK = 64
 # block's 256 threads take at most 128 registers each
 # (__launch_bounds__(256, 2)), so an SM holds at most two blocks
 _SMEM_MAX = 232448
-# the H100 SXM's SMs and shared memory an SM (a block reserves 1 KB
-# more): flash_tile_rows' defaults, the launch passes the card's own
-_H100_SMS = 132
-_H100_SM_SMEM = 233472
 
 
 def flash_smem_bytes(qt: int, n: int, hd: int) -> int:
@@ -872,13 +993,6 @@ def flash_tile_rows(b: int, h: int, n: int, hd: int, sms: int = _H100_SMS,
         return qt * min(2, sm_smem // (flash_smem_bytes(qt, n, hd) + 1024))
 
     return max(full, key=lambda qt: (rows_per_sm(qt), -qt))
-
-
-@functools.lru_cache(maxsize=None)
-def _card_shape(index: int):
-    """The SMs and shared memory an SM of CUDA device ``index``."""
-    prop = torch.cuda.get_device_properties(index)
-    return prop.multi_processor_count, prop.shared_memory_per_multiprocessor
 
 
 def flash_kernel_limit(head_dim: int,

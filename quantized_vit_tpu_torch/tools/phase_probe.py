@@ -1,11 +1,12 @@
-"""Per-block phase timing of the K3, K2, K8 and K13 kernels, and
+"""Per-block phase timing of the K3, K2, K8, K9 and K13 kernels, and
 per-phase timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
 ``%globaltimer`` at the phase boundaries the kernels mark with
 ``QVT_STAMP``, and thread 0 of K5's block 0 after each grid barrier,
-``QVT_GRID_STAMP``), runs each kernel once on a prepared plan, and prints:
+``QVT_GRID_STAMP``; K9 sums its repeated phases per block,
+``QVT_PHASE``), runs each kernel once on a prepared plan, and prints:
 
 - ``attention_block`` (ViT-B batch 32), per block: LayerNorm statistics |
   qkv GEMM | attention, and the span of the launch;
@@ -18,22 +19,33 @@ Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
   batch 32, ViT-H/14 batch 8 and 1, each at the query tile
   ``flash_tile_rows`` picks), per block: staging + scores | softmax |
   P.V + epilogue, and the span;
+- ``attention_qkv_proj`` (random bf16 qkv and int8 ``w_proj`` at its two
+  sites: ViT-H/14 batch 8 and ViT-B/16 batch 32, with float attention and
+  with ``int_attention``), per block, summed over its heads and passes:
+  staging | attention | level exchange | proj | epilogue | int scales
+  (``int_attention``'s scan of each head's q, k and v rows), and the
+  span;
 - ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
   block, mean over the 12: each phase from one grid barrier to the next.
 
-    python3 -m quantized_vit_tpu_torch.tools.phase_probe
+    python3 -m quantized_vit_tpu_torch.tools.phase_probe [kernel ...]
+
+With kernel names (``attention_qkv_proj``, ``flash_attention``, ...) it
+runs only those.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
 
 from ..ops import _build
 from ..ops.attention import (_card_shape, flash_tile_rows,
-                             plan_attention_heads, run_attention_heads,
+                             plan_attention_heads, plan_attention_qkv_proj,
+                             run_attention_heads, run_attention_qkv_proj,
                              run_flash_attention)
 from ..ops.block_stack import run_block_stack
 from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
@@ -41,11 +53,14 @@ from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
 from ..models import ViTConfig
 from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 
+_K9_PHASES = ("staging", "attention", "level exchange", "proj",
+              "epilogue", "int scales")
 _STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
                  "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
 
 def main():
+    only = set(sys.argv[1:])
     _build.use_probe_build()
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
@@ -102,7 +117,28 @@ def main():
             (f"staging + scores (qt {qt})", "softmax", "P.V + epilogue"))
     buf = np.zeros(65536 * 4, np.uint64)
     print(torch.cuda.get_device_name(0))
+    for tag, (bk, n, heads, hd, nv) in (("vith_b8", (8, 272, 16, 80, 257)),
+                                        ("vitb_b32", (32, 208, 12, 64, 197))):
+        if only and "attention_qkv_proj" not in only:
+            break
+        d = heads * hd
+        qkv = (torch.randn((bk, n, 3 * d), generator=g, device=dev)
+               * 0.7).to(torch.bfloat16)
+        res = torch.randn((bk, n, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        wp = torch.randint(-7, 8, (d, d), dtype=torch.int8, device=dev)
+        pl = plan_attention_qkv_proj(wp, 2e-3 * one, None, heads=heads,
+                                     sm_scale=hd**-0.5, out_d=0.01 * one,
+                                     out_t=one, out_top=31)
+        for ia in (False, True):
+            k9_phases(buf, f"attention_qkv_proj:{tag}"
+                      f"{':int_attention' if ia else ''}",
+                      lambda pl=pl, qkv=qkv, res=res, nv=nv, ia=ia:
+                      run_attention_qkv_proj(pl, qkv, res, n_valid=nv,
+                                             int_attention=ia))
     for name, (blocks, fn, names) in runs.items():
+        if only and name.split(":")[0] not in only:
+            continue
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -117,7 +153,32 @@ def main():
         print(f"{name}: {blocks} blocks, launch span {t[:, 3].max() / 1e3:.1f}"
               " us; per block " + ", ".join(
                   f"{nm} {v:.1f} us" for nm, v in zip(names, ph)))
-    stack_phases(buf)
+    if not only or "block_stack" in only:
+        stack_phases(buf)
+
+
+def k9_phases(buf, name, fn):
+    """K9's per-block phase sums (``QVT_PHASES_STORE``: start, end, six
+    sums a block) of the last of three runs of ``fn``, the stamps zeroed
+    before each; the blocks are those that wrote a start stamp."""
+    lib = _build.library("attention_proj")
+    lib.qvt_probe_clear.restype = ctypes.c_int
+    for _ in range(3):
+        if lib.qvt_probe_clear():
+            raise RuntimeError("clearing the stamps failed")
+        fn()
+    torch.cuda.synchronize()
+    read = lib.qvt_probe_read
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    if read(buf.ctypes.data_as(ctypes.c_void_p)):
+        raise RuntimeError("reading the stamps failed")
+    t = buf.reshape(-1, 8).astype(np.int64)
+    t = t[t[:, 0] != 0]
+    span = (t[:, 1].max() - t[:, 0].min()) / 1e3
+    ph = t[:, 2:2 + len(_K9_PHASES)].mean(0) / 1e3
+    print(f"{name}: {len(t)} blocks, launch span {span:.1f} us; per block "
+          + ", ".join(f"{nm} {v:.1f} us" for nm, v in zip(_K9_PHASES, ph))
+          + f"; block time {((t[:, 1] - t[:, 0]).mean()) / 1e3:.1f} us")
 
 
 def stack_phases(buf):

@@ -322,23 +322,26 @@ def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):
 
 def test_qkv_proj_kernel_limit_follows_shared_memory():
     """K9's limit (ops/attention.py:qkv_proj_kernel_limit): head_dim 80
-    taken and 96 refused; ViT-H/14's 272 tokens x 16 heads of 80 fit in
-    bf16 with 64-row tiles and in f32 with 16-row ones (csrc/
-    attention_proj.cu:smem_bytes: one head's k/v, the tile's q rows and
-    its int8 levels), 592 tokens (a 384-px patch-16 model) do not in
-    f32."""
+    taken and 96 refused; any token count and qkv dtype (K and V stream
+    in chunks, staged as f32), so 592 tokens at head_dim 64 in f32 (a
+    384-px patch-16 model), which the first K9 refused, are taken; the
+    bound is a 16-row tile's int8 levels of every head beside the weight
+    buffers (csrc/attention_proj.cu:smem_bytes): 148 heads of 80 fit, 149
+    do not. ViT-H/14's 16 heads of 80 fit at the kernel's 32-row tile in
+    bf16 and f32, two blocks to an H100 SM (each block's 1 KiB of
+    reserved shared memory included)."""
     lim = ta.qkv_proj_kernel_limit
-    assert lim(None, 16, 80) is None and lim(272, 16, 80) is None
-    assert "head_dim 96" in lim(None, 16, 96)
-    assert "head_dim 96" in lim(272, 16, 96)
-    assert lim(272, 16, 80, itemsize=4) is None
-    assert lim(208, 12, 64, itemsize=4) is None
-    assert "shared memory" in lim(592, 12, 64, itemsize=4)
-    rq, rv = ta._qkv_row_bytes(80, 4)
-    f32_32 = 272 * (rq + rv) + 32 * (rq + 1296) + ta._RED
-    assert f32_32 > ta.SMEM_LIMIT  # 32-row tiles overflow, 16-row fit
-    rq, rv = ta._qkv_row_bytes(80, 2)
-    assert 272 * (rq + rv) + 64 * (rq + 1296) + ta._RED <= ta.SMEM_LIMIT
+    assert lim(16, 80) is None and lim(12, 64) is None
+    assert "head_dim 96" in lim(16, 96)
+    assert lim(148, 80) is None
+    assert "shared memory" in lim(149, 80)
+    assert ta.qkv_proj_layout(1, 592, 12, 64, 4) != (0, 0)
+    assert 32 in ta.QKV_PROJ_TILES
+    for itemsize in (2, 4):
+        smem = ta.qkv_proj_smem_bytes(32, 80, 16 * 80, itemsize)
+        assert smem <= ta.SMEM_LIMIT
+        assert 2 * (smem + 1024) <= ta._H100_SM_SMEM
+    assert ta.qkv_proj_smem_bytes(16, 80, 149 * 80) > ta.SMEM_LIMIT
 
 
 def test_fsdp_forward_kernel_path_never_reaches_plain(monkeypatch):
