@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero:
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
-   K9 at bench.py's preamble shapes and, launched at set layouts, at every
+   K6 launched at set query tiles at every (query rows, qkv dtype, head
+   bound) instantiation (ragged last tiles, masked keys, the three output
+   modes, ``int_attention``) and at 592 tokens in f32 (a 384-px
+   ViT-B/16), K9 at bench.py's preamble shapes and, launched at set
+   layouts, at every
    (query rows, qkv dtype, head bound) instantiation with cluster sizes 1
    to 8 (ragged last tiles, odd head counts, columns split unevenly
    against the proj's 256-column pass), K10-K12 at
@@ -45,7 +49,9 @@ Phases, in order; any failure exits non-zero:
    32 (K3 + K2 route) for both weight storages, the chain at batch 1, 2
    and 3 (K1 + K6 + K1, then K2, or K8 at batch 3 where the JAX routing
    streams int8 weights), ``int_attention`` on both routes (batch 4 and
-   2), and the batch-1 latency entry (one K5 launch); then ViT-H/14 at
+   2), the batch-1 latency entry (one K5 launch) and a 384-px ViT-B/16
+   at depth 2 on the chain at batch 1 with an f32 residual stream (K6 on
+   592 tokens, K8); then ViT-H/14 at
    full width and depth 32 (int8-stored levels) at batch 1 and 2 (K1 +
    K6 + K1 + K8 per block) and 32 (K3 + K1 proj + the K1 fc1/fc2 chain);
 3b. the kernel-level paths at full width, each with the launch counters
@@ -71,10 +77,13 @@ Phases, in order; any failure exits non-zero:
    under 1 ms): each kernel at its main-path shapes (ViT-B's, and
    ViT-H/14's: K8 at batch 1 and 2, K1's embed, chain qkv and fc1/fc2
    chain, K3 at batch 32, K6 at batch 1 and 2; K9 at ViT-H's batch 8 and
-   ViT-B's 32, K10-K12 at ViT-B's layer shapes), its plain version,
+   ViT-B's 32, K10-K12 at ViT-B's layer shapes; K6 also with
+   ``int_attention`` at ViT-B's batch 2 and 32), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
    ``scaled_dot_product_attention`` on K6's, K9's and K13's shapes
-   (yardsticks the port never calls; beside K9 also K6 + K1 and K3's
+   (at K6's and K13's sites with the host's time a call and the device
+   time of both, and K6's FP64 tensor-core ceiling;
+   yardsticks the port never calls; beside K9 also K6 + K1 and K3's
    branch, beside K12 K1 with its quant prologue, beside K15 K2 on the
    same plan), ``torch.cat`` beside K14, K15's overlap sweep
    (tools/exp_rdma_overlap.py's question: K2 alone, then K15 gathering
@@ -128,6 +137,9 @@ SHORT_ITERS = 200  # timed runs of anything under 1 ms
 # the main path's configuration; a CPU rehearsal (tests) shrinks these
 DEV = "cuda"
 CFG_KW: dict = {}
+# a 384-px ViT-B/16 (577 tokens, 592 padded) on the chain at batch 1
+# with an f32 residual stream, depth cut to 2: the first K6 refused it
+CHAIN_384_KW: dict = dict(img_size=384, depth=2)
 # the ViT-H/14 serving phase: the published widths (Dosovitskiy et al.
 # 2021, Table 1: D 1280, 16 heads, MLP 5120, patch 14 at 224 px) at full
 # depth, int8-stored levels; a rehearsal shrinks these too
@@ -155,11 +167,13 @@ FSDP_TP_ITERS = 5
 SPAWN_TIMEOUT_S = 300
 ART_DIR = os.path.join(ROOT, "build", "smoke_artifact")  # serve phase
 
-# H100 data-sheet peaks (dense): int8 TOP/s, bf16 FLOP/s, HBM bytes/s
+# H100 data-sheet peaks (dense): int8 TOP/s, bf16 FLOP/s, HBM bytes/s,
+# FP64 tensor-core FLOP/s (the ceiling of an exact attention kernel on the
+# f64 MMA: K6's timing sites)
 PEAKS = {
-    "SXM": (1979e12, 989e12, 3.35e12),
-    "PCIe": (1513e12, 756e12, 2.0e12),
-    "NVL": (1671e12, 835e12, 3.9e12),
+    "SXM": (1979e12, 989e12, 3.35e12, 67e12),
+    "PCIe": (1513e12, 756e12, 2.0e12, 51e12),
+    "NVL": (1671e12, 835e12, 3.9e12, 60e12),
 }
 # f32 FLOP/s outside the tensor cores (data sheet): K7's operations
 F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12, "NVL": 60e12}
@@ -227,7 +241,7 @@ def run(record):
     peaks = next((v for k, v in PEAKS.items() if k in record["device"]),
                  PEAKS["SXM"])
     record["peaks"] = {"int8_ops": peaks[0], "bf16_flops": peaks[1],
-                       "bytes_per_s": peaks[2]}
+                       "bytes_per_s": peaks[2], "fp64_tc_flops": peaks[3]}
     if dev.type != "cuda":  # CPU rehearsal: plain versions only
         record["nvidia_smi"] = "cpu rehearsal, no card"
     else:
@@ -502,24 +516,64 @@ class Parity:
     # -- K6 ---------------------------------------------------------------
 
     def k6(self, case, b, n, heads, hd, n_valid, dtype, quant, int_attn,
-           seed):
-        """quant: None (float out), "lin" (t = 1) or "pow" (t != 1)."""
+           seed, rows=None):
+        """quant: None (float out), "lin" (t = 1) or "pow" (t != 1).
+        ``rows``: launched at that query tile (``_launch_attention_qkv``)
+        instead of the picker's; a CPU rehearsal takes the wrapper (its
+        plain version)."""
         from quantized_vit_tpu_torch.ops import (attention_qkv,
                                                  attention_qkv_plain)
+        from quantized_vit_tpu_torch.ops.attention import (
+            _launch_attention_qkv, plan_attention_qkv)
 
         rng = np.random.default_rng(seed)
         qkv = self.t(rng.standard_normal((b, n, 3 * heads * hd)) * 0.7,
                      dtype)
-        kw = dict(heads=heads, sm_scale=hd**-0.5, n_valid=n_valid,
-                  out_dtype=dtype, int_attention=int_attn)
+        quant_kw = {}
         if quant:
-            kw.update(out_d=self.scal(0.01), out_t=self.scal(
+            quant_kw = dict(out_d=self.scal(0.01), out_t=self.scal(
                 0.93 if quant == "pow" else 1.0), out_top=31,
                 out_pow=quant == "pow")
-        got = attention_qkv(qkv, **kw)
-        want = attention_qkv_plain(qkv, **kw)
+        run = dict(n_valid=n_valid, out_dtype=dtype, int_attention=int_attn)
+        if rows is None or self.dev.type != "cuda":
+            got = attention_qkv(qkv, heads=heads, sm_scale=hd**-0.5,
+                                **quant_kw, **run)
+        else:
+            got = _launch_attention_qkv(plan_attention_qkv(
+                qkv.device, heads=heads, sm_scale=hd**-0.5, **quant_kw), qkv,
+                rows, **run)
+        want = attention_qkv_plain(qkv, heads=heads, sm_scale=hd**-0.5,
+                                   **quant_kw, **run)
         return self.check("attention_qkv", case,
                           "levels" if quant else "attention", got, want)
+
+    def run_qkv_attn_tiles(self):
+        """K6 at every (query rows R, qkv dtype, head bound) instantiation,
+        launched at set tiles: 200 tokens at head_dim 64 and 270 at 80
+        (a ragged last tile at every R), masked keys (n_valid < nk < n),
+        each instantiation with float attention and ``int_attention``,
+        the three output modes in turn; then 592 tokens at head_dim 64 in
+        f32 (a 384-px ViT-B/16 at batch 1, which the first K6 refused)
+        through the wrapper."""
+        bf16, f32 = torch.bfloat16, torch.float32
+        modes = (None, "lin", "pow")
+        i = 0
+        for rows in (64, 32, 16):
+            for dt in (bf16, f32):
+                for hd, n, nv in ((64, 200, 190), (80, 270, 257)):
+                    for ia in (False, True):
+                        quant = modes[i % 3]
+                        i += 1
+                        self.k6(f"tile[R{rows}](2x{n},h2x{hd})"
+                                f"({str(dt)[6:]},{quant or 'float'},"
+                                f"{'int' if ia else 'f'}_attn)", 2, n, 2, hd,
+                                nv, dt, quant, ia, 700 + i, rows=rows)
+        for quant in modes:
+            for ia in (False, True):
+                i += 1
+                self.k6(f"vit_b384[1x592,h12x64](float32,{quant or 'float'},"
+                        f"{'int' if ia else 'f'}_attn)", 1, 592, 12, 64, 577,
+                        f32, quant, ia, 700 + i)
 
     # -- K5 ---------------------------------------------------------------
 
@@ -1212,6 +1266,7 @@ class Parity:
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
         self.run_vit_h_kernels()
+        self.run_qkv_attn_tiles()
         self.run_qkv_proj_kernels(cfg)
         self.run_qkv_proj_layouts()
         self.run_int_matmul_kernels(cfg)
@@ -1405,7 +1460,38 @@ def forward_phase(dev, record):
         expected_launches(cfg.depth, "latency"), 1, cfg)
     record["forward"][-1]["prepare_latency_host_ms"] = lat_ms
     out.update(lat=lat, meta=meta)
+    out["launches"]["chain384_b1"] = chain_384_forward(dev, record)
     return out
+
+
+def chain_384_forward(dev, record):
+    """The chain forward of a 384-px ViT-B/16 (``CHAIN_384_KW`` over the
+    main configuration; int8-stored levels from seed 0) at batch 1 with
+    an f32 residual stream, launches checked, logits against the plain
+    path: K6 on 592 tokens at head_dim 64 in f32."""
+    from quantized_vit_tpu_torch.models import ViTConfig
+    from quantized_vit_tpu_torch.serve import (prepare_kernels,
+                                               random_vit_int4_artifact,
+                                               vit_int4_forward)
+    from quantized_vit_tpu_torch.serve.vit_int4 import mlp_route
+    from quantized_vit_tpu_torch.utils import patchify_batch
+
+    cfg = ViTConfig(**dict(CFG_KW, **CHAIN_384_KW))
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
+                                   device=dev)
+    plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
+    images = np.random.default_rng(6).standard_normal(
+        (1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
+    kw = dict(float_dtype=torch.float32, images_layout="patches")
+    n_pad = -(-cfg.num_tokens // 16) * 16
+    mlp = mlp_route(n_pad, cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
+                    "int8", itemsize=4)
+    return check_forward(
+        record, dev, "chain384,f32,int8-stored",
+        lambda: vit_int4_forward(art, x, cfg, plan=plan, **kw),
+        lambda: vit_int4_forward(art, x, cfg, use_kernels=False, **kw),
+        expected_launches(cfg.depth, "chain", mlp), 1, cfg)
 
 
 def vit_h_phase(dev, record):
@@ -2122,7 +2208,7 @@ def timing_phase(dev, record, fwd, peaks):
                                                vit_int4_forward_latency)
     from quantized_vit_tpu_torch.serve.vit_int4 import _chain_attention
 
-    int8_peak, bf16_peak, bw = peaks
+    int8_peak, bf16_peak, bw, fp64_peak = peaks
     cfg, art, x = fwd["cfg"], fwd["art"], fwd["x"]
     b, p, d, n_real, n_pad, kp, hid, ncls, heads = shapes(cfg)
     hd = d // heads
@@ -2204,6 +2290,10 @@ def timing_phase(dev, record, fwd, peaks):
                                               out_dtype=bf16),
         "qkv_attn_b2": lambda: attention_qkv_plain(qkv2, **qkv_kw),
         "qkv_attn_b32": lambda: attention_qkv_plain(qkv32, **qkv_kw),
+        "qkv_attn_int_b2": lambda: attention_qkv_plain(
+            qkv2, int_attention=True, **qkv_kw),
+        "qkv_attn_int_b32": lambda: attention_qkv_plain(
+            qkv32, int_attention=True, **qkv_kw),
         "stack_b1": lambda: vit_block_stack_plain(stack, x1, n_valid=n_real,
                                                   out_dtype=bf16),
         "chain_qkv_b2": lambda: fused_quant_matmul_plain(
@@ -2233,6 +2323,12 @@ def timing_phase(dev, record, fwd, peaks):
                 k6_p, qkv2, n_valid=n_real, out_dtype=bf16),
             "qkv_attn_b32": lambda: run_attention_qkv(
                 k6_p, qkv32, n_valid=n_real, out_dtype=bf16),
+            "qkv_attn_int_b2": lambda: run_attention_qkv(
+                k6_p, qkv2, n_valid=n_real, out_dtype=bf16,
+                int_attention=True),
+            "qkv_attn_int_b32": lambda: run_attention_qkv(
+                k6_p, qkv32, n_valid=n_real, out_dtype=bf16,
+                int_attention=True),
             "stack_b1": lambda: run_block_stack(stack, x1, n_valid=n_real,
                                                 out_dtype=bf16),
             "chain_qkv_b2": lambda: run_matmul(plan.chain[0][0], x2,
@@ -2258,6 +2354,10 @@ def timing_phase(dev, record, fwd, peaks):
                 x3, qkv_e.w, qkv_e.scale, qkv_e.bias, **attn_kw),
             "qkv_attn_b2": lambda: attention_qkv(qkv2, **qkv_kw),
             "qkv_attn_b32": lambda: attention_qkv(qkv32, **qkv_kw),
+            "qkv_attn_int_b2": lambda: attention_qkv(
+                qkv2, int_attention=True, **qkv_kw),
+            "qkv_attn_int_b32": lambda: attention_qkv(
+                qkv32, int_attention=True, **qkv_kw),
             "stack_b1": plain["stack_b1"],
             "chain_qkv_b2": lambda: fused_quant_matmul(
                 x2, qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
@@ -2303,6 +2403,14 @@ def timing_phase(dev, record, fwd, peaks):
         ("attention_qkv", "qkv_attn_b32", 0,
          bound(b * n_pad * 3 * d * 2 + b * n_pad * d, 0, b * attn_ops), [],
          sdpa(b)),
+        # K6 with int_attention (the variant bench.py times) at batch 2 and
+        # 32: no library call computes it
+        ("attention_qkv", "qkv_attn_int_b2", 0,
+         bound(2 * n_pad * 3 * d * 2 + 2 * n_pad * d, 0, 2 * attn_ops), [],
+         None),
+        ("attention_qkv", "qkv_attn_int_b32", 0,
+         bound(b * n_pad * 3 * d * 2 + b * n_pad * d, 0, b * attn_ops), [],
+         None),
         # the chain's K1 qkv and K2 at batch 2 (not on the batch-32
         # forward: 0 launches there), to split the chain's time
         ("fused_quant_matmul", "chain_qkv_b2", 0,
@@ -2318,7 +2426,11 @@ def timing_phase(dev, record, fwd, peaks):
                cfg.depth * 2 * n_pad * w_blk, cfg.depth * attn_ops), [],
          None),
     ]
-    sites += vit_h_sites(fwd["vit_h"], kern, plain, bound)
+    # K6's sites: the FLOP of its two products (exact only on the f64
+    # MMA), over the FP64 tensor cores' rate, as its ceiling
+    k6_flop = {f"qkv_attn{v}_b{bk}": bk * attn_ops for bk in (2, b)
+               for v in ("", "_int")}
+    sites += vit_h_sites(fwd["vit_h"], kern, plain, bound, k6_flop)
     sites += path_sites(fwd, kern, plain, bound)
     sites += fsdp_sites(fwd, kern, plain, bound, xs)
     per_site = []
@@ -2337,14 +2449,26 @@ def timing_phase(dev, record, fwd, peaks):
                          "int_mm_us": None if ims is None else ims * 1e3,
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
-        if name == "flash_attention":  # how much of the time is the host's
+        if name in ("flash_attention", "attention_qkv"):
+            # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)
-            dev, share = split["device_us"], split["card_share"]
-            log(f"[time] {name:18s} {site:12s} host {split['host_us']:.1f} "
-                f"us a call; on the card "
-                f"{'n/a' if dev is None else f'{dev:.1f}'} us, "
-                f"{'n/a' if share is None else f'{share:.3f}'} of the time")
+            splits = [(name, split)]
+            if lib is not None:
+                lsplit = host_split(lib, lms * 1e3)
+                per_site[-1]["library_split"] = lsplit
+                splits.append(("library", lsplit))
+            for who, sp in splits:
+                dv, share = sp["device_us"], sp["card_share"]
+                log(f"[time] {who:18s} {site:12s} host {sp['host_us']:.1f} "
+                    f"us a call; on the card "
+                    f"{'n/a' if dv is None else f'{dv:.1f}'} us, "
+                    f"{'n/a' if share is None else f'{share:.3f}'} of the "
+                    "time")
+        if site in k6_flop:
+            per_site[-1]["fp64_ceiling_us"] = k6_flop[site] / fp64_peak * 1e6
+            log(f"[time] {name:18s} {site:12s} FP64 MMA ceiling "
+                f"{per_site[-1]['fp64_ceiling_us']:.1f} us")
         log(f"[time] {name:18s} {site:12s} {ms * 1e3:9.1f} us  plain "
             f"{pms * 1e3:9.1f}  bound {bms * 1e3:7.1f} ({by})  _int_mm "
             f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}  library "
@@ -2812,12 +2936,13 @@ def sdpa_call(b, heads, nq, nk, hd, g):
     return lambda: F.scaled_dot_product_attention(qq, kk, kk)
 
 
-def vit_h_sites(vh, kern, plain, bound):
+def vit_h_sites(vh, kern, plain, bound, k6_flop):
     """The ViT-H/14 phase's timing sites, added to ``kern``/``plain``: K8
     per launch at batch 1 (32 launches a forward) and 2; K1's patch embed
     (K = 588), chain qkv and fc1/fc2 chain at batch 32; K3 at batch 32 and
-    K6 at batch 1 and 2 (head_dim 80). Only K8's batch-1 site counts
-    launches: the ViT-B forward's per-forward totals stay ViT-B's."""
+    K6 at batch 1 and 2 (head_dim 80, its FLOP into ``k6_flop``). Only
+    K8's batch-1 site counts launches: the ViT-B forward's per-forward
+    totals stay ViT-B's."""
     from quantized_vit_tpu_torch.ops import (attention_heads_plain,
                                              attention_qkv_plain,
                                              fused_mlp_plain,
@@ -2912,6 +3037,7 @@ def vit_h_sites(vh, kern, plain, bound):
         })
     nk = -(-n_real // 16) * 16
     attn_ops = 2 * heads * n_pad * nk * hd * 2  # one image's QK^T and PV
+    k6_flop.update({f"vith_qkv_attn_b{bk}": bk * attn_ops for bk in (1, 2)})
 
     def mlp_bound(m):
         return bound(2 * m * d * 2 + 2 * d * hid, 4 * m * d * hid)

@@ -1,5 +1,5 @@
-// The attention phase shared by K3 (attention_block.cu), K6
-// (attention_qkv.cu) and K5 (block_stack.cu): one head's attention over
+// The attention phase shared by K3 (attention_block.cu) and K5
+// (block_stack.cu): one head's attention over
 // q/k/v rows already in shared memory (values rounded to the qkv dtype,
 // held as f32 or, for a bf16 qkv dtype, as bf16: the same values in half
 // the space), with the int8 or float epilogue of
@@ -107,17 +107,14 @@ __device__ __forceinline__ double dyn_level(float x, float inv) {
 }
 
 // Block-wide: the dynamic scales of one head from its nq query rows and
-// nk key/value rows in shared memory; q_max is this thread's max of
-// |q * sm_scale| over query rows held elsewhere (0 if none). Every thread
-// of the block calls it.
+// nk key/value rows in shared memory. Every thread of the block calls it.
 template <typename T>
 __device__ __forceinline__ IntScales attn_int_scales(const T* q, const T* k,
                                                      const T* v, int rq,
                                                      int rv, int nq, int nk,
-                                                     int hd, float sm_scale,
-                                                     float q_max = 0.f) {
+                                                     int hd, float sm_scale) {
   __shared__ float red[3][32];
-  float m[3] = {q_max, 0.f, 0.f};
+  float m[3] = {0.f, 0.f, 0.f};
   for (int i = threadIdx.x; i < nq * hd; i += blockDim.x) {
     const int r = i / hd, c = i - r * hd;
     m[0] = fmaxf(m[0], fabsf(att_ld(q + r * rq + c) * sm_scale));

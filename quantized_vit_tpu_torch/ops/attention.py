@@ -33,8 +33,10 @@ the batch 1-3 chain on the raw fused-qkv tensor a K1 ``ln_quant`` launch
 wrote. :func:`attention_qkv_proj` (kernel K9, ``csrc/attention_proj.cu``)
 replaces ``_attention_qkv_proj`` (``pallas_call`` at attention.py:770): the
 same attention with the proj GEMM, dequant and residual in the same
-launch, the int8 levels kept in shared memory. K3, K5, K6 and K9 share one
-attention core (``csrc/attention_core.cuh``).
+launch, the int8 levels kept in shared memory. K3 and K5 share one
+attention core (``csrc/attention_core.cuh``); K6 and K9 stream K/V in
+chunks onto the FP64 tensor cores and share their staging code
+(``csrc/qkv_stream.cuh``).
 
 :func:`flash_attention` (kernel K13, ``csrc/flash_attention.cu``)
 replaces ``_flash_attention`` (``pallas_call`` at attention.py:119):
@@ -510,24 +512,61 @@ def attention_block(
 # ---------------------------------------------------------------------------
 
 
-def qkv_kernel_limit(n: Optional[int], head_dim: int,
-                     itemsize: int = 2) -> Optional[str]:
-    """Why K6 cannot take ``n`` tokens (None: any) of ``head_dim`` with a
-    qkv dtype of ``itemsize`` bytes, or None if it can."""
-    err = _check_head_dim("attention_qkv", head_dim)
-    if err or n is None:
-        return err
-    # csrc/attention_qkv.cu:smem_bytes: in the qkv dtype, k/v of the nk
-    # key rows (no more than n) and q of one query split, which is at
-    # least one 8-row tile; and the scale reduction
-    rq, rv = _qkv_row_bytes(head_dim, itemsize)
-    smem = n * (rq + rv) + 8 * rq + _RED
-    if smem > SMEM_LIMIT:
-        dt = "bf16" if itemsize == 2 else "f32"
-        return (f"attention_qkv kernel: {n} tokens x head_dim {head_dim} "
-                f"({dt}) need {smem} B of shared memory > {SMEM_LIMIT} (one "
-                "head's k/v stay in one block's shared memory)")
-    return None
+# csrc/attention_qkv.cu: a block per (image, head, tile of QKV_ATTN_TILES
+# query rows), K and V streaming through three buffers of 64 keys; the
+# head_dim bound is 64 or 80 (one instantiation each)
+QKV_ATTN_TILES = (64, 32, 16)
+_QKV_ATTN_STATIC = 3 * 8 * 4 + 8 * 4  # the scale reduction, the scales
+
+
+def qkv_attn_smem_bytes(rows: int, head_dim: int, itemsize: int = 2) -> int:
+    """K6's shared memory a block at ``rows`` query rows, for heads of
+    ``head_dim`` and a qkv dtype of ``itemsize`` bytes, as
+    ``csrc/attention_qkv.cu:smem_bytes`` (plus its static arrays) computes
+    it: q as f32, three chunks of 64 keys in the qkv dtype, the f32 p tile
+    and the per-warp row partials. No token count enters: K and V stream
+    in chunks."""
+    hdm = 64 if head_dim <= 64 else 80
+    return (4 * rows * (hdm + 4) + 3 * 64 * (hdm + 8) * itemsize
+            + 4 * rows * (64 + 4) + 12 * 8 * rows + _QKV_ATTN_STATIC)
+
+
+@functools.lru_cache(maxsize=None)
+def qkv_attn_tile_rows(b: int, n: int, heads: int, head_dim: int,
+                       itemsize: int = 2, sms: int = _H100_SMS,
+                       sm_smem: int = _H100_SM_SMEM) -> int:
+    """K6's query rows a block, one of :data:`QKV_ATTN_TILES` (0 where no
+    tile fits), for ``b`` images of ``n`` tokens, ``heads`` heads of
+    ``head_dim`` and a qkv dtype of ``itemsize`` bytes, on a card of
+    ``sms`` SMs with ``sm_smem`` bytes of shared memory each (default the
+    H100 SXM's). K13's rule (:func:`flash_tile_rows`): of the fitting
+    tiles whose grid (ceil(n / R) x heads x b) gives every SM a block, the
+    one that keeps the most query rows on an SM (R times the blocks an SM
+    holds by shared memory, at most two); on a tie the smaller tile. Where
+    no tile's grid fills the SMs, the smallest fitting tile. On the H100
+    that is 32 at ViT-B/16 batch 2 (168 blocks; 64 rows give 96) and
+    ViT-H/14 batch 1 (144), 64 at ViT-H/14 batch 2 (160) and ViT-B/16
+    batch 32 (1,536)."""
+    def smem(r):
+        return qkv_attn_smem_bytes(r, head_dim, itemsize)
+
+    def per_sm(r):
+        return min(2, sm_smem // (smem(r) + 1024))
+
+    fits = [r for r in QKV_ATTN_TILES
+            if smem(r) <= SMEM_LIMIT and per_sm(r) >= 1]
+    full = [r for r in fits if -(-n // r) * heads * b >= sms]
+    if not full:
+        return fits[-1] if fits else 0
+    return max(full, key=lambda r: (r * per_sm(r), -r))
+
+
+def qkv_kernel_limit(head_dim: int) -> Optional[str]:
+    """Why K6 cannot take heads of ``head_dim``, or None if it can:
+    head_dim <= 80, a multiple of 8. K and V stream in chunks, so any token
+    count and either qkv dtype fit a block (at most 112,768 bytes, a 64-row
+    f32 tile at head_dim 80: :func:`qkv_attn_smem_bytes`)."""
+    return _check_head_dim("attention_qkv", head_dim)
 
 
 def _qkv_head_dim(qkv_width, heads):
@@ -576,14 +615,41 @@ def plan_attention_qkv(device, *, heads, sm_scale, out_d=None, out_t=None,
         sm_scale=_f32_value(sm_scale))
 
 
+def _qkv_library():
+    """K6's library, its entry point's C signature set on first use."""
+    lib = _build.library("attention_qkv")
+    if lib.qvt_attention_qkv.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_attention_qkv.argtypes = [P, I, P, I, I, P, I, I, I, I, I,
+                                          I, I, F, F, I, I, P]
+        lib.qvt_attention_qkv.restype = I
+    return lib
+
+
 def run_attention_qkv(plan: QkvAttentionPlan, qkv, *, n_valid=None,
                       out_dtype=torch.bfloat16, int_attention=False):
-    """Launches K6 on ``qkv`` [B, N, 3*H*hd] for a prepared call site (the
-    only place that launches it); returns [B, N, H*hd]."""
+    """Launches K6 on ``qkv`` [B, N, 3*H*hd] for a prepared call site, at
+    the query tile :func:`qkv_attn_tile_rows` picks for the card; returns
+    [B, N, H*hd]."""
     _build.require_cuda("attention_qkv", qkv)
     b, n, width = qkv.shape
     hd = _qkv_head_dim(width, plan.heads)
-    _raise_if(qkv_kernel_limit(n, hd, qkv.element_size()))
+    _raise_if(qkv_kernel_limit(hd))
+    rows = qkv_attn_tile_rows(b, n, plan.heads, hd, qkv.element_size(),
+                              *_card_shape(qkv.device.index))
+    return _launch_attention_qkv(plan, qkv, rows, n_valid=n_valid,
+                                 out_dtype=out_dtype,
+                                 int_attention=int_attention)
+
+
+def _launch_attention_qkv(plan: QkvAttentionPlan, qkv, rows, *,
+                          n_valid=None, out_dtype=torch.bfloat16,
+                          int_attention=False):
+    """K6 at ``rows`` query rows a block on a checked CUDA ``qkv``: the
+    launch itself, counted under ``attention_qkv``. ``chip_smoke.py``
+    calls it at tiles other than the picker's."""
+    b, n, width = qkv.shape
+    hd = width // (3 * plan.heads)
     if n_valid is None:
         n_valid = n
     qkv = qkv.contiguous()
@@ -593,15 +659,11 @@ def run_attention_qkv(plan: QkvAttentionPlan, qkv, *, n_valid=None,
     if out.numel() == 0:
         return out
     mode = (2 if not plan.quantize else 1 if plan.out_pow else 0)
-    fn = _build.library("attention_qkv").qvt_attention_qkv
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, I, P, I, I, I, I, I, I, F, F, I, I, P]
-    fn.restype = I
-    code = fn(
+    code = _qkv_library().qvt_attention_qkv(
         qkv.data_ptr(), _build.dtype_code(qkv.dtype), out.data_ptr(),
         _build.dtype_code(out.dtype), mode, plan.prm.data_ptr(), b, n,
         plan.heads, hd, n_valid, _n_keys(n, n_valid, qkv.element_size()),
-        plan.q_mul, plan.sm_scale, int(int_attention), plan.out_top,
+        rows, plan.q_mul, plan.sm_scale, int(int_attention), plan.out_top,
         _build.stream())
     _build.check(code, "attention_qkv")
     _build.count_launch("attention_qkv")

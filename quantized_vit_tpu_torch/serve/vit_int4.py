@@ -373,7 +373,7 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
         lims = []
         for b in (range(1, ROUTE_BATCHES + 1) if batch is None
                   else (batch,)):
-            lims.append(qkv_kernel_limit(n_pad, hd, itemsize) if uses_chain(b)
+            lims.append(qkv_kernel_limit(hd) if uses_chain(b)
                         else heads_kernel_limit(n_pad, hd, itemsize))
             route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
                               itemsize=itemsize)

@@ -1,0 +1,121 @@
+"""K6 and the chain forwards that run it, timed on the card through the
+package's public entry points only, so that one script times any version
+of the package (run it from the root of a checkout):
+
+    python3 -m quantized_vit_tpu_torch.tools.chain_timing
+
+Prints one JSON object: the card (``nvidia-smi``'s name and power limit);
+K6 (``run_attention_qkv`` on a prepared plan, random bf16 qkv at the
+padded token counts, the proj quantizer's levels) at ViT-B/16 batch 2 and
+32 and ViT-H/14 batch 1 and 2, each as the median of CUDA-event readings,
+the host's time to issue one call and its kernels' device time from
+torch.profiler; and the chain forward (``vit_int4_forward`` on a prepared
+plan, int8-stored levels from seed 0, bf16 residual stream) of ViT-B/16
+and ViT-H/14 at batch 1 and 2, CUDA-event medians in ms.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..models import ViTConfig
+from ..ops import plan_attention_qkv, run_attention_qkv
+from ..serve import (prepare_kernels, random_vit_int4_artifact,
+                     vit_int4_forward)
+
+# (images, padded tokens, heads, head_dim, real tokens)
+K6_SITES = {"vitb_b2": (2, 208, 12, 64, 197), "vitb_b32": (32, 208, 12, 64,
+                                                            197),
+            "vith_b1": (1, 272, 16, 80, 257), "vith_b2": (2, 272, 16, 80,
+                                                          257)}
+MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
+                                   num_heads=16, num_classes=1000)}
+
+
+def events_us(fn, iters=200, warmup=5):
+    """Median of ``iters`` CUDA-event readings of one call, in us."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) * 1e3
+
+
+def host_us(fn, reps=50):
+    """The host's time to issue one call (back to back, no waiting)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def device_us(fn, reps=20):
+    """The device time of the kernels of one call (torch.profiler's CUDA
+    trace); None if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tot = sum(e.device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return tot / reps if tot > 0 else None
+
+
+def main():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    out = {"card": smi, "k6_us": {}, "chain_forward_ms": {}}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    one = torch.ones((), device="cuda")
+    for site, (b, n, heads, hd, n_real) in K6_SITES.items():
+        qkv = (torch.randn((b, n, 3 * heads * hd), generator=g,
+                           device="cuda") * 0.7).to(torch.bfloat16)
+        plan = plan_attention_qkv("cuda", heads=heads, sm_scale=hd**-0.5,
+                                  out_d=0.01 * one, out_t=one, out_top=31)
+
+        def fn(plan=plan, qkv=qkv, n_real=n_real):
+            return run_attention_qkv(plan, qkv, n_valid=n_real)
+
+        out["k6_us"][site] = {"events": events_us(fn), "host": host_us(fn),
+                              "device": device_us(fn)}
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    for name, cfg_kw in MODELS.items():
+        cfg = ViTConfig(**cfg_kw)
+        art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
+                                       device="cuda")
+        plan = prepare_kernels(art, cfg)
+        kp = cfg.patch_size**2 * cfg.in_channels
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (2, cfg.num_patches, kp)).astype(np.float32)).cuda()
+        for b in (1, 2):
+            out["chain_forward_ms"][f"{name}_b{b}"] = events_us(
+                lambda: vit_int4_forward(art, x[:b], cfg, plan=plan, **kw),
+                iters=20, warmup=3) / 1e3
+        del art, plan
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

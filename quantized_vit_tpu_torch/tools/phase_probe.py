@@ -1,11 +1,11 @@
-"""Per-block phase timing of the K3, K2, K8, K9 and K13 kernels, and
+"""Per-block phase timing of the K3, K2, K8, K6, K9 and K13 kernels, and
 per-phase timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
 ``%globaltimer`` at the phase boundaries the kernels mark with
 ``QVT_STAMP``, and thread 0 of K5's block 0 after each grid barrier,
-``QVT_GRID_STAMP``; K9 sums its repeated phases per block,
+``QVT_GRID_STAMP``; K6 and K9 sum their repeated phases per block,
 ``QVT_PHASE``), runs each kernel once on a prepared plan, and prints:
 
 - ``attention_block`` (ViT-B batch 32), per block: LayerNorm statistics |
@@ -25,6 +25,12 @@ Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
   staging | attention | level exchange | proj | epilogue | int scales
   (``int_attention``'s scan of each head's q, k and v rows), and the
   span;
+- ``attention_qkv`` (random bf16 qkv at K6's sites, ViT-B/16 batch 2
+  and 32, ViT-H/14 batch 1 and 2, each at the query tile
+  ``qkv_attn_tile_rows`` picks, with
+  float attention and with ``int_attention``), per block, summed over its
+  steps: staging (q, the waits and barriers between chunk steps) |
+  scores | p | P.V | int scales | epilogue, and the span;
 - ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
   block, mean over the 12: each phase from one grid barrier to the next.
 
@@ -44,9 +50,10 @@ import torch
 
 from ..ops import _build
 from ..ops.attention import (_card_shape, flash_tile_rows,
-                             plan_attention_heads, plan_attention_qkv_proj,
-                             run_attention_heads, run_attention_qkv_proj,
-                             run_flash_attention)
+                             plan_attention_heads, plan_attention_qkv,
+                             plan_attention_qkv_proj, qkv_attn_tile_rows,
+                             run_attention_heads, run_attention_qkv,
+                             run_attention_qkv_proj, run_flash_attention)
 from ..ops.block_stack import run_block_stack
 from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
                          run_mlp_chunked)
@@ -55,6 +62,7 @@ from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 
 _K9_PHASES = ("staging", "attention", "level exchange", "proj",
               "epilogue", "int scales")
+_K6_PHASES = ("staging", "scores", "p", "P.V", "int scales", "epilogue")
 _STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
                  "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
@@ -131,11 +139,31 @@ def main():
                                      sm_scale=hd**-0.5, out_d=0.01 * one,
                                      out_t=one, out_top=31)
         for ia in (False, True):
-            k9_phases(buf, f"attention_qkv_proj:{tag}"
-                      f"{':int_attention' if ia else ''}",
-                      lambda pl=pl, qkv=qkv, res=res, nv=nv, ia=ia:
-                      run_attention_qkv_proj(pl, qkv, res, n_valid=nv,
-                                             int_attention=ia))
+            summed_phases(buf, "attention_proj", _K9_PHASES,
+                          f"attention_qkv_proj:{tag}"
+                          f"{':int_attention' if ia else ''}",
+                          lambda pl=pl, qkv=qkv, res=res, nv=nv, ia=ia:
+                          run_attention_qkv_proj(pl, qkv, res, n_valid=nv,
+                                                 int_attention=ia))
+    for tag, (bk, n, heads, hd, nv) in (("vitb_b2", (2, 208, 12, 64, 197)),
+                                        ("vitb_b32", (32, 208, 12, 64,
+                                                      197)),
+                                        ("vith_b1", (1, 272, 16, 80, 257)),
+                                        ("vith_b2", (2, 272, 16, 80, 257))):
+        if only and "attention_qkv" not in only:
+            break
+        qkv = (torch.randn((bk, n, 3 * heads * hd), generator=g, device=dev)
+               * 0.7).to(torch.bfloat16)
+        pl = plan_attention_qkv(dev, heads=heads, sm_scale=hd**-0.5,
+                                out_d=0.01 * one, out_t=one, out_top=31)
+        rows = qkv_attn_tile_rows(bk, n, heads, hd, 2, *_card_shape(0))
+        for ia in (False, True):
+            summed_phases(buf, "attention_qkv", _K6_PHASES,
+                          f"attention_qkv:{tag}:R{rows}"
+                          f"{':int_attention' if ia else ''}",
+                          lambda pl=pl, qkv=qkv, nv=nv, ia=ia:
+                          run_attention_qkv(pl, qkv, n_valid=nv,
+                                            int_attention=ia))
     for name, (blocks, fn, names) in runs.items():
         if only and name.split(":")[0] not in only:
             continue
@@ -157,11 +185,12 @@ def main():
         stack_phases(buf)
 
 
-def k9_phases(buf, name, fn):
-    """K9's per-block phase sums (``QVT_PHASES_STORE``: start, end, six
-    sums a block) of the last of three runs of ``fn``, the stamps zeroed
-    before each; the blocks are those that wrote a start stamp."""
-    lib = _build.library("attention_proj")
+def summed_phases(buf, stem, names, name, fn):
+    """The per-block phase sums of K6 or K9 (library ``stem``;
+    ``QVT_PHASES_STORE``: start, end, six sums a block, named ``names``)
+    of the last of three runs of ``fn``, the stamps zeroed before each;
+    the blocks are those that wrote a start stamp."""
+    lib = _build.library(stem)
     lib.qvt_probe_clear.restype = ctypes.c_int
     for _ in range(3):
         if lib.qvt_probe_clear():
@@ -175,9 +204,9 @@ def k9_phases(buf, name, fn):
     t = buf.reshape(-1, 8).astype(np.int64)
     t = t[t[:, 0] != 0]
     span = (t[:, 1].max() - t[:, 0].min()) / 1e3
-    ph = t[:, 2:2 + len(_K9_PHASES)].mean(0) / 1e3
+    ph = t[:, 2:2 + len(names)].mean(0) / 1e3
     print(f"{name}: {len(t)} blocks, launch span {span:.1f} us; per block "
-          + ", ".join(f"{nm} {v:.1f} us" for nm, v in zip(_K9_PHASES, ph))
+          + ", ".join(f"{nm} {v:.1f} us" for nm, v in zip(names, ph))
           + f"; block time {((t[:, 1] - t[:, 0]).mean()) / 1e3:.1f} us")
 
 

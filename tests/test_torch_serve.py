@@ -160,6 +160,7 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     routes = {(f["forward"], f["batch"]) for f in record["forward"]}
     assert {("chain,int8-stored", b) for b in (1, 2, 3)} <= routes
     assert ("latency,int4-packed", 1) in routes
+    assert ("chain384,f32,int8-stored", 1) in routes
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in record["kernels"])
