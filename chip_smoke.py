@@ -25,11 +25,13 @@ Phases, in order; any failure exits non-zero:
    need; K14 on a ViT-B block's weights as
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
-   at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80),
-   K6 launched at set query tiles at every (query rows, qkv dtype, head
-   bound) instantiation (ragged last tiles, masked keys, the three output
-   modes, ``int_attention``) and at 592 tokens in f32 (a 384-px
-   ViT-B/16), K9 at bench.py's preamble shapes and, launched at set
+   at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80;
+   K3 also with an f32 residual stream at batch 4), K3 and K6 launched at
+   set query tiles at every (query rows, qkv dtype, head bound)
+   instantiation (ragged last tiles, masked keys; K6's three output
+   modes, K3's int8 and packed int4 weights and both quantizers;
+   ``int_attention``), K6 at 592 tokens in f32 (a 384-px ViT-B/16), K9
+   at bench.py's preamble shapes and, launched at set
    layouts, at every
    (query rows, qkv dtype, head bound) instantiation with cluster sizes 1
    to 8 (ragged last tiles, odd head counts, columns split unevenly
@@ -51,7 +53,10 @@ Phases, in order; any failure exits non-zero:
    streams int8 weights), ``int_attention`` on both routes (batch 4 and
    2), the batch-1 latency entry (one K5 launch) and a 384-px ViT-B/16
    at depth 2 on the chain at batch 1 with an f32 residual stream (K6 on
-   592 tokens, K8); then ViT-H/14 at
+   592 tokens, K8) and on the K3 route at batch 4 in bf16 (K3 on 592
+   tokens), and ViT-H/14 at depth 2 on the K3 route at batch 4 with an
+   f32 residual stream (the K3 routes' logits required equal to the
+   plain path's); then ViT-H/14 at
    full width and depth 32 (int8-stored levels) at batch 1 and 2 (K1 +
    K6 + K1 + K8 per block) and 32 (K3 + K1 proj + the K1 fc1/fc2 chain);
 3b. the kernel-level paths at full width, each with the launch counters
@@ -81,14 +86,14 @@ Phases, in order; any failure exits non-zero:
    ``int_attention`` at ViT-B's batch 2 and 32), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
    ``scaled_dot_product_attention`` on K6's, K9's and K13's shapes
-   (at K6's and K13's sites with the host's time a call and the device
-   time of both, and K6's FP64 tensor-core ceiling;
+   (at K3's, K6's and K13's sites with the host's time a call and the
+   device time of both, and K3's and K6's FP64 tensor-core ceiling;
    yardsticks the port never calls; beside K9 also K6 + K1 and K3's
    branch, beside K12 K1 with its quant prologue, beside K15 K2 on the
    same plan), ``torch.cat`` beside K14, K15's overlap sweep
    (tools/exp_rdma_overlap.py's question: K2 alone, then K15 gathering
    4-31 MB), the FSDP forward at tp = 1 against ``vit_int4_forward``,
-   both routes' attention branch at batch 2 and 3, the
+   both routes' attention branch at batch 2, 3, 4, 8, 16 and 32, the
    forwards, and a plain bf16 PyTorch ViT forward of the same
    architecture (ViT-B/16 at batch 32, 1 and 2; ViT-H/14 at 1, 2, 32);
 6. training: ViT-B/16 at full width, batch 32, seeded synthetic NHWC
@@ -137,9 +142,10 @@ SHORT_ITERS = 200  # timed runs of anything under 1 ms
 # the main path's configuration; a CPU rehearsal (tests) shrinks these
 DEV = "cuda"
 CFG_KW: dict = {}
-# a 384-px ViT-B/16 (577 tokens, 592 padded) on the chain at batch 1
-# with an f32 residual stream, depth cut to 2: the first K6 refused it
-CHAIN_384_KW: dict = dict(img_size=384, depth=2)
+# a 384-px ViT-B/16 (577 tokens, 592 padded), depth cut to 2: on the
+# chain at batch 1 with an f32 residual stream (the first K6 refused it)
+# and on the K3 route at batch 4 in bf16 (the first K3 refused it)
+B384_KW: dict = dict(img_size=384, depth=2)
 # the ViT-H/14 serving phase: the published widths (Dosovitskiy et al.
 # 2021, Table 1: D 1280, 16 heads, MLP 5120, patch 14 at 224 px) at full
 # depth, int8-stored levels; a rehearsal shrinks these too
@@ -481,11 +487,17 @@ class Parity:
     # -- K3 ---------------------------------------------------------------
 
     def k3(self, case, b, n, d, heads, n_valid, fmt, fmt_proj, pow_, seed,
-           stream=torch.bfloat16, int_attn=False):
+           stream=torch.bfloat16, int_attn=False, rows=None):
+        """K3's levels and its branch with the K1 proj against their
+        plain versions; with ``rows``, the levels alone, launched at that
+        query tile (``_launch_attention_heads``) instead of the picker's
+        (a CPU rehearsal takes the wrapper, its plain version)."""
         from quantized_vit_tpu_torch.ops import (attention_block,
                                                  attention_block_plain,
                                                  attention_heads,
                                                  attention_heads_plain)
+        from quantized_vit_tpu_torch.ops.attention import (
+            _launch_attention_heads, plan_attention_heads)
 
         rng = np.random.default_rng(seed)
         f32 = torch.float32
@@ -504,14 +516,44 @@ class Parity:
                   out_d=self.scal(0.06), out_t=self.scal(
                       0.93 if pow_ else 1.0), out_top=31, out_pow=pow_,
                   out_dtype=stream, int_attention=int_attn)
+        want = attention_heads_plain(x, wq, qs, qb, fmt=fmt, **kw)
+        if rows is not None:
+            run = {k: kw.pop(k) for k in ("n_valid", "out_dtype",
+                                          "int_attention")}
+            got = (_launch_attention_heads(
+                plan_attention_heads(wq, qs, qb, fmt=fmt, **kw), x, rows,
+                **run) if self.dev.type == "cuda"
+                else attention_heads(x, wq, qs, qb, fmt=fmt, **kw, **run))
+            return self.check("attention_block", case, "levels", got, want)
         self.check("attention_block", case + ":levels", "levels",
-                   attention_heads(x, wq, qs, qb, fmt=fmt, **kw),
-                   attention_heads_plain(x, wq, qs, qb, fmt=fmt, **kw))
+                   attention_heads(x, wq, qs, qb, fmt=fmt, **kw), want)
         got = attention_block(x, wq, qs, qb, wp, ps, pb, fmt=fmt,
                               fmt_proj=fmt_proj, **kw)
         want = attention_block_plain(x, wq, qs, qb, wp, ps, pb, fmt=fmt,
                                      fmt_proj=fmt_proj, **kw)
         return self.check("attention_block", case, "attention", got, want)
+
+    def run_heads_tiles(self):
+        """K3 at every (query rows R, qkv dtype, head bound) instantiation,
+        launched at set tiles: 200 tokens at head_dim 64 and 280 at 80 (a
+        ragged last tile at every R), masked keys (n_valid < nk < n), each
+        instantiation with float attention and ``int_attention``, the
+        linear and pow quantizers and int8 and packed int4 weights in
+        turn."""
+        i = 0
+        for rows in (64, 32, 16):
+            for dt in (torch.bfloat16, torch.float32):
+                for hd, n, nv in ((64, 200, 190), (80, 280, 257)):
+                    for ia in (False, True):
+                        i += 1
+                        fmt = ("int8", "int4")[i % 2]
+                        pow_ = i % 3 == 0
+                        self.k3(f"tile[R{rows}](2x{n}x{2 * hd},h2)"
+                                f"({str(dt)[6:]},{fmt},"
+                                f"{'pow' if pow_ else 'lin'},"
+                                f"{'int' if ia else 'f'}_attn)", 2, n,
+                                2 * hd, 2, nv, fmt, fmt, pow_, 800 + i, dt,
+                                int_attn=ia, rows=rows)
 
     # -- K6 ---------------------------------------------------------------
 
@@ -1019,7 +1061,7 @@ class Parity:
         ragged ones (off the 16-byte paths, one row tile, many), for the
         linear and pow quantizers, both residual dtypes, with and without
         bias; K3 and K6 at head_dim 80 (ViT-H's 272 tokens and a ragged
-        40), int_attention on and off."""
+        40; K3 also in f32 at batch 4), int_attention on and off."""
         vh = vit_h_cfg()
         _, d, n_real, n_pad, hid, heads = vit_h_shapes(vh)
         hd = d // heads
@@ -1058,6 +1100,10 @@ class Parity:
             self.k3(f"small[3x40x{2 * hd},h2](f32,{tag})", 3, 40, 2 * hd, 2,
                     29, "int4", "int4", False, 384 + int_attn, f32,
                     int_attn=int_attn)
+            # an f32 residual stream at batch 4, which the first K3 refused
+            self.k3(f"vit_h[4x{n_pad}x{d},h{heads}](int8,f32,{tag})", 4,
+                    n_pad, d, heads, n_real, "int8", "int8", False,
+                    386 + int_attn, f32, int_attn=int_attn)
         seed = 400
         for b in (1, 2):
             for dt in (bf16, f32):
@@ -1266,6 +1312,7 @@ class Parity:
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
         self.run_vit_h_kernels()
+        self.run_heads_tiles()
         self.run_qkv_attn_tiles()
         self.run_qkv_proj_kernels(cfg)
         self.run_qkv_proj_layouts()
@@ -1340,6 +1387,8 @@ def expected_launches(depth, route="block", mlp="fused_mlp"):
 # logit by about scale*top*|w| ~ 1e-3*7*7 ~ 0.05 at most.
 LOGIT_TOL = 0.05
 CHAIN_BATCHES = (1, 2, 3)
+# the batches at which both attention routes' branches are timed
+ROUTE_BATCHES = (2, 3, 4, 8, 16, 32)
 # the MLP kernel of the ViT-B chain forwards (int8-stored levels, bf16):
 # the JAX routing (fused.py:916-929) streams the weights in hidden chunks
 # at batch 3, whose 624 rows leave the resident TPU kernel a 128-row tile
@@ -1460,38 +1509,55 @@ def forward_phase(dev, record):
         expected_launches(cfg.depth, "latency"), 1, cfg)
     record["forward"][-1]["prepare_latency_host_ms"] = lat_ms
     out.update(lat=lat, meta=meta)
-    out["launches"]["chain384_b1"] = chain_384_forward(dev, record)
+    b384 = dict(CFG_KW, **B384_KW)
+    out["launches"]["chain384_b1"] = limit_forward(dev, record, b384, "384",
+                                                   1, torch.float32)
+    out["launches"]["block384_b4"] = limit_forward(dev, record, b384, "384",
+                                                   4, torch.bfloat16)
+    out["launches"]["block_vith14_f32_b4"] = limit_forward(
+        dev, record, dict(VIT_H_KW, depth=2), "_vith14", 4, torch.float32)
     return out
 
 
-def chain_384_forward(dev, record):
-    """The chain forward of a 384-px ViT-B/16 (``CHAIN_384_KW`` over the
-    main configuration; int8-stored levels from seed 0) at batch 1 with
-    an f32 residual stream, launches checked, logits against the plain
-    path: K6 on 592 tokens at head_dim 64 in f32."""
+def limit_forward(dev, record, cfg_kw, name, batch, float_dtype):
+    """The forward of a configuration a first kernel refused (int8-stored
+    levels from seed 0), launches checked, logits against the plain path:
+    the 384-px ViT-B/16 (``B384_KW`` over the main configuration) at
+    batch 1 in f32 on the chain (K6 on 592 tokens at head_dim 64) and at
+    batch 4 in bf16 on the K3 route (592 tokens); ViT-H/14 at depth 2 in
+    f32 at batch 4 on the K3 route (272 tokens x head_dim 80 in f32). On
+    the K3 route the logits must equal the plain path's."""
     from quantized_vit_tpu_torch.models import ViTConfig
     from quantized_vit_tpu_torch.serve import (prepare_kernels,
                                                random_vit_int4_artifact,
-                                               vit_int4_forward)
+                                               uses_chain, vit_int4_forward)
     from quantized_vit_tpu_torch.serve.vit_int4 import mlp_route
     from quantized_vit_tpu_torch.utils import patchify_batch
 
-    cfg = ViTConfig(**dict(CFG_KW, **CHAIN_384_KW))
+    cfg = ViTConfig(**cfg_kw)
     art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
                                    device=dev)
     plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
     images = np.random.default_rng(6).standard_normal(
-        (1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+        (batch, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
     x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
-    kw = dict(float_dtype=torch.float32, images_layout="patches")
+    kw = dict(float_dtype=float_dtype, images_layout="patches")
     n_pad = -(-cfg.num_tokens // 16) * 16
-    mlp = mlp_route(n_pad, cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
-                    "int8", itemsize=4)
-    return check_forward(
-        record, dev, "chain384,f32,int8-stored",
+    mlp = mlp_route(batch * n_pad, cfg.embed_dim,
+                    int(cfg.embed_dim * cfg.mlp_ratio), "int8",
+                    itemsize=float_dtype.itemsize)
+    route = "chain" if uses_chain(batch) else "block"
+    dt = "f32" if float_dtype == torch.float32 else "bf16"
+    tag = f"{route}{name},{dt},int8-stored"
+    launches = check_forward(
+        record, dev, tag,
         lambda: vit_int4_forward(art, x, cfg, plan=plan, **kw),
         lambda: vit_int4_forward(art, x, cfg, use_kernels=False, **kw),
-        expected_launches(cfg.depth, "chain", mlp), 1, cfg)
+        expected_launches(cfg.depth, route, mlp), batch, cfg)
+    if route == "block" and not record["forward"][-1]["logits_equal"]:
+        raise Failed(f"forward {tag} b{batch}: logits differ from the "
+                     "plain path's")
+    return launches
 
 
 def vit_h_phase(dev, record):
@@ -2426,11 +2492,13 @@ def timing_phase(dev, record, fwd, peaks):
                cfg.depth * 2 * n_pad * w_blk, cfg.depth * attn_ops), [],
          None),
     ]
-    # K6's sites: the FLOP of its two products (exact only on the f64
-    # MMA), over the FP64 tensor cores' rate, as its ceiling
-    k6_flop = {f"qkv_attn{v}_b{bk}": bk * attn_ops for bk in (2, b)
-               for v in ("", "_int")}
-    sites += vit_h_sites(fwd["vit_h"], kern, plain, bound, k6_flop)
+    # K6's and K3's sites: the FLOP of the attention's two products (exact
+    # only on the f64 MMA), over the FP64 tensor cores' rate, as the
+    # attention's ceiling
+    fp64_flop = {f"qkv_attn{v}_b{bk}": bk * attn_ops for bk in (2, b)
+                 for v in ("", "_int")}
+    fp64_flop["heads"] = b * attn_ops
+    sites += vit_h_sites(fwd["vit_h"], kern, plain, bound, fp64_flop)
     sites += path_sites(fwd, kern, plain, bound)
     sites += fsdp_sites(fwd, kern, plain, bound, xs)
     per_site = []
@@ -2449,7 +2517,7 @@ def timing_phase(dev, record, fwd, peaks):
                          "int_mm_us": None if ims is None else ims * 1e3,
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
-        if name in ("flash_attention", "attention_qkv"):
+        if name in ("flash_attention", "attention_qkv", "attention_block"):
             # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)
@@ -2465,8 +2533,9 @@ def timing_phase(dev, record, fwd, peaks):
                     f"{'n/a' if dv is None else f'{dv:.1f}'} us, "
                     f"{'n/a' if share is None else f'{share:.3f}'} of the "
                     "time")
-        if site in k6_flop:
-            per_site[-1]["fp64_ceiling_us"] = k6_flop[site] / fp64_peak * 1e6
+        if site in fp64_flop:
+            per_site[-1]["fp64_ceiling_us"] = (fp64_flop[site] / fp64_peak
+                                               * 1e6)
             log(f"[time] {name:18s} {site:12s} FP64 MMA ceiling "
                 f"{per_site[-1]['fp64_ceiling_us']:.1f} us")
         log(f"[time] {name:18s} {site:12s} {ms * 1e3:9.1f} us  plain "
@@ -2476,11 +2545,12 @@ def timing_phase(dev, record, fwd, peaks):
             + "".join(f"  {k} {v:.1f}" for k, v in yard.items()))
     record["per_site"] = per_site
 
-    # the attention branch of both routes at batch 2 and 3: K3 (alone and
+    # the attention branch of both routes at batch 2-32: K3 (alone and
     # with its K1 proj) against K1 qkv + K6 + K1 proj, on the same plans
+    # (the data for BLOCK_ROUTE_MIN_BATCH, serve/vit_int4.py)
     if plan is not None:
         routes = {}
-        for bk in (2, 3):
+        for bk in ROUTE_BATCHES:
             xb = xs[:bk * n_pad]
             x3b = xb.reshape(bk, n_pad, d)
             r = routes[f"b{bk}"] = {
@@ -2936,11 +3006,12 @@ def sdpa_call(b, heads, nq, nk, hd, g):
     return lambda: F.scaled_dot_product_attention(qq, kk, kk)
 
 
-def vit_h_sites(vh, kern, plain, bound, k6_flop):
+def vit_h_sites(vh, kern, plain, bound, fp64_flop):
     """The ViT-H/14 phase's timing sites, added to ``kern``/``plain``: K8
     per launch at batch 1 (32 launches a forward) and 2; K1's patch embed
     (K = 588), chain qkv and fc1/fc2 chain at batch 32; K3 at batch 32 and
-    K6 at batch 1 and 2 (head_dim 80, its FLOP into ``k6_flop``). Only
+    K6 at batch 1 and 2 (head_dim 80; the attention FLOP of K3's and K6's
+    sites into ``fp64_flop``). Only
     K8's batch-1 site counts launches: the ViT-B forward's per-forward
     totals stay ViT-B's."""
     from quantized_vit_tpu_torch.ops import (attention_heads_plain,
@@ -3037,7 +3108,9 @@ def vit_h_sites(vh, kern, plain, bound, k6_flop):
         })
     nk = -(-n_real // 16) * 16
     attn_ops = 2 * heads * n_pad * nk * hd * 2  # one image's QK^T and PV
-    k6_flop.update({f"vith_qkv_attn_b{bk}": bk * attn_ops for bk in (1, 2)})
+    fp64_flop.update({f"vith_qkv_attn_b{bk}": bk * attn_ops
+                      for bk in (1, 2)})
+    fp64_flop["vith_heads_b32"] = bb * attn_ops
 
     def mlp_bound(m):
         return bound(2 * m * d * 2 + 2 * d * hid, 4 * m * d * hid)

@@ -51,7 +51,7 @@ def build_forward(args):
     if args.mesh_model:
         raise SystemExit(
             "--mesh-model: multi-device serving is not ported yet "
-            "(ROADMAP.md, Open items A10 'Multi-device')")
+            "(ROADMAP.md, modules to port, 'Multi-device')")
     from ..artifact import load_vit_int4_artifact
     from ..serve import prepare_kernels, vit_int4_forward
     from ..utils.native_prep import patchify_batch, patchify_batch_u8

@@ -4,50 +4,78 @@
 // Replaces the TPU kernel quantized_vit_tpu/ops/attention.py:
 // _attn_block_kernel (pallas_call in _attention_block, attention.py:667),
 // which computes x + proj(quant(softmax(q k^T s) v)) with
-// q/k/v = qkv(quant(LN(x))) and keeps the [M, 3D] qkv tensor out of HBM
-// (66 MB per block at batch 32). This kernel keeps that property: one
-// block per (head, image)
-//   1. LayerNorm statistics of the image's rows (fast-variance form);
-//   2. this head's q/k/v columns of the qkv GEMM, 112 rows at a time, with
-//      the A tile quantized from LN(x) on the fly (mma.sync m16n8k32 s8;
-//      the weight arrives n-major from the layer's plan; the next
-//      step's x and weight pieces load into registers during this step);
-//      dequant + bias, rounded to the residual dtype as the TPU scratch is
-//      (attention.py:469), kept in shared memory in that dtype (bf16 or
-//      f32: 139 KB of q/k/v at ViT-H's 272 tokens x head_dim 80 in bf16);
-//   3. the attention of this head on the f64 tensor cores, float or
-//      int_attention (attention_core.cuh, shared with K5 and K6), and the
-//      int8 levels round(o * (1/(p_sum*d))) (attention.py:164-231).
-// Only the int8 attention levels [B*N, H*hd] are written to memory.
+// q/k/v = qkv(quant(LN(x))). This launch writes the int8 attention levels
+// [B*N, H*hd] of the proj quantizer:
+//   alv = levels(attn(qkv(quant(LN(x))))) per head.
 //
-// Bound on this card at ViT-B batch 32 (both launches): 31.4 G int8 ops
-// over 1,979 TOPS plus 4.25 G bf16 ops over 989 TFLOP/s (~20 us), against
-// ~23 MB moved: compute-bound. This version computes the attention in f64
-// (67 TFLOP/s on the f64 tensor cores against 989 for bf16) to stay
-// bit-exact with the plain version, and stages its GEMM tiles through
-// registers one step ahead, without TMA or wgmma, so it is far from it.
+// Design: one cooperative launch of a persistent grid (two blocks of 256
+// threads on each SM), three phases split by two grid barriers.
+//   1. LayerNorm (fast variance, sums in f64) and quant, once per row: a
+//      warp per row writes the row's int8 levels into a scratch
+//      [M, Dp] (Dp = D rounded up to 64, zero past D; 5.1 MB at ViT-B/16
+//      batch 32). The first design redid both in every head's block (12
+//      times at ViT-B).
+//   2. The qkv GEMM on the int8 tensor cores: 128 x 128 output tiles over
+//      the blocks, 128-deep k steps through a three-stage cp.async ring
+//      (levels and the n-major weight of the layer's plan, both as raw
+//      16-byte pieces; packed int4 pieces land as they are and each B
+//      fragment is unpacked in registers as it loads), fragments by
+//      ldmatrix, mma.sync m16n8k32 s8 into int32, 8 warps of 64 x 32.
+//      The epilogue acc * qs + qb (one rounding each, -fmad=false) is
+//      rounded to the residual dtype, as the TPU scratch is
+//      (attention.py:469), and written to a q/k/v scratch [M, 3*H*hd] in
+//      the layout of the fused-qkv tensor (30.7 MB at ViT-B batch 32 in
+//      bf16, mostly held in the 50 MB L2).
+//   3. The attention of K6, over (tile of R query rows, head, image)
+//      items: qkv_attention.cuh's qkv_attn_tile, reading the scratch
+//      through L2 (q staged once as f32, K/V through the 64-key cp.async
+//      ring, both products on mma.sync m16n8k4 .f64, int_attention's
+//      scales from a scan of the head's rows), R = 64, 32 or 16 from the
+//      wrapper (ops/attention.py:heads_tile_rows, K6's rule on this
+//      kernel's shared memory). No token count enters shared memory.
+// Shared memory is the larger of the GEMM ring (110,592 bytes) and the
+// attention tile's (at most 112,640), so two blocks fit an SM.
+//
+// Numerics: those of the plain version (ops/attention.py:
+// attention_heads_plain: K1's ln_quant, then attention_qkv_plain): the
+// levels of LayerNorm are exact, the int32 GEMM is exact, and the
+// attention is K6's, whose f64 sums change only the order of the
+// additions of exact products.
+//
+// Bound on this card at ViT-B batch 32: 23.6 G int8 ops (11.9 us at 1,979
+// TOPS) and 4.25 G attention operations; exact only in f64, so their
+// ceiling is 4.25 GFLOP over the FP64 tensor cores' 67 TFLOP/s (63.5 us);
+// ~17 MB in and out (5 us): the FP64 attention bounds it.
 
-#include "attention_core.cuh"
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "qkv_attention.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// 8 warps. The qkv GEMM takes 112 query rows (7 m16 tiles) per pass,
-// every warp all of them and TN n8 tiles of the 3*hd columns: TN = 3 (192
-// columns) for head_dim <= 64, 4 (256) for head_dim <= 80. Two passes at
-// 208 rows, three at 272. The attention gives each warp 8-row tiles of
-// queries.
-constexpr int NT = 256, BMQ = 112, TMQ = BMQ / 16, BK = 64, SK = BK + 16;
+constexpr int NT = qvt::QA_NT, NW = qvt::QA_NW;
+// the GEMM: BM x BN tiles, BK-deep steps, ST stages of row stride SK
+// bytes (BK + 16: the 8 rows of an ldmatrix fall in distinct banks); warps
+// 2 x 4 of WM x WN
+constexpr int BM = 128, BN = 128, BK = 128, SK = BK + 16, ST = 3;
+constexpr int WM = 64, WN = 32, TM = WM / 16, TN = WN / 8;
+constexpr int GEMM_SMEM = ST * (BM + BN) * SK;
+static_assert(NW == (BM / WM) * (BN / WN), "the GEMM's warps");
 
-__host__ __device__ constexpr int tn_of(int hdm) { return (3 * hdm + 63) / 64; }
-
-template <typename T, int HDM>
-__host__ __device__ inline size_t smem_bytes(int n, int hd) {
-  return static_cast<size_t>(n) *
-             (2 * qvt::att_q_stride_t<T>(hd) + qvt::att_v_stride(hd)) *
-             sizeof(T) +
-         static_cast<size_t>(BMQ + 64 * tn_of(HDM)) * SK +
-         static_cast<size_t>(2) * n * sizeof(float);
+// dynamic shared memory at R query rows, head bound HDM, qkv dtype of es
+// bytes (mirrored by ops/attention.py:heads_smem_bytes)
+__host__ __device__ constexpr int smem_bytes(int R, int HDM, int es) {
+  return qvt::qkv_attn_smem(R, HDM, es) > GEMM_SMEM
+             ? qvt::qkv_attn_smem(R, HDM, es)
+             : GEMM_SMEM;
 }
+static_assert(2 * (smem_bytes(64, qvt::QA_HDMAX, 4) + qvt::QA_STATIC +
+                   1024) <= 233472,
+              "two blocks of K3 fit an SM");
 
 struct Args {
   const void* x;
@@ -58,222 +86,400 @@ struct Args {
   const float* ln_g;
   const float* ln_b;
   const float* prm;  // act_d, act_t, out_d, out_t
+  int8_t* lv;        // scratch: the levels of LN(x) [M][Dp]
+  void* qkv;         // scratch: q/k/v [M][3*H*hd] in the qkv dtype
   int8_t* alv;
-  int B, n, D, heads, hd, n_valid, nk;
+  int B, n, D, Dp, heads, hd, n_valid, nk;
   float q_mul, sm_scale;
   bool int_attn;
   int qkv_dt;
   int act_pow, out_pow;
   float act_top, out_top, eps;
+  bool x_vec, w_vec, out_vec;
 };
 
-// Shared memory: q [n][RQ] | k [n][RQ] | v [n][RV] (T, the qkv dtype) |
-// As [BMQ][SK] | Bs [64*TN][SK] | mu [n] | rs [n]
-template <typename T, int HDM>
-__global__ void __launch_bounds__(NT) attn_kernel(Args a) {
-  constexpr int TN = tn_of(HDM), NQKV = 64 * TN;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int n = a.n, hd = a.hd, D = a.D;
-  const int RQ = qvt::att_q_stride_t<T>(hd), RV = qvt::att_v_stride(hd);
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + n * RQ;
-  T* v_s = k_s + n * RQ;
-  int8_t* As = reinterpret_cast<int8_t*>(v_s + n * RV);
-  int8_t* Bs = As + BMQ * SK;
-  float* s_mu = reinterpret_cast<float*>(Bs + NQKV * SK);
-  float* s_rs = s_mu + n;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int HD = a.heads * hd;
-  const long long row0 = static_cast<long long>(b) * n;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
+// element e of a 16-byte piece of bf16 (8) or f32 (4) values
+__device__ __forceinline__ float piece_at(const uint4& u, bool bf, int e) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if (!bf) return __uint_as_float(w[e]);
+  return __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u : w[e >> 1] << 16);
+}
+
+// Phase 1: the int8 levels of quant(LN(x)) into a.lv. The statistics are
+// qvt::ln_stats' (f64 sums of x and of x*x taken in f32, rounded once;
+// any order gives the same f32), the levels those of the first K3
+// ((x - mu) * rs * gamma + beta, the linear quantizer's 1/d folded into
+// gamma/beta by the plan). On the 16-byte path a group of G = 8, 16 or 32
+// lanes takes a row (at most 12 pieces a lane), so a warp loads 32 / G
+// rows at once; the second pass loads the row's pieces again (from L1);
+// gamma and beta load as float4. Else a warp a row.
+__device__ __forceinline__ void ln_quant_rows(const Args& a) {
+  const int lane = threadIdx.x & 31;
+  const long long M = static_cast<long long>(a.B) * a.n;
+  const long long wid = static_cast<long long>(blockIdx.x) * NW +
+                        (threadIdx.x >> 5);
+  const long long nwarps = static_cast<long long>(gridDim.x) * NW;
+  const int D = a.D;
+  const float inv_k = 1.0f / static_cast<float>(D);
   const float act_d = a.prm[0], act_t = a.prm[1];
-  const float out_d = a.prm[2], out_t = a.prm[3];
-
-  QVT_STAMP(0);
-  qvt::ln_stats(a.x, a.x_dt, row0, n, n, D, a.eps, s_mu, s_rs);
-  __syncthreads();
-  QVT_STAMP(1);
-
-  // this head's q/k/v: column j of the [n, 3*hd] tile is global qkv
-  // column part*HD + h*hd + jj
-  const int wn = warp * TN * 8;
-  const bool w_vec = a.wq.vec_ok();
-  auto col_of = [&](int j) {  // qkv column of this head's tile column j
-    const int part = j / hd;
-    return part * HD + h * hd + (j - part * hd);
+  const bool bf = a.x_dt == qvt::DT_BF16;
+  auto level = [&](float v, float mu, float rs, float g,
+                   float b) -> uint32_t {
+    const float y = (v - mu) * rs * g + b;
+    return static_cast<uint8_t>(qvt::quantize(y, act_d, act_t, a.act_top,
+                                              a.act_pow, !a.act_pow));
   };
-  auto level = [&](int i, int k, float v) -> int8_t {  // quant(LN(x))
-    if (i >= n || k >= D) return 0;
-    float y = (v - s_mu[i]) * s_rs[i] * a.ln_g[k] + a.ln_b[k];
-    return qvt::quantize(y, act_d, act_t, a.act_top, a.act_pow, !a.act_pow);
-  };
-  // the GEMM's steps: row passes of BMQ rows x D in BK-deep steps
-  const int n_k = (D + BK - 1) / BK;
-  const int n_it = (n + BMQ - 1) / BMQ * n_k;
-  // Prefetch path: the next step's x rows (raw 16-byte pieces) and weight
-  // pieces load into registers while this step's tile product runs
-  const int xb = a.x_dt == qvt::DT_BF16 ? 2 : 4;
-  const int epp = 16 / xb;  // x elements per piece
-  const bool pre =
-      w_vec && (a.x_dt == qvt::DT_BF16 || a.x_dt == qvt::DT_F32) &&
-      D % epp == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
-  const int xpr = BK / epp, x_pieces = BMQ * xpr;
-  const char* xbytes = static_cast<const char*>(a.x);
-  constexpr int XR = BMQ * BK * 4 / 16 / NT;  // f32 pieces per thread
-  static_assert(NQKV * BK / 16 == TN * NT, "TN weight pieces a thread");
-  uint4 xr[XR], wr[TN];
-  auto load = [&](int it) {
-    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
-#pragma unroll
-    for (int u = 0; u < XR; ++u) {
-      const int p = threadIdx.x + u * NT;
-      const int r = p / xpr, k = k0 + (p - r * xpr) * epp;
-      xr[u] = p < x_pieces && rt + r < n && k < D
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        xbytes + ((row0 + rt + r) * D + k) * xb))
-                  : make_uint4(0u, 0u, 0u, 0u);
+  auto stats = [&](double s, double s2, int width, float& mu, float& rs) {
+    for (int o = width / 2; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
-#pragma unroll
-    for (int u = 0; u < TN; ++u) {
-      const int p = threadIdx.x + u * NT, j = p >> 2;
-      wr[u] = a.wq.vec16(k0 + (p & 3) * 16, j < 3 * hd ? col_of(j) : -1);
-    }
+    mu = static_cast<float>(s) * inv_k;
+    const float var = fmaxf(static_cast<float>(s2) * inv_k - mu * mu, 0.f);
+    rs = 1.0f / sqrtf(var + a.eps);
   };
-  auto store = [&](int it) {
-    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
-#pragma unroll
-    for (int u = 0; u < XR; ++u) {
-      const int p = threadIdx.x + u * NT;
-      if (p >= x_pieces) break;
-      const int r = p / xpr, c = (p - r * xpr) * epp;
-      const uint32_t w[4] = {xr[u].x, xr[u].y, xr[u].z, xr[u].w};
-      uint32_t lv[2] = {0u, 0u};
+  if (!a.x_vec) {
+    for (long long r = wid; r < M; r += nwarps) {
+      const long long base = r * D;
+      double s = 0.0, s2 = 0.0;
+      for (int k = lane; k < D; k += 32) {
+        const float v = qvt::load_f(a.x, a.x_dt, base + k);
+        s += static_cast<double>(v);
+        s2 += static_cast<double>(v * v);
+      }
+      float mu, rs;
+      stats(s, s2, 32, mu, rs);
+      int8_t* out = a.lv + r * a.Dp;
+      for (int k = lane; k < D; k += 32)
+        out[k] = static_cast<int8_t>(level(qvt::load_f(a.x, a.x_dt, base + k),
+                                           mu, rs, a.ln_g[k], a.ln_b[k]));
+      for (int k = D + lane; k < a.Dp; k += 32) out[k] = 0;
+    }
+    return;
+  }
+  const int epp = bf ? 8 : 4, np = D / epp;  // 16-byte pieces a row
+  const int G = np <= 96 ? 8 : np <= 192 ? 16 : 32;
+  const int per = 32 / G, gl = lane % G;
+  const char* xb = static_cast<const char*>(a.x);
+  for (long long r0 = wid * per; r0 < M; r0 += nwarps * per) {
+    const long long r = r0 + lane / G;
+    const bool live = r < M;  // a dead row's lanes still shuffle
+    const long long base = r * D;
+    auto piece = [&](int q) {
+      return __ldg(reinterpret_cast<const uint4*>(
+          xb + (base + static_cast<long long>(q) * epp) * (bf ? 2 : 4)));
+    };
+    double s = 0.0, s2 = 0.0;
+    for (int q = gl; live && q < np; q += G) {
+      const uint4 u = piece(q);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if (e >= epp) break;
-        const float v = xb == 2 ? __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u
-                                                        : w[e >> 1] << 16)
-                                : __uint_as_float(w[e]);
-        lv[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                          level(rt + r, k0 + c + e, v)))
-                      << (8 * (e & 3));
+        const float v = piece_at(u, bf, e);
+        s += static_cast<double>(v);
+        s2 += static_cast<double>(v * v);
       }
-      if (epp == 8)
-        *reinterpret_cast<uint2*>(As + r * SK + c) = make_uint2(lv[0], lv[1]);
+    }
+    float mu, rs;
+    stats(s, s2, G, mu, rs);
+    if (!live) continue;
+    int8_t* out = a.lv + r * a.Dp;
+    auto put = [&](int q, const uint4 u) {
+      const int k = q * epp;
+      float gv[8], bv[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h * 4 >= epp) break;
+        const float4 g4 =
+            __ldg(reinterpret_cast<const float4*>(a.ln_g + k) + h);
+        const float4 b4 =
+            __ldg(reinterpret_cast<const float4*>(a.ln_b + k) + h);
+        gv[4 * h] = g4.x, gv[4 * h + 1] = g4.y, gv[4 * h + 2] = g4.z;
+        gv[4 * h + 3] = g4.w;
+        bv[4 * h] = b4.x, bv[4 * h + 1] = b4.y, bv[4 * h + 2] = b4.z;
+        bv[4 * h + 3] = b4.w;
+      }
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e >= epp) break;
+        w[e >> 2] |= level(piece_at(u, bf, e), mu, rs, gv[e], bv[e])
+                     << (8 * (e & 3));
+      }
+      if (bf)
+        *reinterpret_cast<uint2*>(out + k) = make_uint2(w[0], w[1]);
       else
-        *reinterpret_cast<uint32_t*>(As + r * SK + c) = lv[0];
-    }
-#pragma unroll
-    for (int u = 0; u < TN; ++u) {
-      const int p = threadIdx.x + u * NT;
-      *reinterpret_cast<uint4*>(Bs + (p >> 2) * SK + (p & 3) * 16) = wr[u];
-    }
-  };
-
-  int acc[TMQ][TN][4];
-  if (pre) load(0);
-  for (int it = 0; it < n_it; ++it) {
-    const int rt = it / n_k * BMQ, k0 = it % n_k * BK;
-    if (k0 == 0) qvt::zero_acc(acc);
-    if (pre) {
-      store(it);
-    } else {
-      qvt::fill_rows(As, BMQ, SK, BK, [&](int r, int kk) -> int8_t {
-        const int i = rt + r, k = k0 + kk;
-        if (i >= n || k >= D) return 0;
-        return level(i, k, qvt::load_f(a.x, a.x_dt, (row0 + i) * D + k));
-      });
-      // this head's q/k/v weight columns: Bs[j][k] = Wqkv[k, col(j)]
-      if (w_vec)
-        qvt::fill_rows16(Bs, NQKV, SK, BK, [&](int j, int c) -> uint4 {
-          return a.wq.vec16(k0 + c, j < 3 * hd ? col_of(j) : -1);
-        });
-      else
-        qvt::fill_rows(Bs, NQKV, SK, BK, [&](int j, int kk) -> int8_t {
-          return a.wq.at(k0 + kk, j < 3 * hd ? col_of(j) : -1);
-        });
-    }
-    __syncthreads();
-    if (pre && it + 1 < n_it) load(it + 1);
-    qvt::warp_mma<TMQ, TN>(acc, As, SK, Bs, SK, BK, 0, wn, lane);
-    __syncthreads();
-    if (k0 + BK < D) continue;
-#pragma unroll
-    for (int i = 0; i < TMQ; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int qi = rt + i * 16 + g + (r >= 2 ? 8 : 0);
-          const int col = wn + j * 8 + t * 2 + (r & 1);
-          if (qi >= n || col >= 3 * hd) continue;
-          const int part = col / hd, jj = col - part * hd;
-          const int gc = part * HD + h * hd + jj;
-          float y = static_cast<float>(acc[i][j][r]) * a.qs[gc];
-          if (a.qb) y = y + a.qb[gc];
-          T* dst = part == 0 ? q_s + qi * RQ
-                             : part == 1 ? k_s + qi * RQ : v_s + qi * RV;
-          qvt::att_st(dst + jj, y);
-        }
+        *reinterpret_cast<uint32_t*>(out + k) = w[0];
+    };
+    for (int q = gl; q < np; q += G) put(q, piece(q));
+    for (int k = D + gl * 16; k < a.Dp; k += G * 16)  // Dp - D: 16 | both
+      *reinterpret_cast<uint4*>(out + k) = make_uint4(0u, 0u, 0u, 0u);
   }
-  __syncthreads();
-  QVT_STAMP(2);
+}
 
-  // 3. the attention of this head (attention_core.cuh), 8 query rows per
-  // warp at a time, writing the int8 levels of the proj quantizer
-  qvt::AttnArgs<T> at;
-  at.q = q_s;
-  at.k = k_s;
-  at.v = v_s;
-  at.rq = RQ;
-  at.rv = RV;
-  at.nq = n;
-  at.n_kv = a.nk;  // keys past nk are masked (attention.py:_n_keys)
-  at.n_valid = a.n_valid;
-  at.hd = hd;
-  at.q_mul = a.q_mul;
-  at.sm_scale = a.sm_scale;
-  at.qkv_dt = a.qkv_dt;
-  at.int_attn = a.int_attn;
-  if (a.int_attn)  // scales over all n query rows and the nk key rows
-    at.is = qvt::attn_int_scales(q_s, k_s, v_s, RQ, RV, n, a.nk, hd,
-                                 a.sm_scale);
-  at.out_mode = a.out_pow ? qvt::ATT_OUT_POW : qvt::ATT_OUT_LEVELS;
-  at.out = a.alv;
-  at.out_dt = qvt::DT_INT8;
-  at.out_stride = HD;
-  at.out_row0 = row0;
-  at.out_col0 = h * hd;
-  at.out_d = out_d;
-  at.out_t = out_t;
-  at.out_top = a.out_top;
-  qvt::attention_rows<HDM>(at, warp, NT / 32);
-  QVT_STAMPS_STORE(blockIdx.y * gridDim.x + blockIdx.x);
+__device__ __forceinline__ void store_pair(float* p, float y0, float y1) {
+  *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float y0,
+                                           float y1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(y0, y1);
+}
+
+// Phase 2: q/k/v = levels @ Wqkv * qs (+ qb), rounded to T, into a.qkv.
+template <typename T>
+__device__ __forceinline__ void qkv_gemm(const Args& a, int8_t* smem) {
+  const int M = a.B * a.n, N = 3 * a.heads * a.hd, K = a.wq.K;
+  const int nkt = (a.Dp + BK - 1) / BK, kh = K >> 1;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / (BN / WN) * WM, wn = warp % (BN / WN) * WN;
+  // packed int4 pieces land raw: their nibbles are taken per fragment
+  const bool unpack = a.wq.int4 && a.w_vec;
+  int8_t* As = smem;
+  int8_t* Bs = smem + ST * BM * SK;
+  T* qkv = static_cast<T*>(a.qkv);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
+    // k step kt's A and B tiles into stage kt % ST: one commit group
+    // (empty past the last step)
+    auto load = [&](int kt) {
+      if (kt < nkt) {
+        const int k0 = kt * BK;
+        int8_t* as = As + (kt % ST) * BM * SK;
+        int8_t* bs = Bs + (kt % ST) * BN * SK;
+        for (int p = threadIdx.x; p < BM * BK / 16; p += NT) {
+          const int r = p / (BK / 16), c = p % (BK / 16) * 16;
+          const bool ok = row0 + r < M && k0 + c < a.Dp;
+          qvt::cp_async16(as + r * SK + c,
+                          ok ? a.lv + static_cast<long long>(row0 + r) *
+                                          a.Dp + k0 + c
+                             : a.lv,
+                          ok);
+        }
+        if (a.w_vec) {
+          for (int p = threadIdx.x; p < BN * BK / 16; p += NT) {
+            const int r = p / (BK / 16), c = p % (BK / 16) * 16;
+            const int nn = col0 + r, k = k0 + c;
+            const bool ok = nn < N && k < K;
+            const int8_t* src = a.wq.wt;
+            if (ok)
+              src += a.wq.int4 ? static_cast<long long>(nn) * kh +
+                                     (k < kh ? k : k - kh)
+                               : static_cast<long long>(nn) * K + k;
+            qvt::cp_async16(bs + r * SK + c, src, ok);
+          }
+        } else {  // off the 16-byte path: levels, unpacked, byte by byte
+          for (int e = threadIdx.x; e < BN * BK; e += NT) {
+            const int r = e / BK, c = e - r * BK;
+            bs[r * SK + c] = a.wq.at(k0 + c, col0 + r);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    int acc[TM][TN][4];
+    qvt::zero_acc(acc);
+    for (int s = 0; s < ST - 1; ++s) load(s);
+    for (int kt = 0; kt < nkt; ++kt) {
+      // step kt has landed; every warp is past step kt - 1, whose stage
+      // takes step kt + ST - 1
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 2));
+      __syncthreads();
+      load(kt + ST - 1);
+      const int8_t* as = As + (kt % ST) * BM * SK;
+      const int8_t* bs = Bs + (kt % ST) * BN * SK;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t af[TM][4], bf[TN][2];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          ldsm_x4(af[i], as + (wm + 16 * i + (lane & 7) +
+                               ((lane >> 3) & 1) * 8) * SK +
+                             kk + (lane >> 4) * 16);
+#pragma unroll
+        for (int jp = 0; jp < TN / 2; ++jp) {
+          uint32_t r4[4];
+          ldsm_x4(r4, bs + (wn + 16 * jp + (lane >> 4) * 8 + (lane & 7)) *
+                               SK +
+                           kk + ((lane >> 3) & 1) * 16);
+          bf[2 * jp][0] = r4[0];
+          bf[2 * jp][1] = r4[1];
+          bf[2 * jp + 1][0] = r4[2];
+          bf[2 * jp + 1][1] = r4[3];
+        }
+        if (unpack) {  // this lane's bytes are k .. k + 3 and k + 16 ..
+          const int k = kt * BK + kk + 4 * t;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            bf[j][0] = qvt::nibbles(bf[j][0], k >= kh);
+            bf[j][1] = qvt::nibbles(bf[j][1], k + 16 >= kh);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            qvt::mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
+                        bf[j][0], bf[j][1]);
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();  // the next tile's loads reuse every stage
+    // dequant + bias, rounded to T: columns 2t, 2t + 1 of each n8 tile
+    // (N is a multiple of 8)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = col0 + wn + 8 * j + 2 * t;
+      const int cl = min(col, N - 2);
+      const float s0 = __ldg(a.qs + cl), s1 = __ldg(a.qs + cl + 1);
+      const float b0 = a.qb ? __ldg(a.qb + cl) : 0.f;
+      const float b1 = a.qb ? __ldg(a.qb + cl + 1) : 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + wm + 16 * i + g + 8 * hh;
+          if (row >= M || col >= N) continue;
+          float y0 = static_cast<float>(acc[i][j][2 * hh]) * s0;
+          float y1 = static_cast<float>(acc[i][j][2 * hh + 1]) * s1;
+          if (a.qb) {
+            y0 = y0 + b0;
+            y1 = y1 + b1;
+          }
+          store_pair(qkv + static_cast<long long>(row) * N + col, y0, y1);
+        }
+    }
+  }
+}
+
+// Phase 3: K6's attention over the (query tile, head, image) items
+template <typename T, int R, int HDM>
+__device__ __forceinline__ void attention_items(const Args& a,
+                                                unsigned char* smem,
+                                                qvt::PhaseClock& clk) {
+  qvt::QkvAttnArgs q;
+  q.qkv = a.qkv;
+  q.qkv_dt = a.qkv_dt;
+  q.out = a.alv;
+  q.out_dt = qvt::DT_INT8;
+  q.out_mode = a.out_pow ? qvt::QA_OUT_POW : qvt::QA_OUT_LEVELS;
+  q.out_es = 1;
+  q.prm = a.prm + 2;  // out_d, out_t
+  q.B = a.B;
+  q.n = a.n;
+  q.heads = a.heads;
+  q.hd = a.hd;
+  q.n_valid = a.n_valid;
+  q.nk = a.nk;  // keys past nk are masked (attention.py:_n_keys)
+  q.q_mul = a.q_mul;
+  q.sm_scale = a.sm_scale;
+  q.out_top = a.out_top;
+  q.int_attn = a.int_attn;
+  q.qkv_vec = true;  // the scratch: 16-byte rows and base
+  q.out_vec = a.out_vec;
+  const int nqt = (a.n + R - 1) / R, items = nqt * a.heads * a.B;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int hb = it / nqt;
+    qvt::qkv_attn_tile<T, R, HDM, false, true>(q, (it - hb * nqt) * R,
+                                               hb % a.heads, hb / a.heads,
+                                               smem, clk);
+    __syncthreads();  // the next item's q rows overwrite this output tile
+  }
+}
+
+template <typename T, int R, int HDM>
+__global__ void __launch_bounds__(NT, 2) heads_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  qvt::PhaseClock clk;  // tools/phase_probe.py attention_block
+  clk.begin();
+  ln_quant_rows(a);
+  clk.mark(0);
+  grid.sync();
+  clk.mark(1);
+  qkv_gemm<T>(a, reinterpret_cast<int8_t*>(smem));
+  clk.mark(2);
+  grid.sync();
+  clk.mark(3);
+  attention_items<T, R, HDM>(a, smem, clk);
+  clk.mark(4);
+  clk.store(blockIdx.x);
+}
+
+// blocks of one instantiation co-resident on an SM (0 on an error)
+template <typename T, int R, int HDM>
+int per_sm() {
+  static int cached = -1;
+  if (cached < 0) {
+    constexpr int smem = smem_bytes(R, HDM, sizeof(T));
+    int v = 0;
+    if (cudaFuncSetAttribute(heads_kernel<T, R, HDM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &v, heads_kernel<T, R, HDM>, NT, smem) != cudaSuccess)
+      return 0;
+    cached = v;
+  }
+  return cached;
+}
+
+template <typename T, int R, int HDM>
+cudaError_t launch(Args& a, int sms, cudaStream_t stream) {
+  const int cap = per_sm<T, R, HDM>() * sms;
+  if (cap < 1) return cudaErrorInvalidConfiguration;
+  // enough blocks for the largest phase: rows a warp, GEMM tiles, items
+  const long long M = static_cast<long long>(a.B) * a.n;
+  const long long N = 3LL * a.heads * a.hd;
+  const long long want = std::max(
+      std::max((M + NW - 1) / NW, (M + BM - 1) / BM * ((N + BN - 1) / BN)),
+      static_cast<long long>((a.n + R - 1) / R) * a.heads * a.B);
+  const int grid = static_cast<int>(std::min<long long>(cap, want));
+  void* args[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(heads_kernel<T, R, HDM>), dim3(grid), dim3(NT),
+      args, smem_bytes(R, HDM, sizeof(T)), stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T, int HDM>
+cudaError_t launch_rows(Args& a, int rows, int sms, cudaStream_t stream) {
+  if (rows == 64) return launch<T, 64, HDM>(a, sms, stream);
+  if (rows == 32) return launch<T, 32, HDM>(a, sms, stream);
+  return launch<T, 16, HDM>(a, sms, stream);
 }
 
 }  // namespace
 
-template <typename T, int HDM>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HDM>(a.n, a.hd);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<T, HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  attn_kernel<T, HDM><<<dim3(a.heads, a.B), NT, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// rows: query rows an attention item, 64, 32 or 16 (ops/attention.py:
+// heads_tile_rows picks it). lv: scratch of B*n rows of Dp bytes (Dp a
+// multiple of 64, >= D); qkv: scratch [B*n, 3*heads*hd] in the qkv dtype;
+// both 16-byte aligned.
 extern "C" int qvt_attention_heads(
     const void* x, int x_dt, const void* wq, int wq_int4, const void* qs,
     const void* qb, const void* ln_g, const void* ln_b, const void* prm,
-    void* alv, int B, int n, int D, int heads, int hd, int n_valid, int nk,
-    float q_mul, float sm_scale, int int_attn, int qkv_dt, int act_pow,
-    int out_pow, int act_top, int out_top, float eps, void* stream) {
-  if (hd > qvt::ATT_HDMAX || hd % 8 || nk > n || n_valid > nk ||
-      (qkv_dt != qvt::DT_BF16 && qkv_dt != qvt::DT_F32))
+    void* lv, void* qkv, void* alv, int B, int n, int D, int Dp, int heads,
+    int hd, int n_valid, int nk, int rows, float q_mul, float sm_scale,
+    int int_attn, int qkv_dt, int act_pow, int out_pow, int act_top,
+    int out_top, float eps, void* stream) {
+  if (hd > qvt::QA_HDMAX || hd % 8 || nk > n || n_valid > nk ||
+      Dp % 64 || Dp < D ||
+      (qkv_dt != qvt::DT_BF16 && qkv_dt != qvt::DT_F32) ||
+      (rows != 64 && rows != 32 && rows != 16) ||
+      (reinterpret_cast<uintptr_t>(lv) & 15) ||
+      (reinterpret_cast<uintptr_t>(qkv) & 15) ||
+      (reinterpret_cast<uintptr_t>(alv) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;
@@ -285,10 +491,13 @@ extern "C" int qvt_attention_heads(
   a.ln_g = static_cast<const float*>(ln_g);
   a.ln_b = static_cast<const float*>(ln_b);
   a.prm = static_cast<const float*>(prm);
+  a.lv = static_cast<int8_t*>(lv);
+  a.qkv = qkv;
   a.alv = static_cast<int8_t*>(alv);
   a.B = B;
   a.n = n;
   a.D = D;
+  a.Dp = Dp;
   a.heads = heads;
   a.hd = hd;
   a.n_valid = n_valid;
@@ -302,9 +511,27 @@ extern "C" int qvt_attention_heads(
   a.act_top = static_cast<float>(act_top);
   a.out_top = static_cast<float>(out_top);
   a.eps = eps;
+  const bool x_al = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // the 16-byte path: rows of whole pieces; gamma, beta as float4
+  a.x_vec = x_al && D % 16 == 0 &&
+            (x_dt == qvt::DT_BF16 || x_dt == qvt::DT_F32) &&
+            ((reinterpret_cast<uintptr_t>(ln_g) |
+              reinterpret_cast<uintptr_t>(ln_b)) & 15) == 0;
+  // WeightT::vec_ok, on the host
+  a.w_vec = D % 16 == 0 && (!wq_int4 || (D / 2) % 16 == 0) &&
+            (reinterpret_cast<uintptr_t>(wq) & 15) == 0;
+  a.out_vec = hd % 16 == 0 && (reinterpret_cast<uintptr_t>(alv) & 15) == 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qkv_dt == qvt::DT_BF16)
-    return hd <= 64 ? launch<__nv_bfloat16, 64>(a, st)
-                    : launch<__nv_bfloat16, 80>(a, st);
-  return hd <= 64 ? launch<float, 64>(a, st) : launch<float, 80>(a, st);
+    e = hd <= 64 ? launch_rows<__nv_bfloat16, 64>(a, rows, sms, st)
+                 : launch_rows<__nv_bfloat16, 80>(a, rows, sms, st);
+  else
+    e = hd <= 64 ? launch_rows<float, 64>(a, rows, sms, st)
+                 : launch_rows<float, 80>(a, rows, sms, st);
+  return static_cast<int>(e);
 }

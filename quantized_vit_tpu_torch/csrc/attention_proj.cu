@@ -311,10 +311,11 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
     }
   };
 
-  QVT_PHASES_BEGIN();
+  qvt::PhaseClock clk;
+  clk.begin();
   if (INT) {
     scales(0);
-    QVT_PHASE(5);
+    clk.mark(5);
   }
   stage_q(0);
   for (int s = 0; s < KVB; ++s) issue(s);
@@ -324,7 +325,7 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
     levels(0);
     __syncthreads();
   }
-  QVT_PHASE(0);
+  clk.mark(0);
 
   // score warps: a patch of [R x KC] at (m0, n0); P.V warps: of
   // [R x 8 PVT]
@@ -495,16 +496,16 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
         }
       }
     }
-    QVT_PHASE(1);
+    clk.mark(1);
     // the next step's chunk has landed (its copy ran during the last KVB - 1
     // steps' MMAs); once every warp is past this step, its buffer takes the
     // copy of step s + KVB, and a new head's scales and q rows are staged
     const bool more = s + 1 < nsteps, new_head = more && (s + 1) % sph == 0;
     asm volatile("cp.async.wait_group %0;\n" ::"n"(KVB - 2));
     if (new_head && INT) {
-      QVT_PHASE(0);
+      clk.mark(0);
       scales(hl + 1);
-      QVT_PHASE(5);
+      clk.mark(5);
     }
     __syncthreads();
     if (more) {
@@ -513,7 +514,7 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
       issue(s + KVB);
       if (INT || new_head) __syncthreads();
     }
-    QVT_PHASE(0);
+    clk.mark(0);
   }
 
   // the levels of every head: this block's columns are in its tile, the
@@ -582,7 +583,7 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
     }
   }
   __syncthreads();
-  QVT_PHASE(2);
+  clk.mark(2);
 
   // proj: levels [R, H*hd] x w_proj -> columns [c0, c1), PN per pass (32 a
   // warp; warps past the pass's columns idle), WST weight chunks in flight
@@ -631,7 +632,7 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
       }
       __syncthreads();  // the buffer is free for chunk ch + WST
     }
-    QVT_PHASE(3);
+    clk.mark(3);
     // acc * scale (+ bias) as f32 rows [R][PN + 4] in the free weight
     // buffers, then + residual and the cast, a row's columns by consecutive
     // threads
@@ -685,14 +686,14 @@ __global__ void __launch_bounds__(NT, 2) qkv_proj_kernel(Args a) {
       }
     }
     __syncthreads();  // the weight buffers are free for the next pass
-    QVT_PHASE(4);
+    clk.mark(4);
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   // no block leaves (and frees its shared memory) while another of the
   // cluster may still read its levels
   cluster.sync();
-  QVT_PHASE(2);
-  QVT_PHASES_STORE(blockIdx.y * gridDim.x + blockIdx.x);
+  clk.mark(2);
+  clk.store(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 template <typename T, int R, int HDM>

@@ -1,4 +1,5 @@
-// Device helpers shared by K6 (attention_qkv.cu) and K9 (attention_proj.cu):
+// Device helpers shared by K6 (attention_qkv.cu), K9 (attention_proj.cu)
+// and K3 (attention_block.cu, through qkv_attention.cuh):
 // 16-byte loads and stores of bf16/f32 rows, the operand transforms of the
 // attention (the float path's pre-scaled q, the int8 levels), and the
 // staging of head slices of the fused-qkv tensor [B, N, (3, H, hd)] into
@@ -67,6 +68,15 @@ struct Xf {
   }
 };
 
+// 16 bytes of global memory: through the read-only path (__ldg), or with
+// CG through L2 only (__ldcg), for data written earlier in the same
+// launch (K3's q/k/v scratch), which the read-only path may not see
+template <bool CG>
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return CG ? __ldcg(reinterpret_cast<const uint4*>(p))
+            : __ldg(reinterpret_cast<const uint4*>(p));
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -110,8 +120,8 @@ __device__ __forceinline__ void widen16<__nv_bfloat16>(float* d,
 }
 
 // `count` rows of hd values (row stride W elements from src): this
-// thread's 16-byte vectors tid + u * QKV_NT into pre[u]
-template <class T, int PV>
+// thread's 16-byte vectors tid + u * QKV_NT into pre[u] (CG: see ld16)
+template <class T, int PV, bool CG = false>
 __device__ __forceinline__ void prefetch(uint4 (&pre)[PV], const T* src,
                                          long long W, int count, int hd) {
   constexpr int VE = 16 / sizeof(T);
@@ -121,7 +131,7 @@ __device__ __forceinline__ void prefetch(uint4 (&pre)[PV], const T* src,
     const int i = threadIdx.x + u * QKV_NT;
     if (i < nvec) {
       const int e = i * VE, r = e / hd;
-      pre[u] = __ldg(reinterpret_cast<const uint4*>(src + r * W + e - r * hd));
+      pre[u] = ld16<CG>(src + r * W + e - r * hd);
     }
   }
 }
@@ -155,8 +165,9 @@ __device__ __forceinline__ void store_rows(float* dst, const uint4 (&pre)[PV],
   }
 }
 
-// this thread's max of |x * mul| over `count` rows of hd values
-template <class T>
+// this thread's max of |x * mul| over `count` rows of hd values (CG: see
+// ld16)
+template <class T, bool CG = false>
 __device__ __forceinline__ float absmax_rows(const T* src, long long W,
                                              int count, int hd, bool vec,
                                              float mul) {
@@ -166,8 +177,7 @@ __device__ __forceinline__ float absmax_rows(const T* src, long long W,
     const Xf id = {0, 0, 1.f, 1.f};
     for (int i = threadIdx.x; i < count * hd / VE; i += QKV_NT) {
       const int e = i * VE, r = e / hd;
-      const uint4 u =
-          __ldg(reinterpret_cast<const uint4*>(src + r * W + e - r * hd));
+      const uint4 u = ld16<CG>(src + r * W + e - r * hd);
       alignas(16) float v[8];
       widen16<T>(v, u, id);
 #pragma unroll

@@ -377,42 +377,7 @@ extern "C" int qvt_probe_clear() {
     if (blockIdx.x == 0 && threadIdx.x == 0)     \
       qvt_clk[i] = qvt_now();                    \
   } while (0)
-// Accumulated phases, for a kernel whose phases repeat (a loop over heads
-// or passes): QVT_PHASES_BEGIN starts the block's clock, QVT_PHASE(i) adds
-// the time since the previous mark to phase i (< 6), QVT_PHASES_STORE
-// writes start, end and the six sums to qvt_clk[block * 8 + 0..7]. Every
-// mark is a barrier of the block.
-#define QVT_PHASES_BEGIN()                                       \
-  __syncthreads();                                               \
-  unsigned long long qvt_ph[6] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull}; \
-  const unsigned long long qvt_start = qvt_now();                \
-  unsigned long long qvt_last = qvt_start
-#define QVT_PHASE(i)                              \
-  do {                                            \
-    __syncthreads();                              \
-    const unsigned long long qvt_n = qvt_now();   \
-    qvt_ph[i] += qvt_n - qvt_last;                \
-    qvt_last = qvt_n;                             \
-  } while (0)
-#define QVT_PHASES_STORE(block)                         \
-  do {                                                  \
-    if (threadIdx.x == 0) {                             \
-      unsigned long long* qc = qvt_clk + (block) * 8;   \
-      qc[0] = qvt_start;                                \
-      qc[1] = qvt_last;                                 \
-      for (int qi = 0; qi < 6; ++qi) qc[2 + qi] = qvt_ph[qi]; \
-    }                                                   \
-  } while (0)
 #else
-#define QVT_PHASES_BEGIN() \
-  do {                     \
-  } while (0)
-#define QVT_PHASE(i) \
-  do {               \
-  } while (0)
-#define QVT_PHASES_STORE(block) \
-  do {                          \
-  } while (0)
 #define QVT_GRID_STAMP(i) \
   do {                    \
   } while (0)
@@ -423,3 +388,42 @@ extern "C" int qvt_probe_clear() {
   do {                          \
   } while (0)
 #endif
+
+namespace qvt {
+
+// Summed phase times of a block, for a kernel whose phases repeat (a loop
+// over heads, passes or items) or span functions: begin() starts the
+// block's clock, mark(i) adds the time since the previous mark to phase i
+// (< 6), store(block) writes start, end and the six sums to
+// qvt_clk[block * 8 + 0..7]. Every mark is a barrier of the block.
+// Without QVT_PROBE every method is empty.
+struct PhaseClock {
+#ifdef QVT_PROBE
+  unsigned long long ph[6], start, last;
+  __device__ __forceinline__ void begin() {
+    __syncthreads();
+    for (int i = 0; i < 6; ++i) ph[i] = 0ull;
+    start = last = qvt_now();
+  }
+  __device__ __forceinline__ void mark(int i) {
+    __syncthreads();
+    const unsigned long long t = qvt_now();
+    ph[i] += t - last;
+    last = t;
+  }
+  __device__ __forceinline__ void store(int block) const {
+    if (threadIdx.x == 0) {
+      unsigned long long* qc = qvt_clk + block * 8;
+      qc[0] = start;
+      qc[1] = last;
+      for (int i = 0; i < 6; ++i) qc[2 + i] = ph[i];
+    }
+  }
+#else
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void store(int) const {}
+#endif
+};
+
+}  // namespace qvt

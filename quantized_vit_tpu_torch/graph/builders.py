@@ -10,7 +10,8 @@ config over flax's param paths:
 - pre_logits and head, next to the output: unprunable;
 - each quantized layer's d/q_m/t scalars ride along as NO_PRUNE entries.
 
-The other model families' builders are not ported yet (ROADMAP.md A9).
+The other model families' builders are not ported yet (ROADMAP.md,
+modules to port, 'Other model families, interop, auto-discovery').
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """OTO facade over node groups and the GETA optimizer
 (``quantized_vit_tpu/graph/oto.py``), for the ViT family. Subnet
 construction and the cost reports come with ``compress/subnet.py`` and
-``graph/costs.py`` (ROADMAP.md A8); other model families with ROADMAP.md
-A9.
+``graph/costs.py`` (ROADMAP.md, modules to port, 'Train -> compress ->
+export -> serve'); other model families with 'Other model families,
+interop, auto-discovery'.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ class OTO:
             raise NotImplementedError(
                 f"no node-group builder ported for {type(model).__name__}: "
                 "the port has the ViT family only; the other families and "
-                "the automatic grouping are ROADMAP.md section A items 9 "
-                "and 8")
+                "the automatic grouping are in ROADMAP.md, modules to "
+                "port, 'Other model families, interop, auto-discovery'")
         self.model = model
         self.params = model.param_tree() if params is None else params
         self.kind = "vit"

@@ -5,13 +5,14 @@ replaces ``_attention_block`` (``pallas_call`` at attention.py:667)::
 
     x + proj(quant(softmax(q k^T * s) v)),  q/k/v = qkv(quant(LN(x)))
 
-Kernel design (``csrc/attention_block.cu``): one block per (head, image)
-does LN + quant of the image's rows, this head's q/k/v columns of the qkv
-GEMM (dequant + bias, rounded to ``float_dtype`` as the TPU scratch is,
-and kept in shared memory in that dtype), the scores, the exp2 softmax
-with deferred normalization, AV and the int8 quantization, and writes
-only the int8 attention levels [B*N, H*hd]. The
-[M, 3D] qkv tensor never reaches device memory. Then K1
+Kernel design (``csrc/attention_block.cu``): one cooperative launch of a
+persistent grid in three phases split by grid barriers: LN + quant once
+per row into an int8 scratch [B*N, Dp]; the qkv GEMM on the int8 tensor
+cores (a cp.async ring, ldmatrix fragments; dequant + bias, rounded to
+``float_dtype`` as the TPU scratch is) into a q/k/v scratch in the
+fused-qkv layout; then K6's attention (``csrc/qkv_attention.cuh``) over
+(query tile, head, image) items, writing the int8 attention levels
+[B*N, H*hd]. No token count enters shared memory. Then K1
 (:func:`~.fused.run_matmul`, prologue None, epilogue residual) runs the
 proj GEMM: one ``attention_block`` call is two launches. As in
 ``fused.py``, a call splits into the layer's side, prepared once
@@ -239,11 +240,10 @@ def attention_heads_plain(
     return alv.reshape(b * n, heads * head_dim)
 
 
-# a lane keeps a quarter of a query row and of its output in f64 registers
-# (attention_core.cuh, instantiated for head_dim <= 64 and <= 80)
+# the widest head the attention kernels instantiate (K3, K6, K9: a head
+# bound of 64 or 80)
 MAX_HEAD_DIM = 80
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
-_RED = 3 * 32 * 4  # attention_core.cuh:attn_int_scales' static reduction
 # the H100 SXM's SMs and shared memory an SM (a block reserves 1 KB
 # more): the tile pickers' defaults (flash_tile_rows, qkv_proj_layout), the
 # launches pass the card's own
@@ -258,13 +258,6 @@ def _card_shape(index: int):
     return prop.multi_processor_count, prop.shared_memory_per_multiprocessor
 
 
-def _qkv_row_bytes(head_dim: int, itemsize: int):
-    """(q/k row, v row) bytes in shared memory (attention_core.cuh:
-    att_q_stride_t, att_v_stride): f32 rows hd+4 and hd+8, bf16 rows hd+8."""
-    rq = head_dim + (8 if itemsize == 2 else 4)
-    return rq * itemsize, (head_dim + 8) * itemsize
-
-
 def _check_head_dim(kernel: str, head_dim: int) -> Optional[str]:
     if head_dim > MAX_HEAD_DIM or head_dim % 8:
         return (f"{kernel} kernel: head_dim {head_dim} must be a multiple "
@@ -272,25 +265,40 @@ def _check_head_dim(kernel: str, head_dim: int) -> Optional[str]:
     return None
 
 
-def heads_kernel_limit(n: Optional[int], head_dim: int,
-                       itemsize: int = 2) -> Optional[str]:
-    """Why K3 cannot take ``n`` tokens (None: any) of ``head_dim`` with a
-    qkv (residual) dtype of ``itemsize`` bytes, or None if it can."""
-    err = _check_head_dim("attention_block", head_dim)
-    if err or n is None:
-        return err
-    # csrc/attention_block.cu:smem_bytes: q/k/v in the qkv dtype, the GEMM
-    # tiles (64*TN weight rows, TN = 3 to head_dim 64, else 4),
-    # LayerNorm statistics, and the int_attention scale reduction
-    rq, rv = _qkv_row_bytes(head_dim, itemsize)
-    tn = 3 if head_dim <= 64 else 4
-    smem = n * (2 * rq + rv) + (112 + 64 * tn) * 80 + 8 * n + _RED
-    if smem > SMEM_LIMIT:
-        dt = "bf16" if itemsize == 2 else "f32"
-        return (f"attention_block kernel: {n} tokens x head_dim {head_dim} "
-                f"({dt}) need {smem} B of shared memory > {SMEM_LIMIT} (the "
-                "image's q/k/v stay in one block's shared memory)")
-    return None
+def heads_kernel_limit(head_dim: int) -> Optional[str]:
+    """Why K3 cannot take heads of ``head_dim``, or None if it can:
+    head_dim <= 80, a multiple of 8. q/k/v go through a device-memory
+    scratch and K/V stream in chunks, so any token count and either qkv
+    dtype fit a block (:func:`heads_smem_bytes`)."""
+    return _check_head_dim("attention_block", head_dim)
+
+
+# csrc/attention_block.cu: the GEMM phase's three stages of 128 + 128 rows
+# of 144 bytes; its attention phase is K6's tile
+_HEADS_GEMM_SMEM = 3 * (128 + 128) * 144
+
+
+def heads_smem_bytes(rows: int, head_dim: int, itemsize: int = 2) -> int:
+    """K3's shared memory a block at ``rows`` query rows an attention item,
+    as ``csrc/attention_block.cu:smem_bytes`` (plus the static arrays)
+    computes it: the larger of the GEMM ring (110,592 bytes) and K6's tile
+    (:func:`qkv_attn_smem_bytes`). No token count enters."""
+    return max(_HEADS_GEMM_SMEM + _QKV_ATTN_STATIC,
+               qkv_attn_smem_bytes(rows, head_dim, itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def heads_tile_rows(b: int, n: int, heads: int, head_dim: int,
+                    itemsize: int = 2, sms: int = _H100_SMS,
+                    sm_smem: int = _H100_SM_SMEM) -> int:
+    """K3's query rows an attention item (one of :data:`QKV_ATTN_TILES`),
+    by :func:`qkv_attn_tile_rows`'s rule on K3's shared memory
+    (:func:`heads_smem_bytes`): of the tiles whose items (ceil(n / R) x
+    heads x b) give every SM one, the one that keeps the most query rows
+    on an SM; where none does, the smallest. 64 at ViT-B/16 and ViT-H/14
+    from batch 4 on the H100."""
+    return _pick_tile(lambda r: heads_smem_bytes(r, head_dim, itemsize),
+                      b, n, heads, sms, sm_smem)
 
 
 def _raise_if(limit: Optional[str]) -> None:
@@ -343,7 +351,7 @@ def plan_attention_heads(
     copy."""
     d_model, three, head_dim = _heads_shapes(w_qkv, heads, fmt, act_top,
                                              out_top)
-    _raise_if(heads_kernel_limit(None, head_dim))
+    _raise_if(heads_kernel_limit(head_dim))
     _build.require_cuda("attention_block", w_qkv)
     dev = w_qkv.device
     qkv_scale = torch.broadcast_to(_f32(qkv_scale, dev), (three,))
@@ -362,34 +370,59 @@ def plan_attention_heads(
         out_top=int(out_top), ln_eps=float(ln_eps))
 
 
+def _heads_library():
+    """K3's library, its entry point's C signature set on first use."""
+    lib = _build.library("attention_block")
+    if lib.qvt_attention_heads.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_attention_heads.argtypes = (
+            [P, I, P, I] + [P] * 8 + [I] * 9 + [F, F] + [I] * 6 + [F, P])
+        lib.qvt_attention_heads.restype = I
+    return lib
+
+
 def run_attention_heads(plan: HeadsPlan, x, *, n_valid=None,
                         out_dtype=torch.bfloat16, int_attention=False):
-    """Launches K3 on ``x`` [B, N, D] for a prepared layer (the only place
-    that launches it); returns the int8 attention levels [B*N, H*hd]."""
+    """Launches K3 on ``x`` [B, N, D] for a prepared layer, at the query
+    tile :func:`heads_tile_rows` picks for the card; returns the int8
+    attention levels [B*N, H*hd]."""
     _build.require_cuda("attention_block", x)
     b, n = _heads_input(x, plan.d_model)
-    _raise_if(heads_kernel_limit(n, plan.head_dim, out_dtype.itemsize))
+    rows = heads_tile_rows(b, n, plan.heads, plan.head_dim,
+                           out_dtype.itemsize, *_card_shape(x.device.index))
+    return _launch_attention_heads(plan, x, rows, n_valid=n_valid,
+                                   out_dtype=out_dtype,
+                                   int_attention=int_attention)
+
+
+def _launch_attention_heads(plan: HeadsPlan, x, rows, *, n_valid=None,
+                            out_dtype=torch.bfloat16, int_attention=False):
+    """K3 at ``rows`` query rows an attention item on a checked CUDA ``x``:
+    its two scratch tensors (the levels [B*N, Dp], Dp = D rounded up to
+    64; q/k/v [B*N, 3*H*hd] in ``out_dtype``) and the launch itself,
+    counted under ``attention_block``. ``chip_smoke.py`` calls it at tiles
+    other than the picker's."""
+    b, n, d = x.shape
     if n_valid is None:
         n_valid = n
     x = x.contiguous()
-    alv = torch.empty((b * n, plan.heads * plan.head_dim), dtype=torch.int8,
-                      device=x.device)
+    hdim = plan.heads * plan.head_dim
+    alv = torch.empty((b * n, hdim), dtype=torch.int8, device=x.device)
     if alv.numel() == 0:
         return alv
-    fn = _build.library("attention_block").qvt_attention_heads
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                   F, F, I, I, I, I, I, I, F, P]
-    fn.restype = I
-    code = fn(
+    dp = -(-d // 64) * 64
+    lv = torch.empty((b * n, dp), dtype=torch.int8, device=x.device)
+    qkv = torch.empty((b * n, 3 * hdim), dtype=out_dtype, device=x.device)
+    code = _heads_library().qvt_attention_heads(
         x.data_ptr(), _build.dtype_code(x.dtype), plan.wq_t.data_ptr(),
         int(plan.int4), plan.qkv_scale.data_ptr(), _build.ptr(plan.qkv_bias),
         plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
-        plan.prm.data_ptr(), alv.data_ptr(), b, n, plan.d_model, plan.heads,
-        plan.head_dim, n_valid, _n_keys(n, n_valid, out_dtype.itemsize),
-        plan.q_mul, plan.sm_scale, int(int_attention),
-        _build.dtype_code(out_dtype), int(plan.act_pow), int(plan.out_pow),
-        plan.act_top, plan.out_top, plan.ln_eps, _build.stream())
+        plan.prm.data_ptr(), lv.data_ptr(), qkv.data_ptr(), alv.data_ptr(),
+        b, n, d, dp, plan.heads, plan.head_dim, n_valid,
+        _n_keys(n, n_valid, out_dtype.itemsize), rows, plan.q_mul,
+        plan.sm_scale, int(int_attention), _build.dtype_code(out_dtype),
+        int(plan.act_pow), int(plan.out_pow), plan.act_top, plan.out_top,
+        plan.ln_eps, _build.stream())
     _build.check(code, "attention_block")
     _build.count_launch("attention_block")
     return alv
@@ -401,9 +434,9 @@ def attention_heads(
     act_pow=False, out_d=None, out_t=None, out_top=None, out_pow=False,
     fmt="int8", out_dtype=torch.bfloat16, int_attention=False,
 ):
-    """K3's launch: LN + quant + this head's qkv columns + attention + int8
-    quantization per (head, image), writing only the attention levels
-    [B*N, H*hd] (the qkv tensor stays in shared memory). CPU tensors take
+    """K3's launch: LN + quant once per row, the qkv GEMM, then the
+    attention and int8 quantization per (query tile, head, image), writing
+    the attention levels [B*N, H*hd]. CPU tensors take
     :func:`attention_heads_plain`; CUDA tensors
     :func:`plan_attention_heads` then :func:`run_attention_heads`."""
     layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
@@ -522,10 +555,10 @@ _QKV_ATTN_STATIC = 3 * 8 * 4 + 8 * 4  # the scale reduction, the scales
 def qkv_attn_smem_bytes(rows: int, head_dim: int, itemsize: int = 2) -> int:
     """K6's shared memory a block at ``rows`` query rows, for heads of
     ``head_dim`` and a qkv dtype of ``itemsize`` bytes, as
-    ``csrc/attention_qkv.cu:smem_bytes`` (plus its static arrays) computes
-    it: q as f32, three chunks of 64 keys in the qkv dtype, the f32 p tile
-    and the per-warp row partials. No token count enters: K and V stream
-    in chunks."""
+    ``csrc/qkv_attention.cuh:qkv_attn_smem`` (plus its static arrays; the
+    tile is shared with K3) computes it: q as f32, three chunks of 64 keys
+    in the qkv dtype, the f32 p tile and the per-warp row partials. No
+    token count enters: K and V stream in chunks."""
     hdm = 64 if head_dim <= 64 else 80
     return (4 * rows * (hdm + 4) + 3 * 64 * (hdm + 8) * itemsize
             + 4 * rows * (64 + 4) + 12 * 8 * rows + _QKV_ATTN_STATIC)
@@ -547,9 +580,16 @@ def qkv_attn_tile_rows(b: int, n: int, heads: int, head_dim: int,
     that is 32 at ViT-B/16 batch 2 (168 blocks; 64 rows give 96) and
     ViT-H/14 batch 1 (144), 64 at ViT-H/14 batch 2 (160) and ViT-B/16
     batch 32 (1,536)."""
-    def smem(r):
-        return qkv_attn_smem_bytes(r, head_dim, itemsize)
+    return _pick_tile(lambda r: qkv_attn_smem_bytes(r, head_dim, itemsize),
+                      b, n, heads, sms, sm_smem)
 
+
+def _pick_tile(smem, b, n, heads, sms, sm_smem) -> int:
+    """The rule of K6's and K3's tile pickers, on a block's shared memory
+    ``smem(rows)``: of the fitting tiles whose blocks or items give every
+    SM one, the most query rows resident on an SM (at most two blocks an
+    SM), on a tie the smaller tile; else the smallest fitting tile; 0
+    where none fits."""
     def per_sm(r):
         return min(2, sm_smem // (smem(r) + 1024))
 
@@ -1098,8 +1138,9 @@ def flash_attention_plain(q, k, v, *, sm_scale, n_valid=None, out_d=None,
                           out_dtype=torch.bfloat16):
     """Plain PyTorch version of K13: a port of ``flash_attention_xla``
     (attention.py:950-969) with the TPU kernel's cast of p to v's dtype
-    (attention.py:55; the XLA mirror casts to q's, ROADMAP.md C1.6). The
-    dots and the row sum accumulate in float64 and round once to f32."""
+    (attention.py:55; the XLA mirror casts to q's: ROADMAP.md, faults of
+    the reference the port must not copy). The dots and the row sum
+    accumulate in float64 and round once to f32."""
     n = q.shape[2]
     s = _dot_f32(q, k.transpose(-1, -2)) * _f32_value(sm_scale)
     if n_valid is not None and n_valid < n:

@@ -1,6 +1,7 @@
 """GETA joint quantization + structured pruning over flax-path params
 trees (``quantized_vit_tpu/opt``: groups, importance, GETA, checkpoints).
-HESSO and HESSO-CRIC are not ported yet (ROADMAP.md A8)."""
+HESSO and HESSO-CRIC are not ported yet (ROADMAP.md, modules to port,
+'HESSO')."""
 
 from .checkpoint import load_checkpoint, save_checkpoint, scan_checkpoint
 from .geta import GETA, GETAConfig

@@ -193,7 +193,7 @@ def prepare_fsdp_rdma_kernels(fart, cfg: ViTConfig,
     blocks = fart["blocks"]
     hd = fart["pos_embed"].shape[-1] // cfg.num_heads
     k = blocks[0]["fc2"].w.shape[1]
-    _raise_limits([heads_kernel_limit(None, hd), mlp_gather_kernel_limit(k)])
+    _raise_limits([heads_kernel_limit(hd), mlp_gather_kernel_limit(k)])
     sm_scale = _sm_scale(cfg, hd)
     dev = blocks[0]["qkv"].w.device
     _build.require_cuda("fused_mlp_gather", blocks[0]["qkv"].w)

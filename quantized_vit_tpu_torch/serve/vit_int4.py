@@ -374,7 +374,7 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
         for b in (range(1, ROUTE_BATCHES + 1) if batch is None
                   else (batch,)):
             lims.append(qkv_kernel_limit(hd) if uses_chain(b)
-                        else heads_kernel_limit(n_pad, hd, itemsize))
+                        else heads_kernel_limit(hd))
             route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
                               itemsize=itemsize)
             if fsdp_rdma:
@@ -423,7 +423,7 @@ def prepare_kernels(art, cfg: ViTConfig) -> KernelPlan:
     batch and the residual dtype are checked by the forward
     (:func:`kernel_limits`)."""
     hd = art["pos_embed"].shape[-1] // cfg.num_heads
-    _raise_limits([heads_kernel_limit(None, hd)])
+    _raise_limits([heads_kernel_limit(hd)])
     sm_scale = _sm_scale(cfg, hd)
     embed, cls_row, head = _embed_head_plans(art, cfg)
     blocks, chain = [], []

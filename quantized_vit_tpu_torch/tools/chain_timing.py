@@ -1,4 +1,4 @@
-"""K6 and the chain forwards that run it, timed on the card through the
+"""K6, K3 and the forwards that run them, timed on the card through the
 package's public entry points only, so that one script times any version
 of the package (run it from the root of a checkout):
 
@@ -7,11 +7,13 @@ of the package (run it from the root of a checkout):
 Prints one JSON object: the card (``nvidia-smi``'s name and power limit);
 K6 (``run_attention_qkv`` on a prepared plan, random bf16 qkv at the
 padded token counts, the proj quantizer's levels) at ViT-B/16 batch 2 and
-32 and ViT-H/14 batch 1 and 2, each as the median of CUDA-event readings,
-the host's time to issue one call and its kernels' device time from
-torch.profiler; and the chain forward (``vit_int4_forward`` on a prepared
-plan, int8-stored levels from seed 0, bf16 residual stream) of ViT-B/16
-and ViT-H/14 at batch 1 and 2, CUDA-event medians in ms.
+32 and ViT-H/14 batch 1 and 2, and K3 (``run_attention_heads`` on a
+prepared plan, random bf16 x and int8 weights) at ViT-B/16 and ViT-H/14
+batch 32, each as the median of CUDA-event readings, the host's time to
+issue one call and its kernels' device time from torch.profiler; and the
+forward (``vit_int4_forward`` on a prepared plan, int8-stored levels from
+seed 0, bf16 residual stream) of ViT-B/16 and ViT-H/14 at batch 1 and 2
+(the chain) and 32 (the K3 route), CUDA-event medians in ms.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from ..models import ViTConfig
-from ..ops import plan_attention_qkv, run_attention_qkv
+from ..ops import (plan_attention_heads, plan_attention_qkv,
+                   run_attention_heads, run_attention_qkv)
 from ..serve import (prepare_kernels, random_vit_int4_artifact,
                      vit_int4_forward)
 
@@ -34,8 +37,12 @@ K6_SITES = {"vitb_b2": (2, 208, 12, 64, 197), "vitb_b32": (32, 208, 12, 64,
                                                             197),
             "vith_b1": (1, 272, 16, 80, 257), "vith_b2": (2, 272, 16, 80,
                                                           257)}
+# (images, padded tokens, heads, head_dim, real tokens)
+K3_SITES = {"vitb_b32": (32, 208, 12, 64, 197),
+            "vith_b32": (32, 272, 16, 80, 257)}
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
+BATCHES = (1, 2, 32)
 
 
 def events_us(fn, iters=200, warmup=5):
@@ -86,7 +93,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    out = {"card": smi, "k6_us": {}, "chain_forward_ms": {}}
+    out = {"card": smi, "k6_us": {}, "k3_us": {}, "forward_ms": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
     for site, (b, n, heads, hd, n_real) in K6_SITES.items():
@@ -100,6 +107,23 @@ def main():
 
         out["k6_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
+    for site, (b, n, heads, hd, n_real) in K3_SITES.items():
+        d = heads * hd
+        x = torch.randn((b, n, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randint(-7, 8, (d, 3 * d), dtype=torch.int8, device="cuda",
+                          generator=g)
+        plan = plan_attention_heads(
+            w, 1e-3 * one, None, ln_scale=torch.ones(d, device="cuda"),
+            ln_bias=torch.zeros(d, device="cuda"), heads=heads,
+            sm_scale=hd**-0.5, act_d=0.05 * one, act_t=one, act_top=127,
+            out_d=0.06 * one, out_t=one, out_top=31)
+
+        def fn(plan=plan, x=x, n_real=n_real):
+            return run_attention_heads(plan, x, n_valid=n_real)
+
+        out["k3_us"][site] = {"events": events_us(fn), "host": host_us(fn),
+                              "device": device_us(fn)}
     kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
     for name, cfg_kw in MODELS.items():
         cfg = ViTConfig(**cfg_kw)
@@ -108,9 +132,9 @@ def main():
         plan = prepare_kernels(art, cfg)
         kp = cfg.patch_size**2 * cfg.in_channels
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (2, cfg.num_patches, kp)).astype(np.float32)).cuda()
-        for b in (1, 2):
-            out["chain_forward_ms"][f"{name}_b{b}"] = events_us(
+            (max(BATCHES), cfg.num_patches, kp)).astype(np.float32)).cuda()
+        for b in BATCHES:
+            out["forward_ms"][f"{name}_b{b}"] = events_us(
                 lambda: vit_int4_forward(art, x[:b], cfg, plan=plan, **kw),
                 iters=20, warmup=3) / 1e3
         del art, plan

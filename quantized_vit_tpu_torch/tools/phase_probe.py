@@ -5,11 +5,14 @@ Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
 ``%globaltimer`` at the phase boundaries the kernels mark with
 ``QVT_STAMP``, and thread 0 of K5's block 0 after each grid barrier,
-``QVT_GRID_STAMP``; K6 and K9 sum their repeated phases per block,
-``QVT_PHASE``), runs each kernel once on a prepared plan, and prints:
+``QVT_GRID_STAMP``; K3, K6 and K9 sum their repeated phases per block,
+``qvt_common.cuh:PhaseClock``), runs each kernel once on a prepared plan,
+and prints:
 
-- ``attention_block`` (ViT-B batch 32), per block: LayerNorm statistics |
-  qkv GEMM | attention, and the span of the launch;
+- ``attention_block`` (ViT-B/16 and ViT-H/14 at batch 32, bf16, with
+  float attention and with ``int_attention``), per block of its
+  persistent grid, each phase summed: LN + quant | first grid barrier |
+  qkv GEMM | second grid barrier | attention, and the span;
 - ``fused_mlp`` (ViT-B batch 32), per block: LayerNorm + quant |
   hidden-chunk loop | epilogue, and the span;
 - ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.attention import (_card_shape, flash_tile_rows,
+from ..ops.attention import (_card_shape, flash_tile_rows, heads_tile_rows,
                              plan_attention_heads, plan_attention_qkv,
                              plan_attention_qkv_proj, qkv_attn_tile_rows,
                              run_attention_heads, run_attention_qkv,
@@ -63,6 +66,8 @@ from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 _K9_PHASES = ("staging", "attention", "level exchange", "proj",
               "epilogue", "int scales")
 _K6_PHASES = ("staging", "scores", "p", "P.V", "int scales", "epilogue")
+_K3_PHASES = ("LN + quant", "barrier 1", "qkv GEMM", "barrier 2",
+              "attention")
 _STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
                  "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
@@ -82,15 +87,9 @@ def main():
     ln = dict(ln_scale=torch.ones(d, device=dev),
               ln_bias=torch.zeros(d, device=dev))
     q = dict(act_d=d05, act_t=one, act_top=7, fmt="int8", **ln)
-    heads = plan_attention_heads(wq, 1e-3 * one, None, heads=12,
-                                 sm_scale=0.125, out_d=d05, out_t=one,
-                                 out_top=7, **q)
     mlp = plan_mlp(w1, 1e-3 * one, None, w2, 1e-3 * one, None, hid_d=d05,
                    hid_t=one, hid_top=7, **q)
     runs = {
-        "attention_block": (12 * b, lambda: run_attention_heads(
-            heads, x.reshape(b, n, d), n_valid=197),
-            ("LN statistics", "qkv GEMM", "attention")),
         "fused_mlp": ((b * n + 31) // 32, lambda: run_mlp(mlp, x),
                       ("LN + quant", "hidden chunks", "epilogue")),
     }
@@ -125,6 +124,28 @@ def main():
             (f"staging + scores (qt {qt})", "softmax", "P.V + epilogue"))
     buf = np.zeros(65536 * 4, np.uint64)
     print(torch.cuda.get_device_name(0))
+    for tag, (bk, n, heads, hd, nv) in (("vitb_b32", (32, 208, 12, 64, 197)),
+                                        ("vith_b32", (32, 272, 16, 80,
+                                                      257))):
+        if only and "attention_block" not in only:
+            break
+        dk = heads * hd
+        xk = torch.randn((bk, n, dk), generator=g, device=dev).to(
+            torch.bfloat16)
+        wk = torch.randint(-7, 8, (dk, 3 * dk), dtype=torch.int8, device=dev)
+        pl = plan_attention_heads(
+            wk, 1e-3 * one, None, heads=heads, sm_scale=hd**-0.5, out_d=d05,
+            out_t=one, out_top=7, act_d=d05, act_t=one, act_top=7,
+            fmt="int8", ln_scale=torch.ones(dk, device=dev),
+            ln_bias=torch.zeros(dk, device=dev))
+        rows = heads_tile_rows(bk, n, heads, hd, 2, *_card_shape(0))
+        for ia in (False, True):
+            summed_phases(buf, "attention_block", _K3_PHASES,
+                          f"attention_block:{tag}:R{rows}"
+                          f"{':int_attention' if ia else ''}",
+                          lambda pl=pl, xk=xk, nv=nv, ia=ia:
+                          run_attention_heads(pl, xk, n_valid=nv,
+                                              int_attention=ia))
     for tag, (bk, n, heads, hd, nv) in (("vith_b8", (8, 272, 16, 80, 257)),
                                         ("vitb_b32", (32, 208, 12, 64, 197))):
         if only and "attention_qkv_proj" not in only:
@@ -186,8 +207,8 @@ def main():
 
 
 def summed_phases(buf, stem, names, name, fn):
-    """The per-block phase sums of K6 or K9 (library ``stem``;
-    ``QVT_PHASES_STORE``: start, end, six sums a block, named ``names``)
+    """The per-block phase sums of K3, K6 or K9 (library ``stem``;
+    ``PhaseClock.store``: start, end, six sums a block, named ``names``)
     of the last of three runs of ``fn``, the stamps zeroed before each;
     the blocks are those that wrote a start stamp."""
     lib = _build.library(stem)

@@ -1,7 +1,8 @@
 """In-memory data pipeline (``quantized_vit_tpu/utils/data.py``): numpy
 NHWC float32 batches of a fixed size, the trailing partial batch dropped
 or padded with a validity mask. ``ImageFolderDataset`` (PIL decoding of
-image files) is not ported yet (ROADMAP.md A7)."""
+image files) is not ported yet (ROADMAP.md, modules to port, 'Inference
+CLIs and data')."""
 
 from __future__ import annotations
 

@@ -242,9 +242,9 @@ def test_forward_kernel_path_never_reaches_plain(monkeypatch):
                          images_layout="patches")
 
 
-# configurations the JAX package serves that exceed the CUDA kernels'
-# limits (ROADMAP.md "Kernel limits"), each with the batch, weight format
-# and residual dtype that reach the limit, and what it exceeds
+# configurations the JAX package serves, each with the batch, weight format
+# and residual dtype that once reached a CUDA kernel's limit
+# (ROADMAP.md "Kernel limits"), and what it exceeds now (nothing: served)
 _OVER_LIMITS = {
     # ViT-H/14 with packed int4 weights at batch 1: the JAX package's
     # resident MLP kernel (K2 here), whose width limit is 1024
@@ -252,22 +252,28 @@ _OVER_LIMITS = {
                           num_heads=16, mlp_ratio=4.0),
                      dict(batch=1, fmt="int4", float_dtype=torch.bfloat16),
                      ["K=1280 > 1024"]),
-    # ViT-H/14 with an f32 residual stream at batch 32: K3 keeps the
-    # image's q/k/v in f32 (272 tokens x head_dim 80 overflow)
+    # ViT-H/14 with an f32 residual stream at batch 32: the first K3 kept
+    # the image's q/k/v in f32 in shared memory (272 tokens x head_dim 80
+    # overflowed); K3 now streams them from a scratch and serves it
     "vit_h14_f32": (dict(patch_size=14, embed_dim=1280, depth=1,
                          num_heads=16, mlp_ratio=4.0),
                     dict(batch=32, fmt="int8", float_dtype=torch.float32),
-                    ["272 tokens x head_dim 80 (f32)"]),
-    # ViT-B/16 at 384 px, batch 32: 577 tokens (592 padded) overflow K3's
-    # shared memory even in bf16
+                    []),
+    # ViT-B/16 at 384 px, batch 32: 577 tokens (592 padded) overflowed the
+    # first K3's shared memory even in bf16; served now
     "vit_b16_384": (dict(img_size=384, depth=1),
                     dict(batch=32, fmt="int8", float_dtype=torch.bfloat16),
-                    ["592 tokens"]),
+                    []),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_OVER_LIMITS))
 def test_forward_names_the_kernel_limits_it_exceeds(name):
+    """The forward names each limit a configuration exceeds before it
+    prepares anything; a configuration within every limit (``wants``
+    empty) goes on to plan its kernels (a meta tensor stands in for a
+    CUDA tensor, so the first plan raises for its device, not for a
+    limit), and K3 has a query tile for it on the H100."""
     from quantized_vit_tpu_torch.serve import (kernel_limits,
                                                random_vit_int4_artifact,
                                                vit_int4_forward)
@@ -279,27 +285,40 @@ def test_forward_names_the_kernel_limits_it_exceeds(name):
     art = random_vit_int4_artifact(cfg, pack_weights=route["fmt"] == "int4",
                                    device="meta")
     kp = cfg.patch_size**2 * cfg.in_channels
-    with pytest.raises(ValueError, match="kernel limits") as err:
+    with pytest.raises(ValueError) as err:
         vit_int4_forward(art, _meta(route["batch"], cfg.num_patches, kp),
                          cfg, float_dtype=route["float_dtype"],
                          images_layout="patches")
+    if not wants:
+        assert kernel_limits(cfg, **route) == []
+        assert "kernel limits" not in str(err.value)
+        assert "CUDA" in str(err.value)
+        n_pad = -(-cfg.num_tokens // 16) * 16
+        hd = cfg.embed_dim // cfg.num_heads
+        itemsize = route["float_dtype"].itemsize
+        assert ta.heads_kernel_limit(hd) is None
+        assert ta.heads_tile_rows(route["batch"], n_pad, cfg.num_heads, hd,
+                                  itemsize) == 64
+        return
+    assert "kernel limits" in str(err.value)
     for want in wants:
         assert want in str(err.value)
 
 
 def test_vit_h14_int8_serves_at_every_batch():
-    """ViT-H/14 with int8-stored levels and a bf16 residual stream: no
-    kernel limit at any batch (K6 + K8 at batch 1-2, K3 + the K1 chain
-    from batch 3 on); in f32 only K3 (batch 4 and more) is refused."""
+    """ViT-H/14 with int8-stored levels: no kernel limit at any batch (K6 +
+    K8 at batch 1-2, K3 + the K1 chain from batch 4 on), with a bf16 or
+    an f32 residual stream (K3 took f32 only to batch 3 before it streamed
+    its q/k/v)."""
     from quantized_vit_tpu_torch.serve import kernel_limits
 
     cfg = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
     assert kernel_limits(cfg, fmt="int8", float_dtype=torch.bfloat16) == []
-    for b in (1, 2, 3):
+    for b in (1, 2, 3, 4, 32):
         assert kernel_limits(cfg, batch=b, fmt="int8") == []
     assert kernel_limits(cfg, batch=4, fmt="int8") == kernel_limits(
         cfg, fmt="int8")
-    assert len(kernel_limits(cfg, fmt="int8")) == 1
+    assert len(kernel_limits(cfg, fmt="int8")) == 0
 
 
 def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):

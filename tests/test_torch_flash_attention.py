@@ -4,10 +4,11 @@ mode and its XLA mirror ``flash_attention_xla``.
 
 The port follows the kernel where the two JAX functions differ: p is cast
 to v's dtype before AV (attention.py:55; the mirror casts it to q's,
-:963 — ROADMAP.md C1.6), so the mixed-dtype cases are held against the
-kernel only. Tolerances (the JAX side sums its dots in f32, the port in
-f64 rounded once): float outputs (f32) within 1e-5; int8 levels within 1
-level at <= 0.5% of positions (bench.py:80-87).
+:963 — ROADMAP.md, faults of the reference the port must not copy), so
+the mixed-dtype cases are held against the kernel only. Tolerances (the
+JAX side sums its dots in f32, the port in f64 rounded once): float
+outputs (f32) within 1e-5; int8 levels within 1 level at <= 0.5% of
+positions (bench.py:80-87).
 """
 
 import numpy as np

@@ -75,7 +75,7 @@ def test_serve_cli_answers_equal_direct_forward(tmp_path, uint8):
 
 
 def test_serve_cli_refuses_mesh(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="ROADMAP.*'Multi-device'"):
         serve.build_forward(serve.parse_args(
             ["--artifact", str(tmp_path), "--mesh-model", "2",
              "--device", "cpu"]))
@@ -161,6 +161,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert {("chain,int8-stored", b) for b in (1, 2, 3)} <= routes
     assert ("latency,int4-packed", 1) in routes
     assert ("chain384,f32,int8-stored", 1) in routes
+    assert ("block384,bf16,int8-stored", 4) in routes
+    assert ("block_vith14,f32,int8-stored", 4) in routes
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in record["kernels"])
