@@ -25,8 +25,11 @@ Phases, in order; any failure exits non-zero:
    need; K14 on a ViT-B block's weights as
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
-   at ViT-H/14's (K8 at 272 and 544 rows, K3, K6 and K9 at head_dim 80;
-   K3 also with an f32 residual stream at batch 4), K3 and K6 launched at
+   at ViT-H/14's (K8 at 272 and 544 rows, K2 there with int8, packed
+   int4 and mixed weights, K3, K6 and K9 at head_dim 80; K3 also with an
+   f32 residual stream at batch 4), K2 launched at set work splits at
+   ViT-B's batch 1, 2 and 32 rows (both tiles of each GEMM, fc2's tiles
+   whole and split), K3 and K6 launched at
    set query tiles at every (query rows, qkv dtype, head bound)
    instantiation (ragged last tiles, masked keys; K6's three output
    modes, K3's int8 and packed int4 weights and both quantizers;
@@ -36,7 +39,8 @@ Phases, in order; any failure exits non-zero:
    (query rows, qkv dtype, head bound) instantiation with cluster sizes 1
    to 8 (ragged last tiles, odd head counts, columns split unevenly
    against the proj's 256-column pass), K10-K12 at
-   tools/profile_kernels.py's four ViT-B layer shapes, and at small ragged
+   tools/profile_kernels.py's four ViT-B layer shapes (and with float16
+   out), and at small ragged
    shapes, for packed int4 and int8 weights, the linear (t = 1) and pow
    (t != 1) quantizers, both residual dtypes and ``int_attention`` on and
    off, under the parity contract: int8 levels within 1 level at <= 0.5%
@@ -55,8 +59,9 @@ Phases, in order; any failure exits non-zero:
    at depth 2 on the chain at batch 1 with an f32 residual stream (K6 on
    592 tokens, K8) and on the K3 route at batch 4 in bf16 (K3 on 592
    tokens), and ViT-H/14 at depth 2 on the K3 route at batch 4 with an
-   f32 residual stream (the K3 routes' logits required equal to the
-   plain path's); then ViT-H/14 at
+   f32 residual stream and, with packed int4, on the chain at batch 1 and
+   2 (K2 at K = 1280; the logits of these and of the K3 routes required
+   equal to the plain path's); then ViT-H/14 at
    full width and depth 32 (int8-stored levels) at batch 1 and 2 (K1 +
    K6 + K1 + K8 per block) and 32 (K3 + K1 proj + the K1 fc1/fc2 chain);
 3b. the kernel-level paths at full width, each with the launch counters
@@ -79,15 +84,18 @@ Phases, in order; any failure exits non-zero:
    requests at max batch 8 on the artifact saved by the port's writer;
    every answer equal to a direct forward of the same images;
 5. timings with CUDA events (warm-up, then the median of 20 runs, 200
-   under 1 ms): each kernel at its main-path shapes (ViT-B's, and
-   ViT-H/14's: K8 at batch 1 and 2, K1's embed, chain qkv and fc1/fc2
+   under 1 ms): each kernel at its main-path shapes (ViT-B's, K2 also at
+   batch 2 and 1 and K8 beside it on the same int8 weights at batch 32,
+   2 and 1, and ViT-H/14's: K8 at batch 1 and 2, K2 with packed int4 at
+   batch 1 and 2, K1's embed, chain qkv and fc1/fc2
    chain, K3 at batch 32, K6 at batch 1 and 2; K9 at ViT-H's batch 8 and
    ViT-B's 32, K10-K12 at ViT-B's layer shapes; K6 also with
    ``int_attention`` at ViT-B's batch 2 and 32), its plain version,
    ``torch._int_mm`` on its GEMM shapes and
    ``scaled_dot_product_attention`` on K6's, K9's and K13's shapes
-   (at K3's, K6's and K13's sites with the host's time a call and the
-   device time of both, and K3's and K6's FP64 tensor-core ceiling;
+   (at K2's, K3's, K6's, K8's and K13's sites with the host's time a call
+   and the device time of both, and K3's and K6's FP64 tensor-core
+   ceiling;
    yardsticks the port never calls; beside K9 also K6 + K1 and K3's
    branch, beside K12 K1 with its quant prologue, beside K15 K2 on the
    same plan), ``torch.cat`` beside K14, K15's overlap sweep
@@ -123,6 +131,7 @@ last line, and writes the full record to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -363,7 +372,8 @@ def parity_row(kernel, case, kind, got, want):
         ok = mx <= 0.1 and frac <= 0.01
     else:  # exact
         mx, frac = float_diff(got, want)
-        ok = mx == 0.0 and got.shape == want.shape
+        ok = (mx == 0.0 and got.shape == want.shape
+              and got.dtype == want.dtype)
     if not torch.isfinite(got.float()).all():
         ok = False
     return {"kernel": kernel, "case": case, "check": kind,
@@ -448,12 +458,16 @@ class Parity:
     # -- K2 ---------------------------------------------------------------
 
     def k2(self, case, m, k, hid, fmt, fmt2, pow_, seed,
-           stream=torch.bfloat16, kernel="fused_mlp", bias=True):
+           stream=torch.bfloat16, kernel="fused_mlp", bias=True,
+           layout=None):
         """K2 (or, with ``kernel="fused_mlp_chunked"``, K8 on int8
-        weights) launched on its own plan, against fused_mlp_plain."""
+        weights) launched on its own plan, against fused_mlp_plain; with
+        ``layout`` (a dict of ``MlpLayout`` fields), K2 launched at that
+        work split (``_launch_mlp``) instead of the picker's."""
         from quantized_vit_tpu_torch.ops import (fused_mlp_plain, plan_mlp,
                                                  plan_mlp_chunked, run_mlp,
                                                  run_mlp_chunked)
+        from quantized_vit_tpu_torch.ops.fused import _launch_mlp, mlp_layout
 
         rng = np.random.default_rng(seed)
         f32 = torch.float32
@@ -476,6 +490,10 @@ class Parity:
         if self.dev.type != "cuda":  # CPU rehearsal: the plain version
             got = fused_mlp_plain(x, w1, s1, b1, w2, s2, b2,
                                   out_dtype=stream, **kw)
+        elif layout is not None:
+            lay = dataclasses.replace(mlp_layout(m, k, hid), **layout)
+            got = _launch_mlp(plan_mlp(w1, s1, b1, w2, s2, b2, **kw), x, lay,
+                              out_dtype=stream)
         elif kernel == "fused_mlp":
             got = run_mlp(plan_mlp(w1, s1, b1, w2, s2, b2, **kw), x,
                           out_dtype=stream)
@@ -972,6 +990,21 @@ class Parity:
                 self.int_mm("quant_matmul_fa", f"small[{m}x{k}x{n}]({fmt})",
                             m, k, n, 654, fmt=fmt, x_dtype=f32, act_pow=True,
                             scalar=fmt == "int8", bias=fmt == "int4")
+        # float16 out, which the kernel writes as f32 and the wrapper
+        # casts (as the JAX wrappers cast)
+        f16 = torch.float16
+        for label, m, k, n in profile_shapes(cfg)[:1]:
+            tag = f"profile_{label}[{m}x{k}x{n}](float16)"
+            self.int_mm("int4_matmul", tag, m, k, n, 655, out_dtype=f16)
+            self.int_mm("int8_matmul", tag, m, k, n, 656, fmt="int8",
+                        out_dtype=f16)
+            self.int_mm("quant_matmul_fa", tag, m, k, n, 657, x_dtype=f32,
+                        act_pow=True, out_dtype=f16)
+        for m, k, n in ((33, 40, 24), (100, 250, 130)):
+            self.int_mm("int4_matmul", f"small[{m}x{k}x{n}](float16)", m, k,
+                        n, 658, out_dtype=f16)
+            self.int_mm("int8_matmul", f"small[{m}x{k}x{n}](float16)", m, k,
+                        n, 659, fmt="int8", out_dtype=f16)
 
     # -- K7 ---------------------------------------------------------------
 
@@ -1053,6 +1086,42 @@ class Parity:
         buf = randn((1 + 40 * 100,), 1.2)
         self.k7("small[40x100](x unaligned)", buf[1:].reshape(40, 100),
                 randn((40, 100), 1.0), 0.07, 1.1, 0.97)
+
+    def run_mlp_kernels(self, cfg):
+        """K2 at ViT-H/14's widths (K 1280, H 5120; batch 1 and 2: 272
+        and 544 rows) with int8, packed int4 and mixed int8/int4 weights,
+        which its first design refused; then at the ViT-B rows of batch
+        1, 2 and 32 (208, 416, 6656) at set work splits: both tiles of
+        each GEMM (ragged last row tiles at 208 and 416), fc2's tiles all
+        split, some whole and the rest split 2-5 ways, the LayerNorm
+        groups of 8 to 256 threads."""
+        vh = vit_h_cfg()
+        _, d, _, n_pad, hid, _ = vit_h_shapes(vh)
+        seed = 500
+        for b in (1, 2):
+            for f1, f2 in (("int8", "int8"), ("int4", "int4"),
+                           ("int8", "int4")):
+                seed += 1
+                self.k2(f"vit_h[{b * n_pad}x{d}x{hid}]({f1}/{f2})",
+                        b * n_pad, d, hid, f1, f2, seed % 2 == 0, seed)
+        bb, _, bd, _, bn_pad, _, bhid, _, _ = shapes(cfg)
+        # (LN threads, fc1 tile, fc2 tile, fc2 tiles whole, splits)
+        for m, lays in ((bn_pad, ((256, 64, 64, 0, 5), (256, 128, 128, 0, 3),
+                                  (8, 64, 64, 10, 2))),
+                        (2 * bn_pad, ((128, 64, 64, 0, 3),
+                                      (32, 128, 128, 4, 4))),
+                        (bb * bn_pad, ((8, 128, 128, 264, 5),
+                                       (16, 64, 64, 1000, 2)))):
+            for t, t1, t2, full, s in lays:
+                seed += 1
+                tiles2 = -(-m // t2) * -(-bd // t2)
+                full = min(full, tiles2)
+                self.k2(f"layout[{m}x{bd}x{bhid}](ln{t},t{t1}/{t2},"
+                        f"whole{full},S{s})", m, bd, bhid,
+                        "int8" if seed % 2 else "int4",
+                        "int8" if seed % 2 else "int4", seed % 3 == 0, seed,
+                        layout=dict(ln_threads=t, tile1=t1, tile2=t2,
+                                    full2=full, splits=s))
 
     def run_vit_h_kernels(self):
         """K8 against its plain version at ViT-H/14's MLP shapes (batch 1
@@ -1311,6 +1380,7 @@ class Parity:
                     fmt, False, 8, torch.float32)
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
         self.run_small_batch_kernels(cfg)
+        self.run_mlp_kernels(cfg)
         self.run_vit_h_kernels()
         self.run_heads_tiles()
         self.run_qkv_attn_tiles()
@@ -1516,17 +1586,25 @@ def forward_phase(dev, record):
                                                    4, torch.bfloat16)
     out["launches"]["block_vith14_f32_b4"] = limit_forward(
         dev, record, dict(VIT_H_KW, depth=2), "_vith14", 4, torch.float32)
+    # ViT-H/14 with packed int4 at batch 1-2: K2 at K = 1280
+    for bk in (1, 2):
+        out["launches"][f"chain_vith14_int4_b{bk}"] = limit_forward(
+            dev, record, dict(VIT_H_KW, depth=2), "_vith14", bk,
+            torch.bfloat16, pack=True)
     return out
 
 
-def limit_forward(dev, record, cfg_kw, name, batch, float_dtype):
+def limit_forward(dev, record, cfg_kw, name, batch, float_dtype,
+                  pack=False):
     """The forward of a configuration a first kernel refused (int8-stored
-    levels from seed 0), launches checked, logits against the plain path:
-    the 384-px ViT-B/16 (``B384_KW`` over the main configuration) at
-    batch 1 in f32 on the chain (K6 on 592 tokens at head_dim 64) and at
-    batch 4 in bf16 on the K3 route (592 tokens); ViT-H/14 at depth 2 in
-    f32 at batch 4 on the K3 route (272 tokens x head_dim 80 in f32). On
-    the K3 route the logits must equal the plain path's."""
+    levels from seed 0, or packed int4 with ``pack``), launches checked,
+    logits against the plain path: the 384-px ViT-B/16 (``B384_KW`` over
+    the main configuration) at batch 1 in f32 on the chain (K6 on 592
+    tokens at head_dim 64) and at batch 4 in bf16 on the K3 route (592
+    tokens); ViT-H/14 at depth 2 in f32 at batch 4 on the K3 route (272
+    tokens x head_dim 80 in f32), and with packed int4 at batch 1 and 2
+    in bf16 on the chain (K2 at K 1280). On the K3 route and with packed
+    int4 the logits must equal the plain path's."""
     from quantized_vit_tpu_torch.models import ViTConfig
     from quantized_vit_tpu_torch.serve import (prepare_kernels,
                                                random_vit_int4_artifact,
@@ -1535,7 +1613,7 @@ def limit_forward(dev, record, cfg_kw, name, batch, float_dtype):
     from quantized_vit_tpu_torch.utils import patchify_batch
 
     cfg = ViTConfig(**cfg_kw)
-    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=pack,
                                    device=dev)
     plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
     images = np.random.default_rng(6).standard_normal(
@@ -1544,17 +1622,19 @@ def limit_forward(dev, record, cfg_kw, name, batch, float_dtype):
     kw = dict(float_dtype=float_dtype, images_layout="patches")
     n_pad = -(-cfg.num_tokens // 16) * 16
     mlp = mlp_route(batch * n_pad, cfg.embed_dim,
-                    int(cfg.embed_dim * cfg.mlp_ratio), "int8",
+                    int(cfg.embed_dim * cfg.mlp_ratio),
+                    "int4" if pack else "int8",
                     itemsize=float_dtype.itemsize)
     route = "chain" if uses_chain(batch) else "block"
     dt = "f32" if float_dtype == torch.float32 else "bf16"
-    tag = f"{route}{name},{dt},int8-stored"
+    tag = f"{route}{name},{dt},{'int4-packed' if pack else 'int8-stored'}"
     launches = check_forward(
         record, dev, tag,
         lambda: vit_int4_forward(art, x, cfg, plan=plan, **kw),
         lambda: vit_int4_forward(art, x, cfg, use_kernels=False, **kw),
         expected_launches(cfg.depth, route, mlp), batch, cfg)
-    if route == "block" and not record["forward"][-1]["logits_equal"]:
+    if ((route == "block" or pack)
+            and not record["forward"][-1]["logits_equal"]):
         raise Failed(f"forward {tag} b{batch}: logits differ from the "
                      "plain path's")
     return launches
@@ -2268,7 +2348,8 @@ def timing_phase(dev, record, fwd, peaks):
                                              run_attention_heads,
                                              run_attention_qkv,
                                              run_block_stack, run_matmul,
-                                             run_mlp, vit_block_stack_plain)
+                                             run_mlp, run_mlp_chunked,
+                                             vit_block_stack_plain)
     from quantized_vit_tpu_torch.serve import (vit_int4_forward,
                                                vit_int4_forward_fsdp_rdma,
                                                vit_int4_forward_latency)
@@ -2370,6 +2451,13 @@ def timing_phase(dev, record, fwd, peaks):
             x2, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
             fc2_e.bias, **mlp_kw),
     }
+    # K2 at the chain's batch 1, K8 on the same int8 weights at batch 32,
+    # 2 and 1 (the same function: the plain version is K2's)
+    plain["mlp_b1"] = lambda: fused_mlp_plain(
+        x1, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+        fc2_e.bias, **mlp_kw)
+    for bk, site in ((b, "mlp"), (2, "mlp_b2"), (1, "mlp_b1")):
+        plain[f"mlp_k8_b{bk}"] = plain[site]
     plan = fwd["plan"]
     if plan is not None:
         attn_p, mlp_p = plan.blocks[0][0], plan.blocks[0][1].resident
@@ -2400,7 +2488,12 @@ def timing_phase(dev, record, fwd, peaks):
             "chain_qkv_b2": lambda: run_matmul(plan.chain[0][0], x2,
                                                out_dtype=bf16),
             "mlp_b2": lambda: run_mlp(mlp_p, x2, out_dtype=bf16),
+            "mlp_b1": lambda: run_mlp(mlp_p, x1, out_dtype=bf16),
         }
+        k8_p = plan.blocks[0][1].chunked
+        for bk, xm in ((b, xs), (2, x2), (1, x1)):
+            kern[f"mlp_k8_b{bk}"] = (
+                lambda xm=xm: run_mlp_chunked(k8_p, xm, out_dtype=bf16))
     else:
         kern = {
             "patch_embed": lambda: fused_quant_matmul(
@@ -2433,6 +2526,8 @@ def timing_phase(dev, record, fwd, peaks):
                 x2, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
                 fc2_e.bias, **mlp_kw),
         }
+        for site in ("mlp_b1", f"mlp_k8_b{b}", "mlp_k8_b2", "mlp_k8_b1"):
+            kern[site] = plain[site]
     kern["embed"] = lambda: patch_finalize(acc, pos, cls, one, n_pad=n_pad,
                                            out_dtype=bf16)
 
@@ -2486,6 +2581,16 @@ def timing_phase(dev, record, fwd, peaks):
          bound(2 * 2 * n_pad * d * 2 + 2 * d * hid * w1b,
                4 * 2 * n_pad * d * hid),
          [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
+        ("fused_mlp", "mlp_b1", 0,
+         bound(2 * n_pad * d * 2 + 2 * d * hid * w1b, 4 * n_pad * d * hid),
+         [(n_pad, d, hid), (n_pad, hid, d)], None),
+        # K8 on the same int8 weights at batch 32, 2, 1 (ViT-B's chain at
+        # batch 3 runs it: 0 launches here)
+        *[("fused_mlp_chunked", f"mlp_k8_b{bk}", 0,
+           bound(2 * bk * n_pad * d * 2 + 2 * d * hid,
+                 4 * bk * n_pad * d * hid),
+           [(bk * n_pad, d, hid), (bk * n_pad, hid, d)], None)
+          for bk in (b, 2, 1)],
         # K5 on the latency forward: one launch, all the depth
         ("block_stack", "stack_b1", 1,
          bound(cfg.depth * w_blk * wpk + 2 * n_pad * d * 2,
@@ -2517,7 +2622,8 @@ def timing_phase(dev, record, fwd, peaks):
                          "int_mm_us": None if ims is None else ims * 1e3,
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
-        if name in ("flash_attention", "attention_qkv", "attention_block"):
+        if name in ("flash_attention", "attention_qkv", "attention_block",
+                    "fused_mlp", "fused_mlp_chunked"):
             # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)
@@ -3020,7 +3126,9 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                                              fused_quant_matmul_plain,
                                              run_attention_heads,
                                              run_attention_qkv, run_matmul,
-                                             run_mlp_chunked)
+                                             run_mlp, run_mlp_chunked)
+    from quantized_vit_tpu_torch.ops.fused import plan_mlp
+    from quantized_vit_tpu_torch.quant import pack_int4
     from quantized_vit_tpu_torch.serve.vit_int4 import (_attention_layer,
                                                         _mlp_layer)
 
@@ -3058,6 +3166,16 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
             xs[:m], e["fc1"].w, e["fc1"].scale, e["fc1"].bias, e["fc2"].w,
             e["fc2"].scale, e["fc2"].bias, **mlp_kw)
 
+    # K2 on block 0's weights packed to int4 (the packed artifact's
+    # format), which its first design refused at K = 1280
+    w4 = [pack_int4(e[k].w, axis=0) for k in ("fc1", "fc2")]
+    mlp4_kw = dict(mlp_kw, fmt="int4", fmt2="int4")
+    for bk in (1, 2):
+        plain[f"vith_mlp_int4_b{bk}"] = (
+            lambda m=bk * n_pad: fused_mlp_plain(
+                xs[:m], w4[0], e["fc1"].scale, e["fc1"].bias, w4[1],
+                e["fc2"].scale, e["fc2"].bias, **mlp4_kw))
+
     plain.update({
         "vith_mlp_b1": mlp_plain(n_pad), "vith_mlp_b2": mlp_plain(2 * n_pad),
         "vith_patch_embed_b32": lambda: fused_quant_matmul_plain(
@@ -3086,6 +3204,13 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
         kern.update({k: plain[k] for k in plain if k.startswith("vith_")})
     else:
         attn_p, mlps = plan.blocks[0]
+        p4 = plan_mlp(w4[0], e["fc1"].scale, e["fc1"].bias, w4[1],
+                      e["fc2"].scale, e["fc2"].bias,
+                      **{k: v for k, v in mlp4_kw.items()
+                         if k != "out_dtype"})
+        for bk in (1, 2):
+            kern[f"vith_mlp_int4_b{bk}"] = (
+                lambda m=bk * n_pad: run_mlp(p4, xs[:m], out_dtype=bf16))
         kern.update({
             "vith_mlp_b1": lambda: run_mlp_chunked(mlps.chunked, xs[:n_pad],
                                                    out_dtype=bf16),
@@ -3112,10 +3237,14 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                       for bk in (1, 2)})
     fp64_flop["vith_heads_b32"] = bb * attn_ops
 
-    def mlp_bound(m):
-        return bound(2 * m * d * 2 + 2 * d * hid, 4 * m * d * hid)
+    def mlp_bound(m, wbytes=1):
+        return bound(2 * m * d * 2 + 2 * d * hid * wbytes, 4 * m * d * hid)
 
     return [
+        ("fused_mlp", "vith_mlp_int4_b1", 0, mlp_bound(n_pad, 0.5),
+         [(n_pad, d, hid), (n_pad, hid, d)], None),
+        ("fused_mlp", "vith_mlp_int4_b2", 0, mlp_bound(2 * n_pad, 0.5),
+         [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
         ("fused_mlp_chunked", "vith_mlp_b1", cfg.depth, mlp_bound(n_pad),
          [(n_pad, d, hid), (n_pad, hid, d)], None),
         ("fused_mlp_chunked", "vith_mlp_b2", 0, mlp_bound(2 * n_pad),

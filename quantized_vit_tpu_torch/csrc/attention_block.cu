@@ -15,8 +15,9 @@
 //      [M, Dp] (Dp = D rounded up to 64, zero past D; 5.1 MB at ViT-B/16
 //      batch 32). The first design redid both in every head's block (12
 //      times at ViT-B).
-//   2. The qkv GEMM on the int8 tensor cores: 128 x 128 output tiles over
-//      the blocks, 128-deep k steps through a three-stage cp.async ring
+//   2. The qkv GEMM on the int8 tensor cores (int8_gemm.cuh's tile,
+//      shared with K2): 128 x 128 output tiles over the blocks, 128-deep
+//      k steps through a three-stage cp.async ring
 //      (levels and the n-major weight of the layer's plan, both as raw
 //      16-byte pieces; packed int4 pieces land as they are and each B
 //      fragment is unpacked in registers as it loads), fragments by
@@ -51,6 +52,7 @@
 
 #include <algorithm>
 
+#include "int8_gemm.cuh"
 #include "qkv_attention.cuh"
 
 namespace cg = cooperative_groups;
@@ -58,13 +60,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = qvt::QA_NT, NW = qvt::QA_NW;
-// the GEMM: BM x BN tiles, BK-deep steps, ST stages of row stride SK
-// bytes (BK + 16: the 8 rows of an ldmatrix fall in distinct banks); warps
-// 2 x 4 of WM x WN
-constexpr int BM = 128, BN = 128, BK = 128, SK = BK + 16, ST = 3;
+// the GEMM (int8_gemm.cuh): BM x BN tiles of BK-deep steps; warps 2 x 4
+// of WM x WN
+constexpr int BM = 128, BN = 128, BK = qvt::GT_BK;
 constexpr int WM = 64, WN = 32, TM = WM / 16, TN = WN / 8;
-constexpr int GEMM_SMEM = ST * (BM + BN) * SK;
-static_assert(NW == (BM / WM) * (BN / WN), "the GEMM's warps");
+constexpr int GEMM_SMEM = qvt::gemm_ring_bytes(BM, BN);
 
 // dynamic shared memory at R query rows, head bound HDM, qkv dtype of es
 // bytes (mirrored by ops/attention.py:heads_smem_bytes)
@@ -97,21 +97,6 @@ struct Args {
   float act_top, out_top, eps;
   bool x_vec, w_vec, out_vec;
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// element e of a 16-byte piece of bf16 (8) or f32 (4) values
-__device__ __forceinline__ float piece_at(const uint4& u, bool bf, int e) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  if (!bf) return __uint_as_float(w[e]);
-  return __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u : w[e >> 1] << 16);
-}
 
 // Phase 1: the int8 levels of quant(LN(x)) into a.lv. The statistics are
 // qvt::ln_stats' (f64 sums of x and of x*x taken in f32, rounded once;
@@ -183,7 +168,7 @@ __device__ __forceinline__ void ln_quant_rows(const Args& a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if (e >= epp) break;
-        const float v = piece_at(u, bf, e);
+        const float v = qvt::piece_at(u, bf, e);
         s += static_cast<double>(v);
         s2 += static_cast<double>(v * v);
       }
@@ -211,7 +196,7 @@ __device__ __forceinline__ void ln_quant_rows(const Args& a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if (e >= epp) break;
-        w[e >> 2] |= level(piece_at(u, bf, e), mu, rs, gv[e], bv[e])
+        w[e >> 2] |= level(qvt::piece_at(u, bf, e), mu, rs, gv[e], bv[e])
                      << (8 * (e & 3));
       }
       if (bf)
@@ -233,108 +218,23 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float y0,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(y0, y1);
 }
 
-// Phase 2: q/k/v = levels @ Wqkv * qs (+ qb), rounded to T, into a.qkv.
+// Phase 2: q/k/v = levels @ Wqkv * qs (+ qb), rounded to T, into a.qkv:
+// int8_gemm.cuh's tile over the 128 x 128 output tiles.
 template <typename T>
 __device__ __forceinline__ void qkv_gemm(const Args& a, int8_t* smem) {
-  const int M = a.B * a.n, N = 3 * a.heads * a.hd, K = a.wq.K;
-  const int nkt = (a.Dp + BK - 1) / BK, kh = K >> 1;
+  const int M = a.B * a.n, N = 3 * a.heads * a.hd;
+  const int nkt = (a.Dp + BK - 1) / BK;
   const int tiles_n = (N + BN - 1) / BN;
   const int tiles = (M + BM - 1) / BM * tiles_n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / (BN / WN) * WM, wn = warp % (BN / WN) * WN;
-  // packed int4 pieces land raw: their nibbles are taken per fragment
-  const bool unpack = a.wq.int4 && a.w_vec;
-  int8_t* As = smem;
-  int8_t* Bs = smem + ST * BM * SK;
   T* qkv = static_cast<T*>(a.qkv);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
-    // k step kt's A and B tiles into stage kt % ST: one commit group
-    // (empty past the last step)
-    auto load = [&](int kt) {
-      if (kt < nkt) {
-        const int k0 = kt * BK;
-        int8_t* as = As + (kt % ST) * BM * SK;
-        int8_t* bs = Bs + (kt % ST) * BN * SK;
-        for (int p = threadIdx.x; p < BM * BK / 16; p += NT) {
-          const int r = p / (BK / 16), c = p % (BK / 16) * 16;
-          const bool ok = row0 + r < M && k0 + c < a.Dp;
-          qvt::cp_async16(as + r * SK + c,
-                          ok ? a.lv + static_cast<long long>(row0 + r) *
-                                          a.Dp + k0 + c
-                             : a.lv,
-                          ok);
-        }
-        if (a.w_vec) {
-          for (int p = threadIdx.x; p < BN * BK / 16; p += NT) {
-            const int r = p / (BK / 16), c = p % (BK / 16) * 16;
-            const int nn = col0 + r, k = k0 + c;
-            const bool ok = nn < N && k < K;
-            const int8_t* src = a.wq.wt;
-            if (ok)
-              src += a.wq.int4 ? static_cast<long long>(nn) * kh +
-                                     (k < kh ? k : k - kh)
-                               : static_cast<long long>(nn) * K + k;
-            qvt::cp_async16(bs + r * SK + c, src, ok);
-          }
-        } else {  // off the 16-byte path: levels, unpacked, byte by byte
-          for (int e = threadIdx.x; e < BN * BK; e += NT) {
-            const int r = e / BK, c = e - r * BK;
-            bs[r * SK + c] = a.wq.at(k0 + c, col0 + r);
-          }
-        }
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-    };
     int acc[TM][TN][4];
-    qvt::zero_acc(acc);
-    for (int s = 0; s < ST - 1; ++s) load(s);
-    for (int kt = 0; kt < nkt; ++kt) {
-      // step kt has landed; every warp is past step kt - 1, whose stage
-      // takes step kt + ST - 1
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 2));
-      __syncthreads();
-      load(kt + ST - 1);
-      const int8_t* as = As + (kt % ST) * BM * SK;
-      const int8_t* bs = Bs + (kt % ST) * BN * SK;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 32) {
-        uint32_t af[TM][4], bf[TN][2];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          ldsm_x4(af[i], as + (wm + 16 * i + (lane & 7) +
-                               ((lane >> 3) & 1) * 8) * SK +
-                             kk + (lane >> 4) * 16);
-#pragma unroll
-        for (int jp = 0; jp < TN / 2; ++jp) {
-          uint32_t r4[4];
-          ldsm_x4(r4, bs + (wn + 16 * jp + (lane >> 4) * 8 + (lane & 7)) *
-                               SK +
-                           kk + ((lane >> 3) & 1) * 16);
-          bf[2 * jp][0] = r4[0];
-          bf[2 * jp][1] = r4[1];
-          bf[2 * jp + 1][0] = r4[2];
-          bf[2 * jp + 1][1] = r4[3];
-        }
-        if (unpack) {  // this lane's bytes are k .. k + 3 and k + 16 ..
-          const int k = kt * BK + kk + 4 * t;
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            bf[j][0] = qvt::nibbles(bf[j][0], k >= kh);
-            bf[j][1] = qvt::nibbles(bf[j][1], k + 16 >= kh);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            qvt::mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
-                        bf[j][0], bf[j][1]);
-      }
-    }
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();  // the next tile's loads reuse every stage
+    qvt::gemm_tile<BM, BN, WM, WN, NT>(acc, a.lv, a.Dp, M, a.wq, a.w_vec,
+                                       row0, col0, 0, nkt, smem);
     // dequant + bias, rounded to T: columns 2t, 2t + 1 of each n8 tile
     // (N is a multiple of 8)
 #pragma unroll

@@ -1,6 +1,6 @@
-// K2's MLP row block, shared by K2 (fused_mlp.cu) and K15
-// (ring_gather.cu), as attention_core.cuh is shared by the attention
-// kernels: one 32-row block of
+// The MLP row block of K2's first design, now K15's alone
+// (ring_gather.cu; K2 itself, fused_mlp.cu, runs in three phases since
+// its redesign and computes the same bits): one 32-row block of
 //   out = x + fc2(quant(GELU(fc1(quant(LN(x))))))
 // as quantized_vit_tpu/ops/fused.py:_fused_mlp_kernel computes it.
 //

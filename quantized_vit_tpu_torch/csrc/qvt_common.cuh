@@ -26,6 +26,13 @@ __device__ __forceinline__ float load_f(const void* p, int dt, long long i) {
   return static_cast<float>(static_cast<const int8_t*>(p)[i]);
 }
 
+// element e of a 16-byte piece of bf16 (8) or f32 (4) values
+__device__ __forceinline__ float piece_at(const uint4& u, bool bf, int e) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if (!bf) return __uint_as_float(w[e]);
+  return __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u : w[e >> 1] << 16);
+}
+
 __device__ __forceinline__ void store_f(void* p, int dt, long long i,
                                         float v) {
   if (dt == DT_F32)
@@ -76,13 +83,19 @@ __device__ __forceinline__ float gelu(float x) {
   return x * 0.5f * (1.0f + erf_poly(x * 0.70710678118654752f));
 }
 
+// gelu_quant_folded at c2 = 0.70710678118654757f / d, divided once by a
+// caller that quantizes many values with one d
+__device__ __forceinline__ int8_t gelu_quant_folded_c2(float z, float c2,
+                                                       float top) {
+  float e = erf_poly(z);
+  float w = z * c2;
+  return clip_round(w + w * e, top);
+}
+
 // fused.py:_gelu_quant_folded: levels of GELU(y)/d from z = y/sqrt(2)
 __device__ __forceinline__ int8_t gelu_quant_folded(float z, float d,
                                                     float top) {
-  float e = erf_poly(z);
-  float c2 = 0.70710678118654757f / d;
-  float w = z * c2;
-  return clip_round(w + w * e, top);
+  return gelu_quant_folded_c2(z, 0.70710678118654757f / d, top);
 }
 
 // four packed nibbles (one per byte, in the low half) sign-extended to

@@ -19,8 +19,9 @@
 // a host barrier before the launch, and again after it before anyone
 // reads the gathered buffers).
 //
-// K15 is one launch whose first row_blocks(M) blocks run K2's MLP row
-// blocks (fused_mlp_core.cuh, the same code as K2, so the same bits) and
+// K15 is one launch whose first row_blocks(M) blocks run MLP row blocks
+// (fused_mlp_core.cuh, K2's first design; K2 itself, fused_mlp.cu, now
+// computes the same bits in three phases) and
 // whose last blocks run the copy jobs of the next block's shards. Blocks
 // start in index order, so the copy blocks take the SMs the MLP's last
 // wave leaves idle (at ViT-B batch 32: 208 row blocks, one per SM, on 132
@@ -29,7 +30,9 @@
 // Bounds on this card: K14 moves its bytes twice (read + write): ViT-B's
 // four int8 block weights, 7.08 MB, take >= 4.2 us at 3.35 TB/s. K15 is
 // bounded by K2's operations (31.7 us at ViT-B batch 32); its copy is
-// ~0.5% of that.
+// ~0.5% of that. The row blocks keep an fc2 accumulator [32, K] in
+// registers, so K15 takes K <= 1024 (ops/ring_gather.py:
+// mlp_gather_kernel_limit).
 
 #include "fused_mlp_core.cuh"
 

@@ -19,8 +19,10 @@ Kernels:
   (``pallas_call`` at fused.py:556). Plain version:
   :func:`fused_quant_matmul_plain` (port of ``fused_quant_matmul_xla``).
 - :func:`run_mlp` (K2, ``csrc/fused_mlp.cu``) replaces
-  ``ops/fused.py:_fused_mlp`` (``pallas_call`` at fused.py:977), with the
-  hidden-chunk structure of ``_fused_mlp_chunked_kernel``.
+  ``ops/fused.py:_fused_mlp`` (``pallas_call`` at fused.py:977): one
+  cooperative launch of LayerNorm + quant once a row, then fc1 and fc2 on
+  the int8 tensor cores through a hidden-level scratch, at the work split
+  of :func:`mlp_layout`; any width.
 - :func:`run_mlp_chunked` (K8, ``csrc/fused_mlp_chunked.cu``) replaces
   ``ops/fused.py:_fused_mlp_chunked`` (``pallas_call`` at fused.py:1065):
   the same function for int8 weights too big to stay resident (ViT-H),
@@ -44,6 +46,7 @@ package's [K, N] layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -418,18 +421,8 @@ def fused_quant_matmul(
 # ---------------------------------------------------------------------------
 
 
-# the fc2 accumulator [32, K] of a block lives in registers
-MLP_MAX_K = 1024
 # K8's 16 warps keep K/16 fc2 columns each in registers
 MLP_CHUNKED_MAX_K = 1280
-
-
-def mlp_kernel_limit(k: int) -> Optional[str]:
-    """Why K2 cannot take model width ``k``, or None if it can."""
-    if k > MLP_MAX_K:
-        return (f"fused_mlp kernel: width K={k} > {MLP_MAX_K} (its fc2 "
-                "accumulator row block lives in registers)")
-    return None
 
 
 def mlp_chunked_kernel_limit(k: int, fmt: str = "int8",
@@ -520,6 +513,137 @@ def mlp_auto_hid_block(m: int, k: int, hid: int, fmt: str = "int8",
     return None
 
 
+# csrc/fused_mlp.cu (K2): its GEMM tiles (rows = columns), large then
+# small, their k step, its threads a block, the threads a LayerNorm row
+# may take, and the blocks of its grid an SM (it launches at most two)
+MLP_TILES = (128, 64)
+MLP_BK = 128
+MLP_THREADS = 256
+MLP_LN_GROUPS = (8, 16, 32, 64, 128, 256)
+MLP_BLOCKS_PER_SM = 2
+_H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpLayout:
+    """K2's work split for M rows at widths K and H (:func:`mlp_layout`):
+    threads a LayerNorm row, fc1's and fc2's output tiles (``tile1``,
+    ``tile2`` rows and columns), fc2's tiles taken whole (``full2``, the
+    first ones) and the splits of the hidden depth of each other fc2
+    tile. Its methods enumerate each phase's work items in the kernel's
+    order (``csrc/fused_mlp.cu``) and size its scratch."""
+
+    m: int
+    k: int
+    hid: int
+    ln_threads: int
+    tile1: int
+    tile2: int
+    full2: int
+    splits: int
+
+    @property
+    def kp(self) -> int:
+        """The level scratch's row: K rounded up to 64."""
+        return _round_up(self.k, 64)
+
+    @property
+    def hp(self) -> int:
+        """The hidden scratch's row: H rounded up to 64."""
+        return _round_up(self.hid, 64)
+
+    @property
+    def ln_items(self) -> int:
+        """Phase 1's work items: groups of ``MLP_THREADS / ln_threads``
+        rows, one a block at a time."""
+        return _cdiv(self.m, MLP_THREADS // self.ln_threads)
+
+    @property
+    def fc2_tiles(self) -> int:
+        return _cdiv(self.m, self.tile2) * _cdiv(self.k, self.tile2)
+
+    @property
+    def split_tiles(self) -> int:
+        """fc2's tiles taken in ``splits`` pieces (none when 1)."""
+        return 0 if self.splits == 1 else self.fc2_tiles - self.full2
+
+    def fc1_tiles(self):
+        """Phase 2's items: (row0, col0) of each tile1 x tile1 tile of the
+        [M, H] hidden levels."""
+        tn = _cdiv(self.hid, self.tile1)
+        return [(t // tn * self.tile1, t % tn * self.tile1)
+                for t in range(_cdiv(self.m, self.tile1) * tn)]
+
+    def fc2_items(self):
+        """Phase 3's items: (row0, col0, first, end) of each tile2 x tile2
+        output tile taken whole, then of each split of the others, over
+        the 128-deep steps [first, end) of the hidden depth."""
+        t2, s = self.tile2, self.splits
+        tn, nkt = _cdiv(self.k, t2), _cdiv(self.hp, MLP_BK)
+        whole = [(t, 0, nkt) for t in range(self.full2)]
+        split = [(t, p * nkt // s, (p + 1) * nkt // s)
+                 for t in range(self.full2, self.fc2_tiles)
+                 for p in range(s)]
+        return [(t // tn * t2, t % tn * t2, first, end)
+                for t, first, end in whole + split]
+
+    def scratch_bytes(self):
+        """Bytes of each scratch: the levels [M, Kp] int8, the hidden
+        levels [M, Hp] int8, fc2's int32 partial tiles (one a split) and
+        its arrival counts (one a split tile)."""
+        n = self.split_tiles
+        return {"levels": self.m * self.kp, "hidden": self.m * self.hp,
+                "partials": 4 * n * self.splits * self.tile2**2,
+                "counts": 4 * n}
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_layout(m: int, k: int, hid: int, itemsize: int = 2,
+               sms: int = _H100_SMS) -> MlpLayout:
+    """K2's work split at ``m`` rows of widths ``k`` (model) and ``hid``
+    (hidden), x of ``itemsize`` bytes, on a card of ``sms`` SMs, whose
+    grid holds ``MLP_BLOCKS_PER_SM * sms`` blocks:
+
+    - LayerNorm: the fewest threads a row, at most 12 16-byte pieces
+      each (8, 16 or 32, K3's rule), whose row groups still give every SM
+      one; else a block a row.
+    - fc2: the 128 x 128 tile where its tiles fill the grid once, else
+      64 x 64.
+    - fc1: the 128 x 128 tile where its tiles give every SM one or fc2
+      takes it (the kernel builds no small-fc1, large-fc2 pair), else 64
+      x 64.
+    - fc2 again: whole waves of tiles run whole; the tiles left over split
+      their hidden depth into as many pieces as fill one more wave (at
+      most its 128-deep steps), so no block runs a second whole tile
+      while others idle.
+
+    At ViT-B/16 batch 32 (6656 rows): 8 threads a row, both GEMMs in 128 x
+    128 tiles, 264 of fc2's 312 tiles whole and 48 split 5 ways; at batch
+    1 and 2 (208, 416 rows) 64 x 64 tiles, each fc2 tile split 5 and 3
+    ways; at ViT-H/14 batch 1 and 2 (272, 544 rows) 2 ways and none."""
+    slots = MLP_BLOCKS_PER_SM * sms
+    pieces = _cdiv(k * itemsize, 16)
+    least = 8 if pieces <= 96 else 16 if pieces <= 192 else 32
+    ln = next((t for t in MLP_LN_GROUPS if t >= least
+               and _cdiv(m, MLP_THREADS // t) >= sms), MLP_LN_GROUPS[-1])
+
+    def tiles(t, n):
+        return _cdiv(m, t) * _cdiv(n, t)
+
+    big, small = MLP_TILES
+    t2 = big if tiles(big, k) >= slots else small
+    t1 = big if t2 == big or tiles(big, hid) >= sms else small
+    n2, nkt = tiles(t2, k), _cdiv(_round_up(hid, 64), MLP_BK)
+    rest = n2 % slots
+    splits = max(1, min(nkt, slots // rest)) if rest else 1
+    full = n2 - rest if splits > 1 else n2
+    return MlpLayout(m, k, hid, ln, t1, t2, full, splits)
+
+
 def _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top):
     """(K, hidden) of the MLP's weights, checked against each other."""
     for name, v in (("act_top", act_top), ("hid_top", hid_top)):
@@ -593,13 +717,13 @@ def _plan_mlp(name, limit, w1, scale1, bias1, w2, scale2, bias2, *,
               ln_scale, ln_bias, ln_eps, act_d, act_t, act_top, act_pow,
               hid_d, hid_t, hid_top, hid_pow, fmt, fmt2, w1_t,
               w2_t) -> MlpPlan:
-    """The layer-side work of K2 and K8 (``limit``: the kernel's width
-    limit of :func:`mlp_kernel_limit` or :func:`mlp_chunked_kernel_limit`)."""
+    """The layer-side work of K2 and K8 (``limit``: K8's width limit,
+    :func:`mlp_chunked_kernel_limit`; None for K2, which has none)."""
     fmt2 = fmt2 or fmt
     k, hid = _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top)
     if fmt2 == "int4" and hid % 2:
         raise ValueError("packed int4 w2 needs an even hidden width")
-    err = limit(k)
+    err = limit and limit(k)
     if err:
         raise ValueError(err)
     _build.require_cuda(name, w1, w2)
@@ -635,7 +759,7 @@ def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
     :func:`fused_mlp`; the weights must lie on a CUDA device. ``w1_t`` /
     ``w2_t``: the weights already in the kernels' layout (another plan's
     copies, shared instead of copied again)."""
-    return _plan_mlp("fused_mlp", mlp_kernel_limit, w1, scale1, bias1, w2,
+    return _plan_mlp("fused_mlp", None, w1, scale1, bias1, w2,
                      scale2, bias2, ln_scale=ln_scale, ln_bias=ln_bias,
                      ln_eps=ln_eps, act_d=act_d, act_t=act_t,
                      act_top=act_top, act_pow=act_pow, hid_d=hid_d,
@@ -660,28 +784,58 @@ def plan_mlp_chunked(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
 
 
 def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
-    """Launches K2 on ``x`` [M, K] for a prepared MLP: the only place
-    that launches it."""
+    """Launches K2 on ``x`` [M, K] for a prepared MLP at the work split
+    :func:`mlp_layout` picks for the card: the only place that launches
+    it."""
+    from .attention import _card_shape  # attention.py imports this module
+
     _build.require_cuda("fused_mlp", x)
+    layout = mlp_layout(_mlp_input(x, plan.k), plan.k, plan.hid,
+                        x.element_size(), _card_shape(x.device.index)[0])
+    return _launch_mlp(plan, x, layout, out_dtype=out_dtype)
+
+
+def _mlp_library():
+    """K2's library, its entry point's C signature set on first use."""
+    lib = _build.library("fused_mlp")
+    if lib.qvt_fused_mlp.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_fused_mlp.argtypes = ([P, I, P, I, P, P, P, I] + [P] * 10
+                                      + [I] * 15 + [F, P])
+        lib.qvt_fused_mlp.restype = I
+    return lib
+
+
+def _launch_mlp(plan: MlpPlan, x, layout: MlpLayout, *,
+                out_dtype=torch.bfloat16):
+    """K2 at ``layout`` on a checked CUDA ``x``: its scratch (one byte
+    buffer holding the levels, the hidden levels and, with a split, fc2's
+    partial tiles and arrival counts: :meth:`MlpLayout.scratch_bytes`,
+    each part 16-byte aligned) and the launch itself, counted under
+    ``fused_mlp``. ``chip_smoke.py`` calls it at layouts other than the
+    picker's."""
     m = _mlp_input(x, plan.k)
     x = x.contiguous()
     out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    fn = _build.library("fused_mlp").qvt_fused_mlp
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, P, P, I, P, P, P, P, P, P, I,
-                   I, I, I, I, I, I, I, F, P]
-    fn.restype = I
-    code = fn(
+    sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
+    scratch = torch.empty((sum(sizes),), dtype=torch.uint8, device=x.device)
+    lv, hid, part, cnt = (scratch.data_ptr() + sum(sizes[:i])
+                          for i in range(4))
+    if layout.splits == 1:
+        part = cnt = None
+    code = _mlp_library().qvt_fused_mlp(
         x.data_ptr(), _build.dtype_code(x.dtype),
         plan.w1_t.data_ptr(), int(plan.int4_1), plan.scale1.data_ptr(),
         plan.bias1.data_ptr(), plan.w2_t.data_ptr(), int(plan.int4_2),
         plan.scale2.data_ptr(), plan.bias2.data_ptr(),
         plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
-        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
-        m, plan.k, plan.hid, int(plan.act_pow), int(plan.hid_pow),
-        plan.act_top, plan.hid_top, plan.ln_eps, _build.stream())
+        plan.prm.data_ptr(), lv, hid, part, cnt, out.data_ptr(),
+        _build.dtype_code(out.dtype), m, plan.k, plan.hid, layout.kp,
+        layout.hp, layout.ln_threads, layout.tile1, layout.tile2,
+        layout.full2, layout.splits, int(plan.act_pow), int(plan.hid_pow), plan.act_top,
+        plan.hid_top, plan.ln_eps, _build.stream())
     _build.check(code, "fused_mlp")
     _build.count_launch("fused_mlp")
     return out

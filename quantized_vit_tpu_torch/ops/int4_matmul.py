@@ -204,17 +204,17 @@ def run_int_matmul(plan: IntMatmulPlan, x, *, out_dtype=torch.float32,
         raise TypeError(f"{name}: x of dtype {x.dtype} does not fit this "
                         "site (int8 levels, or a float x for "
                         "quant_matmul_fa)")
-    if requant_top is None and out_dtype not in (torch.float32,
-                                                 torch.bfloat16):
-        raise TypeError(f"{name}: the CUDA kernel writes f32 or bf16, or "
-                        f"int8 with requant_top; got {out_dtype}")
+    # the kernel writes f32, bf16 or requantized int8; any other dtype is
+    # its f32 output cast, as the JAX wrappers cast (int4_matmul.py:104,
+    # :296)
+    kernel_dtype = (torch.int8 if requant_top is not None else out_dtype
+                    if out_dtype in (torch.float32, torch.bfloat16)
+                    else torch.float32)
     m = x.shape[0]
     x = x.contiguous()
-    out = torch.empty((m, plan.n), device=x.device,
-                      dtype=torch.int8 if requant_top is not None
-                      else out_dtype)
+    out = torch.empty((m, plan.n), device=x.device, dtype=kernel_dtype)
     if out.numel() == 0:
-        return out
+        return out if requant_top is not None else out.to(out_dtype)
     fn = _build.library("int_matmul").qvt_int_matmul
     P, I = _build.P, _build.I
     fn.argtypes = [P, I, P, I, P, P, P, P, P, I, I, I, I, I, I, I, P]
@@ -228,7 +228,7 @@ def run_int_matmul(plan: IntMatmulPlan, x, *, out_dtype=torch.float32,
         _build.stream())
     _build.check(code, name)
     _build.count_launch(name)
-    return out
+    return out if requant_top is not None else out.to(out_dtype)
 
 
 def int4_matmul(x_levels, w_packed, scale, bias=None, *, block_m=None,

@@ -43,7 +43,7 @@ import torch
 
 from . import _build
 from .fused import (MlpPlan, _mlp_auto_stripes, _mlp_input, _mlp_shapes,
-                    fused_mlp_plain, mlp_kernel_limit, plan_mlp)
+                    fused_mlp_plain, plan_mlp)
 
 # csrc/ring_gather.cu: copy jobs a launch takes (shards x destinations)
 MAX_JOBS = 64
@@ -213,12 +213,17 @@ def gather_rows(shards: Sequence[torch.Tensor], *, peers=None):
 # ---------------------------------------------------------------------------
 
 
+# csrc/fused_mlp_core.cuh (K15's MLP row blocks, K2's first design): the
+# fc2 accumulator [32, K] of a block lives in registers
+MLP_GATHER_MAX_K = 1024
+
+
 def mlp_gather_kernel_limit(k: int) -> Optional[str]:
-    """Why K15 cannot take model width ``k`` (K2's limit: its MLP row
-    blocks are K2's), or None if it can."""
-    err = mlp_kernel_limit(k)
-    return err and err.replace("fused_mlp kernel", "fused_mlp_gather "
-                               "kernel (K2's MLP blocks)")
+    """Why K15 cannot take model width ``k``, or None if it can."""
+    if k > MLP_GATHER_MAX_K:
+        return (f"fused_mlp_gather kernel: width K={k} > {MLP_GATHER_MAX_K}"
+                " (its fc2 accumulator row block lives in registers)")
+    return None
 
 
 def _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
@@ -332,10 +337,10 @@ def fused_mlp_gather(x, w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
         return fused_mlp_gather_plain(x, w1, scale1, bias1, w2, scale2,
                                       bias2, next_shards=shards, peers=peers,
                                       out_dtype=out_dtype, **layer)
-    _build.require_cuda("fused_mlp_gather", x)
     err = mlp_gather_kernel_limit(k)
     if err:
         raise ValueError(err)
+    _build.require_cuda("fused_mlp_gather", x)
     plan = plan_mlp(w1, scale1, bias1, w2, scale2, bias2, **layer)
     gather = plan_gather_rows(shards, peers=peers) if shards else None
     return run_mlp_gather(plan, gather, x, out_dtype=out_dtype)

@@ -59,8 +59,7 @@ from ..ops import _build
 from ..ops.fused import (BIG_WEIGHT_BM, MatmulPlan, MlpPlan, fold_gelu,
                          fold_ln, fused_mlp_plain, fused_mlp_resident_bm,
                          fused_quant_matmul_plain, mlp_auto_hid_block,
-                         mlp_chunked_kernel_limit, mlp_kernel_limit,
-                         plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
+                         mlp_chunked_kernel_limit, plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
                          run_mlp, run_mlp_chunked)
 from ..ops.patch import patch_finalize, patch_finalize_plain
 from ..ops.ring_gather import mlp_gather_kernel_limit
@@ -262,12 +261,11 @@ def mlp_route(m: int, k: int, hid: int, fmt: str, fmt2: Optional[str] = None,
 @dataclasses.dataclass(frozen=True)
 class MlpPlans:
     """One block's MLP, prepared for each route of :func:`mlp_route`, all
-    on one n-major copy of each weight: K2 (None past its width limit),
-    K8 (None unless both weights are int8 and K8 takes the width), and
+    on one n-major copy of each weight: K2, K8 (None unless both weights are int8 and K8 takes the width), and
     the chain's two K1 launches (fc1 with the LayerNorm + quant prologue
     and the GELU + quant epilogue; fc2 with the residual epilogue)."""
 
-    resident: Optional[MlpPlan]
+    resident: MlpPlan
     chunked: Optional[MlpPlan]
     fc1: MatmulPlan
     fc2: MatmulPlan
@@ -286,8 +284,7 @@ def _plan_mlps(blk) -> MlpPlans:
     args = (fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
             fc2_e.bias)
     return MlpPlans(
-        resident=None if mlp_kernel_limit(k) else plan_mlp(
-            *args, w1_t=w1_t, w2_t=w2_t, **layer),
+        resident=plan_mlp(*args, w1_t=w1_t, w2_t=w2_t, **layer),
         chunked=None if mlp_chunked_kernel_limit(
             k, fc1_e.fmt, fc2_e.fmt) else plan_mlp_chunked(
                 *args, w1_t=w1_t, w2_t=w2_t, **layer),
@@ -319,8 +316,6 @@ def _run_mlps(plans: MlpPlans, x2d, float_dtype):
             _raise_limits([mlp_chunked_kernel_limit(plans.k, plans.fmt,
                                                     plans.fmt2)])
         return run_mlp_chunked(plans.chunked, x2d, out_dtype=float_dtype)
-    if plans.resident is None:
-        _raise_limits([mlp_kernel_limit(plans.k)])
     return run_mlp(plans.resident, x2d, out_dtype=float_dtype)
 
 
@@ -358,10 +353,10 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
     """Why the CUDA kernels cannot serve ``cfg`` with ``fmt`` weights and a
     ``float_dtype`` residual stream (empty if they can): the limits of the
     kernels on the routes a forward of ``batch`` images takes (None: any
-    batch), K3 or K6 for attention and K2 or K8 for the MLP (K15 for every
-    batch with ``fsdp_rdma``, the FSDP forward of ``serve/vit_fsdp.py``,
-    whose ``batch`` is a process's share); or, with ``latency``, those of
-    K5 for the batch-1 entry."""
+    batch), K3 or K6 for attention and K8 for the MLP (K2 has no limit;
+    K15 for every batch with ``fsdp_rdma``, the FSDP forward of
+    ``serve/vit_fsdp.py``, whose ``batch`` is a process's share); or, with
+    ``latency``, those of K5 for the batch-1 entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
     hid = int(cfg.embed_dim * cfg.mlp_ratio)
@@ -379,8 +374,6 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
                               itemsize=itemsize)
             if fsdp_rdma:
                 lims.append(mlp_gather_kernel_limit(cfg.embed_dim))
-            elif route == MLP_RESIDENT:
-                lims.append(mlp_kernel_limit(cfg.embed_dim))
             elif route == MLP_CHUNKED:
                 lims.append(mlp_chunked_kernel_limit(cfg.embed_dim, fmt))
     return list(dict.fromkeys(lim for lim in lims if lim))

@@ -1,6 +1,6 @@
-"""K6, K3 and the forwards that run them, timed on the card through the
-package's public entry points only, so that one script times any version
-of the package (run it from the root of a checkout):
+"""K6, K3, K2 and the forwards that run them, timed on the card through
+the package's public entry points only, so that one script times any
+version of the package (run it from the root of a checkout):
 
     python3 -m quantized_vit_tpu_torch.tools.chain_timing
 
@@ -9,7 +9,10 @@ K6 (``run_attention_qkv`` on a prepared plan, random bf16 qkv at the
 padded token counts, the proj quantizer's levels) at ViT-B/16 batch 2 and
 32 and ViT-H/14 batch 1 and 2, and K3 (``run_attention_heads`` on a
 prepared plan, random bf16 x and int8 weights) at ViT-B/16 and ViT-H/14
-batch 32, each as the median of CUDA-event readings, the host's time to
+batch 32, and K2 (``run_mlp`` on a prepared plan, random bf16 x and
+weights) at ViT-B/16 batch 32, 2 and 1 with int8 levels and at ViT-H/14
+batch 1 and 2 with packed int4 (None where the version refuses the
+width), each as the median of CUDA-event readings, the host's time to
 issue one call and its kernels' device time from torch.profiler; and the
 forward (``vit_int4_forward`` on a prepared plan, int8-stored levels from
 seed 0, bf16 residual stream) of ViT-B/16 and ViT-H/14 at batch 1 and 2
@@ -27,8 +30,9 @@ import numpy as np
 import torch
 
 from ..models import ViTConfig
-from ..ops import (plan_attention_heads, plan_attention_qkv,
-                   run_attention_heads, run_attention_qkv)
+from ..ops import (plan_attention_heads, plan_attention_qkv, plan_mlp,
+                   run_attention_heads, run_attention_qkv, run_mlp)
+from ..quant import pack_int4
 from ..serve import (prepare_kernels, random_vit_int4_artifact,
                      vit_int4_forward)
 
@@ -40,6 +44,12 @@ K6_SITES = {"vitb_b2": (2, 208, 12, 64, 197), "vitb_b32": (32, 208, 12, 64,
 # (images, padded tokens, heads, head_dim, real tokens)
 K3_SITES = {"vitb_b32": (32, 208, 12, 64, 197),
             "vith_b32": (32, 272, 16, 80, 257)}
+# (rows, K, H, weight format)
+K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
+            "vitb_b2": (416, 768, 3072, "int8"),
+            "vitb_b1": (208, 768, 3072, "int8"),
+            "vith_b1_int4": (272, 1280, 5120, "int4"),
+            "vith_b2_int4": (544, 1280, 5120, "int4")}
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
 BATCHES = (1, 2, 32)
@@ -93,7 +103,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    out = {"card": smi, "k6_us": {}, "k3_us": {}, "forward_ms": {}}
+    out = {"card": smi, "k6_us": {}, "k3_us": {}, "k2_us": {},
+           "forward_ms": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
     for site, (b, n, heads, hd, n_real) in K6_SITES.items():
@@ -123,6 +134,31 @@ def main():
             return run_attention_heads(plan, x, n_valid=n_real)
 
         out["k3_us"][site] = {"events": events_us(fn), "host": host_us(fn),
+                              "device": device_us(fn)}
+    for site, (m, k, hid, fmt) in K2_SITES.items():
+        x = torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        w1 = torch.randint(-7, 8, (k, hid), dtype=torch.int8, device="cuda",
+                           generator=g)
+        w2 = torch.randint(-7, 8, (hid, k), dtype=torch.int8, device="cuda",
+                           generator=g)
+        if fmt == "int4":
+            w1, w2 = pack_int4(w1, axis=0), pack_int4(w2, axis=0)
+        try:
+            plan = plan_mlp(
+                w1, 1e-3 * one, None, w2, 1e-3 * one, None, fmt=fmt,
+                ln_scale=torch.ones(k, device="cuda"),
+                ln_bias=torch.zeros(k, device="cuda"), act_d=0.05 * one,
+                act_t=one, act_top=127, hid_d=0.05 * one, hid_t=one,
+                hid_top=127)
+        except ValueError:  # a version with a width limit
+            out["k2_us"][site] = None
+            continue
+
+        def fn(plan=plan, x=x):
+            return run_mlp(plan, x)
+
+        out["k2_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
     kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
     for name, cfg_kw in MODELS.items():

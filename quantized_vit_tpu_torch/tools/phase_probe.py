@@ -13,8 +13,10 @@ and prints:
   float attention and with ``int_attention``), per block of its
   persistent grid, each phase summed: LN + quant | first grid barrier |
   qkv GEMM | second grid barrier | attention, and the span;
-- ``fused_mlp`` (ViT-B batch 32), per block: LayerNorm + quant |
-  hidden-chunk loop | epilogue, and the span;
+- ``fused_mlp`` (ViT-B/16 at batch 32, 2 and 1 with int8 levels,
+  ViT-H/14 at batch 1 and 2 with packed int4; random bf16 x), per block of
+  its persistent grid, each phase summed: LN + quant | first grid
+  barrier | fc1 | second grid barrier | fc2, and the span;
 - ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
   LayerNorm + quant | its hidden slice's chunk loop | partial sums, grid
   barrier and epilogue, and the span;
@@ -58,8 +60,9 @@ from ..ops.attention import (_card_shape, flash_tile_rows, heads_tile_rows,
                              run_attention_heads, run_attention_qkv,
                              run_attention_qkv_proj, run_flash_attention)
 from ..ops.block_stack import run_block_stack
-from ..ops.fused import (plan_mlp, plan_mlp_chunked, run_mlp,
+from ..ops.fused import (mlp_layout, plan_mlp, plan_mlp_chunked, run_mlp,
                          run_mlp_chunked)
+from ..quant import pack_int4
 from ..models import ViTConfig
 from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 
@@ -68,6 +71,13 @@ _K9_PHASES = ("staging", "attention", "level exchange", "proj",
 _K6_PHASES = ("staging", "scores", "p", "P.V", "int scales", "epilogue")
 _K3_PHASES = ("LN + quant", "barrier 1", "qkv GEMM", "barrier 2",
               "attention")
+_K2_PHASES = ("LN + quant", "barrier 1", "fc1", "barrier 2", "fc2")
+# K2's sites: (rows, K, H, weight format)
+_K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
+             "vitb_b2": (416, 768, 3072, "int8"),
+             "vitb_b1": (208, 768, 3072, "int8"),
+             "vith_b1_int4": (272, 1280, 5120, "int4"),
+             "vith_b2_int4": (544, 1280, 5120, "int4")}
 _STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
                  "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
@@ -77,22 +87,9 @@ def main():
     _build.use_probe_build()
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
-    b, n, d, hid = 32, 208, 768, 3072
-    x = torch.randn((b * n, d), generator=g, device=dev).to(torch.bfloat16)
     one = torch.ones((), device=dev)
     d05 = torch.full((), 0.05, device=dev)
-    wq = torch.randint(-7, 8, (d, 3 * d), dtype=torch.int8, device=dev)
-    w1 = torch.randint(-7, 8, (d, hid), dtype=torch.int8, device=dev)
-    w2 = torch.randint(-7, 8, (hid, d), dtype=torch.int8, device=dev)
-    ln = dict(ln_scale=torch.ones(d, device=dev),
-              ln_bias=torch.zeros(d, device=dev))
-    q = dict(act_d=d05, act_t=one, act_top=7, fmt="int8", **ln)
-    mlp = plan_mlp(w1, 1e-3 * one, None, w2, 1e-3 * one, None, hid_d=d05,
-                   hid_t=one, hid_top=7, **q)
-    runs = {
-        "fused_mlp": ((b * n + 31) // 32, lambda: run_mlp(mlp, x),
-                      ("LN + quant", "hidden chunks", "epilogue")),
-    }
+    runs = {}
     # K8 at ViT-H/14's widths, batch 1 and 2 (272 token rows an image)
     dh, hh = 1280, 5120
     w1h = torch.randint(-7, 8, (dh, hh), dtype=torch.int8, device=dev)
@@ -124,6 +121,24 @@ def main():
             (f"staging + scores (qt {qt})", "softmax", "P.V + epilogue"))
     buf = np.zeros(65536 * 4, np.uint64)
     print(torch.cuda.get_device_name(0))
+    for tag, (rows, dk, hk, fmt) in _K2_SITES.items():
+        if only and "fused_mlp" not in only:
+            break
+        lv1 = torch.randint(-7, 8, (dk, hk), dtype=torch.int8, device=dev)
+        lv2 = torch.randint(-7, 8, (hk, dk), dtype=torch.int8, device=dev)
+        pw = ((pack_int4(lv1, axis=0), pack_int4(lv2, axis=0))
+              if fmt == "int4" else (lv1, lv2))
+        pl = plan_mlp(pw[0], 1e-3 * one, None, pw[1], 1e-3 * one, None,
+                      hid_d=d05, hid_t=one, hid_top=7, act_d=d05, act_t=one,
+                      act_top=7, fmt=fmt, ln_scale=torch.ones(dk, device=dev),
+                      ln_bias=torch.zeros(dk, device=dev))
+        xk = torch.randn((rows, dk), generator=g, device=dev).to(
+            torch.bfloat16)
+        lay = mlp_layout(rows, dk, hk, 2, _card_shape(0)[0])
+        summed_phases(buf, "fused_mlp", _K2_PHASES,
+                      f"fused_mlp:{tag}:ln{lay.ln_threads}:t{lay.tile1}/"
+                      f"{lay.tile2}:whole{lay.full2}:S{lay.splits}",
+                      lambda pl=pl, xk=xk: run_mlp(pl, xk))
     for tag, (bk, n, heads, hd, nv) in (("vitb_b32", (32, 208, 12, 64, 197)),
                                         ("vith_b32", (32, 272, 16, 80,
                                                       257))):

@@ -62,11 +62,13 @@ def _consts(path, names):
 
 
 def test_shared_memory_mirror_matches_the_sources():
-    """The GEMM ring (ST stages of BM + BN rows of SK bytes) and K6's tile
-    (qkv_attention.cuh:qkv_attn_smem) as the sources compute them, against
-    the wrapper's mirrors; every K3 block fits two to an H100 SM."""
-    bm, bn, bk, sk, st = _consts(CSRC / "attention_block.cu",
-                                 ("BM", "BN", "BK", "SK", "ST"))
+    """The GEMM ring (ST stages of BM + BN rows of SK bytes: K3's tile in
+    attention_block.cu, the ring of int8_gemm.cuh, which K2 shares) and
+    K6's tile (qkv_attention.cuh:qkv_attn_smem) as the sources compute
+    them, against the wrapper's mirrors; every K3 block fits two to an
+    H100 SM."""
+    bm, bn = _consts(CSRC / "attention_block.cu", ("BM", "BN"))
+    bk, sk, st = _consts(CSRC / "int8_gemm.cuh", ("GT_BK", "GT_SK", "GT_ST"))
     assert sk == bk + 16
     assert A._HEADS_GEMM_SMEM == st * (bm + bn) * sk
     text = (CSRC / "qkv_attention.cuh").read_text()

@@ -247,11 +247,12 @@ def test_forward_kernel_path_never_reaches_plain(monkeypatch):
 # (ROADMAP.md "Kernel limits"), and what it exceeds now (nothing: served)
 _OVER_LIMITS = {
     # ViT-H/14 with packed int4 weights at batch 1: the JAX package's
-    # resident MLP kernel (K2 here), whose width limit is 1024
+    # resident MLP kernel (K2 here), whose first design kept its fc2 row
+    # block in registers (K <= 1024); the redesigned K2 serves it
     "vit_h14_int4": (dict(patch_size=14, embed_dim=1280, depth=1,
                           num_heads=16, mlp_ratio=4.0),
                      dict(batch=1, fmt="int4", float_dtype=torch.bfloat16),
-                     ["K=1280 > 1024"]),
+                     []),
     # ViT-H/14 with an f32 residual stream at batch 32: the first K3 kept
     # the image's q/k/v in f32 in shared memory (272 tokens x head_dim 80
     # overflowed); K3 now streams them from a scratch and serves it
@@ -273,10 +274,11 @@ def test_forward_names_the_kernel_limits_it_exceeds(name):
     prepares anything; a configuration within every limit (``wants``
     empty) goes on to plan its kernels (a meta tensor stands in for a
     CUDA tensor, so the first plan raises for its device, not for a
-    limit), and K3 has a query tile for it on the H100."""
+    limit), and the attention kernel of its route (K3 from batch 4, K6
+    below) has a query tile for it on the H100."""
     from quantized_vit_tpu_torch.serve import (kernel_limits,
                                                random_vit_int4_artifact,
-                                               vit_int4_forward)
+                                               uses_chain, vit_int4_forward)
 
     kw, route, wants = _OVER_LIMITS[name]
     cfg = ViTConfig(**kw)
@@ -296,6 +298,11 @@ def test_forward_names_the_kernel_limits_it_exceeds(name):
         n_pad = -(-cfg.num_tokens // 16) * 16
         hd = cfg.embed_dim // cfg.num_heads
         itemsize = route["float_dtype"].itemsize
+        if uses_chain(route["batch"]):
+            assert ta.qkv_kernel_limit(hd) is None
+            assert ta.qkv_attn_tile_rows(route["batch"], n_pad,
+                                         cfg.num_heads, hd, itemsize) > 0
+            return
         assert ta.heads_kernel_limit(hd) is None
         assert ta.heads_tile_rows(route["batch"], n_pad, cfg.num_heads, hd,
                                   itemsize) == 64
@@ -319,6 +326,32 @@ def test_vit_h14_int8_serves_at_every_batch():
     assert kernel_limits(cfg, batch=4, fmt="int8") == kernel_limits(
         cfg, fmt="int8")
     assert len(kernel_limits(cfg, fmt="int8")) == 0
+
+
+def test_mlp_gather_keeps_its_own_width_limit():
+    """K15 runs K2's first design's row blocks, so it still refuses
+    ViT-H/14's width (K = 1280) under its own name, in the wrapper and in
+    the FSDP forward's limits, while K2 (the single-device forward at
+    batch 1-2 with packed int4) takes it."""
+    from quantized_vit_tpu_torch.serve import kernel_limits
+
+    assert trg.mlp_gather_kernel_limit(1024) is None
+    msg = trg.mlp_gather_kernel_limit(1280)
+    assert msg.startswith("fused_mlp_gather kernel:") and "1280 > 1024" in msg
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="fused_mlp_gather kernel: width "
+                       "K=1280 > 1024"):
+        trg.fused_mlp_gather(
+            _meta(32, 1280), _meta(1280, 64, dtype=torch.int8), one, None,
+            _meta(64, 1280, dtype=torch.int8), one, None,
+            ln_scale=_meta(1280), ln_bias=_meta(1280), next_shards=[],
+            act_d=one, act_t=one, act_top=7, hid_d=one, hid_t=one,
+            hid_top=7)
+    vit_h = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
+    for b in (1, 2, 16):
+        assert kernel_limits(vit_h, batch=b, fmt="int8",
+                             fsdp_rdma=True) == [msg]
+        assert kernel_limits(vit_h, batch=b, fmt="int4") == []
 
 
 def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):

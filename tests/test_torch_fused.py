@@ -211,6 +211,36 @@ def test_fused_mlp_plain_matches_jax(fmt, pow_):
 
 
 @pytest.mark.parametrize("pow_", [False, True], ids=["lin", "pow"])
+def test_fused_mlp_plain_matches_jax_at_vit_h_width(pow_):
+    """K2 plain vs the XLA mirror and the resident-weight Pallas kernel
+    (interpret) at ViT-H/14's widths (K 1280, H 5120) with packed int4
+    weights, which the CUDA kernel's first design refused; a few rows.
+    Tolerance as the ViT-B-width case."""
+    m, k, hid = 8, 1280, 5120
+    x, w1, b1, w2, b2, kw = _mlp_inputs(21 + pow_, m, k, hid, pow_)
+    s1, s2 = np.float32(1e-3), np.float32(1e-3)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    args_j = (xj, jpack(jnp.asarray(w1), axis=0), jnp.asarray(s1),
+              jnp.asarray(b1), jpack(jnp.asarray(w2), axis=0),
+              jnp.asarray(s2), jnp.asarray(b2))
+    want = np.asarray(jf.fused_mlp_xla(*args_j, fmt="int4",
+                                       out_dtype=jnp.bfloat16, **_to_j(kw)),
+                      np.float32)
+    pal = np.asarray(jf.fused_mlp(*args_j, fmt="int4",
+                                  out_dtype=jnp.bfloat16, interpret=True,
+                                  **_to_j(kw)), np.float32)
+    got = tf.fused_mlp_plain(
+        torch.from_numpy(x).to(torch.bfloat16), tpack(torch.from_numpy(w1)),
+        torch.tensor(s1), torch.from_numpy(b1), tpack(torch.from_numpy(w2)),
+        torch.tensor(s2), torch.from_numpy(b2), fmt="int4",
+        out_dtype=torch.bfloat16, **_to_t(kw)).float().numpy()
+    for ref in (want, pal):
+        d = np.abs(got - ref)
+        assert (d > 1e-5).any(axis=-1).mean() <= 0.05, d.max()
+        assert d.max() <= 0.05
+
+
+@pytest.mark.parametrize("pow_", [False, True], ids=["lin", "pow"])
 def test_fused_mlp_plain_prefolded_equals_folding(pow_):
     """``prefolded``: fed the constants that fold_ln/fold_gelu make (a
     folded block stack's operands), the plain MLP equals the call that

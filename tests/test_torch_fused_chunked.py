@@ -199,6 +199,11 @@ def test_forward_runs_the_route_it_picks(monkeypatch):
     assert calls == [("fused_mlp_chunked", "k8"),
                      ("fused_quant_matmul", "fc1"),
                      ("fused_quant_matmul", "fc2"), ("fused_mlp", "k2")]
-    with pytest.raises(ValueError, match="kernel limits.*K=1280 > 1024"):
-        tv._run_mlps(plans(1280, 5120, "int4", resident=None),
-                     x(272, 1280), torch.bfloat16)
+    # packed int4 at ViT-H/14's width takes K2, which has no width limit
+    # (its first design refused K = 1280)
+    tv._run_mlps(plans(1280, 5120, "int4"), x(272, 1280), torch.bfloat16)
+    assert calls[-1] == ("fused_mlp", "k2")
+    # K8's route with no K8 plan (past K8's width) raises naming its limit
+    with pytest.raises(ValueError, match="kernel limits.*K=1536 > 1280"):
+        tv._run_mlps(plans(1536, 6144, "int8", chunked=None),
+                     x(272, 1536), torch.bfloat16)

@@ -59,6 +59,8 @@ def _ulp_close(got, want, bias=None, dtype=np.float32):
         mag = np.maximum(mag, np.abs(want - np.asarray(bias, np.float32)))
     if dtype == "bfloat16":  # 8 significand bits
         ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    elif dtype == "float16":
+        ulp = np.spacing(mag.astype(np.float16)).astype(np.float32)
     else:
         ulp = np.spacing(mag)
     assert np.all(np.abs(got - want) <= ulp), np.abs(got - want).max()
@@ -178,6 +180,57 @@ def test_int8_matmul_matches_jax(m, k, n, out_dtype):
     np.testing.assert_array_equal(
         int8_matmul_xla(_t(x), _t(w), _t(scale), tb,
                         getattr(torch, out_dtype)).float().numpy(), mirror)
+
+
+@pytest.mark.parametrize("kernel", ["int4_matmul", "int8_matmul",
+                                    "quant_matmul_fa"])
+def test_float16_out_matches_jax(kernel):
+    """Any float ``out_dtype``, as the JAX kernels take (int4_matmul.py:
+    98, 296, 365): the wrapper casts the f32 product (the CUDA kernel
+    writes f32, bf16 or requantized int8). float16 within an ulp of the
+    Pallas kernel in interpret mode, equal to the XLA mirror run op by op,
+    and equal to the f32 result cast."""
+    m, k, n = 33, 96, 40
+    scale, bias = _scale_bias(n, 31)
+    js, jb, ts, tb = (jnp.asarray(scale), jnp.asarray(bias), _t(scale),
+                      _t(bias))
+    f16 = dict(out_dtype=torch.float16)
+    if kernel == "quant_matmul_fa":
+        x, w_lv, _, _ = _fa_case(m, k, n, "float32", seed=32)
+        q = (0.02, 1.3, 127.0)
+        want = np.asarray(j_fa(
+            jnp.asarray(x), j_pack(jnp.asarray(w_lv), axis=0), js, jb,
+            *(jnp.float32(v) for v in q), out_dtype=jnp.float16,
+            interpret=True), np.float32)
+
+        def run(**kw):
+            return quant_matmul_fa(_t(x), pack_int4(_t(w_lv)), ts, tb,
+                                   *(torch.tensor(v) for v in q), **kw)
+        mirror = None
+    else:
+        lo = -127 if kernel == "int8_matmul" else -7
+        x, w = _levels((m, k), 33, lo, -lo + 1), _levels((k, n), 34, lo,
+                                                          -lo + 1)
+        four = kernel == "int4_matmul"
+        jw = j_pack(jnp.asarray(w), axis=0) if four else jnp.asarray(w)
+        tw = pack_int4(_t(w)) if four else _t(w)
+        jfn, jxla, tfn = ((j_int4, j_int4_xla, int4_matmul) if four
+                          else (j_int8, j_int8_xla, int8_matmul))
+        want = np.asarray(jfn(jnp.asarray(x), jw, js, jb,
+                              out_dtype=jnp.float16, interpret=True),
+                          np.float32)
+        with jax.disable_jit():
+            mirror = np.asarray(jxla(jnp.asarray(x), jw, js, jb,
+                                     out_dtype=jnp.float16), np.float32)
+
+        def run(**kw):
+            return tfn(_t(x), tw, ts, tb, **kw)
+    got = run(**f16)
+    assert got.dtype == torch.float16 and got.shape == (m, n)
+    _ulp_close(got.float().numpy(), want, bias, "float16")
+    if mirror is not None:
+        np.testing.assert_array_equal(got.float().numpy(), mirror)
+    assert torch.equal(got, run(out_dtype=torch.float32).to(torch.float16))
 
 
 def _fa_case(m, k, n, x_dtype, seed=11):

@@ -162,6 +162,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert ("latency,int4-packed", 1) in routes
     assert ("chain384,f32,int8-stored", 1) in routes
     assert ("block384,bf16,int8-stored", 4) in routes
+    # ViT-H/14 with packed int4 on the chain (K2 at the model width)
+    assert {("chain_vith14,bf16,int4-packed", b) for b in (1, 2)} <= routes
     assert ("block_vith14,f32,int8-stored", 4) in routes
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
