@@ -27,7 +27,13 @@ Phases, in order; any failure exits non-zero:
    ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K2 there with int8, packed
    int4 and mixed weights, K3, K6 and K9 at head_dim 80; K3 also with an
-   f32 residual stream at batch 4), K2 launched at set work splits at
+   f32 residual stream at batch 4), K1 at every site of the forwards
+   (the chain's qkv and proj at batch 1-3 in bf16 and f32, the head at
+   one row, ViT-H/14's patch embed at K = 588 on its padded plan and on
+   a shared copy read byte by byte, its chain qkv at batch 2, fc1 and
+   fc2 at batch 32) and launched at set work splits at 416, 544 and 6656
+   rows (whole tiles only, every tile split 2 to 10 ways, 64 and 128
+   tiles), K2 launched at set work splits at
    ViT-B's batch 1, 2 and 32 rows (both tiles of each GEMM, fc2's tiles
    whole and split), K3 and K6 launched at
    set query tiles at every (query rows, qkv dtype, head bound)
@@ -419,41 +425,151 @@ class Parity:
 
     # -- K1 ---------------------------------------------------------------
 
-    def k1(self, case, m, k, n, fmt, pow_, prologue, epilogue, seed):
-        from quantized_vit_tpu_torch.ops import (fused_quant_matmul,
-                                                 fused_quant_matmul_plain)
+    def k1(self, case, m, k, n, fmt, pow_, prologue, epilogue, seed,
+           stream=None, layout=None, byte_wise=False):
+        """K1 on seeded inputs against fused_quant_matmul_plain, through
+        the wrapper (a plan per call); ``stream`` (bf16 or f32): x of the
+        LayerNorm prologue, the residual and a float output in that dtype
+        (else bf16 x and residual, f32 out unless residual); ``layout``
+        (a dict of ``MatmulLayout`` fields): K1 launched at that work
+        split (``_launch_matmul``) instead of the picker's; ``byte_wise``:
+        on a plan that shares an n-major copy of the weight (``w_t``), as
+        a block's plans do, which the kernel reads byte by byte where its
+        depth is off the 16-byte path (the wrapper's own copy is padded
+        there). A CPU rehearsal takes the wrapper, its plain version."""
+        from quantized_vit_tpu_torch.ops import (_build, fused_quant_matmul,
+                                                 fused_quant_matmul_plain,
+                                                 plan_matmul, run_matmul)
+        from quantized_vit_tpu_torch.ops.fused import (COPY_PROLOGUE,
+                                                       _launch_matmul,
+                                                       matmul_layout)
 
         rng = np.random.default_rng(seed)
         f32, bf16 = torch.float32, torch.bfloat16
         if prologue is None:
             x = self.t(rng.integers(-7, 8, (m, k)).astype(np.int8))
         elif prologue == "ln_quant":
-            x = self.t(rng.standard_normal((m, k)) * 0.5, bf16)
+            x = self.t(rng.standard_normal((m, k)) * 0.5, stream or bf16)
         else:
             x = self.t(rng.standard_normal((m, k)), f32)
         w = self.weight(rng, k, n, fmt)
         scale = self.t(rng.random(n) * 0.01 + 1e-3, f32)
         bias = self.t(rng.standard_normal(n) * 0.1, f32)
-        out_dtype = bf16 if epilogue == "residual" else f32
-        kw = dict(fmt=fmt, prologue=prologue, epilogue=epilogue,
-                  out_dtype=out_dtype)
+        out_dtype = stream or (bf16 if epilogue == "residual" else f32)
+        layer = dict(fmt=fmt, prologue=prologue, epilogue=epilogue)
         if prologue is not None:
-            kw.update(act_d=self.scal(0.05),
-                      act_t=self.scal(1.08 if pow_ else 1.0),
-                      act_top=127 if prologue == "ln_quant" else 7,
-                      act_pow=pow_ and prologue != "gelu_quant")
+            layer.update(act_d=self.scal(0.05),
+                         act_t=self.scal(1.08 if pow_ else 1.0),
+                         act_top=127 if prologue == "ln_quant" else 7,
+                         act_pow=pow_ and prologue != "gelu_quant")
         if prologue == "ln_quant":
-            kw.update(ln_scale=self.t(rng.standard_normal(k) * 0.1 + 1, f32),
-                      ln_bias=self.t(rng.standard_normal(k) * 0.01, f32))
+            layer.update(
+                ln_scale=self.t(rng.standard_normal(k) * 0.1 + 1, f32),
+                ln_bias=self.t(rng.standard_normal(k) * 0.01, f32))
+        run = dict(out_dtype=out_dtype)
         if epilogue == "residual":
-            kw["residual"] = self.t(rng.standard_normal((m, n)), bf16)
+            run["residual"] = self.t(rng.standard_normal((m, n)),
+                                     stream or bf16)
         if epilogue in ("quant", "gelu_quant"):
-            kw.update(out_d=self.scal(0.5), out_t=self.scal(
+            layer.update(out_d=self.scal(0.5), out_t=self.scal(
                 0.93 if pow_ else 1.0), out_top=31, out_pow=pow_)
-        got = fused_quant_matmul(x, w, scale, bias, **kw)
-        want = fused_quant_matmul_plain(x, w, scale, bias, **kw)
+        want = fused_quant_matmul_plain(x, w, scale, bias, **layer, **run)
+        if self.dev.type != "cuda" or (layout is None and not byte_wise):
+            got = fused_quant_matmul(x, w, scale, bias, **layer, **run)
+        elif layout is None:
+            got = run_matmul(plan_matmul(w, scale, bias, w_t=_build.n_major(w),
+                                         **layer), x, **run)
+        else:
+            pro = prologue
+            if pro is None and (k % 16 or x.data_ptr() % 16):
+                pro = COPY_PROLOGUE
+            lay = dataclasses.replace(
+                matmul_layout(m, k, n, pro, x.element_size()), **layout)
+            got = _launch_matmul(plan_matmul(w, scale, bias, **layer), x,
+                                 lay, **run)
         kind = ("levels" if epilogue in ("quant", "gelu_quant") else "exact")
         return self.check("fused_quant_matmul", case, kind, got, want)
+
+    def run_k1_sites(self, cfg):
+        """K1 at every site of the forwards beyond the batch-32 ones of
+        run_all: the chain's qkv (LayerNorm prologue, bf16 and f32
+        streams) and proj (residual) at batch 1, 2 and 3, the head at one
+        row; ViT-H/14's patch embed (K = 588: the padded plan, int8 and
+        packed int4, and the unpadded byte-wise one), chain qkv at batch
+        2, fc1 (LayerNorm -> GELU-quant) and fc2 (residual) at batch 32;
+        then K1 launched at set work splits at 416, 544 and 6656 rows:
+        whole tiles only, every tile split 2 to 8 ways, some whole and
+        the rest split 3 to 10 ways, 64 and 128 tiles, every epilogue."""
+        b, p, d, _, n_pad, kp, _, ncls, _ = shapes(cfg)
+        seed = 600
+        for bk in CHAIN_BATCHES:
+            m = bk * n_pad
+            for stream in (torch.bfloat16, torch.float32):
+                for fmt in ("int4", "int8"):
+                    seed += 1
+                    tag = f"{fmt},{str(stream)[6:]}"
+                    self.k1(f"chain_qkv[{m}x{d}x{3 * d}]({tag})", m, d,
+                            3 * d, fmt, seed % 3 == 0, "ln_quant", None,
+                            seed, stream)
+                    self.k1(f"chain_proj[{m}x{d}x{d}]({tag})", m, d, d,
+                            fmt, False, None, "residual", seed, stream)
+        for fmt in ("int4", "int8"):
+            for pow_ in (False, True):
+                seed += 1
+                self.k1(f"head[1x{d}x{ncls}]({fmt},"
+                        f"{'pow' if pow_ else 'lin'})", 1, d, ncls, fmt,
+                        pow_, "quant", None, seed)
+        vh = vit_h_cfg()
+        vp, vd, _, vn_pad, vhid, _ = vit_h_shapes(vh)
+        vkp = vh.patch_size**2 * vh.in_channels
+        vb = max(VIT_H_BATCHES)
+        for fmt in ("int8", "int4"):
+            seed += 1
+            self.k1(f"vit_h_patch_embed[{vb * vp}x{vkp}x{vd}]({fmt},"
+                    "padded)", vb * vp, vkp, vd, fmt, False, "quant", None,
+                    seed)
+        seed += 1
+        self.k1(f"vit_h_patch_embed[{vb * vp}x{vkp}x{vd}](int8,byte-wise)",
+                vb * vp, vkp, vd, "int8", False, "quant", None, seed,
+                byte_wise=True)
+        seed += 1
+        self.k1(f"vit_h_chain_qkv[{2 * vn_pad}x{vd}x{3 * vd}](int8)",
+                2 * vn_pad, vd, 3 * vd, "int8", False, "ln_quant", None,
+                seed, torch.bfloat16)
+        mh = vb * vn_pad
+        for pow_ in (False, True):
+            seed += 1
+            tag = "pow" if pow_ else "lin"
+            self.k1(f"vit_h_fc1[{mh}x{vd}x{vhid}](int8,{tag})", mh, vd,
+                    vhid, "int8", pow_, "ln_quant", "gelu_quant", seed)
+            self.k1(f"vit_h_fc2[{mh}x{vhid}x{vd}](int8,{tag})", mh, vhid,
+                    vd, "int8", pow_, None, "residual", seed + 50)
+        # set work splits: (rows, K, N, prologue, epilogue, (tile, tiles
+        # whole, splits) ...); tiles whole past the count are all of them
+        m2, mb = 2 * n_pad, b * n_pad
+        for m, k, n, pro, epi, lays in (
+                (m2, d, 3 * d, "ln_quant", None,
+                 ((64, 10**6, 1), (64, 0, 2), (128, 0, 6))),
+                (m2, d, d, None, "residual", ((128, 10**6, 1),
+                                              (64, 10, 3))),
+                (mb, d, d, None, "residual",
+                 ((64, 10**6, 1), (128, 0, 2), (128, 264, 6))),
+                (mb, d, d, "quant", None, ((64, 100, 4),)),
+                (2 * vn_pad, vhid, vd, None, "residual",
+                 ((64, 0, 8), (128, 20, 5))),
+                (2 * vn_pad, vd, vhid, "ln_quant", "gelu_quant",
+                 ((64, 40, 7), (128, 0, 3))),
+                (2 * vn_pad, vd, 3 * vd, "ln_quant", "quant",
+                 ((128, 10**6, 1), (64, 5, 10)))):
+            for tile, full, s in lays:
+                seed += 1
+                tiles = -(-m // tile) * -(-n // tile)
+                full = min(full, tiles)
+                fmt = "int8" if seed % 2 else "int4"
+                self.k1(f"layout[{m}x{k}x{n},{pro}->{epi}](t{tile},"
+                        f"whole{full},S{s},{fmt})", m, k, n, fmt,
+                        seed % 3 == 0, pro, epi, seed,
+                        layout=dict(tile=tile, full=full, splits=s))
 
     # -- K2 ---------------------------------------------------------------
 
@@ -1357,13 +1473,17 @@ class Parity:
                 self.k3(f"small[3x40x96,h3]({tag})", 3, 40, 96, 3, 29, fmt,
                         fmt, pow_, seed)
         # shapes off the 16-byte paths (K, H, D not multiples of 16 / 32):
-        # the kernels' byte-wise fallbacks
+        # the kernels' byte-wise fallbacks (K1's own plan pads such a
+        # weight; on a shared copy it reads it byte by byte)
         for fmt in ("int4", "int8"):
             for pro, epi in ((None, "residual"), ("ln_quant", "gelu_quant"),
                              ("quant", None)):
                 seed += 1
                 self.k1(f"small[50x40x72,{pro}->{epi}]({fmt})", 50, 40, 72,
                         fmt, False, pro, epi, seed)
+                self.k1(f"small[50x40x72,{pro}->{epi}]({fmt},byte-wise)",
+                        50, 40, 72, fmt, False, pro, epi, seed,
+                        byte_wise=True)
             self.k2(f"small[45x72x40]({fmt})", 45, 72, 40, fmt, fmt, False,
                     seed)
             self.k3(f"small[3x40x72,h3]({fmt})", 3, 40, 72, 3, 29, fmt, fmt,
@@ -1379,6 +1499,7 @@ class Parity:
             self.k3(f"small[3x40x96,h3](f32,{fmt})", 3, 40, 96, 3, 29, fmt,
                     fmt, False, 8, torch.float32)
         self.k4("small[3x4x72->16]", 3, 4, 72, 16, torch.bfloat16, 3)
+        self.run_k1_sites(cfg)
         self.run_small_batch_kernels(cfg)
         self.run_mlp_kernels(cfg)
         self.run_vit_h_kernels()
@@ -2530,6 +2651,37 @@ def timing_phase(dev, record, fwd, peaks):
             kern[site] = plain[site]
     kern["embed"] = lambda: patch_finalize(acc, pos, cls, one, n_pad=n_pad,
                                            out_dtype=bf16)
+    # K1 at the chain's other sites (batch 1-3) and the head at one row
+    # (not on the batch-32 forward: 0 launches there)
+    k1_sites = {"head_b1": (dict(x=xhead[:1], w=he, prologue="quant",
+                                 layer=q(he), out_dtype=torch.float32),
+                            plan.head if plan is not None else None)}
+    for bk in CHAIN_BATCHES:
+        mk = bk * n_pad
+        if bk != 2:
+            k1_sites[f"chain_qkv_b{bk}"] = (dict(
+                x=xs[:mk], w=qkv_e, prologue="ln_quant", layer=dict(
+                    q(qkv_e), ln_scale=blk["norm1"]["scale"],
+                    ln_bias=blk["norm1"]["bias"]), out_dtype=bf16),
+                plan.chain[0][0] if plan is not None else None)
+        k1_sites[f"chain_proj_b{bk}"] = (dict(
+            x=alv[:mk], w=proj_e, prologue=None, layer=dict(
+                epilogue="residual", residual=xs[:mk]), out_dtype=bf16),
+            attn_p.proj if plan is not None else None)
+    for site, (c, k1_plan) in k1_sites.items():
+        layer = dict(c["layer"])
+        res = layer.pop("residual", None)
+
+        def plain_k1(c=c, layer=layer, res=res):
+            return fused_quant_matmul_plain(
+                c["x"], c["w"].w, c["w"].scale, c["w"].bias, fmt=c["w"].fmt,
+                prologue=c["prologue"], residual=res,
+                out_dtype=c["out_dtype"], **layer)
+
+        plain[site] = plain_k1
+        kern[site] = plain_k1 if k1_plan is None else (
+            lambda c=c, p=k1_plan, res=res: run_matmul(
+                p, c["x"], residual=res, out_dtype=c["out_dtype"]))
 
     def sdpa(bk):
         return sdpa_call(bk, heads, n_pad, nk, hd, g)
@@ -2581,6 +2733,18 @@ def timing_phase(dev, record, fwd, peaks):
          bound(2 * 2 * n_pad * d * 2 + 2 * d * hid * w1b,
                4 * 2 * n_pad * d * hid),
          [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
+        *[("fused_quant_matmul", f"chain_qkv_b{bk}", 0,
+           bound(bk * n_pad * d * 2 + 3 * d * d * w1b
+                 + bk * n_pad * 3 * d * 2, 2 * bk * n_pad * d * 3 * d),
+           [(bk * n_pad, d, 3 * d)], None) for bk in CHAIN_BATCHES
+          if bk != 2],
+        *[("fused_quant_matmul", f"chain_proj_b{bk}", 0,
+           bound(bk * n_pad * d + d * d * w1b + 2 * bk * n_pad * d * 2,
+                 2 * bk * n_pad * d * d), [(bk * n_pad, d, d)], None)
+          for bk in CHAIN_BATCHES],
+        ("fused_quant_matmul", "head_b1", 0,
+         bound(d * 4 + d * ncls * w1b + ncls * 4, 2 * d * ncls),
+         [(1, d, ncls)], None),
         ("fused_mlp", "mlp_b1", 0,
          bound(2 * n_pad * d * 2 + 2 * d * hid * w1b, 4 * n_pad * d * hid),
          [(n_pad, d, hid), (n_pad, hid, d)], None),
@@ -2623,7 +2787,7 @@ def timing_phase(dev, record, fwd, peaks):
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
         if name in ("flash_attention", "attention_qkv", "attention_block",
-                    "fused_mlp", "fused_mlp_chunked"):
+                    "fused_mlp", "fused_mlp_chunked", "fused_quant_matmul"):
             # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)
@@ -3154,7 +3318,10 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                   out_d=blk["proj"].act["d"], out_t=blk["proj"].act["t"],
                   out_top=blk["proj"].top, out_pow=blk["proj"].act_pow,
                   out_dtype=bf16)
-    e = {k: blk[k] for k in ("qkv", "fc1", "fc2")}
+    e = {k: blk[k] for k in ("qkv", "proj", "fc1", "fc2")}
+    # the attention's levels, the chain proj's input
+    alv = torch.randint(-7, 8, (2 * n_pad, d), dtype=torch.int8,
+                        device=DEV, generator=g)
     pe = art["patch_embed"]
 
     def q(le):
@@ -3181,10 +3348,18 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
         "vith_patch_embed_b32": lambda: fused_quant_matmul_plain(
             xpatch, pe.w, pe.scale, pe.bias, fmt=pe.fmt, prologue="quant",
             out_dtype=torch.float32, **q(pe)),
-        "vith_chain_qkv_b2": lambda: fused_quant_matmul_plain(
-            xs[:2 * n_pad], e["qkv"].w, e["qkv"].scale, e["qkv"].bias,
-            fmt="int8", prologue="ln_quant", ln_scale=blk["norm1"]["scale"],
-            ln_bias=blk["norm1"]["bias"], out_dtype=bf16, **q(e["qkv"])),
+        **{f"vith_chain_qkv_b{bk}": (
+            lambda m=bk * n_pad: fused_quant_matmul_plain(
+                xs[:m], e["qkv"].w, e["qkv"].scale, e["qkv"].bias,
+                fmt="int8", prologue="ln_quant",
+                ln_scale=blk["norm1"]["scale"],
+                ln_bias=blk["norm1"]["bias"], out_dtype=bf16,
+                **q(e["qkv"]))) for bk in (1, 2)},
+        **{f"vith_chain_proj_b{bk}": (
+            lambda m=bk * n_pad: fused_quant_matmul_plain(
+                alv[:m], e["proj"].w, e["proj"].scale, e["proj"].bias,
+                fmt="int8", prologue=None, epilogue="residual",
+                residual=xs[:m], out_dtype=bf16)) for bk in (1, 2)},
         "vith_fc1_b32": lambda: fused_quant_matmul_plain(
             xs, e["fc1"].w, e["fc1"].scale, e["fc1"].bias, fmt="int8",
             prologue="ln_quant", ln_scale=blk["norm2"]["scale"],
@@ -3218,8 +3393,14 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                 mlps.chunked, xs[:2 * n_pad], out_dtype=bf16),
             "vith_patch_embed_b32": lambda: run_matmul(
                 plan.embed["patches"][0], xpatch, out_dtype=torch.float32),
-            "vith_chain_qkv_b2": lambda: run_matmul(
-                plan.chain[0][0], xs[:2 * n_pad], out_dtype=bf16),
+            **{f"vith_chain_qkv_b{bk}": (
+                lambda m=bk * n_pad: run_matmul(plan.chain[0][0], xs[:m],
+                                                out_dtype=bf16))
+               for bk in (1, 2)},
+            **{f"vith_chain_proj_b{bk}": (
+                lambda m=bk * n_pad: run_matmul(
+                    attn_p.proj, alv[:m], residual=xs[:m], out_dtype=bf16))
+               for bk in (1, 2)},
             "vith_fc1_b32": lambda: run_matmul(mlps.fc1, xs),
             "vith_fc2_b32": lambda: run_matmul(mlps.fc2, hlv, residual=xs,
                                                out_dtype=bf16),
@@ -3252,9 +3433,14 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
         ("fused_quant_matmul", "vith_patch_embed_b32", 0,
          bound(bb * p * kp * 4 + kp * d + bb * p * d * 4,
                2 * bb * p * kp * d), [(bb * p, kp, d)], None),
-        ("fused_quant_matmul", "vith_chain_qkv_b2", 0,
-         bound(2 * n_pad * d * 2 + 3 * d * d + 2 * n_pad * 3 * d * 2,
-               2 * 2 * n_pad * d * 3 * d), [(2 * n_pad, d, 3 * d)], None),
+        *[("fused_quant_matmul", f"vith_chain_qkv_b{bk}", 0,
+           bound(bk * n_pad * d * 2 + 3 * d * d + bk * n_pad * 3 * d * 2,
+                 2 * bk * n_pad * d * 3 * d), [(bk * n_pad, d, 3 * d)],
+           None) for bk in (1, 2)],
+        *[("fused_quant_matmul", f"vith_chain_proj_b{bk}", 0,
+           bound(bk * n_pad * d + d * d + 2 * bk * n_pad * d * 2,
+                 2 * bk * n_pad * d * d), [(bk * n_pad, d, d)], None)
+          for bk in (1, 2)],
         ("fused_quant_matmul", "vith_fc1_b32", 0,
          bound(mb * d * 2 + d * hid + mb * hid, 2 * mb * d * hid),
          [(mb, d, hid)], None),

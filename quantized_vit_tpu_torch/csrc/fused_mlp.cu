@@ -17,7 +17,7 @@
 //      into a level scratch lv [M, Kp] (Kp = K rounded up to 64): reads x
 //      (10.2 MB at ViT-B batch 32, bf16), writes 5.1 MB. A row takes a
 //      group of 8 to 256 threads, so that at small M the rows still spread
-//      over every SM.
+//      over every SM (gemm_phases.cuh:row_levels, shared with K1).
 //   2. fc1 on the int8 tensor cores (int8_gemm.cuh's tile, K3's), output
 //      tiles over the blocks; the epilogue dequantizes (s1, b1, with the
 //      2^-0.5 fold when the hidden quantizer is linear), then the folded
@@ -35,11 +35,13 @@
 //      adds the others' and runs the epilogue. Int32 sums are exact, so
 //      no split changes a bit. At ViT-B batch 32, 264 of the 312 128 x
 //      128 tiles run whole and 48 split 5 ways, where whole they left a
-//      second wave of 48 tiles on an idle grid.
+//      second wave of 48 tiles on an idle grid. (K1's staged version of
+//      this sum, gemm_phases.cuh:split_reduce, spilled registers in
+//      this kernel's 128 x 128 instance and cost 9% at batch 32.)
 // Both epilogues stage the accumulators in shared memory and give each
 // row to 8 threads, with whole 4-element loads and stores of device
-// memory (stage_acc). Each GEMM's tile (128 x 128 or 64 x 64), the
-// LayerNorm group, the whole tiles and S come from the wrapper
+// memory (gemm_phases.cuh:stage_acc). Each GEMM's tile (128 x 128 or 64 x
+// 64), the LayerNorm group, the whole tiles and S come from the wrapper
 // (ops/fused.py:mlp_layout), from M, K, H and the card's SMs: at every
 // M >= 208 each phase has at least one work item an SM. The wrapper
 // allocates every scratch with torch.empty.
@@ -61,13 +63,14 @@
 
 #include <algorithm>
 
+#include "gemm_phases.cuh"
 #include "int8_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256, NW = NT / 32;
+constexpr int NT = 256;
 // the GEMM tiles (BM = BN), each of 2 x 4 warps of BM/2 x BN/4
 constexpr int TILE_L = 128, TILE_S = 64;
 constexpr int BK = qvt::GT_BK;
@@ -99,119 +102,13 @@ struct Args {
   bool x_vec, w1_vec, w2_vec, sb1_vec, quad;
 };
 
-// Phase 1: the int8 levels of quant(LN(x)) into a.lv, a group of a.ln_t
-// threads a row (a.ln_t / 32 warps above 32, summed through shared
-// memory), NT / a.ln_t rows a block at a time. The statistics are
-// qvt::ln_stats' (f64 sums of x and of x*x taken in f32, rounded once; any
-// order gives the same f32); the levels (x - mu) * rs * gamma + beta, the
-// linear quantizer's 1/d folded into gamma/beta by the plan. On the
-// 16-byte path a thread loads whole pieces (8 bf16 or 4 f32 values) and
-// stores their levels at once; gamma and beta load as float4. POW: the
-// input quantizer's pow map (a template argument, as hidden_level's).
+// Phase 1: the int8 levels of quant(LN(x)) into a.lv
+// (gemm_phases.cuh:row_levels, a group of a.ln_t threads a row; POW: the
+// input quantizer's pow map), then fc2's arrival counts zeroed (read
+// after both grid barriers).
 template <bool POW>
 __device__ __forceinline__ void ln_quant_rows(const Args& a) {
-  __shared__ double red[2][NW];
-  const int T = a.ln_t, rpb = NT / T, W = T < 32 ? T : 32;
-  const int gl = threadIdx.x % T, grp = threadIdx.x / T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int K = a.K;
-  const float inv_k = 1.0f / static_cast<float>(K);
-  const float act_d = a.prm[0], act_t = a.prm[1];
-  const bool bf = a.x_dt == qvt::DT_BF16;
-  const int epp = bf ? 8 : 4, np = K / epp;  // 16-byte pieces a row
-  const char* xb = static_cast<const char*>(a.x);
-  auto level = [&](float v, float mu, float rs, float g,
-                   float b) -> uint32_t {
-    const float y = (v - mu) * rs * g + b;
-    return static_cast<uint8_t>(
-        qvt::quantize(y, act_d, act_t, a.act_top, POW, !POW));
-  };
-  for (long long r0 = static_cast<long long>(blockIdx.x) * rpb; r0 < a.M;
-       r0 += static_cast<long long>(gridDim.x) * rpb) {
-    const long long r = r0 + grp;
-    const bool live = r < a.M;  // a dead row's threads still reduce
-    const long long base = r * K;
-    auto piece = [&](int q) {
-      return __ldg(reinterpret_cast<const uint4*>(
-          xb + (base + static_cast<long long>(q) * epp) * (bf ? 2 : 4)));
-    };
-    double s = 0.0, s2 = 0.0;
-    if (live && a.x_vec) {
-      for (int q = gl; q < np; q += T) {
-        const uint4 u = piece(q);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (e >= epp) break;
-          const float v = qvt::piece_at(u, bf, e);
-          s += static_cast<double>(v);
-          s2 += static_cast<double>(v * v);
-        }
-      }
-    } else if (live) {
-      for (int k = gl; k < K; k += T) {
-        const float v = qvt::load_f(a.x, a.x_dt, base + k);
-        s += static_cast<double>(v);
-        s2 += static_cast<double>(v * v);
-      }
-    }
-    for (int o = W / 2; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    if (T > 32) {  // the group's warps, in order
-      if (lane == 0) {
-        red[0][warp] = s;
-        red[1][warp] = s2;
-      }
-      __syncthreads();
-      s = s2 = 0.0;
-      for (int i = grp * (T / 32); i < (grp + 1) * (T / 32); ++i) {
-        s += red[0][i];
-        s2 += red[1][i];
-      }
-      __syncthreads();  // red is rewritten for the next rows
-    }
-    const float mu = static_cast<float>(s) * inv_k;
-    const float var = fmaxf(static_cast<float>(s2) * inv_k - mu * mu, 0.f);
-    const float rs = 1.0f / sqrtf(var + a.eps);
-    if (!live) continue;
-    int8_t* out = a.lv + r * a.Kp;
-    if (!a.x_vec) {
-      for (int k = gl; k < K; k += T)
-        out[k] = static_cast<int8_t>(level(qvt::load_f(a.x, a.x_dt, base + k),
-                                           mu, rs, a.ln_g[k], a.ln_b[k]));
-      continue;
-    }
-    for (int q = gl; q < np; q += T) {
-      const uint4 u = piece(q);
-      const int k = q * epp;
-      float gv[8], bv[8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (h * 4 >= epp) break;
-        const float4 g4 =
-            __ldg(reinterpret_cast<const float4*>(a.ln_g + k) + h);
-        const float4 b4 =
-            __ldg(reinterpret_cast<const float4*>(a.ln_b + k) + h);
-        gv[4 * h] = g4.x, gv[4 * h + 1] = g4.y, gv[4 * h + 2] = g4.z;
-        gv[4 * h + 3] = g4.w;
-        bv[4 * h] = b4.x, bv[4 * h + 1] = b4.y, bv[4 * h + 2] = b4.z;
-        bv[4 * h + 3] = b4.w;
-      }
-      uint32_t w[2] = {0u, 0u};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (e >= epp) break;
-        w[e >> 2] |= level(qvt::piece_at(u, bf, e), mu, rs, gv[e], bv[e])
-                     << (8 * (e & 3));
-      }
-      if (bf)
-        *reinterpret_cast<uint2*>(out + k) = make_uint2(w[0], w[1]);
-      else
-        *reinterpret_cast<uint32_t*>(out + k) = w[0];
-    }
-  }
-  // fc2's arrival counts start at zero (read after both grid barriers)
+  qvt::row_levels<qvt::ROWS_LN, POW, NT>(a);
   if (a.S > 1)
     for (int i = blockIdx.x * NT + threadIdx.x; i < a.tiles2 - a.full2;
          i += gridDim.x * NT)
@@ -234,42 +131,12 @@ __device__ __forceinline__ uint32_t hidden_level(const Args& a, int acc,
           : qvt::gelu_quant_folded_c2(y, c2, a.hid_top));
 }
 
-// A tile's accumulators into the stage (the drained ring) as int32 [BM]
-// [BN + 8]: the fragments' 8-byte stores fall in distinct banks. Both
-// epilogues then give a row to 8 threads, each a 4-column group at a time
-// (16-byte stage reads interleaved at 32 columns: no bank conflicts),
-// with whole 4-element loads and stores of device memory. Computed in
-// the fragments, the levels' math had the accumulators live beside it
-// (128 registers a thread) and the stores went out scattered, 2 or 4
-// bytes to a row: both epilogues ran slower so.
-constexpr int STAGE_PAD = 8;
-
-template <int BM, int BN>
-__device__ __forceinline__ void stage_acc(
-    const int (&acc)[BM / 32][BN / 32][4], int* stage) {
-  constexpr int TM = BM / 32, TN = BN / 32, WM = BM / 2, WN = BN / 4;
-  constexpr int RS = BN + STAGE_PAD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / (BN / WN) * WM + (lane >> 2);
-  const int wn = warp % (BN / WN) * WN + 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<int2*>(stage + (wm + 16 * i + 8 * hh) * RS + wn +
-                                 8 * j) =
-            make_int2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-  __syncthreads();
-}
-
 // fc1's epilogue from the stage: four levels a group, one 4-byte store
 // of hid (a group past H lands in hid's padding)
 template <int BM, int BN, bool POW>
 __device__ __forceinline__ void store_levels(const Args& a, const int* stage,
                                              int row0, int col0) {
-  constexpr int RS = BN + STAGE_PAD;
+  constexpr int RS = BN + qvt::STAGE_PAD;
   const float hid_d = a.prm[2], hid_t = a.prm[3];
   const float c2 = 0.70710678118654757f / hid_d;
   const int q = threadIdx.x & 7;
@@ -319,7 +186,7 @@ __device__ __forceinline__ void fc1_phase(const Args& a, int8_t* smem) {
     qvt::gemm_tile<BM, BN, WM, WN, NT>(acc, a.lv, a.Kp, M, a.w1, a.w1_vec,
                                        row0, col0, 0, nkt, smem);
     int* stage = reinterpret_cast<int*>(smem);
-    stage_acc<BM, BN>(acc, stage);
+    qvt::stage_acc<BM, BN>(acc, stage);
     if (a.hid_pow)
       store_levels<BM, BN, true>(a, stage, row0, col0);
     else
@@ -327,43 +194,12 @@ __device__ __forceinline__ void fc1_phase(const Args& a, int8_t* smem) {
   }
 }
 
-// four consecutive elements of a bf16 or f32 row (8 or 16 bytes)
-__device__ __forceinline__ void load4(const void* p, int dt, long long i,
-                                      float (&v)[4]) {
-  if (dt == qvt::DT_F32) {
-    const float4 f = *reinterpret_cast<const float4*>(
-        static_cast<const float*>(p) + i);
-    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-    return;
-  }
-  const uint2 u = *reinterpret_cast<const uint2*>(
-      static_cast<const __nv_bfloat16*>(p) + i);
-  v[0] = __uint_as_float(u.x << 16);
-  v[1] = __uint_as_float(u.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(u.y << 16);
-  v[3] = __uint_as_float(u.y & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ void store4(void* p, int dt, long long i,
-                                       const float (&v)[4]) {
-  if (dt == qvt::DT_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) =
-        make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + i) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                 *reinterpret_cast<const uint32_t*>(&hi));
-}
-
 // fc2's epilogue from the stage: acc * s2 + b2 + x in f32 (fused.py:
 // 699-700), four columns a group
 template <int BM, int BN>
 __device__ __forceinline__ void store_out(const Args& a, const int* stage,
                                           int row0, int col0) {
-  constexpr int RS = BN + STAGE_PAD;
+  constexpr int RS = BN + qvt::STAGE_PAD;
   const int q = threadIdx.x & 7;
   for (int r = threadIdx.x >> 3; r < BM; r += NT / 8) {
     const int row = row0 + r;
@@ -381,11 +217,11 @@ __device__ __forceinline__ void store_out(const Args& a, const int* stage,
         const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
         const float bi[4] = {b4.x, b4.y, b4.z, b4.w};
         float y[4];
-        load4(a.x, a.x_dt, o, y);
+        qvt::load4(a.x, a.x_dt, o, y);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           y[e] = (static_cast<float>(acc[e]) * sc[e] + bi[e]) + y[e];
-        store4(a.out, a.out_dt, o, y);
+        qvt::store4(a.out, a.out_dt, o, y);
         continue;
       }
 #pragma unroll
@@ -464,7 +300,7 @@ __device__ __forceinline__ void fc2_phase(const Args& a, int8_t* smem) {
       }
     }
     int* stage = reinterpret_cast<int*>(smem);
-    stage_acc<BM, BN>(acc, stage);
+    qvt::stage_acc<BM, BN>(acc, stage);
     store_out<BM, BN>(a, stage, row0, col0);
   }
 }

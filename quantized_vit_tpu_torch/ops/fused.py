@@ -16,7 +16,10 @@ version.
 Kernels:
 
 - :func:`fused_quant_matmul` replaces ``ops/fused.py:_fused_quant_matmul``
-  (``pallas_call`` at fused.py:556). Plain version:
+  (``pallas_call`` at fused.py:556): :func:`run_matmul` (K1,
+  ``csrc/fused_quant_matmul.cu``) runs the prologue once a row into a
+  level scratch, then the GEMM on the int8 tensor cores at the work split
+  of :func:`matmul_layout`, in one launch. Plain version:
   :func:`fused_quant_matmul_plain` (port of ``fused_quant_matmul_xla``).
 - :func:`run_mlp` (K2, ``csrc/fused_mlp.cu``) replaces
   ``ops/fused.py:_fused_mlp`` (``pallas_call`` at fused.py:977): one
@@ -62,6 +65,10 @@ _ERF_COEFS = (
 )
 _PROLOGUES = {None: 0, "quant": 1, "ln_quant": 2, "gelu_quant": 3}
 _EPILOGUES = {None: 0, "residual": 1, "quant": 2, "gelu_quant": 3}
+# K1 on int8 levels it cannot read in place (K % 16 != 0, or x off 16
+# bytes): its first phase copies them into the level scratch
+COPY_PROLOGUE = "copy"
+_PRO_CODES = dict(_PROLOGUES, copy=4)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -294,13 +301,15 @@ def _params4(device, a_d, a_t, b_d, b_t) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
     """One K1 call site, prepared once by :func:`plan_matmul`: the weight
-    in the kernels' layout (:func:`~._build.n_major`), the constants
-    folded, the quantizer scalars on the device, the static options."""
+    in the kernels' layout (:func:`~._build.n_major`; ``wk``: its depth
+    there, K or, padded, K rounded up to 64), the constants folded, the
+    quantizer scalars on the device, the static options."""
 
     w_t: torch.Tensor
     int4: bool
     k: int
     n: int
+    wk: int
     scale: torch.Tensor
     bias: Optional[torch.Tensor]
     ln_scale: Optional[torch.Tensor]
@@ -310,11 +319,27 @@ class MatmulPlan:
     epilogue: Optional[str]
     act_pow: bool
     out_pow: bool
-    act_folded: bool
-    out_folded: bool
     act_top: int
     out_top: int
     ln_eps: float
+
+
+def _weight_vec_ok(k: int, fmt: str) -> bool:
+    """Whether a weight of depth ``k`` takes the kernels' 16-byte B path
+    (``csrc/qvt_common.cuh:WeightT::vec_ok``)."""
+    return k % 16 == 0 and (fmt != "int4" or (k // 2) % 16 == 0)
+
+
+def padded_n_major(w, fmt: str, k: int, kp: int) -> torch.Tensor:
+    """``w`` [K, N] (or packed int4 [K/2, N]) in the kernels' n-major
+    layout at depth ``kp`` > K, zero levels past K. Packed int4 pairs k
+    with k + depth/2, so the levels are unpacked, padded and packed again
+    at ``kp``, not padded as bytes."""
+    from ..quant.packing import pack_int4, unpack_int4
+
+    lv = unpack_int4(w, axis=0) if fmt == "int4" else w
+    lv = torch.cat([lv, lv.new_zeros((kp - k, lv.shape[1]))])
+    return _build.n_major(pack_int4(lv, axis=0) if fmt == "int4" else lv)
 
 
 def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
@@ -326,61 +351,132 @@ def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
     kernels' layout and the folds of fused.py:459-476. Arguments as
     :func:`fused_quant_matmul`; ``w`` must lie on a CUDA device. ``w_t``:
     ``w`` already in the kernels' layout (another plan's copy, shared
-    instead of copied again)."""
+    instead of copied again; the kernel reads it byte by byte if its depth
+    is off the 16-byte path). The plan's own copy of a weight whose depth
+    is off that path (ViT-H/14's patch embed, K = 588) is made at K
+    rounded up to 64 with zero levels (:func:`padded_n_major`), so the
+    kernel loads it in 16-byte pieces; the result is the same."""
     _check_tops("fused_quant_matmul", prologue, epilogue, act_d, act_top,
                 out_top)
     k, n = _matmul_options(w, fmt, prologue, ln_scale, ln_bias, epilogue,
                            out_d, act_d)
     _build.require_cuda("fused_quant_matmul", w)
     dev = w.device
-    scale, bias, ln_scale, ln_bias, act_folded, out_folded = _matmul_folds(
+    scale, bias, ln_scale, ln_bias, _, _ = _matmul_folds(
         dev, n, scale, bias, prologue, act_d, act_pow, ln_scale, ln_bias,
         epilogue, out_d, out_pow)
+    wk = k
+    if w_t is None and not _weight_vec_ok(k, fmt):
+        wk = _round_up(k, 64)
+        w_t = padded_n_major(w, fmt, k, wk)
     cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
     return MatmulPlan(
         w_t=_build.n_major(w) if w_t is None else w_t,
-        int4=fmt == "int4", k=k, n=n,
+        int4=fmt == "int4", k=k, n=n, wk=wk,
         scale=cont(scale), bias=cont(bias), ln_scale=cont(ln_scale),
         ln_bias=cont(ln_bias), prm=_params4(dev, act_d, act_t, out_d, out_t),
         prologue=prologue, epilogue=epilogue, act_pow=bool(act_pow),
-        out_pow=bool(out_pow), act_folded=act_folded, out_folded=out_folded,
-        act_top=int(act_top or 0), out_top=int(out_top or 0),
-        ln_eps=float(ln_eps))
+        out_pow=bool(out_pow), act_top=int(act_top or 0),
+        out_top=int(out_top or 0), ln_eps=float(ln_eps))
 
 
 def run_matmul(plan: MatmulPlan, x, *, residual=None,
                out_dtype=torch.bfloat16):
-    """Launches K1 on ``x`` [M, K] for a prepared layer: the only place
-    that launches it."""
+    """Launches K1 on ``x`` [M, K] for a prepared layer at the work split
+    :func:`matmul_layout` picks for the card (through
+    :func:`_launch_matmul`, the one launch site). Int8 levels (prologue
+    None) are read in place where the kernel can (K % 16 == 0, x 16-byte
+    aligned), else copied by its first phase (:data:`COPY_PROLOGUE`)."""
     _build.require_cuda("fused_quant_matmul", x, residual)
+    return _launch_matmul(plan, x, None, residual=residual,
+                          out_dtype=out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    """The SMs of CUDA device ``index`` (read once: a property read costs
+    microseconds of host time a call)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _matmul_library():
+    """K1's library, its entry point's C signature set on first use."""
+    lib = _build.library("fused_quant_matmul")
+    fn = lib.qvt_fused_quant_matmul
+    if fn.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        fn.argtypes = ([P, I, P, I, I] + [P] * 5 + [I] + [P] * 5
+                       + [I] * 11 + [F] + [I] * 4 + [P])
+        fn.restype = I
+    return lib
+
+
+# per (device, stream): K1's arrival counts of split tiles, zeroed once;
+# each launch leaves them at zero (csrc/gemm_phases.cuh:split_reduce)
+_SPLIT_COUNTS: dict = {}
+
+
+def _split_counts(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    counts = _SPLIT_COUNTS.get(key)
+    if counts is None or counts.numel() < n:
+        counts = torch.zeros((max(n, 4096),), dtype=torch.int32,
+                             device=device)
+        _SPLIT_COUNTS[key] = counts
+    return counts
+
+
+def _launch_matmul(plan: MatmulPlan, x, layout: Optional["MatmulLayout"],
+                   *, residual=None, out_dtype=torch.bfloat16):
+    """K1 at ``layout`` (None: :func:`matmul_layout`'s for the card) on a
+    CUDA ``x``: its scratch (one byte buffer holding the levels and, with
+    a split, the int32 partial tiles: :meth:`MatmulLayout.scratch_bytes`,
+    each part 16-byte aligned), the split tiles' arrival counts
+    (:func:`_split_counts`) and the launch itself, counted under
+    ``fused_quant_matmul``. ``chip_smoke.py`` calls it at layouts other
+    than the picker's."""
     m = _matmul_input(x, plan.k, plan.prologue, plan.epilogue, residual)
     n = plan.n
     x = x.contiguous()
-    if residual is not None:
+    if plan.epilogue != "residual":
+        residual = None
+    elif residual.shape != (m, n):
+        raise ValueError(f"residual {tuple(residual.shape)} vs ({m}, {n})")
+    else:
         residual = residual.contiguous()
-        if residual.shape != (m, n):
-            raise ValueError(f"residual {tuple(residual.shape)} vs ({m}, {n})")
     out_int8 = plan.epilogue in ("quant", "gelu_quant")
     out = torch.empty((m, n), dtype=torch.int8 if out_int8 else out_dtype,
                       device=x.device)
     if m == 0:
         return out
-    fn = _build.library("fused_quant_matmul").qvt_fused_quant_matmul
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, I, P, P, P, P, P, I, P, P, I, I, I, I, I, I,
-                   I, I, I, I, I, I, F, P]
-    fn.restype = I
-    code = fn(
+    if layout is None:
+        prologue = plan.prologue
+        if prologue is None and (plan.k % 16 or x.data_ptr() % 16):
+            prologue = COPY_PROLOGUE
+        layout = matmul_layout(m, plan.k, n, prologue, x.element_size(),
+                               _card_sms(x.device.index))
+    sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
+    lv = part = cnt = None
+    if sum(sizes):
+        scratch = torch.empty((sum(sizes),), dtype=torch.uint8,
+                              device=x.device)
+        lv = scratch.data_ptr() if sizes[0] else None
+        part = scratch.data_ptr() + sizes[0] if sizes[1] else None
+    stream = _build.stream()
+    if layout.splits > 1:
+        cnt = _split_counts(x.device, stream, layout.split_tiles).data_ptr()
+    code = _matmul_library().qvt_fused_quant_matmul(
         x.data_ptr(), _build.dtype_code(x.dtype), plan.w_t.data_ptr(),
-        int(plan.int4), plan.scale.data_ptr(), _build.ptr(plan.bias),
-        _build.ptr(plan.ln_scale), _build.ptr(plan.ln_bias),
-        _build.ptr(residual),
+        int(plan.int4), plan.wk, plan.scale.data_ptr(),
+        _build.ptr(plan.bias), _build.ptr(plan.ln_scale),
+        _build.ptr(plan.ln_bias), _build.ptr(residual),
         _build.dtype_code(residual.dtype) if residual is not None else 0,
-        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
-        m, plan.k, n, _PROLOGUES[plan.prologue], _EPILOGUES[plan.epilogue],
-        int(plan.act_pow), int(plan.out_pow), int(plan.act_folded),
-        int(plan.out_folded), plan.act_top, plan.out_top, plan.ln_eps,
-        _build.stream())
+        plan.prm.data_ptr(), lv, part, cnt, out.data_ptr(),
+        _build.dtype_code(out.dtype), m, plan.k, n, layout.kp,
+        _PRO_CODES[layout.prologue], _EPILOGUES[plan.epilogue],
+        int(plan.act_pow), int(plan.out_pow), plan.act_top, plan.out_top,
+        plan.ln_eps, layout.ln_threads, layout.tile, layout.full,
+        layout.splits, stream)
     _build.check(code, "fused_quant_matmul")
     _build.count_launch("fused_quant_matmul")
     return out
@@ -513,9 +609,10 @@ def mlp_auto_hid_block(m: int, k: int, hid: int, fmt: str = "int8",
     return None
 
 
-# csrc/fused_mlp.cu (K2): its GEMM tiles (rows = columns), large then
-# small, their k step, its threads a block, the threads a LayerNorm row
-# may take, and the blocks of its grid an SM (it launches at most two)
+# csrc/fused_mlp.cu (K2) and csrc/fused_quant_matmul.cu (K1): their GEMM
+# tiles (rows = columns), large then small, their k step, their threads a
+# block, the threads a prologue row may take, and the blocks of their grid
+# an SM (they launch at most two)
 MLP_TILES = (128, 64)
 MLP_BK = 128
 MLP_THREADS = 256
@@ -626,10 +723,6 @@ def mlp_layout(m: int, k: int, hid: int, itemsize: int = 2,
     1 and 2 (208, 416 rows) 64 x 64 tiles, each fc2 tile split 5 and 3
     ways; at ViT-H/14 batch 1 and 2 (272, 544 rows) 2 ways and none."""
     slots = MLP_BLOCKS_PER_SM * sms
-    pieces = _cdiv(k * itemsize, 16)
-    least = 8 if pieces <= 96 else 16 if pieces <= 192 else 32
-    ln = next((t for t in MLP_LN_GROUPS if t >= least
-               and _cdiv(m, MLP_THREADS // t) >= sms), MLP_LN_GROUPS[-1])
 
     def tiles(t, n):
         return _cdiv(m, t) * _cdiv(n, t)
@@ -637,11 +730,146 @@ def mlp_layout(m: int, k: int, hid: int, itemsize: int = 2,
     big, small = MLP_TILES
     t2 = big if tiles(big, k) >= slots else small
     t1 = big if t2 == big or tiles(big, hid) >= sms else small
-    n2, nkt = tiles(t2, k), _cdiv(_round_up(hid, 64), MLP_BK)
-    rest = n2 % slots
-    splits = max(1, min(nkt, slots // rest)) if rest else 1
-    full = n2 - rest if splits > 1 else n2
-    return MlpLayout(m, k, hid, ln, t1, t2, full, splits)
+    full, splits = _split_rest(tiles(t2, k),
+                               _cdiv(_round_up(hid, 64), MLP_BK), slots)
+    return MlpLayout(m, k, hid, _row_group(m, k * itemsize, sms), t1, t2,
+                     full, splits)
+
+
+def _row_group(m: int, row_bytes: int, sms: int) -> int:
+    """The threads a prologue row takes (K2's and K1's first phase): the
+    fewest, at most 12 16-byte pieces each (8, 16 or 32, K3's rule),
+    whose row groups still give every SM one; else a block a row."""
+    pieces = _cdiv(row_bytes, 16)
+    least = 8 if pieces <= 96 else 16 if pieces <= 192 else 32
+    return next((t for t in MLP_LN_GROUPS if t >= least
+                 and _cdiv(m, MLP_THREADS // t) >= sms), MLP_LN_GROUPS[-1])
+
+
+def _split_rest(tiles: int, steps: int, slots: int):
+    """(tiles taken whole, splits of each other tile) of a GEMM phase of
+    ``tiles`` output tiles of ``steps`` 128-deep steps on a grid of
+    ``slots`` blocks: whole waves of tiles run whole; the tiles left over
+    split their depth into as many pieces as fill one more wave (at most
+    their steps), so no block runs a second whole tile while others
+    idle."""
+    rest = tiles % slots
+    splits = max(1, min(steps, slots // rest)) if rest else 1
+    return (tiles - rest if splits > 1 else tiles), splits
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulLayout:
+    """K1's work split for M rows of x [M, K] against a weight [K, N]
+    (:func:`matmul_layout`): the prologue its first phase runs (None: x's
+    levels are read in place, no first phase), the threads a prologue
+    row, the output tile (``tile`` rows and columns), the tiles taken
+    whole (``full``, the first ones) and the splits of the depth of each
+    other tile. Its methods enumerate the work items in the kernel's
+    order (``csrc/fused_quant_matmul.cu``) and size its scratch."""
+
+    m: int
+    k: int
+    n: int
+    prologue: Optional[str]
+    ln_threads: int
+    tile: int
+    full: int
+    splits: int
+
+    @property
+    def kp(self) -> int:
+        """The level scratch's row: K rounded up to 64."""
+        return _round_up(self.k, 64)
+
+    @property
+    def steps(self) -> int:
+        """The GEMM's 128-deep steps: over the scratch's Kp columns, or
+        over K when x is read in place."""
+        return _cdiv(self.k if self.prologue is None else self.kp, MLP_BK)
+
+    @property
+    def row_items(self) -> int:
+        """The first phase's work items: groups of ``MLP_THREADS /
+        ln_threads`` rows, one a block at a time (none without it)."""
+        if self.prologue is None:
+            return 0
+        return _cdiv(self.m, MLP_THREADS // self.ln_threads)
+
+    @property
+    def tiles(self) -> int:
+        return _cdiv(self.m, self.tile) * _cdiv(self.n, self.tile)
+
+    @property
+    def split_tiles(self) -> int:
+        """Tiles taken in ``splits`` pieces (none when 1)."""
+        return 0 if self.splits == 1 else self.tiles - self.full
+
+    def items(self):
+        """The GEMM's items: (row0, col0, first, end) of each output tile
+        taken whole, then of each split of the others, over the 128-deep
+        steps [first, end) of the depth."""
+        t, s, nkt = self.tile, self.splits, self.steps
+        tn = _cdiv(self.n, t)
+        whole = [(i, 0, nkt) for i in range(self.full if s > 1
+                                            else self.tiles)]
+        split = [(i, p * nkt // s, (p + 1) * nkt // s)
+                 for i in range(self.full, self.tiles) for p in range(s)
+                 if s > 1]
+        return [(i // tn * t, i % tn * t, first, end)
+                for i, first, end in whole + split]
+
+    def scratch_bytes(self):
+        """Bytes of each scratch: the levels [M, Kp] int8 (none when x is
+        read in place) and the int32 partial tiles, one a split."""
+        return {"levels": 0 if self.prologue is None else self.m * self.kp,
+                "partials": 4 * self.split_tiles * self.splits
+                * self.tile**2}
+
+
+# K1's cost of splitting a tile's depth beyond the steps its splits take,
+# in 128-deep steps: each split writes its int32 partial tile, and the
+# last one to arrive reads the others' (tools/matmul_design.py, PERF.md)
+MATMUL_SPLIT_STEPS = 6
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_layout(m: int, k: int, n: int, prologue: Optional[str] = None,
+                  itemsize: int = 2, sms: int = _H100_SMS) -> MatmulLayout:
+    """K1's work split at ``m`` rows of x [m, k] (``itemsize`` bytes an
+    element) against a weight [k, n], under ``prologue`` (None: x's int8
+    levels read in place; :data:`COPY_PROLOGUE`: copied), on a card of
+    ``sms`` SMs, whose grid holds ``MLP_BLOCKS_PER_SM * sms`` blocks:
+
+    - the prologue's threads a row: K2's rule (:func:`_row_group`);
+    - the 128 x 128 tile where its tiles fill the grid once, else 64 x 64;
+    - the tiles left over after whole waves split their depth as K2's fc2
+      does (:func:`_split_rest`) only where that shortens the longest
+      block's work, in 128-deep steps, by more than a split costs
+      (:data:`MATMUL_SPLIT_STEPS`); else every tile runs whole.
+
+    At the 768-deep ViT-B sites a split never pays: 48 whole 64 x 64
+    tiles of the batch-1 chain proj (208 x 768 x 768) beat 240 items that
+    give every SM one. At ViT-H's 1280-deep chain qkv at batch 1 (272 x
+    1280 x 3840) 264 of its 300 tiles run whole and 36 split 7 ways; fc1
+    at batch 32 (8704 x 1280 x 5120) runs its 2720 128 x 128 tiles
+    whole."""
+    slots = MLP_BLOCKS_PER_SM * sms
+
+    def tiles(t):
+        return _cdiv(m, t) * _cdiv(n, t)
+
+    big, small = MLP_TILES
+    tile = big if tiles(big) >= slots else small
+    steps = _cdiv(k if prologue is None else _round_up(k, 64), MLP_BK)
+    n_t = tiles(tile)
+    full, splits = _split_rest(n_t, steps, slots)
+    whole = _cdiv(n_t, slots) * steps
+    if (n_t // slots * steps + _cdiv(steps, splits) + MATMUL_SPLIT_STEPS
+            >= whole):
+        full, splits = n_t, 1
+    return MatmulLayout(m, k, n, prologue, _row_group(m, k * itemsize, sms),
+                        tile, full, splits)
 
 
 def _mlp_shapes(w1, w2, fmt, fmt2, act_top, hid_top):

@@ -1,6 +1,6 @@
-"""K6, K3, K2 and the forwards that run them, timed on the card through
-the package's public entry points only, so that one script times any
-version of the package (run it from the root of a checkout):
+"""K1, K6, K3, K2 and the forwards that run them, timed on the card
+through the package's public entry points only, so that one script times
+any version of the package (run it from the root of a checkout):
 
     python3 -m quantized_vit_tpu_torch.tools.chain_timing
 
@@ -12,11 +12,16 @@ prepared plan, random bf16 x and int8 weights) at ViT-B/16 and ViT-H/14
 batch 32, and K2 (``run_mlp`` on a prepared plan, random bf16 x and
 weights) at ViT-B/16 batch 32, 2 and 1 with int8 levels and at ViT-H/14
 batch 1 and 2 with packed int4 (None where the version refuses the
-width), each as the median of CUDA-event readings, the host's time to
-issue one call and its kernels' device time from torch.profiler; and the
-forward (``vit_int4_forward`` on a prepared plan, int8-stored levels from
-seed 0, bf16 residual stream) of ViT-B/16 and ViT-H/14 at batch 1 and 2
-(the chain) and 32 (the K3 route), CUDA-event medians in ms.
+width), and K1 (``run_matmul`` on a prepared plan, random x and int8
+weights) at every site of the forwards (ViT-B/16's patch embed, proj and
+head at batch 32, its head at batch 1, its chain qkv and proj at batch
+1-3; ViT-H/14's patch embed at batch 32, its chain qkv and proj at
+batch 1 and 2, fc1 and fc2 at batch 32), each as the median of
+CUDA-event readings, the host's time to launch one call and its kernels'
+device time from torch.profiler; and the forward (``vit_int4_forward``
+on a prepared plan, int8-stored levels from seed 0, bf16 residual
+stream) of ViT-B/16 and ViT-H/14 at batch 1 and 2 (the chain) and 32
+(the K3 route), CUDA-event medians in ms.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import numpy as np
 import torch
 
 from ..models import ViTConfig
-from ..ops import (plan_attention_heads, plan_attention_qkv, plan_mlp,
-                   run_attention_heads, run_attention_qkv, run_mlp)
+from ..ops import (plan_attention_heads, plan_attention_qkv, plan_matmul,
+                   plan_mlp, run_attention_heads, run_attention_qkv,
+                   run_matmul, run_mlp)
 from ..quant import pack_int4
 from ..serve import (prepare_kernels, random_vit_int4_artifact,
                      vit_int4_forward)
@@ -50,6 +56,26 @@ K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
             "vitb_b1": (208, 768, 3072, "int8"),
             "vith_b1_int4": (272, 1280, 5120, "int4"),
             "vith_b2_int4": (544, 1280, 5120, "int4")}
+# (rows, K, N, prologue, epilogue, x dtype)
+_B, _H = (208, 768), (272, 1280)
+K1_SITES = {
+    "vitb_patch_embed_b32": (6272, 768, 768, "quant", None, torch.float32),
+    "vitb_proj_b32": (6656, 768, 768, None, "residual", torch.int8),
+    "vitb_head_b32": (32, 768, 1000, "quant", None, torch.float32),
+    "vitb_head_b1": (1, 768, 1000, "quant", None, torch.float32),
+    **{f"vitb_chain_qkv_b{b}": (b * _B[0], _B[1], 3 * _B[1], "ln_quant",
+                                None, torch.bfloat16) for b in (1, 2, 3)},
+    **{f"vitb_chain_proj_b{b}": (b * _B[0], _B[1], _B[1], None, "residual",
+                                 torch.int8) for b in (1, 2, 3)},
+    "vith_patch_embed_b32": (8192, 588, 1280, "quant", None, torch.float32),
+    **{f"vith_chain_qkv_b{b}": (b * _H[0], _H[1], 3 * _H[1], "ln_quant",
+                                None, torch.bfloat16) for b in (1, 2)},
+    **{f"vith_chain_proj_b{b}": (b * _H[0], _H[1], _H[1], None, "residual",
+                                 torch.int8) for b in (1, 2)},
+    "vith_fc1_b32": (32 * _H[0], _H[1], 4 * _H[1], "ln_quant",
+                     "gelu_quant", torch.bfloat16),
+    "vith_fc2_b32": (32 * _H[0], 4 * _H[1], _H[1], None, "residual",
+                     torch.int8)}
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
 BATCHES = (1, 2, 32)
@@ -103,10 +129,34 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    out = {"card": smi, "k6_us": {}, "k3_us": {}, "k2_us": {},
+    out = {"card": smi, "k1_us": {}, "k6_us": {}, "k3_us": {}, "k2_us": {},
            "forward_ms": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
+    for site, (m, k, n, pro, epi, xdt) in K1_SITES.items():
+        w = torch.randint(-7, 8, (k, n), dtype=torch.int8, device="cuda",
+                          generator=g)
+        layer = {} if pro is None else dict(act_d=0.05 * one, act_t=one,
+                                            act_top=127)
+        if pro == "ln_quant":
+            layer.update(ln_scale=torch.ones(k, device="cuda"),
+                         ln_bias=torch.zeros(k, device="cuda"))
+        if epi == "gelu_quant":
+            layer.update(out_d=0.05 * one, out_t=one, out_top=127)
+        plan = plan_matmul(w, 1e-3 * one, None, fmt="int8", prologue=pro,
+                           epilogue=epi, **layer)
+        x = (torch.randint(-7, 8, (m, k), dtype=torch.int8, device="cuda",
+                           generator=g) if xdt == torch.int8 else
+             torch.randn((m, k), generator=g, device="cuda").to(xdt))
+        res = (torch.randn((m, n), generator=g, device="cuda").to(
+            torch.bfloat16) if epi == "residual" else None)
+        odt = torch.float32 if xdt == torch.float32 else torch.bfloat16
+
+        def fn(plan=plan, x=x, res=res, odt=odt):
+            return run_matmul(plan, x, residual=res, out_dtype=odt)
+
+        out["k1_us"][site] = {"events": events_us(fn), "host": host_us(fn),
+                              "device": device_us(fn)}
     for site, (b, n, heads, hd, n_real) in K6_SITES.items():
         qkv = (torch.randn((b, n, 3 * heads * hd), generator=g,
                            device="cuda") * 0.7).to(torch.bfloat16)

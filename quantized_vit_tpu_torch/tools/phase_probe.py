@@ -1,5 +1,5 @@
-"""Per-block phase timing of the K3, K2, K8, K6, K9 and K13 kernels, and
-per-phase timing of K5, on the card.
+"""Per-block phase timing of the K1, K3, K2, K8, K6, K9 and K13 kernels,
+and per-phase timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
@@ -17,6 +17,12 @@ and prints:
   ViT-H/14 at batch 1 and 2 with packed int4; random bf16 x), per block of
   its persistent grid, each phase summed: LN + quant | first grid
   barrier | fc1 | second grid barrier | fc2, and the span;
+- ``fused_quant_matmul`` (ViT-B/16's patch embed and attention proj at
+  batch 32, its chain qkv at batch 2, ViT-H/14's fc1 and fc2 at batch 32;
+  int8 levels, random x), per block of its persistent grid, each phase
+  summed: prologue | grid barrier | GEMM (with a split's partial sums) |
+  epilogue, and the span (no prologue or barrier where x's levels are
+  read in place);
 - ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
   LayerNorm + quant | its hidden slice's chunk loop | partial sums, grid
   barrier and epilogue, and the span;
@@ -60,7 +66,8 @@ from ..ops.attention import (_card_shape, flash_tile_rows, heads_tile_rows,
                              run_attention_heads, run_attention_qkv,
                              run_attention_qkv_proj, run_flash_attention)
 from ..ops.block_stack import run_block_stack
-from ..ops.fused import (mlp_layout, plan_mlp, plan_mlp_chunked, run_mlp,
+from ..ops.fused import (matmul_layout, mlp_layout, plan_matmul, plan_mlp,
+                         plan_mlp_chunked, run_matmul, run_mlp,
                          run_mlp_chunked)
 from ..quant import pack_int4
 from ..models import ViTConfig
@@ -78,6 +85,15 @@ _K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
              "vitb_b1": (208, 768, 3072, "int8"),
              "vith_b1_int4": (272, 1280, 5120, "int4"),
              "vith_b2_int4": (544, 1280, 5120, "int4")}
+_K1_PHASES = ("prologue", "barrier", "GEMM", "epilogue")
+# K1's sites: (rows, K, N, prologue, epilogue, x dtype)
+_K1_SITES = {
+    "vitb_patch_embed_b32": (6272, 768, 768, "quant", None, torch.float32),
+    "vitb_proj_b32": (6656, 768, 768, None, "residual", torch.int8),
+    "vitb_chain_qkv_b2": (416, 768, 2304, "ln_quant", None, torch.bfloat16),
+    "vith_fc1_b32": (8704, 1280, 5120, "ln_quant", "gelu_quant",
+                     torch.bfloat16),
+    "vith_fc2_b32": (8704, 5120, 1280, None, "residual", torch.int8)}
 _STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
                  "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
 
@@ -139,6 +155,32 @@ def main():
                       f"fused_mlp:{tag}:ln{lay.ln_threads}:t{lay.tile1}/"
                       f"{lay.tile2}:whole{lay.full2}:S{lay.splits}",
                       lambda pl=pl, xk=xk: run_mlp(pl, xk))
+    for tag, (rows, dk, nk, pro, epi, xdt) in _K1_SITES.items():
+        if only and "fused_quant_matmul" not in only:
+            break
+        wk = torch.randint(-7, 8, (dk, nk), dtype=torch.int8, device=dev)
+        layer = {} if pro is None else dict(act_d=d05, act_t=one,
+                                            act_top=127)
+        if pro == "ln_quant":
+            layer.update(ln_scale=torch.ones(dk, device=dev),
+                         ln_bias=torch.zeros(dk, device=dev))
+        if epi == "gelu_quant":
+            layer.update(out_d=d05, out_t=one, out_top=127)
+        pl = plan_matmul(wk, 1e-3 * one, None, fmt="int8", prologue=pro,
+                         epilogue=epi, **layer)
+        xk = (torch.randint(-7, 8, (rows, dk), dtype=torch.int8, device=dev,
+                            generator=g) if xdt == torch.int8 else
+              torch.randn((rows, dk), generator=g, device=dev).to(xdt))
+        res = (torch.randn((rows, nk), generator=g, device=dev).to(
+            torch.bfloat16) if epi == "residual" else None)
+        out_dt = torch.float32 if xdt == torch.float32 else torch.bfloat16
+        lay = matmul_layout(rows, dk, nk, pro, xk.element_size(),
+                            _card_shape(0)[0])
+        summed_phases(buf, "fused_quant_matmul", _K1_PHASES,
+                      f"fused_quant_matmul:{tag}:ln{lay.ln_threads}:"
+                      f"t{lay.tile}:whole{lay.full}:S{lay.splits}",
+                      lambda pl=pl, xk=xk, res=res, out_dt=out_dt:
+                      run_matmul(pl, xk, residual=res, out_dtype=out_dt))
     for tag, (bk, n, heads, hd, nv) in (("vitb_b32", (32, 208, 12, 64, 197)),
                                         ("vith_b32", (32, 272, 16, 80,
                                                       257))):
