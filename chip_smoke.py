@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero:
    and wherever else its nine (query tile, head bound) instantiations
    need; K14 on a ViT-B block's weights as
    int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
-   ones, all at tp = 1 here and at tp = 2 and 4 in phase 3c),
+   ones and at ViT-H/14's width at 8704, 544 and 1000 rows, all at tp =
+   1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K2 there with int8, packed
    int4 and mixed weights, K3, K6 and K9 at head_dim 80; K3 also with an
    f32 residual stream at batch 4), K1 at every site of the forwards
@@ -79,11 +80,13 @@ Phases, in order; any failure exits non-zero:
    K13 on the q/k/v of block 0 of the seed-0 artifacts (ViT-B/16 batch
    32, ViT-H/14 batch 1 and 8; float and int8 outputs);
 3c. FSDP serving (serve/vit_fsdp.py) on the batch-32 forward's artifact
-   and images: at tp = 1 in this process, at tp = 2 as two spawned
-   processes sharing the card (gloo, CUDA IPC, interprocess events),
-   each run's launches checked (1 K14, 12 K15, 12 K3, 14 K1, 1 K4) and
-   its logits bit-equal to ``vit_int4_forward``'s; the spawned groups
-   (tp = 2 and 4) also hold K14 and K15 against the full weights and
+   and images, and on ViT-H/14's (batch 32): at tp = 1 in this process
+   (ViT-H/14 at full depth), at tp = 2 as two spawned processes sharing
+   the card (gloo, CUDA IPC, interprocess events; ViT-H/14 at depth 8),
+   each run's launches checked (1 K14, 12 K15, 12 K3, 14 K1, 1 K4; 32
+   K15, 32 K3, 34 K1 at ViT-H/14 full depth) and its logits bit-equal
+   to ``vit_int4_forward``'s; the spawned groups (tp = 2 and 4) also
+   hold K14 and K15 (at both widths) against the full weights and
    ``fused_mlp_plain``, each process under a deadline;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
@@ -104,9 +107,10 @@ Phases, in order; any failure exits non-zero:
    ceiling;
    yardsticks the port never calls; beside K9 also K6 + K1 and K3's
    branch, beside K12 K1 with its quant prologue, beside K15 K2 on the
-   same plan), ``torch.cat`` beside K14, K15's overlap sweep
+   same plan, at ViT-B/16's and ViT-H/14's batch 32), ``torch.cat``
+   beside K14, K15's overlap sweep
    (tools/exp_rdma_overlap.py's question: K2 alone, then K15 gathering
-   4-31 MB), the FSDP forward at tp = 1 against ``vit_int4_forward``,
+   4-31 MB), the FSDP forwards at tp = 1 against ``vit_int4_forward``,
    both routes' attention branch at batch 2, 3, 4, 8, 16 and 32, the
    forwards, and a plain bf16 PyTorch ViT forward of the same
    architecture (ViT-B/16 at batch 32, 1 and 2; ViT-H/14 at 1, 2, 32);
@@ -185,6 +189,8 @@ GATHER_TPS = (1, 2, 4)
 K15_RAGGED_M = (96, 1000)
 OVERLAP_MB = (4, 8, 16, 31)
 FSDP_TP_ITERS = 5
+# the spawned ViT-H/14 FSDP forward's depth (tp = 1 runs all 32 blocks)
+VIT_H_FSDP_TP_DEPTH = 8
 SPAWN_TIMEOUT_S = 300
 ART_DIR = os.path.join(ROOT, "build", "smoke_artifact")  # serve phase
 
@@ -1337,9 +1343,9 @@ class Parity:
     # -- K14, K15 at tp = 1 (tp > 1: fsdp_phase's spawned processes) ------
 
     def k15(self, case, m, cfg, seed, pow_=False, stream=torch.bfloat16):
-        """K15 (tp = 1) with ViT-B's four int8 weight shards to gather:
-        the MLP against fused_mlp_plain, each gathered weight against its
-        shard, byte for byte."""
+        """K15 (tp = 1) with the four int8 weight shards of ``cfg``'s
+        block to gather: the MLP against fused_mlp_plain, each gathered
+        weight against its shard, byte for byte."""
         rows = mlp_gather_case(self.dev, None, cfg, m, seed, pow_, stream)
         for row in rows:
             self.add(dict(row, case=case + row["case"]))
@@ -1423,7 +1429,9 @@ class Parity:
 
     def run_gather_kernels(self, cfg):
         """K14 on ViT-B's four block weights (int8, packed int4 and bf16
-        bytes) and K15 at the batch's rows and ragged ones, at tp = 1."""
+        bytes) and K15 at tp = 1: at ViT-B/16's width at the batch's rows
+        and ragged ones, and at ViT-H/14's (the first K15 refused it) at
+        batch 32's and 2's rows and a ragged count."""
         b, _, d, _, n_pad, *_ = shapes(cfg)
         for kind in ("int8", "int4", "bf16"):
             for row in gather_case(self.dev, None, cfg, kind, 900):
@@ -1434,6 +1442,11 @@ class Parity:
             self.k15(f"ragged[{mr}x{d}]", mr, cfg, 911 + i)
         self.k15(f"ragged[{K15_RAGGED_M[0]}x{d}](pow,f32)", K15_RAGGED_M[0],
                  cfg, 915, pow_=True, stream=torch.float32)
+        cfg_h = vit_h_cfg()
+        n_h, d_h = vit_h_shapes(cfg_h)[3], cfg_h.embed_dim
+        m_h = [bk * n_h for bk in (max(VIT_H_BATCHES), 2)]
+        for i, mh in enumerate(m_h + [K15_RAGGED_M[1]]):
+            self.k15(f"vith[{mh}x{d_h}]", mh, cfg_h, 916 + i)
 
     def run_all(self, cfg):
         t0 = time.time()
@@ -2117,7 +2130,7 @@ def gather_case(dev, peers, cfg, kind, seed):
 
 def mlp_gather_case(dev, peers, cfg, m, seed, pow_=False,
                     stream=torch.bfloat16):
-    """K15 (``fused_mlp_gather``) on ``m`` seeded rows of the main width
+    """K15 (``fused_mlp_gather``) on ``m`` seeded rows of ``cfg``'s width
     with this process's shards of one block's int8 weights: the MLP
     against ``fused_mlp_plain``, each gathered weight against the full
     one, byte for byte. Rows' cases start with "(tp=..)"."""
@@ -2210,8 +2223,9 @@ def fsdp_rank(peers, cfg, x_np, iters):
 def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
     """One of tp processes sharing the card (``run_processes``): the gloo
     group, then each case, in order on every process: ("gather", kind,
-    seed), ("mlp_gather", name, m, seed) or ("fsdp", x, iters). Returns
-    the parity rows and the FSDP forward's result."""
+    seed), ("mlp_gather", name, m, seed, cfg_kw) (None: the main
+    config) or ("fsdp", key, x, iters, cfg_kw). Returns the parity rows
+    and each FSDP forward's result under its key."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from quantized_vit_tpu_torch.models import ViTConfig
@@ -2226,12 +2240,14 @@ def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
             if case[0] == "gather":
                 out["rows"] += gather_case(peers.device, peers, cfg, *case[1:])
             elif case[0] == "mlp_gather":
-                name, m, seed = case[1:]
+                name, m, seed, ckw = case[1:]
+                ccfg = cfg if ckw is None else ViTConfig(**ckw)
                 out["rows"] += [dict(r, case=name + r["case"]) for r in
-                                mlp_gather_case(peers.device, peers, cfg, m,
-                                                seed)]
+                                mlp_gather_case(peers.device, peers, ccfg,
+                                                m, seed)]
             else:
-                out["fsdp"] = fsdp_rank(peers, cfg, *case[1:])
+                key, x_np, iters, fcfg = case[1:]
+                out[key] = fsdp_rank(peers, ViTConfig(**fcfg), x_np, iters)
     finally:
         peers.close()
     return out
@@ -2239,20 +2255,26 @@ def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
 
 def fsdp_phase(dev, record, parity, fwd):
     """The FSDP forward of serve/vit_fsdp.py on the main path's artifact
-    (seed 0, int8-stored levels, bf16 residual stream) and batch, each run
-    with the launch counters set to 0 just before and read just after,
-    logits against ``vit_int4_forward`` on the same artifact and images,
-    bit for bit: at tp = 1 in this process (K1, K4, K14 once, then per
-    block K3 + K1 proj and K15), and at FSDP_TP as spawned processes
-    sharing the card, BATCH / FSDP_TP images each. The same spawned
-    groups (every tp of GATHER_TPS above 1) hold K14 and K15 against the
-    full weights and ``fused_mlp_plain``; their rows join phase 2's."""
+    (seed 0, int8-stored levels, bf16 residual stream) and batch, and on
+    ViT-H/14's (vit_h_phase's, full depth, batch 32), each run with the
+    launch counters set to 0 just before and read just after, logits
+    against ``vit_int4_forward`` on the same artifact and images, bit for
+    bit: at tp = 1 in this process (K1, K4, K14 once, then per block K3 +
+    K1 proj and K15), and at FSDP_TP as spawned processes sharing the
+    card (ViT-H/14 at depth VIT_H_FSDP_TP_DEPTH), the batch split over
+    them. The same spawned groups (every tp of GATHER_TPS above 1) hold
+    K14 and K15 against the full weights and ``fused_mlp_plain``, K15 at
+    ViT-B/16's and ViT-H/14's widths; their rows join phase 2's."""
+    from quantized_vit_tpu_torch.models import ViTConfig
     from quantized_vit_tpu_torch.parallel import run_processes
     from quantized_vit_tpu_torch.serve import (prepare_fsdp_rdma_kernels,
+                                               prepare_kernels,
+                                               random_vit_int4_artifact,
                                                shard_fsdp_rdma_artifact,
                                                vit_int4_forward,
                                                vit_int4_forward_fsdp_rdma)
 
+    cuda = dev.type == "cuda"
     cfg, art, x = fwd["cfg"], fwd["art"], fwd["x"]
     _, _, d, _, n_pad, _, _, _, _ = shapes(cfg)
     kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
@@ -2260,8 +2282,7 @@ def fsdp_phase(dev, record, parity, fwd):
     sync()
     t0 = time.perf_counter()
     fart = shard_fsdp_rdma_artifact(art, 0, 1)
-    fplan = prepare_fsdp_rdma_kernels(fart, cfg) if dev.type == "cuda" \
-        else None
+    fplan = prepare_fsdp_rdma_kernels(fart, cfg) if cuda else None
     sync()
     rec = {"prepare_host_ms": (time.perf_counter() - t0) * 1e3}
     want = expected_launches(cfg.depth, "fsdp")
@@ -2272,15 +2293,54 @@ def fsdp_phase(dev, record, parity, fwd):
     if not record["forward"][-1]["logits_equal"]:
         raise Failed("FSDP forward at tp=1: logits differ from "
                      "vit_int4_forward's")
+    # ViT-H/14 at tp = 1 on vit_h_phase's artifact: K15 at K = 1280 (the
+    # first K15 refused it), logits against the single-device forward's
+    # (K3 + K1 proj + the K1 fc1/fc2 chain: the same bits as K2's)
+    vh = fwd["vit_h"]
+    cfg_h, xh = vh["cfg"], vh["x"]
+    ref_h = vit_int4_forward(vh["art"], xh, cfg_h, plan=vh["plan"], **kw)
+    sync()
+    t0 = time.perf_counter()
+    fart_h = shard_fsdp_rdma_artifact(vh["art"], 0, 1)
+    fplan_h = prepare_fsdp_rdma_kernels(fart_h, cfg_h) if cuda else None
+    sync()
+    rec["vith_prepare_host_ms"] = (time.perf_counter() - t0) * 1e3
+    launches["fsdp_vith_tp1"] = check_forward(
+        record, dev, "fsdp_rdma_vith14,tp=1,int8-stored",
+        lambda: vit_int4_forward_fsdp_rdma(fart_h, xh, cfg_h, plan=fplan_h,
+                                           **kw),
+        lambda: ref_h, expected_launches(cfg_h.depth, "fsdp"),
+        xh.shape[0], cfg_h)
+    if not record["forward"][-1]["logits_equal"]:
+        raise Failed("ViT-H/14 FSDP forward at tp=1: logits differ from "
+                     "vit_int4_forward's")
+    # the depth-cut ViT-H/14 of the spawned forward, and its reference
+    hkw = dict(VIT_H_KW, depth=min(VIT_H_KW["depth"], VIT_H_FSDP_TP_DEPTH))
+    cfg_hc = ViTConfig(**hkw)
+    art_hc = random_vit_int4_artifact(cfg_hc, seed=0, pack_weights=False,
+                                      device=dev)
+    ref_hc = vit_int4_forward(
+        art_hc, xh, cfg_hc,
+        plan=prepare_kernels(art_hc, cfg_hc) if cuda else None, **kw)
+    del art_hc
+    forwards = {"fsdp": (ref, want, CFG_KW, x),
+                "fsdp_vith": (ref_hc, expected_launches(cfg_hc.depth,
+                                                        "fsdp"), hkw, xh)}
     rows = []
     for tp in sorted(set(GATHER_TPS + (FSDP_TP,)) - {1}):
         cases = [("gather", k, 900) for k in ("int8", "int4", "bf16")]
+        # K15 at a process's rows of the batch-32 forwards
+        m, m_h = BATCH // tp * n_pad, xh.shape[0] // tp * vit_h_shapes(
+            cfg_h)[3]
+        cases += [("mlp_gather", f"main[{m}x{d}]", m, 910, None),
+                  ("mlp_gather", f"vith[{m_h}x{cfg_h.embed_dim}]", m_h, 916,
+                   dict(VIT_H_KW))]
         if tp == FSDP_TP:
-            m = BATCH * n_pad
-            cases += [("mlp_gather", f"main[{m}x{d}]", m, 910)] + [
-                ("mlp_gather", f"ragged[{mr}x{d}]", mr, 911 + i)
-                for i, mr in enumerate(K15_RAGGED_M)]
-            cases.append(("fsdp", x.cpu().numpy(), FSDP_TP_ITERS))
+            cases += [("mlp_gather", f"ragged[{mr}x{d}]", mr, 911 + i, None)
+                      for i, mr in enumerate(K15_RAGGED_M)]
+            cases += [("fsdp", key, xf.cpu().numpy(), FSDP_TP_ITERS,
+                       dict(fkw)) for key, (_, _, fkw, xf) in
+                      forwards.items()]
         t0 = time.time()
         try:
             res = run_processes(spawned_worker, tp,
@@ -2294,28 +2354,35 @@ def fsdp_phase(dev, record, parity, fwd):
             rows += r["rows"]
         if tp != FSDP_TP:
             continue
-        fs = [r["fsdp"] for r in res]
-        got = torch.from_numpy(np.concatenate([f["logits"] for f in fs]))
-        equal = bool(torch.equal(got, ref.float().cpu()))
-        rec[f"tp{tp}"] = {
-            "logits_equal": equal,
-            "max_abs_diff": float((got - ref.float().cpu()).abs().max()),
-            "launches_per_rank": [f["launches"] for f in fs],
-            "shard_bytes_per_rank": [f["shard_bytes"] for f in fs],
-            # host time, barrier to synchronize: two time-sliced contexts
-            # on one card, not a scaling number
-            "wall_ms_per_rank": [statistics.median(f["ms"]) for f in fs]}
-        launches[f"fsdp_tp{tp}"] = fs[0]["launches"]
-        log(f"[fsdp tp={tp}] logits equal {equal}, launches "
-            f"{[{k: v for k, v in f['launches'].items() if v} for f in fs]}"
-            f", wall {rec[f'tp{tp}']['wall_ms_per_rank']} ms "
-            f"({rec[f'spawn_tp{tp}_s']} s spawned)")
-        if not equal:
-            raise Failed(f"FSDP forward at tp={tp}: logits differ from "
-                         f"vit_int4_forward's by {rec[f'tp{tp}']}")
-        if dev.type == "cuda" and any(f["launches"] != want for f in fs):
-            raise Failed(f"FSDP forward at tp={tp}: launches "
-                         f"{[f['launches'] for f in fs]} != {want}")
+        for key, (ref_k, want_k, _, _) in forwards.items():
+            fs = [r[key] for r in res]
+            got = torch.from_numpy(np.concatenate([f["logits"]
+                                                   for f in fs]))
+            equal = bool(torch.equal(got, ref_k.float().cpu()))
+            tag = f"{key[5:] + '_' if key != 'fsdp' else ''}tp{tp}"
+            rec[tag] = {
+                "logits_equal": equal,
+                "max_abs_diff": float((got - ref_k.float().cpu()).abs()
+                                      .max()),
+                "launches_per_rank": [f["launches"] for f in fs],
+                "shard_bytes_per_rank": [f["shard_bytes"] for f in fs],
+                # host time, barrier to synchronize: two time-sliced
+                # contexts on one card, not a scaling number
+                "wall_ms_per_rank": [statistics.median(f["ms"])
+                                     for f in fs]}
+            launches[f"{key}_tp{tp}"] = fs[0]["launches"]
+            used = [{k: v for k, v in f["launches"].items() if v}
+                    for f in fs]
+            log(f"[{key} tp={tp}] logits equal {equal}, launches {used}"
+                f", wall {rec[tag]['wall_ms_per_rank']} ms "
+                f"({rec[f'spawn_tp{tp}_s']} s spawned)")
+            if not equal:
+                raise Failed(f"{key} forward at tp={tp}: logits differ from "
+                             f"vit_int4_forward's by {rec[tag]}")
+            if cuda and any(f["launches"] != want_k for f in fs):
+                raise Failed(f"{key} forward at tp={tp}: launches "
+                             f"{[f['launches'] for f in fs]} != {want_k}")
+    rec["vith_tp_depth"] = cfg_hc.depth
     for row in rows:
         parity.add(row)
     bad = [r for r in rows if not r["ok"]]
@@ -2326,7 +2393,8 @@ def fsdp_phase(dev, record, parity, fwd):
             f"{r['kernel']} {r['case']}: max {r['max_abs_err']}"
             for r in bad[:8]))
     record["fsdp"] = rec
-    return {"launches": launches, "fart": fart, "plan": fplan}
+    return {"launches": launches, "fart": fart, "plan": fplan,
+            "fart_h": fart_h, "plan_h": fplan_h}
 
 
 # ---------------------------------------------------------------------------
@@ -2882,11 +2950,18 @@ def timing_phase(dev, record, fwd, peaks):
     fs = fwd["fsdp"]
     ms_fsdp = cuda_ms(lambda: vit_int4_forward_fsdp_rdma(
         fs["fart"], x, cfg, plan=fs["plan"], **kw))
+    bh = vh["x"].shape[0]
+    ms_fsdp_h = cuda_ms(lambda: vit_int4_forward_fsdp_rdma(
+        fs["fart_h"], vh["x"], vh["cfg"], plan=fs["plan_h"], **kw))
     record["fsdp"]["forward_timing"] = {
         "tp1_ms": ms_fsdp, "vit_int4_forward_ms": ms_fwd,
-        "ratio_vs_single_device": ms_fwd / ms_fsdp}
+        "ratio_vs_single_device": ms_fwd / ms_fsdp,
+        f"vith_tp1_b{bh}_ms": ms_fsdp_h,
+        f"vith_vit_int4_forward_b{bh}_ms": vh_t[f"b{bh}_ms"],
+        "vith_ratio_vs_single_device": vh_t[f"b{bh}_ms"] / ms_fsdp_h}
     log(f"[time] FSDP forward tp=1 b{b}: {ms_fsdp:.3f} ms (single-device "
-        f"forward {ms_fwd:.3f} ms)")
+        f"forward {ms_fwd:.3f} ms); ViT-H/14 b{bh}: {ms_fsdp_h:.3f} ms "
+        f"(single-device {vh_t[f'b{bh}_ms']:.3f} ms)")
     record["overlap"] = overlap_sweep(cfg)
 
     rel = {"fused_quant_matmul": (
@@ -2930,7 +3005,7 @@ def timing_phase(dev, record, fwd, peaks):
                            "quantized_vit_tpu/ops/ring_gather.py:154",
                            "fsdp_tp1"),
            "fused_mlp_gather": (
-               "quantized_vit_tpu_torch/csrc/ring_gather.cu",
+               "quantized_vit_tpu_torch/csrc/fused_mlp.cu",
                "quantized_vit_tpu/ops/ring_gather.py:314", "fsdp_tp1")}
     launches = dict(fwd["launches"], **fwd["vit_h"]["launches"],
                     **fwd["paths"]["launches"], **fwd["fsdp"]["launches"])
@@ -3138,8 +3213,9 @@ def fsdp_sites(fwd, kern, plain, bound, xs):
     on block 0's gather of the FSDP forward at tp = 1 (one launch a
     forward), ``torch.cat`` of the shards as the library call; K15 on
     block 0's MLP + gather of block 1 at the batch's rows (12 launches a
-    forward), K2 on the same plan as a yardstick (no PyTorch call
-    computes it)."""
+    forward), and at ViT-H/14's (its FSDP forward's 32 launches counted
+    on their own path), with K2 on the same plan as a yardstick (no
+    PyTorch call computes it)."""
     import torch.nn.functional as F
 
     from quantized_vit_tpu_torch.ops import (flash_attention,
@@ -3166,36 +3242,55 @@ def fsdp_sites(fwd, kern, plain, bound, xs):
             lambda q=q, k=k, v=v, kw=kw: F.scaled_dot_product_attention(
                 q, k, v, scale=kw["sm_scale"])))
     fs = fwd["fsdp"]
-    fart, plan = fs["fart"], fs["plan"]
-    blk0, blk1 = fart["blocks"][0], fart["blocks"][1]
-    shards0 = [blk0[k].w for k in _SHARDED]
-    shards1 = [blk1[k].w for k in _SHARDED]
-    moved = sum(s.numel() * s.element_size() for s in shards1)
-    full0 = _with_weights(blk0, [_logical(s) for s in shards0])
-    args, layer = _mlp_args(full0)
-    plain["gather_b0"] = lambda: gather_rows_plain(shards0)
-    plain["mlp_gather"] = lambda: fused_mlp_gather_plain(
-        xs, *args, next_shards=shards1, out_dtype=torch.bfloat16, **layer)
-    yard = {}
-    if plan is not None:
-        _, _, mlp0, gather1 = plan.blocks[0]
-        kern["gather_b0"] = lambda: run_gather_rows(plan.boot)
-        kern["mlp_gather"] = lambda: run_mlp_gather(
-            mlp0, gather1, xs, out_dtype=torch.bfloat16)
-        yard["k2_same_plan"] = lambda: run_mlp(mlp0, xs,
-                                               out_dtype=torch.bfloat16)
-    else:
-        kern["gather_b0"] = plain["gather_b0"]
-        kern["mlp_gather"] = plain["mlp_gather"]
-    m, d = xs.shape
-    hid = args[0].shape[1]
-    sites += [
-        ("gather_rows", "gather_b0", 1, bound(2 * moved), [],
-         lambda: [torch.cat([s]) for s in shards0]),
-        ("fused_mlp_gather", "mlp_gather", fwd["cfg"].depth,
-         bound(2 * m * d * 2 + 2 * d * hid + 2 * moved, 4 * m * d * hid),
-         [(m, d, hid), (m, hid, d)], None, yard)]
-    return sites
+    vh = fwd["vit_h"]
+    xh = (torch.randn((vh["x"].shape[0] * vit_h_shapes(vh["cfg"])[3],
+                       vh["cfg"].embed_dim), device=DEV,
+                      generator=torch.Generator(DEV).manual_seed(3))
+          * 0.5).to(torch.bfloat16)
+    kg = []
+    for tag, fart, plan, x, nl in (("", fs["fart"], fs["plan"], xs,
+                                    fwd["cfg"].depth),
+                                   ("_vith", fs["fart_h"], fs["plan_h"], xh,
+                                    0)):
+        blk0, blk1 = fart["blocks"][0], fart["blocks"][1]
+        shards0 = [blk0[k].w for k in _SHARDED]
+        shards1 = [blk1[k].w for k in _SHARDED]
+        moved = sum(s.numel() * s.element_size() for s in shards1)
+        full0 = _with_weights(blk0, [_logical(s) for s in shards0])
+        args, layer = _mlp_args(full0)
+        plain["mlp_gather" + tag] = (
+            lambda x=x, args=args, shards1=shards1, layer=layer:
+            fused_mlp_gather_plain(x, *args, next_shards=shards1,
+                                   out_dtype=torch.bfloat16, **layer))
+        yard = {}
+        if plan is not None:
+            _, _, mlp0, gather1 = plan.blocks[0]
+            kern["mlp_gather" + tag] = (
+                lambda mlp0=mlp0, gather1=gather1, x=x: run_mlp_gather(
+                    mlp0, gather1, x, out_dtype=torch.bfloat16))
+            yard["k2_same_plan"] = (lambda mlp0=mlp0, x=x: run_mlp(
+                mlp0, x, out_dtype=torch.bfloat16))
+        else:
+            kern["mlp_gather" + tag] = plain["mlp_gather" + tag]
+        m, d = x.shape
+        hid = args[0].shape[1]
+        kg.append(("fused_mlp_gather", "mlp_gather" + tag, nl,
+                   bound(2 * m * d * 2 + 2 * d * hid + 2 * moved,
+                         4 * m * d * hid),
+                   [(m, d, hid), (m, hid, d)], None, yard))
+        if not tag:
+            plain["gather_b0"] = lambda shards0=shards0: gather_rows_plain(
+                shards0)
+            kern["gather_b0"] = (plain["gather_b0"] if plan is None else
+                                 lambda plan=plan: run_gather_rows(
+                                     plan.boot))
+            kg.append(("gather_rows", "gather_b0", 1,
+                       bound(2 * sum(s.numel() * s.element_size()
+                                     for s in shards0)), [],
+                       lambda shards0=shards0: [torch.cat([s])
+                                                for s in shards0]))
+    # K14's site first, as the kernels line lists them
+    return sites + kg[1:2] + kg[:1] + kg[2:]
 
 
 def overlap_sweep(cfg):

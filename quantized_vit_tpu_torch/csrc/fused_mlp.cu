@@ -58,11 +58,32 @@
 // the LayerNorm levels are exact (f64 sums rounded once, -fmad=false,
 // rintf), the int32 GEMMs are exact, and each epilogue is the plain
 // version's f32 arithmetic in its order.
+//
+// K15 (fused_mlp_gather; replaces quantized_vit_tpu/ops/ring_gather.py:
+// fused_mlp_gather, pallas_call at :314, _mlp_gather_kernel :176) is this
+// kernel with a copy: the MLP of one FSDP block and, in the same launch,
+// the gather of the next block's row shards (copy_jobs.cuh), cut into
+// chunks (ops/fused.py:gather_split). The copy is a template argument
+// (COPY), as the quantizer is, so K2's instance holds no copy code and
+// compiles as before (the same registers and spills). Copy blocks beside
+// the MLP blocks would shrink the co-resident grid (two blocks an SM take
+// the register file), so every block copies: after its LayerNorm rows in
+// phase 1, chunks blockIdx.x, + grid, ... Phase 1 is memory-bound, so the
+// copy adds about its bytes' time (14.2 MB read and written at ViT-B/16
+// batch 32, >= 4.2 us at 3.35 TB/s: 240.1 against K2's 235.5 us on the
+// same plan on an H100 80GB HBM3 at 700 W, PERF.md). Copying instead
+// while a block waits at a grid barrier (chunks claimed from an atomic
+// count) kept its state live across the GEMM phases: its 128 x 128
+// instance spilled 232 bytes against K2's 100, and it ran 258.8 us. No
+// kernel spins on another
+// process: at tp > 1 the wrapper orders the launch against the peers'
+// (ops/ring_gather.py).
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
+#include "copy_jobs.cuh"
 #include "gemm_phases.cuh"
 #include "int8_gemm.cuh"
 
@@ -101,6 +122,31 @@ struct Args {
   float act_top, hid_top, eps;
   bool x_vec, w1_vec, w2_vec, sb1_vec, quad;
 };
+
+// K15's copy: the jobs, their chunks' bytes (a multiple of 4096) and
+// count; K2 takes none
+struct Copy {
+  qvt::Jobs jb;
+  long long chunk;
+  int chunks;
+};
+
+struct NoCopy {};
+
+template <bool COPY>
+struct CopyOf {
+  using T = Copy;
+};
+template <>
+struct CopyOf<false> {
+  using T = NoCopy;
+};
+
+// this block's chunks, in phase 1
+__device__ __forceinline__ void copy_rows(const Copy& c) {
+  for (long long ch = blockIdx.x; ch < c.chunks; ch += gridDim.x)
+    qvt::copy_chunk(c.jb, c.chunk, ch, NT);
+}
 
 // Phase 1: the int8 levels of quant(LN(x)) into a.lv
 // (gemm_phases.cuh:row_levels, a group of a.ln_t threads a row; POW: the
@@ -305,17 +351,19 @@ __device__ __forceinline__ void fc2_phase(const Args& a, int8_t* smem) {
   }
 }
 
-// T1 x T1 tiles for fc1, T2 x T2 for fc2
-template <int T1, int T2>
-__global__ void __launch_bounds__(NT, 2) mlp_kernel(Args a) {
+// T1 x T1 tiles for fc1, T2 x T2 for fc2; COPY: K15's copy (else K2)
+template <int T1, int T2, bool COPY>
+__global__ void __launch_bounds__(NT, 2)
+    mlp_kernel(Args a, typename CopyOf<COPY>::T c) {
   extern __shared__ __align__(16) int8_t smem[];
   cg::grid_group grid = cg::this_grid();
-  qvt::PhaseClock clk;  // tools/phase_probe.py fused_mlp
+  qvt::PhaseClock clk;  // tools/phase_probe.py fused_mlp, fused_mlp_gather
   clk.begin();
   if (a.act_pow)
     ln_quant_rows<true>(a);
   else
     ln_quant_rows<false>(a);
+  if constexpr (COPY) copy_rows(c);
   clk.mark(0);
   grid.sync();
   clk.mark(1);
@@ -335,60 +383,73 @@ constexpr int smem_bytes(int T1, int T2) {
 
 // blocks of one instantiation co-resident on an SM, at most two (0 on an
 // error); ops/fused.py:mlp_layout counts two
-template <int T1, int T2>
+template <int T1, int T2, bool COPY>
 int per_sm() {
   static int cached = -1;
   if (cached < 0) {
     int v = 0;
-    if (cudaFuncSetAttribute(mlp_kernel<T1, T2>,
+    if (cudaFuncSetAttribute(mlp_kernel<T1, T2, COPY>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes(T1, T2)) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &v, mlp_kernel<T1, T2>, NT, smem_bytes(T1, T2)) != cudaSuccess)
+            &v, mlp_kernel<T1, T2, COPY>, NT, smem_bytes(T1, T2)) !=
+            cudaSuccess)
       return 0;
     cached = std::min(v, 2);
   }
   return cached;
 }
 
-template <int T1, int T2>
-cudaError_t launch(Args& a, int sms, cudaStream_t stream) {
-  const int cap = per_sm<T1, T2>() * sms;
+template <int T1, int T2, bool COPY>
+cudaError_t launch(Args& a, typename CopyOf<COPY>::T& c, int sms,
+                   cudaStream_t stream) {
+  const int cap = per_sm<T1, T2, COPY>() * sms;
   if (cap < 1) return cudaErrorInvalidConfiguration;
   // enough blocks for the largest phase: row groups, fc1 tiles, fc2 items
   const long long M = a.M;
-  const long long want = std::max(
+  long long want = std::max(
       std::max((M + NT / a.ln_t - 1) / (NT / a.ln_t),
                (M + T1 - 1) / T1 * ((a.H + T1 - 1) / T1)),
       a.full2 + static_cast<long long>(a.tiles2 - a.full2) * a.S);
+  // K15: a block a chunk at least (the copy's blocks at small M)
+  if constexpr (COPY) want = std::max<long long>(want, c.chunks);
+  if (want < 1) return cudaSuccess;
   const int grid = static_cast<int>(std::min<long long>(cap, want));
-  void* args[] = {&a};
+  void* args[] = {&a, &c};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(mlp_kernel<T1, T2>), dim3(grid), dim3(NT),
-      args, smem_bytes(T1, T2), stream);
+      reinterpret_cast<void*>(mlp_kernel<T1, T2, COPY>), dim3(grid),
+      dim3(NT), args, smem_bytes(T1, T2), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-}  // namespace
+// the launch at fc1's and fc2's tiles (checked by set_args)
+template <bool COPY>
+int launch_tiles(Args& a, typename CopyOf<COPY>::T& c, int tile1, int tile2,
+                 void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile2 == TILE_L)
+    e = launch<TILE_L, TILE_L, COPY>(a, c, sms, st);
+  else
+    e = tile1 == TILE_L ? launch<TILE_L, TILE_S, COPY>(a, c, sms, st)
+                        : launch<TILE_S, TILE_S, COPY>(a, c, sms, st);
+  return static_cast<int>(e);
+}
 
-// tile1, tile2: fc1's and fc2's output tile (128 or 64; fc1's is 128
-// where fc2's is, the instantiations built); ln_t: threads a
-// LayerNorm row (8 .. 256, a power of two); full2: fc2's tiles taken
-// whole, first; S: the splits of the hidden depth (1 .. its 128-deep
-// steps) of each other fc2 tile. lv: scratch [M][Kp], hid: [M][Hp], both
-// 16-byte aligned (Kp, Hp multiples of 64, >= K, H); with S > 1, part:
-// int32 [split tiles * S][tile2 * tile2] and cnt: int32 [split tiles],
-// 8-byte aligned (ops/fused.py:mlp_layout picks all of it; run_mlp
-// allocates).
-extern "C" int qvt_fused_mlp(
-    const void* x, int x_dt, const void* w1, int w1_int4, const void* s1,
-    const void* b1, const void* w2, int w2_int4, const void* s2,
-    const void* b2, const void* ln_g, const void* ln_b, const void* prm,
-    void* lv, void* hid, void* part, void* cnt, void* out, int out_dt, int M,
-    int K, int H, int Kp, int Hp, int ln_t, int tile1, int tile2,
-    int full2, int S, int act_pow, int hid_pow, int act_top, int hid_top,
-    float eps, void* stream) {
+// K2's arguments checked into a (0, or an error code)
+int set_args(Args& a, const void* x, int x_dt, const void* w1, int w1_int4,
+             const void* s1, const void* b1, const void* w2, int w2_int4,
+             const void* s2, const void* b2, const void* ln_g,
+             const void* ln_b, const void* prm, void* lv, void* hid,
+             void* part, void* cnt, void* out, int out_dt, int M, int K,
+             int H, int Kp, int Hp, int ln_t, int tile1, int tile2,
+             int full2, int S, int act_pow, int hid_pow, int act_top,
+             int hid_top, float eps) {
   if (Kp % 64 || Kp < K || Hp % 64 || Hp < H || ln_t < LN_MIN_T ||
       ln_t > NT || (ln_t & (ln_t - 1)) ||
       (tile1 != TILE_L && tile1 != TILE_S) ||
@@ -401,7 +462,6 @@ extern "C" int qvt_fused_mlp(
       (reinterpret_cast<uintptr_t>(lv) & 15) ||
       (reinterpret_cast<uintptr_t>(hid) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
   a.x = x;
   a.x_dt = x_dt;
   a.w1 = qvt::WeightT{static_cast<const int8_t*>(w1), K, H, w1_int4};
@@ -458,16 +518,65 @@ extern "C" int qvt_fused_mlp(
            xa % (4 * xes) == 0 && oa % (4 * oes) == 0 &&
            ((reinterpret_cast<uintptr_t>(s2) |
              reinterpret_cast<uintptr_t>(b2)) & 15) == 0;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile2 == TILE_L)
-    e = launch<TILE_L, TILE_L>(a, sms, st);
-  else
-    e = tile1 == TILE_L ? launch<TILE_L, TILE_S>(a, sms, st)
-                        : launch<TILE_S, TILE_S>(a, sms, st);
-  return static_cast<int>(e);
+  return 0;
+}
+
+}  // namespace
+
+// tile1, tile2: fc1's and fc2's output tile (128 or 64; fc1's is 128
+// where fc2's is, the instantiations built); ln_t: threads a
+// LayerNorm row (8 .. 256, a power of two); full2: fc2's tiles taken
+// whole, first; S: the splits of the hidden depth (1 .. its 128-deep
+// steps) of each other fc2 tile. lv: scratch [M][Kp], hid: [M][Hp], both
+// 16-byte aligned (Kp, Hp multiples of 64, >= K, H); with S > 1, part:
+// int32 [split tiles * S][tile2 * tile2] and cnt: int32 [split tiles],
+// 8-byte aligned (ops/fused.py:mlp_layout picks all of it; run_mlp
+// allocates).
+extern "C" int qvt_fused_mlp(
+    const void* x, int x_dt, const void* w1, int w1_int4, const void* s1,
+    const void* b1, const void* w2, int w2_int4, const void* s2,
+    const void* b2, const void* ln_g, const void* ln_b, const void* prm,
+    void* lv, void* hid, void* part, void* cnt, void* out, int out_dt, int M,
+    int K, int H, int Kp, int Hp, int ln_t, int tile1, int tile2,
+    int full2, int S, int act_pow, int hid_pow, int act_top, int hid_top,
+    float eps, void* stream) {
+  Args a;
+  const int err = set_args(a, x, x_dt, w1, w1_int4, s1, b1, w2, w2_int4, s2,
+                           b2, ln_g, ln_b, prm, lv, hid, part, cnt, out,
+                           out_dt, M, K, H, Kp, Hp, ln_t, tile1, tile2,
+                           full2, S, act_pow, hid_pow, act_top, hid_top,
+                           eps);
+  if (err) return err;
+  NoCopy none;
+  return launch_tiles<false>(a, none, tile1, tile2, stream);
+}
+
+// K15: K2's arguments, then the copy jobs (host arrays of pointers and
+// sizes) and the split of their bytes into chunks (chunk: bytes a chunk,
+// a multiple of 4096; chunks: their count; ops/fused.py:gather_split).
+extern "C" int qvt_fused_mlp_gather(
+    const void* x, int x_dt, const void* w1, int w1_int4, const void* s1,
+    const void* b1, const void* w2, int w2_int4, const void* s2,
+    const void* b2, const void* ln_g, const void* ln_b, const void* prm,
+    void* lv, void* hid, void* part, void* cnt, void* out, int out_dt, int M,
+    int K, int H, int Kp, int Hp, int ln_t, int tile1, int tile2,
+    int full2, int S, int act_pow, int hid_pow, int act_top, int hid_top,
+    float eps, const long long* src, const long long* dst,
+    const long long* bytes, int n_jobs, long long chunk, int chunks,
+    void* stream) {
+  Args a;
+  int err = set_args(a, x, x_dt, w1, w1_int4, s1, b1, w2, w2_int4, s2, b2,
+                     ln_g, ln_b, prm, lv, hid, part, cnt, out, out_dt, M, K,
+                     H, Kp, Hp, ln_t, tile1, tile2, full2, S, act_pow,
+                     hid_pow, act_top, hid_top, eps);
+  if (err) return err;
+  Copy c;
+  err = qvt::fill_jobs(c.jb, src, dst, bytes, n_jobs);
+  if (err) return err;
+  c.chunk = chunk;
+  c.chunks = chunks;
+  if (chunk < 4096 || chunk % 4096 || chunks < 0 ||
+      qvt::count_chunks(c.jb, chunk) != chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tiles<true>(a, c, tile1, tile2, stream);
 }

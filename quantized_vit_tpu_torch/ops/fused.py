@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -736,6 +736,48 @@ def mlp_layout(m: int, k: int, hid: int, itemsize: int = 2,
                      full, splits)
 
 
+def mlp_grid(layout: MlpLayout, sms: int = _H100_SMS) -> int:
+    """The blocks of K2's launch at ``layout`` on a card of ``sms`` SMs:
+    enough for its largest phase (row groups, fc1 tiles, fc2 items), at
+    most ``MLP_BLOCKS_PER_SM`` an SM (``csrc/fused_mlp.cu:launch``)."""
+    t1 = layout.tile1
+    fc1 = _cdiv(layout.m, t1) * _cdiv(layout.hid, t1)
+    fc2 = layout.full2 + layout.split_tiles * layout.splits \
+        if layout.splits > 1 else layout.fc2_tiles
+    return min(MLP_BLOCKS_PER_SM * sms, max(layout.ln_items, fc1, fc2))
+
+
+# K15's gather (csrc/copy_jobs.cuh): a chunk is a multiple of
+# GATHER_CHUNK_ALIGN bytes (16 bytes a thread of a 256-thread block, and
+# every chunk keeps its job's 16-byte alignment), at most
+# GATHER_CHUNK_MAX
+GATHER_CHUNK_ALIGN = 4096
+GATHER_CHUNK_MAX = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherSplit:
+    """K15's copy jobs cut into chunks (:func:`gather_split`): ``chunk``
+    bytes a chunk (a job's last one shorter), ``chunks`` in all."""
+
+    chunk: int
+    chunks: int
+
+
+def gather_split(job_bytes: Sequence[int], grid: int) -> GatherSplit:
+    """K15's chunks for copy jobs of ``job_bytes`` bytes each inside a
+    launch of ``grid`` blocks (:func:`mlp_grid`): about one chunk a block
+    (the bytes over the grid, rounded up to ``GATHER_CHUNK_ALIGN``), so
+    that the copy in phase 1 spreads its bytes over every block, and at
+    most ``GATHER_CHUNK_MAX``. At ViT-B/16's four int8 block weights
+    (7.08 MB) on batch 32's 264 blocks: 28 KB chunks, 249 of them; at
+    ViT-H/14's (19.7 MB): 64 KB, 300."""
+    chunk = _round_up(_cdiv(max(1, sum(job_bytes)), max(1, grid)),
+                      GATHER_CHUNK_ALIGN)
+    chunk = max(GATHER_CHUNK_ALIGN, min(GATHER_CHUNK_MAX, chunk))
+    return GatherSplit(chunk, sum(_cdiv(n, chunk) for n in job_bytes))
+
+
 def _row_group(m: int, row_bytes: int, sms: int) -> int:
     """The threads a prologue row takes (K2's and K1's first phase): the
     fewest, at most 12 16-byte pieces each (8, 16 or 32, K3's rule),
@@ -1024,22 +1066,48 @@ def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
 
 
 def _mlp_library():
-    """K2's library, its entry point's C signature set on first use."""
+    """K2's library (K15's too), its entry points' C signatures set on
+    first use."""
     lib = _build.library("fused_mlp")
     if lib.qvt_fused_mlp.argtypes is None:
-        P, I, F = _build.P, _build.I, _build.F
-        lib.qvt_fused_mlp.argtypes = ([P, I, P, I, P, P, P, I] + [P] * 10
-                                      + [I] * 15 + [F, P])
+        P, I, F, LL = _build.P, _build.I, _build.F, _build.LL
+        mlp = [P, I, P, I, P, P, P, I] + [P] * 10 + [I] * 15 + [F]
+        lib.qvt_fused_mlp.argtypes = mlp + [P]
         lib.qvt_fused_mlp.restype = I
+        lib.qvt_fused_mlp_gather.argtypes = mlp + [P, P, P, I, LL, I, P]
+        lib.qvt_fused_mlp_gather.restype = I
     return lib
+
+
+def _mlp_args(plan: MlpPlan, x, out, layout: MlpLayout):
+    """K2's C arguments up to its stream, for ``x`` into ``out`` at
+    ``layout``, and the scratch they point into (one byte buffer holding
+    the levels, the hidden levels and, with a split, fc2's partial tiles
+    and arrival counts: :meth:`MlpLayout.scratch_bytes`, each part
+    16-byte aligned); K15 (``ring_gather.py``) passes the same."""
+    sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
+    scratch = torch.empty((sum(sizes),), dtype=torch.uint8, device=x.device)
+    lv, hid, part, cnt = (scratch.data_ptr() + sum(sizes[:i])
+                          for i in range(4))
+    if layout.splits == 1:
+        part = cnt = None
+    return scratch, (
+        x.data_ptr(), _build.dtype_code(x.dtype),
+        plan.w1_t.data_ptr(), int(plan.int4_1), plan.scale1.data_ptr(),
+        plan.bias1.data_ptr(), plan.w2_t.data_ptr(), int(plan.int4_2),
+        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
+        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+        plan.prm.data_ptr(), lv, hid, part, cnt, out.data_ptr(),
+        _build.dtype_code(out.dtype), out.shape[0], plan.k, plan.hid,
+        layout.kp, layout.hp, layout.ln_threads, layout.tile1, layout.tile2,
+        layout.full2, layout.splits, int(plan.act_pow), int(plan.hid_pow),
+        plan.act_top, plan.hid_top, plan.ln_eps)
 
 
 def _launch_mlp(plan: MlpPlan, x, layout: MlpLayout, *,
                 out_dtype=torch.bfloat16):
-    """K2 at ``layout`` on a checked CUDA ``x``: its scratch (one byte
-    buffer holding the levels, the hidden levels and, with a split, fc2's
-    partial tiles and arrival counts: :meth:`MlpLayout.scratch_bytes`,
-    each part 16-byte aligned) and the launch itself, counted under
+    """K2 at ``layout`` on a checked CUDA ``x``: its scratch
+    (:func:`_mlp_args`) and the launch itself, counted under
     ``fused_mlp``. ``chip_smoke.py`` calls it at layouts other than the
     picker's."""
     m = _mlp_input(x, plan.k)
@@ -1047,23 +1115,8 @@ def _launch_mlp(plan: MlpPlan, x, layout: MlpLayout, *,
     out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
-    scratch = torch.empty((sum(sizes),), dtype=torch.uint8, device=x.device)
-    lv, hid, part, cnt = (scratch.data_ptr() + sum(sizes[:i])
-                          for i in range(4))
-    if layout.splits == 1:
-        part = cnt = None
-    code = _mlp_library().qvt_fused_mlp(
-        x.data_ptr(), _build.dtype_code(x.dtype),
-        plan.w1_t.data_ptr(), int(plan.int4_1), plan.scale1.data_ptr(),
-        plan.bias1.data_ptr(), plan.w2_t.data_ptr(), int(plan.int4_2),
-        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
-        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
-        plan.prm.data_ptr(), lv, hid, part, cnt, out.data_ptr(),
-        _build.dtype_code(out.dtype), m, plan.k, plan.hid, layout.kp,
-        layout.hp, layout.ln_threads, layout.tile1, layout.tile2,
-        layout.full2, layout.splits, int(plan.act_pow), int(plan.hid_pow), plan.act_top,
-        plan.hid_top, plan.ln_eps, _build.stream())
+    scratch, args = _mlp_args(plan, x, out, layout)
+    code = _mlp_library().qvt_fused_mlp(*args, _build.stream())
     _build.check(code, "fused_mlp")
     _build.count_launch("fused_mlp")
     return out

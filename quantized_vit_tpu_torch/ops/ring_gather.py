@@ -13,10 +13,13 @@ Port of ``quantized_vit_tpu/ops/ring_gather.py``. The row shards of the
   bf16). Plain version: :func:`gather_rows_plain` (a gloo all-gather of
   the bytes).
 - :func:`fused_mlp_gather` (K15) replaces ``fused_mlp_gather``
-  (``pallas_call`` at ring_gather.py:314): K2's MLP block
-  (:func:`~.fused.run_mlp`'s numerics, from the same device code) and, in
-  the same launch, the gather of the next block's shards. Plain version:
-  :func:`fused_mlp_gather_plain`.
+  (``pallas_call`` at ring_gather.py:314): K2's kernel
+  (``csrc/fused_mlp.cu``, at :func:`~.fused.mlp_layout`'s work split, so
+  its output is K2's bit for bit, at any width) with the gather of the
+  next block's shards folded into the same cooperative launch: every
+  block of the MLP's grid copies its chunks of the gather
+  (:func:`~.fused.gather_split`) after its LayerNorm rows. Plain
+  version: :func:`fused_mlp_gather_plain`.
 
 Ordering. The TPU kernel's neighbour barrier (no device writes into a
 peer's buffer while the peer's earlier kernels may still read it) and
@@ -42,15 +45,16 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .fused import (MlpPlan, _mlp_auto_stripes, _mlp_input, _mlp_shapes,
-                    fused_mlp_plain, plan_mlp)
+from .fused import (MlpLayout, MlpPlan, _card_sms, _mlp_args,
+                    _mlp_auto_stripes, _mlp_input, _mlp_library, _mlp_shapes,
+                    fused_mlp_plain, gather_split, mlp_grid, mlp_layout,
+                    plan_mlp)
 
-# csrc/ring_gather.cu: copy jobs a launch takes (shards x destinations)
+# csrc/copy_jobs.cuh: copy jobs a launch takes (shards x destinations)
 MAX_JOBS = 64
-# copy blocks per launch: one per 64 KB moved, at most a card's SMs for
-# K14 and half of them for K15 (its MLP holds the rest)
+# K14's copy blocks: one per 64 KB moved, at most a card's SMs
 _COPY_BYTES_PER_BLOCK = 65536
-_K14_MAX_BLOCKS, _K15_MAX_BLOCKS = 132, 64
+_K14_MAX_BLOCKS = 132
 
 
 def _sublane(dtype) -> int:
@@ -163,8 +167,8 @@ def plan_gather_rows(shards: Sequence[torch.Tensor],
                       keep=(shards, peer_outs))
 
 
-def _copy_blocks(moved: int, cap: int) -> int:
-    return max(1, min(cap, -(-moved // _COPY_BYTES_PER_BLOCK)))
+def _copy_blocks(moved: int) -> int:
+    return max(1, min(_K14_MAX_BLOCKS, -(-moved // _COPY_BYTES_PER_BLOCK)))
 
 
 def _fence(plan: Optional[GatherPlan]) -> None:
@@ -182,7 +186,7 @@ def run_gather_rows(plan: GatherPlan) -> Tuple[torch.Tensor, ...]:
     fn.argtypes = [P, P, P, I, I, P]
     fn.restype = I
     code = fn(plan.src, plan.dst, plan.nbytes, plan.n_jobs,
-              _copy_blocks(plan.moved, _K14_MAX_BLOCKS), _build.stream())
+              _copy_blocks(plan.moved), _build.stream())
     _build.check(code, "gather_rows")
     _build.count_launch("gather_rows")
     _fence(plan)
@@ -213,19 +217,6 @@ def gather_rows(shards: Sequence[torch.Tensor], *, peers=None):
 # ---------------------------------------------------------------------------
 
 
-# csrc/fused_mlp_core.cuh (K15's MLP row blocks, K2's first design): the
-# fc2 accumulator [32, K] of a block lives in registers
-MLP_GATHER_MAX_K = 1024
-
-
-def mlp_gather_kernel_limit(k: int) -> Optional[str]:
-    """Why K15 cannot take model width ``k``, or None if it can."""
-    if k > MLP_GATHER_MAX_K:
-        return (f"fused_mlp_gather kernel: width K={k} > {MLP_GATHER_MAX_K}"
-                " (its fc2 accumulator row block lives in registers)")
-    return None
-
-
 def _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
                       block_m):
     """The refusals of ring_gather.py:225-234 and :260-262."""
@@ -238,13 +229,12 @@ def _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
             "fused_mlp_gather computes in the unpacked-int8 serving "
             f"format (got fmt={fmt!r}); gathered BYTES may be any format")
     check_row_shards(shards)
-    k, hid = _mlp_shapes(w1, w2, fmt, fmt, act_top, hid_top)
+    _, hid = _mlp_shapes(w1, w2, fmt, fmt, act_top, hid_top)
     n_stripes = stripes or _mlp_auto_stripes(hid)
     if hid % n_stripes:
         raise ValueError(f"stripes={n_stripes} does not divide {hid}")
     if block_m is not None and block_m < 1:
         raise ValueError(f"block_m={block_m} must be positive")
-    return k
 
 
 def fused_mlp_gather_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
@@ -273,35 +263,41 @@ def run_mlp_gather(plan: MlpPlan, gather: Optional[GatherPlan], x, *,
                    out_dtype=torch.bfloat16):
     """Launches K15 on ``x`` [M, K] for a prepared int8 MLP (K2's
     :class:`~.fused.MlpPlan`) and a prepared gather of the next block's
-    shards (None: no shards), between two fences at tp > 1: the only
-    place that launches it. Returns (mlp_out, gathered outputs)."""
+    shards (None: no shards), at :func:`~.fused.mlp_layout`'s work split
+    for the card, between two fences at tp > 1. Returns (mlp_out,
+    gathered outputs)."""
     _build.require_cuda("fused_mlp_gather", x)
+    layout = mlp_layout(_mlp_input(x, plan.k), plan.k, plan.hid,
+                        x.element_size(), _card_sms(x.device.index))
+    return _launch_mlp_gather(plan, gather, x, layout, out_dtype=out_dtype)
+
+
+def _launch_mlp_gather(plan: MlpPlan, gather: Optional[GatherPlan], x,
+                       layout: MlpLayout, *, out_dtype=torch.bfloat16):
+    """K15 at ``layout`` on a checked CUDA ``x``: K2's scratch
+    (:func:`~.fused._mlp_args`), the gather's chunks
+    (:func:`~.fused.gather_split` over the launch's grid) and the launch
+    itself, counted under ``fused_mlp_gather``: the only place that
+    launches it."""
     if plan.int4_1 or plan.int4_2:
         raise ValueError("fused_mlp_gather computes in the unpacked-int8 "
                          "serving format")
     m = _mlp_input(x, plan.k)
     x = x.contiguous()
     out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
+    jobs = gather.n_jobs if gather else 0
+    job_bytes = list(gather.nbytes[:jobs]) if gather else []
+    split = gather_split(job_bytes, mlp_grid(layout,
+                                             _card_sms(x.device.index)))
+    if m == 0 and split.chunks == 0:
+        return out, []
     _fence(gather)
+    scratch, args = _mlp_args(plan, x, out, layout)
     empty = _c_ll([])
-    fn = _build.library("ring_gather").qvt_fused_mlp_gather
-    P, I, F = _build.P, _build.I, _build.F
-    fn.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                   I, F, P, P, P, I, I, P]
-    fn.restype = I
-    code = fn(
-        x.data_ptr(), _build.dtype_code(x.dtype), plan.w1_t.data_ptr(),
-        plan.scale1.data_ptr(), plan.bias1.data_ptr(), plan.w2_t.data_ptr(),
-        plan.scale2.data_ptr(), plan.bias2.data_ptr(),
-        plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
-        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
-        m, plan.k, plan.hid, int(plan.act_pow), int(plan.hid_pow),
-        plan.act_top, plan.hid_top, plan.ln_eps,
-        gather.src if gather else empty, gather.dst if gather else empty,
-        gather.nbytes if gather else empty,
-        gather.n_jobs if gather else 0,
-        _copy_blocks(gather.moved, _K15_MAX_BLOCKS) if gather else 0,
-        _build.stream())
+    code = _mlp_library().qvt_fused_mlp_gather(
+        *args, gather.src if gather else empty,
+        gather.dst if gather else empty, gather.nbytes if gather else empty,
+        jobs, split.chunk, split.chunks, _build.stream())
     _build.check(code, "fused_mlp_gather")
     _build.count_launch("fused_mlp_gather")
     _fence(gather)
@@ -323,12 +319,13 @@ def fused_mlp_gather(x, w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
     (``fmt``; the gathered bytes may be any format); ``act_top`` and
     ``hid_top`` positive ints; ``stripes`` must divide the hidden width
     and ``block_m`` be positive, as the JAX function demands, though the
-    CUDA kernel tiles by its own 32-row blocks. CPU tensors take
+    CUDA kernel tiles by K2's work split. CPU tensors take
     :func:`fused_mlp_gather_plain`; CUDA tensors :func:`~.fused.plan_mlp`
-    and :func:`plan_gather_rows`, then :func:`run_mlp_gather`."""
+    and :func:`plan_gather_rows`, then :func:`run_mlp_gather`. Any widths
+    that :func:`~.fused.fused_mlp_plain` takes."""
     shards = list(next_shards)
-    k = _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
-                          block_m)
+    _check_mlp_gather(w1, w2, act_top, hid_top, fmt, shards, stripes,
+                      block_m)
     layer = dict(ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
                  act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
                  hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow,
@@ -337,9 +334,6 @@ def fused_mlp_gather(x, w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
         return fused_mlp_gather_plain(x, w1, scale1, bias1, w2, scale2,
                                       bias2, next_shards=shards, peers=peers,
                                       out_dtype=out_dtype, **layer)
-    err = mlp_gather_kernel_limit(k)
-    if err:
-        raise ValueError(err)
     _build.require_cuda("fused_mlp_gather", x)
     plan = plan_mlp(w1, scale1, bias1, w2, scale2, bias2, **layer)
     gather = plan_gather_rows(shards, peers=peers) if shards else None

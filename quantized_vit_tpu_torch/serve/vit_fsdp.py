@@ -11,7 +11,11 @@ gathered just before use:
 - block 0's weights by K14 (:func:`~..ops.ring_gather.run_gather_rows`),
   the bootstrap (vit_fsdp.py:182-188, :387);
 - every later block's inside the previous block's MLP launch, K15
-  (:func:`~..ops.ring_gather.run_mlp_gather`, vit_fsdp.py:237-266).
+  (:func:`~..ops.ring_gather.run_mlp_gather`, vit_fsdp.py:237-266): K2's
+  cooperative kernel, whose blocks also copy the next block's shards, so
+  the MLP's output is K2's bit for bit at any width (ViT-H/14's 1280
+  included) and the forward serves every model the single-device one
+  does.
 
 The attention half takes the port's single-device route
 (:func:`~.vit_int4.uses_chain`: K3 + K1 proj from 4 images a process,
@@ -45,9 +49,8 @@ from ..ops.attention import (AttentionPlan, QkvAttentionPlan,
                              run_attention_block)
 from ..ops.fused import MatmulPlan, MlpPlan, plan_mlp
 from ..ops.ring_gather import (GatherPlan, _sublane, fused_mlp_gather_plain,
-                               gather_rows_plain, mlp_gather_kernel_limit,
-                               plan_gather_rows, run_gather_rows,
-                               run_mlp_gather)
+                               gather_rows_plain, plan_gather_rows,
+                               run_gather_rows, run_mlp_gather)
 from .vit_int4 import (_attention_layer, _chain_attention, _embed_head_plans,
                        _embed_kernels, _embed_tokens, _logits, _mlp_layer,
                        _patches_2d, _raise_limits, _round_up, _sm_scale,
@@ -192,8 +195,7 @@ def prepare_fsdp_rdma_kernels(fart, cfg: ViTConfig,
     rank, tp = _axis(fart, peers)
     blocks = fart["blocks"]
     hd = fart["pos_embed"].shape[-1] // cfg.num_heads
-    k = blocks[0]["fc2"].w.shape[1]
-    _raise_limits([heads_kernel_limit(hd), mlp_gather_kernel_limit(k)])
+    _raise_limits([heads_kernel_limit(hd)])
     sm_scale = _sm_scale(cfg, hd)
     dev = blocks[0]["qkv"].w.device
     _build.require_cuda("fused_mlp_gather", blocks[0]["qkv"].w)

@@ -62,7 +62,6 @@ from ..ops.fused import (BIG_WEIGHT_BM, MatmulPlan, MlpPlan, fold_gelu,
                          mlp_chunked_kernel_limit, plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
                          run_mlp, run_mlp_chunked)
 from ..ops.patch import patch_finalize, patch_finalize_plain
-from ..ops.ring_gather import mlp_gather_kernel_limit
 from ..quant.packing import pack_int4
 
 
@@ -353,10 +352,10 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
     """Why the CUDA kernels cannot serve ``cfg`` with ``fmt`` weights and a
     ``float_dtype`` residual stream (empty if they can): the limits of the
     kernels on the routes a forward of ``batch`` images takes (None: any
-    batch), K3 or K6 for attention and K8 for the MLP (K2 has no limit;
-    K15 for every batch with ``fsdp_rdma``, the FSDP forward of
-    ``serve/vit_fsdp.py``, whose ``batch`` is a process's share); or, with
-    ``latency``, those of K5 for the batch-1 entry."""
+    batch), K3 or K6 for attention and K8 for the MLP (K2 has no limit,
+    nor has K15, the MLP of every batch with ``fsdp_rdma``: the FSDP
+    forward of ``serve/vit_fsdp.py``, whose ``batch`` is a process's
+    share); or, with ``latency``, those of K5 for the batch-1 entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
     hid = int(cfg.embed_dim * cfg.mlp_ratio)
@@ -372,9 +371,7 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
                         else heads_kernel_limit(hd))
             route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
                               itemsize=itemsize)
-            if fsdp_rdma:
-                lims.append(mlp_gather_kernel_limit(cfg.embed_dim))
-            elif route == MLP_CHUNKED:
+            if not fsdp_rdma and route == MLP_CHUNKED:
                 lims.append(mlp_chunked_kernel_limit(cfg.embed_dim, fmt))
     return list(dict.fromkeys(lim for lim in lims if lim))
 

@@ -17,6 +17,10 @@ and prints:
   ViT-H/14 at batch 1 and 2 with packed int4; random bf16 x), per block of
   its persistent grid, each phase summed: LN + quant | first grid
   barrier | fc1 | second grid barrier | fc2, and the span;
+- ``fused_mlp_gather`` (K15: ViT-B/16's and ViT-H/14's MLP at batch 32
+  gathering the next block's four int8 weights, beside K2 on the same
+  plan), per block: LN + quant + copy | barrier 1 | fc1 | barrier 2 |
+  fc2, and the span;
 - ``fused_quant_matmul`` (ViT-B/16's patch embed and attention proj at
   batch 32, its chain qkv at batch 2, ViT-H/14's fc1 and fc2 at batch 32;
   int8 levels, random x), per block of its persistent grid, each phase
@@ -69,6 +73,7 @@ from ..ops.block_stack import run_block_stack
 from ..ops.fused import (matmul_layout, mlp_layout, plan_matmul, plan_mlp,
                          plan_mlp_chunked, run_matmul, run_mlp,
                          run_mlp_chunked)
+from ..ops.ring_gather import _launch_mlp_gather, plan_gather_rows
 from ..quant import pack_int4
 from ..models import ViTConfig
 from ..serve import prepare_latency_artifact, random_vit_int4_artifact
@@ -85,6 +90,10 @@ _K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
              "vitb_b1": (208, 768, 3072, "int8"),
              "vith_b1_int4": (272, 1280, 5120, "int4"),
              "vith_b2_int4": (544, 1280, 5120, "int4")}
+# K15: K2's phases, the copy in phase 1; its sites: (rows, K, H),
+# gathering the next block's four int8 weights
+_K15_PHASES = ("LN + quant + copy", "barrier 1", "fc1", "barrier 2", "fc2")
+_K15_SITES = {"vitb_b32": (6656, 768, 3072), "vith_b32": (8704, 1280, 5120)}
 _K1_PHASES = ("prologue", "barrier", "GEMM", "epilogue")
 # K1's sites: (rows, K, N, prologue, epilogue, x dtype)
 _K1_SITES = {
@@ -155,6 +164,30 @@ def main():
                       f"fused_mlp:{tag}:ln{lay.ln_threads}:t{lay.tile1}/"
                       f"{lay.tile2}:whole{lay.full2}:S{lay.splits}",
                       lambda pl=pl, xk=xk: run_mlp(pl, xk))
+    for tag, (rows, dk, hk) in _K15_SITES.items():
+        if only and "fused_mlp_gather" not in only:
+            break
+        pl = plan_mlp(
+            torch.randint(-7, 8, (dk, hk), dtype=torch.int8, device=dev),
+            1e-3 * one, None,
+            torch.randint(-7, 8, (hk, dk), dtype=torch.int8, device=dev),
+            1e-3 * one, None, hid_d=d05, hid_t=one, hid_top=7, act_d=d05,
+            act_t=one, act_top=7, fmt="int8",
+            ln_scale=torch.ones(dk, device=dev),
+            ln_bias=torch.zeros(dk, device=dev))
+        gp = plan_gather_rows([
+            torch.randint(-128, 128, shp, dtype=torch.int8, device=dev)
+            for shp in ((dk, 3 * dk), (dk, dk), (dk, hk), (hk, dk))])
+        xk = torch.randn((rows, dk), generator=g, device=dev).to(
+            torch.bfloat16)
+        lay = mlp_layout(rows, dk, hk, 2, _card_shape(0)[0])
+        summed_phases(buf, "fused_mlp", _K2_PHASES,
+                      f"fused_mlp:{tag}:same plan",
+                      lambda pl=pl, xk=xk: run_mlp(pl, xk))
+        summed_phases(buf, "fused_mlp", _K15_PHASES,
+                      f"fused_mlp_gather:{tag}:{gp.moved / 2**20:.2f} MB",
+                      lambda pl=pl, gp=gp, xk=xk, lay=lay:
+                      _launch_mlp_gather(pl, gp, xk, lay))
     for tag, (rows, dk, nk, pro, epi, xdt) in _K1_SITES.items():
         if only and "fused_quant_matmul" not in only:
             break

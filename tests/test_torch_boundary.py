@@ -10,6 +10,7 @@ import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -328,30 +329,39 @@ def test_vit_h14_int8_serves_at_every_batch():
     assert len(kernel_limits(cfg, fmt="int8")) == 0
 
 
-def test_mlp_gather_keeps_its_own_width_limit():
-    """K15 runs K2's first design's row blocks, so it still refuses
-    ViT-H/14's width (K = 1280) under its own name, in the wrapper and in
-    the FSDP forward's limits, while K2 (the single-device forward at
-    batch 1-2 with packed int4) takes it."""
+def test_mlp_gather_takes_vit_h_width(monkeypatch):
+    """K15 is K2's kernel with the gather folded in, so it has no width
+    limit: the FSDP forward's limits are empty for ViT-H/14 (K = 1280) at
+    every batch, the old refusal and its header are gone, and the
+    wrapper plans K = 1280 at K2's work split (a 128 x 128 tile pair over
+    ViT-H's batch-32 rows)."""
+    from quantized_vit_tpu_torch.ops import _build
     from quantized_vit_tpu_torch.serve import kernel_limits
 
-    assert trg.mlp_gather_kernel_limit(1024) is None
-    msg = trg.mlp_gather_kernel_limit(1280)
-    assert msg.startswith("fused_mlp_gather kernel:") and "1280 > 1024" in msg
-    one = torch.ones(())
-    with pytest.raises(ValueError, match="fused_mlp_gather kernel: width "
-                       "K=1280 > 1024"):
-        trg.fused_mlp_gather(
-            _meta(32, 1280), _meta(1280, 64, dtype=torch.int8), one, None,
-            _meta(64, 1280, dtype=torch.int8), one, None,
-            ln_scale=_meta(1280), ln_bias=_meta(1280), next_shards=[],
-            act_d=one, act_t=one, act_top=7, hid_d=one, hid_t=one,
-            hid_top=7)
     vit_h = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
-    for b in (1, 2, 16):
+    assert kernel_limits(vit_h, fmt="int8", fsdp_rdma=True) == []
+    for b in (1, 2, 16, 32):
         assert kernel_limits(vit_h, batch=b, fmt="int8",
-                             fsdp_rdma=True) == [msg]
-        assert kernel_limits(vit_h, batch=b, fmt="int4") == []
+                             float_dtype=torch.bfloat16,
+                             fsdp_rdma=True) == []
+    assert not hasattr(trg, "mlp_gather_kernel_limit")
+    assert not hasattr(trg, "MLP_GATHER_MAX_K")
+    csrc = Path(trg.__file__).resolve().parent.parent / "csrc"
+    assert not (csrc / "fused_mlp_core.cuh").exists()
+    assert not any("fused_mlp_core" in p.read_text()
+                   for p in csrc.iterdir())
+    seen = []
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(trg, "_card_sms", lambda index: 132)
+    monkeypatch.setattr(trg, "_launch_mlp_gather",
+                        lambda plan, gather, x, layout, **kw:
+                        seen.append(layout))
+    plan = tf.MlpPlan(*([None] * 2), False, False, 1280, 5120,
+                      *([None] * 7), False, False, 127, 127, 1e-6)
+    trg.run_mlp_gather(plan, None, _meta(8704, 1280, dtype=torch.bfloat16))
+    (layout,) = seen
+    assert layout == tf.mlp_layout(8704, 1280, 5120)
+    assert (layout.tile1, layout.tile2, layout.splits) == (128, 128, 1)
 
 
 def test_fused_quantizer_backward_never_reaches_plain(monkeypatch):

@@ -87,6 +87,36 @@ def test_fsdp_tp1_equals_single_device_forward(dtype, jax_logits):
                                    atol=1e-4)
 
 
+# ViT-H/14's widths (D 1280, 16 heads of 80, MLP 5120) at depth 1 on a
+# 28-px image (4 patches of 14): the model the first K15 refused
+VIT_H_W = dict(img_size=28, patch_size=14, embed_dim=1280, depth=1,
+               num_heads=16, num_classes=10)
+
+
+def test_fsdp_tp1_at_vit_h_width_equals_single_device_forward():
+    """The FSDP forward at ViT-H/14's widths (tp = 1, f32): exactly the
+    port's single-device forward, and within 1e-4 of the JAX
+    ``vit_int4_forward(use_pallas=False)``."""
+    cfg = ViTConfig(**VIT_H_W)
+    art = random_vit_int4_artifact(cfg, seed=SEED, pack_weights=False,
+                                   device="cpu")
+    x = np.random.default_rng(SEED).standard_normal(
+        (2, 28, 28, 3)).astype(np.float32)
+    assert kernel_limits(cfg, batch=2, fmt="int8", fsdp_rdma=True) == []
+    want = vit_int4_forward(art, torch.from_numpy(x), cfg,
+                            float_dtype=torch.float32)
+    got = vit_int4_forward_fsdp_rdma(shard_fsdp_rdma_artifact(art, 0, 1),
+                                     torch.from_numpy(x), cfg,
+                                     float_dtype=torch.float32)
+    assert got.shape == (2, 10)
+    assert torch.equal(got, want)
+    jart = j_random(JConfig(**VIT_H_W), seed=SEED, pack_weights=False)
+    j_logits = np.asarray(j_forward(jart, jnp.asarray(x),
+                                    JConfig(**VIT_H_W), use_pallas=False,
+                                    float_dtype=jnp.float32))
+    np.testing.assert_allclose(got.numpy(), j_logits, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fsdp_tp2_equals_single_device_forward(tp2, dtype, jax_logits):
     """Rank r returns the logits of images [2r, 2r + 2): together exactly
@@ -161,7 +191,8 @@ def test_fsdp_rdma_prep_refusals_match_jax():
 def test_fsdp_forward_refusals():
     """The batch must divide over the processes (vit_fsdp.py:369-370); an
     artifact sharded for another axis is refused; the kernels' limits
-    name K15's width limit for ViT-H/14 (K2's MLP blocks)."""
+    are empty for ViT-B/16 and ViT-H/14 (K15 is K2's kernel, which takes
+    any width)."""
     cfg, art = ViTConfig(**RDMA), _art()
     peers = initialize_distributed(device="cpu")
     assert (peers.rank, peers.tp) == (0, 1)
@@ -178,10 +209,9 @@ def test_fsdp_forward_refusals():
     with pytest.raises(ValueError, match="sharded for"):
         vit_int4_forward_fsdp_rdma(fart, x, cfg, Two())
     vit_h = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
-    lims = kernel_limits(vit_h, batch=16, fmt="int8",
-                         float_dtype=torch.bfloat16, fsdp_rdma=True)
-    assert any("fused_mlp_gather" in lim and "K=1280 > 1024" in lim
-               for lim in lims)
+    assert kernel_limits(vit_h, batch=16, fmt="int8",
+                         float_dtype=torch.bfloat16, fsdp_rdma=True) == []
+    assert kernel_limits(vit_h, fmt="int8", fsdp_rdma=True) == []
     assert kernel_limits(ViTConfig(), batch=16, fmt="int8",
                          float_dtype=torch.bfloat16, fsdp_rdma=True) == []
     with pytest.raises(ValueError, match="num_processes > 1 needs"):

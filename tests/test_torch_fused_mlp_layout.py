@@ -197,3 +197,85 @@ def test_split_fc2_mirror_equals_plain(tile2, full2, splits, fmt):
                               splits=splits)
     got = _mirror(x, w1, s1, b1, w2, s2, b2, kw, lay)
     assert torch.equal(got, want)
+
+
+# K15 (fused_mlp_gather) is K2's kernel with the next block's gather:
+# its grid (F.mlp_grid) and the gather's chunks (F.gather_split).
+# (gather bytes: ViT-B/16's and ViT-H/14's four block weights at tp = 1
+# and 2, a process's jobs: each shard into every process's buffer)
+GATHERS = {
+    "vit_b_tp1": (6656, 768, 3072, 1, 249),
+    "vit_b_tp2": (3328, 768, 3072, 2, 252),
+    "vit_h_tp1": (8704, 1280, 5120, 1, 300),
+    "vit_h_tp2": (4352, 1280, 5120, 2, 302),
+}
+
+
+def _block_jobs(k, hid, tp):
+    return [k * 3 * k // tp, k * k // tp, k * hid // tp, hid * k // tp] * tp
+
+
+def _chunk_of(job_bytes, chunk, c):
+    """csrc/copy_jobs.cuh:copy_chunk's (job, first byte, bytes) of chunk
+    c, in its loop's order."""
+    for j, n in enumerate(job_bytes):
+        pieces = -(-n // chunk)
+        if c < pieces:
+            return j, c * chunk, min(chunk, n - c * chunk)
+        c -= pieces
+    raise AssertionError("chunk past the jobs")
+
+
+@pytest.mark.parametrize("name", sorted(GATHERS))
+def test_gather_split_covers_every_byte_once(name):
+    """Every byte of every job in one chunk, the chunks 4096-byte aligned
+    pieces of at most 64 KB, numbered as the kernel walks them; the chunk
+    counts at ViT-B/16's and ViT-H/14's gathers (28 KB x 249 at ViT-B
+    batch 32, 64 KB x 300 at ViT-H)."""
+    m, k, hid, tp, want = GATHERS[name]
+    jobs = _block_jobs(k, hid, tp)
+    grid = F.mlp_grid(F.mlp_layout(m, k, hid))
+    split = F.gather_split(jobs, grid)
+    assert split.chunks == want
+    assert split.chunk % F.GATHER_CHUNK_ALIGN == 0
+    assert F.GATHER_CHUNK_ALIGN <= split.chunk <= F.GATHER_CHUNK_MAX
+    pieces = [_chunk_of(jobs, split.chunk, c) for c in range(split.chunks)]
+    for j, n in enumerate(jobs):
+        hits = np.zeros(n, np.uint8)
+        for jj, o, nb in pieces:
+            if jj == j:
+                assert o % F.GATHER_CHUNK_ALIGN == 0 and nb > 0
+                hits[o:o + nb] += 1
+        assert (hits == 1).all()
+    if name == "vit_b_tp1":
+        assert (grid, split.chunk) == (264, 28672)
+
+
+def test_gather_split_edges():
+    """No jobs or empty jobs: no chunks; ragged byte counts end in a short
+    chunk; a small grid takes 64 KB chunks, a large one 4 KB."""
+    assert F.gather_split([], 264) == F.GatherSplit(4096, 0)
+    assert F.gather_split([0, 0], 264).chunks == 0
+    s = F.gather_split([100, 4097, 5], 1)
+    assert s == F.GatherSplit(8192, 3)
+    assert [_chunk_of([100, 4097, 5], s.chunk, c) for c in range(3)] == [
+        (0, 0, 100), (1, 0, 4097), (2, 0, 5)]
+    assert F.gather_split([10 << 20], 2).chunk == F.GATHER_CHUNK_MAX
+    assert F.gather_split([1 << 20], 10_000).chunk == F.GATHER_CHUNK_ALIGN
+
+
+def test_mlp_grid_and_copy_constants_match_the_source():
+    """mlp_grid repeats the launch's sizing (the largest phase, two
+    blocks an SM); the chunk alignment is the kernel's."""
+    src = (CSRC / "fused_mlp.cu").read_text()
+    assert ("a.full2 + static_cast<long long>(a.tiles2 - a.full2) * a.S"
+            in src)
+    assert "chunk < 4096 || chunk % 4096" in src
+    assert F.GATHER_CHUNK_ALIGN == 4096 == 16 * F.MLP_THREADS
+    assert "if constexpr (COPY) copy_rows(c);" in src
+    for m in ROWS:
+        for k, hid in WIDTHS.values():
+            lay = F.mlp_layout(m, k, hid)
+            items = max(lay.ln_items, len(lay.fc1_tiles()),
+                        len(lay.fc2_items()))
+            assert F.mlp_grid(lay) == min(2 * SMS, items)

@@ -95,9 +95,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # width 128: the FSDP phase's packed int4 rows (64) split into two
     # tile-aligned shards of 32
     monkeypatch.setattr(chip_smoke, "CFG_KW", dict(SMALL, embed_dim=128))
-    # ViT-H/14's phase at head_dim 80, shrunk: 4 patches of 14, 2 heads
+    # ViT-H/14's phase at head_dim 80, shrunk: 4 patches of 14, 4 heads
+    # (width 320: its FSDP forward's int8 rows split into two tile-aligned
+    # shards)
     monkeypatch.setattr(chip_smoke, "VIT_H_KW", dict(
-        img_size=28, patch_size=14, embed_dim=160, depth=2, num_heads=2,
+        img_size=28, patch_size=14, embed_dim=320, depth=2, num_heads=4,
         num_classes=10))
     monkeypatch.setattr(chip_smoke, "VIT_H_BATCHES", (1, 2, 4))
     # the FSDP phase: tp = 2 as two spawned gloo processes (128 rows do
@@ -130,8 +132,16 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # phase 3c: the FSDP forward at tp = 1 and 2 equals the single-device
     # one; the spawned processes' parity rows joined phase 2's
     fsdp = [f for f in record["forward"] if f["forward"].startswith("fsdp")]
-    assert len(fsdp) == 1 and fsdp[0]["logits_equal"]
+    assert [f["forward"].split(",")[0] for f in fsdp] == [
+        "fsdp_rdma", "fsdp_rdma_vith14"]
+    assert all(f["logits_equal"] for f in fsdp)
     assert record["fsdp"]["tp2"]["logits_equal"]
+    assert record["fsdp"]["vith_tp2"]["logits_equal"]
+    # K15 at both widths, in process and spawned
+    k15 = [r["case"] for r in record["parity"]
+           if r["kernel"] == "fused_mlp_gather"]
+    assert any(c.startswith("vith[") and "tp=2" in c for c in k15)
+    assert any(c.startswith("vith[") and "tp=1" in c for c in k15)
     assert {re.search(r"tp=(\d+)", r["case"]).group(1)
             for r in record["parity"]
             if r["kernel"] in ("gather_rows", "fused_mlp_gather")} == {"1",

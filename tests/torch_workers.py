@@ -54,11 +54,11 @@ def mlp_inputs(seed: int, m: int, k: int = 128, hid: int = 128):
     return x, w1, w2, b1, b2, g, be
 
 
-def mlp_torch(seed, m):
+def mlp_torch(seed, m, k=128, hid=128):
     """(positional, keyword) arguments of fused_mlp_gather on CPU tensors
     from :func:`mlp_inputs`."""
     x, w1, w2, b1, b2, g, be = (torch.from_numpy(a)
-                                for a in mlp_inputs(seed, m))
+                                for a in mlp_inputs(seed, m, k, hid))
     one = torch.tensor(1.0)
     args = (x.to(torch.bfloat16), w1, torch.tensor(1e-3), b1, w2,
             torch.tensor(1e-3), b2)
