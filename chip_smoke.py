@@ -584,12 +584,17 @@ class Parity:
            layout=None):
         """K2 (or, with ``kernel="fused_mlp_chunked"``, K8 on int8
         weights) launched on its own plan, against fused_mlp_plain; with
-        ``layout`` (a dict of ``MlpLayout`` fields), K2 launched at that
-        work split (``_launch_mlp``) instead of the picker's."""
+        ``layout`` (a dict of ``MlpLayout`` fields, or for K8 of
+        ``ChunkedLayout`` fields), launched at that work split
+        (``_launch_mlp``, ``_launch_mlp_chunked``) instead of the
+        picker's."""
         from quantized_vit_tpu_torch.ops import (fused_mlp_plain, plan_mlp,
                                                  plan_mlp_chunked, run_mlp,
                                                  run_mlp_chunked)
-        from quantized_vit_tpu_torch.ops.fused import _launch_mlp, mlp_layout
+        from quantized_vit_tpu_torch.ops.fused import (_launch_mlp,
+                                                       _launch_mlp_chunked,
+                                                       chunked_layout,
+                                                       mlp_layout)
 
         rng = np.random.default_rng(seed)
         f32 = torch.float32
@@ -612,6 +617,12 @@ class Parity:
         if self.dev.type != "cuda":  # CPU rehearsal: the plain version
             got = fused_mlp_plain(x, w1, s1, b1, w2, s2, b2,
                                   out_dtype=stream, **kw)
+        elif layout is not None and kernel == "fused_mlp_chunked":
+            lay = dataclasses.replace(
+                chunked_layout(m, k, hid, x.element_size()), **layout)
+            got = _launch_mlp_chunked(
+                plan_mlp_chunked(w1, s1, b1, w2, s2, b2, **kw), x, lay,
+                out_dtype=stream)
         elif layout is not None:
             lay = dataclasses.replace(mlp_layout(m, k, hid), **layout)
             got = _launch_mlp(plan_mlp(w1, s1, b1, w2, s2, b2, **kw), x, lay,
@@ -1350,6 +1361,74 @@ class Parity:
         for row in rows:
             self.add(dict(row, case=case + row["case"]))
 
+    def run_chunked_kernels(self, cfg):
+        """K8 (its redesign on TMA and wgmma) at the rest of its route's
+        sites and past its first design's limits, bit-exact or not: the
+        384-px ViT-B/16 chain at batch 1 with an f32 residual stream (592
+        rows), ViT-B/16's batch-32 rows (6656, the site timed beside K2),
+        ragged rows at ViT-H/14's widths (1, 45, 300), K = 1536 (H 6144)
+        at 272 and 544 rows, each with the linear and the pow quantizer
+        and both residual dtypes; then launched at set work splits (each
+        phase's token chunk and wgmma N 32-256, rings of 3 to 16 stages)
+        at ViT-H/14's batch 1 and 2 and at small ragged shapes."""
+        from quantized_vit_tpu_torch.ops import fused as F
+
+        from quantized_vit_tpu_torch.models import ViTConfig
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        k8 = dict(kernel="fused_mlp_chunked")
+        bb, _, bd, _, bn_pad, _, bhid, _, _ = shapes(cfg)
+        _, _, _, _, bn384, _, _, _, _ = shapes(ViTConfig(**dict(
+            CFG_KW, **B384_KW)))
+        vh = vit_h_cfg()
+        _, d, _, n_pad, hid, _ = vit_h_shapes(vh)
+        wide = 6 * d // 5  # 1536 at ViT-H/14's 1280
+        seed = 900
+        sites = [(f"chain384_b1[{bn384}x{bd}x{bhid}]", bn384, bd, bhid),
+                 (f"vit_b_b{bb}[{bb * bn_pad}x{bd}x{bhid}]", bb * bn_pad,
+                  bd, bhid),
+                 *[(f"vit_h_ragged[{m}x{d}x{hid}]", m, d, hid)
+                   for m in (1, 45, n_pad + 28)],
+                 *[(f"wide[{b * n_pad}x{wide}x{4 * wide}]", b * n_pad, wide,
+                    4 * wide) for b in (1, 2)]]
+        for case, m, k, h in sites:
+            for pow_, stream in ((False, bf16), (True, f32), (False, f32),
+                                 (True, bf16)):
+                seed += 1
+                if m == bb * bn_pad and stream == f32 and not pow_:
+                    continue
+                self.k2(f"{case}({'pow' if pow_ else 'lin'},"
+                        f"{str(stream)[6:]})", m, k, h, "int8", "int8", pow_,
+                        seed, stream, **k8)
+
+        def split(m, phase, g):
+            chunks = 2 if F.CHUNKED_WR[phase - 1] == F.CHUNKED_ROWS else 1
+            g = max(g, -(-m // (chunks * F.CHUNKED_NW[-1])))  # <= 256 rows
+            nc = -(-(-(-m // (chunks * g))) // 8) * 8
+            return {f"nc{phase}": nc,
+                    f"nw{phase}": next(v for v in F.CHUNKED_NW if v >= nc),
+                    f"g{phase}": -(-m // (chunks * nc))}
+
+        # (rows, K, H, fc1's token groups, fc2's)
+        for m, k, h, g1, g2 in ((n_pad, d, hid, 1, 1),
+                                (n_pad, d, hid, 2, 3),
+                                (n_pad, d, hid, 6, 12),
+                                (2 * n_pad, d, hid, 4, 2),
+                                (2 * n_pad, d, hid, 12, 5),
+                                (45, 96, 160, 1, 1), (50, 72, 40, 3, 2),
+                                (1, 64, 96, 1, 1)):
+            lay = dict(split(m, 1, g1), **split(m, 2, g2))
+            stage = max(F._chunked_stage(F.CHUNKED_WR[0], lay["nw1"]),
+                        F._chunked_stage(F.CHUNKED_WR[1], lay["nw2"]))
+            for stages in sorted({3, F.chunked_stages(stage)}):
+                seed += 1
+                pow_ = seed % 2 == 0
+                self.k2(f"layout[{m}x{k}x{h}](fc1 {lay['nc1']}/{lay['nw1']}"
+                        f"x{lay['g1']},fc2 {lay['nc2']}/{lay['nw2']}x"
+                        f"{lay['g2']},st{stages})", m, k, h, "int8", "int8",
+                        pow_, seed, f32 if pow_ else bf16,
+                        layout=dict(lay, stages=stages), **k8)
+
     def run_flash_kernels(self, cfg):
         """K13 at K13's path shapes (ViT-B/16 batch 32: 208 tokens, 197
         real; ViT-H/14 batch 1 and 8: 272, 257, head_dim 80) in bf16, f32
@@ -1516,6 +1595,7 @@ class Parity:
         self.run_small_batch_kernels(cfg)
         self.run_mlp_kernels(cfg)
         self.run_vit_h_kernels()
+        self.run_chunked_kernels(cfg)
         self.run_heads_tiles()
         self.run_qkv_attn_tiles()
         self.run_qkv_proj_kernels(cfg)
@@ -2645,7 +2725,18 @@ def timing_phase(dev, record, fwd, peaks):
     plain["mlp_b1"] = lambda: fused_mlp_plain(
         x1, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
         fc2_e.bias, **mlp_kw)
-    for bk, site in ((b, "mlp"), (2, "mlp_b2"), (1, "mlp_b1")):
+    x3r = xs[:3 * n_pad]  # the chain at batch 3, where K8 runs
+    plain["mlp_b3"] = lambda: fused_mlp_plain(
+        x3r, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+        fc2_e.bias, **mlp_kw)
+    # the 384-px ViT-B/16 chain at batch 1: 592 rows, f32 residual stream
+    n384 = -(-((384 // cfg.patch_size)**2 + 1) // 16) * 16
+    x384 = torch.randn((n384, d), generator=g, device=DEV)
+    plain["mlp_384_f32"] = lambda: fused_mlp_plain(
+        x384, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
+        fc2_e.bias, **dict(mlp_kw, out_dtype=torch.float32))
+    for bk, site in ((b, "mlp"), (2, "mlp_b2"), (1, "mlp_b1"), (3, "mlp_b3"),
+                     ("384_f32", "mlp_384_f32")):
         plain[f"mlp_k8_b{bk}"] = plain[site]
     plan = fwd["plan"]
     if plan is not None:
@@ -2680,9 +2771,14 @@ def timing_phase(dev, record, fwd, peaks):
             "mlp_b1": lambda: run_mlp(mlp_p, x1, out_dtype=bf16),
         }
         k8_p = plan.blocks[0][1].chunked
-        for bk, xm in ((b, xs), (2, x2), (1, x1)):
+        for bk, xm in ((b, xs), (2, x2), (1, x1), (3, x3r)):
             kern[f"mlp_k8_b{bk}"] = (
                 lambda xm=xm: run_mlp_chunked(k8_p, xm, out_dtype=bf16))
+        kern["mlp_b3"] = lambda: run_mlp(mlp_p, x3r, out_dtype=bf16)
+        kern["mlp_k8_b384_f32"] = lambda: run_mlp_chunked(
+            k8_p, x384, out_dtype=torch.float32)
+        kern["mlp_384_f32"] = lambda: run_mlp(mlp_p, x384,
+                                              out_dtype=torch.float32)
     else:
         kern = {
             "patch_embed": lambda: fused_quant_matmul(
@@ -2715,7 +2811,9 @@ def timing_phase(dev, record, fwd, peaks):
                 x2, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
                 fc2_e.bias, **mlp_kw),
         }
-        for site in ("mlp_b1", f"mlp_k8_b{b}", "mlp_k8_b2", "mlp_k8_b1"):
+        for site in ("mlp_b1", f"mlp_k8_b{b}", "mlp_k8_b2", "mlp_k8_b1",
+                     "mlp_b3", "mlp_k8_b3", "mlp_384_f32",
+                     "mlp_k8_b384_f32"):
             kern[site] = plain[site]
     kern["embed"] = lambda: patch_finalize(acc, pos, cls, one, n_pad=n_pad,
                                            out_dtype=bf16)
@@ -2816,13 +2914,22 @@ def timing_phase(dev, record, fwd, peaks):
         ("fused_mlp", "mlp_b1", 0,
          bound(2 * n_pad * d * 2 + 2 * d * hid * w1b, 4 * n_pad * d * hid),
          [(n_pad, d, hid), (n_pad, hid, d)], None),
-        # K8 on the same int8 weights at batch 32, 2, 1 (ViT-B's chain at
-        # batch 3 runs it: 0 launches here)
+        # K8 on the same int8 weights at batch 32, 2, 1 and 3 (ViT-B's
+        # chain at batch 3 runs it: 0 launches here), K2 at batch 3
         *[("fused_mlp_chunked", f"mlp_k8_b{bk}", 0,
            bound(2 * bk * n_pad * d * 2 + 2 * d * hid,
                  4 * bk * n_pad * d * hid),
            [(bk * n_pad, d, hid), (bk * n_pad, hid, d)], None)
-          for bk in (b, 2, 1)],
+          for bk in (b, 2, 1, 3)],
+        ("fused_mlp", "mlp_b3", 0,
+         bound(2 * 3 * n_pad * d * 2 + 2 * d * hid, 4 * 3 * n_pad * d * hid),
+         [(3 * n_pad, d, hid), (3 * n_pad, hid, d)], None),
+        # the 384-px chain at batch 1 (f32 residual stream): K8, K2 beside
+        *[(kn, site, 0, bound(2 * n384 * d * 4 + 2 * d * hid,
+                              4 * n384 * d * hid),
+           [(n384, d, hid), (n384, hid, d)], None)
+          for kn, site in (("fused_mlp_chunked", "mlp_k8_b384_f32"),
+                           ("fused_mlp", "mlp_384_f32"))],
         # K5 on the latency forward: one launch, all the depth
         ("block_stack", "stack_b1", 1,
          bound(cfg.depth * w_blk * wpk + 2 * n_pad * d * 2,
@@ -3386,7 +3493,7 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                                              run_attention_heads,
                                              run_attention_qkv, run_matmul,
                                              run_mlp, run_mlp_chunked)
-    from quantized_vit_tpu_torch.ops.fused import plan_mlp
+    from quantized_vit_tpu_torch.ops.fused import plan_mlp, plan_mlp_chunked
     from quantized_vit_tpu_torch.quant import pack_int4
     from quantized_vit_tpu_torch.serve.vit_int4 import (_attention_layer,
                                                         _mlp_layer)
@@ -3438,6 +3545,24 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                 xs[:m], w4[0], e["fc1"].scale, e["fc1"].bias, w4[1],
                 e["fc2"].scale, e["fc2"].bias, **mlp4_kw))
 
+    # K8 past its first design's width limit (K = 1536 at ViT-H/14's),
+    # random int8 levels, beside K2 on the same weights
+    wide = 6 * d // 5
+    gw = np.random.default_rng(11)
+    wkw = dict(mlp_kw, fmt="int8", fmt2="int8")
+    ww = [torch.from_numpy(gw.integers(-7, 8, shp).astype(np.int8)).to(DEV)
+          for shp in ((wide, 4 * wide), (4 * wide, wide))]
+    wsb = [torch.full((), 1e-3, device=DEV), None]
+    wln = dict(ln_scale=torch.ones(wide, device=DEV),
+               ln_bias=torch.zeros(wide, device=DEV))
+    xw = torch.randn((bb * n_pad, wide), generator=g, device=DEV).to(bf16)
+    wkw.update(wln)
+    for bk in (1, 2):
+        plain[f"vith_wide_mlp_b{bk}"] = (
+            lambda m=bk * n_pad: fused_mlp_plain(
+                xw[:m], ww[0], wsb[0], wsb[1], ww[1], wsb[0], wsb[1], **wkw))
+        plain[f"vith_wide_mlp_k2_b{bk}"] = plain[f"vith_wide_mlp_b{bk}"]
+        plain[f"vith_mlp_k2_b{bk}"] = mlp_plain(bk * n_pad)
     plain.update({
         "vith_mlp_b1": mlp_plain(n_pad), "vith_mlp_b2": mlp_plain(2 * n_pad),
         "vith_patch_embed_b32": lambda: fused_quant_matmul_plain(
@@ -3478,9 +3603,21 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
                       e["fc2"].scale, e["fc2"].bias,
                       **{k: v for k, v in mlp4_kw.items()
                          if k != "out_dtype"})
+        pkw = {k: v for k, v in wkw.items() if k != "out_dtype"}
+        pw8 = plan_mlp_chunked(ww[0], wsb[0], wsb[1], ww[1], wsb[0], wsb[1],
+                               **pkw)
+        pw2 = plan_mlp(ww[0], wsb[0], wsb[1], ww[1], wsb[0], wsb[1], **pkw)
         for bk in (1, 2):
             kern[f"vith_mlp_int4_b{bk}"] = (
                 lambda m=bk * n_pad: run_mlp(p4, xs[:m], out_dtype=bf16))
+            kern[f"vith_mlp_k2_b{bk}"] = (
+                lambda m=bk * n_pad: run_mlp(mlps.resident, xs[:m],
+                                             out_dtype=bf16))
+            kern[f"vith_wide_mlp_b{bk}"] = (
+                lambda m=bk * n_pad: run_mlp_chunked(pw8, xw[:m],
+                                                     out_dtype=bf16))
+            kern[f"vith_wide_mlp_k2_b{bk}"] = (
+                lambda m=bk * n_pad: run_mlp(pw2, xw[:m], out_dtype=bf16))
         kern.update({
             "vith_mlp_b1": lambda: run_mlp_chunked(mlps.chunked, xs[:n_pad],
                                                    out_dtype=bf16),
@@ -3525,6 +3662,17 @@ def vit_h_sites(vh, kern, plain, bound, fp64_flop):
          [(n_pad, d, hid), (n_pad, hid, d)], None),
         ("fused_mlp_chunked", "vith_mlp_b2", 0, mlp_bound(2 * n_pad),
          [(2 * n_pad, d, hid), (2 * n_pad, hid, d)], None),
+        # K2 on the same int8 plan (the same function), K8's yardstick
+        *[("fused_mlp", f"vith_mlp_k2_b{bk}", 0, mlp_bound(bk * n_pad),
+           [(bk * n_pad, d, hid), (bk * n_pad, hid, d)], None)
+          for bk in (1, 2)],
+        # K = 1536 (H 6144): K8 past its first design's width, K2 beside
+        *[(kn, f"vith_wide_mlp{sfx}_b{bk}", 0, bound(
+            2 * bk * n_pad * wide * 2 + 2 * wide * 4 * wide,
+            4 * bk * n_pad * wide * 4 * wide),
+           [(bk * n_pad, wide, 4 * wide), (bk * n_pad, 4 * wide, wide)],
+           None) for bk in (1, 2)
+          for kn, sfx in (("fused_mlp_chunked", ""), ("fused_mlp", "_k2"))],
         ("fused_quant_matmul", "vith_patch_embed_b32", 0,
          bound(bb * p * kp * 4 + kp * d + bb * p * d * 4,
                2 * bb * p * kp * d), [(bb * p, kp, d)], None),

@@ -29,7 +29,9 @@ Kernels:
 - :func:`run_mlp_chunked` (K8, ``csrc/fused_mlp_chunked.cu``) replaces
   ``ops/fused.py:_fused_mlp_chunked`` (``pallas_call`` at fused.py:1065):
   the same function for int8 weights too big to stay resident (ViT-H),
-  its hidden dimension split over blocks.
+  one cooperative launch whose GEMMs run on wgmma with the weights
+  streamed through a TMA ring, at the work split of
+  :func:`chunked_layout`; any width.
 - :func:`fused_mlp` picks K2 or K8 as ``_fused_mlp`` does
   (:func:`mlp_auto_hid_block`). Plain version of both:
   :func:`fused_mlp_plain` (port of ``fused_mlp_xla``): the JAX package's
@@ -48,6 +50,7 @@ package's [K, N] layout.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Sequence
@@ -517,22 +520,15 @@ def fused_quant_matmul(
 # ---------------------------------------------------------------------------
 
 
-# K8's 16 warps keep K/16 fc2 columns each in registers
-MLP_CHUNKED_MAX_K = 1280
-
-
 def mlp_chunked_kernel_limit(k: int, fmt: str = "int8",
                              fmt2: Optional[str] = None) -> Optional[str]:
-    """Why K8 cannot take model width ``k`` with these weight formats, or
-    None if it can."""
+    """Why K8 cannot take an MLP of width ``k`` with these weight formats,
+    or None if it can: int8 weights only, as the JAX function (no width
+    enters its registers or shared memory)."""
     if fmt != "int8" or (fmt2 or fmt) != "int8":
         return ("fused_mlp_chunked kernel: int8 weights only (packed int4 "
                 "pairs hidden rows h and h + H/2 in one byte, fused.py:"
                 "930-932)")
-    if k > MLP_CHUNKED_MAX_K:
-        return (f"fused_mlp_chunked kernel: width K={k} > "
-                f"{MLP_CHUNKED_MAX_K} (its fc2 accumulator row block lives "
-                "in registers)")
     return None
 
 
@@ -745,6 +741,191 @@ def mlp_grid(layout: MlpLayout, sms: int = _H100_SMS) -> int:
     fc2 = layout.full2 + layout.split_tiles * layout.splits \
         if layout.splits > 1 else layout.fc2_tiles
     return min(MLP_BLOCKS_PER_SM * sms, max(layout.ln_items, fc1, fc2))
+
+
+# csrc/fused_mlp_chunked.cu (K8): the weight rows of an item (the wgmma
+# M), the depth of a ring stage in bytes, the threads a block (two
+# consumer warpgroups and the producer warp), the threads a LayerNorm row
+# may take, the wgmma N it instantiates, its ring's stages at most, and
+# the shared memory a block may take and what the ring leaves of it (the
+# 1024-byte alignment, the barriers, static memory)
+CHUNKED_ROWS = 64
+# the weight rows of an fc1 item and of an fc2 item
+CHUNKED_WR = (2 * CHUNKED_ROWS, CHUNKED_ROWS)
+CHUNKED_BK = 128
+CHUNKED_THREADS = 288
+CHUNKED_LN_GROUPS = (8, 16, 32)
+CHUNKED_NW = (32, 64, 128, 256)
+CHUNKED_MAX_STAGES = 16
+CHUNKED_SMEM = 232448
+CHUNKED_SMEM_SLACK = 2048
+@dataclasses.dataclass(frozen=True)
+class ChunkedLayout:
+    """K8's work split for M rows at widths K and H (:func:`chunked_layout`):
+    threads a LayerNorm row; for each GEMM phase (fc1: suffix 1, fc2: 2)
+    the token rows of a chunk (``nc``), the wgmma N it runs at (``nw`` >=
+    ``nc``) and the token groups (``g``); the ring's stages. An fc1 item
+    is 128 units, the two consumer warpgroups sharing one token chunk; an
+    fc2 item 64 columns, the warpgroups sharing the weight tile, each its
+    own chunk (:data:`CHUNKED_WR`). Its methods enumerate each phase's
+    items in the kernel's order (``csrc/fused_mlp_chunked.cu``) and size
+    its scratch and shared memory."""
+
+    m: int
+    k: int
+    hid: int
+    ln_threads: int
+    nc1: int
+    nw1: int
+    g1: int
+    nc2: int
+    nw2: int
+    g2: int
+    stages: int
+
+    @property
+    def kp(self) -> int:
+        """The level scratch's row: K rounded up to 128."""
+        return _round_up(self.k, CHUNKED_BK)
+
+    @property
+    def hp(self) -> int:
+        """The hidden scratch's row: H rounded up to 128."""
+        return _round_up(self.hid, CHUNKED_BK)
+
+    @property
+    def m8(self) -> int:
+        """The scratches' rows: M rounded up to 8."""
+        return _round_up(self.m, 8)
+
+    @property
+    def ln_items(self) -> int:
+        """Phase 1's work items: groups of ``256 / ln_threads`` rows (the
+        consumer threads), one a block at a time."""
+        return _cdiv(self.m, 256 // self.ln_threads)
+
+    def phase(self, phase: int):
+        """(weight rows, depth, weight rows an item, nc, nw, g) of GEMM
+        phase ``phase``."""
+        wr = CHUNKED_WR[phase - 1]
+        if phase == 1:
+            return self.hid, self.k, wr, self.nc1, self.nw1, self.g1
+        return self.k, self.hid, wr, self.nc2, self.nw2, self.g2
+
+    @property
+    def stage_bytes(self) -> int:
+        """A ring stage: the larger phase's weight rows and token rows
+        (two chunks of N rows where the weight tile is shared), 128 bytes
+        each."""
+        return max(_chunked_stage(CHUNKED_WR[0], self.nw1),
+                   _chunked_stage(CHUNKED_WR[1], self.nw2))
+
+    @property
+    def smem_bytes(self) -> int:
+        """The launch's dynamic shared memory: the 1024-byte alignment,
+        the ring, a full and an empty barrier a stage."""
+        return (1024 + self.stages * self.stage_bytes
+                + 16 * CHUNKED_MAX_STAGES)
+
+    def items(self, phase: int):
+        """Phase ``phase``'s (1: fc1, 2: fc2) items in the kernel's order,
+        each the (first weight row, first token, tokens) of the two
+        consumer warpgroups' tiles; tokens <= 0: no work."""
+        rows, _, wr, nc, _, g = self.phase(phase)
+        out = []
+        for it in range(_cdiv(rows, wr) * g):
+            rt, q = divmod(it, g)
+            tiles = []
+            for w in (0, 1):
+                if wr == CHUNKED_ROWS:
+                    r0, t0 = rt * CHUNKED_ROWS, (2 * q + w) * nc
+                else:
+                    r0, t0 = rt * wr + w * CHUNKED_ROWS, q * nc
+                tiles.append((r0, t0, min(nc, self.m - t0) if r0 < rows
+                              else 0))
+            out.append(tiles)
+        return out
+
+    def l2_bytes(self, phase: int) -> int:
+        """The bytes phase ``phase``'s items load into shared memory (from
+        L2): each item's weight tiles and token tiles over the depth, once
+        each where the two warpgroups share one."""
+        _, depth, wr, nc, _, _ = self.phase(phase)
+        steps, total = _cdiv(depth, CHUNKED_BK), 0
+        for tiles in self.items(phase):
+            live = sum(t[2] > 0 for t in tiles)
+            n_w = 1 if wr == CHUNKED_ROWS else live
+            n_t = live if wr == CHUNKED_ROWS else 1
+            total += steps * CHUNKED_BK * (n_w * CHUNKED_ROWS + n_t * nc)
+        return total
+
+    def scratch_bytes(self):
+        """Bytes of each scratch: the levels [M8, Kp] and the hidden levels
+        [M8, Hp], int8."""
+        return {"levels": self.m8 * self.kp, "hidden": self.m8 * self.hp}
+
+
+def _chunked_stage(wr: int, nw: int) -> int:
+    """A phase's ring stage: ``wr`` weight rows and its token rows (two
+    chunks of ``nw`` rows where the weight tile is shared), 128 bytes
+    each."""
+    return (wr + (2 if wr == CHUNKED_ROWS else 1) * nw) * CHUNKED_BK
+
+
+def _chunked_split(m: int, rows: int, wr: int, sms: int):
+    """(nc, nw, g) of a K8 GEMM phase of ``rows`` weight rows at ``m``
+    token rows on ``sms`` SMs, its items ``wr`` weight rows (64: two token
+    chunks an item; 128: one): the most token groups whose items still
+    take one wave of the grid (at least the groups that keep a chunk
+    within 256 rows, at most those that keep it 8 rows or more; none
+    without tokens once the chunk is rounded up to 8 rows)."""
+    chunks = 2 if wr == CHUNKED_ROWS else 1
+    g_min = _cdiv(m, chunks * CHUNKED_NW[-1])
+    g = max(g_min, min(sms // _cdiv(rows, wr), _cdiv(m, 8 * chunks)))
+    nc = _round_up(_cdiv(m, chunks * g), 8)
+    return nc, next(v for v in CHUNKED_NW if v >= nc), _cdiv(m, chunks * nc)
+
+
+@functools.lru_cache(maxsize=None)
+def chunked_layout(m: int, k: int, hid: int, itemsize: int = 2,
+                   sms: int = _H100_SMS) -> ChunkedLayout:
+    """K8's work split at ``m`` rows of widths ``k`` (model) and ``hid``
+    (hidden), x of ``itemsize`` bytes, on a card of ``sms`` SMs:
+
+    - LayerNorm: K2's row group (:func:`_row_group`) at most 32 threads
+      (the producer warp takes no part, so no block barrier is possible);
+    - each GEMM phase: :func:`_chunked_split`, one wave of items (fc1's
+      of 128 units sharing a token chunk, fc2's of 64 columns sharing the
+      weight tile: the neighbours of these picks on an H100,
+      ``tools/chunked_design.py``, are in PERF.md);
+    - the ring: as many stages as fit the shared memory (3 to 16).
+
+    At ViT-H/14 batch 1 (272 rows) fc1 runs 120 items of 128 units x 96
+    rows (N 128) and fc2 120 items of 64 columns x 2 chunks of 24 rows (N
+    32); at batch 2 (544 rows) 120 items of 128 units x 184 rows (N 256)
+    and 120 of 64 columns x 2 x 48 (N 64)."""
+    ln = min(CHUNKED_LN_GROUPS[-1], _row_group(m, k * itemsize, sms))
+    p1 = _chunked_split(m, hid, CHUNKED_WR[0], sms)
+    p2 = _chunked_split(m, k, CHUNKED_WR[1], sms)
+    stage = max(_chunked_stage(CHUNKED_WR[0], p1[1]),
+                _chunked_stage(CHUNKED_WR[1], p2[1]))
+    return ChunkedLayout(m, k, hid, ln, *p1, *p2, chunked_stages(stage))
+
+
+def chunked_stages(stage_bytes: int) -> int:
+    """K8's ring stages of ``stage_bytes`` each: as many as fit the shared
+    memory, at most :data:`CHUNKED_MAX_STAGES`."""
+    return min(CHUNKED_MAX_STAGES,
+               (CHUNKED_SMEM - CHUNKED_SMEM_SLACK - 16 * CHUNKED_MAX_STAGES)
+               // stage_bytes)
+
+
+def chunked_grid(layout: ChunkedLayout, sms: int = _H100_SMS) -> int:
+    """The blocks of K8's launch at ``layout`` on a card of ``sms`` SMs:
+    enough for its largest phase, one an SM
+    (``csrc/fused_mlp_chunked.cu:qvt_mlp_chunked_prepare``)."""
+    return min(sms, max(layout.ln_items, len(layout.items(1)),
+                        len(layout.items(2))))
 
 
 # K15's gather (csrc/copy_jobs.cuh): a chunk is a multiple of
@@ -960,8 +1141,10 @@ def fused_mlp_plain(x, w1, scale1, bias1, w2, scale2, bias2, *,
 
 @dataclasses.dataclass(frozen=True)
 class MlpPlan:
-    """One K2 call site, prepared once by :func:`plan_mlp` (as
-    :class:`MatmulPlan`)."""
+    """One K2 or K8 call site, prepared once by :func:`plan_mlp` or
+    :func:`plan_mlp_chunked` (as :class:`MatmulPlan`). ``launches``: K8's
+    host state of each layout it has launched at (its weights' tensor maps,
+    the grid), made once (:func:`_launch_mlp_chunked`)."""
 
     w1_t: torch.Tensor
     w2_t: torch.Tensor
@@ -981,6 +1164,8 @@ class MlpPlan:
     act_top: int
     hid_top: int
     ln_eps: float
+    launches: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
 
 def _plan_mlp(name, limit, w1, scale1, bias1, w2, scale2, bias2, *,
@@ -1037,20 +1222,38 @@ def plan_mlp(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale, ln_bias,
                      fmt2=fmt2, w1_t=w1_t, w2_t=w2_t)
 
 
+def _chunked_copy(w_t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """An n-major weight ``w_t`` [rows, cols] as K8's tensor maps read it:
+    [rows rounded up to 64, cols rounded up to 128] with zero levels in the
+    padding, so that no TMA box leaves the copy (``w_t`` itself when it
+    already has that shape: every ViT width)."""
+    shape = (_round_up(rows, CHUNKED_ROWS), _round_up(cols, CHUNKED_BK))
+    if tuple(w_t.shape) == shape:
+        return w_t
+    out = w_t.new_zeros(shape)
+    out[:rows, :cols] = w_t
+    return out
+
+
 def plan_mlp_chunked(w1, scale1, bias1, w2, scale2, bias2, *, ln_scale,
                      ln_bias, ln_eps=1e-6, act_d=None, act_t=None,
                      act_top=None, act_pow=False, hid_d=None, hid_t=None,
                      hid_top=None, hid_pow=False, fmt="int8", fmt2=None,
                      w1_t=None, w2_t=None) -> MlpPlan:
     """K8's layer-side work, done once, as :func:`plan_mlp` (int8 weights
-    only)."""
-    return _plan_mlp(
+    only; any width). Its weights are the shared n-major copies, or its own
+    copies padded with zeros where a width is off K8's tiles
+    (:func:`_chunked_copy`)."""
+    plan = _plan_mlp(
         "fused_mlp_chunked",
         lambda k: mlp_chunked_kernel_limit(k, fmt, fmt2), w1, scale1, bias1,
         w2, scale2, bias2, ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
         act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
         hid_d=hid_d, hid_t=hid_t, hid_top=hid_top, hid_pow=hid_pow, fmt=fmt,
         fmt2=fmt2, w1_t=w1_t, w2_t=w2_t)
+    return dataclasses.replace(
+        plan, w1_t=_chunked_copy(plan.w1_t, plan.hid, plan.k),
+        w2_t=_chunked_copy(plan.w2_t, plan.k, plan.hid))
 
 
 def run_mlp(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
@@ -1123,11 +1326,54 @@ def _launch_mlp(plan: MlpPlan, x, layout: MlpLayout, *,
 
 
 def run_mlp_chunked(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
-    """Launches K8 on ``x`` [M, K] for a prepared int8 MLP: the only place
-    that launches it. The kernel splits the hidden dimension over blocks
-    (its own split, from M and the card's co-resident blocks), so it needs
-    an int32 scratch of S x M x K for the split's partial sums."""
+    """Launches K8 on ``x`` [M, K] for a prepared int8 MLP at the work split
+    :func:`chunked_layout` picks for the card."""
+    from .attention import _card_shape  # attention.py imports this module
+
     _build.require_cuda("fused_mlp_chunked", x)
+    layout = chunked_layout(_mlp_input(x, plan.k), plan.k, plan.hid,
+                            x.element_size(), _card_shape(x.device.index)[0])
+    return _launch_mlp_chunked(plan, x, layout, out_dtype=out_dtype)
+
+
+def _chunked_library():
+    """K8's library, its entry points' C signatures set on first use."""
+    lib = _build.library("fused_mlp_chunked")
+    if lib.qvt_fused_mlp_chunked.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        lib.qvt_mlp_chunked_state_bytes.argtypes = []
+        lib.qvt_mlp_chunked_state_bytes.restype = I
+        lib.qvt_mlp_chunked_prepare.argtypes = [P, P, P] + [I] * 13
+        lib.qvt_mlp_chunked_prepare.restype = I
+        lib.qvt_fused_mlp_chunked.argtypes = (
+            [P, P, I] + [P] * 10 + [I] * 5 + [F, P])
+        lib.qvt_fused_mlp_chunked.restype = I
+    return lib
+
+
+def _chunked_state(plan: MlpPlan, layout: ChunkedLayout, lib):
+    """K8's host state for ``plan`` at ``layout`` (the weights' tensor
+    maps, the ring, the grid), made on first use and kept in the plan."""
+    state = plan.launches.get(layout)
+    if state is None:
+        state = ctypes.create_string_buffer(lib.qvt_mlp_chunked_state_bytes())
+        code = lib.qvt_mlp_chunked_prepare(
+            ctypes.addressof(state), plan.w1_t.data_ptr(),
+            plan.w2_t.data_ptr(), layout.m, plan.k, plan.hid,
+            plan.w1_t.shape[1], plan.w2_t.shape[1], layout.ln_threads,
+            layout.nc1, layout.nw1, layout.g1, layout.nc2, layout.nw2,
+            layout.g2, layout.stages)
+        _build.check(code, "fused_mlp_chunked")
+        plan.launches[layout] = state
+    return state
+
+
+def _launch_mlp_chunked(plan: MlpPlan, x, layout: ChunkedLayout, *,
+                        out_dtype=torch.bfloat16):
+    """K8 at ``layout`` on a checked CUDA ``x``: its scratch (the levels
+    and the hidden levels, one buffer) and the launch itself, counted
+    under ``fused_mlp_chunked``: the only place that launches it.
+    ``chip_smoke.py`` calls it at layouts other than the picker's."""
     if plan.int4_1 or plan.int4_2:
         raise ValueError(mlp_chunked_kernel_limit(plan.k, "int4"))
     m = _mlp_input(x, plan.k)
@@ -1135,28 +1381,19 @@ def run_mlp_chunked(plan: MlpPlan, x, *, out_dtype=torch.bfloat16):
     out = torch.empty((m, plan.k), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    lib = _build.library("fused_mlp_chunked")
-    P, I, F = _build.P, _build.I, _build.F
-    lib.qvt_fused_mlp_chunked_splits.argtypes = [I, I, I]
-    lib.qvt_fused_mlp_chunked_splits.restype = I
-    splits = lib.qvt_fused_mlp_chunked_splits(m, plan.k, plan.hid)
-    if splits < 1:
-        _build.check(-splits or 1, "fused_mlp_chunked")
-    part = (torch.empty((splits, m, plan.k), dtype=torch.int32,
-                        device=x.device) if splits > 1 else None)
-    fn = lib.qvt_fused_mlp_chunked
-    fn.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I,
-                   I, I, I, I, F, P]
-    fn.restype = I
-    code = fn(
-        x.data_ptr(), _build.dtype_code(x.dtype), plan.w1_t.data_ptr(),
-        plan.scale1.data_ptr(), plan.bias1.data_ptr(), plan.w2_t.data_ptr(),
+    lib = _chunked_library()
+    state = _chunked_state(plan, layout, lib)
+    sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
+    scratch = torch.empty((sum(sizes),), dtype=torch.uint8, device=x.device)
+    code = lib.qvt_fused_mlp_chunked(
+        ctypes.addressof(state), x.data_ptr(), _build.dtype_code(x.dtype),
+        plan.scale1.data_ptr(), plan.bias1.data_ptr(),
         plan.scale2.data_ptr(), plan.bias2.data_ptr(),
         plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
-        plan.prm.data_ptr(), out.data_ptr(), _build.dtype_code(out.dtype),
-        _build.ptr(part), m, plan.k, plan.hid, splits, int(plan.act_pow),
-        int(plan.hid_pow), plan.act_top, plan.hid_top, plan.ln_eps,
-        _build.stream())
+        plan.prm.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + sizes[0], out.data_ptr(),
+        _build.dtype_code(out.dtype), int(plan.act_pow), int(plan.hid_pow),
+        plan.act_top, plan.hid_top, plan.ln_eps, _build.stream())
     _build.check(code, "fused_mlp_chunked")
     _build.count_launch("fused_mlp_chunked")
     return out

@@ -260,9 +260,10 @@ def mlp_route(m: int, k: int, hid: int, fmt: str, fmt2: Optional[str] = None,
 @dataclasses.dataclass(frozen=True)
 class MlpPlans:
     """One block's MLP, prepared for each route of :func:`mlp_route`, all
-    on one n-major copy of each weight: K2, K8 (None unless both weights are int8 and K8 takes the width), and
-    the chain's two K1 launches (fc1 with the LayerNorm + quant prologue
-    and the GELU + quant epilogue; fc2 with the residual epilogue)."""
+    on one n-major copy of each weight: K2, K8 (None unless both weights
+    are int8), and the chain's two K1 launches (fc1 with the LayerNorm +
+    quant prologue and the GELU + quant epilogue; fc2 with the residual
+    epilogue)."""
 
     resident: MlpPlan
     chunked: Optional[MlpPlan]
@@ -302,18 +303,14 @@ def _plan_mlps(blk) -> MlpPlans:
 
 def _run_mlps(plans: MlpPlans, x2d, float_dtype):
     """The MLP residual branch on the route :func:`mlp_route` picks for
-    ``x2d``'s rows; raises when that route's kernel cannot take the
-    block."""
+    ``x2d``'s rows."""
     route = mlp_route(x2d.shape[0], plans.k, plans.hid, plans.fmt,
                       plans.fmt2, x2d.element_size())
     if route == MLP_CHAIN:
         hlv = run_matmul(plans.fc1, x2d)
         return run_matmul(plans.fc2, hlv, residual=x2d,
                           out_dtype=float_dtype)
-    if route == MLP_CHUNKED:
-        if plans.chunked is None:
-            _raise_limits([mlp_chunked_kernel_limit(plans.k, plans.fmt,
-                                                    plans.fmt2)])
+    if route == MLP_CHUNKED:  # int8 weights only: K8 has a plan
         return run_mlp_chunked(plans.chunked, x2d, out_dtype=float_dtype)
     return run_mlp(plans.resident, x2d, out_dtype=float_dtype)
 
@@ -352,10 +349,11 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
     """Why the CUDA kernels cannot serve ``cfg`` with ``fmt`` weights and a
     ``float_dtype`` residual stream (empty if they can): the limits of the
     kernels on the routes a forward of ``batch`` images takes (None: any
-    batch), K3 or K6 for attention and K8 for the MLP (K2 has no limit,
-    nor has K15, the MLP of every batch with ``fsdp_rdma``: the FSDP
-    forward of ``serve/vit_fsdp.py``, whose ``batch`` is a process's
-    share); or, with ``latency``, those of K5 for the batch-1 entry."""
+    batch), K3 or K6 for attention (no MLP kernel has one: K2, K15 with
+    ``fsdp_rdma``, the FSDP forward of ``serve/vit_fsdp.py`` whose
+    ``batch`` is a process's share, and K8, which the route gives int8
+    weights only); or, with ``latency``, those of K5 for the batch-1
+    entry."""
     hd = cfg.embed_dim // cfg.num_heads
     n_pad = _round_up(cfg.num_tokens, n_align)
     hid = int(cfg.embed_dim * cfg.mlp_ratio)
@@ -363,16 +361,11 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
         lims = [stack_kernel_limit(n_pad, cfg.embed_dim, hid, hd,
                                    n_valid=cfg.num_tokens)]
     else:
-        itemsize = torch.empty((), dtype=float_dtype).element_size()
         lims = []
         for b in (range(1, ROUTE_BATCHES + 1) if batch is None
                   else (batch,)):
             lims.append(qkv_kernel_limit(hd) if uses_chain(b)
                         else heads_kernel_limit(hd))
-            route = mlp_route(b * n_pad, cfg.embed_dim, hid, fmt,
-                              itemsize=itemsize)
-            if not fsdp_rdma and route == MLP_CHUNKED:
-                lims.append(mlp_chunked_kernel_limit(cfg.embed_dim, fmt))
     return list(dict.fromkeys(lim for lim in lims if lim))
 
 

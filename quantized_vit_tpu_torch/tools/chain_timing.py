@@ -12,7 +12,11 @@ prepared plan, random bf16 x and int8 weights) at ViT-B/16 and ViT-H/14
 batch 32, and K2 (``run_mlp`` on a prepared plan, random bf16 x and
 weights) at ViT-B/16 batch 32, 2 and 1 with int8 levels and at ViT-H/14
 batch 1 and 2 with packed int4 (None where the version refuses the
-width), and K1 (``run_matmul`` on a prepared plan, random x and int8
+width), K8 (``run_mlp_chunked`` on a prepared plan, random x and int8
+weights) beside K2 on the same weights at its sites: ViT-H/14 batch 1
+and 2, ViT-B/16's chain at batch 3, the 384-px ViT-B/16 chain at batch 1
+(f32 x), ViT-B/16's batch-32 rows and K = 1536 at 272 and 544 rows (None
+where the version refuses the width), and K1 (``run_matmul`` on a prepared plan, random x and int8
 weights) at every site of the forwards (ViT-B/16's patch embed, proj and
 head at batch 32, its head at batch 1, its chain qkv and proj at batch
 1-3; ViT-H/14's patch embed at batch 32, its chain qkv and proj at
@@ -20,8 +24,9 @@ batch 1 and 2, fc1 and fc2 at batch 32), each as the median of
 CUDA-event readings, the host's time to launch one call and its kernels'
 device time from torch.profiler; and the forward (``vit_int4_forward``
 on a prepared plan, int8-stored levels from seed 0, bf16 residual
-stream) of ViT-B/16 and ViT-H/14 at batch 1 and 2 (the chain) and 32
-(the K3 route), CUDA-event medians in ms.
+stream) of ViT-B/16 and ViT-H/14 at batch 1, 2 and 3 (the chain; K8's
+MLP at ViT-B batch 3 and ViT-H batch 1 and 2) and 32 (the K3 route),
+CUDA-event medians in ms.
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ import torch
 
 from ..models import ViTConfig
 from ..ops import (plan_attention_heads, plan_attention_qkv, plan_matmul,
-                   plan_mlp, run_attention_heads, run_attention_qkv,
-                   run_matmul, run_mlp)
+                   plan_mlp, plan_mlp_chunked, run_attention_heads,
+                   run_attention_qkv, run_matmul, run_mlp, run_mlp_chunked)
 from ..quant import pack_int4
 from ..serve import (prepare_kernels, random_vit_int4_artifact,
                      vit_int4_forward)
@@ -56,6 +61,14 @@ K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
             "vitb_b1": (208, 768, 3072, "int8"),
             "vith_b1_int4": (272, 1280, 5120, "int4"),
             "vith_b2_int4": (544, 1280, 5120, "int4")}
+# K8's sites (and K2's on the same weights): (rows, K, H, x dtype)
+K8_SITES = {"vith_b1": (272, 1280, 5120, torch.bfloat16),
+            "vith_b2": (544, 1280, 5120, torch.bfloat16),
+            "vitb_chain_b3": (624, 768, 3072, torch.bfloat16),
+            "vitb384_chain_b1_f32": (592, 768, 3072, torch.float32),
+            "vitb_b32": (6656, 768, 3072, torch.bfloat16),
+            "wide_b1": (272, 1536, 6144, torch.bfloat16),
+            "wide_b2": (544, 1536, 6144, torch.bfloat16)}
 # (rows, K, N, prologue, epilogue, x dtype)
 _B, _H = (208, 768), (272, 1280)
 K1_SITES = {
@@ -78,7 +91,7 @@ K1_SITES = {
                      torch.int8)}
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
-BATCHES = (1, 2, 32)
+BATCHES = (1, 2, 3, 32)
 
 
 def events_us(fn, iters=200, warmup=5):
@@ -130,7 +143,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     out = {"card": smi, "k1_us": {}, "k6_us": {}, "k3_us": {}, "k2_us": {},
-           "forward_ms": {}}
+           "k8_us": {}, "forward_ms": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
     for site, (m, k, n, pro, epi, xdt) in K1_SITES.items():
@@ -210,6 +223,33 @@ def main():
 
         out["k2_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
+    for site, (m, k, hid, xdt) in K8_SITES.items():
+        x = torch.randn((m, k), generator=g, device="cuda").to(xdt)
+        w1 = torch.randint(-7, 8, (k, hid), dtype=torch.int8, device="cuda",
+                           generator=g)
+        w2 = torch.randint(-7, 8, (hid, k), dtype=torch.int8, device="cuda",
+                           generator=g)
+        args = (w1, 1e-3 * one, None, w2, 1e-3 * one, None)
+        layer = dict(fmt="int8", ln_scale=torch.ones(k, device="cuda"),
+                     ln_bias=torch.zeros(k, device="cuda"),
+                     act_d=0.05 * one, act_t=one, act_top=127,
+                     hid_d=0.05 * one, hid_t=one, hid_top=127)
+        res = {}
+        for name, plan_fn, run_fn in (("k8", plan_mlp_chunked,
+                                       run_mlp_chunked),
+                                      ("k2", plan_mlp, run_mlp)):
+            try:
+                plan = plan_fn(*args, **layer)
+            except ValueError:  # a version with a width limit
+                res[name] = None
+                continue
+
+            def fn(plan=plan, x=x, run_fn=run_fn):
+                return run_fn(plan, x, out_dtype=xdt)
+
+            res[name] = {"events": events_us(fn), "host": host_us(fn),
+                         "device": device_us(fn)}
+        out["k8_us"][site] = res
     kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
     for name, cfg_kw in MODELS.items():
         cfg = ViTConfig(**cfg_kw)

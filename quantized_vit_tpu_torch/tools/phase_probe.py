@@ -27,9 +27,10 @@ and prints:
   summed: prologue | grid barrier | GEMM (with a split's partial sums) |
   epilogue, and the span (no prologue or barrier where x's levels are
   read in place);
-- ``fused_mlp_chunked`` (ViT-H/14 widths, batch 1 and 2), per block:
-  LayerNorm + quant | its hidden slice's chunk loop | partial sums, grid
-  barrier and epilogue, and the span;
+- ``fused_mlp_chunked`` (K8 with int8 levels at ViT-H/14's MLP at batch
+  1 and 2 and ViT-B/16's at the chain's batch 3; random bf16 x), per
+  block of its persistent grid, each phase summed: LN + quant | first
+  grid barrier | fc1 | second grid barrier | fc2, and the span;
 - ``flash_attention`` (random bf16 q/k/v at K13's path shapes: ViT-B/16
   batch 32, ViT-H/14 batch 8 and 1, each at the query tile
   ``flash_tile_rows`` picks), per block: staging + scores | softmax |
@@ -70,9 +71,9 @@ from ..ops.attention import (_card_shape, flash_tile_rows, heads_tile_rows,
                              run_attention_heads, run_attention_qkv,
                              run_attention_qkv_proj, run_flash_attention)
 from ..ops.block_stack import run_block_stack
-from ..ops.fused import (matmul_layout, mlp_layout, plan_matmul, plan_mlp,
-                         plan_mlp_chunked, run_matmul, run_mlp,
-                         run_mlp_chunked)
+from ..ops.fused import (_launch_mlp_chunked, chunked_layout, matmul_layout,
+                         mlp_layout, plan_matmul, plan_mlp, plan_mlp_chunked,
+                         run_matmul, run_mlp)
 from ..ops.ring_gather import _launch_mlp_gather, plan_gather_rows
 from ..quant import pack_int4
 from ..models import ViTConfig
@@ -92,6 +93,9 @@ _K2_SITES = {"vitb_b32": (6656, 768, 3072, "int8"),
              "vith_b2_int4": (544, 1280, 5120, "int4")}
 # K15: K2's phases, the copy in phase 1; its sites: (rows, K, H),
 # gathering the next block's four int8 weights
+# K8: K2's phases; its sites: (rows, K, H), int8 weights
+_K8_SITES = {"vith_b1": (272, 1280, 5120), "vith_b2": (544, 1280, 5120),
+             "vitb_chain_b3": (624, 768, 3072)}
 _K15_PHASES = ("LN + quant + copy", "barrier 1", "fc1", "barrier 2", "fc2")
 _K15_SITES = {"vitb_b32": (6656, 768, 3072), "vith_b32": (8704, 1280, 5120)}
 _K1_PHASES = ("prologue", "barrier", "GEMM", "epilogue")
@@ -115,24 +119,6 @@ def main():
     one = torch.ones((), device=dev)
     d05 = torch.full((), 0.05, device=dev)
     runs = {}
-    # K8 at ViT-H/14's widths, batch 1 and 2 (272 token rows an image)
-    dh, hh = 1280, 5120
-    w1h = torch.randint(-7, 8, (dh, hh), dtype=torch.int8, device=dev)
-    w2h = torch.randint(-7, 8, (hh, dh), dtype=torch.int8, device=dev)
-    chunked = plan_mlp_chunked(
-        w1h, 1e-3 * one, None, w2h, 1e-3 * one, None, hid_d=d05, hid_t=one,
-        hid_top=7, act_d=d05, act_t=one, act_top=7, fmt="int8",
-        ln_scale=torch.ones(dh, device=dev),
-        ln_bias=torch.zeros(dh, device=dev))
-    splits = _build.library("fused_mlp_chunked").qvt_fused_mlp_chunked_splits
-    splits.argtypes, splits.restype = [ctypes.c_int] * 3, ctypes.c_int
-    for bk in (1, 2):
-        xh = torch.randn((bk * 272, dh), generator=g, device=dev).to(
-            torch.bfloat16)
-        runs[f"fused_mlp_chunked:b{bk}"] = (
-            splits(bk * 272, dh, hh) * ((bk * 272 + 31) // 32),
-            lambda xh=xh: run_mlp_chunked(chunked, xh),
-            ("LN + quant", "hidden slice", "partials + barrier + epilogue"))
     for tag, (bk, hk, nk, hdk, nv) in (("vitb_b32", (32, 12, 208, 64, 197)),
                                        ("vith_b8", (8, 16, 272, 80, 257)),
                                        ("vith_b1", (1, 16, 272, 80, 257))):
@@ -164,6 +150,26 @@ def main():
                       f"fused_mlp:{tag}:ln{lay.ln_threads}:t{lay.tile1}/"
                       f"{lay.tile2}:whole{lay.full2}:S{lay.splits}",
                       lambda pl=pl, xk=xk: run_mlp(pl, xk))
+    for tag, (rows, dk, hk) in _K8_SITES.items():
+        if only and "fused_mlp_chunked" not in only:
+            break
+        pl = plan_mlp_chunked(
+            torch.randint(-7, 8, (dk, hk), dtype=torch.int8, device=dev),
+            1e-3 * one, None,
+            torch.randint(-7, 8, (hk, dk), dtype=torch.int8, device=dev),
+            1e-3 * one, None, hid_d=d05, hid_t=one, hid_top=7, act_d=d05,
+            act_t=one, act_top=7, fmt="int8",
+            ln_scale=torch.ones(dk, device=dev),
+            ln_bias=torch.zeros(dk, device=dev))
+        xk = torch.randn((rows, dk), generator=g, device=dev).to(
+            torch.bfloat16)
+        lay = chunked_layout(rows, dk, hk, 2, _card_shape(0)[0])
+        summed_phases(buf, "fused_mlp_chunked", _K2_PHASES,
+                      f"fused_mlp_chunked:{tag}:ln{lay.ln_threads}:fc1 "
+                      f"{lay.nc1}/{lay.nw1}x{lay.g1}:fc2 {lay.nc2}/"
+                      f"{lay.nw2}x{lay.g2}:stages {lay.stages}",
+                      lambda pl=pl, xk=xk, lay=lay:
+                      _launch_mlp_chunked(pl, xk, lay))
     for tag, (rows, dk, hk) in _K15_SITES.items():
         if only and "fused_mlp_gather" not in only:
             break

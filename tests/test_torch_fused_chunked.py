@@ -178,8 +178,7 @@ def test_forward_mlp_route_matches_jax_block(preset, fmt):
 
 def test_forward_runs_the_route_it_picks(monkeypatch):
     """The kernel path's MLP dispatch (``_run_mlps``) launches the route
-    ``mlp_route`` names, and raises naming the limit when that route's
-    kernel cannot take the block."""
+    ``mlp_route`` names, K8 at any width."""
     calls = []
     monkeypatch.setattr(tv, "run_mlp", lambda p, x, **kw: calls.append(
         ("fused_mlp", p)) or x)
@@ -203,7 +202,6 @@ def test_forward_runs_the_route_it_picks(monkeypatch):
     # (its first design refused K = 1280)
     tv._run_mlps(plans(1280, 5120, "int4"), x(272, 1280), torch.bfloat16)
     assert calls[-1] == ("fused_mlp", "k2")
-    # K8's route with no K8 plan (past K8's width) raises naming its limit
-    with pytest.raises(ValueError, match="kernel limits.*K=1536 > 1280"):
-        tv._run_mlps(plans(1536, 6144, "int8", chunked=None),
-                     x(272, 1536), torch.bfloat16)
+    # K8 has no width limit: past its first design's K <= 1280 it runs
+    tv._run_mlps(plans(1536, 6144, "int8"), x(272, 1536), torch.bfloat16)
+    assert calls[-1] == ("fused_mlp_chunked", "k8")
