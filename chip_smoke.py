@@ -52,9 +52,9 @@ Phases, in order; any failure exits non-zero:
    (t != 1) quantizers, both residual dtypes and ``int_attention`` on and
    off, under the parity contract: int8 levels within 1 level at <= 0.5%
    of positions, the MLP block's output (K2, K8) within 1e-5, attention
-   outputs (K3's and K9's branch, K6's float output, K5's residual
-   stream) within 0.1 everywhere and differing at <= 1% of positions, the
-   rest exact;
+   outputs (K3's and K9's branch, K6's float output) within 0.1
+   everywhere and differing at <= 1% of positions, the rest (K5's
+   residual stream included) exact;
    each row says whether it is bit-exact;
 3. the forwards (random artifact from seed 0, host-patchified input, bf16
    residual stream), each with the launch counters set to 0 just before
@@ -62,7 +62,9 @@ Phases, in order; any failure exits non-zero:
    32 (K3 + K2 route) for both weight storages, the chain at batch 1, 2
    and 3 (K1 + K6 + K1, then K2, or K8 at batch 3 where the JAX routing
    streams int8 weights), ``int_attention`` on both routes (batch 4 and
-   2), the batch-1 latency entry (one K5 launch) and a 384-px ViT-B/16
+   2), the batch-1 latency entry (one K5 launch; at 224 px, and for the
+   384-px ViT-B/16 at depth 2 in bf16, logits equal to the plain path's)
+   and a 384-px ViT-B/16
    at depth 2 on the chain at batch 1 with an f32 residual stream (K6 on
    592 tokens, K8) and on the K3 route at batch 4 in bf16 (K3 on 592
    tokens), and ViT-H/14 at depth 2 on the K3 route at batch 4 with an
@@ -806,18 +808,32 @@ class Parity:
         return ops, kw
 
     def k5(self, case, j, n, n_valid, d, heads, hid, depth, fmt, dtype,
-           pow_, seed):
+           pow_, seed, layout=None):
+        """K5 against its plain version, bit for bit; ``layout``: a dict
+        of StackLayout fields launched in place of the picker's (none on
+        the CPU)."""
+        import dataclasses
+
         from quantized_vit_tpu_torch.ops import (plan_block_stack,
                                                  vit_block_stack,
                                                  vit_block_stack_plain)
+        from quantized_vit_tpu_torch.ops import block_stack as B
 
         rng = np.random.default_rng(seed)
         ops, kw = self.stack_operands(rng, depth, d, heads, hid, fmt, pow_)
         x = self.t(rng.standard_normal((j * n, d)) * 0.5, dtype)
         run = dict(n_valid=n_valid, out_dtype=dtype, j_imgs=j)
-        got = vit_block_stack(x, *ops, **kw, **run)
-        want = vit_block_stack_plain(plan_block_stack(*ops, **kw), x, **run)
-        return self.check("block_stack", case, "attention", got, want)
+        plan = plan_block_stack(*ops, **kw)
+        if layout is not None and x.device.type == "cuda":
+            lay = dataclasses.replace(B.stack_layout_for(plan, x, j),
+                                      **layout)
+            got = B._launch_block_stack(
+                plan, x, lay, n_valid=n_valid,
+                nk=B._n_keys(n, n_valid, dtype.itemsize))
+        else:
+            got = vit_block_stack(x, *ops, **kw, **run)
+        want = vit_block_stack_plain(plan, x, **run)
+        return self.check("block_stack", case, "exact", got, want)
 
     def k5_images(self, case, n, n_valid, d, heads, hid, depth, fmt, seed):
         """j_imgs = 2 equals two j_imgs = 1 calls of the kernel, exactly."""
@@ -905,6 +921,70 @@ class Parity:
                 "int4", bf16, True, 122)
         self.k5("small[1x40x64,h2,L3](int8,f32)", 1, 40, 37, 64, 2, 128, 3,
                 "int8", f32, False, 123)
+        self.run_stack_kernels(cfg)
+
+    def run_stack_kernels(self, cfg):
+        """K5 (its redesign on the TMA + wgmma ring and K6's tile) past its
+        first design's limits, each bit-exact: the 384-px ViT-B/16 (592
+        rows, bf16, depth 2; the first K5 refused its key rows), ViT-H/14's
+        width (D 1280, 16 heads of 80, hidden 5120, 272 rows, depth 2),
+        ViT-B/16 at two images (j_imgs = 2 also equal to two single
+        calls), small shapes at 3 and 4 images, both quantizers, both
+        weight formats and residual dtypes; then launched at set work
+        splits (the other attention tile, fewer and more token groups)."""
+        from quantized_vit_tpu_torch.models import ViTConfig
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        _, _, d, n_real, n_pad, _, hid, _, heads = shapes(cfg)
+        _, _, d384, nr384, n384, _, hid384, _, h384 = shapes(ViTConfig(
+            **dict(CFG_KW, **B384_KW)))
+        vh = vit_h_cfg()
+        _, dh, nrh, nph, hidh, _ = vit_h_shapes(vh)
+        seed = 1600
+        for fmt, dt, pow_ in (("int4", bf16, False), ("int8", bf16, True),
+                              ("int4", f32, True)):
+            seed += 1
+            tag = f"{fmt},{str(dt)[6:]},{'pow' if pow_ else 'lin'}"
+            self.k5(f"384px[1x{n384}x{d384},h{h384},L2]({tag})", 1, n384,
+                    nr384, d384, h384, hid384, 2, fmt, dt, pow_, seed)
+            self.k5(f"vith[1x{nph}x{dh},h{vh.num_heads}x"
+                    f"{dh // vh.num_heads},L2]({tag})", 1, nph, nrh, dh,
+                    vh.num_heads, hidh, 2, fmt, dt, pow_, seed + 50)
+        self.k5(f"main[2x{n_pad}x{d},h{heads},L2](int4,j2)", 2, n_pad,
+                n_real, d, heads, hid, 2, "int4", bf16, False, 1660)
+        self.k5_images(f"main[2x{n_pad}x{d},h{heads},L2](int4,j2=j1+j1)",
+                       n_pad, n_real, d, heads, hid, 2, "int4", 1661)
+        for j in (3, 4):
+            for fmt, dt in (("int4", f32), ("int8", bf16)):
+                self.k5(f"small[{j}x40x96,h3,L2]({fmt},{str(dt)[6:]},j{j})",
+                        j, 40, 33, 96, 3, 160, 2, fmt, dt, j == 4,
+                        1662 + j)
+        # set work splits at ViT-B batch 1 and at the 384-px rows: the
+        # other attention tile; one token group a phase; twice the
+        # picker's groups
+        for m, nr in ((n_pad, n_real), (n384, nr384)):
+            for name, lay in self.stack_layouts(m, d, heads, hid):
+                seed += 1
+                self.k5(f"layout[1x{m}x{d},L2]({name})", 1, m, nr, d, heads,
+                        hid, 2, "int4" if seed % 2 else "int8", bf16,
+                        seed % 3 == 0, seed, layout=lay)
+
+    @staticmethod
+    def stack_layouts(m, d, heads, hid):
+        """(name, StackLayout fields) of K5's work splits beside the
+        picker's at m rows of widths d and hid: the other attention tile,
+        the fewest token chunks, twice the picker's."""
+        from quantized_vit_tpu_torch.ops import block_stack as B
+        from quantized_vit_tpu_torch.tools.stack_design import scaled
+
+        base = B.stack_layout(m, d, d, hid, True, 2, 1, heads, d // heads)
+        out = [("att" + str(48 - base.att_rows),
+                dict(att_rows=48 - base.att_rows))]
+        for name, factor in (("groups 1", 0), ("groups x2", 2)):
+            lay = scaled(base, factor)
+            out.append((name, dict(nc=lay.nc, nw=lay.nw, g=lay.g,
+                                   stages=lay.stages)))
+        return out
 
     # -- K9 ---------------------------------------------------------------
 
@@ -1792,8 +1872,11 @@ def forward_phase(dev, record):
         lambda: vit_int4_forward(art, x1, cfg, use_kernels=False, **kw),
         expected_launches(cfg.depth, "latency"), 1, cfg)
     record["forward"][-1]["prepare_latency_host_ms"] = lat_ms
+    if not record["forward"][-1]["logits_equal"]:
+        raise Failed("forward latency: logits differ from the plain path's")
     out.update(lat=lat, meta=meta)
     b384 = dict(CFG_KW, **B384_KW)
+    out["launches"]["latency384"] = latency_forward(dev, record, b384, "384")
     out["launches"]["chain384_b1"] = limit_forward(dev, record, b384, "384",
                                                    1, torch.float32)
     out["launches"]["block384_b4"] = limit_forward(dev, record, b384, "384",
@@ -1806,6 +1889,37 @@ def forward_phase(dev, record):
             dev, record, dict(VIT_H_KW, depth=2), "_vith14", bk,
             torch.bfloat16, pack=True)
     return out
+
+
+def latency_forward(dev, record, cfg_kw, name):
+    """The batch-1 latency entry (one K5 launch) of a configuration the
+    first K5 refused, in bf16 with packed int4 weights from seed 0: the
+    384-px ViT-B/16 (592 key rows), launches checked, logits equal to the
+    plain path's."""
+    from quantized_vit_tpu_torch.models import ViTConfig
+    from quantized_vit_tpu_torch.serve import (prepare_latency_artifact,
+                                               random_vit_int4_artifact,
+                                               vit_int4_forward,
+                                               vit_int4_forward_latency)
+    from quantized_vit_tpu_torch.utils import patchify_batch
+
+    cfg = ViTConfig(**cfg_kw)
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True,
+                                   device=dev)
+    lat, meta = prepare_latency_artifact(art, cfg)
+    images = np.random.default_rng(7).standard_normal(
+        (1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    tag = f"latency{name},bf16,int4-packed"
+    launches = check_forward(
+        record, dev, tag,
+        lambda: vit_int4_forward_latency(lat, x, cfg, meta, **kw),
+        lambda: vit_int4_forward(art, x, cfg, use_kernels=False, **kw),
+        expected_launches(cfg.depth, "latency"), 1, cfg)
+    if not record["forward"][-1]["logits_equal"]:
+        raise Failed(f"forward {tag}: logits differ from the plain path's")
+    return launches
 
 
 def limit_forward(dev, record, cfg_kw, name, batch, float_dtype,
@@ -2657,6 +2771,7 @@ def timing_phase(dev, record, fwd, peaks):
             * 0.7).to(bf16)
     qkv32 = (torch.randn((b, n_pad, 3 * d), generator=g, device=DEV)
              * 0.7).to(bf16)
+    qkv1 = qkv2[:1]  # the chain at batch 1
     pe = art["patch_embed"]
 
     def q(e):
@@ -2705,6 +2820,7 @@ def timing_phase(dev, record, fwd, peaks):
         "embed": lambda: patch_finalize_plain(acc, pos, cls, one, n_pad=n_pad,
                                               out_dtype=bf16),
         "qkv_attn_b2": lambda: attention_qkv_plain(qkv2, **qkv_kw),
+        "qkv_attn_b1": lambda: attention_qkv_plain(qkv1, **qkv_kw),
         "qkv_attn_b32": lambda: attention_qkv_plain(qkv32, **qkv_kw),
         "qkv_attn_int_b2": lambda: attention_qkv_plain(
             qkv2, int_attention=True, **qkv_kw),
@@ -2730,8 +2846,13 @@ def timing_phase(dev, record, fwd, peaks):
         x3r, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
         fc2_e.bias, **mlp_kw)
     # the 384-px ViT-B/16 chain at batch 1: 592 rows, f32 residual stream
-    n384 = -(-((384 // cfg.patch_size)**2 + 1) // 16) * 16
+    nr384 = (384 // cfg.patch_size)**2 + 1
+    n384 = -(-nr384 // 16) * 16
     x384 = torch.randn((n384, d), generator=g, device=DEV)
+    # K5 on the 384-px latency entry's rows (the stack has no token count)
+    x384b = x384.to(bf16)
+    plain["stack_b1_384"] = lambda: vit_block_stack_plain(
+        stack, x384b, n_valid=nr384, out_dtype=bf16)
     plain["mlp_384_f32"] = lambda: fused_mlp_plain(
         x384, fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
         fc2_e.bias, **dict(mlp_kw, out_dtype=torch.float32))
@@ -2755,6 +2876,8 @@ def timing_phase(dev, record, fwd, peaks):
                                                  out_dtype=bf16),
             "qkv_attn_b2": lambda: run_attention_qkv(
                 k6_p, qkv2, n_valid=n_real, out_dtype=bf16),
+            "qkv_attn_b1": lambda: run_attention_qkv(
+                k6_p, qkv1, n_valid=n_real, out_dtype=bf16),
             "qkv_attn_b32": lambda: run_attention_qkv(
                 k6_p, qkv32, n_valid=n_real, out_dtype=bf16),
             "qkv_attn_int_b2": lambda: run_attention_qkv(
@@ -2765,6 +2888,8 @@ def timing_phase(dev, record, fwd, peaks):
                 int_attention=True),
             "stack_b1": lambda: run_block_stack(stack, x1, n_valid=n_real,
                                                 out_dtype=bf16),
+            "stack_b1_384": lambda: run_block_stack(
+                stack, x384b, n_valid=nr384, out_dtype=bf16),
             "chain_qkv_b2": lambda: run_matmul(plan.chain[0][0], x2,
                                                out_dtype=bf16),
             "mlp_b2": lambda: run_mlp(mlp_p, x2, out_dtype=bf16),
@@ -2797,12 +2922,14 @@ def timing_phase(dev, record, fwd, peaks):
             "heads": lambda: attention_heads(
                 x3, qkv_e.w, qkv_e.scale, qkv_e.bias, **attn_kw),
             "qkv_attn_b2": lambda: attention_qkv(qkv2, **qkv_kw),
+            "qkv_attn_b1": lambda: attention_qkv(qkv1, **qkv_kw),
             "qkv_attn_b32": lambda: attention_qkv(qkv32, **qkv_kw),
             "qkv_attn_int_b2": lambda: attention_qkv(
                 qkv2, int_attention=True, **qkv_kw),
             "qkv_attn_int_b32": lambda: attention_qkv(
                 qkv32, int_attention=True, **qkv_kw),
             "stack_b1": plain["stack_b1"],
+            "stack_b1_384": plain["stack_b1_384"],
             "chain_qkv_b2": lambda: fused_quant_matmul(
                 x2, qkv_e.w, qkv_e.scale, qkv_e.bias, fmt=qkv_e.fmt,
                 prologue="ln_quant", ln_scale=blk["norm1"]["scale"],
@@ -2882,6 +3009,10 @@ def timing_phase(dev, record, fwd, peaks):
         ("attention_qkv", "qkv_attn_b32", 0,
          bound(b * n_pad * 3 * d * 2 + b * n_pad * d, 0, b * attn_ops), [],
          sdpa(b)),
+        # K6 on the chain at batch 1: with the chain's K1 and K2 sites at
+        # batch 1, the yardstick of K5's time a block
+        ("attention_qkv", "qkv_attn_b1", 0,
+         bound(n_pad * 3 * d * 2 + n_pad * d, 0, attn_ops), [], sdpa(1)),
         # K6 with int_attention (the variant bench.py times) at batch 2 and
         # 32: no library call computes it
         ("attention_qkv", "qkv_attn_int_b2", 0,
@@ -2930,11 +3061,17 @@ def timing_phase(dev, record, fwd, peaks):
            [(n384, d, hid), (n384, hid, d)], None)
           for kn, site in (("fused_mlp_chunked", "mlp_k8_b384_f32"),
                            ("fused_mlp", "mlp_384_f32"))],
-        # K5 on the latency forward: one launch, all the depth
+        # K5 on the latency forward: one launch, all the depth; and on the
+        # 384-px entry's 592 rows (its forward: phase 3's latency384)
         ("block_stack", "stack_b1", 1,
          bound(cfg.depth * w_blk * wpk + 2 * n_pad * d * 2,
                cfg.depth * 2 * n_pad * w_blk, cfg.depth * attn_ops), [],
          None),
+        ("block_stack", "stack_b1_384", 0,
+         bound(cfg.depth * w_blk * wpk + 2 * n384 * d * 2,
+               cfg.depth * 2 * n384 * w_blk,
+               cfg.depth * 2 * heads * n384 * (-(-nr384 // 16) * 16)
+               * hd * 2), [], None),
     ]
     # K6's and K3's sites: the FLOP of the attention's two products (exact
     # only on the f64 MMA), over the FP64 tensor cores' rate, as the
@@ -2962,7 +3099,8 @@ def timing_phase(dev, record, fwd, peaks):
                          "library_us": None if lms is None else lms * 1e3,
                          "yardsticks_us": yard})
         if name in ("flash_attention", "attention_qkv", "attention_block",
-                    "fused_mlp", "fused_mlp_chunked", "fused_quant_matmul"):
+                    "fused_mlp", "fused_mlp_chunked", "fused_quant_matmul",
+                    "block_stack"):
             # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)

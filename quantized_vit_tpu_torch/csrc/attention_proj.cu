@@ -12,7 +12,7 @@
 // (:357-375). The TPU kernel keeps the levels in VMEM scratch; so does
 // this one: they never reach device memory.
 //
-// Numerics, those of attention_core.cuh (K3, K5) and K6, which the plain
+// Numerics, those of K6 (K3 and K5 run its tile), which the plain
 // version (ops/attention.py:attention_qkv_proj_plain) mirrors: float path,
 // q pre-scaled by sm_scale*log2e and rounded back to the qkv dtype, scores
 // over the n_valid keys, p = exp2(min(s, 100)) with no row max, p rounded
@@ -89,7 +89,6 @@
 
 #include <algorithm>
 
-#include "attention_core.cuh"
 #include "fp64_mma.cuh"
 #include "qkv_stream.cuh"
 
@@ -107,6 +106,7 @@ using qvt::store_rows;
 using qvt::to_f32;
 using qvt::widen16;
 using qvt::Xf;
+constexpr int HDMAX = 80;     // the widest head (head_bound)
 constexpr int PN = 256;       // proj output columns per pass (32 a warp)
 constexpr int PK = 64;        // proj levels per chunk
 constexpr int SB = PK + 16;   // weight chunk row stride (bytes)
@@ -740,7 +740,7 @@ int run(const void* qkv, int qkv_dt, const void* w, int w_int4,
         float q_mul, float sm_scale, int int_attn, int out_pow, int out_top,
         void* stream, int* clusters) {
   const int hdim = heads * hd;
-  if (hd > qvt::ATT_HDMAX || hd % 8 || nk > n || n_valid > nk ||
+  if (hd > HDMAX || hd % 8 || nk > n || n_valid > nk ||
       (qkv_dt != qvt::DT_BF16 && qkv_dt != qvt::DT_F32) ||
       (rows != 32 && rows != 16) || cluster < 1 ||
       cluster > 8 || heads % cluster || B > 65535 ||

@@ -9,7 +9,7 @@
 // the pow quantizer of o_un/p_sum) or as floats o_un/p_sum
 // (attention.py:277-289), with int_attention as the TPU kernel has it.
 //
-// Numerics (those of attention_core.cuh and K9, which the plain version
+// Numerics (those of K9, which the plain version
 // ops/attention.py:attention_qkv_plain mirrors): float path, q pre-scaled
 // by sm_scale*log2e and rounded back to the qkv dtype, scores over the
 // n_valid keys of the nk key rows, p = exp2(min(s, 100)) with no row max,
@@ -38,7 +38,7 @@
 // - Both products on the FP64 tensor cores (mma.sync m16n8k4 .f64,
 //   fp64_mma.cuh, as K13 and K9), each fragment value widened to f64 as it
 //   loads: a chunk's k values are converted once a warp, not once per 8
-//   query rows as the m8n8k4 core of attention_core.cuh does. The float
+//   query rows as the first design's m8n8k4 core did. The float
 //   path needs no row max, so a K step goes from scores to p (a [R][KC]
 //   f32 tile) at once and the V step after it adds p . v into each warp's
 //   f64 register patch of the [R x hd] output. int_attention first

@@ -31,6 +31,16 @@ constexpr int QA_STATIC = (3 * QA_NW + 8) * 4;
 
 enum { QA_OUT_LEVELS = 0, QA_OUT_POW = 1, QA_OUT_FLOAT = 2 };
 
+// the barrier of the tile's QA_NT threads: the block's (BAR 0), or named
+// barrier BAR where the block has other threads (K5's producer warp)
+template <int BAR>
+__device__ __forceinline__ void qa_sync() {
+  if constexpr (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(QA_NT) : "memory");
+}
+
 struct QkvAttnArgs {
   const void* qkv;
   int qkv_dt;
@@ -49,9 +59,10 @@ struct QkvAttnArgs {
 // head's columns of a.out. Every thread of the block calls it; `smem` is
 // the block's dynamic shared memory (qkv_attn_smem(R, HDM, sizeof(T))
 // bytes). MARK: the phases go to clk (K6's staging, scores, p, P.V, int
-// scales, epilogue). CG: q/k/v are read through L2 only (K3's scratch,
-// written earlier in the same launch; K/V always are, by cp.async.cg).
-template <typename T, int R, int HDM, bool MARK, bool CG>
+// scales, epilogue). CG: q/k/v are read through L2 only (K3's and K5's
+// scratch, written earlier in the same launch; K/V always are, by
+// cp.async.cg). BAR: the tile's barrier (qa_sync).
+template <typename T, int R, int HDM, bool MARK, bool CG, int BAR = 0>
 __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
                                               int h, int b,
                                               unsigned char* smem,
@@ -115,7 +126,7 @@ __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
         m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], o));
       if (lane == 0) red[j][warp] = m[j];
     }
-    __syncthreads();
+    qa_sync<BAR>();
     if (threadIdx.x == 0) {
       float s[3];
       for (int j = 0; j < 3; ++j) {
@@ -129,7 +140,7 @@ __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
       isc[3] = s[0] * s[1] * static_cast<float>(1.4426950408889634);
       isc[4] = s[2];
     }
-    __syncthreads();
+    qa_sync<BAR>();
   };
   // step s's K or V chunk, raw, into buffer s % KVB with cp.async (rows
   // past the nk keys zero): one commit group (empty past the last step)
@@ -188,10 +199,10 @@ __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
   }
   for (int s = 0; s < KVB; ++s) issue(s);
   asm volatile("cp.async.wait_group %0;\n" ::"n"(KVB - 1));
-  __syncthreads();
+  qa_sync<BAR>();
   if (INT && nsteps > 0) {
     levels(0);
-    __syncthreads();
+    qa_sync<BAR>();
   }
   if (MARK) clk.mark(0);
 
@@ -343,11 +354,11 @@ __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
     // KVB - 1 steps' MMAs); once every warp is past this step, its buffer
     // takes the copy of step s + KVB
     asm volatile("cp.async.wait_group %0;\n" ::"n"(KVB - 2));
-    __syncthreads();
+    qa_sync<BAR>();
     if (s + 1 < nsteps) {
       if (INT) levels(s + 1);
       issue(s + KVB);
-      if (INT) __syncthreads();
+      if (INT) qa_sync<BAR>();
     }
     if (MARK) clk.mark(0);
   }
@@ -391,7 +402,7 @@ __device__ __forceinline__ void qkv_attn_tile(const QkvAttnArgs& a, int q0,
           }
       }
   }
-  __syncthreads();
+  qa_sync<BAR>();
   {
     const int pz = a.out_vec ? 16 : 8, per = hd * es / pz;
     unsigned char* dst = static_cast<unsigned char*>(a.out) +

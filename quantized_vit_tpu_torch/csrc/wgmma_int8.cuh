@@ -1,15 +1,17 @@
 // Hopper's asynchronous int8 tensor-core path, for kernels written by hand
-// (K8, fused_mlp_chunked.cu; the other int8 GEMMs of the port still run
-// int8_gemm.cuh's mma.sync tile):
+// (K8, fused_mlp_chunked.cu, and K5, block_stack.cu; the other int8 GEMMs
+// of the port still run int8_gemm.cuh's mma.sync tile):
 //   - mbarriers in shared memory (init, arrive, arrive with an expected
-//     byte count, a parity wait);
+//     byte count, an expected byte count alone, a parity wait);
 //   - TMA: 2-D tiles of an int8 matrix copied by the Tensor Memory
 //     Accelerator into shared memory, completion counted in bytes on an
 //     mbarrier, from a CUtensorMap the host encodes once
 //     (encode_tiled_int8);
 //   - wgmma: warpgroup products m64nNk32 s8 x s8 -> s32 (N = 32, 64, 128
 //     or 256) with both operands K-major in shared memory, read through
-//     descriptors of the 128-byte swizzled layout that TMA writes.
+//     descriptors of the 128-byte swizzled layout that TMA writes, or
+//     with A from registers (MmaR<N>: K5 loads its weight fragments from
+//     the swizzled tile, packed int4 nibbles unpacked on the way).
 //
 // The layout: an operand tile is rows of 128 bytes (128 int8 levels of
 // depth), 8 rows to a 1024-byte swizzle atom, the 16-byte pieces of row r
@@ -21,7 +23,11 @@
 // The accumulator of Mma<N>::run, int d[N / 2] in each thread of the
 // warpgroup: element 4 j + r is row 16 (warp % 4) + lane / 4 + 8 (r >= 2)
 // and column 8 j + 2 (lane % 4) + (r & 1) of the 64 x N tile (mma.sync's
-// C fragment, repeated over the N / 8 column blocks).
+// C fragment, repeated over the N / 8 column blocks). The A fragment of
+// MmaR<N>, uint32_t a[4] in each thread: warp w of the warpgroup holds
+// rows 16 w .. 16 w + 15; a[0] is row lane / 4 at depth 4 (lane % 4) ..
+// + 3 (one level a byte, the lowest first), a[1] the row 8 below, a[2] and
+// a[3] the same rows 16 deeper (mma.sync m16n8k32's A fragment).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no driver library linked)
@@ -59,6 +65,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` more of asynchronous copies expected in the current phase, with
+// no arrival (K5 loads a stage's weight tiles ahead of a grid barrier and
+// completes the stage with mbar_arrive_tx after it)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
                    "r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
@@ -119,6 +136,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// the same for this block's shared memory: generic accesses (another
+// phase's use of the ring's bytes) before later TMA writes into it
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- wgmma ----------------------------------------------------------------
 
 // the descriptor of a K-major operand tile at `p` in the 128-byte swizzled
@@ -136,6 +159,7 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
+
 __device__ __forceinline__ void commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -296,6 +320,95 @@ struct Mma<256> {
           "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
           "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
         : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+// d (+)= A[64 x 32] B[32 x N]^T with A from registers (the fragment in
+// the note above) and B from a descriptor
+template <int N>
+struct MmaR;
+
+template <>
+struct MmaR<32> {
+  __device__ __forceinline__ static void run(int (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct MmaR<64> {
+  __device__ __forceinline__ static void run(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct MmaR<128> {
+  __device__ __forceinline__ static void run(int (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 

@@ -34,10 +34,10 @@ the batch 1-3 chain on the raw fused-qkv tensor a K1 ``ln_quant`` launch
 wrote. :func:`attention_qkv_proj` (kernel K9, ``csrc/attention_proj.cu``)
 replaces ``_attention_qkv_proj`` (``pallas_call`` at attention.py:770): the
 same attention with the proj GEMM, dequant and residual in the same
-launch, the int8 levels kept in shared memory. K3 and K5 share one
-attention core (``csrc/attention_core.cuh``); K6 and K9 stream K/V in
+launch, the int8 levels kept in shared memory. K6 and K9 stream K/V in
 chunks onto the FP64 tensor cores and share their staging code
-(``csrc/qkv_stream.cuh``).
+(``csrc/qkv_stream.cuh``); K3 and K5 run K6's tile
+(``csrc/qkv_attention.cuh``) as a phase of their launches.
 
 :func:`flash_attention` (kernel K13, ``csrc/flash_attention.cu``)
 replaces ``_flash_attention`` (``pallas_call`` at attention.py:119):

@@ -355,11 +355,9 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
     weights only); or, with ``latency``, those of K5 for the batch-1
     entry."""
     hd = cfg.embed_dim // cfg.num_heads
-    n_pad = _round_up(cfg.num_tokens, n_align)
     hid = int(cfg.embed_dim * cfg.mlp_ratio)
     if latency:
-        lims = [stack_kernel_limit(n_pad, cfg.embed_dim, hid, hd,
-                                   n_valid=cfg.num_tokens)]
+        lims = [stack_kernel_limit(cfg.embed_dim, hid, hd)]
     else:
         lims = []
         for b in (range(1, ROUTE_BATCHES + 1) if batch is None

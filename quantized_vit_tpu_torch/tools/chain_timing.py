@@ -26,7 +26,11 @@ device time from torch.profiler; and the forward (``vit_int4_forward``
 on a prepared plan, int8-stored levels from seed 0, bf16 residual
 stream) of ViT-B/16 and ViT-H/14 at batch 1, 2 and 3 (the chain; K8's
 MLP at ViT-B batch 3 and ViT-H batch 1 and 2) and 32 (the K3 route),
-CUDA-event medians in ms.
+CUDA-event medians in ms; and the batch-1 latency entry of ViT-B/16 at
+224 and 384 px (packed int4 from seed 0, bf16): K5 (``run_block_stack``
+on the prepared stack, random bf16 x at the padded tokens) as K6 above,
+and ``vit_int4_forward_latency`` in ms (None where the version refuses
+the geometry).
 """
 
 from __future__ import annotations
@@ -42,10 +46,12 @@ import torch
 from ..models import ViTConfig
 from ..ops import (plan_attention_heads, plan_attention_qkv, plan_matmul,
                    plan_mlp, plan_mlp_chunked, run_attention_heads,
-                   run_attention_qkv, run_matmul, run_mlp, run_mlp_chunked)
+                   run_attention_qkv, run_block_stack, run_matmul, run_mlp,
+                   run_mlp_chunked)
 from ..quant import pack_int4
-from ..serve import (prepare_kernels, random_vit_int4_artifact,
-                     vit_int4_forward)
+from ..serve import (prepare_kernels, prepare_latency_artifact,
+                     random_vit_int4_artifact, vit_int4_forward,
+                     vit_int4_forward_latency)
 
 # (images, padded tokens, heads, head_dim, real tokens)
 K6_SITES = {"vitb_b2": (2, 208, 12, 64, 197), "vitb_b32": (32, 208, 12, 64,
@@ -91,6 +97,8 @@ K1_SITES = {
                      torch.int8)}
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
+# the latency entry's configurations (ViT-B/16 at 224 and 384 px)
+LATENCY = {"vitb": {}, "vitb384": dict(img_size=384)}
 BATCHES = (1, 2, 3, 32)
 
 
@@ -143,7 +151,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     out = {"card": smi, "k1_us": {}, "k6_us": {}, "k3_us": {}, "k2_us": {},
-           "k8_us": {}, "forward_ms": {}}
+           "k8_us": {}, "forward_ms": {}, "k5_us": {}, "latency_ms": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
     for site, (m, k, n, pro, epi, xdt) in K1_SITES.items():
@@ -264,6 +272,32 @@ def main():
                 lambda: vit_int4_forward(art, x[:b], cfg, plan=plan, **kw),
                 iters=20, warmup=3) / 1e3
         del art, plan
+    for name, cfg_kw in LATENCY.items():
+        cfg = ViTConfig(**cfg_kw)
+        art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True,
+                                       device="cuda")
+        try:
+            lat, meta = prepare_latency_artifact(art, cfg)
+        except ValueError:  # a version that refuses the geometry
+            out["k5_us"][name] = out["latency_ms"][name] = None
+            continue
+        n_pad = -(-cfg.num_tokens // 16) * 16
+        xs = torch.randn((n_pad, cfg.embed_dim), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        kp = cfg.patch_size**2 * cfg.in_channels
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (1, cfg.num_patches, kp)).astype(np.float32)).cuda()
+
+        def k5(lat=lat, xs=xs, nv=cfg.num_tokens):
+            return run_block_stack(lat["stack"], xs, n_valid=nv)
+
+        def fwd(lat=lat, x=x, cfg=cfg, meta=meta):
+            return vit_int4_forward_latency(lat, x, cfg, meta, **kw)
+
+        out["k5_us"][name] = {"events": events_us(k5, iters=50),
+                              "host": host_us(k5), "device": device_us(k5)}
+        out["latency_ms"][name] = events_us(fwd, iters=20, warmup=3) / 1e3
+        del art, lat
     print(json.dumps(out))
 
 

@@ -47,8 +47,10 @@ and prints:
   float attention and with ``int_attention``), per block, summed over its
   steps: staging (q, the waits and barriers between chunk steps) |
   scores | p | P.V | int scales | epilogue, and the span;
-- ``block_stack`` (ViT-B batch 1, packed int4, depth 12), per transformer
-  block, mean over the 12: each phase from one grid barrier to the next.
+- ``block_stack`` (ViT-B/16 batch 1 at 224 and 384 px, packed int4,
+  depth 12), per transformer block, mean over the 12: each phase from one
+  grid barrier to the next (qkv, attention, proj with the LN2 tail, fc1,
+  fc2 with the next block's LN1 tail).
 
     python3 -m quantized_vit_tpu_torch.tools.phase_probe [kernel ...]
 
@@ -107,8 +109,10 @@ _K1_SITES = {
     "vith_fc1_b32": (8704, 1280, 5120, "ln_quant", "gelu_quant",
                      torch.bfloat16),
     "vith_fc2_b32": (8704, 5120, 1280, None, "residual", torch.int8)}
-_STACK_PHASES = ("residual + LN1", "qkv GEMM", "attention", "proj GEMM",
-                 "x2 + LN2", "fc1 GEMM", "fc2 GEMM")
+# K5's phases a transformer block, each to the end of its grid barrier
+# (block 0's LN1 row phase comes first, once)
+_STACK_PHASES = ("qkv GEMM", "attention", "proj GEMM + LN2", "fc1 GEMM",
+                 "fc2 GEMM + next LN1")
 
 
 def main():
@@ -327,28 +331,47 @@ def summed_phases(buf, stem, names, name, fn):
           + f"; block time {((t[:, 1] - t[:, 0]).mean()) / 1e3:.1f} us")
 
 
+# K5's block clocks (csrc/block_stack.cu:StackClock, thread 0 of each
+# block) and its grid stamps after them
+_STACK_CLOCK = (*(f"{p} steps" for p in ("qkv", "proj", "fc1", "fc2")),
+                *(f"{p} epilogue" for p in ("qkv", "proj", "fc1", "fc2")),
+                "LN2 chunk waits", "LN1 chunk waits", "block 0's LN1",
+                "attention", "grid barriers", "the chunks' LN rows")
+_STACK_STAMP0 = 4096
+
+
 def stack_phases(buf):
     cfg = ViTConfig()
     art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True)
     stack = prepare_latency_artifact(art, cfg)[0]["stack"]
     g = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((208, cfg.embed_dim), generator=g,
-                    device="cuda").to(torch.bfloat16)
-    for _ in range(3):
-        run_block_stack(stack, x, n_valid=cfg.num_tokens)
-    torch.cuda.synchronize()
     read = _build.library("block_stack").qvt_probe_read
     read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
-    if read(buf.ctypes.data_as(ctypes.c_void_p)):
-        raise RuntimeError("reading the stamps failed")
-    n = 7 * cfg.depth
-    t = buf[: n + 1].astype(np.int64)
-    ph = np.diff(t).reshape(cfg.depth, 7).mean(0) / 1e3
-    print(f"block_stack: depth {cfg.depth}, stamped span "
-          f"{(t[n] - t[0]) / 1e3:.1f} us; per transformer block "
-          + ", ".join(f"{nm} {v:.1f} us"
-                      for nm, v in zip(_STACK_PHASES, ph))
-          + f"; total {ph.sum():.1f} us")
+    for n, name in ((208, "224 px"), (592, "384 px")):
+        x = torch.randn((n, cfg.embed_dim), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        nv = 197 if n == 208 else 577
+        for _ in range(3):
+            run_block_stack(stack, x, n_valid=nv)
+        torch.cuda.synchronize()
+        if read(buf.ctypes.data_as(ctypes.c_void_p)):
+            raise RuntimeError("reading the stamps failed")
+        k = len(_STACK_PHASES)
+        n_st = k * cfg.depth + 2
+        t = buf[_STACK_STAMP0:_STACK_STAMP0 + n_st].astype(np.int64)
+        ph = np.diff(t[1:]).reshape(cfg.depth, k).mean(0) / 1e3
+        print(f"block_stack ({name}, {n} rows): depth {cfg.depth}, stamped "
+              f"span {(t[n_st - 1] - t[0]) / 1e3:.1f} us; block 0's LN1 "
+              f"{(t[1] - t[0]) / 1e3:.1f} us; per transformer block "
+              + ", ".join(f"{nm} {v:.1f} us"
+                          for nm, v in zip(_STACK_PHASES, ph))
+              + f"; total {ph.sum():.1f} us")
+        c = buf[:_STACK_STAMP0].reshape(-1, 16).astype(np.int64)
+        c = c[c[:, 0] != 0][:, 2:2 + len(_STACK_CLOCK)] / 1e3 / cfg.depth
+        print(f"  thread 0 of each of {len(c)} blocks, a transformer "
+              "block, mean / max over the blocks: " + ", ".join(
+                  f"{nm} {a:.1f} / {b:.1f} us" for nm, a, b in
+                  zip(_STACK_CLOCK, c.mean(0), c.max(0))))
 
 
 if __name__ == "__main__":

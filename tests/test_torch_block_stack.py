@@ -187,14 +187,47 @@ def test_latency_refusals(case):
 
 
 def test_block_stack_guards_and_limits():
-    """Positive static tops; K5's own limits (ViT-B fits, ViT-H/14's
-    head_dim 80 does not)."""
+    """Positive static tops; K5's own limits: ViT-B/16 at 224 and 384 px
+    and ViT-H/14 (head_dim 80) fit; head_dim 96 and widths off 16 bytes
+    do not."""
     cfg = ViTConfig(**SMALL)
     art = random_vit_int4_artifact(cfg, seed=0, device="cpu")
     assert isinstance(prepare_latency_artifact(art, cfg)[1], StackMeta)
     with pytest.raises(ValueError, match="positive hid_top"):
         tb._tops(dict(act_top=7, out_top=7, mlp_top=7, hid_top=0))
     assert kernel_limits(ViTConfig(), latency=True) == []
+    assert kernel_limits(ViTConfig(img_size=384), latency=True) == []
     vit_h = ViTConfig(patch_size=14, embed_dim=1280, depth=1, num_heads=16)
-    assert any("head_dim 80" in s for s in kernel_limits(vit_h,
+    assert kernel_limits(vit_h, latency=True) == []
+    wide_head = ViTConfig(embed_dim=768, depth=1, num_heads=8)
+    assert any("head_dim 96" in s for s in kernel_limits(wide_head,
                                                          latency=True))
+    odd = ViTConfig(embed_dim=72, depth=1, num_heads=3)
+    assert any("multiples of 16" in s for s in kernel_limits(odd,
+                                                             latency=True))
+
+
+def test_vit_b_384px_latency_matches_jax_at_592_and_608_tokens():
+    """The 384-px ViT-B/16 latency entry in bf16 (577 tokens, 592 rows;
+    the first K5 refused its 592 key rows) at depth 1: against the JAX
+    chain at 592 rows and at the 608 rows of the JAX latency entry, and
+    equal to the port's own chain forward bit for bit."""
+    cfg_kw = dict(img_size=384, depth=1)
+    jart, art = _pair(cfg_kw, seed=1, pack=True)
+    x = patchify_batch(_image(cfg_kw, seed=10), 16)
+    cfg = ViTConfig(**cfg_kw)
+    assert kernel_limits(cfg, latency=True) == []
+    lat, meta = prepare_latency_artifact(art, cfg)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    got = vit_int4_forward_latency(lat, torch.from_numpy(x), cfg, meta,
+                                   **kw)
+    assert got.shape == (1, 1000) and torch.isfinite(got).all()
+    assert torch.equal(got, vit_int4_forward(art, torch.from_numpy(x), cfg,
+                                             **kw))
+    for n_align in (16, 32):
+        want = np.asarray(j_forward(jart, jnp.asarray(x), JConfig(**cfg_kw),
+                                    use_pallas=False,
+                                    float_dtype=jnp.bfloat16,
+                                    images_layout="patches",
+                                    n_align=n_align))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
