@@ -178,6 +178,8 @@ VIT_H_BATCHES = (1, 2, 32)
 # tools/profile_kernels.py's M = 8 images of ViT-B/16's padded tokens
 VIT_H_BRANCH_BATCH = 8
 PROFILE_BATCH = 8
+# K10-K12's launch counters
+INT_MM_KERNELS = ("int4_matmul", "int8_matmul", "quant_matmul_fa")
 # K13's kernel path: q/k/v of block 0 at ViT-B/16 batch 32 (BATCH) and
 # ViT-H/14 batch 1 and 8
 K13_VIT_H_BATCHES = (1, 8)
@@ -1117,12 +1119,17 @@ class Parity:
 
     def int_mm(self, kernel, case, m, k, n, seed, *, fmt="int4",
                x_dtype=None, act_pow=False, out_dtype=torch.float32,
-               requant_top=None, bias=True, scalar=False):
+               requant_top=None, bias=True, scalar=False, layout=None,
+               x_offset=0):
         """One of the integer GEMMs (``int4_matmul``, ``int8_matmul``,
         ``quant_matmul_fa``) against its plain version: float outputs
         exact, requantized levels under the levels contract. Inputs as
         tools/profile_kernels.py makes them (levels in [-7, 7], a float x
-        at 0.1 with d 0.05 and top 7); int8_matmul's levels span int8."""
+        at 0.1 with d 0.05 and top 7); int8_matmul's levels span int8.
+        ``layout``: a function of the picker's layout giving the one to
+        launch at (``_launch_int_matmul``; a CPU rehearsal takes the
+        plain version); ``x_offset``: int8 levels ``x_offset`` bytes past
+        a 16-byte boundary (the kernel copies them in phase 1)."""
         from quantized_vit_tpu_torch.ops import (int4_matmul,
                                                  int4_matmul_plain,
                                                  int8_matmul,
@@ -1138,6 +1145,10 @@ class Parity:
             x = self.t(rng.standard_normal((m, k)) * 0.1, x_dtype)
         else:
             x = self.t(rng.integers(lo, -lo + 1, (m, k)).astype(np.int8))
+            if x_offset:
+                buf = torch.zeros((m * k + 16,), dtype=torch.int8,
+                                  device=self.dev)
+                x = buf[x_offset:x_offset + m * k].view(m, k).copy_(x)
         w = self.t(rng.integers(lo, -lo + 1, (k, n)).astype(np.int8))
         if fmt == "int4":
             w = pack_int4(w, axis=0)
@@ -1146,6 +1157,8 @@ class Parity:
         if requant_top is not None:
             sc = sc * 2.0
         b = self.t(rng.standard_normal(n) * 0.01, f32) if bias else None
+        q = (self.scal(0.05), self.scal(1.08 if act_pow else 1.0),
+             torch.full((), 7, dtype=torch.int32, device=self.dev))
         if kernel == "int4_matmul":
             kw = dict(out_dtype=out_dtype, requant_top=requant_top)
             got = int4_matmul(x, w, sc, b, **kw)
@@ -1154,13 +1167,34 @@ class Parity:
             got = int8_matmul(x, w, sc, b, out_dtype=out_dtype)
             want = int8_matmul_plain(x, w, sc, b, out_dtype=out_dtype)
         else:
-            q = (self.scal(0.05), self.scal(1.08 if act_pow else 1.0),
-                 torch.full((), 7, dtype=torch.int32, device=self.dev))
             kw = dict(fmt=fmt, act_pow=act_pow, out_dtype=out_dtype)
             got = quant_matmul_fa(x, w, sc, b, *q, **kw)
             want = quant_matmul_fa_plain(x, w, sc, b, *q, **kw)
+        if layout is not None and self.dev.type == "cuda":
+            got = self.int_mm_at(kernel, layout, x, w, sc, b, q, fmt,
+                                 act_pow, out_dtype, requant_top)
         return self.check(kernel, case, "levels" if requant_top else "exact",
                           got, want)
+
+    @staticmethod
+    def int_mm_at(kernel, layout, x, w, sc, b, q, fmt, act_pow, out_dtype,
+                  requant_top):
+        """The integer GEMM at ``layout(picked layout)``."""
+        from quantized_vit_tpu_torch.ops.fused import _card_sms
+        from quantized_vit_tpu_torch.ops.int4_matmul import (
+            _launch_int_matmul, int_matmul_layout, plan_int_matmul)
+
+        fa = {} if kernel != "quant_matmul_fa" else dict(
+            act_d=q[0], act_t=q[1], act_top=q[2], act_pow=act_pow)
+        plan = plan_int_matmul(w, sc, b, fmt=fmt, **fa)
+        out_size = 1 if requant_top is not None else (
+            2 if out_dtype == torch.bfloat16 else 4)
+        pick = int_matmul_layout(x.shape[0], plan.k, plan.n, plan.int4,
+                                 x.element_size(), x.data_ptr() % 16 == 0,
+                                 out_size, _card_sms(x.device.index))
+        return _launch_int_matmul(plan, x, layout(pick),
+                                  out_dtype=out_dtype,
+                                  requant_top=requant_top)
 
     def run_int_matmul_kernels(self, cfg):
         """K10-K12 at tools/profile_kernels.py's four ViT-B/16 layer shapes
@@ -1218,6 +1252,82 @@ class Parity:
                         n, 658, out_dtype=f16)
             self.int_mm("int8_matmul", f"small[{m}x{k}x{n}](float16)", m, k,
                         n, 659, fmt="int8", out_dtype=f16)
+        self.run_int_matmul_layouts(cfg)
+
+    def run_int_matmul_layouts(self, cfg):
+        """The redesigned kernel's rows: each front end at every work
+        split the picker can choose (each token tile whole; the depth
+        split 2 and 3 ways, every tile and the tiles after whole waves of
+        the card's SMs; the picked layout) at qkv, proj and fc2 (24 steps
+        of depth); ragged shapes (50 x 96 x 72,
+        K = 40 and 200, off the 16-byte TMA rows, N not a multiple of 4 or
+        128, M below a token tile); int8 levels off a 16-byte boundary
+        (copied in phase 1); a scalar scale without bias for each front
+        end; requant, bf16, f16 and f32 out; act_pow on and off; f32 and
+        bf16 x."""
+        from quantized_vit_tpu_torch.ops.fused import _card_sms
+        from quantized_vit_tpu_torch.ops.int4_matmul import (
+            INT_MM_NW, int_matmul_variant)
+
+        bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+        fronts = (("int4_matmul", dict(fmt="int4")),
+                  ("int8_matmul", dict(fmt="int8")),
+                  ("quant_matmul_fa", dict(fmt="int4", x_dtype=bf16,
+                                           out_dtype=bf16)),
+                  ("quant_matmul_fa", dict(fmt="int8", x_dtype=f32,
+                                           act_pow=True)))
+
+        def lays(int4):
+            out = [("picked", lambda p: p)]
+            for nw in INT_MM_NW:
+                out.append((f"nw{nw} whole",
+                            lambda p, nw=nw: int_matmul_variant(p, nw)))
+            for s in (2, 3):
+                out.append((f"split {s}", lambda p, s=s: int_matmul_variant(
+                    p, p.nw, s, 0)))
+                out.append((f"split {s} after waves",
+                            lambda p, s=s: int_matmul_variant(
+                                p, p.nw, s, p.tiles // _card_sms(0)
+                                * _card_sms(0))))
+            return out
+
+        seed = 700
+        for label, m, k, n in profile_shapes(cfg):
+            if label == "fc1":
+                continue
+            for kernel, kw in fronts:
+                int4 = kw["fmt"] == "int4"
+                for name, fn in lays(int4):
+                    seed += 1
+                    self.int_mm(kernel, f"layout_{label}[{m}x{k}x{n}]"
+                                f"({kw['fmt']},{name})", m, k, n, seed,
+                                layout=fn, **kw)
+        # ragged shapes, each front end, with and without the 16-byte TMA
+        # rows; a scalar scale without bias
+        for m, k, n in ((50, 96, 72), (197, 768, 768), (50, 40, 130),
+                        (300, 200, 257), (7, 768, 2304)):
+            for kernel, kw in fronts:
+                seed += 1
+                self.int_mm(kernel, f"ragged[{m}x{k}x{n}]({kw['fmt']})", m,
+                            k, n, seed, **kw)
+            self.int_mm("int8_matmul", f"ragged[{m}x{k}x{n}](scalar, no "
+                        "bias)", m, k, n, seed, fmt="int8", scalar=True,
+                        bias=False)
+            self.int_mm("quant_matmul_fa", f"ragged[{m}x{k}x{n}](scalar, "
+                        "no bias, f16)", m, k, n, seed, fmt="int4",
+                        x_dtype=f32, scalar=True, bias=False, out_dtype=f16)
+            self.int_mm("int4_matmul", f"ragged[{m}x{k}x{n}](requant 7)", m,
+                        k, n, seed, requant_top=7)
+        for m, k, n in ((1664, 768, 768), (197, 768, 768)):
+            for kernel in ("int4_matmul", "int8_matmul"):
+                seed += 1
+                self.int_mm(kernel, f"offset[{m}x{k}x{n}](x 1 byte off)", m,
+                            k, n, seed, fmt="int4" if kernel == "int4_matmul"
+                            else "int8", x_offset=1)
+        for label, m, k, n in profile_shapes(cfg):
+            seed += 1
+            self.int_mm("int4_matmul", f"profile_{label}[{m}x{k}x{n}]"
+                        "(bf16)", m, k, n, seed, out_dtype=bf16)
 
     # -- K7 ---------------------------------------------------------------
 
@@ -3092,15 +3202,20 @@ def timing_phase(dev, record, fwd, peaks):
         # quant prologue at K12's shapes, K6 + K1 and K3's branch at K9's
         yard = {k: cuda_ms(fn) * 1e3 for k, fn in (extra[0] if extra
                                                     else {}).items()}
+        # and their device time beside the K10-K12 sites' (the kernels
+        # run for less than their wrappers' host time a call)
+        yard_dev = ({k: kernel_device_us(fn) for k, fn in extra[0].items()}
+                    if extra and name in INT_MM_KERNELS else {})
         per_site.append({"kernel": name, "site": site, "launches": nl,
                          "us": ms * 1e3, "plain_us": pms * 1e3,
                          "bound_us": bms * 1e3, "bound_by": by,
                          "int_mm_us": None if ims is None else ims * 1e3,
                          "library_us": None if lms is None else lms * 1e3,
-                         "yardsticks_us": yard})
+                         "yardsticks_us": yard,
+                         "yardsticks_device_us": yard_dev})
         if name in ("flash_attention", "attention_qkv", "attention_block",
                     "fused_mlp", "fused_mlp_chunked", "fused_quant_matmul",
-                    "block_stack"):
+                    "block_stack", "patch_finalize", *INT_MM_KERNELS):
             # how much of the time is the host's, the kernel's and SDPA's
             split = host_split(kern[site], ms * 1e3)
             per_site[-1].update(split)
@@ -3125,7 +3240,10 @@ def timing_phase(dev, record, fwd, peaks):
             f"{pms * 1e3:9.1f}  bound {bms * 1e3:7.1f} ({by})  _int_mm "
             f"{'n/a' if ims is None else f'{ims * 1e3:.1f}'}  library "
             f"{'n/a' if lms is None else f'{lms * 1e3:.1f}'}"
-            + "".join(f"  {k} {v:.1f}" for k, v in yard.items()))
+            + "".join(f"  {k} {v:.1f}" for k, v in yard.items())
+            + "".join(f"  {k} on the card "
+                      f"{'n/a' if v is None else f'{v:.1f}'}"
+                      for k, v in yard_dev.items()))
     record["per_site"] = per_site
 
     # the attention branch of both routes at batch 2-32: K3 (alone and

@@ -1,8 +1,8 @@
 // Phases of K1 (fused_quant_matmul.cu) and K2 (fused_mlp.cu), both
 // persistent grids of NT threads a block:
-//   - row_levels (both): a prologue once per row, the int8 levels of x
-//     into a level scratch [M][Kp] (zeros past K), a row to a group of
-//     threads;
+//   - row_levels (both, K8's and K10-K12's too): a prologue once per row,
+//     the int8 levels of x into a level scratch [M][Kp] (zeros past K), a
+//     row to a group of threads;
 //   - stage_acc, load4, store4 (both), ldg4 (K1): a GEMM tile's int32
 //     accumulators staged in shared memory for an epilogue done by rows,
 //     with whole 4-element loads and stores of device memory;
@@ -21,8 +21,15 @@ namespace qvt {
 
 // what row_levels computes from x: a copy of int8 levels, the quantizer,
 // LayerNorm then the quantizer, or the folded GELU-quant (fused.py:
-// _fused_kernel's prologues)
-enum { ROWS_COPY = 0, ROWS_QUANT = 1, ROWS_LN = 2, ROWS_GELU = 3 };
+// _fused_kernel's prologues), or K12's quantizer (int4_matmul.py:
+// _fa_quant, the true division: qvt::fa_quant)
+enum {
+  ROWS_COPY = 0,
+  ROWS_QUANT = 1,
+  ROWS_LN = 2,
+  ROWS_GELU = 3,
+  ROWS_FA = 4
+};
 
 // The int8 levels of prologue(x) into a.lv, a group of a.ln_t threads a
 // row (a.ln_t / 32 warps above 32, summed through shared memory), NT /
@@ -31,7 +38,11 @@ enum { ROWS_COPY = 0, ROWS_QUANT = 1, ROWS_LN = 2, ROWS_GELU = 3 };
 // of x*x taken in f32, rounded once; any order gives the same f32); its
 // levels (x - mu) * rs * gamma + beta, the linear quantizer's 1/d folded
 // into gamma/beta by the plan. The quantizer prologue is not folded
-// (x * (1/d)); the GELU one is fused.py:_gelu_quant_folded. On the 16-byte
+// (x * (1/d)); ROWS_FA divides (p / d), which can round a level apart
+// from x * (1/d) at a tie, and with no row statistics takes x's 16-byte
+// pieces as one flat range where Kp == K; the GELU one is
+// fused.py:_gelu_quant_folded.
+// a.act_top is the clamp level of every quantizer. On the 16-byte
 // path (a.x_vec: x 16-byte aligned, bf16 or f32, K a multiple of the
 // piece's 8 or 4 values; gamma and beta 16-byte aligned) a thread loads
 // whole pieces and stores their levels at once; gamma and beta load as
@@ -55,9 +66,51 @@ __device__ __forceinline__ void row_levels(const Args& a) {
     else if constexpr (PRO == ROWS_QUANT)
       return static_cast<uint8_t>(
           quantize(v, act_d, act_t, a.act_top, POW, false));
+    else if constexpr (PRO == ROWS_FA)
+      return static_cast<uint8_t>(fa_quant(v, act_d, act_t, a.act_top, POW));
     else
       return static_cast<uint8_t>(gelu_quant_folded(v, act_d, a.act_top));
   };
+  if constexpr (PRO == ROWS_FA) {
+    if (a.x_vec && a.Kp == K) {
+      // K12's levels need no row statistics and, Kp == K, no zero
+      // columns: x's pieces as one flat range over the grid's threads,
+      // FA_BATCH loads in flight a thread (by row groups, a thread took
+      // its row's pieces one load at a time, and the rows' last round left
+      // SMs idle; eight in flight were slower on an H100)
+      constexpr int FA_BATCH = 4;
+      const long long total = a.M * static_cast<long long>(np);
+      const long long stride = static_cast<long long>(gridDim.x) * NT;
+      for (long long q0 = blockIdx.x * static_cast<long long>(NT) +
+                          threadIdx.x;
+           q0 < total; q0 += FA_BATCH * stride) {
+        uint4 u[FA_BATCH];
+#pragma unroll
+        for (int b = 0; b < FA_BATCH; ++b) {
+          const long long q = q0 + b * stride;
+          u[b] = q < total ? __ldg(reinterpret_cast<const uint4*>(xb) + q)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int b = 0; b < FA_BATCH; ++b) {
+          const long long q = q0 + b * stride;
+          if (q >= total) break;
+          uint32_t w[2] = {0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (e >= epp) break;
+            w[e >> 2] |= level(piece_at(u[b], bf, e), 0.f, 0.f, 0.f, 0.f)
+                         << (8 * (e & 3));
+          }
+          if (bf)
+            reinterpret_cast<uint2*>(a.lv)[q] = make_uint2(w[0], w[1]);
+          else
+            reinterpret_cast<uint32_t*>(a.lv)[q] = w[0];
+        }
+      }
+      return;
+    }
+  }
   for (long long r0 = static_cast<long long>(blockIdx.x) * rpb; r0 < a.M;
        r0 += static_cast<long long>(gridDim.x) * rpb) {
     const long long r = r0 + grp;

@@ -66,6 +66,18 @@ __device__ __forceinline__ int8_t quantize(float x, float d, float t,
   return clip_round(x * (1.0f / d), top);
 }
 
+// int4_matmul.py:_fa_quant, K12's quantizer: sign(x) * min(rint(p / d),
+// top), p = |x| or exp(t * log(max(|x|, 1e-30))), a true division (the
+// linear branch of quantize multiplies by 1/d)
+__device__ __forceinline__ int8_t fa_quant(float x, float d, float t,
+                                           float top, bool pow_map) {
+  const float ax = fabsf(x);
+  const float p = pow_map ? expf(t * logf(fmaxf(ax, 1e-30f))) : ax;
+  const float lv = fminf(rintf(p / d), top);
+  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return static_cast<int8_t>(static_cast<int>(s * lv));
+}
+
 // fused.py:_erf_f32 (clamped odd polynomial, Horner in f32)
 __device__ __forceinline__ float erf_poly(float x) {
   float v = fminf(fmaxf(x, -3.0f), 3.0f);

@@ -30,7 +30,20 @@ CUDA-event medians in ms; and the batch-1 latency entry of ViT-B/16 at
 224 and 384 px (packed int4 from seed 0, bf16): K5 (``run_block_stack``
 on the prepared stack, random bf16 x at the padded tokens) as K6 above,
 and ``vit_int4_forward_latency`` in ms (None where the version refuses
-the geometry).
+the geometry); K10-K12 (``run_int_matmul`` on a prepared plan,
+``plan_int_matmul``) at ViT-B/16's four layer shapes at M = 1664
+(tools/profile_kernels.py's: qkv, proj, fc1, fc2; random levels in [-7,
+7], a bf16 x at 0.1): ``int4_matmul`` and ``int8_matmul`` with f32 out,
+``quant_matmul_fa`` on the packed weight with bf16 x and out (d 0.05,
+t 1, top 7), each beside two yardsticks on the same operands,
+``torch._int_mm`` (the GEMM alone) and K1 with its quant prologue
+(``run_matmul``, prologue ``quant``); and K4 (``patch_finalize``) at
+ViT-B/16 batch 32 (random f32 accumulators, bf16 out).
+
+    python3 -m quantized_vit_tpu_torch.tools.chain_timing [group ...]
+
+With group names (``k1``, ``k6``, ``k3``, ``k2``, ``k8``, ``forward``,
+``latency``, ``int_mm``, ``k4``) it times only those.
 """
 
 from __future__ import annotations
@@ -44,10 +57,11 @@ import numpy as np
 import torch
 
 from ..models import ViTConfig
-from ..ops import (plan_attention_heads, plan_attention_qkv, plan_matmul,
+from ..ops import (patch_finalize, plan_attention_heads,
+                   plan_attention_qkv, plan_int_matmul, plan_matmul,
                    plan_mlp, plan_mlp_chunked, run_attention_heads,
-                   run_attention_qkv, run_block_stack, run_matmul, run_mlp,
-                   run_mlp_chunked)
+                   run_attention_qkv, run_block_stack, run_int_matmul,
+                   run_matmul, run_mlp, run_mlp_chunked)
 from ..quant import pack_int4
 from ..serve import (prepare_kernels, prepare_latency_artifact,
                      random_vit_int4_artifact, vit_int4_forward,
@@ -95,6 +109,14 @@ K1_SITES = {
                      "gelu_quant", torch.bfloat16),
     "vith_fc2_b32": (32 * _H[0], 4 * _H[1], _H[1], None, "residual",
                      torch.int8)}
+# K10-K12's sites: ViT-B/16's layers at M = 8 images x 208 tokens (rows, K,
+# N)
+INT_MM_SITES = {"qkv": (1664, 768, 2304), "proj": (1664, 768, 768),
+                "fc1": (1664, 768, 3072), "fc2": (1664, 3072, 768)}
+# K4's: (images, patches, D, padded tokens)
+K4_SITES = {"vitb_b32": (32, 196, 768, 208)}
+GROUPS = ("k1", "k6", "k3", "k2", "k8", "forward", "latency", "int_mm",
+          "k4")
 MODELS = {"vitb": {}, "vith": dict(patch_size=14, embed_dim=1280, depth=32,
                                    num_heads=16, num_classes=1000)}
 # the latency entry's configurations (ViT-B/16 at 224 and 384 px)
@@ -146,15 +168,79 @@ def device_us(fn, reps=20):
     return tot / reps if tot > 0 else None
 
 
+def timed(fn):
+    """Events, the host's time a call and the device time of ``fn``."""
+    return {"events": events_us(fn), "host": host_us(fn),
+            "device": device_us(fn)}
+
+
+def int_mm_sites(g, one):
+    """K10-K12 at :data:`INT_MM_SITES`, each front end beside ``_int_mm``
+    and K1's quant prologue on the same operands."""
+    out = {}
+    bf16 = torch.bfloat16
+    fa = dict(act_d=0.05 * one, act_t=one, act_top=7, act_pow=False)
+    for site, (m, k, n) in INT_MM_SITES.items():
+        xl = torch.randint(-7, 8, (m, k), dtype=torch.int8, device="cuda",
+                           generator=g)
+        xf = (torch.randn((m, k), generator=g, device="cuda") * 0.1).to(
+            bf16)
+        w8 = torch.randint(-7, 8, (k, n), dtype=torch.int8, device="cuda",
+                           generator=g)
+        w4 = pack_int4(w8, axis=0)
+        sc = 1e-3 * one
+        bias = torch.randn((n,), generator=g, device="cuda") * 0.01
+        p4 = plan_int_matmul(w4, sc, bias, fmt="int4")
+        p8 = plan_int_matmul(w8, sc, bias, fmt="int8")
+        pfa = plan_int_matmul(w4, sc, bias, fmt="int4", **fa)
+        p1 = plan_matmul(w4, sc, bias, fmt="int4", prologue="quant", **fa)
+        w8t = w8.t().contiguous().t()
+        out[site] = {
+            "int4_matmul": timed(lambda p=p4, x=xl: run_int_matmul(p, x)),
+            "int8_matmul": timed(lambda p=p8, x=xl: run_int_matmul(p, x)),
+            "quant_matmul_fa": timed(lambda p=pfa, x=xf: run_int_matmul(
+                p, x, out_dtype=bf16)),
+            "_int_mm": timed(lambda x=xl, w=w8t: torch._int_mm(x, w)),
+            "k1_quant": timed(lambda p=p1, x=xf: run_matmul(
+                p, x, out_dtype=bf16))}
+    return out
+
+
+def k4_sites(g):
+    """K4 at :data:`K4_SITES`."""
+    out = {}
+    for site, (b, p, d, n_pad) in K4_SITES.items():
+        acc = torch.randn((b, p, d), generator=g, device="cuda") * 50.0
+        pos = torch.randn((p, d), generator=g, device="cuda")
+        cls = torch.randn((d,), generator=g, device="cuda")
+        sc = torch.full((), 1e-3, device="cuda")
+        out[site] = timed(lambda: patch_finalize(acc, pos, cls, sc,
+                                                 n_pad=n_pad))
+    return out
+
+
 def main():
+    import sys
+
+    only = set(sys.argv[1:]) or set(GROUPS)
+    bad = only - set(GROUPS)
+    if bad:
+        raise SystemExit(f"unknown groups {sorted(bad)}; of {GROUPS}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     out = {"card": smi, "k1_us": {}, "k6_us": {}, "k3_us": {}, "k2_us": {},
-           "k8_us": {}, "forward_ms": {}, "k5_us": {}, "latency_ms": {}}
+           "k8_us": {}, "forward_ms": {}, "k5_us": {}, "latency_ms": {},
+           "int_mm_us": {}, "k4_us": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
     one = torch.ones((), device="cuda")
+    if "int_mm" in only:
+        out["int_mm_us"] = int_mm_sites(g, one)
+    if "k4" in only:
+        out["k4_us"] = k4_sites(g)
     for site, (m, k, n, pro, epi, xdt) in K1_SITES.items():
+        if "k1" not in only:
+            break
         w = torch.randint(-7, 8, (k, n), dtype=torch.int8, device="cuda",
                           generator=g)
         layer = {} if pro is None else dict(act_d=0.05 * one, act_t=one,
@@ -179,6 +265,8 @@ def main():
         out["k1_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
     for site, (b, n, heads, hd, n_real) in K6_SITES.items():
+        if "k6" not in only:
+            break
         qkv = (torch.randn((b, n, 3 * heads * hd), generator=g,
                            device="cuda") * 0.7).to(torch.bfloat16)
         plan = plan_attention_qkv("cuda", heads=heads, sm_scale=hd**-0.5,
@@ -190,6 +278,8 @@ def main():
         out["k6_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
     for site, (b, n, heads, hd, n_real) in K3_SITES.items():
+        if "k3" not in only:
+            break
         d = heads * hd
         x = torch.randn((b, n, d), generator=g, device="cuda").to(
             torch.bfloat16)
@@ -207,6 +297,8 @@ def main():
         out["k3_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
     for site, (m, k, hid, fmt) in K2_SITES.items():
+        if "k2" not in only:
+            break
         x = torch.randn((m, k), generator=g, device="cuda").to(
             torch.bfloat16)
         w1 = torch.randint(-7, 8, (k, hid), dtype=torch.int8, device="cuda",
@@ -232,6 +324,8 @@ def main():
         out["k2_us"][site] = {"events": events_us(fn), "host": host_us(fn),
                               "device": device_us(fn)}
     for site, (m, k, hid, xdt) in K8_SITES.items():
+        if "k8" not in only:
+            break
         x = torch.randn((m, k), generator=g, device="cuda").to(xdt)
         w1 = torch.randint(-7, 8, (k, hid), dtype=torch.int8, device="cuda",
                            generator=g)
@@ -260,6 +354,8 @@ def main():
         out["k8_us"][site] = res
     kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
     for name, cfg_kw in MODELS.items():
+        if "forward" not in only:
+            break
         cfg = ViTConfig(**cfg_kw)
         art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False,
                                        device="cuda")
@@ -273,6 +369,8 @@ def main():
                 iters=20, warmup=3) / 1e3
         del art, plan
     for name, cfg_kw in LATENCY.items():
+        if "latency" not in only:
+            break
         cfg = ViTConfig(**cfg_kw)
         art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True,
                                        device="cuda")

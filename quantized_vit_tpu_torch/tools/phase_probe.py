@@ -1,5 +1,5 @@
-"""Per-block phase timing of the K1, K3, K2, K8, K6, K9 and K13 kernels,
-and per-phase timing of K5, on the card.
+"""Per-block phase timing of the K1, K3, K2, K8, K6, K9, K10-K12 and K13
+kernels, and per-phase timing of K5, on the card.
 
 Builds the phase-stamped variant of the kernels (``-DQVT_PROBE``:
 ``csrc/qvt_common.cuh`` has thread 0 of each block record
@@ -47,6 +47,9 @@ and prints:
   float attention and with ``int_attention``), per block, summed over its
   steps: staging (q, the waits and barriers between chunk steps) |
   scores | p | P.V | int scales | epilogue, and the span;
+- ``int_matmul`` (K10 and K12 at ViT-B/16's four layer shapes at M =
+  1664, packed int4 weights, random int8 levels and bf16 x), per block:
+  phase 1 (K12's levels) | grid barrier | GEMM + epilogues, and the span;
 - ``block_stack`` (ViT-B/16 batch 1 at 224 and 384 px, packed int4,
   depth 12), per transformer block, mean over the 12: each phase from one
   grid barrier to the next (qkv, attention, proj with the LN2 tail, fc1,
@@ -76,9 +79,12 @@ from ..ops.block_stack import run_block_stack
 from ..ops.fused import (_launch_mlp_chunked, chunked_layout, matmul_layout,
                          mlp_layout, plan_matmul, plan_mlp, plan_mlp_chunked,
                          run_matmul, run_mlp)
+from ..ops.int4_matmul import (_launch_int_matmul, int_matmul_layout,
+                               plan_int_matmul)
 from ..ops.ring_gather import _launch_mlp_gather, plan_gather_rows
 from ..quant import pack_int4
 from ..models import ViTConfig
+from .chain_timing import INT_MM_SITES
 from ..serve import prepare_latency_artifact, random_vit_int4_artifact
 
 _K9_PHASES = ("staging", "attention", "level exchange", "proj",
@@ -101,6 +107,10 @@ _K8_SITES = {"vith_b1": (272, 1280, 5120), "vith_b2": (544, 1280, 5120),
 _K15_PHASES = ("LN + quant + copy", "barrier 1", "fc1", "barrier 2", "fc2")
 _K15_SITES = {"vitb_b32": (6656, 768, 3072), "vith_b32": (8704, 1280, 5120)}
 _K1_PHASES = ("prologue", "barrier", "GEMM", "epilogue")
+# K10-K12's phases a block: phase 1 (K12's levels), the grid barrier, the
+# GEMM with its epilogues (none of the first two where x's levels are
+# read in place)
+_INT_MM_PHASES = ("phase 1", "grid barrier", "GEMM + epilogues")
 # K1's sites: (rows, K, N, prologue, epilogue, x dtype)
 _K1_SITES = {
     "vitb_patch_embed_b32": (6272, 768, 768, "quant", None, torch.float32),
@@ -174,6 +184,27 @@ def main():
                       f"{lay.nw2}x{lay.g2}:stages {lay.stages}",
                       lambda pl=pl, xk=xk, lay=lay:
                       _launch_mlp_chunked(pl, xk, lay))
+    for site, (rows, dk, nk) in INT_MM_SITES.items():
+        if only and "int_matmul" not in only:
+            break
+        w8 = torch.randint(-7, 8, (dk, nk), dtype=torch.int8, device=dev)
+        xl = torch.randint(-7, 8, (rows, dk), dtype=torch.int8, device=dev)
+        xf = (torch.randn((rows, dk), generator=g, device=dev) * 0.1).to(
+            torch.bfloat16)
+        for front, pl, xk, odt in (
+                ("int4_matmul", plan_int_matmul(pack_int4(w8, axis=0),
+                                                1e-3 * one), xl,
+                 torch.float32),
+                ("quant_matmul_fa", plan_int_matmul(
+                    pack_int4(w8, axis=0), 1e-3 * one, act_d=d05, act_t=one,
+                    act_top=7), xf, torch.bfloat16)):
+            lay = int_matmul_layout(rows, dk, nk, True, xk.element_size(),
+                                    True, odt.itemsize, _card_shape(0)[0])
+            summed_phases(buf, "int_matmul", _INT_MM_PHASES,
+                          f"int_matmul:{site}:{front}:nw{lay.nw}:"
+                          f"S{lay.splits}",
+                          lambda pl=pl, xk=xk, lay=lay, odt=odt:
+                          _launch_int_matmul(pl, xk, lay, out_dtype=odt))
     for tag, (rows, dk, hk) in _K15_SITES.items():
         if only and "fused_mlp_gather" not in only:
             break
