@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero:
    bf16, f32 and mixed q/v dtypes, then at 592 tokens, head_dim 128 and 20
    and wherever else its nine (query tile, head bound) instantiations
    need; K14 on a ViT-B block's weights as
-   int8, packed int4 and bf16 bytes; K15 at the batch's rows and ragged
+   int8, packed int4 and bf16 bytes, on ViT-H/14's as int8, and on int8
+   shards and outputs at byte offsets (pairs off 16-byte alignment, a
+   zero-byte job); K15 at the batch's
+   rows and ragged
    ones and at ViT-H/14's width at 8704, 544 and 1000 rows, all at tp =
    1 here and at tp = 2 and 4 in phase 3c),
    at ViT-H/14's (K8 at 272 and 544 rows, K2 there with int8, packed
@@ -134,7 +137,17 @@ Phases, in order; any failure exits non-zero:
    and the kernels' own device time from torch.profiler), the whole step
    with K7 and with the plain chain in turns, a profile of each, and a
    plain PyTorch ViT-B/16 training step (f32 and bf16 autocast,
-   ``torch.optim.Adam``) as the yardstick.
+   ``torch.optim.Adam``) as the yardstick;
+7. train -> compress -> export -> serve: the trained params through
+   ``OTO.construct_subnet`` (per-block head counts and hidden widths),
+   ``export_vit_int4``, the artifact writer and reader, then the forward
+   on the batch-32 route and the chain at batch 1 and 3, each MLP on the
+   route its own width takes, and the batch-1 latency entry's refusal
+   of the non-uniform stack; a uniform subnet (``random_set_zero_groups``
+   at one sparsity on the run's initial params, packed int4) through
+   all three routes; launches checked and logits against the plain
+   path's, as the other forwards'; widths, MACs and BOPs before and
+   after, and the forward times.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -151,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -309,8 +323,11 @@ def run(record):
     fwd["fsdp"] = fsdp_phase(dev, record, parity, fwd)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
+    # phase 7's yardsticks: the seed-0 ViT-B/16 artifacts
+    arts = {k: fwd[k] for k in ("art", "art_packed", "cfg")}
     del fwd
-    train_phase(dev, record, peaks)
+    trained = train_phase(dev, record, peaks)
+    subnet_phase(dev, record, trained, arts)
 
 
 def main_cfg():
@@ -1702,8 +1719,8 @@ class Parity:
         and ragged ones, and at ViT-H/14's (the first K15 refused it) at
         batch 32's and 2's rows and a ragged count."""
         b, _, d, _, n_pad, *_ = shapes(cfg)
-        for kind in ("int8", "int4", "bf16"):
-            for row in gather_case(self.dev, None, cfg, kind, 900):
+        for kcfg, kind in gather_kinds(cfg, vit_h_cfg()):
+            for row in gather_case(self.dev, None, kcfg, kind, 900):
                 self.add(row)
         m = b * n_pad
         self.k15(f"main[{m}x{d}]", m, cfg, 910)
@@ -2417,19 +2434,67 @@ def _rows_of(t, rank, tp):
 _BLOCK_NAMES = ("qkv", "proj", "fc1", "fc2")
 
 
+def gather_kinds(cfg, cfg_h):
+    """K14's parity cases, (width config, kind): ViT-B/16's block weights
+    as int8, packed int4 and bf16 bytes, ViT-H/14's as int8, and the
+    unaligned shards."""
+    return [(cfg, k) for k in ("int8", "int4", "bf16")] + [
+        (cfg_h, "int8"), (cfg, "odd")]
+
+
+# K14's unaligned case: (rows, cols) of int8 shards a process holds, each
+# a view at a byte offset into its buffer (a zero-byte job among them),
+# and the outputs' offsets: congruent with the source modulo 16 or not
+# (the kernel's byte-by-byte path for both)
+ODD_SHARDS = ((32, 77), (64, 13), (0, 40))
+ODD_SRC_OFF = (3, 9, 0)
+ODD_OUT_OFF = (3, 0, 5)
+
+
+def _at_offset(t, off):
+    """``t``'s bytes in a fresh buffer at byte offset ``off`` (a
+    contiguous view whose address is ``off`` past 16-byte alignment)."""
+    nb = t.numel() * t.element_size()
+    buf = torch.zeros(nb + off + 16, dtype=torch.uint8, device=t.device)
+    v = buf[off:off + nb].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    return v
+
+
 def gather_case(dev, peers, cfg, kind, seed):
-    """K14 (``gather_rows``) of this process's row shards of one block's
-    four weights (:func:`vit_b_block_weights`): each result against the
-    full weight, the shards concatenated in rank order, byte for byte."""
-    from quantized_vit_tpu_torch.ops import gather_rows
+    """K14 (``gather_rows``) of this process's row shards, each result
+    against the full weight, the shards concatenated in rank order, byte
+    for byte: one block's four weights at ``cfg``'s width
+    (:func:`vit_b_block_weights`) as int8, packed int4 or bf16 bytes
+    (``kind``), or ``kind="odd"``: int8 shards at byte offsets gathered
+    into outputs at byte offsets (:data:`ODD_SHARDS`; the plan and launch
+    entry points, which take the outputs)."""
+    from quantized_vit_tpu_torch.ops import (gather_rows, plan_gather_rows,
+                                             run_gather_rows)
 
     rank, tp = (0, 1) if peers is None else (peers.rank, peers.tp)
-    full = vit_b_block_weights(cfg, kind, seed, dev)
-    got = gather_rows([_rows_of(f, rank, tp) for f in full], peers=peers)
+    if kind == "odd":
+        rng = np.random.default_rng(seed)
+        full = [torch.from_numpy(rng.integers(-128, 128, (r * tp, c))
+                                 .astype(np.int8)).to(dev)
+                for r, c in ODD_SHARDS]
+        shards = [_at_offset(_rows_of(f, rank, tp), o)
+                  for f, o in zip(full, ODD_SRC_OFF)]
+        outs = [_at_offset(torch.zeros_like(f), o)
+                for f, o in zip(full, ODD_OUT_OFF)]
+        if dev.type == "cuda":
+            got = run_gather_rows(plan_gather_rows(shards, outs, peers))
+        else:
+            got = gather_rows(shards, peers=peers)
+        names = [f"odd{j}" for j in range(len(full))]
+    else:
+        full = vit_b_block_weights(cfg, kind, seed, dev)
+        got = gather_rows([_rows_of(f, rank, tp) for f in full], peers=peers)
+        names = _BLOCK_NAMES
     return [parity_row(
         "gather_rows", f"block.{nm}[{'x'.join(map(str, f.shape))}]({kind},"
-        f"tp={tp},rank={rank})", "exact", raw_bytes(g), raw_bytes(f))
-        for nm, g, f in zip(_BLOCK_NAMES, got, full)]
+        f"d{cfg.embed_dim},tp={tp},rank={rank})", "exact", raw_bytes(g),
+        raw_bytes(f)) for nm, g, f in zip(names, got, full)]
 
 
 def mlp_gather_case(dev, peers, cfg, m, seed, pow_=False,
@@ -2527,7 +2592,7 @@ def fsdp_rank(peers, cfg, x_np, iters):
 def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
     """One of tp processes sharing the card (``run_processes``): the gloo
     group, then each case, in order on every process: ("gather", kind,
-    seed), ("mlp_gather", name, m, seed, cfg_kw) (None: the main
+    seed, cfg_kw), ("mlp_gather", name, m, seed, cfg_kw) (None: the main
     config) or ("fsdp", key, x, iters, cfg_kw). Returns the parity rows
     and each FSDP forward's result under its key."""
     if ROOT not in sys.path:
@@ -2542,7 +2607,9 @@ def spawned_worker(rank, tp, init_method, dev, cfg_kw, cases):
     try:
         for case in cases:
             if case[0] == "gather":
-                out["rows"] += gather_case(peers.device, peers, cfg, *case[1:])
+                kind, seed, gkw = case[1:]
+                out["rows"] += gather_case(peers.device, peers,
+                                           ViTConfig(**gkw), kind, seed)
             elif case[0] == "mlp_gather":
                 name, m, seed, ckw = case[1:]
                 ccfg = cfg if ckw is None else ViTConfig(**ckw)
@@ -2632,7 +2699,8 @@ def fsdp_phase(dev, record, parity, fwd):
                                                         "fsdp"), hkw, xh)}
     rows = []
     for tp in sorted(set(GATHER_TPS + (FSDP_TP,)) - {1}):
-        cases = [("gather", k, 900) for k in ("int8", "int4", "bf16")]
+        cases = [("gather", k, 900, dataclasses.asdict(c))
+                 for c, k in gather_kinds(cfg, cfg_h)]
         # K15 at a process's rows of the batch-32 forwards
         m, m_h = BATCH // tp * n_pad, xh.shape[0] // tp * vit_h_shapes(
             cfg_h)[3]
@@ -4056,6 +4124,7 @@ def train_phase(dev, record, peaks):
     params = init_quant_params_tree(
         tree_map(lambda p: p.detach().clone(), model.param_tree()),
         init_bits=32.0)
+    init_params = tree_map(lambda p: p.clone(), params)
     rng = np.random.default_rng(0)
     hw = (cfg.img_size, cfg.img_size, cfg.in_channels)
     images = rng.standard_normal((TRAIN_STEPS * BATCH, *hw),
@@ -4177,6 +4246,8 @@ def train_phase(dev, record, peaks):
                  x0, y0, steps, sites)
     out["phase_s"] = round(time.time() - t_phase, 1)
     log(f"[train] phase {out['phase_s']} s")
+    return {"oto": oto, "params": params, "init": init_params,
+            "images": images[:BATCH]}
 
 
 def compare_plain_step(loop, loop_plain, params, x, y):
@@ -4627,6 +4698,211 @@ def bf16_vit_forward(cfg, x):
         return F.linear(h, wh, bh)
 
     return fwd
+
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train -> compress -> export -> serve
+# ---------------------------------------------------------------------------
+
+# the uniform subnet: every prunable group of the training run's initial
+# params zeroed at this share (an even count), its quantizers reset to
+# these bits (packed int4, the latency entry's format)
+UNIFORM_SPARSITY = 0.5
+UNIFORM_BITS = 4.0
+SUBNET_CHAIN_BATCHES = (1, 3)
+
+
+def subnet_launches(art, cfg, batch, float_dtype):
+    """Launches of one forward of a compressed subnet's artifact: the
+    attention route of ``batch`` (:func:`expected_launches`) and, per
+    block, the MLP route ``mlp_route`` picks at its own hidden width and
+    weight formats."""
+    from quantized_vit_tpu_torch.serve import uses_chain
+    from quantized_vit_tpu_torch.serve.vit_int4 import mlp_route
+
+    route = "chain" if uses_chain(batch) else "block"
+    out = dict(expected_launches(cfg.depth, route), fused_mlp=0)
+    m = batch * (-(-cfg.num_tokens // 16) * 16)
+    for blk in art["blocks"]:
+        mlp = mlp_route(m, blk["fc2"].w.shape[1], blk["fc1"].w.shape[1],
+                        blk["fc1"].fmt, blk["fc2"].fmt,
+                        itemsize=torch.empty((), dtype=float_dtype)
+                        .element_size())
+        if mlp == "chain":
+            out["fused_quant_matmul"] += 2
+        else:
+            out[mlp] += 1
+    return out
+
+
+def timed_split(record, tag, batch, fn):
+    """The last checked forward (``record["forward"][-1]``, whose logits
+    must equal the plain path's) timed: ms (:func:`cuda_ms`), one call
+    under torch.profiler (:func:`profile_step`: wall, its kernels' device
+    time and the top ten, the card's idle share) and the host's time to
+    issue a call (:func:`host_split`); logged with the card."""
+    f = record["forward"][-1]
+    if not f["logits_equal"]:
+        raise Failed(f"forward {tag} b{batch}: logits differ from the "
+                     f"plain path's by {f['max_abs_diff']}")
+    f["ms"] = cuda_ms(fn)
+    f["profile"] = profile_step(fn)
+    f["host_split"] = host_split(fn, f["ms"] * 1e3)
+    p = f["profile"]
+    log(f"[split {tag} b{batch}] {f['ms']:.3f} ms ({record['nvidia_smi']}"
+        f"); host {f['host_split']['host_us']:.0f} us a call"
+        + ("" if p is None else
+           f"; traced wall {p['wall_ms']:.3f}, kernels {p['kernel_ms']:.3f}"
+           f" ms ({p['kernels']}), idle {p['idle_share']:.2f}; top "
+           + ", ".join(f"{n[:40]} {ms:.3f}x{c}" for n, ms, c in p["top"][:6])
+           ))
+    return {"ms": f["ms"], "launches": f["launches"],
+            "max_abs_diff": f["max_abs_diff"], "profile": p,
+            "host_split": f["host_split"]}
+
+
+def subnet_phase(dev, record, trained, arts):
+    """The training phase's params through the compression path:
+    ``OTO.construct_subnet`` (the GETA subnet: per-block head counts and
+    hidden widths), ``export_vit_int4``, the artifact writer and reader,
+    then the forward on the batch-32 route and the chain (batch 1 and 3),
+    and the batch-1 latency entry where the subnet is uniform (else its
+    refusal, checked). Beside it a uniform subnet
+    (``random_set_zero_groups`` at ``UNIFORM_SPARSITY`` on the run's
+    initial params, quantizers at ``UNIFORM_BITS``) through all three
+    routes, and yardsticks at full width on the batch-32 route and the
+    chain: the trained params unpruned and ``arts``. Each forward with the
+    launch counters set to 0 just before and read just after, its logits
+    equal to the plain path's; the widths, MACs and BOPs before and after,
+    and each forward's time with its kernels' split (:func:`timed_split`).
+    """
+    from quantized_vit_tpu_torch.artifact import (load_vit_int4_artifact,
+                                                  save_vit_int4_artifact)
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.models import init_quant_params_tree
+    from quantized_vit_tpu_torch.serve import (export_vit_int4,
+                                               prepare_kernels,
+                                               prepare_latency_artifact,
+                                               vit_int4_forward,
+                                               vit_int4_forward_latency)
+    from quantized_vit_tpu_torch.utils import patchify_batch
+
+    t_phase = time.time()
+    oto, params = trained["oto"], trained["params"]
+    uniform = oto.random_set_zero_groups(
+        init_quant_params_tree(trained["init"], init_bits=UNIFORM_BITS),
+        target_group_sparsity=UNIFORM_SPARSITY, num_group_divisible=2,
+        seed=0)
+    x = torch.from_numpy(patchify_batch(
+        trained["images"], oto.cfg.patch_size)).to(dev)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    out = {"card": record["nvidia_smi"]}
+    # the yardsticks, on the same images: the trained params unpruned
+    # (every quantizer as the GETA subnet's, all widths), and ``arts``,
+    # the forward phase's seed-0 ViT-B/16 artifacts (int8-stored, packed
+    # int4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the layers requantized to 8 bits
+        unpruned = export_vit_int4(oto.cfg, params, pack_weights=False)
+    refs = {"geta_unpruned": (unpruned, oto.cfg),
+            "random_int8": (arts["art"], arts["cfg"]),
+            "random_int4": (arts["art_packed"], arts["cfg"])}
+    for name, (art, cfg) in refs.items():
+        plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
+        rec = {}
+        for b in (BATCH,) + SUBNET_CHAIN_BATCHES:
+            xb = x[:b]
+            tag = f"full_{name},{'chain' if b < 4 else 'block'}"
+            check_forward(
+                record, dev, tag,
+                lambda: vit_int4_forward(art, xb, cfg, plan=plan, **kw),
+                lambda: vit_int4_forward(art, xb, cfg, use_kernels=False,
+                                         **kw),
+                subnet_launches(art, cfg, b, kw["float_dtype"]), b, cfg)
+            rec[f"b{b}"] = timed_split(record, tag, b, lambda: (
+                vit_int4_forward(art, xb, cfg, plan=plan, **kw)))
+        out[name] = {"forwards": rec}
+        del plan
+    del unpruned, refs
+    for name, tree in (("geta", params), ("uniform", uniform)):
+        cost = {"macs": oto.compute_macs(tree), "bops": oto.compute_bops(tree)}
+        sub_model, sub_params = oto.construct_subnet(tree)
+        sub_oto = OTO(sub_model, sub_params)
+        cfg = sub_model.cfg
+        rec = {"heads_per_block": list(cfg.heads_per_block),
+               "hidden_per_block": list(cfg.hidden_per_block),
+               "macs": [cost["macs"], sub_oto.compute_macs(sub_params)],
+               "bops": [cost["bops"], sub_oto.compute_bops(sub_params)]}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            art = export_vit_int4(cfg, sub_params,
+                                  pack_weights=name == "uniform")
+        rec["requantized_layers"] = len(caught)
+        art_dir = f"{ART_DIR}_subnet_{name}"
+        save_vit_int4_artifact(art_dir, art, cfg)
+        art, cfg2 = load_vit_int4_artifact(art_dir, device=dev)
+        if (cfg2.heads_per_block != cfg.heads_per_block
+                or cfg2.hidden_per_block != cfg.hidden_per_block):
+            raise Failed(f"subnet {name}: the artifact's config {cfg2} "
+                         f"lost the widths of {cfg}")
+        fmts = sorted({(b[k].fmt) for b in art["blocks"]
+                       for k in ("qkv", "proj", "fc1", "fc2")})
+        rec["formats"] = fmts
+        log(f"[subnet {name}] heads {rec['heads_per_block']} hidden "
+            f"{rec['hidden_per_block']} formats {fmts}; MACs "
+            f"{rec['macs'][0] / 1e9:.3f}G -> {rec['macs'][1] / 1e9:.3f}G, "
+            f"BOPs {rec['bops'][0] / 1e12:.3f}T -> "
+            f"{rec['bops'][1] / 1e12:.3f}T; {rec['requantized_layers']} "
+            "layers requantized to 8 bits")
+        plan = prepare_kernels(art, cfg) if dev.type == "cuda" else None
+        rec["forwards"] = {}
+        for b in (BATCH,) + SUBNET_CHAIN_BATCHES:
+            xb = x[:b]
+            tag = f"subnet_{name},{'chain' if b < 4 else 'block'}"
+            check_forward(
+                record, dev, tag,
+                lambda: vit_int4_forward(art, xb, cfg, plan=plan, **kw),
+                lambda: vit_int4_forward(art, xb, cfg, use_kernels=False,
+                                         **kw),
+                subnet_launches(art, cfg, b, kw["float_dtype"]), b, cfg)
+            rec["forwards"][f"b{b}"] = timed_split(
+                record, tag, b, lambda: vit_int4_forward(art, xb, cfg,
+                                                         plan=plan, **kw))
+        x1 = x[:1]
+        if len(set(cfg.heads_per_block)) == len(
+                set(cfg.hidden_per_block)) == 1:
+            lat, meta = prepare_latency_artifact(art, cfg)
+            check_forward(
+                record, dev, f"subnet_{name},latency",
+                lambda: vit_int4_forward_latency(lat, x1, cfg, meta, **kw),
+                lambda: vit_int4_forward(art, x1, cfg, use_kernels=False,
+                                         **kw),
+                expected_launches(cfg.depth, "latency"), 1, cfg)
+            rec["forwards"]["latency"] = timed_split(
+                record, f"subnet_{name},latency", 1,
+                lambda: vit_int4_forward_latency(lat, x1, cfg, meta, **kw))
+        else:
+            try:
+                prepare_latency_artifact(art, cfg)
+            except ValueError as e:
+                rec["latency_refused"] = str(e)
+            else:
+                raise Failed(f"subnet {name}: the latency entry took a "
+                             "non-uniform stack")
+        if name == "uniform" and "latency" not in rec["forwards"]:
+            raise Failed("the uniform subnet did not reach the latency "
+                         f"entry: {rec}")
+        log(f"[subnet {name}] forwards (ms, {record['nvidia_smi']}): "
+            + ", ".join(f"{k} {v['ms']:.3f}"
+                        for k, v in rec["forwards"].items())
+            + (f"; latency refused: {rec['latency_refused']}"
+               if "latency_refused" in rec else ""))
+        out[name] = rec
+        del plan, art
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    record["subnet"] = out
+    log(f"[subnet] phase {out['phase_s']} s")
 
 
 if __name__ == "__main__":

@@ -92,7 +92,10 @@ def mm_dot(x, kernel, mixed: bool):
 
 
 def _trunc_normal(shape, std, gen, device):
-    """flax's truncated normal (cut at +-2 std) from a torch generator."""
+    """flax's truncated normal (cut at +-2 std) from a torch generator;
+    on the meta device a shape with no values, and nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
     t = torch.empty(shape, dtype=torch.float32)
     nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
     return t.to(device)
@@ -119,10 +122,14 @@ class _QuantLayer(nn.Module):
                 for nm in names:
                     self.register_parameter(f"{nm}_{s}", nn.Parameter(
                         torch.ones((1,), device=device)))
-            self.register_buffer("weight_clip", torch.tensor(
-                config.weight_clip, device=device), persistent=False)
-            self.register_buffer("act_clip", torch.tensor(
-                config.act_clip, device=device), persistent=False)
+            self.register_clips(device)
+
+    def register_clips(self, device):
+        """The quantizers' clip constants of ``config``, on ``device``."""
+        self.register_buffer("weight_clip", torch.tensor(
+            self.config.weight_clip, device=device), persistent=False)
+        self.register_buffer("act_clip", torch.tensor(
+            self.config.act_clip, device=device), persistent=False)
 
     def _quantize(self, x, suffix: str):
         cfg = self.config

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .layers import (QuantConfig, QuantConv, QuantDense, _mm_cast,
-                     _trunc_normal, flatten_tree, unflatten_tree)
+                     _QuantLayer, _trunc_normal, flatten_tree, unflatten_tree)
 
 
 def _quant_off() -> Dict[str, Any]:
@@ -323,6 +323,27 @@ def apply(model: nn.Module, params, x, deterministic: bool = True,
     return torch.func.functional_call(
         model, flat, (x,), {"deterministic": deterministic,
                             "generator": generator}, strict=True)
+
+
+def model_for_params(cfg: ViTConfig, params) -> VisionTransformer:
+    """The model of ``cfg`` holding the tensors of the params tree
+    ``params`` themselves: built on the meta device (nothing drawn or
+    copied), each parameter then bound to its leaf and the quantizers'
+    clip constants made on the leaves' device."""
+    flat = flatten_tree(params)
+    dev = next(iter(flat.values())).device
+    model = VisionTransformer(cfg, device="meta")
+    for path, t in flat.items():
+        mod, _, name = path.rpartition("/")
+        setattr(model.get_submodule(mod.replace("/", ".")), name,
+                nn.Parameter(t.detach(), requires_grad=t.requires_grad))
+    for m in model.modules():
+        if isinstance(m, _QuantLayer) and m.config.enabled:
+            m.register_clips(dev)
+    left = [k for k, v in model.named_parameters() if v.is_meta]
+    if left:
+        raise KeyError(f"params tree lacks {left}")
+    return model
 
 
 def params_from_jax(tree, cfg: ViTConfig, device="cuda"

@@ -125,6 +125,24 @@ def _c_ll(vals):
     return (ctypes.c_longlong * max(1, len(vals)))(*vals)
 
 
+def gather_jobs(shards: Sequence[Tuple[int, int]],
+                targets: Sequence[Sequence[int]]):
+    """K14's copy jobs (src, dst, bytes lists) from each shard's (address,
+    bytes) and its destination addresses (its own output's row slot
+    first, then the same slot of each peer's): one job per (shard,
+    destination), shard by shard. Refuses more than :data:`MAX_JOBS`."""
+    src, dst, nbytes = [], [], []
+    for (s, nb), ds in zip(shards, targets):
+        for d in ds:
+            src.append(s)
+            dst.append(d)
+            nbytes.append(nb)
+    if len(src) > MAX_JOBS:
+        raise ValueError(f"gather_rows: {len(src)} copy jobs > {MAX_JOBS} "
+                         "(shards x processes)")
+    return src, dst, nbytes
+
+
 def plan_gather_rows(shards: Sequence[torch.Tensor],
                      outs: Optional[Sequence[torch.Tensor]] = None,
                      peers=None, peer_outs=None) -> GatherPlan:
@@ -149,18 +167,14 @@ def plan_gather_rows(shards: Sequence[torch.Tensor],
     _build.require_cuda("gather_rows", *outs)
     if tp > 1 and peer_outs is None:
         peer_outs = peers.open(list(outs))
-    src, dst, nbytes = [], [], []
+    jobs, targets = [], []
     for j, s in enumerate(shards):
         nb = s.numel() * s.element_size()
-        targets = [outs[j]] + ([peer_outs[p][j] for p in range(tp)
-                                if p != rank] if tp > 1 else [])
-        for o in targets:
-            src.append(s.data_ptr())
-            dst.append(o.data_ptr() + rank * nb)
-            nbytes.append(nb)
-    if len(src) > MAX_JOBS:
-        raise ValueError(f"gather_rows: {len(src)} copy jobs > {MAX_JOBS} "
-                         "(shards x processes)")
+        jobs.append((s.data_ptr(), nb))
+        targets.append([o.data_ptr() + rank * nb for o in [outs[j]] + (
+            [peer_outs[p][j] for p in range(tp) if p != rank]
+            if tp > 1 else [])])
+    src, dst, nbytes = gather_jobs(jobs, targets)
     return GatherPlan(outs=outs, src=_c_ll(src), dst=_c_ll(dst),
                       nbytes=_c_ll(nbytes), n_jobs=len(src),
                       moved=sum(nbytes), peers=peers,

@@ -75,6 +75,9 @@ def run_processes(target, tp: int, store_dir: str, args: Sequence = (),
     (RuntimeError, with its traceback)."""
     import torch.multiprocessing as mp
 
+    # absolute: a relative path would make the file:// URL's first
+    # component a host name, and no rank would find the store
+    store_dir = os.path.abspath(store_dir)
     os.makedirs(store_dir, exist_ok=True)
     store = os.path.join(store_dir, f"store_{os.getpid()}_{time.time_ns()}")
     init_method = f"file://{store}"

@@ -184,6 +184,14 @@ def dge(x, d, q_m, clip_val, q_s=0.0, num_bits=4.0):
 # ---------------------------------------------------------------------------
 
 
+def _to_int32(x):
+    """Integral floats -> int32, saturating as XLA's conversion does (a
+    layer near 32 bits has a top level of 2^31, past int32; NaN -> 0):
+    a plain cast would wrap it to -2^31."""
+    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    return x.clamp(-2.0**31, 2.0**31 - 1).to(torch.int32)
+
+
 def lsfq_levels(x, d, q_m, t, q_s=0.0):
     """int32 levels ``i`` with ``lsfq_nonlinear(x, ...) == d * i``."""
     x_abs = x.abs()
@@ -194,13 +202,13 @@ def lsfq_levels(x, d, q_m, t, q_s=0.0):
     lvl = torch.where(x_abs <= q_s, 0.0, lvl)
     lvl = torch.where(x_abs >= q_m, top, lvl)
     lvl = torch.minimum(lvl, top)  # never above the top level
-    return (torch.sign(x) * lvl).to(torch.int32)
+    return _to_int32(torch.sign(x) * lvl)
 
 
 def lsfq_top_level(d, q_m, t, q_s=0.0):
     """Number of positive levels ``round(((|q_m-q_s|+eps)^t)/d)``."""
     range_pow = _safe_pow((q_m - q_s).abs() + _EPS, t)
-    return torch.round(range_pow / d).to(torch.int32)
+    return _to_int32(torch.round(range_pow / d))
 
 
 def lsfq_dequant(levels, d):

@@ -3,7 +3,7 @@ of a 'model' axis) and continuous batching."""
 
 from .batching import ContinuousBatcher
 from .vit_int4 import (KernelPlan, QLayerArtifact, StackMeta,
-                       artifact_from_numpy, kernel_limits,
+                       artifact_from_numpy, export_vit_int4, kernel_limits,
                        prepare_kernels, prepare_latency_artifact,
                        random_vit_int4_artifact, uses_chain,
                        vit_int4_forward, vit_int4_forward_latency)
@@ -12,7 +12,7 @@ from .vit_fsdp import (FsdpRdmaPlan, prepare_fsdp_rdma_artifact,
                        vit_int4_forward_fsdp_rdma)
 
 __all__ = ["ContinuousBatcher", "KernelPlan", "QLayerArtifact", "StackMeta",
-           "artifact_from_numpy", "kernel_limits", "prepare_kernels",
+           "artifact_from_numpy", "export_vit_int4", "kernel_limits", "prepare_kernels",
            "prepare_latency_artifact", "random_vit_int4_artifact",
            "uses_chain", "vit_int4_forward", "vit_int4_forward_latency",
            "FsdpRdmaPlan", "prepare_fsdp_rdma_artifact",

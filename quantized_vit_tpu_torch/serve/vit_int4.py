@@ -40,6 +40,7 @@ multiple of ``n_align`` (197 -> 208); padded keys are masked.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -62,6 +63,8 @@ from ..ops.fused import (BIG_WEIGHT_BM, MatmulPlan, MlpPlan, fold_gelu,
                          mlp_chunked_kernel_limit, plan_matmul, plan_mlp, plan_mlp_chunked, run_matmul,
                          run_mlp, run_mlp_chunked)
 from ..ops.patch import patch_finalize, patch_finalize_plain
+from ..quant.bitwidth import d_for_bits
+from ..quant.lsfq import lsfq_levels, lsfq_top_level
 from ..quant.packing import pack_int4
 
 
@@ -79,6 +82,87 @@ class QLayerArtifact:
     fmt: str
     act_pow: bool = True
     top: int = 127
+
+
+def _export_layer(layer_params: Dict[str, Any], pack_weights: bool = True):
+    """One QuantDense/QuantConv's trained params -> its serving entry
+    (vit_int4.py:63-125): the weight's LSFQ levels (a conv HWIO kernel as
+    its [H*W*I, O] GEMM form), the fused dequant scale ``d_w * d_a``, the
+    bias and the activation quantizer's constants. A layer trained above
+    8 bits is requantized to 8 bits (its step widened to
+    :func:`~..quant.bitwidth.d_for_bits`, with a warning). ``pack_weights``:
+    4-bit levels nibble-packed [K/2, N]; a layer with a weight top level
+    above 7 or an odd depth K is stored int8 [K, N] (a pruned fc2 with an
+    odd hidden width: a block of int4 fc1 and int8 fc2)."""
+    kernel = layer_params["kernel"]
+    if kernel.ndim == 4:  # conv HWIO -> [H*W*I, O] gemm form
+        h, w, i, o = kernel.shape
+        kernel = kernel.reshape(h * w * i, o)
+    d_w = layer_params["d_quant_wt"]
+    qm_w = layer_params["q_m_wt"]
+    t_w = layer_params.get("t_quant_wt", torch.ones_like(d_w))
+    w_lv = lsfq_levels(kernel, d_w, qm_w, t_w)
+    top_w = int(lsfq_top_level(d_w, qm_w, t_w)[0])
+    d_a = layer_params["d_quant_act"]
+    qm_a = layer_params["q_m_act"]
+    t_a = layer_params.get("t_quant_act", torch.ones_like(d_a))
+    top_a = lsfq_top_level(d_a, qm_a, t_a)[0]
+    if top_w > 127 or float(top_a) > 127:
+        # clipping the levels would corrupt values: requantize properly to
+        # 8 bits (the same float tensor, moved by at most d8/2 a value)
+        warnings.warn(
+            f"layer trained above 8 bits (weight top {top_w}, act top "
+            f"{float(top_a):.0f}); requantizing to 8 bits for the INT8 "
+            "serving path", stacklevel=2)
+        if top_w > 127:
+            d_w = torch.broadcast_to(d_for_bits(8.0, qm_w, t_w), d_w.shape)
+            w_lv = lsfq_levels(kernel, d_w, qm_w, t_w)
+            top_w = int(lsfq_top_level(d_w, qm_w, t_w)[0])
+        if float(top_a) > 127:
+            d_a = torch.broadcast_to(d_for_bits(8.0, qm_a, t_a), d_a.shape)
+            top_a = lsfq_top_level(d_a, qm_a, t_a)[0]
+    act = {"d": d_a[0], "q_m": qm_a[0], "t": t_a[0]}
+    top = int(min(float(top_a), 127.0))
+    act_pow = bool(abs(float(t_a[0]) - 1.0) > 1e-6)
+    common = dict(scale=(d_w * d_a)[0], bias=layer_params.get("bias"),
+                  act=act, act_pow=act_pow, top=top)
+    if pack_weights and top_w <= 7 and w_lv.shape[0] % 2 == 0:
+        return QLayerArtifact(
+            w=pack_int4(torch.clamp(w_lv, -8, 7).to(torch.int8), axis=0),
+            fmt="int4", **common)
+    return QLayerArtifact(w=torch.clamp(w_lv, -127, 127).to(torch.int8),
+                          fmt="int8", **common)
+
+
+def export_vit_int4(cfg: ViTConfig, params: Dict[str, Any],
+                    pack_weights: bool = True) -> Dict[str, Any]:
+    """Trained fake-quant ViT params (a full model or a compressed subnet)
+    -> the integer serving artifact (vit_int4.py:128-158), on the params'
+    device, for :func:`prepare_kernels`, :func:`prepare_latency_artifact`
+    and ``artifact.save_vit_int4_artifact``. ``pack_weights=False``
+    stores 4-bit levels unpacked int8."""
+    art: Dict[str, Any] = {}
+    art["patch_embed"] = _export_layer(params["patch_embed"]["proj"],
+                                       pack_weights)
+    art["cls_token"] = params["cls_token"]
+    art["pos_embed"] = params["pos_embed"]
+    art["blocks"] = []
+    for i in range(cfg.depth):
+        b = params[f"blocks_{i}"]
+        art["blocks"].append({
+            "norm1": b["norm1"],
+            "qkv": _export_layer(b["attn"]["qkv"], pack_weights),
+            "proj": _export_layer(b["attn"]["proj"], pack_weights),
+            "norm2": b["norm2"],
+            "fc1": _export_layer(b["mlp"]["fc1"], pack_weights),
+            "fc2": _export_layer(b["mlp"]["fc2"], pack_weights),
+        })
+    art["norm"] = params["norm"]
+    if cfg.representation_size is not None:
+        art["pre_logits"] = dict(params["pre_logits"])
+    if cfg.num_classes > 0:
+        art["head"] = _export_layer(params["head"], pack_weights)
+    return art
 
 
 def _qmatmul(x2d, entry: QLayerArtifact, float_dtype, **kw):
@@ -353,11 +437,18 @@ def kernel_limits(cfg: ViTConfig, n_align: int = 16, latency: bool = False,
     ``fsdp_rdma``, the FSDP forward of ``serve/vit_fsdp.py`` whose
     ``batch`` is a process's share, and K8, which the route gives int8
     weights only); or, with ``latency``, those of K5 for the batch-1
-    entry."""
+    entry at each block's widths (a compressed subnet's
+    ``heads_per_block`` and ``hidden_per_block``), the block named. The
+    other kernels take any per-block width (K1 any depth, K2 mixed
+    formats, K3 and K6 any head count): their limits depend on head_dim
+    alone, which compression keeps."""
     hd = cfg.embed_dim // cfg.num_heads
-    hid = int(cfg.embed_dim * cfg.mlp_ratio)
     if latency:
-        lims = [stack_kernel_limit(cfg.embed_dim, hid, hd)]
+        lims = []
+        for i in range(cfg.depth):
+            lim = stack_kernel_limit(cfg.embed_dim, cfg.block_hidden(i), hd,
+                                     cfg.block_heads(i) * hd)
+            lims.append(lim and f"block {i}: {lim}")
     else:
         lims = []
         for b in (range(1, ROUTE_BATCHES + 1) if batch is None

@@ -142,6 +142,28 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
            if r["kernel"] == "fused_mlp_gather"]
     assert any(c.startswith("vith[") and "tp=2" in c for c in k15)
     assert any(c.startswith("vith[") and "tp=1" in c for c in k15)
+    # K14's unaligned and ViT-H rows, in process and spawned
+    k14 = [r["case"] for r in record["parity"]
+           if r["kernel"] == "gather_rows"]
+    for tp in (1, 2):
+        assert any("(odd," in c and f"tp={tp}" in c for c in k14)
+        assert any("(int8,d320" in c and f"tp={tp}" in c for c in k14)
+    # phase 7: the trained params through construct_subnet, export,
+    # save/load and the routes; the uniform subnet through the latency
+    # entry too
+    sub = record["subnet"]
+    assert set(sub["uniform"]["forwards"]) == {"b4", "b1", "b3", "latency"}
+    assert {"b4", "b1", "b3"} <= set(sub["geta"]["forwards"])
+    assert ("latency" in sub["geta"]["forwards"]) != (
+        "latency_refused" in sub["geta"])
+    assert sub["geta"]["macs"][1] < sub["geta"]["macs"][0]
+    # the yardsticks timed beside the subnets, every forward's logits equal
+    # to the plain path's
+    for ref in ("geta_unpruned", "random_int8", "random_int4"):
+        assert set(sub[ref]["forwards"]) == {"b4", "b1", "b3"}
+    assert all(f["logits_equal"] for f in record["forward"]
+               if f["forward"].startswith(("subnet_", "full_")))
+    assert len(set(sub["uniform"]["hidden_per_block"])) == 1
     assert {re.search(r"tp=(\d+)", r["case"]).group(1)
             for r in record["parity"]
             if r["kernel"] in ("gather_rows", "fused_mlp_gather")} == {"1",
