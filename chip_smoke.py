@@ -147,7 +147,24 @@ Phases, in order; any failure exits non-zero:
    at one sparsity on the run's initial params, packed int4) through
    all three routes; launches checked and logits against the plain
    path's, as the other forwards'; widths, MACs and BOPs before and
-   after, and the forward times.
+   after, and the forward times;
+8. the pruning-only optimizers, the inference CLIs and the RPC serving
+   front, at ViT-B/16 width: HESSO (``OTO.hesso``) on the QAT ViT
+   (``fused_vjp``: K7 in every nonlinear quantizer's backward) at batch
+   32, driven by ``TrainLoop`` through warmup and two pruning periods
+   (every loss finite, K7's launches per step, the target sparsity, the
+   pruned rows exactly zero), its subnet through ``export_vit_int4`` on
+   the batch-32 route (launches, logits equal to the plain path's), ms
+   per step and K7's device time per step; HESSO-CRIC in a hand loop
+   that passes the loss (two cycles, the reset bit for bit, the final
+   redundant set at its target size); a class-per-subfolder tree of
+   seeded PNGs through ``cli.eval`` (phase 6's params and phase 7's
+   subnet, from checkpoints written here) equal to a direct
+   ``evaluate``, ``cli.predict`` equal to a direct forward's softmax, a
+   non-RGB file refused; and ``MultiHostFrontend`` over an in-process
+   batcher and an ``RpcBackendStub`` of a worker process serving phase
+   4's artifact on the card, 64 requests, both backends used, every
+   answer equal to a direct forward of its image, req/s and p50/p99.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -163,6 +180,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -233,6 +251,25 @@ GETA_KW = dict(lr=1e-4, lr_quant=1e-3, variant="adam", weight_decay=0.0,
                pruning_periods=2, bit_reduction=4.0, min_bit_wt=4.0,
                max_bit_wt=32.0, min_bit_act=4.0, max_bit_act=32.0)
 TRAIN_CKPT = os.path.join(ROOT, "build", "smoke_train_ckpt")
+# phase 8: HESSO's schedule (warmup steps 1-4, two pruning periods of 4
+# steps: boundaries at 5 and 9, commits at 7 and 11), HESSO-CRIC's (a
+# basic step, two sampling cycles of 3 steps from step 2, the final set at
+# step 8, then 3 hybrid steps), the image tree, the RPC burst. Both
+# optimizers step the quantizers' d with the weights' rate, unclamped
+# (Adam moves a leaf by about lr a step): 1e-5 keeps an 8-bit d (~1e-3 at
+# ViT-B's init) within a few percent over the run
+HESSO_STEPS = 12
+HESSO_KW = dict(lr=1e-5, variant="adam", target_group_sparsity=0.5,
+                start_pruning_step=4, pruning_steps=8, pruning_periods=2)
+CRIC_STEPS = 12
+CRIC_KW = dict(lr=1e-5, variant="adam", target_group_sparsity=0.5,
+               start_cric_step=2, proj_per_node_group=False,
+               sampling_steps=3, max_cycle_period=3, hybrid_training_steps=3,
+               tolerance=-1)
+FOLDER_DIR = os.path.join(ROOT, "build", "smoke_folder")
+FOLDER_CLASSES, FOLDER_PER_CLASS = 4, 16
+RPC_REQUESTS = 64
+RPC_PORT_TIMEOUT_S = 240
 
 
 def log(*a):
@@ -328,6 +365,8 @@ def run(record):
     del fwd
     trained = train_phase(dev, record, peaks)
     subnet_phase(dev, record, trained, arts)
+    hesso_phase(dev, record)
+    cli_rpc_phase(dev, record, trained)
 
 
 def main_cfg():
@@ -4903,6 +4942,528 @@ def subnet_phase(dev, record, trained, arts):
     out["phase_s"] = round(time.time() - t_phase, 1)
     record["subnet"] = out
     log(f"[subnet] phase {out['phase_s']} s")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: HESSO, HESSO-CRIC, the inference CLIs on image files, and the
+# RPC serving front
+# ---------------------------------------------------------------------------
+
+
+class EventProbe(StepProbe):
+    """:class:`StepProbe` that also marks the end of each step: a CUDA
+    event on the card (the host's clock in a CPU rehearsal), so the time
+    per step is the span between two consecutive marks."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.marks = []
+
+    def step(self, params, grads):
+        out = super().step(params, grads)
+        if DEV == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+        return out
+
+    def step_ms(self):
+        sync()
+        m = self.marks
+        if DEV == "cuda":
+            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
+        return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
+
+
+def qat_model(seed, dev):
+    """The ViT-B/16 QAT model (K7 on every nonlinear quantizer's
+    backward) and its params with the quantizers at 8 bits."""
+    from quantized_vit_tpu_torch.models import (QuantConfig,
+                                                VisionTransformer,
+                                                init_quant_params_tree,
+                                                tree_map)
+
+    cfg = dataclasses.replace(
+        main_cfg(), quant=QuantConfig(enabled=True, fused_vjp=True))
+    model = VisionTransformer(cfg, seed=seed, device=dev)
+    params = init_quant_params_tree(
+        tree_map(lambda p: p.detach().clone(), model.param_tree()),
+        init_bits=8.0)
+    return model, params
+
+
+def seeded_batches(cfg, steps, seed):
+    rng = np.random.default_rng(seed)
+    hw = (cfg.img_size, cfg.img_size, cfg.in_channels)
+    return (rng.standard_normal((steps * BATCH, *hw), dtype=np.float32),
+            rng.integers(0, cfg.num_classes, steps * BATCH))
+
+
+def pruned_rows_zero(opt, params):
+    """Whether every committed group's rows are exactly zero in every
+    prunable tensor of its group; and how many groups that covers."""
+    from quantized_vit_tpu_torch.opt import get_path, group_matrix
+
+    n = 0
+    for g in opt._prunable():
+        idx = opt.state[g.id]["pruned"]
+        if not idx:
+            continue
+        n += len(idx)
+        for e in g.entries:
+            gm = group_matrix(get_path(params, e.path), e.transform,
+                              g.num_groups, g.num_heads)
+            if gm is not None and bool(gm[idx].any()):
+                return False, n
+    return True, n
+
+
+def hesso_phase(dev, record):
+    """HESSO on the ViT-B/16 QAT model at batch BATCH, driven by
+    ``TrainLoop`` through warmup and two pruning periods with the launch
+    counters set to 0 just before and read just after; then its subnet
+    through ``export_vit_int4`` on the batch-32 route."""
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.models import apply
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.serve import (export_vit_int4,
+                                               prepare_kernels,
+                                               vit_int4_forward)
+    from quantized_vit_tpu_torch.utils import (ArrayDataset, DataLoader,
+                                               TrainLoop, patchify_batch)
+
+    t_phase = time.time()
+    model, params = qat_model(1, dev)
+    cfg = model.cfg
+    images, labels = seeded_batches(cfg, HESSO_STEPS, 1)
+    oto = OTO(model, params)
+    oto.mark_unprunable_by_param_names(["patch_embed", "pos_embed",
+                                        "cls_token", "head"])
+    opt = oto.hesso(**HESSO_KW)
+    probe = EventProbe(opt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    loop = TrainLoop(
+        apply_fn=lambda p, x, g: apply(model, p, x, deterministic=False,
+                                       generator=g),
+        optimizer=probe, num_classes=cfg.num_classes, device=dev)
+    loader = DataLoader(ArrayDataset(images, labels), BATCH, shuffle=True,
+                        seed=1)
+    _build.reset_launches()
+    params, tm = loop.train_one_epoch(params, loader, 0, gen)
+    launches = dict(_build.LAUNCHES)
+    step_ms = probe.step_ms()
+    metrics = opt.compute_metrics(params)
+    zero_ok, n_pruned = pruned_rows_zero(opt, params)
+    # K7's device time in one step's backward (the run itself untraced)
+    x0 = torch.from_numpy(images[:BATCH]).to(dev)
+    y0 = torch.from_numpy(labels[:BATCH]).to(dev)
+    _, kern = traced(lambda: loop.loss_and_grads(params, x0, y0, gen))
+    k7 = k7_in_trace(kern)
+    del kern
+    out = {"card": record["nvidia_smi"], "steps": tm["steps"],
+           "losses": tm["step_losses"], "seconds": tm["seconds"],
+           "k7_launches_per_step": [r["k7_launches"] for r in probe.rows],
+           "launches": launches,
+           "pruning_period": [r["pruning_period"] for r in probe.rows],
+           "n_pruned": [r["n_pruned"] for r in probe.rows],
+           "target_redundant_groups": opt.target_num_redundant_groups,
+           "num_zero_groups": metrics["num_zero_groups"],
+           "group_sparsity": metrics["group_sparsity"],
+           "pruned_rows_zero": zero_ok, "step_ms": step_ms,
+           "step_ms_median": (statistics.median(step_ms) if step_ms
+                              else None),
+           "k7_step": k7}
+    record["hesso"] = out
+    log(f"[hesso] {tm['steps']} steps, losses "
+        f"{[round(v, 4) for v in tm['step_losses']]}; pruned per step "
+        f"{out['n_pruned']}; sparsity {metrics['group_sparsity']:.4f} "
+        f"({metrics['num_zero_groups']} zero groups, target "
+        f"{opt.target_num_redundant_groups}); rows zero {zero_ok}")
+    log(f"[hesso] ms per step (events, {record['nvidia_smi']}): "
+        f"{[round(v, 1) for v in step_ms]}, median "
+        f"{out['step_ms_median']}; K7 in one step's backward: {k7}")
+    per_step = sum(n for _, _, n in k7_sites(cfg))
+    if tm["steps"] != HESSO_STEPS or not all(np.isfinite(tm["step_losses"])):
+        raise Failed(f"hesso: {tm['steps']} steps, losses "
+                     f"{tm['step_losses']}")
+    if dev.type == "cuda" and (
+            any(n != per_step for n in out["k7_launches_per_step"])
+            or launches["quant_bwd"] != per_step * HESSO_STEPS):
+        raise Failed(f"hesso: K7 launches per step "
+                     f"{out['k7_launches_per_step']} != {per_step}")
+    if (max(out["pruning_period"]) != HESSO_KW["pruning_periods"]
+            or n_pruned != opt.target_num_redundant_groups
+            or metrics["num_zero_groups"] != opt.target_num_redundant_groups
+            or not zero_ok):
+        raise Failed(f"hesso: the target sparsity not reached: {out}")
+
+    # the subnet on the batch-32 route
+    sub_model, sub_params = oto.construct_subnet(params)
+    scfg = sub_model.cfg
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")  # layers requantized to 8 bits
+        art = export_vit_int4(scfg, sub_params, pack_weights=False)
+    x = torch.from_numpy(patchify_batch(images[:BATCH],
+                                        cfg.patch_size)).to(dev)
+    plan = prepare_kernels(art, scfg) if dev.type == "cuda" else None
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    check_forward(
+        record, dev, "subnet_hesso,block",
+        lambda: vit_int4_forward(art, x, scfg, plan=plan, **kw),
+        lambda: vit_int4_forward(art, x, scfg, use_kernels=False, **kw),
+        subnet_launches(art, scfg, BATCH, kw["float_dtype"]), BATCH, scfg)
+    f = record["forward"][-1]
+    out["subnet"] = {"heads_per_block": list(scfg.heads_per_block),
+                     "hidden_per_block": list(scfg.hidden_per_block),
+                     "requantized_layers": len(caught),
+                     "launches": f["launches"],
+                     "logits_equal": f["logits_equal"],
+                     "ms": cuda_ms(lambda: vit_int4_forward(
+                         art, x, scfg, plan=plan, **kw))}
+    log(f"[hesso subnet] heads {out['subnet']['heads_per_block']} hidden "
+        f"{out['subnet']['hidden_per_block']}; b{BATCH} forward "
+        f"{out['subnet']['ms']:.3f} ms ({record['nvidia_smi']})")
+    if not f["logits_equal"]:
+        raise Failed(f"hesso subnet: logits differ from the plain path's "
+                     f"by {f['max_abs_diff']}")
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    log(f"[hesso] phase {out['phase_s']} s")
+
+
+def cric_phase(dev, record):
+    """HESSO-CRIC in a hand loop at batch BATCH that passes each step's
+    loss: two sampling cycles, the final redundant set, the hybrid steps;
+    the reset at termination must hand back the cached params (those
+    handed in at ``start_cric_step``) bit for bit."""
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.models import apply, flatten_tree
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.utils import TrainLoop
+
+    t_phase = time.time()
+    model, params = qat_model(2, dev)
+    cfg = model.cfg
+    images, labels = seeded_batches(cfg, CRIC_STEPS, 2)
+    oto = OTO(model, params)
+    oto.mark_unprunable_by_param_names(["patch_embed", "pos_embed",
+                                        "cls_token", "head"])
+    opt = oto.hesso_cric(**CRIC_KW)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    loop = TrainLoop(
+        apply_fn=lambda p, x, g: apply(model, p, x, deterministic=False,
+                                       generator=g),
+        optimizer=opt, num_classes=cfg.num_classes, device=dev)
+
+    def equal(a, b):
+        fa, fb = flatten_tree(a), flatten_tree(b)
+        return set(fa) == set(fb) and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+    rows, handed, reset_ok, final_set = [], None, None, None
+    _build.reset_launches()
+    for i in range(CRIC_STEPS):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        x = torch.from_numpy(images[sl]).to(dev)
+        y = torch.from_numpy(labels[sl]).to(dev)
+        if opt.num_steps + 1 == CRIC_KW["start_cric_step"]:
+            handed = {k: v.clone() for k, v in flatten_tree(params).items()}
+        loss, _, grads = loop.loss_and_grads(params, x, y, gen)
+        params = opt.step(params, grads, loss=float(loss))
+        if opt.terminated_step == opt.num_steps:  # the final reset
+            reset_ok = (equal(params, opt.cache_params)
+                        and equal(flatten_tree(params), handed))
+            final_set = sum(len(st["active_redundant"])
+                            for st in opt.state.values())
+        rows.append({"step": opt.num_steps, "loss": float(loss),
+                     "cycle": opt.curr_cycle_period,
+                     "violating": opt.num_active_violating(),
+                     "terminated": opt.is_terminated})
+    sync()
+    launches = dict(_build.LAUNCHES)
+    metrics = opt.compute_metrics(params)
+    zero_ok, n_pruned = pruned_rows_zero(opt, params)
+    out = {"steps": CRIC_STEPS, "rows": rows, "launches": launches,
+           "terminated_step": opt.terminated_step,
+           "reset_bit_for_bit": reset_ok, "final_redundant": final_set,
+           "target_redundant_groups": opt.target_num_redundant_groups,
+           "num_zero_groups": metrics["num_zero_groups"],
+           "pruned_rows_zero": zero_ok,
+           "seconds": round(time.time() - t_phase, 1)}
+    record["cric"] = out
+    log(f"[cric] cycles {[r['cycle'] for r in rows]} violating "
+        f"{[r['violating'] for r in rows]}; terminated at step "
+        f"{opt.terminated_step}; reset bit for bit {reset_ok}; final set "
+        f"{final_set} of target {opt.target_num_redundant_groups}; zero "
+        f"groups {metrics['num_zero_groups']}; K7 launches "
+        f"{launches['quant_bwd']}; {out['seconds']} s")
+    cycles = {r["cycle"] for r in rows if not r["terminated"]}
+    if not all(np.isfinite([r["loss"] for r in rows])):
+        raise Failed(f"cric: losses {[r['loss'] for r in rows]}")
+    if not {1, 2} <= cycles or not opt.is_terminated:
+        raise Failed(f"cric: two cycles not run: {rows}")
+    if not reset_ok:
+        raise Failed("cric: the reset did not give back the cached params")
+    if (final_set != opt.target_num_redundant_groups
+            or n_pruned != final_set or not zero_ok
+            or metrics["num_zero_groups"] != final_set):
+        raise Failed(f"cric: the final redundant set: {out}")
+    if dev.type == "cuda" and launches["quant_bwd"] == 0:
+        raise Failed("cric: K7 never launched")
+
+
+class RpcWorker:
+    """``python -m quantized_vit_tpu_torch.serve.rpc`` on ``ART_DIR`` as a
+    child process (on the card, with no ``--device`` flag; ``--device
+    cpu`` in a rehearsal). A thread reads its stdout for the port line;
+    its stderr goes to ``build/rpc_worker.log``."""
+
+    def __init__(self):
+        flags = ["--artifact", ART_DIR]
+        if DEV != "cuda":
+            flags += ["--device", "cpu"]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        self.log_path = os.path.join(OUT_DIR, "rpc_worker.log")
+        self._log = open(self.log_path, "w")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "quantized_vit_tpu_torch.serve.rpc",
+             *flags], stdout=subprocess.PIPE, stderr=self._log, env=env,
+            cwd=ROOT, text=True)
+        self.port = None
+        self.ready_s = None
+        self._ready = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("RPC_SERVING_PORT=") and self.port is None:
+                self.port = int(line.strip().split("=", 1)[1])
+                self.ready_s = round(time.time() - self.t0, 1)
+                self._ready.set()
+        self._ready.set()  # the worker ended
+
+    def wait_port(self) -> int:
+        self._ready.wait(RPC_PORT_TIMEOUT_S)
+        if self.port is None or self.proc.poll() is not None:
+            with open(self.log_path) as f:
+                err = f.read()[-2000:]
+            raise Failed(f"rpc worker died or stayed silent for "
+                         f"{RPC_PORT_TIMEOUT_S} s (rc {self.proc.poll()}): "
+                         f"{err}")
+        return self.port
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+
+def cli_rpc_phase(dev, record, trained):
+    """HESSO-CRIC, then the inference CLIs on image files and the RPC
+    serving front, the worker starting while CRIC runs."""
+    worker = RpcWorker()
+    try:
+        cric_phase(dev, record)
+        cli_phase(dev, record, trained, worker)
+        rpc_phase(dev, record, worker)
+    finally:
+        record.setdefault("rpc", {})["worker_rc"] = worker.stop()
+
+
+def write_folder(root, size, seed):
+    """``root/c<i>/img<j>.png``: FOLDER_CLASSES classes of
+    FOLDER_PER_CLASS seeded RGB images; ``root + '_gray'`` one grayscale
+    file. Returns the grayscale file's path."""
+    import shutil
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(root, ignore_errors=True)
+    for c in range(FOLDER_CLASSES):
+        d = os.path.join(root, f"c{c}")
+        os.makedirs(d)
+        for j in range(FOLDER_PER_CLASS):
+            Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                         dtype=np.uint8), "RGB").save(
+                os.path.join(d, f"img{j}.png"))
+    gray_dir = root + "_gray"
+    shutil.rmtree(gray_dir, ignore_errors=True)
+    os.makedirs(gray_dir)
+    gray = os.path.join(gray_dir, "gray.png")
+    Image.fromarray(rng.integers(0, 256, (size, size), dtype=np.uint8),
+                    "L").save(gray)
+    return gray
+
+
+def cli_phase(dev, record, trained, worker):
+    """``cli.eval`` on phase 6's params and on phase 7's GETA subnet (each
+    from a checkpoint written here) over a generated image folder, equal
+    to a direct ``evaluate`` over the same loader; ``cli.predict`` equal
+    to the softmax of a direct forward; a non-RGB file refused."""
+    from quantized_vit_tpu_torch.cli import _common as common
+    from quantized_vit_tpu_torch.cli import eval as ceval
+    from quantized_vit_tpu_torch.cli import predict as cpredict
+    from quantized_vit_tpu_torch.models import apply
+    from quantized_vit_tpu_torch.opt import save_checkpoint
+    from quantized_vit_tpu_torch.utils import (DataLoader,
+                                               ImageFolderDataset, evaluate,
+                                               native_prep_available)
+
+    t_phase = time.time()
+    oto, params = trained["oto"], trained["params"]
+    cfg = oto.cfg
+    gray = write_folder(FOLDER_DIR, cfg.img_size, 3)
+    try:
+        ImageFolderDataset([gray], [0], img_size=cfg.img_size).get(
+            np.asarray([0]))
+    except ValueError as e:
+        gray_refused = str(e)
+    else:
+        raise Failed("a non-RGB image file was not refused")
+    sub_model, sub_params = oto.construct_subnet(params)
+    ckpts = {"full": (os.path.join(TRAIN_CKPT, "eval_full"), oto.model,
+                      params, {"steps": TRAIN_STEPS}),
+             "subnet": (os.path.join(TRAIN_CKPT, "eval_subnet"), sub_model,
+                        sub_params,
+                        {"subnet": dataclasses.asdict(sub_model.cfg)})}
+    for path, _, tree, extra in ckpts.values():
+        save_checkpoint(path, tree, None, extra)
+    flags = ["--dataset", "folder", "--data-path", FOLDER_DIR, "--model",
+             "vit_b16", "--img-size", str(cfg.img_size), "--num-classes",
+             str(cfg.num_classes), "--batch-size", str(BATCH), "--device",
+             str(dev)]
+    worker.wait_port()  # no worker start-up on the card while timed
+    out = {"card": record["nvidia_smi"], "gray_refused": gray_refused,
+           "native_prep": native_prep_available(), "eval": {}}
+    for name, (path, model, tree, _) in ckpts.items():
+        argv = flags + ["--checkpoint", path]
+        sync()
+        t0 = time.perf_counter()
+        got = ceval.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        _, val_ds = common.build_datasets(ceval.parse_args(argv))
+        want = evaluate(lambda p, x, m=model: apply(m, p, x), tree,
+                        DataLoader(val_ds, BATCH, pad_last=True), device=dev)
+        out["eval"][name] = {"cli": got, "direct": want,
+                             "equal": got == want, "wall_s": wall,
+                             "images_per_s": got["samples"] / wall}
+        log(f"[eval {name}] {got}; direct {want}; "
+            f"{got['samples'] / wall:.1f} images/s "
+            f"({record['nvidia_smi']})")
+        if got != want or got["samples"] != len(val_ds):
+            raise Failed(f"cli.eval {name}: {got} != direct {want}")
+    image = os.path.join(FOLDER_DIR, "c1", "img0.png")
+    path = ckpts["full"][0]
+    top = cpredict.main(["--checkpoint", path, "--image", image, "--model",
+                         "vit_b16", "--img-size", str(cfg.img_size),
+                         "--num-classes", str(cfg.num_classes), "--topk",
+                         "5", "--device", str(dev)])
+    x = torch.from_numpy(cpredict.load_image(image, cfg.img_size)).to(dev)
+    with torch.no_grad():
+        probs = torch.softmax(apply(oto.model, params, x)[0], dim=-1)
+    probs = probs.cpu().numpy()
+    want = [(int(i), float(probs[i])) for i in np.argsort(-probs)[:5]]
+    out["predict"] = {"cli": top, "direct": want, "equal": top == want}
+    log(f"[predict] {top}; equal to the direct forward's softmax "
+        f"{top == want}")
+    if top != want:
+        raise Failed(f"cli.predict {top} != direct {want}")
+    if dev.type == "cuda" and not out["native_prep"]:
+        raise Failed("the native batch-prep engine did not build")
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    record["cli"] = out
+
+
+def rpc_phase(dev, record, worker):
+    """``MultiHostFrontend`` over an in-process batcher on ``ART_DIR`` and
+    an ``RpcBackendStub`` of the worker: RPC_REQUESTS requests, both
+    backends used, every answer equal to a direct forward of its image
+    (as phase 4 compares the batcher's answers); the in-process backend's
+    launches counted from 0 over the burst."""
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.serve import (ContinuousBatcher,
+                                               MultiHostFrontend, rpc)
+
+    port = worker.wait_port()
+    forward, cfg = rpc.load_forward(ART_DIR, device=dev)
+    local = ContinuousBatcher(forward, max_batch=8, max_delay_ms=5.0)
+    local.warmup(np.zeros((cfg.img_size, cfg.img_size, cfg.in_channels),
+                          np.float32))
+    stub = rpc.RpcBackendStub("127.0.0.1", port)
+    images = np.random.default_rng(4).standard_normal(
+        (RPC_REQUESTS, cfg.img_size, cfg.img_size, cfg.in_channels)).astype(
+            np.float32)
+    done = [0.0] * RPC_REQUESTS
+    sync()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    with MultiHostFrontend([local, stub]) as fe:
+        sent, futs = [], []
+        for i, img in enumerate(images):
+            sent.append(time.monotonic())
+            f = fe.submit(img)
+            f.add_done_callback(
+                lambda _, i=i: done.__setitem__(i, time.monotonic()))
+            futs.append(f)
+        answers = np.stack([f.result(timeout=120) for f in futs])
+        wall = time.monotonic() - t0
+        sync()
+        launches = dict(_build.LAUNCHES)
+        remote = stub.stats
+        local_stats = dict(local.stats)
+    lat = [(d - s) * 1e3 for d, s in zip(done, sent)]
+    direct = np.concatenate([forward(images[i:i + 1]).cpu().numpy()
+                             for i in range(RPC_REQUESTS)])
+    equal = bool(np.array_equal(answers, direct))
+    stub2 = rpc.RpcBackendStub("127.0.0.1", port)
+    stub2.shutdown_server()
+    try:
+        rc = worker.proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        rc = None
+    out = record.setdefault("rpc", {})
+    out.update({
+        "card": record["nvidia_smi"], "requests": RPC_REQUESTS,
+        "worker_ready_s": worker.ready_s,
+        "local": {"requests": local_stats["requests"],
+                  "batch_hist": local_stats["batch_hist"]},
+        "remote": {"requests": remote["stats"]["requests"],
+                   "batch_hist": remote["stats"]["batch_hist"]},
+        "launches_local": launches, "answers_equal_direct": equal,
+        "max_abs_diff": float(np.abs(answers - direct).max()),
+        "wall_s": wall, "req_per_s": RPC_REQUESTS / wall,
+        "latency_p50_ms": float(np.percentile(lat, 50)),
+        "latency_p99_ms": float(np.percentile(lat, 99)),
+        "worker_exit_after_shutdown": rc})
+    log(f"[rpc] {RPC_REQUESTS} requests: local {out['local']}, remote "
+        f"{out['remote']}; {out['req_per_s']:.1f} req/s, p50 "
+        f"{out['latency_p50_ms']:.2f} ms, p99 {out['latency_p99_ms']:.2f} "
+        f"ms ({record['nvidia_smi']}); worker up in {worker.ready_s} s; "
+        f"answers equal direct forwards {equal}; local launches "
+        f"{launches}")
+    if not equal:
+        raise Failed(f"rpc: answers differ from direct forwards by "
+                     f"{out['max_abs_diff']}")
+    if out["local"]["requests"] == 0 or out["remote"]["requests"] == 0:
+        raise Failed(f"rpc: a backend served nothing: {out}")
+    if dev.type == "cuda" and (
+            launches["patch_finalize"] == 0
+            or launches["fused_quant_matmul"] == 0
+            or launches["attention_block"] + launches["attention_qkv"] == 0):
+        raise Failed(f"rpc: the in-process backend's kernels did not run: "
+                     f"{launches}")
 
 
 if __name__ == "__main__":

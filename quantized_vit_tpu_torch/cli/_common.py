@@ -1,7 +1,6 @@
 """Shared CLI plumbing: dataset flags, model presets, checkpoints, seeding
-(port of ``quantized_vit_tpu/cli/_common.py``, plus a copy of
-``cli/eval.py:vit_config_from_dict``; the rest of ``cli/eval.py`` is in
-ROADMAP.md, modules to port, 'Inference CLIs and data')."""
+(port of ``quantized_vit_tpu/cli/_common.py``, plus ``cli/eval.py``'s
+``vit_config_from_dict``, which ``cli/train.py`` needs too)."""
 
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ def add_dataset_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "folder", "npz"],
                    help="synthetic: random data (smoke runs); folder: "
-                        "class-per-subfolder image tree (not ported); "
+                        "class-per-subfolder image tree (read_split_data); "
                         "npz: {train,test}_{images,labels} arrays")
     p.add_argument("--data-path", default="", help="dataset root / npz file")
     p.add_argument("--num-classes", type=int, default=10)
@@ -86,8 +85,9 @@ def load_params_any(path: str, device="cuda") -> Tuple:
 
 def build_datasets(args) -> Tuple:
     """(train_ds, val_ds) per ``--dataset``: the synthetic arrays from the
-    JAX function's numpy draws (equal byte for byte), or an npz file."""
-    from ..utils import ArrayDataset
+    JAX function's numpy draws (equal byte for byte), an npz file, or a
+    class-per-subfolder image tree split by ``read_split_data``."""
+    from ..utils import ArrayDataset, ImageFolderDataset, read_split_data
 
     if args.dataset == "synthetic":
         rng = np.random.default_rng(0)
@@ -104,9 +104,15 @@ def build_datasets(args) -> Tuple:
         with np.load(args.data_path) as z:
             return (ArrayDataset(z["train_images"], z["train_labels"]),
                     ArrayDataset(z["test_images"], z["test_labels"]))
-    raise NotImplementedError(
-        "--dataset folder: ImageFolderDataset is not ported (ROADMAP.md, "
-        "modules to port, 'Inference CLIs and data')")
+    tp, tl, vp, vl = read_split_data(args.data_path)
+    # decoded as uint8, the batch normalized in one native pass with the
+    # JAX CLI's (0.5, 0.5) statistics (the reference's CIFAR-style
+    # Normalize(0.5, 0.5, 0.5))
+    norm = (np.full(3, 0.5, np.float32), np.full(3, 0.5, np.float32))
+    return (ImageFolderDataset(tp, tl, img_size=args.img_size,
+                               normalize=norm),
+            ImageFolderDataset(vp, vl, img_size=args.img_size,
+                               normalize=norm))
 
 
 def vit_config_from_dict(d: dict):

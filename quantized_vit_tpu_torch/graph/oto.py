@@ -1,5 +1,5 @@
-"""OTO facade over node groups, the GETA optimizer, subnet construction
-and the cost metrics (``quantized_vit_tpu/graph/oto.py``), for the ViT
+"""OTO facade over node groups, the GETA / HESSO / HESSO-CRIC optimizers,
+subnet construction and the cost metrics (``quantized_vit_tpu/graph/oto.py``), for the ViT
 family; the other model families are in ROADMAP.md, modules to port,
 'Other model families, interop, auto-discovery'.
 """
@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ..models.vit import ViTConfig, VisionTransformer, model_for_params
-from ..opt import GETA, GETAConfig, NodeGroup
+from ..opt import (GETA, HESSO, HESSOCRIC, GETAConfig, HESSOConfig,
+                   HESSOCRICConfig, NodeGroup)
 from ..opt.groups import Transform, get_path, group_mask_for_param, set_path
 from .builders import mark_unprunable, vit_node_groups
 from .costs import vit_cost_report
@@ -52,6 +53,18 @@ class OTO:
     def geta(self, **kwargs) -> GETA:
         self._optimizer = GETA(self.node_groups, self.params,
                                GETAConfig(**kwargs))
+        return self._optimizer
+
+    def hesso(self, **kwargs) -> HESSO:
+        self._optimizer = HESSO(self.node_groups, self.params,
+                                HESSOConfig(**kwargs))
+        return self._optimizer
+
+    def hesso_cric(self, **kwargs) -> HESSOCRIC:
+        """The cyclic redundancy identification variant: pass the loss
+        into ``step(params, grads, loss=...)``."""
+        self._optimizer = HESSOCRIC(self.node_groups, self.params,
+                                    HESSOCRICConfig(**kwargs))
         return self._optimizer
 
     # ------------------------------------------------------------------

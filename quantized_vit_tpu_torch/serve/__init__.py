@@ -1,7 +1,8 @@
 """Serving: INT4 ViT forward (single device, and FSDP over the processes
-of a 'model' axis) and continuous batching."""
+of a 'model' axis), continuous batching, and the multi-host front over
+RPC serving processes."""
 
-from .batching import ContinuousBatcher
+from .batching import ContinuousBatcher, MultiHostFrontend
 from .vit_int4 import (KernelPlan, QLayerArtifact, StackMeta,
                        artifact_from_numpy, export_vit_int4, kernel_limits,
                        prepare_kernels, prepare_latency_artifact,
@@ -11,10 +12,22 @@ from .vit_fsdp import (FsdpRdmaPlan, prepare_fsdp_rdma_artifact,
                        prepare_fsdp_rdma_kernels, shard_fsdp_rdma_artifact,
                        vit_int4_forward_fsdp_rdma)
 
-__all__ = ["ContinuousBatcher", "KernelPlan", "QLayerArtifact", "StackMeta",
+__all__ = ["ContinuousBatcher", "MultiHostFrontend", "RpcBackendStub",
+           "RpcServingBackend", "KernelPlan", "QLayerArtifact", "StackMeta",
            "artifact_from_numpy", "export_vit_int4", "kernel_limits", "prepare_kernels",
            "prepare_latency_artifact", "random_vit_int4_artifact",
            "uses_chain", "vit_int4_forward", "vit_int4_forward_latency",
            "FsdpRdmaPlan", "prepare_fsdp_rdma_artifact",
            "prepare_fsdp_rdma_kernels", "shard_fsdp_rdma_artifact",
            "vit_int4_forward_fsdp_rdma"]
+
+
+def __getattr__(name):
+    # the RPC classes load on first use, so ``python -m
+    # quantized_vit_tpu_torch.serve.rpc`` does not find its own module
+    # imported already by this package
+    if name in ("RpcBackendStub", "RpcServingBackend"):
+        from . import rpc
+
+        return getattr(rpc, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,6 @@
-"""Continuous batching for single-image inference requests (port of
-``quantized_vit_tpu/serve/batching.py:ContinuousBatcher``).
+"""Continuous batching for single-image inference requests, and the
+front that spreads requests over several serving backends (port of
+``quantized_vit_tpu/serve/batching.py``).
 
 Requests queue up; one dispatcher thread forms batches, padded to the
 smallest bucket that holds them (the batch sizes seen at warm-up), and
@@ -176,3 +177,50 @@ class ContinuousBatcher:
                 for _, fut, _ in pending:
                     if not fut.done():
                         fut.set_exception(e)
+
+
+class MultiHostFrontend:
+    """Request fan-out across serving backends (processes, hosts or
+    cards). Data-parallel serving shards requests, not tensors: each
+    backend holds its own replica of the weights behind its own batcher,
+    and no backend talks to another. A request goes to the least-loaded
+    backend by ``queue_depth()``, round robin among equally loaded ones.
+    A backend is anything with the batcher's ``start``, ``stop``,
+    ``submit``, ``stats`` and ``queue_depth``: an in-process
+    :class:`ContinuousBatcher` or an :class:`~.rpc.RpcBackendStub` of a
+    serving process."""
+
+    def __init__(self, backends: Sequence[ContinuousBatcher]):
+        if not backends:
+            raise ValueError("need at least one backend")
+        self.backends = list(backends)
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    def start(self):
+        for b in self.backends:
+            b.start()
+        return self
+
+    def stop(self):
+        for b in self.backends:
+            b.stop()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def submit(self, image: np.ndarray) -> Future:
+        with self._lock:
+            loads = [b.queue_depth() for b in self.backends]
+            lo = min(loads)
+            candidates = [i for i, v in enumerate(loads) if v == lo]
+            pick = candidates[self._rr % len(candidates)]
+            self._rr += 1
+        return self.backends[pick].submit(image)
+
+    @property
+    def stats(self):
+        return {i: b.stats for i, b in enumerate(self.backends)}

@@ -1,14 +1,13 @@
-"""In-memory data pipeline (``quantized_vit_tpu/utils/data.py``): numpy
-NHWC float32 batches of a fixed size, the trailing partial batch dropped
-or padded with a validity mask. ``ImageFolderDataset`` (PIL decoding of
-image files) is not ported yet (ROADMAP.md, modules to port, 'Inference
-CLIs and data')."""
+"""Data pipeline (``quantized_vit_tpu/utils/data.py``): an in-memory
+dataset, a class-per-subfolder image dataset decoded with PIL, and a
+loader of numpy NHWC float32 batches of a fixed size, the trailing
+partial batch dropped or padded with a validity mask."""
 
 from __future__ import annotations
 
 import os
 import random
-from typing import Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -66,7 +65,60 @@ class ArrayDataset:
         return len(self.images)
 
     def get(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if self.images.dtype == np.float32:
+            from .native_prep import gather_rows
+
+            return gather_rows(self.images, idx), self.labels[idx]
         return self.images[idx], self.labels[idx]
+
+
+class ImageFolderDataset:
+    """Path-list dataset decoding with PIL at access time: each file
+    resized to ``img_size`` square (bilinear) as uint8; a file that is not
+    RGB raises ValueError. ``transform`` maps a float32 [0, 1] HWC array to
+    the final HWC array; with ``normalize=(mean, std)`` and no
+    ``transform`` the batch stays uint8 until one
+    :func:`~.native_prep.normalize_u8_batch` call normalizes all of it."""
+
+    def __init__(self, paths: Sequence[str], labels: Sequence[int],
+                 img_size: int = 224,
+                 transform: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+                 normalize: Optional[Tuple[np.ndarray, np.ndarray]] = None):
+        if len(paths) != len(labels):
+            raise ValueError(f"{len(paths)} paths but {len(labels)} labels")
+        self.paths = list(paths)
+        self.labels = np.asarray(labels, np.int32)
+        self.img_size = img_size
+        self.transform = transform
+        self.normalize = normalize
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _decode_u8(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(path)
+        if img.mode != "RGB":
+            raise ValueError(f"image: {path} isn't RGB mode.")
+        img = img.resize((self.img_size, self.img_size), Image.BILINEAR)
+        return np.asarray(img, np.uint8)
+
+    def _load(self, path: str) -> np.ndarray:
+        x = self._decode_u8(path).astype(np.float32) / 255.0
+        if self.transform is not None:
+            x = self.transform(x)
+        return x
+
+    def get(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if self.normalize is not None and self.transform is None:
+            from .native_prep import normalize_u8_batch
+
+            xs_u8 = np.stack([self._decode_u8(self.paths[i]) for i in idx])
+            return (normalize_u8_batch(xs_u8, *self.normalize),
+                    self.labels[idx])
+        xs = np.stack([self._load(self.paths[i]) for i in idx])
+        return xs, self.labels[idx]
 
 
 class DataLoader:

@@ -1,35 +1,188 @@
-"""Host-side input preparation (``quantized_vit_tpu/utils/
-native_prep.py``, numpy paths): patchify (NHWC images -> the ViT patch
+"""Host-side input preparation (``quantized_vit_tpu/utils/native_prep.py``):
+the C++ batch-prep engine (``_native/batchprep.cc``, OpenMP, bound with
+:mod:`ctypes`) for the uint8 -> normalized-f32 conversion, the batch
+gather of an in-memory dataset and patchify (NHWC images -> the ViT patch
 layout [B, (H/P)*(W/P), P*P*C] that ``vit_int4_forward(images_layout=
-'patches')`` takes) and :class:`PrefetchLoader`."""
+'patches')`` takes), and :class:`PrefetchLoader`.
+
+The engine is built with g++ at first use into ``build/native/<hash>/``
+at the repository root (listed in ``.gitignore``), keyed on a hash of the
+source, so an edited source rebuilds. Without g++ every function takes
+its numpy path, as the JAX package's does; both give the same bytes.
+"""
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import queue
+import subprocess
 import threading
-from typing import Iterator
+from pathlib import Path
+from typing import Iterator, Optional
 
 import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "_native" / "batchprep.cc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_failed = False
+
+
+def _so_path() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return BUILD_ROOT / digest / "libqvtbatchprep.so"
+
+
+def _build(so: Path) -> bool:
+    # compile to a per-pid temporary name and rename (atomic on POSIX):
+    # another process racing the build never loads a half-written library
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    for cmd in (
+        ["g++", "-O3", "-shared", "-fPIC", "-fopenmp", str(_SRC), "-o", tmp],
+        ["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o", tmp],
+    ):
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+            return True
+        except (subprocess.SubprocessError, FileNotFoundError, OSError):
+            continue
+    return False
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _build_failed
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _build_failed:
+            return None
+        so = _so_path()
+        if not so.exists() and not _build(so):
+            _build_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError:
+            _build_failed = True
+            return None
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i64 = ctypes.c_int64
+        lib.qvt_normalize_u8_to_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), f32p, i64, i64, f32p, f32p]
+        lib.qvt_gather_rows_f32.argtypes = [
+            f32p, ctypes.POINTER(ctypes.c_int64), f32p, i64, i64]
+        lib.qvt_patchify_f32.argtypes = [f32p, f32p, i64, i64, i64, i64,
+                                         i64]
+        for fn in (lib.qvt_normalize_u8_to_f32, lib.qvt_gather_rows_f32,
+                   lib.qvt_patchify_f32):
+            fn.restype = None
+        _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def native_prep_available() -> bool:
+    """Whether the C++ engine is built and loaded (else the numpy paths
+    run)."""
+    return _load() is not None
+
+
+def normalize_u8_batch(images_u8: np.ndarray, mean: np.ndarray,
+                       std: np.ndarray) -> np.ndarray:
+    """uint8 NHWC batch -> normalized float32 in one pass:
+    ``(x * (1/255) - mean) * (1/std)`` in f32 (the C++ path reads
+    per-channel 256-entry tables of exactly those values)."""
+    images_u8 = np.ascontiguousarray(images_u8, np.uint8)
+    c = images_u8.shape[-1]
+    # broadcast scalars before the native call: it reads mean[ch] and
+    # inv_std[ch] for every ch < c
+    mean = np.ascontiguousarray(
+        np.broadcast_to(np.asarray(mean, np.float32), (c,)))
+    inv_std = np.ascontiguousarray(
+        np.broadcast_to(1.0 / np.asarray(std, np.float32), (c,)))
+    lib = _load()
+    if lib is None:
+        return ((images_u8.astype(np.float32) * (1.0 / 255.0) - mean)
+                * inv_std)
+    out = np.empty(images_u8.shape, np.float32)
+    lib.qvt_normalize_u8_to_f32(
+        _ptr(images_u8, ctypes.c_uint8), _ptr(out, ctypes.c_float),
+        images_u8.size // c, c, _ptr(mean, ctypes.c_float),
+        _ptr(inv_std, ctypes.c_float))
+    return out
+
+
+def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``src[idx]`` for a float32 array on the host, rows copied in
+    parallel (the batch gather of an in-memory dataset). numpy's
+    semantics: negative indices wrap, out-of-range ones raise IndexError.
+
+    Not the K14 kernel of the same name (``ops/ring_gather.py:
+    gather_rows``, which gathers weight shards across processes on the
+    card): this one is host code over numpy arrays."""
+    src = np.ascontiguousarray(src, np.float32)
+    idx = np.asarray(idx, np.int64)
+    # checked here: the C++ gather dereferences unchecked
+    idx = np.where(idx < 0, idx + len(src), idx)
+    if idx.size and (idx.min() < 0 or idx.max() >= len(src)):
+        raise IndexError(
+            f"gather index out of range for first axis of size {len(src)}")
+    idx = np.ascontiguousarray(idx)
+    lib = _load()
+    if lib is None:
+        return src[idx]
+    out = np.empty((len(idx),) + src.shape[1:], np.float32)
+    lib.qvt_gather_rows_f32(
+        _ptr(src, ctypes.c_float), _ptr(idx, ctypes.c_int64),
+        _ptr(out, ctypes.c_float), len(idx), int(np.prod(src.shape[1:])))
+    return out
 
 
 def _patchify(images: np.ndarray, patch: int) -> np.ndarray:
     b, h, w, c = images.shape
-    if h % patch or w % patch:
-        raise ValueError(f"image {h}x{w} not divisible by patch {patch}")
     x = images.reshape(b, h // patch, patch, w // patch, patch * c)
     x = np.transpose(x, (0, 1, 3, 2, 4))
     return np.ascontiguousarray(
         x.reshape(b, (h // patch) * (w // patch), patch * patch * c))
 
 
+def _check_patch(images: np.ndarray, patch: int):
+    h, w = images.shape[1:3]
+    if h % patch or w % patch:
+        raise ValueError(f"image {h}x{w} not divisible by patch {patch}")
+
+
 def patchify_batch(images: np.ndarray, patch: int) -> np.ndarray:
-    """NHWC f32 batch -> [B, (H/P)*(W/P), P*P*C] f32."""
-    return _patchify(np.ascontiguousarray(images, np.float32), patch)
+    """NHWC f32 batch -> [B, (H/P)*(W/P), P*P*C] f32: a byte reorder on
+    the host (the C++ engine's, else numpy's)."""
+    images = np.ascontiguousarray(images, np.float32)
+    _check_patch(images, patch)
+    lib = _load()
+    if lib is None:
+        return _patchify(images, patch)
+    b, h, w, c = images.shape
+    out = np.empty((b, (h // patch) * (w // patch), patch * patch * c),
+                   np.float32)
+    lib.qvt_patchify_f32(_ptr(images, ctypes.c_float),
+                         _ptr(out, ctypes.c_float), b, h, w, c, patch)
+    return out
 
 
 def patchify_batch_u8(images: np.ndarray, patch: int) -> np.ndarray:
-    """uint8 variant (the integer-input serving mode, ``input_scale``)."""
-    return _patchify(np.ascontiguousarray(images, np.uint8), patch)
+    """uint8 variant (the integer-input serving mode, ``input_scale``):
+    the same reorder on numpy's path, as in the JAX package (the engine is
+    f32 only)."""
+    images = np.ascontiguousarray(images, np.uint8)
+    _check_patch(images, patch)
+    return _patchify(images, patch)
 
 
 class PrefetchLoader:

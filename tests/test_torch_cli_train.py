@@ -145,14 +145,48 @@ def test_datasets_equal_jax(tmp_path):
 
 
 def test_unported_inputs_name_their_item():
-    args = ttrain.parse_args(["--dataset", "folder"])
-    with pytest.raises(NotImplementedError, match="Inference CLIs and data"):
-        common.build_datasets(args)
     with pytest.raises(NotImplementedError, match="interop"):
         common.load_params_any("model.pt", device="cpu")
     for target in ("ultranet", "hls", "refnpz", "torch", "onnx"):
         with pytest.raises(NotImplementedError, match="Other model families"):
             texport.main([target, "--checkpoint", "c", "--out", "o"])
+
+
+def test_train_on_image_folder_equals_jax(tmp_path):
+    """``--dataset folder``: both CLIs train one epoch on a generated
+    class-per-subfolder tree from one initial checkpoint; the same files,
+    the losses within LOSS_RTOL, the same accuracies."""
+    from quantized_vit_tpu_torch.models import (init_quant_params_tree,
+                                                tree_map)
+    from quantized_vit_tpu_torch.opt.checkpoint import save_checkpoint
+    from tests.test_torch_data_folder import write_tree
+
+    data = write_tree(tmp_path / "data", classes=2, per_class=10, seed=3)
+    flags = [f for f in TINY_FLAGS if f != "--synthetic-samples"]
+    flags = flags[:flags.index("16")] + flags[flags.index("16") + 1:]
+    flags[flags.index("--epochs") + 1] = "1"
+    flags += ["--dataset", "folder", "--data-path", data, "--num-classes",
+              "2"]
+    args = ttrain.parse_args(flags)
+    model, _ = common.build_model(args, QuantConfig(enabled=True),
+                                  device="cpu", seed=args.seed)
+    save_checkpoint(str(tmp_path / "init"), init_quant_params_tree(
+        tree_map(lambda p: p.detach().clone(), model.param_tree()),
+        init_bits=args.max_bit))
+    flags += ["--weights", str(tmp_path / "init")]
+    jtrain.main(flags + ["--out-dir", str(tmp_path / "jax")])
+    ttrain.main(flags + ["--device", "cpu", "--out-dir",
+                         str(tmp_path / "port")])
+    jout, out = tmp_path / "jax", tmp_path / "port"
+    assert _files(out) == _files(jout)
+    want, got = _history(jout), _history(out)
+    assert len(got["history"]) == len(want["history"]) == 1
+    g, w = got["history"][0], want["history"][0]
+    for k in ("loss", "ce_loss"):
+        np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL, atol=0)
+        assert np.isfinite(g[k])
+    for k in ("acc", "val_top1", "val_top5"):
+        assert g[k] == w[k], k
 
 
 def test_vit_config_from_dict_equal():

@@ -109,6 +109,13 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # 8 x 16 rows keep their batches at these widths
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "FOLDER_DIR", str(tmp_path / "folder"))
+    # phase 8's cli.eval runs the vit_b16 preset on the card; here the
+    # preset stands for the shrunk configuration
+    from quantized_vit_tpu_torch.cli import eval as ceval
+    monkeypatch.setattr(ceval, "model_config", lambda args, quant: ViTConfig(
+        **dict(SMALL, embed_dim=128), quant=quant))
     record = {"device": "cpu"}
     chip_smoke.run(record)
     names = [k["name"] for k in record["kernels"]]
@@ -169,6 +176,26 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
             if r["kernel"] in ("gather_rows", "fused_mlp_gather")} == {"1",
                                                                        "2"}
     assert set(record["overlap"]["sweep"]) == {"4MB", "8MB", "16MB", "31MB"}
+    # phase 8: HESSO to its target with its subnet served, the CRIC
+    # reset, the CLIs equal to direct evaluation, the RPC front
+    hesso = record["hesso"]
+    assert hesso["steps"] == chip_smoke.HESSO_STEPS
+    assert hesso["num_zero_groups"] == hesso["target_redundant_groups"] > 0
+    assert hesso["pruned_rows_zero"] and hesso["subnet"]["logits_equal"]
+    assert hesso["pruning_period"][-1] == 2
+    cric = record["cric"]
+    assert cric["reset_bit_for_bit"] and cric["pruned_rows_zero"]
+    assert cric["final_redundant"] == cric["target_redundant_groups"] > 0
+    assert {1, 2} <= {r["cycle"] for r in cric["rows"]}
+    cli = record["cli"]
+    assert set(cli["eval"]) == {"full", "subnet"}
+    assert all(v["equal"] for v in cli["eval"].values())
+    assert cli["predict"]["equal"] and "isn't RGB" in cli["gray_refused"]
+    rpc = record["rpc"]
+    assert rpc["answers_equal_direct"]
+    assert rpc["local"]["requests"] > 0 and rpc["remote"]["requests"] > 0
+    assert rpc["local"]["requests"] + rpc["remote"]["requests"] == 64
+    assert rpc["worker_exit_after_shutdown"] == 0
     train = record["train"]
     assert train["steps"] == chip_smoke.TRAIN_STEPS
     assert set(train["phases"]) == {"warmup", "range", "fix"}
