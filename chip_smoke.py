@@ -2,8 +2,9 @@
 """Drive the PyTorch + CUDA port on one GPU: the ViT-B/16 W4A4 serving
 paths, ViT-H/14 serving with int8-stored levels, the kernel-level entry
 points that the JAX package's bench and tools drive, FSDP serving with
-in-kernel weight gathers (processes sharing the card), and the ViT-B/16
-QAT + GETA training path.
+in-kernel weight gathers, tensor-parallel and column-FSDP serving
+(processes sharing the card), and the ViT-B/16 QAT + GETA training
+path.
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -164,7 +165,21 @@ Phases, in order; any failure exits non-zero:
    non-RGB file refused; and ``MultiHostFrontend`` over an in-process
    batcher and an ``RpcBackendStub`` of a worker process serving phase
    4's artifact on the card, 64 requests, both backends used, every
-   answer equal to a direct forward of its image, req/s and p50/p99.
+   answer equal to a direct forward of its image, req/s and p50/p99;
+9. multi-device serving on the seed-0 packed-int4 ViT-B/16 at batch 32,
+   the 'model' axis's processes sharing the card (tp = 1 in this process,
+   2 and 4 spawned; gloo, CUDA IPC, interprocess events): the collective
+   health check, the tensor-parallel forward (the levels-only K1 launch,
+   K14's int8 all-gather, K1 qkv, K6 on a process's heads, K1 proj, the
+   reduce-scatter, the same for fc1 / fc2) in f32/f32 and bf16/bf16, no
+   further from the single-device f32 forward than 1.5x the bf16
+   single-device forward's, and the column-sharded FSDP forward (K14
+   gathering each block's column shards one block ahead), bit-equal to
+   the single-device forward; each run's launches, collectives and fences
+   checked, each forward timed in turns with the single-device one and
+   traced once; the levels launch against its plain version and K1's own
+   level scratch, byte for byte; the serve CLI's ``--mesh-model 2`` in
+   tp and fsdp mode (``--input-uint8``) against direct forwards.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -361,12 +376,13 @@ def run(record):
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
     # phase 7's yardsticks: the seed-0 ViT-B/16 artifacts
-    arts = {k: fwd[k] for k in ("art", "art_packed", "cfg")}
+    arts = {k: fwd[k] for k in ("art", "art_packed", "cfg", "x")}
     del fwd
     trained = train_phase(dev, record, peaks)
     subnet_phase(dev, record, trained, arts)
     hesso_phase(dev, record)
     cli_rpc_phase(dev, record, trained)
+    mesh_phase(dev, record, parity, arts, peaks)
 
 
 def main_cfg():
@@ -1894,7 +1910,8 @@ def expected_launches(depth, route="block", mlp="fused_mlp"):
             "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
             "quant_bwd": 0, "fused_mlp_chunked": 0, "attention_qkv_proj": 0,
             "int4_matmul": 0, "int8_matmul": 0, "quant_matmul_fa": 0,
-            "flash_attention": 0, "gather_rows": 0, "fused_mlp_gather": 0}
+            "flash_attention": 0, "gather_rows": 0, "fused_mlp_gather": 0,
+            "ln_quant_levels": 0}
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
     if route == "fsdp":
@@ -2836,7 +2853,7 @@ def serve_phase(dev, record, fwd):
                                 images_layout="patches").cpu().numpy()
 
     # small flushes: three single requests, then two pairs
-    forward, _ = serve.build_forward(serve.parse_args(
+    forward, _, _ = serve.build_forward(serve.parse_args(
         ["--artifact", art_dir, "--device", str(dev)]))
     imgs = serve.request_images(cfg, 7, False)
     batcher = ContinuousBatcher(forward, max_batch=8, max_delay_ms=5.0)
@@ -5464,6 +5481,445 @@ def rpc_phase(dev, record, worker):
             or launches["attention_block"] + launches["attention_qkv"] == 0):
         raise Failed(f"rpc: the in-process backend's kernels did not run: "
                      f"{launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: multi-device serving, tensor parallel and column-sharded FSDP
+# ---------------------------------------------------------------------------
+
+# the processes of the 'model' axis sharing the card: 1 in this process,
+# the others spawned
+MESH_TPS = (1, 2, 4)
+MESH_ITERS = 5
+MESH_CLI_N = 2
+MESH_CLI_REQUESTS = 16
+# the TP forward's deviation from the single-device f32 forward, at most
+# this times the single-device bf16 forward's (tests/serve/test_vit_tp.py
+# :58-84's criterion)
+TP_DEV_FACTOR = 1.5
+
+
+def tp_launches(depth):
+    """Launches of one TP forward: K1 for the embed and head and per block
+    qkv, proj, fc1, fc2; K4 once; per block K6 once, the levels launch and
+    K14 twice."""
+    return dict(expected_launches(depth, "latency"), block_stack=0,
+                fused_quant_matmul=2 + 4 * depth, attention_qkv=depth,
+                gather_rows=2 * depth, ln_quant_levels=2 * depth)
+
+
+def fsdp_col_launches(depth, b_loc, n_pad, d, hid, fmt):
+    """Launches of one column-FSDP forward of ``b_loc`` images a process:
+    the single-device forward's (its attention and MLP routes) and K14 once
+    a block."""
+    from quantized_vit_tpu_torch.serve.vit_int4 import mlp_route, uses_chain
+
+    mlp = mlp_route(b_loc * n_pad, d, hid, fmt, fmt, 2)
+    route = "chain" if uses_chain(b_loc) else "block"
+    return dict(expected_launches(depth, route, mlp), gather_rows=depth)
+
+
+def mesh_forwards(peers, cfg_kw, x_np, iters, with_single):
+    """This process's share of phase 9 on its shards of the seed-0
+    packed-int4 artifact (the whole batch ``x_np``, host patches): the
+    health check, the TP forward in f32/f32 and bf16/bf16 and the column
+    FSDP forward in bf16, each once with the launch counters and the
+    collective counts set to 0 just before and read just after (logits,
+    launches, collectives, fences and their host time), then timed in
+    turns: ``iters`` rounds of each forward (a host barrier, the
+    forward, a synchronize) and, with ``with_single`` (rank 0), of the
+    single-device bf16 forward of the whole batch, the others waiting at
+    the barrier."""
+    from quantized_vit_tpu_torch.models import ViTConfig
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.parallel import (COLLECTIVES,
+                                                  collective_health_check,
+                                                  reset_collectives)
+    from quantized_vit_tpu_torch.serve import (
+        prepare_fsdp_kernels, prepare_kernels, prepare_tp_artifact,
+        prepare_tp_kernels, random_vit_int4_artifact, shard_fsdp_artifact,
+        shard_tp_artifact, vit_int4_forward, vit_int4_forward_fsdp,
+        vit_int4_forward_tp)
+
+    dev = peers.device
+    cuda = dev.type == "cuda"
+    rank, tp = peers.rank, peers.tp
+    cfg = ViTConfig(**cfg_kw)
+    out = {}
+    rep = collective_health_check(peers, timeout_s=SPAWN_TIMEOUT_S / 2)
+    out["health"] = dataclasses.asdict(rep)
+    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True,
+                                   device=dev)
+    x = torch.from_numpy(x_np).to(dev)
+    b = x.shape[0]
+    kw = dict(images_layout="patches")
+    tart = shard_tp_artifact(prepare_tp_artifact(art, cfg, tp), rank, tp)
+    fart = shard_fsdp_artifact(art, rank, tp)
+    t0 = time.perf_counter()
+    tplan = prepare_tp_kernels(tart, cfg, peers, batches=(b,),
+                               comm_dtype=torch.float32) if cuda else None
+    def done():  # this process's device (DEV is the parent's setting)
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        tplan.comm(b, torch.bfloat16)
+    fplan = prepare_fsdp_kernels(fart, cfg, peers) if cuda else None
+    done()
+    out["prepare_host_ms"] = (time.perf_counter() - t0) * 1e3
+    splan = (prepare_kernels(art, cfg) if cuda and with_single else None)
+    if not with_single:
+        del art
+    fwds = {
+        "tp_f32": lambda: vit_int4_forward_tp(
+            tart, x, cfg, peers, float_dtype=torch.float32,
+            comm_dtype=torch.float32, plan=tplan, **kw),
+        "tp_bf16": lambda: vit_int4_forward_tp(
+            tart, x, cfg, peers, float_dtype=torch.bfloat16,
+            comm_dtype=torch.bfloat16, plan=tplan, **kw),
+        "fsdp_bf16": lambda: vit_int4_forward_fsdp(
+            fart, x, cfg, peers, float_dtype=torch.bfloat16, plan=fplan,
+            **kw)}
+    for name, fn in fwds.items():
+        peers.barrier()
+        _build.reset_launches()
+        reset_collectives()
+        f0, fs0 = peers.fences, peers.fence_s
+        logits = fn()
+        done()
+        out[name] = {
+            "logits": logits.float().cpu().numpy(),
+            "launches": dict(_build.LAUNCHES),
+            "collectives": {f"{k}:{d}": v
+                            for (k, d), v in COLLECTIVES.items()},
+            "fences": peers.fences - f0,
+            "fence_host_ms": (peers.fence_s - fs0) * 1e3}
+    turns = dict(fwds)
+    if with_single:
+        turns["single_bf16"] = lambda: vit_int4_forward(
+            art, x, cfg, float_dtype=torch.bfloat16, plan=splan, **kw)
+    ms = {k: [] for k in list(fwds) + ["single_bf16"]}
+    for _ in range(iters):
+        for name in ms:
+            peers.barrier()
+            t0 = time.perf_counter()
+            if name in turns:
+                turns[name]()
+                done()
+            dt = (time.perf_counter() - t0) * 1e3
+            if name in turns:
+                ms[name].append(dt)
+    out["wall_ms"] = {k: statistics.median(v) for k, v in ms.items() if v}
+    if cuda:  # one call of each under torch.profiler, every process
+        out["profile"] = {}
+        for name, fn in fwds.items():
+            peers.barrier()
+            out["profile"][name] = profile_step(fn)
+        if with_single:  # no collective: this process alone
+            out["profile"]["single_bf16"] = profile_step(
+                turns["single_bf16"])
+    out["shard_bytes"] = {
+        "tp": sum(b_[k].w.numel() for b_ in tart["blocks"]
+                  for k in _BLOCK_NAMES),
+        "fsdp": sum(b_[k].w.numel() for b_ in fart["blocks"]
+                    for k in _BLOCK_NAMES)}
+    return out
+
+
+def mesh_spawned(rank, tp, init_method, dev, cfg_kw, x_np, iters):
+    """One of tp processes sharing the card in phase 9 (``run_processes``):
+    the gloo group, then :func:`mesh_forwards`."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from quantized_vit_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peers = initialize_distributed(init_method, tp, rank, device=dev)
+    try:
+        return mesh_forwards(peers, cfg_kw, x_np, iters, rank == 0)
+    finally:
+        peers.close()
+
+
+def levels_cases(dev, parity, cfg, m):
+    """The levels-only K1 launch (``run_ln_levels``) at ``m`` rows of
+    ``cfg``'s width, bf16 and f32 rows, linear and pow quantizers: its
+    levels against the plain version and against the level scratch K1's
+    own ln_quant prologue writes (K1 launched at the picker's work split
+    with a scratch this phase reads back), byte for byte."""
+    from quantized_vit_tpu_torch.ops import fused as F
+
+    d = cfg.embed_dim
+    rng = np.random.default_rng(990)
+    f32 = torch.float32
+    w = torch.from_numpy(rng.integers(-7, 8, (d, 3 * d)).astype(np.int8))
+    g = torch.from_numpy((rng.standard_normal(d) * 0.1 + 1).astype(
+        np.float32))
+    be = torch.from_numpy((rng.standard_normal(d) * 0.02).astype(np.float32))
+    out = []
+    for stream in (torch.bfloat16, f32):
+        x = torch.from_numpy((rng.standard_normal((m, d)) * 0.8).astype(
+            np.float32)).to(dev, stream)
+        for pow_ in (False, True):
+            layer = dict(act_d=torch.tensor(0.05), act_t=torch.tensor(
+                1.07 if pow_ else 1.0), act_top=127, act_pow=pow_)
+            layer = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                     for k, v in layer.items()}
+            case = (f"[{m}x{d}]({str(stream)[6:]},"
+                    f"{'pow' if pow_ else 'linear'})")
+            plain = F.ln_quant_levels_plain(x, g.to(dev), be.to(dev),
+                                            **layer)
+            got = F.ln_quant_levels(x, g.to(dev), be.to(dev), **layer)
+            out.append(parity_row("ln_quant_levels", case, "exact", got,
+                                  plain))
+            if dev.type != "cuda":
+                continue
+            plan = F.plan_matmul(w.to(dev), 1e-3, None, fmt="int8",
+                                 prologue="ln_quant", ln_scale=g.to(dev),
+                                 ln_bias=be.to(dev), **layer)
+            lay = F.matmul_layout(m, d, 3 * d, "ln_quant",
+                                  x.element_size(),
+                                  F._card_sms(x.device.index))
+            scratch = torch.zeros(sum(F._round_up(v, 16) for v in
+                                      lay.scratch_bytes().values()),
+                                  dtype=torch.uint8, device=dev)
+            F._launch_matmul(plan, x, lay, scratch=scratch,
+                             out_dtype=torch.bfloat16)
+            k1 = scratch[:m * lay.kp].view(torch.int8).view(m, lay.kp)[:, :d]
+            out.append(parity_row("ln_quant_levels", f"{case}:vs K1 scratch",
+                                  "exact", got, k1.contiguous()))
+    for r in out:
+        parity.add(r)
+    return out
+
+
+def mesh_phase(dev, record, parity, arts, peaks):
+    """Phase 9: multi-device serving on the seed-0 packed-int4 ViT-B/16
+    artifact at batch 32, the 'model' axis's processes sharing the card
+    (tp = 1 in this process, the others spawned): the TP forward in
+    f32/f32 and bf16/bf16 against the single-device f32 forward (no
+    further from it than TP_DEV_FACTOR x the single-device bf16
+    forward's), the column-FSDP forward bit-equal to the single-device
+    bf16 forward, the health check, each run's launches, collectives and
+    fences; the levels-only K1 launch against its plain version and K1's
+    own scratch; the serve CLI's mesh branch at N = MESH_CLI_N, tp and
+    fsdp (``--input-uint8`` with fsdp), answers against direct
+    forwards; then the levels launch's kernels-line entry."""
+    from quantized_vit_tpu_torch.cli import serve
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.ops import fused as F
+    from quantized_vit_tpu_torch.parallel import Peers, run_processes
+    from quantized_vit_tpu_torch.serve import (prepare_kernels,
+                                               vit_int4_forward)
+
+    t_phase = time.time()
+    cfg, art, x = arts["cfg"], arts["art_packed"], arts["x"]
+    b, _, d, n_real, n_pad, _, hid, _, _ = shapes(cfg)
+    cuda = dev.type == "cuda"
+    plan = prepare_kernels(art, cfg) if cuda else None
+    kw = dict(images_layout="patches", plan=plan)
+    ref = {dt: vit_int4_forward(art, x, cfg, float_dtype=getattr(torch, dt),
+                                **kw).float().cpu()
+           for dt in ("float32", "bfloat16")}
+    dev_single = float((ref["bfloat16"] - ref["float32"]).abs().max())
+    rec = {"batch": b, "dev_single_bf16": dev_single, "tp": {}}
+    rows = levels_cases(dev, parity, cfg, b * n_pad)
+    x_np = x.cpu().numpy()
+    cfg_kw = dataclasses.asdict(cfg)
+    want_tp = tp_launches(cfg.depth)
+    for tp in MESH_TPS:
+        t0 = time.time()
+        if tp == 1:
+            res = [mesh_forwards(Peers(0, 1, dev), cfg_kw, x_np, MESH_ITERS,
+                                 True)]
+        else:
+            try:
+                res = run_processes(mesh_spawned, tp,
+                                    os.path.join(OUT_DIR, "dist"),
+                                    args=(DEV, cfg_kw, x_np, MESH_ITERS),
+                                    timeout_s=SPAWN_TIMEOUT_S)
+            except RuntimeError as e:
+                raise Failed(f"phase 9 at tp={tp}: {e}")
+        want_fsdp = fsdp_col_launches(cfg.depth, b // tp, n_pad, d, hid,
+                                      art["blocks"][0]["fc1"].fmt)
+        r = {"spawn_s": round(time.time() - t0, 1),
+             "health": [p["health"] for p in res],
+             "wall_ms_rank0": res[0]["wall_ms"],
+             "profile_rank0": res[0].get("profile"),
+             "prepare_host_ms": [p["prepare_host_ms"] for p in res],
+             "shard_bytes": res[0]["shard_bytes"]}
+        for name in ("tp_f32", "tp_bf16", "fsdp_bf16"):
+            got = torch.from_numpy(np.concatenate([p[name]["logits"]
+                                                   for p in res]))
+            base = ref["bfloat16"] if name == "fsdp_bf16" else \
+                ref["float32"]
+            diff = float((got - base).abs().max())
+            top1 = float((got.argmax(1) == ref["float32"].argmax(1))
+                         .float().mean())
+            want = want_fsdp if name.startswith("fsdp") else want_tp
+            r[name] = {"max_abs_diff": diff, "top1_agree_f32": top1,
+                       "equal": bool(torch.equal(got, base)),
+                       "launches": res[0][name]["launches"],
+                       "collectives": res[0][name]["collectives"],
+                       "fences": res[0][name]["fences"],
+                       "fence_host_ms": [p[name]["fence_host_ms"]
+                                         for p in res]}
+            log(f"[mesh {name} tp={tp}] max|d| vs single-device "
+                f"{'bf16' if name.startswith('fsdp') else 'f32'} {diff:.4g}"
+                f" (bf16 single {dev_single:.4g}), top-1 {top1:.4f}, "
+                f"equal {r[name]['equal']}, collectives "
+                f"{r[name]['collectives']}, fences {r[name]['fences']} "
+                f"({r[name]['fence_host_ms']} ms host)")
+            if cuda and any(p[name]["launches"] != want for p in res):
+                raise Failed(f"phase 9 {name} tp={tp}: launches "
+                             f"{[p[name]['launches'] for p in res]} != "
+                             f"{want}")
+            if (tuple(got.shape) != (b, cfg.num_classes)
+                    or not torch.isfinite(got).all()):
+                raise Failed(f"phase 9 {name} tp={tp}: logits "
+                             f"{tuple(got.shape)} not finite or wrong shape")
+            if name == "fsdp_bf16" and not r[name]["equal"]:
+                raise Failed(f"phase 9 column FSDP tp={tp}: logits differ "
+                             f"from the single-device forward's by {diff}")
+            if (name.startswith("tp")
+                    and diff > TP_DEV_FACTOR * dev_single + 1e-6):
+                raise Failed(f"phase 9 {name} tp={tp}: deviation {diff} > "
+                             f"{TP_DEV_FACTOR} x {dev_single}")
+        if any(not h["ok"] or h["num_devices"] != tp for h in r["health"]):
+            raise Failed(f"phase 9 health check at tp={tp}: {r['health']}")
+        rec["tp"][str(tp)] = r
+        log(f"[mesh tp={tp}] rank 0 wall ms {r['wall_ms_rank0']} "
+            f"({r['spawn_s']} s; {record['nvidia_smi']})")
+        for name, p in (r["profile_rank0"] or {}).items():
+            if p:
+                log(f"[mesh profile {name} tp={tp}] traced wall "
+                    f"{p['wall_ms']:.3f}, kernels {p['kernel_ms']:.3f} ms "
+                    f"({p['kernels']}), idle {p['idle_share']:.2f}; top "
+                    + ", ".join(f"{n[:40]} {ms_:.3f}x{c}"
+                                for n, ms_, c in p["top"][:6]))
+    rec["cli"] = mesh_cli(dev, record, serve)
+    # the levels launch's kernels-line entry: launches on the TP forward
+    # at tp = 1, time at its main-path site (one process's rows, bf16)
+    m = b * n_pad
+    xl = torch.from_numpy(np.random.default_rng(991).standard_normal(
+        (m, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    blk = art["blocks"][0]
+    lv_kw = dict(act_d=blk["qkv"].act["d"], act_t=blk["qkv"].act["t"],
+                 act_top=blk["qkv"].top, act_pow=blk["qkv"].act_pow)
+    g, be = blk["norm1"]["scale"], blk["norm1"]["bias"]
+    if cuda:
+        lplan = F.plan_ln_levels(g, be, device=dev, **lv_kw)
+        lv_out = torch.empty((m, d), dtype=torch.int8, device=dev)
+        us = cuda_ms(lambda: F.run_ln_levels(lplan, xl, out=lv_out)) * 1e3
+    else:
+        us = cuda_ms(lambda: F.ln_quant_levels(xl, g, be, **lv_kw)) * 1e3
+    plain_us = cuda_ms(lambda: F.ln_quant_levels_plain(xl, g, be,
+                                                       **lv_kw)) * 1e3
+    # at ~5 us of card time the events read the wrapper's host time: the
+    # kernel's device time (torch.profiler) is the row's time
+    split = host_split(lambda: F.run_ln_levels(lplan, xl, out=lv_out),
+                       us) if cuda else {"device_us": None}
+    dev_us = split["device_us"] or us
+    # bytes: x read once (bf16), gamma and beta, the levels written
+    bound_us = (m * d * 2 + 2 * d * 4 + m * d) / peaks[2] * 1e6
+    entry = {
+        "name": "ln_quant_levels", "route": "cuda",
+        "source": "quantized_vit_tpu_torch/csrc/fused_quant_matmul.cu",
+        "replaces": "quantized_vit_tpu/ops/fused.py:556",
+        "launches": rec["tp"]["1"]["tp_bf16"]["launches"]["ln_quant_levels"],
+        "path": "tp_tp1",
+        "max_abs_err": max(r_["max_abs_err"] for r_ in rows),
+        "share_differ": max(r_["share_differ"] for r_ in rows),
+        "bit_exact": all(r_["bit_exact"] for r_ in rows),
+        "ms": dev_us * 2 * cfg.depth / 1e3,
+        "plain_ms": plain_us * 2 * cfg.depth / 1e3,
+        "timing": "ms: device time (torch.profiler) x launches; events "
+                  "in us_events_per_launch",
+        "us_events_per_launch": {f"tp_b{b}": us},
+        "host_split": split,
+        "bound_ms": bound_us * 2 * cfg.depth / 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "us_per_launch": {f"tp_b{b}": dev_us},
+        "bound_us_per_launch": {f"tp_b{b}": bound_us},
+        "note": "K1's ln_quant prologue phase alone (the TP forward's "
+                "quantize before each all-gather, vit_tp.py:201)"}
+    kernels = record["kernels"]
+    names = [k_["name"] for k_ in kernels]
+    kernels.insert(names.index("fused_quant_matmul") + 1, entry)
+    for k_ in kernels:
+        for key, run in (("tp_tp1", rec["tp"]["1"]["tp_bf16"]),
+                         ("fsdp_tp1", rec["tp"]["1"]["fsdp_bf16"])):
+            if run["launches"].get(k_["name"]):
+                k_.setdefault("mesh_launches", {})[key] = \
+                    run["launches"][k_["name"]]
+    rec["phase_s"] = round(time.time() - t_phase, 1)
+    record["mesh"] = rec
+    bad = [r_ for r_ in rows if not r_["ok"]]
+    log(f"[mesh] levels launch: {len(rows) - len(bad)}/{len(rows)} rows "
+        f"pass; {dev_us:.2f} us a launch on the card, {us:.2f} by events "
+        f"(plain {plain_us:.2f}, bound {bound_us:.2f}); phase "
+        f"{rec['phase_s']} s")
+    if bad:
+        raise Failed("levels launch parity: " + "; ".join(
+            f"{r_['case']}: max {r_['max_abs_err']}" for r_ in bad))
+
+
+def mesh_cli(dev, record, serve):
+    """The serve CLI's mesh branch at N = MESH_CLI_N on phase 4's saved
+    artifact (int8-stored): tp on float requests, fsdp on uint8 requests
+    (``--input-uint8``, scaled on the device). The answers no further from
+    the single-device f32 forward of the same images than TP_DEV_FACTOR x
+    the bf16 forward's; whether fsdp's equal the bf16 forward's is
+    recorded."""
+    from quantized_vit_tpu_torch.artifact import load_vit_int4_artifact
+    from quantized_vit_tpu_torch.serve import vit_int4_forward
+    from quantized_vit_tpu_torch.utils import (patchify_batch,
+                                               patchify_batch_u8)
+
+    art, cfg = load_vit_int4_artifact(ART_DIR, device=dev)
+    out = {}
+    for mode, uint8 in (("tp", False), ("fsdp", True)):
+        argv = ["--artifact", ART_DIR, "--requests", str(MESH_CLI_REQUESTS),
+                "--max-batch", "8", "--device", str(dev), "--mesh-model",
+                str(MESH_CLI_N), "--mesh-mode", mode]
+        t0 = time.time()
+        res = serve.main(argv + (["--input-uint8"] if uint8 else []))
+        images = res["images"]
+        if uint8:  # the CLI's cast and scale on the device
+            xs = torch.from_numpy(patchify_batch_u8(
+                images, cfg.patch_size)).to(dev).to(torch.float32) * \
+                torch.full((), 1.0 / 255.0, dtype=torch.float32, device=dev)
+        else:
+            xs = torch.from_numpy(patchify_batch(images,
+                                                 cfg.patch_size)).to(dev)
+        direct = {dt: vit_int4_forward(
+            art, xs, cfg, float_dtype=getattr(torch, dt),
+            images_layout="patches").float().cpu().numpy()
+            for dt in ("float32", "bfloat16")}
+        dev_single = float(np.abs(direct["bfloat16"]
+                                  - direct["float32"]).max())
+        # the batcher's batches split into 1-4 images a process, whose
+        # routes may differ from a batch-16 forward's: the TP criterion
+        # for both modes, fsdp's equality recorded
+        diff = float(np.abs(res["answers"] - direct["float32"]).max())
+        ok = diff <= TP_DEV_FACTOR * dev_single + 1e-6
+        out[mode] = {k: res[k] for k in (
+            "requests", "wall_s", "throughput_rps", "latency_p50_ms",
+            "latency_p99_ms", "batch_hist", "batches_per_worker",
+            "health_latency_s")}
+        out[mode].update(input_uint8=uint8, max_abs_diff_f32=diff,
+                         equal_bf16=bool(np.array_equal(
+                             res["answers"], direct["bfloat16"])),
+                         dev_single_bf16=dev_single, ok=ok,
+                         seconds=round(time.time() - t0, 1))
+        log(f"[mesh cli {mode} N={MESH_CLI_N}{' uint8' if uint8 else ''}] "
+            f"{res['throughput_rps']} req/s, p50 {res['latency_p50_ms']} "
+            f"ms ({record['nvidia_smi']}); max|d| {diff:.4g} (bf16 single "
+            f"{dev_single:.4g}), ok {ok}")
+        if not ok:
+            raise Failed(f"mesh CLI {mode}: answers off the direct forward "
+                         f"by {diff}")
+    return out
 
 
 if __name__ == "__main__":

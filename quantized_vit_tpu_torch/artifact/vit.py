@@ -1,5 +1,11 @@
-"""ViT INT4 serving artifact on disk (``quantized_vit_tpu/artifact/vit.py``
-without the mesh branch: single-device loading only)."""
+"""ViT INT4 serving artifact on disk (``quantized_vit_tpu/artifact/vit.py``).
+
+The loader places the whole artifact on one device; the JAX loader's
+``mesh`` argument (a sharded placement at load) is not ported. A process
+of the serve CLI's mesh branch loads the artifact on its device and takes
+its own shards (``serve.shard_tp_artifact`` /
+``serve.shard_fsdp_artifact``), as the JAX CLI shards the artifact it
+loaded."""
 
 from __future__ import annotations
 

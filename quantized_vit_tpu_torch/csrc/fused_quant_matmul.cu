@@ -435,3 +435,64 @@ extern "C" int qvt_fused_quant_matmul(
                      : launch_tile<TILE_S>(a, epilogue, out_pow, sms, st);
   return static_cast<int>(e);
 }
+
+// The levels-only launch: K1's phase 1 under the LayerNorm + quant
+// prologue (gemm_phases.cuh:row_levels<ROWS_LN>), alone, into lv [M][K]
+// (no zero columns: Kp = K), with no GEMM and no grid barrier (a plain
+// launch of ceil(M / rows a block) blocks). Tensor-parallel serving
+// (serve/vit_tp.py) runs it to quantize a process's rows before their
+// levels are all-gathered; its levels are those K1's ln_quant prologue
+// writes into its scratch, bit for bit (the same code, the same folded
+// gamma/beta from the plan). Bound: x read once, M * K levels written.
+namespace {
+
+template <bool POW>
+__global__ void __launch_bounds__(NT) ln_levels_kernel(Args a) {
+  qvt::row_levels<qvt::ROWS_LN, POW, NT>(a);
+}
+
+}  // namespace
+
+// x [M][K] bf16 or f32; ln_g, ln_b [K] f32 (the quantizer's 1/d folded in
+// when act_pow is 0); prm: act_d, act_t (and two unused); lv [M][K] int8,
+// 16-byte aligned; ln_t: threads a row (8 .. 256, a power of two).
+extern "C" int qvt_ln_quant_levels(const void* x, int x_dt, const void* ln_g,
+                                   const void* ln_b, const void* prm,
+                                   void* lv, int M, int K, int act_pow,
+                                   int act_top, float eps, int ln_t,
+                                   void* stream) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if ((x_dt != qvt::DT_BF16 && x_dt != qvt::DT_F32) || M < 0 || K < 1 ||
+      lv == nullptr || (reinterpret_cast<uintptr_t>(lv) & 15) ||
+      ln_t < LN_MIN_T || ln_t > NT || (ln_t & (ln_t - 1)) || act_top < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  Args a{};
+  a.x = x;
+  a.x_dt = x_dt;
+  a.ln_g = static_cast<const float*>(ln_g);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.prm = static_cast<const float*>(prm);
+  a.lv = static_cast<int8_t*>(lv);
+  a.M = M;
+  a.K = K;
+  a.Kp = K;
+  a.pro = PRO_LN;
+  a.ln_t = ln_t;
+  a.act_pow = act_pow;
+  a.act_top = static_cast<float>(act_top);
+  a.eps = eps;
+  // the 16-byte path of phase 1, as qvt_fused_quant_matmul sets it; the
+  // stores of a piece's levels (8 or 4 bytes at k = q * 8 or q * 4) stay
+  // aligned since each row starts at r * K
+  a.x_vec = (xa & 15) == 0 && K % (x_dt == qvt::DT_BF16 ? 8 : 4) == 0 &&
+            ((reinterpret_cast<uintptr_t>(ln_g) |
+              reinterpret_cast<uintptr_t>(ln_b)) & 15) == 0;
+  const int rpb = NT / ln_t, grid = (M + rpb - 1) / rpb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (act_pow)
+    ln_levels_kernel<true><<<grid, NT, 0, st>>>(a);
+  else
+    ln_levels_kernel<false><<<grid, NT, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

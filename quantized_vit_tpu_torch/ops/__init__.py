@@ -3,6 +3,7 @@
 Each serving kernel's wrapper (``fused_quant_matmul``, ``fused_mlp``
 for K2 and K8, ``attention_block``/``attention_heads``,
 ``patch_finalize``, ``attention_qkv``, ``vit_block_stack``,
+``ln_quant_levels`` (K1's LayerNorm + quant prologue alone),
 ``attention_qkv_proj``, ``int4_matmul``, ``int8_matmul`` and
 ``quant_matmul_fa`` of one integer GEMM, ``flash_attention``, and the
 FSDP gathers ``gather_rows`` and ``fused_mlp_gather``) takes CPU tensors
@@ -24,10 +25,12 @@ from .attention import (AttentionPlan, HeadsPlan, QkvAttentionPlan,
                         run_attention_qkv, run_attention_qkv_proj)
 from .block_stack import (StackPlan, plan_block_stack, run_block_stack,
                           vit_block_stack, vit_block_stack_plain)
-from .fused import (MatmulPlan, MlpPlan, fused_mlp, fused_mlp_plain,
-                    fused_quant_matmul, fused_quant_matmul_plain, plan_matmul,
-                    plan_mlp, plan_mlp_chunked, run_matmul, run_mlp,
-                    run_mlp_chunked)
+from .fused import (LevelsPlan, MatmulPlan, MlpPlan, fused_mlp,
+                    fused_mlp_plain, fused_quant_matmul,
+                    fused_quant_matmul_plain, ln_quant_levels,
+                    ln_quant_levels_plain, plan_ln_levels, plan_matmul,
+                    plan_mlp, plan_mlp_chunked, run_ln_levels, run_matmul,
+                    run_mlp, run_mlp_chunked)
 from .int4_matmul import (IntMatmulPlan, int4_matmul, int4_matmul_plain,
                           int4_matmul_xla, int8_matmul, int8_matmul_plain,
                           int8_matmul_xla, plan_int_matmul, quant_matmul_fa,
@@ -58,6 +61,8 @@ __all__ = ["LAUNCHES", "reset_launches", "AttentionPlan", "HeadsPlan",
            "MlpPlan", "fused_mlp", "fused_mlp_plain", "fused_quant_matmul",
            "fused_quant_matmul_plain", "plan_matmul", "plan_mlp",
            "plan_mlp_chunked", "run_matmul", "run_mlp", "run_mlp_chunked",
+           "LevelsPlan", "ln_quant_levels", "ln_quant_levels_plain",
+           "plan_ln_levels", "run_ln_levels",
            "patch_finalize", "patch_finalize_plain",
            "lsfq_nonlinear_bwd_fused", "lsfq_nonlinear_bwd_plain",
            "int4_matmul_ref", "int8_matmul_ref", "quant_linear_ref",

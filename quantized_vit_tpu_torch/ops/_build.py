@@ -55,7 +55,7 @@ LAUNCHES: Dict[str, int] = {"fused_quant_matmul": 0, "fused_mlp": 0,
                             "attention_qkv_proj": 0, "int4_matmul": 0,
                             "int8_matmul": 0, "quant_matmul_fa": 0,
                             "flash_attention": 0, "gather_rows": 0,
-                            "fused_mlp_gather": 0}
+                            "fused_mlp_gather": 0, "ln_quant_levels": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -384,15 +384,17 @@ def plan_matmul(w, scale, bias=None, *, fmt="int4", prologue="quant",
 
 
 def run_matmul(plan: MatmulPlan, x, *, residual=None,
-               out_dtype=torch.bfloat16):
+               out_dtype=torch.bfloat16, out=None):
     """Launches K1 on ``x`` [M, K] for a prepared layer at the work split
     :func:`matmul_layout` picks for the card (through
     :func:`_launch_matmul`, the one launch site). Int8 levels (prologue
     None) are read in place where the kernel can (K % 16 == 0, x 16-byte
-    aligned), else copied by its first phase (:data:`COPY_PROLOGUE`)."""
-    _build.require_cuda("fused_quant_matmul", x, residual)
+    aligned), else copied by its first phase (:data:`COPY_PROLOGUE`).
+    ``out``: a contiguous [M, N] tensor of the output's dtype to write
+    into (the tensor-parallel forward's shared partials buffer)."""
+    _build.require_cuda("fused_quant_matmul", x, residual, out)
     return _launch_matmul(plan, x, None, residual=residual,
-                          out_dtype=out_dtype)
+                          out_dtype=out_dtype, out=out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -430,14 +432,17 @@ def _split_counts(device, stream: int, n: int) -> torch.Tensor:
 
 
 def _launch_matmul(plan: MatmulPlan, x, layout: Optional["MatmulLayout"],
-                   *, residual=None, out_dtype=torch.bfloat16):
+                   *, residual=None, out_dtype=torch.bfloat16, out=None,
+                   scratch=None):
     """K1 at ``layout`` (None: :func:`matmul_layout`'s for the card) on a
     CUDA ``x``: its scratch (one byte buffer holding the levels and, with
     a split, the int32 partial tiles: :meth:`MatmulLayout.scratch_bytes`,
-    each part 16-byte aligned), the split tiles' arrival counts
-    (:func:`_split_counts`) and the launch itself, counted under
-    ``fused_quant_matmul``. ``chip_smoke.py`` calls it at layouts other
-    than the picker's."""
+    each part 16-byte aligned; ``scratch``: a uint8 buffer of at least
+    that size to use instead, so a caller can read the levels phase 1
+    wrote), the split tiles' arrival counts (:func:`_split_counts`) and
+    the launch itself, counted under ``fused_quant_matmul``. ``out``: the
+    output to write (else allocated). ``chip_smoke.py`` calls it at
+    layouts other than the picker's."""
     m = _matmul_input(x, plan.k, plan.prologue, plan.epilogue, residual)
     n = plan.n
     x = x.contiguous()
@@ -448,8 +453,13 @@ def _launch_matmul(plan: MatmulPlan, x, layout: Optional["MatmulLayout"],
     else:
         residual = residual.contiguous()
     out_int8 = plan.epilogue in ("quant", "gelu_quant")
-    out = torch.empty((m, n), dtype=torch.int8 if out_int8 else out_dtype,
-                      device=x.device)
+    out_dt = torch.int8 if out_int8 else out_dtype
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dt, device=x.device)
+    elif (tuple(out.shape) != (m, n) or out.dtype != out_dt
+          or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} vs ({m}, {n}) "
+                         f"{out_dt}, contiguous")
     if m == 0:
         return out
     if layout is None:
@@ -461,8 +471,12 @@ def _launch_matmul(plan: MatmulPlan, x, layout: Optional["MatmulLayout"],
     sizes = [_round_up(v, 16) for v in layout.scratch_bytes().values()]
     lv = part = cnt = None
     if sum(sizes):
-        scratch = torch.empty((sum(sizes),), dtype=torch.uint8,
-                              device=x.device)
+        if scratch is None:
+            scratch = torch.empty((sum(sizes),), dtype=torch.uint8,
+                                  device=x.device)
+        elif scratch.numel() < sum(sizes) or scratch.data_ptr() % 16:
+            raise ValueError(f"scratch of {scratch.numel()} bytes < "
+                             f"{sum(sizes)}, or off 16 bytes")
         lv = scratch.data_ptr() if sizes[0] else None
         part = scratch.data_ptr() + sizes[0] if sizes[1] else None
     stream = _build.stream()
@@ -513,6 +527,112 @@ def fused_quant_matmul(
                                         out_dtype=out_dtype, **layer)
     return run_matmul(plan_matmul(w, scale, bias, **layer), x,
                       residual=residual, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1's LayerNorm + quant prologue alone: the levels of a process's rows in
+# tensor-parallel serving, quantized before they are all-gathered
+# ---------------------------------------------------------------------------
+
+
+def ln_quant_levels_plain(x, ln_scale, ln_bias, *, act_d, act_t, act_top,
+                          act_pow=False, ln_eps=1e-6):
+    """Plain version of :func:`ln_quant_levels`: LayerNorm then the LSFQ
+    quantizer in f32, 1/d folded into gamma/beta when the quantizer is
+    linear (``serve/vit_tp.py:_ln_quant`` of the JAX package, lines
+    201-218), the same ops as :func:`fused_quant_matmul_plain`'s
+    ``ln_quant`` prologue."""
+    _check_tops("ln_quant_levels", "ln_quant", None, act_d, act_top, None)
+    dev = x.device
+    gamma, beta = fold_ln(ln_scale, ln_bias, act_d, act_pow, dev)
+    y = _layernorm_f32(x, gamma, beta, ln_eps, k_real=x.shape[-1])
+    return _quantize_f32(y, _f32(act_d, dev), _f32(act_t, dev), act_top,
+                         act_pow, folded=not act_pow)
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelsPlan:
+    """One :func:`ln_quant_levels` call site, prepared once by
+    :func:`plan_ln_levels`: gamma/beta folded, the quantizer's scalars on
+    the device, the static options."""
+
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    prm: torch.Tensor
+    k: int
+    act_pow: bool
+    act_top: int
+    ln_eps: float
+
+
+def plan_ln_levels(ln_scale, ln_bias, *, act_d, act_t, act_top,
+                   act_pow=False, ln_eps=1e-6, device) -> LevelsPlan:
+    """The levels launch's layer-side work, done once: the fold of
+    :func:`fold_ln` (as :func:`plan_matmul` makes it for its ``ln_quant``
+    prologue) and the scalars on the CUDA ``device``."""
+    _check_tops("ln_quant_levels", "ln_quant", None, act_d, act_top, None)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"ln_quant_levels: the CUDA kernel needs a CUDA "
+                         f"device, got {dev}")
+    gamma, beta = fold_ln(ln_scale, ln_bias, act_d, act_pow, dev)
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    return LevelsPlan(ln_scale=gamma, ln_bias=beta,
+                      prm=_params4(dev, act_d, act_t, None, None),
+                      k=gamma.shape[-1], act_pow=bool(act_pow),
+                      act_top=int(act_top), ln_eps=float(ln_eps))
+
+
+def run_ln_levels(plan: LevelsPlan, x, *, out=None):
+    """Launches the levels-only K1 entry (``csrc/fused_quant_matmul.cu:
+    qvt_ln_quant_levels``: its phase 1 under the ``ln_quant`` prologue,
+    alone) on ``x`` [M, K] (bf16 or f32), a row to :func:`_row_group`'s
+    threads as K1's phase 1 takes it, into ``out`` [M, K] int8 (allocated
+    when None); the only place that launches it, counted under
+    ``ln_quant_levels``."""
+    _build.require_cuda("ln_quant_levels", x, out)
+    m, k = x.shape
+    if k != plan.k:
+        raise ValueError(f"K mismatch: x {k} vs LayerNorm {plan.k}")
+    x = x.contiguous()
+    if out is None:
+        out = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    elif (tuple(out.shape) != (m, k) or out.dtype != torch.int8
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"levels out {tuple(out.shape)} {out.dtype}: "
+                         f"({m}, {k}) int8, contiguous, 16-byte aligned")
+    if m == 0:
+        return out
+    lib = _build.library("fused_quant_matmul")
+    fn = lib.qvt_ln_quant_levels
+    if fn.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        fn.argtypes = [P, I, P, P, P, P, I, I, I, I, F, I, P]
+        fn.restype = I
+    code = fn(x.data_ptr(), _build.dtype_code(x.dtype),
+              plan.ln_scale.data_ptr(), plan.ln_bias.data_ptr(),
+              plan.prm.data_ptr(), out.data_ptr(), m, k, int(plan.act_pow),
+              plan.act_top, plan.ln_eps,
+              _row_group(m, k * x.element_size(), _card_sms(x.device.index)),
+              _build.stream())
+    _build.check(code, "ln_quant_levels")
+    _build.count_launch("ln_quant_levels")
+    return out
+
+
+def ln_quant_levels(x, ln_scale, ln_bias, *, act_d, act_t, act_top,
+                    act_pow=False, ln_eps=1e-6):
+    """LayerNorm + quantize to int8 levels [M, K] of x [M, K]: K1's
+    ``ln_quant`` prologue alone, so that the levels can be all-gathered
+    before the column-parallel matmul (``serve/vit_tp.py``). CPU tensors
+    take :func:`ln_quant_levels_plain`; CUDA tensors
+    :func:`plan_ln_levels` then :func:`run_ln_levels`."""
+    layer = dict(act_d=act_d, act_t=act_t, act_top=act_top,
+                 act_pow=act_pow, ln_eps=ln_eps)
+    if x.device.type == "cpu":
+        return ln_quant_levels_plain(x, ln_scale, ln_bias, **layer)
+    return run_ln_levels(plan_ln_levels(ln_scale, ln_bias, device=x.device,
+                                        **layer), x)
 
 
 # ---------------------------------------------------------------------------

@@ -83,12 +83,15 @@ def _gathered_shape(s, tp):
     return (s.shape[0] * tp, *s.shape[1:])
 
 
-def gather_rows_plain(shards: Sequence[torch.Tensor], peers=None):
+def gather_rows_plain(shards: Sequence[torch.Tensor], peers=None,
+                      sublane_rows: bool = True):
     """Plain version of K14 on CPU tensors: each shard's bytes gathered
-    over the peers' gloo group in rank order (a copy at tp = 1)."""
+    over the peers' gloo group in rank order (a copy at tp = 1).
+    ``sublane_rows``: as :func:`plan_gather_rows`'s."""
     import torch.distributed as dist
 
-    check_row_shards(shards)
+    if sublane_rows:
+        check_row_shards(shards)
     _, tp = _tp(peers)
     outs = []
     for s in shards:
@@ -145,13 +148,19 @@ def gather_jobs(shards: Sequence[Tuple[int, int]],
 
 def plan_gather_rows(shards: Sequence[torch.Tensor],
                      outs: Optional[Sequence[torch.Tensor]] = None,
-                     peers=None, peer_outs=None) -> GatherPlan:
+                     peers=None, peer_outs=None,
+                     sublane_rows: bool = True) -> GatherPlan:
     """K14's prepared side. ``shards``: this process's row shards (CUDA,
     contiguous); ``outs``: the output buffers [R_j * tp, N_j] (allocated
     here when None); ``peer_outs[p]``: peer p's outputs mapped into this
     process (exchanged here through ``peers`` when None: a collective
-    call, every peer makes it)."""
-    check_row_shards(shards)
+    call, every peer makes it). ``sublane_rows=False``: the gather stands
+    for a ``jax.lax.all_gather``, which takes any row count, not for the
+    JAX ``gather_rows`` kernel, so :func:`check_row_shards` is not applied
+    (the tensor-parallel forward's int8 levels, b_loc x 208 rows; the
+    column-FSDP forward's n-major weight rows, N/tp of them)."""
+    if sublane_rows:
+        check_row_shards(shards)
     rank, tp = _tp(peers)
     shards = tuple(s.contiguous() for s in shards)
     _build.require_cuda("gather_rows", *shards)

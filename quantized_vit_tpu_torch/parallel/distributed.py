@@ -1,19 +1,25 @@
-"""Process-group bring-up for the 'model' axis, and a launcher of its
-processes (port of ``quantized_vit_tpu/parallel/distributed.py:
-initialize_distributed``).
+"""Process-group bring-up for the 'model' axis, launchers of its
+processes, and its health checks (port of
+``quantized_vit_tpu/parallel/distributed.py``: ``initialize_distributed``,
+``HealthCheckError``, ``HealthReport``, ``collective_health_check``,
+``assert_same_step``).
 
 The JAX function brings up ``jax.distributed`` for a multi-host mesh;
 here tp processes (sharing one card, or on the cards of one host) join a
-gloo group that carries the host-side handshakes of FSDP serving: the
-exchange of CUDA IPC handles and the barriers of
+gloo group that carries the host-side handshakes of multi-process
+serving: the exchange of CUDA IPC handles and the barriers of
 :meth:`~.peers.Peers.fence`. The store is a file (``file://``), so
-processes started by separate test workers never meet on a port.
+processes started by separate test workers never meet on a port. The
+port runs one group of tp processes (the JAX serve CLI's mesh (1, tp));
+a data axis wider than 1 is not ported (:func:`check_mesh`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue
+import threading
 import time
 import traceback
 from datetime import timedelta
@@ -56,6 +62,95 @@ def initialize_distributed(init_method: Optional[str] = None,
     return Peers(process_id, tp, dev)
 
 
+def check_mesh(dp: int, tp: int) -> None:
+    """Refuses a mesh (dp, tp) the port cannot run: one group of tp >= 1
+    processes only (dp = 1), the layout of the JAX serve CLI's mesh."""
+    if dp != 1:
+        raise ValueError(
+            f"mesh (dp={dp}, tp={tp}): a data axis wider than 1 is not "
+            "ported (ROADMAP.md, modules to port, 'Multi-device'); run one "
+            "group of tp processes")
+
+
+class HealthCheckError(RuntimeError):
+    pass
+
+
+@dataclasses.dataclass
+class HealthReport:
+    ok: bool
+    num_devices: int
+    num_processes: int
+    latency_s: float
+    detail: str = ""
+
+
+def _ones_reduced(peers) -> float:
+    """Every process contributes 1 to this process's row of a
+    reduce-scatter (the tensor-parallel one of ``tp_comm``: over CUDA IPC
+    on the card, gloo on the CPU); returns the row's value."""
+    import torch
+
+    from .tp_comm import (plan_reduce_scatter, reduce_scatter_plain,
+                          run_reduce_scatter)
+
+    if peers.device.type != "cuda":
+        return float(reduce_scatter_plain(torch.ones((peers.tp, 1)),
+                                          peers)[0, 0])
+    with torch.cuda.device(peers.device):
+        rs = plan_reduce_scatter(1, 1, torch.float32, peers)
+        rs.partials.fill_(1.0)
+        return float(run_reduce_scatter(rs)[0, 0].cpu())
+
+
+def collective_health_check(peers: Peers, timeout_s: float = 60.0
+                            ) -> HealthReport:
+    """One tiny reduction across the 'model' axis under a watchdog (a
+    collective call: every process makes it).
+
+    Every process contributes 1; each must get tp back. A hang (a process
+    that never joins, a wedged card) trips the watchdog after
+    ``timeout_s`` and raises; a wrong value (a corrupt collective) raises
+    with the value seen. Cheap enough to run at start-up."""
+    result: dict = {}
+
+    def run():
+        try:
+            result["value"] = _ones_reduced(peers)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            result["error"] = e
+
+    t0 = time.time()
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    worker.join(timeout_s)
+    dt = time.time() - t0
+    if worker.is_alive():
+        raise HealthCheckError(
+            f"collective health check hung for {timeout_s}s on {peers} — "
+            "suspect a dead or stuck process")
+    if "error" in result:
+        raise HealthCheckError(
+            f"collective health check failed: {result['error']}")
+    if result["value"] != float(peers.tp):
+        raise HealthCheckError(
+            f"collective returned {result['value']}, expected "
+            f"{float(peers.tp)} — desynchronized or corrupt collective")
+    return HealthReport(ok=True, num_devices=peers.tp,
+                        num_processes=peers.tp, latency_s=dt)
+
+
+def assert_same_step(step: int, peers: Peers) -> None:
+    """Every process contributes its restored step; min must equal max
+    (catches a process resuming from a stale checkpoint). A collective
+    call."""
+    steps = peers.all_gather_object(int(step))
+    if min(steps) != max(steps):
+        raise HealthCheckError(
+            f"processes disagree on resume step: min={min(steps)} "
+            f"max={max(steps)} — stale checkpoint on some process")
+
+
 def _child(target, rank, tp, init_method, args, results):
     try:
         results.put((rank, True, target(rank, tp, init_method, *args)))
@@ -88,6 +183,14 @@ def run_processes(target, tp: int, store_dir: str, args: Sequence = (),
                          daemon=True) for r in range(tp)]
     for p in procs:
         p.start()
+    return _collect(target, procs, results, store, timeout_s)
+
+
+def _collect(target, procs, results, store, timeout_s, first_rank=0):
+    """The results of ``procs`` (ranks ``first_rank`` ..) in rank order;
+    kills them all at the deadline or at the first failure, removes the
+    store, raises RuntimeError with the failures."""
+    tp = len(procs)
     deadline = time.monotonic() + timeout_s
     got, errors = {}, []
     try:
@@ -100,6 +203,7 @@ def run_processes(target, tp: int, store_dir: str, args: Sequence = (),
                 break
             try:
                 rank, ok, res = results.get(timeout=min(left, 1.0))
+                rank -= first_rank
             except queue.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if p.exitcode not in (None, 0) and r not in got]
@@ -125,6 +229,38 @@ def run_processes(target, tp: int, store_dir: str, args: Sequence = (),
             os.remove(store)
     if errors:
         name = getattr(target, "__name__", target)
-        raise RuntimeError(f"run_processes({name}, tp={tp}): "
-                           + "\n".join(errors))
+        raise RuntimeError(f"processes of {name} (ranks {first_rank}.."
+                           f"{first_rank + tp - 1}): " + "\n".join(errors))
     return [got[r] for r in range(tp)]
+
+
+class Workers:
+    """Ranks 1 .. tp - 1 of a group whose rank 0 is the calling process
+    (the serve CLI's mesh branch), spawned here: each runs
+    ``target(rank, tp, init_method, *args)``; the caller joins the group
+    with ``initialize_distributed(workers.init_method, tp, 0)``.
+    ``store_dir`` holds the group's ``file://`` store."""
+
+    def __init__(self, target, tp: int, store_dir: str, args: Sequence = ()):
+        import torch.multiprocessing as mp
+
+        store_dir = os.path.abspath(store_dir)
+        os.makedirs(store_dir, exist_ok=True)
+        self._store = os.path.join(store_dir,
+                                   f"store_{os.getpid()}_{time.time_ns()}")
+        self.init_method = f"file://{self._store}"
+        self._target = target
+        ctx = mp.get_context("spawn")
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_child, args=(target, r, tp, self.init_method,
+                                 tuple(args), self._results), daemon=True)
+            for r in range(1, tp)]
+        for p in self._procs:
+            p.start()
+
+    def join(self, timeout_s: float = 300.0) -> list:
+        """The workers' results in rank order (ranks 1 ..); raises
+        RuntimeError if one failed, died or missed ``timeout_s``."""
+        return _collect(self._target, self._procs, self._results,
+                        self._store, timeout_s, first_rank=1)

@@ -18,6 +18,7 @@ opened in the process that made it, and there is nobody to wait for.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import torch
@@ -33,6 +34,8 @@ class Peers:
         self._events: Optional[List[torch.cuda.Event]] = None
         self._peer_events: Optional[List[Optional[list]]] = None
         self._fences = 0
+        # host seconds spent in fence() (its gloo barrier mostly)
+        self.fence_s = 0.0
         self._opened: List[list] = []
 
     def __repr__(self):
@@ -99,6 +102,7 @@ class Peers:
         event; every process makes the same sequence of calls."""
         if self.tp == 1:
             return
+        t0 = time.perf_counter()
         if self._events is None:
             self._make_events()
         k = self._fences % 2
@@ -109,6 +113,12 @@ class Peers:
         for p, evs in enumerate(self._peer_events):
             if evs is not None:
                 stream.wait_event(evs[k])
+        self.fence_s += time.perf_counter() - t0
+
+    @property
+    def fences(self) -> int:
+        """The fences this process has passed."""
+        return self._fences
 
     def close(self) -> None:
         """Drop the mapped peer buffers and events after every process has

@@ -359,12 +359,15 @@ class MlpPlans:
     fmt2: str
 
 
-def _plan_mlps(blk) -> MlpPlans:
-    """A block's :class:`MlpPlans`."""
+def _plan_mlps(blk, w1_t=None, w2_t=None) -> MlpPlans:
+    """A block's :class:`MlpPlans`, on ``w1_t`` / ``w2_t`` (the weights
+    already in the kernels' layout: the column-FSDP forward's gather
+    buffers) or on copies made here."""
     fc1_e, fc2_e = blk["fc1"], blk["fc2"]
     layer = _mlp_layer(blk)
     k, hid = fc2_e.w.shape[1], fc1_e.w.shape[1]
-    w1_t, w2_t = _build.n_major(fc1_e.w), _build.n_major(fc2_e.w)
+    if w1_t is None:
+        w1_t, w2_t = _build.n_major(fc1_e.w), _build.n_major(fc2_e.w)
     args = (fc1_e.w, fc1_e.scale, fc1_e.bias, fc2_e.w, fc2_e.scale,
             fc2_e.bias)
     return MlpPlans(

@@ -454,7 +454,7 @@ def test_serve_cli_answers_f32_like_the_jax_cli(tmp_path):
         args = serve.parse_args(["--artifact", str(tmp_path), "--device",
                                  "cpu"] + flag)
         assert args.no_kernels == bool(flag)
-        forward, _ = serve.build_forward(args)
+        forward, _, _ = serve.build_forward(args)
         got = forward(images)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

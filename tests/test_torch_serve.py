@@ -74,11 +74,111 @@ def test_serve_cli_answers_equal_direct_forward(tmp_path, uint8):
                                   _direct(art, cfg, images, **kw))
 
 
-def test_serve_cli_refuses_mesh(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.*'Multi-device'"):
-        serve.build_forward(serve.parse_args(
-            ["--artifact", str(tmp_path), "--mesh-model", "2",
-             "--device", "cpu"]))
+def _jax_mesh_forward(art_dir, images, mode, float_dtype):
+    """The JAX serve CLI's mesh forward (mesh (1, 2)) on the same artifact
+    and float images, at ``float_dtype`` ("bfloat16" its own, "float32"
+    the exact yardstick; tp reduce-scatters in it too)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from quantized_vit_tpu.artifact import load_vit_int4_artifact
+    from quantized_vit_tpu import serve as jserve
+
+    art, cfg = load_vit_int4_artifact(art_dir)
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2),
+                ("data", "model"))
+    x = jax.device_put(jnp.asarray(patchify_batch(images, cfg.patch_size)),
+                       NamedSharding(mesh, P(("data", "model"))))
+    float_dtype = getattr(jnp, float_dtype)
+    kw = dict(use_pallas=False, float_dtype=float_dtype,
+              images_layout="patches")
+    if mode == "tp":
+        art_m = jserve.shard_tp_artifact(
+            jserve.prepare_tp_artifact(art, cfg, 2), mesh)
+        return np.asarray(jserve.vit_int4_forward_tp(
+            art_m, x, cfg, mesh, comm_dtype=float_dtype, **kw), np.float32)
+    art_m = jserve.shard_fsdp_artifact(
+        jserve.prepare_fsdp_artifact(art, cfg, 2), mesh)
+    return np.asarray(jserve.vit_int4_forward_fsdp(art_m, x, cfg, mesh,
+                                                   **kw), np.float32)
+
+
+@pytest.fixture(scope="module")
+def mesh_artifact(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("mesh_art"))
+    cfg = ViTConfig(**SMALL)
+    save_vit_int4_artifact(d, random_vit_int4_artifact(cfg, seed=4,
+                                                       device="cpu"), cfg)
+    return d
+
+
+@pytest.mark.parametrize("mode,uint8", [("tp", False), ("fsdp", False),
+                                        ("tp", True), ("fsdp", True)],
+                         ids=["tp", "fsdp", "tp-uint8", "fsdp-uint8"])
+def test_serve_cli_mesh_answers_like_jax(mesh_artifact, mode, uint8):
+    """``--mesh-model 2 --device cpu``: this process and one spawned
+    worker answer 10 requests (buckets 2 and 4: --max-batch 5 is capped at
+    4). fsdp: every answer equal to the port's single-device bf16 forward
+    of the same image; both modes against the JAX CLI's mesh forward, the
+    bf16 criterion of tests/serve/test_vit_tp.py:58-84 (no further from
+    the f32 forward than 1.5x the JAX bf16 forward's deviation).
+    ``--input-uint8`` is honoured: the images are uint8, scaled by 1/255
+    on the device (the JAX mesh branch ignores the flag; the yardsticks
+    here take the scaled images)."""
+    argv = ["--artifact", mesh_artifact, "--requests", "10", "--max-batch",
+            "5", "--device", "cpu", "--mesh-model", "2", "--mesh-mode", mode]
+    out = serve.main(argv + (["--input-uint8"] if uint8 else []))
+    assert out["requests"] == 10 and out["answers"].shape == (10, 10)
+    assert out["mesh_model"] == 2 and out["mesh_mode"] == mode
+    assert set(out["batch_hist"]) <= {2, 4}
+    assert sum(out["batches_per_worker"]) == out["batches"] + 2  # warm-up
+    images = out["images"]
+    if uint8:
+        assert images.dtype == np.uint8
+        images = (torch.from_numpy(images).to(torch.float32) * torch.full(
+            (), 1.0 / 255.0, dtype=torch.float32)).numpy()
+    if mode == "fsdp":
+        from quantized_vit_tpu_torch.artifact import load_vit_int4_artifact
+
+        art, cfg = load_vit_int4_artifact(mesh_artifact, device="cpu")
+        np.testing.assert_array_equal(out["answers"], _direct(
+            art, cfg, images, float_dtype=serve.MESH_DTYPE))
+    exact = _jax_mesh_forward(mesh_artifact, images, mode, "float32")
+    served = _jax_mesh_forward(mesh_artifact, images, mode, "bfloat16")
+    dev_port = np.abs(out["answers"] - exact).max()
+    assert dev_port <= 1.5 * np.abs(served - exact).max() + 1e-6, dev_port
+
+
+def test_mesh_buckets_stay_divisible():
+    """The JAX CLI's mesh buckets (tests/cli/test_cli_drivers.py:267-300):
+    multiples of N up to the capped max batch, which divides by N."""
+    assert serve.mesh_buckets(4, 6) == ([4], 4)
+    assert serve.mesh_buckets(2, 5) == ([2, 4], 4)
+    assert serve.mesh_buckets(2, 8) == ([2, 4, 8], 8)
+    assert serve.mesh_buckets(4, 12) == ([4, 8, 12], 12)
+    assert serve.mesh_buckets(3, 2) == ([3], 3)
+    for n in (1, 2, 3, 4):
+        for mb in range(1, 20):
+            buckets, cap = serve.mesh_buckets(n, mb)
+            b = ContinuousBatcher(lambda x: x, max_batch=cap,
+                                  buckets=buckets)
+            assert all(k % n == 0 for k in b.buckets), (n, mb, b.buckets)
+
+
+def test_serve_cli_mesh_refusals(tmp_path):
+    cfg = ViTConfig(**SMALL)
+    save_vit_int4_artifact(str(tmp_path), random_vit_int4_artifact(
+        cfg, seed=1, device="cpu"), cfg)
+    args = serve.parse_args(["--artifact", str(tmp_path), "--mesh-model",
+                             "-1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs N >= 1"):
+        serve.build_forward(args)
+    # --mesh-model 1: this process alone, the TP forward at tp = 1
+    out = serve.main(["--artifact", str(tmp_path), "--requests", "3",
+                      "--max-batch", "2", "--device", "cpu",
+                      "--mesh-model", "1"])
+    assert out["answers"].shape == (3, 10) and out["batches_per_worker"] == []
 
 
 def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
@@ -105,6 +205,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # the FSDP phase: tp = 2 as two spawned gloo processes (128 rows do
     # not split into 4 tile-aligned shards of packed int4)
     monkeypatch.setattr(chip_smoke, "GATHER_TPS", (1, 2))
+    # phase 9: tp = 1 here and 2 spawned (4 spawned processes would add
+    # their start-up to the rehearsal's time)
+    monkeypatch.setattr(chip_smoke, "MESH_TPS", (1, 2))
+    monkeypatch.setattr(chip_smoke, "MESH_ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "MESH_CLI_REQUESTS", 6)
     # phase 3b: ViT-H's attention branch at batch 8 and the GEMMs at M =
     # 8 x 16 rows keep their batches at these widths
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
@@ -119,7 +224,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     record = {"device": "cpu"}
     chip_smoke.run(record)
     names = [k["name"] for k in record["kernels"]]
-    assert names == ["fused_quant_matmul", "fused_mlp", "attention_block",
+    assert names == ["fused_quant_matmul", "ln_quant_levels", "fused_mlp",
+                     "attention_block",
                      "patch_finalize", "attention_qkv", "block_stack",
                      "fused_mlp_chunked", "attention_qkv_proj",
                      "int4_matmul", "int8_matmul", "quant_matmul_fa",
@@ -196,6 +302,25 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert rpc["local"]["requests"] > 0 and rpc["remote"]["requests"] > 0
     assert rpc["local"]["requests"] + rpc["remote"]["requests"] == 64
     assert rpc["worker_exit_after_shutdown"] == 0
+    # phase 9: TP within the bf16 criterion, column FSDP equal to the
+    # single-device forward, the health check, the collectives a block,
+    # the mesh CLI in both modes
+    mesh = record["mesh"]
+    depth = chip_smoke.main_cfg().depth
+    assert set(mesh["tp"]) == {"1", "2"}
+    for tp, r in mesh["tp"].items():
+        assert r["fsdp_bf16"]["equal"]
+        assert r["tp_f32"]["collectives"] == {
+            "all_gather:int8": 2 * depth, "reduce_scatter:float32": 2 * depth}
+        assert r["fsdp_bf16"]["collectives"] == {"all_gather:int8": 4 * depth}
+        assert all(h["ok"] and h["num_devices"] == int(tp)
+                   for h in r["health"])
+        # the plain collectives are gloo calls: no fence on the CPU (on
+        # the card 8 a block at tp > 1, both sides of each collective)
+        assert r["tp_bf16"]["fences"] == 0
+    assert all(mesh["cli"][m]["ok"] for m in ("tp", "fsdp"))
+    assert mesh["cli"]["fsdp"]["input_uint8"]
+    assert [r for r in record["parity"] if r["kernel"] == "ln_quant_levels"]
     train = record["train"]
     assert train["steps"] == chip_smoke.TRAIN_STEPS
     assert set(train["phases"]) == {"warmup", "range", "fix"}

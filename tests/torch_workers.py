@@ -6,16 +6,27 @@ imports it afresh, and JAX would add seconds to every start. Every
 result is numpy (``run_processes`` returns plain pickles).
 """
 
+import time
+
 import numpy as np
 import torch
 
 from quantized_vit_tpu_torch.models import ViTConfig
 from quantized_vit_tpu_torch.ops import (fused_mlp_gather, gather_rows,
                                          gather_rows_plain)
-from quantized_vit_tpu_torch.parallel import initialize_distributed
-from quantized_vit_tpu_torch.serve import (random_vit_int4_artifact,
+from quantized_vit_tpu_torch.parallel import (COLLECTIVES, HealthCheckError,
+                                              assert_same_step,
+                                              collective_health_check,
+                                              initialize_distributed,
+                                              reset_collectives)
+from quantized_vit_tpu_torch.serve import (prepare_tp_artifact,
+                                           random_vit_int4_artifact,
+                                           shard_fsdp_artifact,
                                            shard_fsdp_rdma_artifact,
-                                           vit_int4_forward_fsdp_rdma)
+                                           shard_tp_artifact,
+                                           vit_int4_forward_fsdp,
+                                           vit_int4_forward_fsdp_rdma,
+                                           vit_int4_forward_tp)
 
 
 def full_arrays(shapes, dtype: str, seed: int):
@@ -79,7 +90,19 @@ def run_cases(rank, tp, init_method, cases):
       :func:`mlp_inputs` with this rank's shards of seeded int8 arrays;
     - ("fsdp", name, cfg_kw, seed, images, float_dtype): the FSDP forward
       of this rank's shard of the seeded int8 artifact, with the shard's
-      block-weight bytes.
+      block-weight bytes;
+    - ("tp", name, cfg_kw, seed, packed, images, float_dtype, comm_dtype):
+      the tensor-parallel forward of this rank's shards of the seeded
+      artifact, with the collectives it issued;
+    - ("fsdp_col", name, cfg_kw, seed, packed, images, float_dtype): the
+      column-FSDP forward of this rank's shard, with the shard's
+      block-weight bytes and the collectives it issued;
+    - ("health", name, late_ranks, timeout_s): the collective health
+      check; a rank in ``late_ranks`` joins it only after ``timeout_s`` + 2
+      s, so the others' watchdogs trip; returns (raised, message,
+      seconds);
+    - ("same_step", name, steps): assert_same_step of ``steps[rank]``;
+      returns the error message or None.
     """
     torch.set_num_threads(1)
     peers = initialize_distributed(init_method, tp, rank, device="cpu")
@@ -117,6 +140,48 @@ def run_cases(rank, tp, init_method, cases):
                              for b in fart["blocks"]
                              for k in ("qkv", "proj", "fc1", "fc2"))
                 out[name] = (logits.numpy(), nbytes)
+            elif kind in ("tp", "fsdp_col"):
+                cfg_kw, seed, packed, images = case[2:6]
+                cfg = ViTConfig(**cfg_kw)
+                art = random_vit_int4_artifact(cfg, seed=seed,
+                                               pack_weights=packed,
+                                               device="cpu")
+                x = torch.from_numpy(images)
+                reset_collectives()
+                if kind == "tp":
+                    float_dtype, comm_dtype = case[6:]
+                    part = shard_tp_artifact(
+                        prepare_tp_artifact(art, cfg, tp), rank, tp)
+                    logits = vit_int4_forward_tp(
+                        part, x, cfg, peers,
+                        float_dtype=getattr(torch, float_dtype),
+                        comm_dtype=getattr(torch, comm_dtype))
+                else:
+                    part = shard_fsdp_artifact(art, rank, tp)
+                    logits = vit_int4_forward_fsdp(
+                        part, x, cfg, peers,
+                        float_dtype=getattr(torch, case[6]))
+                nbytes = sum(b[k].w.numel() * b[k].w.element_size()
+                             for b in part["blocks"]
+                             for k in ("qkv", "proj", "fc1", "fc2"))
+                out[name] = (logits.float().numpy(), nbytes,
+                             dict(COLLECTIVES))
+            elif kind == "health":
+                late, timeout_s = case[2:]
+                if rank in late:
+                    time.sleep(timeout_s + 2)
+                t0 = time.monotonic()
+                try:
+                    rep = collective_health_check(peers, timeout_s)
+                    out[name] = (False, repr(rep), time.monotonic() - t0)
+                except HealthCheckError as e:
+                    out[name] = (True, str(e), time.monotonic() - t0)
+            elif kind == "same_step":
+                try:
+                    assert_same_step(case[2][rank], peers)
+                    out[name] = None
+                except HealthCheckError as e:
+                    out[name] = str(e)
             else:
                 raise ValueError(f"unknown case kind {kind!r}")
     finally:
