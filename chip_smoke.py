@@ -3,8 +3,9 @@
 paths, ViT-H/14 serving with int8-stored levels, the kernel-level entry
 points that the JAX package's bench and tools drive, FSDP serving with
 in-kernel weight gathers, tensor-parallel and column-FSDP serving
-(processes sharing the card), and the ViT-B/16 QAT + GETA training
-path.
+(processes sharing the card), the ViT-B/16 QAT + GETA training
+path, and multi-device training (DP x TP, checkpoints, elastic recovery,
+GPipe).
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -179,7 +180,19 @@ Phases, in order; any failure exits non-zero:
    checked, each forward timed in turns with the single-device one and
    traced once; the levels launch against its plain version and K1's own
    level scratch, byte for byte; the serve CLI's ``--mesh-model 2`` in
-   tp and fsdp mode (``--input-uint8``) against direct forwards.
+   tp and fsdp mode (``--input-uint8``) against direct forwards;
+10. multi-device training at ViT-B/16 width (QAT, K7 on every nonlinear
+   quantizer's backward, seed 0, batch 32), four processes sharing the
+   card: the DP x TP step at (1, 1) here and (2, 2), (1, 2), (2, 1)
+   spawned, each layout's first-step loss and gathered gradients against
+   the single-process step, its step time, fences, K7 launches and peak
+   memory; the int8 gradient ring at dp = 2 against the exact sum; a
+   sharded checkpoint written at (2, 2) and restored at (1, 2) and
+   (2, 1); an elastic run that loses two processes to an injected
+   failure and resumes on (1, 2), bit-equal to an uninterrupted (1, 2)
+   run from the checkpoint; GPipe at 2 stages against the single-process
+   float forward; TP and column-FSDP serving with a data axis of 2 at
+   (2, 1) and (2, 2) against the (1, tp) forwards.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -383,6 +396,7 @@ def run(record):
     hesso_phase(dev, record)
     cli_rpc_phase(dev, record, trained)
     mesh_phase(dev, record, parity, arts, peaks)
+    train_mesh_phase(dev, record, arts)
 
 
 def main_cfg():
@@ -5920,6 +5934,661 @@ def mesh_cli(dev, record, serve):
             raise Failed(f"mesh CLI {mode}: answers off the direct forward "
                          f"by {diff}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: multi-device training, GPipe and serving with a data axis
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_LAYOUTS = ((2, 2), (1, 2), (2, 1))
+TRAIN_MESH_STEPS = 3
+# the elastic run: a checkpoint at step ELASTIC_START, ELASTIC_STEPS steps,
+# the failure injected at the health check before the third of them
+ELASTIC_START = 3
+ELASTIC_STEPS = 4
+SERVE_DP_ITERS = 3
+# The gathered gradients of a layout's first step, against two
+# single-process references on the same weights and images: the step on the
+# whole batch ("full") and the mean of the steps on each data line's half
+# ("split", what a data axis of 2 computes). The (1, 1) layout runs the
+# full step's operations in its order, and the (2, 1) layout each half's
+# (the same shapes) with a rank-order mean: each within EXACT_TOL of its
+# reference. Tensor parallelism sums the row-parallel products in another
+# order, and at ViT-B's depth with 8-bit quantizers a reordered sum moves
+# activations across quantization levels, which the backward amplifies; so
+# the (1, 2) and (2, 2) layouts are held to the conditioning of the step
+# itself: their distance from the full step at most TP_GRAD_FACTOR times the
+# split step's distance from it (as phase 9 holds the TP forward to a
+# multiple of the bf16 forward's deviation). A distance: over the weight,
+# bias, LayerNorm and embedding leaves, ||a - b|| / ||b|| of all of them
+# together; over the quantizer scalars (d, q_m, t; sums whose terms
+# cancel), the largest |a - b| over the L1 mass of the scalar's summands
+# (tests/test_torch_qat_vit.py's measure, recorded on the full step).
+EXACT_TOL = 1e-6
+TP_GRAD_FACTOR = 3.0
+# the quantized ring against the exact sum, relative to each leaf's largest
+# magnitude (tests/parallel/test_collectives.py's bounds)
+RING_MAX, RING_MEAN = 0.15, 0.02
+PIPE_TOL = 1e-4
+
+
+def _digest(tree):
+    """{path: sha1 of the leaf's bytes} of a tree of tensors."""
+    import hashlib
+
+    from quantized_vit_tpu_torch.models import flatten_tree
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for k, v in flatten_tree(tree).items()}
+
+
+def _peak_mib(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 2**20
+            if dev.type == "cuda" else None)
+
+
+_SCALAR_NAMES = ("d_quant", "q_m", "t_quant")
+
+
+def _grad_errors(got, ref, masses):
+    """(distance of the weight-like leaves, distance of the quantizer
+    scalars, non-finite leaves, the five leaves farthest off by their own
+    scale) of gathered gradients ``got`` from ``ref`` (flat, CPU); see
+    the comment above EXACT_TOL."""
+    from quantized_vit_tpu_torch.models import flatten_tree
+
+    got = flatten_tree(got)
+    num = den = worst_s = 0.0
+    bad, rows = [], []
+    for k, want in ref.items():
+        g = got[k].detach().float().cpu()
+        if not torch.isfinite(g).all():
+            bad.append(k)
+        diff = (g.double() - want.double())
+        err = float(diff.abs().max())
+        if k.rsplit("/", 1)[-1].startswith(_SCALAR_NAMES):
+            scale = masses.get(k, 0.0)
+            worst_s = max(worst_s, err / max(scale, 1e-30))
+        else:
+            scale = float(want.abs().max())
+            num += float((diff * diff).sum())
+            den += float((want.double() ** 2).sum())
+        rows.append((err / max(scale, 1e-30), k, err, scale))
+    rows.sort(reverse=True)
+    return (num / max(den, 1e-300)) ** 0.5, worst_s, bad, rows[:5]
+
+
+def _record_masses(named):
+    """Patches K7's entry (``quant_vjp.lsfq_nonlinear_bwd_fused``) to also
+    record, per quantizer scalar of ``named`` ({path: leaf}), the L1 mass
+    of its gradient's summands (the plain chain's terms, f64); returns
+    (masses, undo)."""
+    from quantized_vit_tpu_torch.ops import quant_vjp as qv
+
+    fused = qv.lsfq_nonlinear_bwd_fused
+    by_ptr = {v.data_ptr(): k for k, v in named.items()}
+    masses = {}
+
+    def recording(x, g, d, q_m, t, **kw):
+        terms = qv.nonlinear_bwd_terms(x, g, d, q_m, t, **kw)[1:]
+        for p, term in zip((d, q_m, t), terms):
+            masses[by_ptr[p.data_ptr()]] = float(term.abs().sum(
+                dtype=torch.float64))
+        return fused(x, g, d, q_m, t, **kw)
+
+    qv.lsfq_nonlinear_bwd_fused = recording
+
+    def undo():
+        qv.lsfq_nonlinear_bwd_fused = fused
+
+    return masses, undo
+
+
+def _train_layout(mesh, cfg, params, x, y, ref, steps, barrier):
+    """``steps`` timed DP x TP steps from ``params`` at ``mesh`` (every rank
+    of it calls this): the first step's loss and gathered gradients
+    against the single-process step's (``ref``), then rank 0's step ms,
+    the fences a step of each axis and their host ms, K7's launches a
+    step in this process, its peak memory; on the card one more step,
+    rank 0's traced (``profile_step``: kernel ms, idle share)."""
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.parallel import (gather_state,
+                                                  init_train_state,
+                                                  train_step)
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(params, mesh, cfg)
+    axes = [a for a in ("model", "data") if mesh.shape[a] > 1]
+    out = {"layout": tuple(mesh.shape.values()), "ms": [], "loss": [],
+           "k7": [], "fences": [], "fence_host_ms": []}
+    for i in range(steps):
+        peers = [mesh.peers(a) for a in axes]
+        f0 = [(p.fences, p.fence_s) for p in peers]
+        barrier()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, loss, grads = train_step(state, x, y, cfg, mesh)
+        loss = float(loss)  # the host waits for the step
+        if cuda:
+            torch.cuda.synchronize(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(loss)
+        out["k7"].append(_build.LAUNCHES.get("quant_bwd", 0))
+        out["fences"].append({a: p.fences - f[0]
+                              for a, p, f in zip(axes, peers, f0)})
+        out["fence_host_ms"].append({a: (p.fence_s - f[1]) * 1e3
+                                     for a, p, f in zip(axes, peers, f0)})
+        if i == 0:
+            full = gather_state(grads, mesh, cfg)
+            if mesh.rank == 0:
+                out["grad"] = {
+                    name: _grad_errors(full, ref[name], ref["masses"])
+                    for name in ("full", "split")}
+            del full
+        del grads
+    if cuda:  # one more step, rank 0's under torch.profiler
+        barrier()
+
+        def step():
+            nonlocal state
+            state, loss_, _ = train_step(state, x, y, cfg, mesh)
+            float(loss_)
+
+        if mesh.rank == 0:
+            out["profile"] = profile_step(step)
+        else:
+            step()
+    out["loss_rel"] = abs(out["loss"][0] - ref["loss"]) / abs(ref["loss"])
+    out["peak_mib"] = _peak_mib(dev)
+    return state, out
+
+
+def _ring_check(mesh, cfg, state, x, y):
+    """The int8 ring at the data axis on this step's local gradients
+    against the exact sum: per leaf, the largest and the mean error
+    relative to the leaf's largest magnitude; and a digest of the ring's
+    result (the same on every replica of the data line)."""
+    from quantized_vit_tpu_torch.models import flatten_tree
+    from quantized_vit_tpu_torch.parallel import dp_all_reduce_grads
+    from quantized_vit_tpu_torch.parallel.train_step import loss_and_grads
+
+    _, local = loss_and_grads(state.params, x, y, cfg, mesh,
+                              sync_data=False)
+    dpeers = mesh.peers("data")
+    exact = flatten_tree(dp_all_reduce_grads(local, dpeers))
+    quant = flatten_tree(dp_all_reduce_grads(local, dpeers, quantized=True))
+    worst, mean = 0.0, 0.0
+    for k, e in exact.items():
+        scale = max(float(e.abs().max()), 1e-30)
+        err = (quant[k] - e).abs() / scale
+        worst = max(worst, float(err.max()))
+        mean = max(mean, float(err.mean()))
+    digest = _digest(quant)
+    same = dpeers.all_gather_object(digest)
+    return {"max_rel": worst, "mean_rel": mean,
+            "replicas_equal": all(d == same[0] for d in same)}
+
+
+def _serve_dp(mesh, cfg, art, x, iters, with_single, tag):
+    """The TP (f32/f32) and column-FSDP (bf16) forwards at ``mesh``'s model
+    line, each once with the launch counters set to 0 just before and
+    read just after, then timed in turns (a host barrier, the forward, a
+    synchronize) with, on rank 0 (``with_single``), the single-device
+    bf16 forward of the whole batch."""
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.serve import (
+        prepare_fsdp_kernels, prepare_kernels, prepare_tp_artifact,
+        prepare_tp_kernels, shard_fsdp_artifact, shard_tp_artifact,
+        vit_int4_forward, vit_int4_forward_fsdp, vit_int4_forward_tp)
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    line = mesh.peers("model")
+    world = mesh.world_peers()
+    rank, tp = line.rank, line.tp
+    tart = shard_tp_artifact(prepare_tp_artifact(art, cfg, tp), rank, tp)
+    fart = shard_fsdp_artifact(art, rank, tp)
+    b = x.shape[0]
+    kw = dict(images_layout="patches")
+    tplan = (prepare_tp_kernels(tart, cfg, line, batches=(b,),
+                                comm_dtype=torch.float32) if cuda else None)
+    fplan = prepare_fsdp_kernels(fart, cfg, line) if cuda else None
+    splan = prepare_kernels(art, cfg) if cuda and with_single else None
+
+    def done():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    fwds = {
+        "tp_f32": lambda: vit_int4_forward_tp(
+            tart, x, cfg, line, float_dtype=torch.float32,
+            comm_dtype=torch.float32, plan=tplan, **kw),
+        "fsdp_bf16": lambda: vit_int4_forward_fsdp(
+            fart, x, cfg, line, float_dtype=torch.bfloat16, plan=fplan,
+            **kw)}
+    out = {}
+    for name, fn in fwds.items():
+        world.barrier()
+        _build.reset_launches()
+        f0 = line.fences
+        logits = fn()
+        done()
+        out[name] = {"logits": logits.float().cpu().numpy(),
+                     "launches": dict(_build.LAUNCHES),
+                     "fences": line.fences - f0}
+    turns = dict(fwds)
+    if with_single:
+        turns["single_bf16"] = lambda: vit_int4_forward(
+            art, x, cfg, float_dtype=torch.bfloat16, plan=splan, **kw)
+    ms = {k: [] for k in list(fwds) + ["single_bf16"]}
+    for _ in range(iters):
+        for name in ms:
+            world.barrier()
+            t0 = time.perf_counter()
+            if name in turns:
+                turns[name]()
+                done()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    out["wall_ms"] = {k: statistics.median(v) for k, v in ms.items() if v}
+    out["tag"] = tag
+    return out
+
+
+def _pipe_check(mesh_pipe, cfg_kw, x, dev):
+    """GPipe at the stages of ``mesh_pipe`` and 2 microbatches: the float
+    ViT-B/16 forward (seed 0, TF32 off) against the single-process
+    forward of the same model; (max |diff|, rank 0's ms, single ms)."""
+    from quantized_vit_tpu_torch.models import (QuantConfig, ViTConfig,
+                                                VisionTransformer, apply)
+    from quantized_vit_tpu_torch.parallel import vit_pipeline_forward
+
+    cfg = ViTConfig(**cfg_kw, quant=QuantConfig.off())
+    model = VisionTransformer(cfg, seed=0, device=dev)
+    params = model.param_tree()
+    with torch.no_grad():
+        mesh_pipe.world_peers().barrier()
+        t0 = time.perf_counter()
+        got = vit_pipeline_forward(model, params, x, mesh=mesh_pipe,
+                                   n_microbatches=2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = apply(model, params, x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        single_ms = (time.perf_counter() - t0) * 1e3
+    return float((got - want).abs().max()), ms, single_ms
+
+
+def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
+                      y_np, serve_x_np, ref_path, work_dir):
+    """One of the four processes of phase 10, sharing the card (the phase's
+    docstring gives the order); returns its record."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from quantized_vit_tpu_torch.models import (QuantConfig, ViTConfig,
+                                                VisionTransformer,
+                                                init_quant_params_tree,
+                                                tree_map)
+    from quantized_vit_tpu_torch.parallel import (
+        HealthCheckError, collective_health_check, create_mesh,
+        gather_params, initialize_distributed, reinitialize_distributed,
+        restore_sharded_checkpoint, run_with_elastic_recovery,
+        save_sharded_checkpoint, train_step)
+    from quantized_vit_tpu_torch.parallel.train_step import (
+        TrainState, gather_state, state_from_tree, state_tree)
+    from quantized_vit_tpu_torch.serve import random_vit_int4_artifact
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scfg = ViTConfig(**cfg_kw)  # the serving artifact's config
+    cfg_kw = {k: v for k, v in cfg_kw.items() if k != "quant"}
+    initialize_distributed(init_method, world, rank, device=dev_name)
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = ViTConfig(**cfg_kw, quant=QuantConfig(enabled=True,
+                                                fused_vjp=True))
+    model = VisionTransformer(cfg, seed=0, device=dev)
+    params = init_quant_params_tree(
+        tree_map(lambda p: p.detach().clone(), model.param_tree()),
+        init_bits=8.0)
+    del model
+    x = torch.from_numpy(x_np).to(dev)
+    y = torch.from_numpy(y_np).to(dev)
+    # the reference gradients: only the ranks that are rank 0 of a layout
+    # (0 of (2, 2) and (1, 2), 2 of (2, 1)) compare them
+    ref = torch.load(ref_path + ".loss.pt")
+    if rank in (0, 2):
+        ref.update(torch.load(ref_path + ".grads.pt"))
+    art = random_vit_int4_artifact(scfg, seed=0, pack_weights=True,
+                                   device=dev)
+    sx = torch.from_numpy(serve_x_np).to(dev)
+    out = {"rank": rank}
+
+    # (2, 2): the timed steps, the ring, the checkpoint, serving
+    mesh = create_mesh((2, 2), device=dev)
+    barrier = mesh.world_peers().barrier
+    state, out["train_2x2"] = _train_layout(mesh, cfg, params, x, y, ref,
+                                            TRAIN_MESH_STEPS, barrier)
+    out["ring"] = _ring_check(mesh, cfg, state, x, y)
+    ckpt = os.path.join(work_dir, "ckpt")
+    tree = state_tree(state, mesh, cfg)
+    full = gather_params(tree["params"], mesh)
+    out["saved_digest"] = _digest(full) if rank in (0, 2) else None
+    del full
+    t0 = time.perf_counter()
+    save_sharded_checkpoint(ckpt, tree, {"step": ELASTIC_START}, mesh=mesh)
+    out["ckpt_save_s"] = time.perf_counter() - t0
+    del tree
+    out["serve_2x2"] = _serve_dp(mesh, scfg, art, sx, SERVE_DP_ITERS,
+                                 rank == 0, "2x2")
+    # the elastic run: (2, 2) until the injected failure, then (1, 2)
+    calls = {"n": 0}
+
+    def flaky_health(m):
+        calls["n"] += 1
+        if calls["n"] == 3:  # the watchdog fires before the third step
+            raise HealthCheckError("injected: rank lost (watchdog)")
+        return collective_health_check(m, timeout_s=SPAWN_TIMEOUT_S / 2)
+
+    seen = []
+
+    def step_fn(p, m, step):
+        st = p if isinstance(p, TrainState) else state_from_tree(
+            p, m, cfg, count=step)
+        st, _, _ = train_step(st, x, y, cfg, m)
+        seen.append((step, m.size))
+        return st
+
+    t0 = time.perf_counter()
+    final, mesh12, failures = run_with_elastic_recovery(
+        step_fn, state, mesh, ckpt, steps=ELASTIC_START + ELASTIC_STEPS,
+        start_step=ELASTIC_START, health_fn=flaky_health,
+        surviving_ranks_fn=lambda: [0, 1], model_parallel=2,
+        store_dir=work_dir)
+    out["elastic"] = {"failures": failures, "seen": seen,
+                      "s": time.perf_counter() - t0}
+    del state
+    done_marker = os.path.join(work_dir, "pair0_done")
+    if mesh12 is not None:  # ranks 0, 1: the (1, 2) group
+        barrier = mesh12.world_peers().barrier
+        out["elastic"]["final"] = _digest(gather_state(final.params, mesh12,
+                                                       cfg))
+        del final
+        tree, extra = restore_sharded_checkpoint(ckpt, mesh=mesh12)
+        out["restore_1x2"] = _digest(gather_params(tree["params"], mesh12))
+        st = state_from_tree(tree, mesh12, cfg, count=extra["step"])
+        del tree
+        for step in range(extra["step"], ELASTIC_START + ELASTIC_STEPS):
+            st, _, _ = train_step(st, x, y, cfg, mesh12)
+        out["uninterrupted"] = _digest(gather_state(st.params, mesh12, cfg))
+        del st
+        _, out["train_1x2"] = _train_layout(mesh12, cfg, params, x, y, ref,
+                                            TRAIN_MESH_STEPS, barrier)
+        pipe = create_mesh((2,), ("pipe",), device=dev)
+        out["pipe"] = _pipe_check(pipe, cfg_kw, x, dev)
+        out["serve_1x2"] = _serve_dp(mesh12, scfg, art, sx, SERVE_DP_ITERS,
+                                     False, "1x2")
+        mesh12.close()
+        if mesh12.rank == 0:
+            open(done_marker, "w").close()
+    else:  # ranks 2, 3: the (2, 1) group, on a fresh store
+        reinitialize_distributed(f"file://{work_dir}/pair1", 2, rank - 2)
+        mesh21 = create_mesh((2, 1), device=dev)
+        tree, _ = restore_sharded_checkpoint(ckpt, mesh=mesh21)
+        out["restore_2x1"] = _digest(gather_params(tree["params"], mesh21))
+        del tree
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        while not os.path.exists(done_marker):  # one pair on the card
+            if time.monotonic() > deadline:
+                raise RuntimeError("the (1, 2) group never finished")
+            time.sleep(0.05)
+        barrier = mesh21.world_peers().barrier
+        _, out["train_2x1"] = _train_layout(mesh21, cfg, params, x, y, ref,
+                                            TRAIN_MESH_STEPS, barrier)
+        out["serve_2x1"] = _serve_dp(mesh21, scfg, art, sx, SERVE_DP_ITERS,
+                                     rank == 2, "2x1")
+        mesh21.close()
+    out["peak_mib"] = _peak_mib(dev)
+    reinitialize_distributed("", 1, 0)
+    return out
+
+
+def train_mesh_phase(dev, record, arts):
+    """Phase 10: multi-device training at ViT-B/16 width (the config of
+    ``main_cfg``, QAT with K7 on every nonlinear quantizer's backward,
+    seed 0, batch BATCH) and serving with a data axis, four processes
+    sharing the card. In this process: the single-process step (the
+    model's own forward and backward, the reference) and the (1, 1)
+    layout of the DP x TP step. Spawned, in order: the (2, 2) step
+    (TRAIN_MESH_STEPS steps; the first step's loss within 1e-4 relative
+    of the reference's, its gathered gradients as the comment above
+    EXACT_TOL sets out); the int8 ring at dp = 2 on a step's gradients against
+    the exact sum (RING_MAX, RING_MEAN; every replica bit-identical); a
+    sharded checkpoint of the (2, 2) state; TP (f32) and column-FSDP
+    (bf16) serving at (2, 2) on phase 9's artifact; an elastic run from
+    that checkpoint with a HealthCheckError injected before the third of
+    ELASTIC_STEPS steps, which resumes on (1, 2) (ranks 2, 3 leave); on
+    the (1, 2) group the checkpoint restored (params equal to the
+    gathered ones), an uninterrupted (1, 2) run from it (final params
+    bit-equal to the elastic run's), the (1, 2) step, GPipe at 2 stages
+    and 2 microbatches (the float model within PIPE_TOL of the
+    single-process forward, TF32 off) and (1, 2) serving; then on ranks
+    2, 3 as a (2, 1) group: the checkpoint restored, the (2, 1) step and
+    (2, 1) serving. Serving logits: column FSDP bit-equal to the
+    single-device forward, TP within 1e-4 of the (1, tp) TP forward.
+    Each layout's step prints rank 0's ms, the fences a step and their
+    host ms, K7's launches a step in every process and each process's
+    peak memory."""
+    from quantized_vit_tpu_torch.models import apply, flatten_tree
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.parallel import create_mesh, run_processes
+    from quantized_vit_tpu_torch.serve import (prepare_tp_artifact,
+                                               shard_tp_artifact,
+                                               vit_int4_forward,
+                                               vit_int4_forward_tp)
+
+    t_phase = time.time()
+    cuda = dev.type == "cuda"
+    model, params = qat_model(0, dev)
+    cfg = model.cfg
+    x_np, y_np = seeded_batches(cfg, 1, 21)
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    # the single-process step: the model's forward and backward
+    live = {k: v.detach().clone().requires_grad_(True)
+            for k, v in flatten_tree(params).items()}
+    _build.reset_launches()
+    from quantized_vit_tpu_torch.models import unflatten_tree
+
+    def step(xb, yb):
+        logits = apply(model, unflatten_tree(live), xb)
+        onehot = torch.nn.functional.one_hot(yb, cfg.num_classes).float()
+        loss = -torch.mean(torch.sum(torch.log_softmax(logits, -1) * onehot,
+                                     -1))
+        return loss, torch.autograd.grad(loss, list(live.values()))
+
+    masses, undo = _record_masses(live)
+    try:
+        loss, grads = step(x, y)
+    finally:
+        undo()
+    single_k7 = _build.LAUNCHES.get("quant_bwd", 0)
+    half = x.shape[0] // 2
+    halves = [step(x[i * half:(i + 1) * half], y[i * half:(i + 1) * half])[1]
+              for i in range(2)]
+    ref = {"loss": float(loss.detach()), "masses": masses,
+           "full": {k: g.detach().float().cpu()
+                    for k, g in zip(live, grads)},
+           "split": {k: ((a + b) / 2).detach().float().cpu()
+                     for k, a, b in zip(live, *halves)}}
+    base = _grad_errors(ref["split"], ref["full"], masses)
+    del live, grads, halves
+    work = os.path.join(OUT_DIR, "dist", f"train_mesh_{time.time_ns()}")
+    os.makedirs(work, exist_ok=True)
+    ref_path = os.path.join(work, "ref")
+    torch.save({k: ref[k] for k in ("loss", "masses")}, ref_path + ".loss.pt")
+    torch.save({k: ref[k] for k in ("full", "split")}, ref_path + ".grads.pt")
+    rec = {"batch": int(x.shape[0]), "single_loss": ref["loss"],
+           "single_k7": single_k7, "split_distance": base[:2]}
+    log(f"[train mesh] the split step's distance from the full step "
+        f"{base[0]:.3e} (scalars {base[1]:.3e}); farthest "
+        f"{[(w[1], f'{w[2]:.3g}/{w[3]:.3g}') for w in base[3][:3]]}")
+    # the (1, 1) layout in this process
+    one = create_mesh((1, 1), device=dev)
+    _, rec["train_1x1"] = _train_layout(one, cfg, params, x, y, ref,
+                                        TRAIN_MESH_STEPS, lambda: None)
+    del model, params
+    gc.collect()
+    # phase 9's artifact and images; the (1, tp) references
+    scfg, art, sx = arts["cfg"], arts["art_packed"], arts["x"]
+    kw = dict(images_layout="patches")
+    single = {dt: vit_int4_forward(art, sx, scfg, float_dtype=getattr(
+        torch, dt), **kw).float().cpu() for dt in ("float32", "bfloat16")}
+    tp1 = vit_int4_forward_tp(shard_tp_artifact(prepare_tp_artifact(
+        art, scfg, 1), 0, 1), sx, scfg, float_dtype=torch.float32,
+        comm_dtype=torch.float32, **kw).float().cpu()
+    t0 = time.time()
+    try:
+        res = run_processes(
+            train_mesh_worker, 4, os.path.join(OUT_DIR, "dist"),
+            args=(DEV, dataclasses.asdict(scfg), x_np, y_np,
+                  sx.cpu().numpy(), ref_path, work),
+            timeout_s=SPAWN_TIMEOUT_S)
+    except RuntimeError as e:
+        raise Failed(f"phase 10: {e}")
+    rec["spawn_s"] = round(time.time() - t0, 1)
+    fails = []
+    lay_runs = {"1x1": [rec["train_1x1"]]}
+    for key, ranks in (("2x2", (0, 1, 2, 3)), ("1x2", (0, 1)),
+                       ("2x1", (2, 3))):
+        lay_runs[key] = [res[r][f"train_{key}"] for r in ranks]
+    rec["train"] = {}
+    for key, runs in lay_runs.items():
+        r0 = runs[0]
+        row = {"loss": r0["loss"], "loss_rel": r0["loss_rel"],
+               "ms_rank0": r0["ms"], "k7_per_step": [r["k7"] for r in runs],
+               "fences": r0["fences"], "fence_host_ms": r0["fence_host_ms"],
+               "peak_mib": [r["peak_mib"] for r in runs],
+               "grad": r0["grad"], "profile_rank0": r0.get("profile")}
+        rec["train"][key] = row
+        gf, gs = r0["grad"]["full"], r0["grad"]["split"]
+        log(f"[train mesh {key}] loss {r0['loss'][0]:.6f} (single "
+            f"{ref['loss']:.6f}, rel {r0['loss_rel']:.2e}); gradients vs "
+            f"the full step {gf[0]:.2e} (scalars {gf[1]:.2e}), vs the split "
+            f"step {gs[0]:.2e} ({gs[1]:.2e}); farthest "
+            f"{[(w[1], f'{w[2]:.3g}/{w[3]:.3g}') for w in gf[3][:3]]}; "
+            f"rank 0 step ms {[round(v, 1) for v in r0['ms']]}; fences a "
+            f"step {r0['fences'][-1]} ({r0['fence_host_ms'][-1]} ms host); "
+            f"K7 a step {row['k7_per_step']}; peak MiB {row['peak_mib']} "
+            f"({record['nvidia_smi']})")
+        p = r0.get("profile")
+        if p:
+            log(f"[train mesh {key} profile] traced wall {p['wall_ms']:.1f}"
+                f" ms, kernels {p['kernel_ms']:.1f} ms ({p['kernels']}), "
+                f"idle {p['idle_share']:.2f}, K7 {p['quant_bwd_ms']:.2f} ms;"
+                " top " + ", ".join(f"{n[:40]} {ms_:.2f}x{c}"
+                                    for n, ms_, c in p["top"][:5]))
+        if r0["loss_rel"] > 1e-4:
+            fails.append(f"{key} loss {r0['loss'][0]} vs {ref['loss']}")
+        exact = {"1x1": gf, "2x1": gs}.get(key)
+        if exact is not None:
+            ok = exact[0] <= EXACT_TOL and exact[1] <= EXACT_TOL
+        else:
+            ok = (gf[0] <= TP_GRAD_FACTOR * base[0] + EXACT_TOL
+                  and gf[1] <= TP_GRAD_FACTOR * base[1] + EXACT_TOL)
+        if not ok or gf[2]:
+            fails.append(f"{key} gradients {gf[:3]} / split {gs[:3]} "
+                         f"(the split step's distance {base[:2]})")
+        if cuda and any(k != single_k7 for r in runs for k in r["k7"]):
+            fails.append(f"{key} K7 launches {row['k7_per_step']} != "
+                         f"{single_k7} a step")
+    ring = [res[r]["ring"] for r in range(4)]
+    rec["ring"] = ring
+    log(f"[train mesh ring dp=2] max rel {max(r['max_rel'] for r in ring):.4f}"
+        f", mean rel {max(r['mean_rel'] for r in ring):.5f}, replicas equal "
+        f"{all(r['replicas_equal'] for r in ring)}")
+    if any(r["max_rel"] >= RING_MAX or r["mean_rel"] >= RING_MEAN
+           or not r["replicas_equal"] for r in ring):
+        fails.append(f"int8 ring {ring}")
+    saved = res[0]["saved_digest"]
+    restored = {"1x2": res[0]["restore_1x2"], "2x1": res[2]["restore_2x1"]}
+    el = res[0]["elastic"]
+    rec["ckpt"] = {"save_s": res[0]["ckpt_save_s"],
+                   "restored_equal": {k: v == saved
+                                      for k, v in restored.items()}}
+    rec["elastic"] = {"failures": el["failures"], "seen": el["seen"],
+                      "s": el["s"], "others": [res[r]["elastic"]["seen"]
+                                               for r in (2, 3)],
+                      "bit_equal": el["final"] == res[0]["uninterrupted"]}
+    log(f"[train mesh ckpt] restored equal {rec['ckpt']['restored_equal']}; "
+        f"elastic: failures {el['failures']}, steps {el['seen']}, final "
+        f"params bit-equal to the uninterrupted (1, 2) run: "
+        f"{rec['elastic']['bit_equal']} ({el['s']:.1f} s)")
+    want_seen = ([(s, 4) for s in range(ELASTIC_START, ELASTIC_START + 2)]
+                 + [(s, 2) for s in range(ELASTIC_START,
+                                          ELASTIC_START + ELASTIC_STEPS)])
+    if (not all(rec["ckpt"]["restored_equal"].values())
+            or el["failures"] != 1 or el["seen"] != want_seen
+            or not rec["elastic"]["bit_equal"]):
+        fails.append(f"checkpoint / elastic {rec['ckpt']} {rec['elastic']}")
+    pipe_err, pipe_ms, pipe_single = res[0]["pipe"]
+    rec["pipe"] = {"max_abs_diff": pipe_err, "ms_rank0": pipe_ms,
+                   "single_ms": pipe_single}
+    log(f"[train mesh gpipe 2 stages] max |diff| {pipe_err:.3g} vs the "
+        f"single-process forward; {pipe_ms:.1f} ms (single {pipe_single:.1f}"
+        f" ms, one call each, host clock)")
+    if not pipe_err <= PIPE_TOL:
+        fails.append(f"GPipe forward differs by {pipe_err}")
+    rec["serve"] = {}
+    tp_ref = {"2x1": tp1, "2x2": torch.from_numpy(np.concatenate(
+        [res[r]["serve_1x2"]["tp_f32"]["logits"] for r in (0, 1)]))}
+    for key, ranks in (("2x2", (0, 1, 2, 3)), ("2x1", (2, 3))):
+        runs = [res[r][f"serve_{key}"] for r in ranks]
+        row = {"wall_ms_rank0": runs[0]["wall_ms"]}
+        for name in ("tp_f32", "fsdp_bf16"):
+            got = torch.from_numpy(np.concatenate([r[name]["logits"]
+                                                   for r in runs]))
+            base = tp_ref[key] if name == "tp_f32" else single["bfloat16"]
+            diff = float((got - base).abs().max())
+            row[name] = {"max_abs_diff": diff,
+                         "equal": bool(torch.equal(got, base)),
+                         "launches": runs[0][name]["launches"],
+                         "fences": runs[0][name]["fences"]}
+            if tuple(got.shape) != tuple(single["float32"].shape) or (
+                    name == "tp_f32" and diff > 1e-4) or (
+                    name == "fsdp_bf16" and not row[name]["equal"]):
+                fails.append(f"serving {name} at {key}: {diff}")
+        rec["serve"][key] = row
+        nz = {n: {k: v for k, v in row[n]["launches"].items() if v}
+              for n in ("tp_f32", "fsdp_bf16")}
+        log(f"[serve dp=2 {key}] TP f32 vs (1, tp) "
+            f"{row['tp_f32']['max_abs_diff']:.3g}, FSDP bf16 equal "
+            f"{row['fsdp_bf16']['equal']}; launches TP {nz['tp_f32']}, FSDP "
+            f"{nz['fsdp_bf16']}; fences {row['tp_f32']['fences']} / "
+            f"{row['fsdp_bf16']['fences']}; rank 0 wall ms "
+            f"{row['wall_ms_rank0']} ({record['nvidia_smi']})")
+    rec["peak_mib"] = [r["peak_mib"] for r in res]
+    rec["phase_s"] = round(time.time() - t_phase, 1)
+    record["train_mesh"] = rec
+    for k_ in record.get("kernels", []):
+        if k_["name"] == "quant_bwd":
+            k_.setdefault("mesh_launches", {})["train_2x2_step"] = \
+                rec["train"]["2x2"]["k7_per_step"][0][0]
+        for key in ("2x2", "2x1"):
+            for name in ("tp_f32", "fsdp_bf16"):
+                n = rec["serve"][key][name]["launches"].get(k_["name"])
+                if n:
+                    k_.setdefault("mesh_launches", {})[
+                        f"{name.split('_')[0]}_{key}"] = n
+    log(f"[train mesh] phase {rec['phase_s']} s (spawned {rec['spawn_s']} s)")
+    if fails:
+        raise Failed("phase 10: " + "; ".join(fails))
 
 
 if __name__ == "__main__":

@@ -88,8 +88,6 @@ def gather_rows_plain(shards: Sequence[torch.Tensor], peers=None,
     """Plain version of K14 on CPU tensors: each shard's bytes gathered
     over the peers' gloo group in rank order (a copy at tp = 1).
     ``sublane_rows``: as :func:`plan_gather_rows`'s."""
-    import torch.distributed as dist
-
     if sublane_rows:
         check_row_shards(shards)
     _, tp = _tp(peers)
@@ -99,11 +97,7 @@ def gather_rows_plain(shards: Sequence[torch.Tensor], peers=None,
         if tp == 1:
             outs.append(s.clone())
             continue
-        raw = s.reshape(-1).view(torch.uint8)
-        parts = [torch.empty_like(raw) for _ in range(tp)]
-        dist.all_gather(parts, raw)
-        outs.append(torch.cat(parts).view(s.dtype).reshape(
-            _gathered_shape(s, tp)))
+        outs.append(torch.cat(peers.all_gather(s)))
     return outs
 
 

@@ -1,17 +1,17 @@
-"""Process-group bring-up for the 'model' axis, launchers of its
-processes, and its health checks (port of
-``quantized_vit_tpu/parallel/distributed.py``: ``initialize_distributed``,
+"""Process-group bring-up, the hybrid mesh, launchers of the processes,
+and the health checks (port of ``quantized_vit_tpu/parallel/
+distributed.py``: ``initialize_distributed``, ``create_hybrid_mesh``,
 ``HealthCheckError``, ``HealthReport``, ``collective_health_check``,
 ``assert_same_step``).
 
 The JAX function brings up ``jax.distributed`` for a multi-host mesh;
-here tp processes (sharing one card, or on the cards of one host) join a
-gloo group that carries the host-side handshakes of multi-process
-serving: the exchange of CUDA IPC handles and the barriers of
-:meth:`~.peers.Peers.fence`. The store is a file (``file://``), so
-processes started by separate test workers never meet on a port. The
-port runs one group of tp processes (the JAX serve CLI's mesh (1, tp));
-a data axis wider than 1 is not ported (:func:`check_mesh`).
+here the processes (sharing one card, or on the cards of one host) join
+a gloo group that carries the host-side handshakes: the exchange of CUDA
+IPC handles and the barriers of :meth:`~.peers.Peers.fence`. The store
+is a file (``file://``), so processes started by separate test workers
+never meet on a port. The world's ranks are laid out on a (dp, tp) mesh
+by :func:`~.partition.create_mesh`; a tp group is one 'model' line of
+it.
 """
 
 from __future__ import annotations
@@ -62,14 +62,58 @@ def initialize_distributed(init_method: Optional[str] = None,
     return Peers(process_id, tp, dev)
 
 
+def reinitialize_distributed(init_method: str, num_processes: int,
+                             process_id: int) -> None:
+    """Leave the current gloo group (if any) and join a new one of
+    ``num_processes`` at ``init_method`` (a fresh ``file://`` store: a
+    store file used before hangs every rank) as rank ``process_id``; the
+    re-forming of a group after a failure (``elastic.py``)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if num_processes > 1:
+        dist.init_process_group("gloo", init_method=init_method,
+                                world_size=num_processes, rank=process_id,
+                                timeout=_GROUP_TIMEOUT)
+
+
+def world_size() -> int:
+    """The processes of the default gloo group (1 with none)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def check_mesh(dp: int, tp: int) -> None:
-    """Refuses a mesh (dp, tp) the port cannot run: one group of tp >= 1
-    processes only (dp = 1), the layout of the JAX serve CLI's mesh."""
-    if dp != 1:
+    """Refuses a mesh (dp, tp) whose dp x tp processes are not the
+    default group's."""
+    world = world_size()
+    if dp < 1 or tp < 1 or dp * tp != world:
+        raise ValueError(f"mesh (dp={dp}, tp={tp}) needs {dp * tp} "
+                         f"processes; the group has {world}")
+
+
+def create_hybrid_mesh(ici_shape: Sequence[int],
+                       dcn_shape: Sequence[int] = (1,),
+                       axis_names: Sequence[str] = ("data", "model"),
+                       device="cuda"):
+    """The mesh ``tuple(dcn_shape) + tuple(ici_shape)`` over the world's
+    ranks (a collective call, as :func:`~.partition.create_mesh`).
+
+    ``axis_names`` must have one entry per dimension of that shape. On
+    one host every dcn factor is 1 and this is ``create_mesh``. Across
+    hosts the leading (dcn) axes split over the hosts and the trailing
+    (ici) axes stay inside one: ranks are numbered host by host, so the
+    row-major layout keeps each model line on one host."""
+    from .partition import create_mesh
+
+    full_shape = tuple(dcn_shape) + tuple(ici_shape)
+    if len(axis_names) != len(full_shape):
         raise ValueError(
-            f"mesh (dp={dp}, tp={tp}): a data axis wider than 1 is not "
-            "ported (ROADMAP.md, modules to port, 'Multi-device'); run one "
-            "group of tp processes")
+            f"axis_names {tuple(axis_names)} must match dcn+ici shape "
+            f"{full_shape}")
+    return create_mesh(full_shape, axis_names, device=device)
 
 
 class HealthCheckError(RuntimeError):
@@ -103,15 +147,19 @@ def _ones_reduced(peers) -> float:
         return float(run_reduce_scatter(rs)[0, 0].cpu())
 
 
-def collective_health_check(peers: Peers, timeout_s: float = 60.0
+def collective_health_check(peers, timeout_s: float = 60.0
                             ) -> HealthReport:
-    """One tiny reduction across the 'model' axis under a watchdog (a
-    collective call: every process makes it).
+    """One tiny reduction across the processes of ``peers`` (a
+    :class:`~.peers.Peers`, or a :class:`~.partition.ProcessMesh`: all
+    its ranks) under a watchdog (a collective call: every process makes
+    it).
 
     Every process contributes 1; each must get tp back. A hang (a process
     that never joins, a wedged card) trips the watchdog after
     ``timeout_s`` and raises; a wrong value (a corrupt collective) raises
     with the value seen. Cheap enough to run at start-up."""
+    if not isinstance(peers, Peers):
+        peers = peers.world_peers()
     result: dict = {}
 
     def run():
@@ -140,10 +188,12 @@ def collective_health_check(peers: Peers, timeout_s: float = 60.0
                         num_processes=peers.tp, latency_s=dt)
 
 
-def assert_same_step(step: int, peers: Peers) -> None:
+def assert_same_step(step: int, peers) -> None:
     """Every process contributes its restored step; min must equal max
     (catches a process resuming from a stale checkpoint). A collective
-    call."""
+    call over ``peers`` (a Peers, or a ProcessMesh: all its ranks)."""
+    if not isinstance(peers, Peers):
+        peers = peers.world_peers()
     steps = peers.all_gather_object(int(step))
     if min(steps) != max(steps):
         raise HealthCheckError(

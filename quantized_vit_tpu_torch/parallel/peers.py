@@ -1,12 +1,16 @@
-"""The processes of the 'model' axis: the port's counterpart of a JAX
-mesh axis for FSDP serving (``serve/vit_fsdp.py``).
+"""The processes of one mesh axis: the port's counterpart of a JAX mesh
+axis (the 'model' axis of FSDP and TP serving, the 'data' axis of the
+gradient sync).
 
-One process per weight shard, all on CUDA devices the processes can map
-into each other (one card shared by tp processes, or the cards of one
-host), joined by a gloo group for the host-side handshakes. A
+One process per shard, all on CUDA devices the processes can map into
+each other (one card shared by the processes, or the cards of one host),
+joined by a gloo group for the host-side handshakes: the default group,
+or one of the axis groups of a :class:`~.partition.ProcessMesh`. A
 :class:`Peers` holds:
 
-- the rank and tp;
+- the rank and size along the axis (``rank``, ``tp``), the process's
+  coordinate on the data axis (``data_index`` of ``dp``: which slice of
+  a batch it serves) and its gloo ``group``;
 - the peers' buffers mapped into this process through CUDA IPC
   (:meth:`Peers.open`: the handles of ``torch.multiprocessing``'s sharing
   of CUDA tensors, exchanged over gloo);
@@ -25,12 +29,17 @@ import torch
 
 
 class Peers:
-    """tp processes of one 'model' axis (see the module docstring); at tp
-    > 1 their gloo group is the default process group."""
+    """tp processes of one mesh axis (see the module docstring). ``group``:
+    their gloo group (None: the default process group, which :meth:`close`
+    then leaves); ``data_index``/``dp``: this process's coordinate on the
+    data axis of its mesh."""
 
-    def __init__(self, rank: int, tp: int, device):
+    def __init__(self, rank: int, tp: int, device, group=None,
+                 data_index: int = 0, dp: int = 1):
         self.rank, self.tp = int(rank), int(tp)
         self.device = torch.device(device)
+        self.group = group
+        self.data_index, self.dp = int(data_index), int(dp)
         self._events: Optional[List[torch.cuda.Event]] = None
         self._peer_events: Optional[List[Optional[list]]] = None
         self._fences = 0
@@ -39,14 +48,15 @@ class Peers:
         self._opened: List[list] = []
 
     def __repr__(self):
-        return f"Peers(rank={self.rank}, tp={self.tp}, device={self.device})"
+        return (f"Peers(rank={self.rank}, tp={self.tp}, "
+                f"data={self.data_index}/{self.dp}, device={self.device})")
 
     def barrier(self) -> None:
         """A host barrier of the tp processes (gloo)."""
         if self.tp > 1:
             import torch.distributed as dist
 
-            dist.barrier()
+            dist.barrier(group=self.group)
 
     def all_gather_object(self, obj) -> list:
         """``obj`` of every process, in rank order."""
@@ -55,8 +65,22 @@ class Peers:
         import torch.distributed as dist
 
         out = [None] * self.tp
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A CPU tensor ``t`` of every process, in rank order (gloo; its
+        bytes moved as uint8, so any dtype goes; the same shape on every
+        process)."""
+        if self.tp == 1:
+            return [t]
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        raw = t.reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(self.tp)]
+        dist.all_gather(parts, raw, group=self.group)
+        return [p.view(t.dtype).reshape(t.shape) for p in parts]
 
     def open(self, tensors: List[torch.Tensor]) -> List[list]:
         """Map every peer's ``tensors`` (CUDA, one list of the same
@@ -124,7 +148,7 @@ class Peers:
         """Drop the mapped peer buffers and events after every process has
         finished with them (the caller holds no plan that maps them), let
         each process free the buffers its peers had mapped, then leave the
-        gloo group."""
+        gloo group (the default group only: a mesh's groups stay)."""
         if self.tp == 1:
             return
         import gc
@@ -136,11 +160,12 @@ class Peers:
             torch.cuda.synchronize(self.device)
         self.barrier()
         self._opened.clear()
+        self.__dict__.pop("_collective_wire", None)  # collectives.py's
         self._peer_events = None
         gc.collect()
         self.barrier()
         if cuda:  # every peer has unmapped: free what they mapped of ours
             torch.cuda.ipc_collect()
         self.barrier()
-        if dist.is_initialized():
+        if self.group is None and dist.is_initialized():
             dist.destroy_process_group()

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,18 +61,6 @@ def _tp(peers) -> Tuple[int, int]:
     return (0, 1) if peers is None else (peers.rank, peers.tp)
 
 
-def _gloo_all_gather(t: torch.Tensor, tp: int) -> List[torch.Tensor]:
-    """``t`` of every process of the gloo group, in rank order (its bytes
-    moved as uint8, so any dtype goes)."""
-    import torch.distributed as dist
-
-    t = t.contiguous()
-    raw = t.reshape(-1).view(torch.uint8)
-    parts = [torch.empty_like(raw) for _ in range(tp)]
-    dist.all_gather(parts, raw)
-    return [p.view(t.dtype).reshape(t.shape) for p in parts]
-
-
 def _rank_sum(parts, rows: slice) -> torch.Tensor:
     """The sum of ``parts[p][rows]`` over p in rank order, in their dtype
     (each add rounds to it, on the card and on the CPU alike)."""
@@ -89,7 +77,7 @@ def all_gather_plain(x: torch.Tensor, peers=None) -> torch.Tensor:
     count_collective("all_gather", x.dtype)
     if tp == 1:
         return x.clone()
-    return torch.cat(_gloo_all_gather(x, tp))
+    return torch.cat(peers.all_gather(x))
 
 
 def reduce_scatter_plain(part: torch.Tensor, peers=None) -> torch.Tensor:
@@ -103,7 +91,7 @@ def reduce_scatter_plain(part: torch.Tensor, peers=None) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: {m_grp} rows over tp={tp}")
     count_collective("reduce_scatter", part.dtype)
     m_loc = m_grp // tp
-    parts = [part] if tp == 1 else _gloo_all_gather(part, tp)
+    parts = [part] if tp == 1 else peers.all_gather(part)
     return _rank_sum(parts, slice(rank * m_loc, (rank + 1) * m_loc))
 
 

@@ -12,8 +12,9 @@ Two forwards:
 
 Every block's four weights (qkv, proj, fc1, fc2) are split into tp row
 shards, one per process of the 'model' axis (:class:`~..parallel.Peers`;
-tp = 1: one process, no peers), so a process holds total/tp of the block
-weights. The batch is split over the processes too; each runs the
+tp = 1: one process, no peers; or one model line of a (dp, tp)
+:class:`~..parallel.ProcessMesh`), so a process holds total/tp of the
+block weights. The batch is split over the dp x tp processes too; each runs the
 single-device pipeline on its own images with the block's whole weights,
 gathered just before use:
 
@@ -60,7 +61,6 @@ from ..ops.fused import MatmulPlan, MlpPlan, plan_mlp
 from ..ops.ring_gather import (GatherPlan, _sublane, fused_mlp_gather_plain,
                                gather_rows_plain, plan_gather_rows,
                                run_gather_rows, run_mlp_gather)
-from ..parallel.distributed import check_mesh
 from ..parallel.tp_comm import count_collective
 from .vit_int4 import (MlpPlans, _attention_layer, _chain_attention,
                        _embed_head_plans, _embed_kernels, _embed_tokens,
@@ -68,7 +68,7 @@ from .vit_int4 import (MlpPlans, _attention_layer, _chain_attention,
                        _raise_limits, _round_up, _run_mlps, _sm_scale,
                        _vit_block, kernel_limits, plan_block_attention,
                        uses_chain)
-from .vit_tp import _qentry_specs, _rep
+from .vit_tp import _qentry_specs, _rep, local_images
 
 _SHARDED = ("qkv", "proj", "fc1", "fc2")
 _ALIGN = 256  # byte offset of each weight in a gather buffer set
@@ -254,9 +254,11 @@ def vit_int4_forward_fsdp_rdma(fart, images, cfg: ViTConfig, peers=None,
     fart: this process's artifact (:func:`shard_fsdp_rdma_artifact`);
     images: the whole batch ([B, H, W, C], or host-patchified with
     ``images_layout='patches'``), the same on every process; B must
-    divide over the tp processes (a ValueError otherwise). Returns this
-    process's logits [B/tp, classes], f32: those of images
-    [rank * B/tp, (rank + 1) * B/tp). At tp > 1 every peer calls it.
+    divide over the dp x tp processes (a ValueError otherwise; the
+    model line of a (dp, tp) mesh serves the slice of its data
+    coordinate). Returns this process's logits [B/(dp tp), classes], f32:
+    those of its slice of the images (``vit_tp.local_images``). At tp > 1
+    every peer of the line calls it.
 
     CUDA tensors run the kernels (K1, K4, K14, then per block K3 + K1 or
     K1 + K6 + K1, and K15), from ``plan`` (:func:`prepare_fsdp_rdma_kernels`,
@@ -264,11 +266,9 @@ def vit_int4_forward_fsdp_rdma(fart, images, cfg: ViTConfig, peers=None,
     it); CPU tensors the plain versions, gathering over the peers' gloo
     group."""
     rank, tp = _axis(fart, peers)
-    b = images.shape[0]
-    if b % tp:
-        raise ValueError(f"batch {b} not divisible by device count {tp}")
-    b_loc = b // tp
-    images = images[rank * b_loc:(rank + 1) * b_loc]
+    images = local_images(images, peers,
+                          "batch {b} not divisible by device count {n}")
+    b_loc = images.shape[0]
     n_real = cfg.num_tokens
     n_pad = _round_up(n_real, 16)
     dim = fart["pos_embed"].shape[-1]
@@ -490,31 +490,28 @@ def vit_int4_forward_fsdp(fart, images, cfg: ViTConfig, peers=None,
                           float_dtype=torch.bfloat16,
                           images_layout: str = "nhwc",
                           int_attention: bool = False,
-                          plan: Optional[FsdpPlan] = None, dp: int = 1):
+                          plan: Optional[FsdpPlan] = None):
     """Weight-gather (FSDP) quantized ViT forward, column half
     (vit_fsdp.py:274-342; the section comment above).
 
     fart: this process's artifact (:func:`shard_fsdp_artifact`); images:
     the whole batch ([B, H, W, C], or host-patchified with
     ``images_layout='patches'``), the same on every process; B must
-    divide over the dp x tp processes (``dp`` must be 1). Returns this
-    process's logits [B/tp, classes], f32: those of images [rank * B/tp,
-    (rank + 1) * B/tp), equal to the single-device forward's. At tp > 1
-    every process calls it.
+    divide over the dp x tp processes (the model line of a (dp, tp) mesh
+    serves the slice of its data coordinate). Returns this process's
+    logits [B/(dp tp), classes], f32: those of its slice of the images
+    (``vit_tp.local_images``), equal to the single-device forward's. At
+    tp > 1 every process of the line calls it.
 
     CUDA tensors run K1 and K4 (embed, head), K14 (a block's four weights
     a launch, one block ahead) and the single-device block's kernels,
     from ``plan`` (:func:`prepare_fsdp_kernels`, made here when not
     given); CPU tensors the plain versions, gathering over the peers'
     gloo group."""
-    check_mesh(dp, 1 if peers is None else peers.tp)
     rank, tp = _col_axis(fart, peers)
-    b = images.shape[0]
-    if b % (dp * tp):
-        raise ValueError(f"batch {b} not divisible by device count "
-                         f"{dp * tp}")
-    b_loc = b // tp
-    images = images[rank * b_loc:(rank + 1) * b_loc]
+    images = local_images(images, peers,
+                          "batch {b} not divisible by device count {n}")
+    b_loc = images.shape[0]
     n_real = cfg.num_tokens
     n_pad = _round_up(n_real, 16)
     dim = fart["pos_embed"].shape[-1]

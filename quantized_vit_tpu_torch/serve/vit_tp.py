@@ -2,9 +2,12 @@
 ``quantized_vit_tpu/serve/vit_tp.py``).
 
 The 'model' axis is the tp processes of a :class:`~..parallel.Peers` (one
-card shared, or the cards of one host; ``peers=None`` is tp = 1), one
-group of them (the JAX serve CLI's mesh (1, tp); a data axis wider than 1
-is refused, :func:`~..parallel.distributed.check_mesh`). As in the JAX
+card shared, or the cards of one host; ``peers=None`` is tp = 1): the
+default group (the mesh (1, tp)), or one model line of a (dp, tp)
+:class:`~..parallel.ProcessMesh` (``mesh.peers("model")``), whose data
+coordinate says which slice of the batch the line serves. Each of the
+dp x tp processes takes B/(dp x tp) images and runs its tp group's
+collectives, as the JAX function's ``shard_map`` does. As in the JAX
 function:
 
 - the residual stream stays sequence-sharded: each process owns the rows
@@ -228,6 +231,29 @@ def shard_tp_artifact(art: Dict[str, Any], rank: int, tp: int):
     return out
 
 
+def _layout(peers) -> Tuple[int, int]:
+    """(tp, dp) of ``peers`` (None: one process)."""
+    return (1, 1) if peers is None else (peers.tp, getattr(peers, "dp", 1))
+
+
+def local_images(images, peers, message: str):
+    """This process's images of the whole batch ``images``: the
+    (data_index x tp + rank)-th of dp x tp equal slices (the order of
+    ``P(('data', 'model'))``); ``message`` formats the refusal of a batch
+    that does not divide, with ``b`` and ``n``. A layout whose dp x tp
+    processes are not the group's is refused too (``check_mesh``)."""
+    tp, dp = _layout(peers)
+    b, n = images.shape[0], dp * tp
+    if b % n:
+        raise ValueError(message.format(b=b, n=n))
+    if n > 1:
+        check_mesh(dp, tp)
+    b_loc = b // n
+    g = 0 if peers is None else (getattr(peers, "data_index", 0) * tp
+                                 + peers.rank)
+    return images[g * b_loc:(g + 1) * b_loc]
+
+
 def _axis(tart, peers) -> Tuple[int, int]:
     rank, tp = (0, 1) if peers is None else (peers.rank, peers.tp)
     if tart.get("tp") != (rank, tp):
@@ -303,11 +329,12 @@ class TpPlan:
 
     def comm(self, batch: int, comm_dtype) -> Tuple[AllGather,
                                                     ReduceScatter]:
-        """The collectives' buffers of a forward of ``batch`` images."""
+        """The collectives' buffers of a forward of ``batch`` images (the
+        whole batch, over every data line)."""
         key = (batch, comm_dtype)
         if key not in self.buffers:
-            tp = 1 if self.peers is None else self.peers.tp
-            m_loc = batch // tp * self.n_pad
+            tp, dp = _layout(self.peers)
+            m_loc = batch // (dp * tp) * self.n_pad
             dev = self.cls_row.device
             peers = self.peers if tp > 1 else None
             self.buffers[key] = (
@@ -393,30 +420,28 @@ def vit_int4_forward_tp(tart, images, cfg: ViTConfig, peers=None,
                         float_dtype=torch.bfloat16,
                         comm_dtype=torch.bfloat16,
                         images_layout: str = "nhwc",
-                        plan: Optional[TpPlan] = None, dp: int = 1):
+                        plan: Optional[TpPlan] = None):
     """Tensor-parallel quantized ViT forward (module docstring;
     vit_tp.py:221-335).
 
     tart: this process's TP artifact (:func:`prepare_tp_artifact` then
     :func:`shard_tp_artifact`); images: the whole batch ([B, H, W, C], or
     host-patchified with ``images_layout='patches'``), the same on every
-    process; B must divide over dp x tp (a ValueError otherwise; ``dp``
-    must be 1). Returns this process's logits [B/tp, classes], f32: those
-    of images [rank * B/tp, (rank + 1) * B/tp). At tp > 1 every process
-    calls it.
+    process; B must divide over the dp x tp processes (a ValueError
+    otherwise). Returns this process's logits [B/(dp tp), classes], f32:
+    those of its slice of the images (:func:`local_images`). At tp > 1
+    every process of the group calls it.
 
     CUDA tensors run the kernels from ``plan`` (:func:`prepare_tp_kernels`,
     made here when not given; a caller that serves many batches keeps
     it); CPU tensors the plain versions, the collectives over the peers'
     gloo group."""
-    check_mesh(dp, 1 if peers is None else peers.tp)
     rank, tp = _axis(tart, peers)
     b = images.shape[0]
-    if b % (dp * tp):
-        raise ValueError(f"batch {b} not divisible by dp*tp={dp * tp}")
-    b_loc = b // tp
+    images = local_images(images, peers,
+                          "batch {b} not divisible by dp*tp={n}")
+    b_loc = images.shape[0]
     b_grp = b_loc * tp
-    images = images[rank * b_loc:(rank + 1) * b_loc]
     n_real = cfg.num_tokens
     n_pad = _round_up(n_real, 16)
     dim = tart["pos_embed"].shape[-1]

@@ -428,11 +428,11 @@ def test_fsdp_forward_kernel_path_never_reaches_plain(monkeypatch):
 
 
 def test_serve_cli_answers_f32_like_the_jax_cli(tmp_path):
-    """ROADMAP.md C2.1: the port's serve CLI serves an f32 residual stream
-    on the single-device path, as the JAX CLI does, so the two CLIs give
-    the same logits on one artifact (within 1e-4, the port's f32 forward
-    tolerance, tests/test_torch_vit_int4.py); JAX's ``--no-pallas`` is
-    accepted as ``--no-kernels``."""
+    """The port's serve CLI serves an f32 residual stream on the
+    single-device path, as the JAX CLI does (a ported part, ROADMAP.md),
+    so the two CLIs give the same logits on one artifact (within 1e-4,
+    the port's f32 forward tolerance, tests/test_torch_vit_int4.py);
+    JAX's ``--no-pallas`` is accepted as ``--no-kernels``."""
     import numpy as np
 
     from quantized_vit_tpu.cli import serve as j_serve

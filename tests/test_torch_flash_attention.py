@@ -26,7 +26,7 @@ from quantized_vit_tpu_torch.ops.attention import flash_kernel_limit
 
 torch.set_num_threads(1)
 
-# (q/k dtype, v dtype): equal, and mixed both ways (C1.6)
+# (q/k dtype, v dtype): equal, and mixed both ways (C1.5)
 DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
           ("float32", "bfloat16"), ("bfloat16", "float32")]
 # (B, H, N, hd, n_valid): n_valid < N, ragged N, head_dim 80

@@ -61,7 +61,17 @@ def tp2(tmp_path_factory):
     spawned gloo group."""
     cases = [("fsdp", dt, RDMA, SEED, _images(), dt)
              for dt in ("float32", "bfloat16")]
+    cases.append(("mesh", 2, ("fsdp", "dp2", RDMA, SEED, _images(),
+                              "float32")))
     return run_processes(tw.run_cases, 2, str(tmp_path_factory.mktemp("s")),
+                         args=(cases,), timeout_s=240)
+
+
+@pytest.fixture(scope="module")
+def mesh22(tmp_path_factory):
+    """The forward on a (2, 2) mesh (4 images: 1 a process)."""
+    cases = [("mesh", 2, ("fsdp", "dp2", RDMA, SEED, _images(), "float32"))]
+    return run_processes(tw.run_cases, 4, str(tmp_path_factory.mktemp("s")),
                          args=(cases,), timeout_s=240)
 
 
@@ -129,6 +139,19 @@ def test_fsdp_tp2_equals_single_device_forward(tp2, dtype, jax_logits):
     np.testing.assert_array_equal(got, want)
     if dtype == "float32":
         np.testing.assert_allclose(got, jax_logits, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", [(2, 1), (2, 2)])
+def test_fsdp_data_axis_equals_single_device_forward(tp2, mesh22, layout):
+    """A (2, tp) mesh: each process takes its images and gathers over its
+    model line; together exactly the single-device forward's logits (the
+    (1, tp) forward's, bit for bit)."""
+    cfg = ViTConfig(**RDMA)
+    want = vit_int4_forward(_art(), torch.from_numpy(_images()), cfg,
+                            float_dtype=torch.float32).numpy()
+    res = tp2 if layout == (2, 1) else mesh22
+    got = np.concatenate([r["dp2"][0] for r in res])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fsdp_per_rank_weight_bytes_are_total_over_tp(tp2):

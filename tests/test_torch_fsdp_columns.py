@@ -59,7 +59,9 @@ def _art(packed):
 def _cases():
     return [("fsdp_col", f"f32:{packed}", SMALL, SEED, packed, _images(),
              "float32") for packed in (False, True)] + [
-        ("fsdp_col", "bf16", SMALL, SEED, True, _images(), "bfloat16")]
+        ("fsdp_col", "bf16", SMALL, SEED, True, _images(), "bfloat16")] + [
+        ("mesh", 2, ("fsdp_col", f"dp2:{packed}", SMALL, SEED, packed,
+                     _images(), "float32")) for packed in (False, True)]
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +112,17 @@ def test_spawned_equals_single_device_and_jax(spawned, tp, packed):
     got = np.concatenate([r[f"f32:{packed}"][0] for r in spawned[tp]])
     np.testing.assert_array_equal(got, _single(packed))
     np.testing.assert_allclose(got, _jax(packed, tp), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("world", [2, 4])
+def test_data_axis_equals_single_device(spawned, world, packed):
+    """A (2, world/2) mesh: each process takes its 8/world images and
+    gathers the weights over its model line; together exactly the
+    single-device forward's logits (the (1, tp) forward's, bit for
+    bit)."""
+    got = np.concatenate([r[f"dp2:{packed}"][0] for r in spawned[world]])
+    np.testing.assert_array_equal(got, _single(packed))
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -167,8 +180,8 @@ def test_column_shards_are_rows_of_the_kernels_layout(tp, packed):
 
 def test_refusals():
     """A width that does not divide over tp (vit_fsdp.py:60-85), with the
-    JAX message; a batch that does not divide; a data axis wider than 1;
-    an artifact sharded for another axis."""
+    JAX message; a batch that does not divide; an artifact sharded for
+    another axis."""
     cfg = ViTConfig(**SMALL)
     art = _art(True)
     with pytest.raises(ValueError, match="output width 64 not divisible "
@@ -190,7 +203,5 @@ def test_refusals():
     with pytest.raises(ValueError, match="batch 3 not divisible by device "
                                          "count 2"):
         vit_int4_forward_fsdp(shard_fsdp_artifact(art, 0, 2), x, cfg, Two())
-    with pytest.raises(ValueError, match="'Multi-device'"):
-        vit_int4_forward_fsdp(fart, x, cfg, dp=2)
     with pytest.raises(ValueError, match="sharded for"):
         vit_int4_forward_fsdp(fart, x, cfg, Two())

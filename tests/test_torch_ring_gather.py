@@ -151,7 +151,7 @@ def test_gather_rows_tp1_is_a_copy():
 @pytest.mark.parametrize("m", MLP_M)
 def test_fused_mlp_gather_matches_jax_interpret_tp2(spawned, m):
     """K15's plain version at tp = 2, more than one 32-row program
-    (ROADMAP.md C1.3): the MLP output equals the port's fused_mlp_plain
+    (ADVICE.md's third finding): the MLP output equals the port's fused_mlp_plain
     bit for bit on every rank and the JAX kernel's within 1e-5, the
     gathered shards equal the full arrays."""
     full = tw.full_arrays([(r * 2, c) for r, c in MLP_SHARDS], "int8",
@@ -194,8 +194,8 @@ def test_fused_mlp_gather_vit_h_width_matches_jax_interpret(m):
     within 1e-5, the gather a copy. Run op by op, the JAX kernel itself
     differs from its mirror by one hidden level at a rounding tie in one
     row of the 40 (row 21: 1194 of its 1280 outputs by up to 0.007); the
-    port follows the mirror there, as ROADMAP.md C4 records for
-    attention, and that row is held to the mirror only."""
+    port follows the mirror there, as ROADMAP.md C1.3 (the mirror rule)
+    records for attention, and that row is held to the mirror only."""
     k, hid = 1280, 5120
     full = tw.full_arrays(MLP_SHARDS, "int8", 11 + m + 1)
     with jax.disable_jit():

@@ -89,6 +89,10 @@ def _cases(tp):
     cases = [("tp", f"f32:{seed}:{packed}", SMALL, seed, packed,
               _images(seed), "float32", "float32")
              for seed, packed in (INT8, INT4)]
+    # the same forwards with a data axis: (2, tp / 2) meshes of the group
+    cases += [("mesh", 2, ("tp", f"dp2:{seed}:{packed}", SMALL, seed, packed,
+                           _images(seed), "float32", "float32"))
+              for seed, packed in (INT8, INT4)]
     if tp == 2:
         cases.append(("tp", "bf16", SMALL, BF16_SEED, False,
                       _images(BF16_SEED), "bfloat16", "bfloat16"))
@@ -232,6 +236,31 @@ def test_tp4_matches_jax(tp4, case):
                                _j_tp(seed, packed, 4), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", [INT8, INT4], ids=["int8", "int4"])
+@pytest.mark.parametrize("layout", [(2, 1), (2, 2)])
+def test_data_axis_equals_dp1(tp2, tp4, layout, case):
+    """A (2, tp) mesh: each of the 2 x tp processes takes its 8/(2 tp)
+    images and its model line's collectives; together the logits of the
+    (1, tp) forward (tp = 1 in this process) within the f32 criterion,
+    1e-4, and the JAX TP forward's within 1e-4."""
+    seed, packed = case
+    dp, tp = layout
+    got = _logits(tp2 if dp * tp == 2 else tp4, f"dp2:{seed}:{packed}")
+    if tp == 1:
+        cfg = ViTConfig(**SMALL)
+        one = vit_int4_forward_tp(
+            shard_tp_artifact(prepare_tp_artifact(_art(seed, packed), cfg,
+                                                  1), 0, 1),
+            torch.from_numpy(_images(seed)), cfg, float_dtype=torch.float32,
+            comm_dtype=torch.float32).numpy()
+    else:
+        one = _logits(tp2, f"f32:{seed}:{packed}")
+    assert got.shape == (8, 10)
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, _j_tp(seed, packed, tp), rtol=0,
+                               atol=1e-4)
+
+
 def test_tp2_bf16_comm_close(tp2):
     """Serving dtypes (bf16 residual, bf16 reduce-scatter) against the f32
     TP forward: no worse than 1.5x the single-device bf16 forward's
@@ -317,8 +346,9 @@ def test_ln_quant_levels_equal_jax_and_k1_prologue(act_pow):
 
 def test_tp_refusals():
     """The refusals of the JAX preparation and forward: heads % tp, K %
-    2tp for a packed row shard, batch % tp, a data axis wider than 1, and
-    an artifact sharded for another axis."""
+    2tp for a packed row shard, batch % tp, and an artifact sharded for
+    another axis; a (dp, tp) layout whose dp x tp processes are not the
+    group's."""
     cfg = ViTConfig(**SMALL)
     art = _art(0, True)
     with pytest.raises(ValueError, match="heads=4 not divisible by tp=3"):
@@ -339,10 +369,10 @@ def test_tp_refusals():
                                          "dp\\*tp=2"):
         vit_int4_forward_tp(shard_tp_artifact(prepare_tp_artifact(
             art, cfg, 2), 0, 2), x, cfg, Two())
-    with pytest.raises(ValueError, match="'Multi-device'"):
-        vit_int4_forward_tp(tart, x, cfg, dp=2)
-    with pytest.raises(ValueError, match="'Multi-device'"):
+    with pytest.raises(ValueError, match="needs 8 processes; the group "
+                                         "has 1"):
         check_mesh(2, 4)
+    check_mesh(1, 1)
     with pytest.raises(ValueError, match="sharded for"):
         vit_int4_forward_tp(tart, x, cfg, Two())
     with pytest.raises(ValueError, match="rank 2 outside tp=2"):

@@ -17,6 +17,7 @@ from quantized_vit_tpu_torch.ops import (fused_mlp_gather, gather_rows,
 from quantized_vit_tpu_torch.parallel import (COLLECTIVES, HealthCheckError,
                                               assert_same_step,
                                               collective_health_check,
+                                              create_mesh,
                                               initialize_distributed,
                                               reset_collectives)
 from quantized_vit_tpu_torch.serve import (prepare_tp_artifact,
@@ -102,88 +103,104 @@ def run_cases(rank, tp, init_method, cases):
       s, so the others' watchdogs trip; returns (raised, message,
       seconds);
     - ("same_step", name, steps): assert_same_step of ``steps[rank]``;
-      returns the error message or None.
+      returns the error message or None;
+    - ("mesh", dp, case): ``case`` (an "fsdp", "tp" or "fsdp_col" one) on
+      the model line of a (dp, tp/dp) mesh of the group: the rank's
+      images are its data line's slice.
     """
     torch.set_num_threads(1)
     peers = initialize_distributed(init_method, tp, rank, device="cpu")
     out = {}
     try:
         for case in cases:
-            kind, name = case[0], case[1]
-            if kind == "gather":
-                shapes, dtype, seed = case[2:]
-                full = full_arrays(_whole(shapes, tp), dtype, seed)
-                shards = [rows_of(f, rank, tp) for f in full]
-                got = gather_rows(shards, peers=peers)
-                plain = gather_rows_plain(shards, peers)
-                out[name] = ([as_numpy(g) for g in got],
-                             [as_numpy(g) for g in plain])
-            elif kind == "mlp_gather":
-                m, shapes, seed = case[2:]
-                args, kw = mlp_torch(seed, m)
-                full = full_arrays(_whole(shapes, tp), "int8", seed + 1)
-                y, gath = fused_mlp_gather(
-                    *args, next_shards=[rows_of(f, rank, tp) for f in full],
-                    peers=peers, **kw)
-                out[name] = (y.numpy(), [g.numpy() for g in gath])
-            elif kind == "fsdp":
-                cfg_kw, seed, images, float_dtype = case[2:]
-                cfg = ViTConfig(**cfg_kw)
-                art = random_vit_int4_artifact(cfg, seed=seed,
-                                               pack_weights=False,
-                                               device="cpu")
-                fart = shard_fsdp_rdma_artifact(art, rank, tp)
-                logits = vit_int4_forward_fsdp_rdma(
-                    fart, torch.from_numpy(images), cfg, peers,
-                    float_dtype=getattr(torch, float_dtype))
-                nbytes = sum(b[k].w.numel() * b[k].w.element_size()
-                             for b in fart["blocks"]
-                             for k in ("qkv", "proj", "fc1", "fc2"))
-                out[name] = (logits.numpy(), nbytes)
-            elif kind in ("tp", "fsdp_col"):
-                cfg_kw, seed, packed, images = case[2:6]
-                cfg = ViTConfig(**cfg_kw)
-                art = random_vit_int4_artifact(cfg, seed=seed,
-                                               pack_weights=packed,
-                                               device="cpu")
-                x = torch.from_numpy(images)
-                reset_collectives()
-                if kind == "tp":
-                    float_dtype, comm_dtype = case[6:]
-                    part = shard_tp_artifact(
-                        prepare_tp_artifact(art, cfg, tp), rank, tp)
-                    logits = vit_int4_forward_tp(
-                        part, x, cfg, peers,
-                        float_dtype=getattr(torch, float_dtype),
-                        comm_dtype=getattr(torch, comm_dtype))
-                else:
-                    part = shard_fsdp_artifact(art, rank, tp)
-                    logits = vit_int4_forward_fsdp(
-                        part, x, cfg, peers,
-                        float_dtype=getattr(torch, case[6]))
-                nbytes = sum(b[k].w.numel() * b[k].w.element_size()
-                             for b in part["blocks"]
-                             for k in ("qkv", "proj", "fc1", "fc2"))
-                out[name] = (logits.float().numpy(), nbytes,
-                             dict(COLLECTIVES))
-            elif kind == "health":
-                late, timeout_s = case[2:]
-                if rank in late:
-                    time.sleep(timeout_s + 2)
-                t0 = time.monotonic()
-                try:
-                    rep = collective_health_check(peers, timeout_s)
-                    out[name] = (False, repr(rep), time.monotonic() - t0)
-                except HealthCheckError as e:
-                    out[name] = (True, str(e), time.monotonic() - t0)
-            elif kind == "same_step":
-                try:
-                    assert_same_step(case[2][rank], peers)
-                    out[name] = None
-                except HealthCheckError as e:
-                    out[name] = str(e)
+            if case[0] == "mesh":  # ("mesh", dp, case) on a (dp, tp/dp) mesh
+                mesh = create_mesh((case[1], tp // case[1]), device="cpu")
+                line = mesh.peers("model")
+                out.update(_run_case(case[2], line, line.rank, line.tp))
+                mesh.close()
             else:
-                raise ValueError(f"unknown case kind {kind!r}")
+                out.update(_run_case(case, peers, rank, tp))
     finally:
         peers.close()
+    return out
+
+
+def _run_case(case, peers, rank, tp):
+    """One case of :func:`run_cases` at the model axis ``peers``."""
+    out = {}
+    kind, name = case[0], case[1]
+    if kind == "gather":
+        shapes, dtype, seed = case[2:]
+        full = full_arrays(_whole(shapes, tp), dtype, seed)
+        shards = [rows_of(f, rank, tp) for f in full]
+        got = gather_rows(shards, peers=peers)
+        plain = gather_rows_plain(shards, peers)
+        out[name] = ([as_numpy(g) for g in got],
+                     [as_numpy(g) for g in plain])
+    elif kind == "mlp_gather":
+        m, shapes, seed = case[2:]
+        args, kw = mlp_torch(seed, m)
+        full = full_arrays(_whole(shapes, tp), "int8", seed + 1)
+        y, gath = fused_mlp_gather(
+            *args, next_shards=[rows_of(f, rank, tp) for f in full],
+            peers=peers, **kw)
+        out[name] = (y.numpy(), [g.numpy() for g in gath])
+    elif kind == "fsdp":
+        cfg_kw, seed, images, float_dtype = case[2:]
+        cfg = ViTConfig(**cfg_kw)
+        art = random_vit_int4_artifact(cfg, seed=seed,
+                                       pack_weights=False,
+                                       device="cpu")
+        fart = shard_fsdp_rdma_artifact(art, rank, tp)
+        logits = vit_int4_forward_fsdp_rdma(
+            fart, torch.from_numpy(images), cfg, peers,
+            float_dtype=getattr(torch, float_dtype))
+        nbytes = sum(b[k].w.numel() * b[k].w.element_size()
+                     for b in fart["blocks"]
+                     for k in ("qkv", "proj", "fc1", "fc2"))
+        out[name] = (logits.numpy(), nbytes)
+    elif kind in ("tp", "fsdp_col"):
+        cfg_kw, seed, packed, images = case[2:6]
+        cfg = ViTConfig(**cfg_kw)
+        art = random_vit_int4_artifact(cfg, seed=seed,
+                                       pack_weights=packed,
+                                       device="cpu")
+        x = torch.from_numpy(images)
+        reset_collectives()
+        if kind == "tp":
+            float_dtype, comm_dtype = case[6:]
+            part = shard_tp_artifact(
+                prepare_tp_artifact(art, cfg, tp), rank, tp)
+            logits = vit_int4_forward_tp(
+                part, x, cfg, peers,
+                float_dtype=getattr(torch, float_dtype),
+                comm_dtype=getattr(torch, comm_dtype))
+        else:
+            part = shard_fsdp_artifact(art, rank, tp)
+            logits = vit_int4_forward_fsdp(
+                part, x, cfg, peers,
+                float_dtype=getattr(torch, case[6]))
+        nbytes = sum(b[k].w.numel() * b[k].w.element_size()
+                     for b in part["blocks"]
+                     for k in ("qkv", "proj", "fc1", "fc2"))
+        out[name] = (logits.float().numpy(), nbytes,
+                     dict(COLLECTIVES))
+    elif kind == "health":
+        late, timeout_s = case[2:]
+        if rank in late:
+            time.sleep(timeout_s + 2)
+        t0 = time.monotonic()
+        try:
+            rep = collective_health_check(peers, timeout_s)
+            out[name] = (False, repr(rep), time.monotonic() - t0)
+        except HealthCheckError as e:
+            out[name] = (True, str(e), time.monotonic() - t0)
+    elif kind == "same_step":
+        try:
+            assert_same_step(case[2][rank], peers)
+            out[name] = None
+        except HealthCheckError as e:
+            out[name] = str(e)
+    else:
+        raise ValueError(f"unknown case kind {kind!r}")
     return out
