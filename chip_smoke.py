@@ -6241,7 +6241,7 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
         restore_sharded_checkpoint, run_with_elastic_recovery,
         save_sharded_checkpoint, train_step)
     from quantized_vit_tpu_torch.parallel.train_step import (
-        TrainState, gather_state, state_from_tree, state_tree)
+        TrainState, gather_state, logical_shards, state_from_params)
     from quantized_vit_tpu_torch.serve import random_vit_int4_artifact
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6278,8 +6278,8 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
                                             TRAIN_MESH_STEPS, barrier)
     out["ring"] = _ring_check(mesh, cfg, state, x, y)
     ckpt = os.path.join(work_dir, "ckpt")
-    tree = state_tree(state, mesh, cfg)
-    full = gather_params(tree["params"], mesh)
+    tree = logical_shards(state.params, mesh, cfg)
+    full = gather_params(tree, mesh)
     out["saved_digest"] = _digest(full) if rank in (0, 2) else None
     del full
     t0 = time.perf_counter()
@@ -6300,7 +6300,7 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
     seen = []
 
     def step_fn(p, m, step):
-        st = p if isinstance(p, TrainState) else state_from_tree(
+        st = p if isinstance(p, TrainState) else state_from_params(
             p, m, cfg, count=step)
         st, _, _ = train_step(st, x, y, cfg, m)
         seen.append((step, m.size))
@@ -6322,8 +6322,8 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
                                                        cfg))
         del final
         tree, extra = restore_sharded_checkpoint(ckpt, mesh=mesh12)
-        out["restore_1x2"] = _digest(gather_params(tree["params"], mesh12))
-        st = state_from_tree(tree, mesh12, cfg, count=extra["step"])
+        out["restore_1x2"] = _digest(gather_params(tree, mesh12))
+        st = state_from_params(tree, mesh12, cfg, count=extra["step"])
         del tree
         for step in range(extra["step"], ELASTIC_START + ELASTIC_STEPS):
             st, _, _ = train_step(st, x, y, cfg, mesh12)
@@ -6342,7 +6342,7 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
         reinitialize_distributed(f"file://{work_dir}/pair1", 2, rank - 2)
         mesh21 = create_mesh((2, 1), device=dev)
         tree, _ = restore_sharded_checkpoint(ckpt, mesh=mesh21)
-        out["restore_2x1"] = _digest(gather_params(tree["params"], mesh21))
+        out["restore_2x1"] = _digest(gather_params(tree, mesh21))
         del tree
         deadline = time.monotonic() + SPAWN_TIMEOUT_S
         while not os.path.exists(done_marker):  # one pair on the card
@@ -6369,9 +6369,11 @@ def train_mesh_phase(dev, record, arts):
     layout of the DP x TP step. Spawned, in order: the (2, 2) step
     (TRAIN_MESH_STEPS steps; the first step's loss within 1e-4 relative
     of the reference's, its gathered gradients as the comment above
-    EXACT_TOL sets out); the int8 ring at dp = 2 on a step's gradients against
-    the exact sum (RING_MAX, RING_MEAN; every replica bit-identical); a
-    sharded checkpoint of the (2, 2) state; TP (f32) and column-FSDP
+    EXACT_TOL sets out); the int8 ring at dp = 2 on a step's gradients
+    against the exact sum (RING_MAX, RING_MEAN; every replica
+    bit-identical); a
+    sharded checkpoint of the (2, 2) params (as the JAX package's holds;
+    a resume starts Adam's moments at zero); TP (f32) and column-FSDP
     (bf16) serving at (2, 2) on phase 9's artifact; an elastic run from
     that checkpoint with a HealthCheckError injected before the third of
     ELASTIC_STEPS steps, which resumes on (1, 2) (ranks 2, 3 leave); on

@@ -422,20 +422,14 @@ def train_step(state: TrainState, images, labels, cfg: ViTConfig,
     return adam_update(state, grads, lr), loss, grads
 
 
-def state_tree(state: TrainState, mesh: ProcessMesh, cfg: ViTConfig):
-    """The logical shards of the whole state, {'params', 'mu', 'nu'}, for
-    a sharded checkpoint (its step count goes in the checkpoint's
-    ``extra``). A collective call."""
-    return {"params": logical_shards(state.params, mesh, cfg),
-            "mu": logical_shards(state.mu, mesh, cfg),
-            "nu": logical_shards(state.nu, mesh, cfg)}
-
-
-def state_from_tree(tree, mesh: ProcessMesh, cfg: ViTConfig,
-                    count: int) -> TrainState:
-    """Inverse of :func:`state_tree` (a collective call)."""
-    return TrainState(params=working_from_logical(tree["params"], mesh, cfg),
-                      mu=working_from_logical(tree["mu"], mesh, cfg),
-                      nu=working_from_logical(tree["nu"], mesh, cfg),
+def state_from_params(shards, mesh: ProcessMesh, cfg: ViTConfig,
+                      count: int = 0) -> TrainState:
+    """The state of a rank's logical shards of the params (a sharded
+    checkpoint's, which holds the params as the JAX package's does):
+    their working shards, zero moments and Adam's step ``count`` (a
+    collective call)."""
+    mine = working_from_logical(shards, mesh, cfg)
+    return TrainState(params=mine,
+                      mu=tree_map(lambda t: torch.zeros_like(t), mine),
+                      nu=tree_map(lambda t: torch.zeros_like(t), mine),
                       count=int(count))
-
