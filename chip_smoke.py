@@ -6045,13 +6045,15 @@ def _record_masses(named):
     return masses, undo
 
 
-def _train_layout(mesh, cfg, params, x, y, ref, steps, barrier):
+def _train_layout(mesh, cfg, params, x, y, ref, steps, barrier,
+                  trace=False):
     """``steps`` timed DP x TP steps from ``params`` at ``mesh`` (every rank
     of it calls this): the first step's loss and gathered gradients
     against the single-process step's (``ref``), then rank 0's step ms,
     the fences a step of each axis and their host ms, K7's launches a
-    step in this process, its peak memory; on the card one more step,
-    rank 0's traced (``profile_step``: kernel ms, idle share)."""
+    step in this process, its peak memory; with ``trace``, on the card,
+    one more step, rank 0's traced (``profile_step``: kernel ms, idle
+    share)."""
     from quantized_vit_tpu_torch.ops import _build
     from quantized_vit_tpu_torch.parallel import (gather_state,
                                                   init_train_state,
@@ -6090,7 +6092,7 @@ def _train_layout(mesh, cfg, params, x, y, ref, steps, barrier):
                     for name in ("full", "split")}
             del full
         del grads
-    if cuda:  # one more step, rank 0's under torch.profiler
+    if cuda and trace:  # one more step, rank 0's under torch.profiler
         barrier()
 
         def step():
@@ -6269,14 +6271,24 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
     art = random_vit_int4_artifact(scfg, seed=0, pack_weights=True,
                                    device=dev)
     sx = torch.from_numpy(serve_x_np).to(dev)
-    out = {"rank": rank}
+    out = {"rank": rank, "stamps": []}
+    t_last = [time.perf_counter()]
+
+    def stamp(what):  # seconds spent since the last stamp
+        now = time.perf_counter()
+        out["stamps"].append((what, round(now - t_last[0], 1)))
+        t_last[0] = now
 
     # (2, 2): the timed steps, the ring, the checkpoint, serving
     mesh = create_mesh((2, 2), device=dev)
     barrier = mesh.world_peers().barrier
+    stamp("setup")
     state, out["train_2x2"] = _train_layout(mesh, cfg, params, x, y, ref,
-                                            TRAIN_MESH_STEPS, barrier)
+                                            TRAIN_MESH_STEPS, barrier,
+                                            trace=True)
+    stamp("train 2x2")
     out["ring"] = _ring_check(mesh, cfg, state, x, y)
+    stamp("ring")
     ckpt = os.path.join(work_dir, "ckpt")
     tree = logical_shards(state.params, mesh, cfg)
     full = gather_params(tree, mesh)
@@ -6286,8 +6298,10 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
     save_sharded_checkpoint(ckpt, tree, {"step": ELASTIC_START}, mesh=mesh)
     out["ckpt_save_s"] = time.perf_counter() - t0
     del tree
+    stamp("checkpoint")
     out["serve_2x2"] = _serve_dp(mesh, scfg, art, sx, SERVE_DP_ITERS,
                                  rank == 0, "2x2")
+    stamp("serve 2x2")
     # the elastic run: (2, 2) until the injected failure, then (1, 2)
     calls = {"n": 0}
 
@@ -6314,6 +6328,7 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
         store_dir=work_dir)
     out["elastic"] = {"failures": failures, "seen": seen,
                       "s": time.perf_counter() - t0}
+    stamp("elastic")
     del state
     done_marker = os.path.join(work_dir, "pair0_done")
     if mesh12 is not None:  # ranks 0, 1: the (1, 2) group
@@ -6329,12 +6344,16 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
             st, _, _ = train_step(st, x, y, cfg, mesh12)
         out["uninterrupted"] = _digest(gather_state(st.params, mesh12, cfg))
         del st
+        stamp("restore, uninterrupted run")
         _, out["train_1x2"] = _train_layout(mesh12, cfg, params, x, y, ref,
                                             TRAIN_MESH_STEPS, barrier)
+        stamp("train 1x2")
         pipe = create_mesh((2,), ("pipe",), device=dev)
         out["pipe"] = _pipe_check(pipe, cfg_kw, x, dev)
+        stamp("gpipe")
         out["serve_1x2"] = _serve_dp(mesh12, scfg, art, sx, SERVE_DP_ITERS,
                                      False, "1x2")
+        stamp("serve 1x2")
         mesh12.close()
         if mesh12.rank == 0:
             open(done_marker, "w").close()
@@ -6344,16 +6363,20 @@ def train_mesh_worker(rank, world, init_method, dev_name, cfg_kw, x_np,
         tree, _ = restore_sharded_checkpoint(ckpt, mesh=mesh21)
         out["restore_2x1"] = _digest(gather_params(tree, mesh21))
         del tree
+        stamp("restore 2x1")
         deadline = time.monotonic() + SPAWN_TIMEOUT_S
         while not os.path.exists(done_marker):  # one pair on the card
             if time.monotonic() > deadline:
                 raise RuntimeError("the (1, 2) group never finished")
             time.sleep(0.05)
+        stamp("wait for the (1, 2) group")
         barrier = mesh21.world_peers().barrier
         _, out["train_2x1"] = _train_layout(mesh21, cfg, params, x, y, ref,
                                             TRAIN_MESH_STEPS, barrier)
+        stamp("train 2x1")
         out["serve_2x1"] = _serve_dp(mesh21, scfg, art, sx, SERVE_DP_ITERS,
                                      rank == 2, "2x1")
+        stamp("serve 2x1")
         mesh21.close()
     out["peak_mib"] = _peak_mib(dev)
     reinitialize_distributed("", 1, 0)
@@ -6444,7 +6467,8 @@ def train_mesh_phase(dev, record, arts):
     # the (1, 1) layout in this process
     one = create_mesh((1, 1), device=dev)
     _, rec["train_1x1"] = _train_layout(one, cfg, params, x, y, ref,
-                                        TRAIN_MESH_STEPS, lambda: None)
+                                        TRAIN_MESH_STEPS, lambda: None,
+                                        trace=True)
     del model, params
     gc.collect()
     # phase 9's artifact and images; the (1, tp) references
@@ -6588,7 +6612,9 @@ def train_mesh_phase(dev, record, arts):
                 if n:
                     k_.setdefault("mesh_launches", {})[
                         f"{name.split('_')[0]}_{key}"] = n
-    log(f"[train mesh] phase {rec['phase_s']} s (spawned {rec['spawn_s']} s)")
+    rec["stamps"] = {r: res[r]["stamps"] for r in (0, 2)}
+    log(f"[train mesh] phase {rec['phase_s']} s (spawned {rec['spawn_s']} s;"
+        f" rank 0 {res[0]['stamps']}; rank 2 {res[2]['stamps']})")
     if fails:
         raise Failed("phase 10: " + "; ".join(fails))
 
