@@ -95,6 +95,16 @@ Phases, in order; any failure exits non-zero:
    to ``vit_int4_forward``'s; the spawned groups (tp = 2 and 4) also
    hold K14 and K15 (at both widths) against the full weights and
    ``fused_mlp_plain``, each process under a deadline;
+3d. the root tools' six timing ablations (K16-K21, ``ops/ablations.py``:
+   K1's fc1 with prologue and epilogue variants, K6's attention with its
+   stages switched off and with J images a block), each tool's modes
+   through its wrapper at the root tool's shapes and seed with the
+   launch counters checked (one launch a mode), every mode against its
+   plain version (bit-exact, or within 1 level at <= 0.5% of positions
+   where a library transcendental or rcp.approx enters), each timed
+   (events; the device time of each tool's reported mode), its plain
+   version and the tool's yardstick (``torch._int_mm`` at the GEMM's
+   shape, bf16 ``scaled_dot_product_attention``);
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
@@ -367,6 +377,7 @@ def run(record):
         except Exception as e:  # a kernel that does not build fails the run
             raise Failed(f"build: {e}")
         record["build_s"] = round(time.time() - t0, 1)
+        record["build_source_s"] = dict(_build.BUILD_SECONDS)
         log(f"[build] {record['build_s']} s -> {bdir}")
         ptx = bdir / "ptxas.log"
         record["ptxas"] = [ln.strip() for ln in (
@@ -386,8 +397,10 @@ def run(record):
     fwd["vit_h"] = vit_h_phase(dev, record)
     fwd["paths"] = kernel_paths_phase(dev, record, fwd)
     fwd["fsdp"] = fsdp_phase(dev, record, parity, fwd)
+    ablations = ablations_phase(dev, record, parity)
     serve_phase(dev, record, fwd)
     timing_phase(dev, record, fwd, peaks)
+    record["kernels"] += ablation_kernel_rows(record, ablations)
     # phase 7's yardsticks: the seed-0 ViT-B/16 artifacts
     arts = {k: fwd[k] for k in ("art", "art_packed", "cfg", "x")}
     del fwd
@@ -1920,12 +1933,10 @@ def expected_launches(depth, route="block", mlp="fused_mlp"):
     K4 and K5 once. ``fsdp``: the FSDP forward (a process's batch >= 4),
     the block route with K15 for the MLP and one K14 (block 0's
     gather)."""
-    none = {"fused_quant_matmul": 0, "fused_mlp": 0, "attention_block": 0,
-            "patch_finalize": 1, "attention_qkv": 0, "block_stack": 0,
-            "quant_bwd": 0, "fused_mlp_chunked": 0, "attention_qkv_proj": 0,
-            "int4_matmul": 0, "int8_matmul": 0, "quant_matmul_fa": 0,
-            "flash_attention": 0, "gather_rows": 0, "fused_mlp_gather": 0,
-            "ln_quant_levels": 0}
+    from quantized_vit_tpu_torch.ops import _build
+
+    # every counter (the tools' ablations' too) at 0 but K4's
+    none = dict(dict.fromkeys(_build.LAUNCHES, 0), patch_finalize=1)
     if route == "latency":
         return dict(none, fused_quant_matmul=2, block_stack=1)
     if route == "fsdp":
@@ -2837,6 +2848,110 @@ def fsdp_phase(dev, record, parity, fwd):
     record["fsdp"] = rec
     return {"launches": launches, "fart": fart, "plan": fplan,
             "fart_h": fart_h, "plan_h": fplan_h}
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the root tools' timing ablations (K16-K21)
+# ---------------------------------------------------------------------------
+
+# tool: (its source, the TPU kernel it replaces, the mode its row in the
+# kernels line reports)
+ABLATIONS = {
+    "exp_pro": ("fc1_ablation.cu", "tools/exp_pro.py:99", "ln_quant"),
+    "exp_pro2": ("fc1_ablation.cu", "tools/exp_pro2.py:146", "folded"),
+    "exp_attn": ("attn_ablation.cu", "tools/exp_attn.py:111", "full"),
+    "exp_attn2": ("attn_ablation.cu", "tools/exp_attn2.py:64", "1"),
+    "exp_epilogue": ("fc1_ablation.cu", "tools/exp_epilogue.py:103",
+                     "gelu10"),
+    "exp_fc1": ("fc1_ablation.cu", "tools/exp_fc1.py:106", "gelu_erf"),
+}
+# a tool's shape when not the root tool's (a CPU rehearsal cuts them)
+ABLATION_SHAPES: dict = {}
+
+
+def ablations_phase(dev, record, parity):
+    """Phase 3d: every mode of the six ablation tools
+    (``quantized_vit_tpu_torch/tools/exp_*.py``) at the root tools'
+    shapes and seeds. A tool's path is its modes' wrappers, one call
+    each, with the launch counters set to 0 just before and read just
+    after (one launch a mode); then each mode's kernel against its plain
+    version (a parity row), its launch timed with events, its plain
+    version, the reported mode's device time, and the tool's yardstick.
+    """
+    import importlib
+
+    from quantized_vit_tpu_torch.tools import _ablation
+
+    t0 = time.time()
+    out = {}
+    for tool, (_, _, shown) in ABLATIONS.items():
+        mod = importlib.import_module(f"quantized_vit_tpu_torch.tools.{tool}")
+        t = mod.build(dev, mod.MODES, ABLATION_SHAPES.get(tool))
+        _, launches = run_path(dev, f"ablations_{tool}",
+                               lambda: [m.call() for m in t.modes],
+                               {tool: len(t.modes)})
+        modes = {}
+        for m in t.modes:
+            r = _ablation.check(m)
+            parity.add({"kernel": tool, "case": m.mode,
+                        "check": r["contract"],
+                        "max_abs_err": float(r["max_abs_err"]),
+                        "share_differ": r["share_differ"],
+                        "bit_exact": r["bit_exact"], "ok": r["ok"]})
+            b, by = _ablation.bound_us(m)
+            modes[m.mode] = dict(
+                r, us=cuda_ms(m.launch) * 1e3,
+                plain_us=cuda_ms(m.plain) * 1e3, bound_us=b, bound_by=by,
+                fp64_ceiling_us=(m.ops / _ablation.FP64_TC * 1e6
+                                 if m.kind == "bf16" else None))
+            if m.mode == shown:
+                modes[m.mode]["device_us"] = kernel_device_us(m.launch)
+        yard = None if t.yard is None else cuda_ms(t.yard) * 1e3
+        out[tool] = {"launches": launches[tool], "modes": modes,
+                     "yardstick": t.yard_name, "yardstick_us": yard,
+                     "yardstick_device_us": (None if t.yard is None else
+                                             kernel_device_us(t.yard))}
+        log(f"[ablations {tool}] " + "; ".join(
+            f"{k} {v['us']:.1f} us (max {v['max_abs_err']})"
+            for k, v in modes.items()) + f"; {t.yard_name} "
+            + ("n/a" if yard is None else f"{yard:.1f} us"))
+    bad = [f for f in parity.failures if f.split(" ")[0] in ABLATIONS]
+    if bad:
+        raise Failed("ablation parity: " + "; ".join(bad[:8]))
+    out["phase_s"] = round(time.time() - t0, 1)
+    record["ablations"] = out
+    log(f"[ablations] phase {out['phase_s']} s")
+    return out
+
+
+def ablation_kernel_rows(record, abl):
+    """K16-K21's rows of the kernels line: each tool's reported mode (its
+    time, plain time, bound, yardstick), its path's launches, the largest
+    parity error over its modes, and every mode's time beside it."""
+    rows = []
+    for tool, (src, rep, shown) in ABLATIONS.items():
+        r = abl[tool]
+        m = r["modes"][shown]
+        rows.append({
+            "name": tool, "route": "cuda",
+            "source": f"quantized_vit_tpu_torch/csrc/{src}",
+            "replaces": rep, "launches": r["launches"],
+            "path": f"ablations_{tool}", "mode": shown,
+            "max_abs_err": max(v["max_abs_err"] for v in r["modes"].values()),
+            "bit_exact": all(v["bit_exact"] for v in r["modes"].values()),
+            "ms": m["us"] / 1e3, "device_ms": (
+                None if m.get("device_us") is None
+                else m["device_us"] / 1e3),
+            "plain_ms": m["plain_us"] / 1e3, "bound_ms": m["bound_us"] / 1e3,
+            "bound_by": m["bound_by"],
+            "library_ms": (None if r["yardstick_us"] is None
+                           else r["yardstick_us"] / 1e3),
+            "library": r["yardstick"],
+            "library_device_ms": (None if r["yardstick_device_us"] is None
+                                  else r["yardstick_device_us"] / 1e3),
+            "us_per_mode": {k: v["us"] for k, v in r["modes"].items()},
+        })
+    return rows
 
 
 # ---------------------------------------------------------------------------

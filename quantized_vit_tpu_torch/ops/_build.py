@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -36,7 +37,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_quant_matmul.cu", "fused_mlp.cu", "attention_block.cu",
            "patch_finalize.cu", "attention_qkv.cu", "block_stack.cu",
            "quant_bwd.cu", "fused_mlp_chunked.cu", "attention_proj.cu",
-           "int_matmul.cu", "flash_attention.cu", "ring_gather.cu")
+           "int_matmul.cu", "flash_attention.cu", "ring_gather.cu",
+           "fc1_ablation.cu", "attn_ablation.cu")
 # -fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as the plain PyTorch version's separate ops do (a contracted FMA
 # moves a value by an ulp and can flip a level at a rounding tie)
@@ -55,8 +57,13 @@ LAUNCHES: Dict[str, int] = {"fused_quant_matmul": 0, "fused_mlp": 0,
                             "attention_qkv_proj": 0, "int4_matmul": 0,
                             "int8_matmul": 0, "quant_matmul_fa": 0,
                             "flash_attention": 0, "gather_rows": 0,
-                            "fused_mlp_gather": 0, "ln_quant_levels": 0}
+                            "fused_mlp_gather": 0, "ln_quant_levels": 0,
+                            # the root tools' ablations (ops/ablations.py)
+                            "exp_pro": 0, "exp_pro2": 0, "exp_attn": 0,
+                            "exp_attn2": 0, "exp_epilogue": 0, "exp_fc1": 0}
 
+# seconds from the start of the last build to each source's library
+BUILD_SECONDS: Dict[str, float] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -107,10 +114,12 @@ def build_all() -> Path:
     """Compile every missing library, one ``nvcc`` per source, in
     parallel. Returns the build directory; raises with the compiler's
     output if any build fails. ``ptxas.log`` there keeps each kernel's
-    register and shared-memory report."""
+    register and shared-memory report and each source's build seconds
+    (also in :data:`BUILD_SECONDS`)."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.perf_counter()
     for src in SOURCES:
         lib = out / (Path(src).stem + ".so")
         if lib.exists():
@@ -121,10 +130,22 @@ def build_all() -> Path:
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    texts = {}
+
+    def drain(src, p):  # a thread a compiler: each one's own finish time
+        texts[src] = p.communicate()[0]
+        BUILD_SECONDS[src] = round(time.perf_counter() - t0, 1)
+
+    threads = [threading.Thread(target=drain, args=(src, p))
+               for src, _, _, p in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     errors, logs = [], []
     for src, lib, tmp, p in procs:
-        text, _ = p.communicate()
-        logs.append(f"== {src}\n{text}")
+        text = texts[src]
+        logs.append(f"== {src} ({BUILD_SECONDS[src]} s)\n{text}")
         if p.returncode != 0:
             errors.append(f"nvcc failed on {src} (rc {p.returncode}):\n"
                           f"{text[-6000:]}")

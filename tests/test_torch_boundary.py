@@ -40,7 +40,8 @@ import chip_smoke
 assert chip_smoke.main() != 0  # no card here: exits non-zero
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "quantized_vit_tpu" or m.startswith("quantized_vit_tpu."))
+             or m == "quantized_vit_tpu" or m.startswith("quantized_vit_tpu.")
+             or m == "tools" or m.startswith("tools."))
 # the training slice's modules and the FSDP slice's are among those
 # scanned
 slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
@@ -48,7 +49,10 @@ slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
           "opt.geta", "graph.oto", "utils.losses", "utils.guards",
           "utils.data", "utils.native_prep", "utils.training",
           "opt.checkpoint", "ops.ring_gather", "serve.vit_fsdp",
-          "parallel", "parallel.distributed", "parallel.peers"}
+          "parallel", "parallel.distributed", "parallel.peers",
+          "ops.ablations", "tools.exp_pro", "tools.exp_pro2",
+          "tools.exp_attn", "tools.exp_attn2", "tools.exp_epilogue",
+          "tools.exp_fc1"}
 missing = {m for m in slice_ if pkg.__name__ + "." + m not in mods}
 print(len(mods), "modules;", "loaded:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(mods) < 42 else 0)

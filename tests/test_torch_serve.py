@@ -212,6 +212,12 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "MESH_CLI_REQUESTS", 6)
     # phase 3b: ViT-H's attention branch at batch 8 and the GEMMs at M =
     # 8 x 16 rows keep their batches at these widths
+    # phase 3d: the ablation tools at small shapes (the attention tool
+    # keeps its 224 rows and 208 keys, which the tool's mask needs)
+    monkeypatch.setattr(chip_smoke, "ABLATION_SHAPES", {
+        "exp_pro": (64, 64, 256), "exp_pro2": (64, 64, 256),
+        "exp_epilogue": (64, 64, 256), "exp_fc1": (64, 64, 256),
+        "exp_attn": (2, 224, 208, 2, 16), "exp_attn2": (4, 32, 2, 16, 27)})
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
@@ -230,7 +236,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
                      "fused_mlp_chunked", "attention_qkv_proj",
                      "int4_matmul", "int8_matmul", "quant_matmul_fa",
                      "flash_attention", "gather_rows", "fused_mlp_gather",
-                     "quant_bwd"]
+                     "exp_pro", "exp_pro2", "exp_attn", "exp_attn2",
+                     "exp_epilogue", "exp_fc1", "quant_bwd"]
+    # phase 3d: every mode of the six ablation tools, one parity row each
+    abl = [r for r in record["parity"] if r["kernel"] in chip_smoke.ABLATIONS]
+    assert len(abl) == 6 + 7 + 10 + 3 + 7 + 8 and all(r["ok"] for r in abl)
     # phase 3b's kernel paths at the shrunk widths, every check passed
     paths = record["paths"]
     k13 = {f"k13_{m}{s}" for m in ("vitb_b4", "vith_b1", "vith_b8")
