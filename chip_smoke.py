@@ -2875,8 +2875,9 @@ def ablations_phase(dev, record, parity):
     shapes and seeds. A tool's path is its modes' wrappers, one call
     each, with the launch counters set to 0 just before and read just
     after (one launch a mode); then each mode's kernel against its plain
-    version (a parity row), its launch timed with events, its plain
-    version, the reported mode's device time, and the tool's yardstick.
+    version (a parity row), then the tool's own timings
+    (``tools/_ablation.py``: the launch by events and by device time, the
+    plain version, the bound) and its yardstick.
     """
     import importlib
 
@@ -2884,7 +2885,7 @@ def ablations_phase(dev, record, parity):
 
     t0 = time.time()
     out = {}
-    for tool, (_, _, shown) in ABLATIONS.items():
+    for tool in ABLATIONS:
         mod = importlib.import_module(f"quantized_vit_tpu_torch.tools.{tool}")
         t = mod.build(dev, mod.MODES, ABLATION_SHAPES.get(tool))
         _, launches = run_path(dev, f"ablations_{tool}",
@@ -2898,23 +2899,16 @@ def ablations_phase(dev, record, parity):
                         "max_abs_err": float(r["max_abs_err"]),
                         "share_differ": r["share_differ"],
                         "bit_exact": r["bit_exact"], "ok": r["ok"]})
-            b, by = _ablation.bound_us(m)
-            modes[m.mode] = dict(
-                r, us=cuda_ms(m.launch) * 1e3,
-                plain_us=cuda_ms(m.plain) * 1e3, bound_us=b, bound_by=by,
-                fp64_ceiling_us=(m.ops / _ablation.FP64_TC * 1e6
-                                 if m.kind == "bf16" else None))
-            if m.mode == shown:
-                modes[m.mode]["device_us"] = kernel_device_us(m.launch)
-        yard = None if t.yard is None else cuda_ms(t.yard) * 1e3
+            modes[m.mode] = dict(r, **_ablation.measure(m))
+        y = _ablation.measure_yard(t) or {}
         out[tool] = {"launches": launches[tool], "modes": modes,
-                     "yardstick": t.yard_name, "yardstick_us": yard,
-                     "yardstick_device_us": (None if t.yard is None else
-                                             kernel_device_us(t.yard))}
+                     "yardstick": t.yard_name,
+                     "yardstick_us": y.get("us"),
+                     "yardstick_device_us": y.get("device_us")}
         log(f"[ablations {tool}] " + "; ".join(
             f"{k} {v['us']:.1f} us (max {v['max_abs_err']})"
             for k, v in modes.items()) + f"; {t.yard_name} "
-            + ("n/a" if yard is None else f"{yard:.1f} us"))
+            + ("n/a" if not y else f"{y['us']:.1f} us"))
     bad = [f for f in parity.failures if f.split(" ")[0] in ABLATIONS]
     if bad:
         raise Failed("ablation parity: " + "; ".join(bad[:8]))
@@ -3036,45 +3030,28 @@ def sync():
 
 def cuda_ms(fn, iters=ITERS, warmup=3):
     """Median ms of ``iters`` timed runs (CUDA events), after warm-up; at
-    least ``SHORT_ITERS`` runs when one run takes under 1 ms."""
-    for _ in range(warmup):
-        fn()
+    least ``SHORT_ITERS`` runs when one run takes under 1 ms
+    (``quantized_vit_tpu_torch/tools/_ablation.py:events_us``, which
+    the ablation tools time with too)."""
+    from quantized_vit_tpu_torch.tools._ablation import events_us
+
     if DEV != "cuda":  # CPU rehearsal: host clock, never a device number
+        for _ in range(warmup):
+            fn()
         t0 = time.perf_counter()
         fn()
         return (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    fn()
-    e.record()
-    torch.cuda.synchronize()
-    if s.elapsed_time(e) < 1.0:
-        iters = max(iters, SHORT_ITERS)
-    ev = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        ev.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
+    return events_us(fn, iters, warmup, SHORT_ITERS) / 1e3
 
 
 def int_mm_ms(shapes):
     """``torch._int_mm`` on the kernel's GEMM shapes, as one timed call
     sequence (a yardstick; the port never calls it). None if this card's
     PyTorch refuses a shape."""
-    mats = []
-    for m, k, n in shapes:
-        a = torch.randint(-7, 8, (m, k), dtype=torch.int8, device=DEV)
-        b = torch.randint(-7, 8, (n, k), dtype=torch.int8, device=DEV).t()
-        mats.append((a, b))
+    from quantized_vit_tpu_torch.tools._ablation import int_mm_yard
+
     try:
-        return cuda_ms(lambda: [torch._int_mm(a, b) for a, b in mats])
+        return cuda_ms(int_mm_yard(shapes, DEV))
     except RuntimeError as e:
         log(f"  _int_mm yardstick unavailable: {e}")
         return None
@@ -4728,21 +4705,9 @@ def kernel_device_us(fn, reps: int = 20):
     """The summed device time of every kernel ``fn`` launches, per call,
     from torch.profiler's CUDA trace; None off the card or when the trace
     holds no device time."""
-    if DEV != "cuda":
-        return None
-    from torch.profiler import ProfilerActivity, profile
+    from quantized_vit_tpu_torch.tools._ablation import device_us
 
-    fn()
-    sync()
-    for _ in range(3):  # a trace now and then comes back empty: retry
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
-        tot = sum(e.device_time_total for e in _kernel_events(prof))
-        if tot > 0:
-            return tot / reps
-    return None
+    return device_us(fn, reps) if DEV == "cuda" else None
 
 
 def profile_step(fn):

@@ -23,9 +23,10 @@
 //
 // Bound on this card (3.35 TB/s; 989 TFLOP/s bf16; the FP64 tensor cores'
 // 67 TFLOP/s, the ceiling of an exact kernel):
-//   K18 at B 8, N 224, nk 208, 12 heads of 64: 1.15 GFLOP; 9.6 MB (2.9
-//       us, bytes); FP64 ceiling 17.1 us
-//   K19 at B 32, N 224, nk 208: 4.58 GFLOP; 38.5 MB (11.5 us, bytes);
+//   K18 at B 8, N 224, nk 208, 12 heads of 64: 1.15 GFLOP; 9.24 MB (q
+//       at 224 rows, k and v at 208, the int8 levels: 2.76 us, bytes);
+//       FP64 ceiling 17.1 us
+//   K19 at B 32, N 224, nk 208: 4.58 GFLOP; 36.96 MB (11.03 us, bytes);
 //       FP64 ceiling 68.4 us
 //
 // K18's design is simple and right first: a block of 256 threads per

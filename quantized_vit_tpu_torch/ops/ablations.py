@@ -51,7 +51,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import (_card_shape, _f32_value, _n_keys, _qkv_head_dim,
+from .attention import (_card_shape, _n_keys, _qkv_head_dim,
                         _raise_if, attention_qkv_plain, plan_attention_qkv,
                         qkv_attn_tile_rows, qkv_kernel_limit)
 from .fused import (_ERF_COEFS, _SQRT2, _erf_f32, _f32, _gelu_f32,
@@ -61,11 +61,14 @@ from .reference import int_dot
 from ..quant.packing import unpack_int4
 
 # the tools' constants: the dequant scale, 1/d of the output quantizer,
-# the top level, the LayerNorm epsilon
+# the top level, the LayerNorm epsilon, exp_pro2's quantizer d (folded),
+# exp_attn2's score scale
 SCALE = 1e-3
 INV_D = 20.0
 TOP = 7
 LN_EPS = 1e-6
+OUT_D = 0.05
+SM_SCALE = 0.125
 MAGIC = 1.5 * 2**23
 _C2 = 2.0**-0.5
 # exp_epilogue.py's gelu5: a degree-9 odd erf polynomial (5 coefficients)
@@ -164,17 +167,15 @@ def magic_round(v):
     return (v + MAGIC) - MAGIC
 
 
-def _levels(r, top):
-    t = float(top)
-    return torch.clamp(r, -t, t).to(torch.int8)
+def _levels(r):
+    return torch.clamp(r, -float(TOP), float(TOP)).to(torch.int8)
 
 
-def fc1_prologue_plain(x, prologue, *, ln_g=None, ln_b=None, act_top=TOP,
-                       eps=LN_EPS):
+def fc1_prologue_plain(x, prologue, *, ln_g=None, ln_b=None):
     """The int8 levels of the fc1 ablations' prologues: ``levels`` (x as
-    it is), ``quant`` (``clip(round(x), +-top)`` in f32) or ``ln``
+    it is), ``quant`` (``clip(round(x), +-7)`` in f32) or ``ln``
     (``exp_pro.py``'s two-moment LayerNorm, ``(x - mu) * rsqrt(var +
-    eps) * g + b``, then round and clip; this is ``_layernorm_f32``'s
+    1e-6) * g + b``, then round and clip; this is ``_layernorm_f32``'s
     formula, with its f64 sums and ``1/sqrt``)."""
     if prologue == "levels":
         if x.dtype != torch.int8:
@@ -182,10 +183,10 @@ def fc1_prologue_plain(x, prologue, *, ln_g=None, ln_b=None, act_top=TOP,
         return x
     x32 = x.to(torch.float32)
     if prologue == "ln":
-        x32 = _layernorm_f32(x32, ln_g, ln_b, eps)
+        x32 = _layernorm_f32(x32, ln_g, ln_b, LN_EPS)
     elif prologue != "quant":
         raise ValueError(f"unknown prologue {prologue!r}")
-    return _quantize_f32(x32, None, None, act_top, False, folded=True)
+    return _quantize_f32(x32, None, None, TOP, False, folded=True)
 
 
 def int_acc(lv, w, fmt="int8"):
@@ -199,8 +200,7 @@ def int_acc(lv, w, fmt="int8"):
     return int_dot(lv, wl)
 
 
-def fc1_epilogue_plain(y, epilogue, *, inv_d=INV_D, out_top=TOP,
-                       out_d=None):
+def fc1_epilogue_plain(y, epilogue):
     """(pre, levels) of an fc1 epilogue on y = acc * scale (+ bias): the
     f32 value before the final rounding and the int8 levels, each as the
     tool writes it (``none``/``trunc``: the f32 -> int8 cast, truncation).
@@ -210,19 +210,19 @@ def fc1_epilogue_plain(y, epilogue, *, inv_d=INV_D, out_top=TOP,
     magic = epilogue in ("magic", "gelu_erf_magic", "gelu_tanh", "gelu_sig",
                          "gelu_bf16", "gelu7_magic", "gelu5")
     if epilogue in ("round", "magic"):
-        pre = y * inv_d
+        pre = y * INV_D
     elif epilogue in ("gelu_erf", "gelu_erf_magic"):
         z = torch.clamp(y * _C2, -3.0, 3.0)
         e = _erf_f32(z)
-        w = z * (_SQRT2 * 0.5) * inv_d
+        w = z * (_SQRT2 * 0.5) * INV_D
         pre = w + w * e
     elif epilogue == "gelu_tanh":
         # 0.5 y (1 + tanh(0.7978845608 (y + 0.044715 y^3)))
         y2 = y * y
         t = torch.tanh(y * (0.7978845608 + 0.7978845608 * 0.044715 * y2))
-        pre = y * inv_d * 0.5 * (1.0 + t)
+        pre = y * INV_D * 0.5 * (1.0 + t)
     elif epilogue == "gelu_sig":
-        pre = y * torch.sigmoid(1.702 * y) * inv_d
+        pre = y * torch.sigmoid(1.702 * y) * INV_D
     elif epilogue == "gelu_bf16":
         # the erf polynomial in bf16, each operation rounded to bf16
         z = torch.clamp(y * _C2, -3.0, 3.0).to(torch.bfloat16)
@@ -231,10 +231,10 @@ def fc1_epilogue_plain(y, epilogue, *, inv_d=INV_D, out_top=TOP,
         for c in _ERF_COEFS[-2::-1]:
             acc = acc * z2 + torch.full_like(z, c)
         e = (acc * z).to(torch.float32)
-        w = y * (0.5 * inv_d)
+        w = y * (0.5 * INV_D)
         pre = w + w * e
     elif epilogue in ("gelu7", "gelu7_magic"):
-        pre = _gelu_f32(y) * inv_d
+        pre = _gelu_f32(y) * INV_D
     elif epilogue == "gelu5":
         v = torch.clamp(y * _C2, -3.0, 3.0)
         v2 = v * v
@@ -242,36 +242,34 @@ def fc1_epilogue_plain(y, epilogue, *, inv_d=INV_D, out_top=TOP,
         for c in _ERF5[-2::-1]:
             acc = acc * v2 + c
         erf = torch.clamp(acc * v, -1.0, 1.0)
-        pre = y * 0.5 * (1.0 + erf) * inv_d
+        pre = y * 0.5 * (1.0 + erf) * INV_D
     elif epilogue == "folded":
         # K1's folded GELU-quant on y as z (fused.py:_gelu_quant_folded)
-        d = _f32(out_d, y.device)
+        d = _f32(OUT_D, y.device)
         w = y * (_f32(_SQRT2 * 0.5, y.device) / d)
         pre = w + w * _erf_f32(y)
-        return pre, _gelu_quant_folded(y, d, out_top)
+        return pre, _gelu_quant_folded(y, d, TOP)
     else:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    return pre, _levels(magic_round(pre) if magic else torch.round(pre),
-                        out_top)
+    return pre, _levels(magic_round(pre) if magic else torch.round(pre))
 
 
 def fc1_ablation_plain(x, w, variant: Fc1Variant, *, fmt="int8",
                        scale=SCALE, bias=None, ln_g=None, ln_b=None,
-                       act_top=TOP, out_top=TOP, out_d=None, inv_d=INV_D,
-                       eps=LN_EPS, with_pre=False):
+                       with_pre=False):
     """Plain version of the fc1 ablations: int8 levels [M, N] of
     ``epilogue(prologue(x) @ W * scale (+ bias))``. x [M, K] (int8 levels,
     or bf16/f32 for the quant and ln prologues); w [K, N] int8 or packed
     int4 [K/2, N]; ``scale`` a number or an [N] f32 vector (``vscale``);
-    ``bias`` [N] f32 (added where the variant has one). ``with_pre``: also
-    the f32 value before the final rounding."""
-    lv = fc1_prologue_plain(x, variant.prologue, ln_g=ln_g, ln_b=ln_b,
-                            act_top=act_top, eps=eps)
+    ``bias`` [N] f32 (added where the variant has one). The tops, 1/d, the
+    LayerNorm epsilon and the folded quantizer's d are the tools'
+    (:data:`TOP`, :data:`INV_D`, :data:`LN_EPS`, :data:`OUT_D`).
+    ``with_pre``: also the f32 value before the final rounding."""
+    lv = fc1_prologue_plain(x, variant.prologue, ln_g=ln_g, ln_b=ln_b)
     y = int_acc(lv, w, fmt).to(torch.float32) * scale
     if variant.bias:
         y = y + bias
-    pre, out = fc1_epilogue_plain(y, variant.epilogue, inv_d=inv_d,
-                                  out_top=out_top, out_d=out_d)
+    pre, out = fc1_epilogue_plain(y, variant.epilogue)
     return (out, pre) if with_pre else out
 
 
@@ -282,24 +280,63 @@ def fc1_ablation_plain(x, w, variant: Fc1Variant, *, fmt="int8",
 
 @dataclasses.dataclass(frozen=True)
 class Fc1Plan:
-    """An fc1 ablation's weight in the kernels' n-major layout
-    (:func:`~._build.n_major`), made once by :func:`plan_fc1`."""
+    """An fc1 ablation call site of M rows, prepared once by
+    :func:`plan_fc1`: the weight in the kernels' n-major layout
+    (:func:`~._build.n_major`), the variant, its f32 vectors on the device
+    (the scale vector, the bias, the LayerNorm g and b, where it has
+    them), the level scratch (float prologues), the output every launch
+    writes, and the card's SM count; so a launch is the library call."""
 
     w_t: torch.Tensor
     int4: bool
+    m: int
     k: int
     n: int
+    variant: Fc1Variant
+    scale: float
+    vec: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]
+    ln_g: Optional[torch.Tensor]
+    ln_b: Optional[torch.Tensor]
+    prm: torch.Tensor
+    lv: Optional[torch.Tensor]
+    out: torch.Tensor
+    sms: int
 
 
-def plan_fc1(w, fmt="int8") -> Fc1Plan:
-    """The n-major copy of w [K, N] int8 (or packed int4 [K/2, N])."""
+def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
+             bias=None, ln_g=None, ln_b=None) -> Fc1Plan:
+    """The call site of ``variant`` on M rows with w [K, N] int8 (or
+    packed int4 [K/2, N]) on the card; operands as
+    :func:`fc1_ablation_plain`."""
     _build.require_cuda("fc1_ablation", w)
     if w.dtype != torch.int8 or fmt not in ("int8", "int4"):
         raise TypeError("fc1_ablation: int8 or packed int4 (int8-typed) "
                         "weights")
+    pair = (variant.prologue, variant.epilogue)
+    if pair not in FC1_BUILT:
+        raise ValueError(f"fc1_ablation: no kernel built for {pair}")
     k = w.shape[0] * (2 if fmt == "int4" else 1)
-    return Fc1Plan(w_t=_build.n_major(w), int4=fmt == "int4", k=k,
-                   n=w.shape[1])
+    n = w.shape[1]
+    _raise_if(fc1_kernel_limit(m, k, n, fmt))
+    dev = w.device
+    vec = None
+    if variant.vscale:  # a number, [N] or the tools' [1, N]
+        vec = torch.broadcast_to(_f32(scale, dev).reshape(-1),
+                                 (n,)).contiguous()
+    b = _f32(bias, dev).reshape(-1).contiguous() if variant.bias else None
+    g = bb = lv = None
+    if variant.prologue == "ln":
+        g = _f32(ln_g, dev).reshape(-1).contiguous()
+        bb = _f32(ln_b, dev).reshape(-1).contiguous()
+    if variant.prologue != "levels":
+        lv = torch.empty((m, k), dtype=torch.int8, device=dev)
+    return Fc1Plan(
+        w_t=_build.n_major(w), int4=fmt == "int4", m=m, k=k, n=n,
+        variant=variant, scale=0.0 if variant.vscale else float(scale),
+        vec=vec, bias=b, ln_g=g, ln_b=bb, prm=_unit_params(dev.index),
+        lv=lv, out=torch.empty((m, n), dtype=torch.int8, device=dev),
+        sms=_card_shape(dev.index)[0])
 
 
 def fc1_kernel_limit(m: int, k: int, n: int, fmt: str) -> Optional[str]:
@@ -323,53 +360,31 @@ def _fc1_library():
     return lib
 
 
-def run_fc1(plan: Fc1Plan, x, variant: Fc1Variant, counter: str, *,
-            scale=SCALE, bias=None, ln_g=None, ln_b=None, act_top=TOP,
-            out_top=TOP, out_d=None, inv_d=INV_D, eps=LN_EPS):
-    """Launches the fc1 ablation kernel for ``variant`` on a CUDA x [M, K]
-    with a prepared weight, counted under ``counter`` (the tool's name);
-    returns int8 [M, N]. Operands as :func:`fc1_ablation_plain`."""
+def run_fc1(plan: Fc1Plan, x, counter: str):
+    """Launches the fc1 ablation kernel of ``plan`` on a CUDA x [M, K]
+    (int8 levels, or bf16/f32 for a float prologue), counted under
+    ``counter`` (the tool's name); returns the plan's int8 output [M, N],
+    which the plan's next launch overwrites."""
     _build.require_cuda(counter, x)
-    pair = (variant.prologue, variant.epilogue)
-    if pair not in FC1_BUILT:
-        raise ValueError(f"{counter}: no kernel built for {pair}")
-    m, k = x.shape
-    if k != plan.k:
-        raise ValueError(f"{counter}: K mismatch: x {k} vs w {plan.k}")
-    _raise_if(fc1_kernel_limit(m, k, plan.n,
-                               "int4" if plan.int4 else "int8"))
-    if variant.prologue == "levels" and x.dtype != torch.int8:
-        raise TypeError(f"{counter}: the levels prologue takes int8 levels")
-    if variant.prologue != "levels" and x.dtype not in (torch.bfloat16,
-                                                        torch.float32):
-        raise TypeError(f"{counter}: bf16 or f32 x for a float prologue")
-    dev = x.device
+    if tuple(x.shape) != (plan.m, plan.k):
+        raise ValueError(f"{counter}: x {tuple(x.shape)} vs the plan's "
+                         f"({plan.m}, {plan.k})")
+    if (plan.variant.prologue == "levels") != (x.dtype == torch.int8) or (
+            x.dtype not in (torch.int8, torch.bfloat16, torch.float32)):
+        raise TypeError(f"{counter}: int8 levels for the levels prologue, "
+                        f"bf16 or f32 x for a float prologue")
     x = x.contiguous()
-    vec = None
-    if variant.vscale:  # a number, [N] or the tools' [1, N]
-        vec = torch.broadcast_to(_f32(scale, dev).reshape(-1),
-                                 (plan.n,)).contiguous()
-    b = _f32(bias, dev).reshape(-1).contiguous() if variant.bias else None
-    g = bb = None
-    if variant.prologue == "ln":
-        g = _f32(ln_g, dev).reshape(-1).contiguous()
-        bb = _f32(ln_b, dev).reshape(-1).contiguous()
-    lv = (torch.empty((m, k), dtype=torch.int8, device=dev)
-          if variant.prologue != "levels" else None)
-    prm = _unit_params(dev.index)  # the prologue quantizer's d and t
-    out = torch.empty((m, plan.n), dtype=torch.int8, device=dev)
+    v = plan.variant
     code = _fc1_library().qvt_fc1_ablation(
         x.data_ptr(), _build.dtype_code(x.dtype), plan.w_t.data_ptr(),
-        int(plan.int4), plan.k, _build.ptr(vec), _build.ptr(b),
-        _build.ptr(g), _build.ptr(bb), prm.data_ptr(), _build.ptr(lv),
-        float(scale) if not variant.vscale else 0.0, float(inv_d),
-        _f32_value(out_d) if out_d is not None else 1.0, float(eps),
-        out.data_ptr(), m, plan.n, FC1_PROLOGUES[variant.prologue],
-        FC1_EPILOGUES[variant.epilogue], int(act_top), int(out_top),
-        _card_shape(dev.index)[0], _build.stream())
+        int(plan.int4), plan.k, _build.ptr(plan.vec), _build.ptr(plan.bias),
+        _build.ptr(plan.ln_g), _build.ptr(plan.ln_b), plan.prm.data_ptr(),
+        _build.ptr(plan.lv), plan.scale, INV_D, OUT_D, LN_EPS,
+        plan.out.data_ptr(), plan.m, plan.n, FC1_PROLOGUES[v.prologue],
+        FC1_EPILOGUES[v.epilogue], TOP, TOP, plan.sms, _build.stream())
     _build.check(code, counter)
     _build.count_launch(counter)
-    return out
+    return plan.out
 
 
 @functools.lru_cache(maxsize=None)
@@ -385,7 +400,7 @@ def _fc1_wrapper(tool, modes, x, w, mode, fmt="int8", **kw):
     if x.device.type == "cpu":
         return fc1_ablation_plain(x, w, v, fmt=fmt, **kw)
     _build.require_cuda(tool, x, w)
-    return run_fc1(plan_fc1(w, fmt), x, v, tool, **kw)
+    return run_fc1(plan_fc1(w, v, x.shape[0], fmt=fmt, **kw), x, tool)
 
 
 def exp_fc1(x, w, mode):
@@ -402,17 +417,15 @@ def exp_pro(x, w, ln_g, ln_b, mode):
                         ln_b=ln_b)
 
 
-def exp_pro2(x, w, ln_g, ln_b, mode, *, scale, bias, act_top=TOP,
-             out_d=0.05, out_top=TOP):
+def exp_pro2(x, w, ln_g, ln_b, mode, *, scale, bias):
     """K17: ``exp_pro2.py``'s LayerNorm fc1 ``mode``
     (:data:`EXP_PRO2_MODES`): scale [N] (the ``lean`` mode takes the
-    tool's scalar 1e-3 instead), bias [N], the runtime tops and the
-    output quantizer's d (``folded``)."""
+    tool's scalar 1e-3 instead), bias [N]; the tops and the output
+    quantizer's d (``folded``) are the tool's."""
     v = _mode(EXP_PRO2_MODES, "exp_pro2", mode)
     return _fc1_wrapper("exp_pro2", EXP_PRO2_MODES, x, w, mode, ln_g=ln_g,
                         ln_b=ln_b, scale=scale if v.vscale else SCALE,
-                        bias=bias if v.bias else None, act_top=act_top,
-                        out_top=out_top, out_d=out_d)
+                        bias=bias if v.bias else None)
 
 
 def exp_epilogue(x, w_packed, mode):
@@ -428,16 +441,15 @@ def exp_epilogue(x, w_packed, mode):
 # ---------------------------------------------------------------------------
 
 
-def exp_attn_plain(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID,
-                   inv_d=INV_D, top=TOP, with_pre=False):
+def exp_attn_plain(x, mode, *, heads, n_keys, with_pre=False):
     """Plain version of ``exp_attn.py``: x [B, N, (3, H, hd)] bf16, the
     keys and values from its first ``n_keys`` rows; per head s = q k^T
-    (no scale), keys at ``n_valid`` and past masked to -1e30, minus the
-    row max, exp, p in x's dtype, o = p v, divided by sum(p); the levels
-    ``clip(round(o * inv_d), +-top)`` [B, N, H*hd] int8. Each ``mode``
+    (no scale), keys at 197 (:data:`ATTN_N_VALID`) and past masked to
+    -1e30, minus the row max, exp, p in x's dtype, o = p v, divided by
+    sum(p); the levels ``clip(round(o * 20), +-7)`` [B, N, H*hd] int8. Each ``mode``
     switches the tool's stages off as the tool does; ``mxu_sum`` and
     ``transposed`` compute ``full``'s function. ``with_pre``: also
-    ``o * inv_d`` before the rounding."""
+    ``o * 20`` before the rounding."""
     _mode(EXP_ATTN_MODES, "exp_attn", mode)
     b, n, width = x.shape
     hd = _qkv_head_dim(width, heads)
@@ -450,7 +462,8 @@ def exp_attn_plain(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID,
     else:
         if mode != "no_mask":
             col = torch.arange(n_keys, device=x.device)
-            s = torch.where(col < n_valid, s, torch.full_like(s, -1e30))
+            s = torch.where(col < ATTN_N_VALID, s,
+                            torch.full_like(s, -1e30))
         if mode != "no_max":
             s = s - s.amax(dim=-1, keepdim=True)
         p = (s if mode == "no_exp" else torch.exp(s)).to(x.dtype)
@@ -463,19 +476,19 @@ def exp_attn_plain(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID,
         o = o * (1.0 / p_sum)
     elif mode not in ("matmuls_only", "no_exp", "no_sum"):
         o = o / p_sum
-    pre = (o * inv_d).reshape(b, n, heads * hd)
-    out = _levels(torch.round(pre), top)
+    pre = (o * INV_D).reshape(b, n, heads * hd)
+    out = _levels(torch.round(pre))
     return (out, pre) if with_pre else out
 
 
-def exp_attn2_plain(qkv, d, *, heads, sm_scale=0.125, n_valid=ATTN_N_VALID,
-                    out_top=TOP):
+def exp_attn2_plain(qkv, d, *, heads, n_valid=ATTN_N_VALID):
     """Plain version of ``exp_attn2.py``: K6's function
-    (:func:`~.attention.attention_qkv_plain`) with the proj quantizer's d
-    and top (t = 1); the same for every J."""
-    return attention_qkv_plain(qkv, heads=heads, sm_scale=sm_scale,
+    (:func:`~.attention.attention_qkv_plain`) at the tool's score scale
+    0.125 with the proj quantizer's d, top 7 and t = 1; the same for
+    every J."""
+    return attention_qkv_plain(qkv, heads=heads, sm_scale=SM_SCALE,
                                n_valid=n_valid, out_d=d, out_t=1.0,
-                               out_top=out_top)
+                               out_top=TOP)
 
 
 # ---------------------------------------------------------------------------
@@ -511,8 +524,7 @@ def _attn_library():
     return lib
 
 
-def run_exp_attn(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID,
-                 inv_d=INV_D, top=TOP):
+def run_exp_attn(x, mode, *, heads, n_keys):
     """Launches ``exp_attn``'s kernel for ``mode`` on a CUDA x
     [B, N, 3*H*hd] bf16, counted under ``exp_attn``."""
     _build.require_cuda("exp_attn", x)
@@ -525,31 +537,27 @@ def run_exp_attn(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID,
     x = x.contiguous()
     out = torch.empty((b, n, heads * hd), dtype=torch.int8, device=x.device)
     rc = _attn_library().qvt_exp_attn(
-        x.data_ptr(), out.data_ptr(), b, n, n_keys, heads, hd, n_valid,
-        code, int(top), float(inv_d), _build.stream())
+        x.data_ptr(), out.data_ptr(), b, n, n_keys, heads, hd,
+        ATTN_N_VALID, code, TOP, INV_D, _build.stream())
     _build.check(rc, "exp_attn")
     _build.count_launch("exp_attn")
     return out
 
 
-def exp_attn(x, mode, *, heads, n_keys, n_valid=ATTN_N_VALID, inv_d=INV_D,
-             top=TOP):
+def exp_attn(x, mode, *, heads, n_keys):
     """K18: ``exp_attn.py``'s ablated attention on x [B, N, 3*H*hd] bf16
     (:func:`exp_attn_plain`); int8 [B, N, H*hd]."""
-    kw = dict(heads=heads, n_keys=n_keys, n_valid=n_valid, inv_d=inv_d,
-              top=top)
     if x.device.type == "cpu":
-        return exp_attn_plain(x, mode, **kw)
-    return run_exp_attn(x, mode, **kw)
+        return exp_attn_plain(x, mode, heads=heads, n_keys=n_keys)
+    return run_exp_attn(x, mode, heads=heads, n_keys=n_keys)
 
 
-def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID, rows=None):
+def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID):
     """Launches ``exp_attn2``'s kernel on a CUDA qkv [B, N, 3*H*hd] bf16
-    for a call site prepared as K6's (:func:`~.attention.
-    plan_attention_qkv` with the proj quantizer's d and t = 1): K6's tile
+    for a call site prepared by :func:`plan_exp_attn2`: K6's tile
     (``csrc/qkv_attention.cuh``) over the (query tile, head) items of
-    ``j_imgs`` images a block, at K6's query tile for the card (``rows``:
-    another); counted under ``exp_attn2``."""
+    ``j_imgs`` images a block, at K6's query tile for the card; counted
+    under ``exp_attn2``."""
     _build.require_cuda("exp_attn2", qkv)
     b, n, width = qkv.shape
     hd = _qkv_head_dim(width, plan.heads)
@@ -559,9 +567,8 @@ def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID, rows=None):
     if j_imgs < 1 or b % j_imgs:
         raise ValueError(f"exp_attn2: {b} images do not split into blocks "
                          f"of {j_imgs}")
-    if rows is None:
-        rows = qkv_attn_tile_rows(b, n, plan.heads, hd, 2,
-                                  *_card_shape(qkv.device.index))
+    rows = qkv_attn_tile_rows(b, n, plan.heads, hd, 2,
+                              *_card_shape(qkv.device.index))
     qkv = qkv.contiguous()
     out = torch.empty((b, n, plan.heads * hd), dtype=torch.int8,
                       device=qkv.device)
@@ -574,15 +581,19 @@ def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID, rows=None):
     return out
 
 
-def exp_attn2(qkv, d, *, j_imgs, heads, sm_scale=0.125,
-              n_valid=ATTN_N_VALID, out_top=TOP):
+def plan_exp_attn2(device, d, heads):
+    """K19's call site: K6's (:func:`~.attention.plan_attention_qkv`) at
+    the tool's score scale 0.125, the proj quantizer's d, top 7 and
+    t = 1."""
+    return plan_attention_qkv(device, heads=heads, sm_scale=SM_SCALE,
+                              out_d=d, out_t=1.0, out_top=TOP)
+
+
+def exp_attn2(qkv, d, *, j_imgs, heads, n_valid=ATTN_N_VALID):
     """K19: K6's attention with ``j_imgs`` images a block
     (:func:`exp_attn2_plain`); int8 [B, N, H*hd]."""
     if qkv.device.type == "cpu":
-        return exp_attn2_plain(qkv, d, heads=heads, sm_scale=sm_scale,
-                               n_valid=n_valid, out_top=out_top)
+        return exp_attn2_plain(qkv, d, heads=heads, n_valid=n_valid)
     _build.require_cuda("exp_attn2", qkv)  # before planning on it
-    return run_exp_attn2(
-        plan_attention_qkv(qkv.device, heads=heads, sm_scale=sm_scale,
-                           out_d=d, out_t=1.0, out_top=out_top),
-        qkv, j_imgs=j_imgs, n_valid=n_valid)
+    return run_exp_attn2(plan_exp_attn2(qkv.device, d, heads), qkv,
+                         j_imgs=j_imgs, n_valid=n_valid)

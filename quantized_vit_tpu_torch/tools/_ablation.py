@@ -7,9 +7,11 @@ shapes and hands over one :class:`Mode` a mode. For each mode the runner
 runs the tool's wrapper once and holds it against the plain version on
 the same inputs (the largest level difference and the share of positions
 that differ), then times it on the card: the kernel's launch (operands
-prepared) by CUDA events (the median of 20 after 3 warm-ups, 200 when a
-call takes under 1 ms) and by torch.profiler's device time, the plain
-version by events, and the library yardstick once a tool. The bound is
+prepared: the library call alone) by CUDA events (the median of 20 after
+3 warm-ups, 200 when a call takes under 1 ms) and by torch.profiler's
+device time, the plain version by events, and the library yardstick once
+a tool. ``chip_smoke.py`` times phase 3d and every other phase with these
+helpers (:func:`events_us`, :func:`device_us`, :func:`int_mm_yard`). The bound is
 the larger of the bytes over 3.35 TB/s and the operations over the
 operand type's peak (H100 SXM data sheet: 1,979 TOPS int8, 989 TFLOP/s
 bf16); attention also prints the FP64 tensor cores' ceiling (67 TFLOP/s),
@@ -24,6 +26,7 @@ import dataclasses
 import json
 import statistics
 import subprocess
+import time
 from typing import Callable, List, Optional
 
 import torch
@@ -69,11 +72,17 @@ def bound_us(m: Mode):
     return max(t_b, t_o) * 1e6, "bytes" if t_b >= t_o else "operations"
 
 
-def events_us(fn, iters=20, warmup=3):
+def events_us(fn, iters=20, warmup=3, short_iters=200):
     """Median us of ``iters`` CUDA-event readings of one call, after
-    ``warmup`` calls; at least 200 readings when a call takes under 1 ms."""
+    ``warmup`` calls; at least ``short_iters`` readings when a call takes
+    under 1 ms. Without a card (a rehearsal on the CPU) one call on the
+    host's clock, never a device number."""
     for _ in range(warmup):
         fn()
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e6
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
@@ -82,7 +91,7 @@ def events_us(fn, iters=20, warmup=3):
     e.record()
     torch.cuda.synchronize()
     if s.elapsed_time(e) < 1.0:
-        iters = max(iters, 200)
+        iters = max(iters, short_iters)
     pairs = []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
@@ -97,7 +106,10 @@ def events_us(fn, iters=20, warmup=3):
 
 def device_us(fn, reps=20):
     """The device time of the kernels of one call (torch.profiler's CUDA
-    trace, the mean of ``reps``); None if the trace holds none."""
+    trace, the mean of ``reps``); None without a card or if the trace
+    holds none."""
+    if not torch.cuda.is_available():
+        return None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -140,6 +152,14 @@ def measure(m: Mode) -> dict:
             "plain_us": events_us(m.plain), "bound_us": b, "bound_by": by,
             "fp64_ceiling_us": (m.ops / FP64_TC * 1e6 if m.kind == "bf16"
                                 else None)}
+
+
+def measure_yard(tool: Tool) -> Optional[dict]:
+    """The tool's yardstick on the card (events and device time), None
+    where it has none."""
+    if tool.yard is None:
+        return None
+    return {"us": events_us(tool.yard), "device_us": device_us(tool.yard)}
 
 
 def card() -> str:
@@ -187,8 +207,8 @@ def main(name: str, modes: List[str], build, argv=None, shape=None) -> int:
         print(line, flush=True)
         rows[m.mode] = r
     out = {"tool": name, "card": smi, "modes": rows}
-    if cuda and tool.yard is not None:
-        y = {"us": events_us(tool.yard), "device_us": device_us(tool.yard)}
+    y = measure_yard(tool) if cuda else None
+    if y is not None:
         out["yardstick"] = {tool.yard_name: y}
         dv = y["device_us"]
         print(f"{name} yardstick {tool.yard_name}: {y['us']:.1f} us "
@@ -198,15 +218,17 @@ def main(name: str, modes: List[str], build, argv=None, shape=None) -> int:
     return 0 if all(r["ok"] for r in rows.values()) else 1
 
 
-def int_mm_yard(m: int, k: int, n: int, dev):
-    """``torch._int_mm`` at M, K, N on random int8 operands: the GEMM
-    alone, a yardstick (the port never calls it); None where it refuses
-    the shape."""
-    if m <= 16 or k % 8 or n % 8:
-        return None
-    a = torch.randint(-7, 8, (m, k), dtype=torch.int8, device=dev)
-    b = torch.randint(-7, 8, (n, k), dtype=torch.int8, device=dev).t()
-    return lambda: torch._int_mm(a, b)
+def int_mm_yard(shapes, dev):
+    """``torch._int_mm`` at each (M, K, N) of ``shapes`` on random int8
+    operands, as one call sequence: the GEMMs alone, a yardstick (the
+    port never calls it). A shape this PyTorch refuses raises when
+    called."""
+    mats = []
+    for m, k, n in shapes:
+        a = torch.randint(-7, 8, (m, k), dtype=torch.int8, device=dev)
+        b = torch.randint(-7, 8, (n, k), dtype=torch.int8, device=dev).t()
+        mats.append((a, b))
+    return lambda: [torch._int_mm(a, b) for a, b in mats]
 
 
 def sdpa_yard(b: int, heads: int, n: int, hd: int, dev):

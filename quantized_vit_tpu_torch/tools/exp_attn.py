@@ -46,7 +46,8 @@ def build(dev, modes=MODES, shape=None) -> Tool:
         out.append(Mode(
             mode, call, call,
             lambda mode=mode: ab.exp_attn_plain(x, mode, **kw),
-            bytes=x.numel() * 2 + b * n * h * hd,
+            # q at every row, k and v at the first nk; the int8 levels
+            bytes=b * (n + 2 * nk) * h * hd * 2 + b * n * h * hd,
             ops=4 * b * h * n * nk * hd, kind="bf16",
             levels=mode not in EXACT_MODES))
     return Tool(out, sdpa_yard(b, h, n, hd, dev) if cuda else None,

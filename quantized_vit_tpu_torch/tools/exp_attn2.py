@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from ..ops import ablations as ab
-from ..ops.attention import plan_attention_qkv
 from ._ablation import Mode, Tool, main as _main, sdpa_yard
 
 B, N, H, HD, NV = 32, 224, 12, 64, 197
@@ -36,8 +35,7 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     nk = ab._n_keys(n, nv, 2)
     kw = dict(heads=h, n_valid=nv)
     cuda = dev.type == "cuda"
-    plan = (plan_attention_qkv(dev, heads=h, sm_scale=0.125, out_d=0.05,
-                               out_t=1.0, out_top=ab.TOP) if cuda else None)
+    plan = ab.plan_exp_attn2(dev, 0.05, h) if cuda else None
     out = []
     for mode in modes:
         call = lambda j=int(mode): ab.exp_attn2(qkv, 0.05, j_imgs=j, **kw)
@@ -47,7 +45,8 @@ def build(dev, modes=MODES, shape=None) -> Tool:
                                                   n_valid=nv))
             if cuda else call,
             lambda: ab.exp_attn2_plain(qkv, 0.05, **kw),
-            bytes=qkv.numel() * 2 + b * n * h * hd,
+            # q at every row, k and v at the first nk; the int8 levels
+            bytes=b * (n + 2 * nk) * h * hd * 2 + b * n * h * hd,
             ops=4 * b * h * n * nk * hd, kind="bf16"))
     return Tool(out, sdpa_yard(b, h, n, hd, dev) if cuda else None,
                 "sdpa_bf16")

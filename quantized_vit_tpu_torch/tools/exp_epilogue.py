@@ -37,19 +37,20 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     wp = pack_int4(torch.from_numpy(
         rng.integers(-7, 8, (k, n)).astype(np.int8)), axis=0).to(dev)
     cuda = dev.type == "cuda"
-    plan = ab.plan_fc1(wp, "int4") if cuda else None
     out = []
     for mode in modes:
         v = ab.EXP_EPILOGUE_MODES[mode]
         call = lambda mode=mode: ab.exp_epilogue(x, wp, mode)
+        plan = ab.plan_fc1(wp, v, m, fmt="int4") if cuda else None
         out.append(Mode(
             mode, call,
-            (lambda v=v: ab.run_fc1(plan, x, v, "exp_epilogue")) if cuda
+            (lambda p=plan: ab.run_fc1(p, x, "exp_epilogue")) if cuda
             else call,
             lambda v=v: ab.fc1_ablation_plain(x, wp, v, fmt="int4"),
             bytes=m * k + k * n // 2 + m * n, ops=2 * m * k * n,
             kind="int8", levels=mode in LIBRARY_MODES))
-    return Tool(out, int_mm_yard(m, k, n, dev) if cuda else None, "_int_mm")
+    return Tool(out, int_mm_yard([(m, k, n)], dev) if cuda else None,
+                "_int_mm")
 
 
 def main(argv=None, shape=None) -> int:

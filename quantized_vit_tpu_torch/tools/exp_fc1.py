@@ -39,18 +39,19 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     x = torch.from_numpy(rng.integers(-7, 8, (m, k)).astype(np.int8)).to(dev)
     w = torch.from_numpy(rng.integers(-7, 8, (k, n)).astype(np.int8)).to(dev)
     cuda = dev.type == "cuda"
-    plan = ab.plan_fc1(w) if cuda else None
     out = []
     for mode in modes:
         v = ab.EXP_FC1_MODES[mode]
         call = lambda mode=mode: ab.exp_fc1(x, w, mode)
+        plan = ab.plan_fc1(w, v, m) if cuda else None
         out.append(Mode(
             mode, call,
-            (lambda v=v: ab.run_fc1(plan, x, v, "exp_fc1")) if cuda else call,
+            (lambda p=plan: ab.run_fc1(p, x, "exp_fc1")) if cuda else call,
             lambda v=v: ab.fc1_ablation_plain(x, w, v),
             bytes=m * k + k * n + m * n, ops=2 * m * k * n, kind="int8",
             levels=mode in LIBRARY_MODES))
-    return Tool(out, int_mm_yard(m, k, n, dev) if cuda else None, "_int_mm")
+    return Tool(out, int_mm_yard([(m, k, n)], dev) if cuda else None,
+                "_int_mm")
 
 
 def main(argv=None, shape=None) -> int:

@@ -45,8 +45,6 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     m, k, n = shape or (M, K, N)
     cuda = dev.type == "cuda"
     sets = {lv: inputs(dev, m, k, n, lv)[1:] for lv in (True, False)}
-    plans = {lv: ab.plan_fc1(s[1]) if cuda else None
-             for lv, s in sets.items()}
     out = []
     for mode in modes:
         v = ab.EXP_PRO_MODES[mode]
@@ -54,15 +52,17 @@ def build(dev, modes=MODES, shape=None) -> Tool:
         x, w, g, b = sets[lv]
         call = lambda mode=mode, x=x, w=w, g=g, b=b: ab.exp_pro(x, w, g, b,
                                                                  mode)
+        plan = ab.plan_fc1(w, v, m, ln_g=g, ln_b=b) if cuda else None
         out.append(Mode(
             mode, call,
-            (lambda v=v, x=x, g=g, b=b, p=plans[lv]: ab.run_fc1(
-                p, x, v, "exp_pro", ln_g=g, ln_b=b)) if cuda else call,
+            (lambda p=plan, x=x: ab.run_fc1(p, x, "exp_pro")) if cuda
+            else call,
             lambda v=v, x=x, w=w, g=g, b=b: ab.fc1_ablation_plain(
                 x, w, v, ln_g=g, ln_b=b),
             bytes=x.numel() * x.element_size() + k * n + m * n + 8 * k,
             ops=2 * m * k * n, kind="int8"))
-    return Tool(out, int_mm_yard(m, k, n, dev) if cuda else None, "_int_mm")
+    return Tool(out, int_mm_yard([(m, k, n)], dev) if cuda else None,
+                "_int_mm")
 
 
 def main(argv=None, shape=None) -> int:

@@ -37,24 +37,23 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     scale = torch.full((n,), 1e-3, device=dev)
     bias = torch.from_numpy((rng.standard_normal((1, n)) * 0.01).astype(
         np.float32)).reshape(n).to(dev)
-    plan = ab.plan_fc1(w) if cuda else None
-    kw = dict(act_top=ab.TOP, out_d=0.05, out_top=ab.TOP)
     out = []
     for mode in modes:
         v = ab.EXP_PRO2_MODES[mode]
-        ops = dict(kw, ln_g=g, ln_b=b, scale=scale if v.vscale else ab.SCALE,
+        ops = dict(ln_g=g, ln_b=b, scale=scale if v.vscale else ab.SCALE,
                    bias=bias if v.bias else None)
         call = lambda mode=mode: ab.exp_pro2(x, w, g, b, mode, scale=scale,
-                                             bias=bias, **kw)
+                                             bias=bias)
+        plan = ab.plan_fc1(w, v, m, **ops) if cuda else None
         out.append(Mode(
             mode, call,
-            (lambda v=v, o=ops: ab.run_fc1(plan, x, v, "exp_pro2", **o))
-            if cuda else call,
+            (lambda p=plan: ab.run_fc1(p, x, "exp_pro2")) if cuda else call,
             lambda v=v, o=ops: ab.fc1_ablation_plain(x, w, v, **o),
             bytes=(2 * m * k + k * n + m * n + 8 * k
                    + 4 * n * (int(v.vscale) + int(v.bias))),
             ops=2 * m * k * n, kind="int8"))
-    return Tool(out, int_mm_yard(m, k, n, dev) if cuda else None, "_int_mm")
+    return Tool(out, int_mm_yard([(m, k, n)], dev) if cuda else None,
+                "_int_mm")
 
 
 def main(argv=None, shape=None) -> int:

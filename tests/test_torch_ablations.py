@@ -211,8 +211,7 @@ def test_exp_pro2_against_pallas(mode, monkeypatch):
     tscale, tbias = torch.from_numpy(scale), torch.from_numpy(bias)
     out, pre = ab.fc1_ablation_plain(
         tx, tw, v, scale=tscale if v.vscale else ab.SCALE,
-        bias=tbias if v.bias else None, ln_g=tg, ln_b=tb, out_d=0.05,
-        with_pre=True)
+        bias=tbias if v.bias else None, ln_g=tg, ln_b=tb, with_pre=True)
     assert torch.equal(ab.exp_pro2(tx, tw, tg, tb, mode, scale=tscale,
                                    bias=tbias), out)
     _held(got, out, pre)
