@@ -4,8 +4,9 @@ paths, ViT-H/14 serving with int8-stored levels, the kernel-level entry
 points that the JAX package's bench and tools drive, FSDP serving with
 in-kernel weight gathers, tensor-parallel and column-FSDP serving
 (processes sharing the card), the ViT-B/16 QAT + GETA training
-path, and multi-device training (DP x TP, checkpoints, elastic recovery,
-GPipe).
+path, multi-device training (DP x TP, checkpoints, elastic recovery,
+GPipe), and UltraNet end to end (float, subnet, integer artifact, FPGA
+headers).
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -202,7 +203,23 @@ Phases, in order; any failure exits non-zero:
    failure and resumes on (1, 2), bit-equal to an uninterrupted (1, 2)
    run from the checkpoint; GPipe at 2 stages against the single-process
    float forward; TP and column-FSDP serving with a data axis of 2 at
-   (2, 1) and (2, 2) against the (1, tp) forwards.
+   (2, 1) and (2, 2) against the (1, tp) forwards;
+11. UltraNet (``models/ultranet.py``; no CUDA kernel of its own: its
+   convs are cuDNN's, the integer ones exact in f64) at 160 x 320, full
+   width, seed 0 with BN statistics drawn from numpy: each block on the
+   CPU's input activation at batch 4 (eval and train: BN outputs within
+   ULTRA_BN_TOL, levels equal off ties, the updated running statistics),
+   the whole net in f64 against the CPU's (eval outputs, train outputs,
+   running statistics and the gradients of sum(p^2)), then GETA's random
+   zeroing at 0.4, ``construct_subnet`` (MACs fall, the subnet's forward
+   runs), the integer artifact exported, saved, loaded and run at batch
+   32 (raw predictions bit-equal to the CPU's on the same tables, boxes
+   within 1e-6 relative), the FPGA headers and the reference npz
+   byte-identical to the CPU's from the same tables, the native packer
+   (g++ at its first use) against its numpy path; timed at batch 32:
+   the integer forward, the float eval forward, the train step (train
+   forward and backward), the subnet's forward, and plain bf16 cuDNN
+   convs of the same architecture without quantizers (a yardstick).
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -308,6 +325,21 @@ FOLDER_DIR = os.path.join(ROOT, "build", "smoke_folder")
 FOLDER_CLASSES, FOLDER_PER_CLASS = 4, 16
 RPC_REQUESTS = 64
 RPC_PORT_TIMEOUT_S = 240
+# phase 11: UltraNet at its export input (artifact/ultranet.py
+# UltraNetExportConfig.input_shape, the reference's torch_export.py:150),
+# full width; the checks against the CPU run at ULTRA_CHECK_BATCH; GETA's
+# random zeroing at ULTRA_SPARSITY for the subnet
+ULTRA_HW = (160, 320)
+ULTRA_BATCH = 32
+ULTRA_CHECK_BATCH = 4
+ULTRA_SPARSITY = 0.4
+# card against CPU: a BN output (f32, the convs' sums in their own orders)
+# within these of the CPU's on the same layer input, eval / train; a level
+# may differ by one where the value lies within ULTRA_TIE levels of a
+# half-level; the f64 run end to end within ULTRA_F64_TOL relative
+ULTRA_BN_TOL = (1e-4, 1e-3)
+ULTRA_TIE = 1e-3
+ULTRA_F64_TOL = 1e-9
 
 
 def log(*a):
@@ -410,6 +442,7 @@ def run(record):
     cli_rpc_phase(dev, record, trained)
     mesh_phase(dev, record, parity, arts, peaks)
     train_mesh_phase(dev, record, arts)
+    ultranet_phase(dev, record)
 
 
 def main_cfg():
@@ -6697,6 +6730,384 @@ def train_mesh_phase(dev, record, arts):
         f" rank 0 {res[0]['stamps']}; rank 2 {res[2]['stamps']})")
     if fails:
         raise Failed("phase 10: " + "; ".join(fails))
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: UltraNet end to end
+# ---------------------------------------------------------------------------
+
+
+def ultra_trees(seed: int = 0):
+    """UltraNet's params and batch_stats as numpy trees: the port's
+    initializers from ``seed``, BN parameters and statistics drawn from
+    numpy as tests/artifact/test_model_artifacts.py draws them (a trained
+    model's small statistics)."""
+    from quantized_vit_tpu_torch.models import (ULTRANET_LAYERS, UltraNet,
+                                                flatten_tree, unflatten_tree)
+
+    m = UltraNet(seed=seed, device="cpu")
+
+    def np_tree(tree):
+        return unflatten_tree({k: v.detach().numpy().copy()
+                               for k, v in flatten_tree(tree).items()})
+
+    params, stats = np_tree(m.param_tree()), np_tree(m.batch_stats_tree())
+    rng = np.random.default_rng(seed)
+    for i, (feat, _, _) in enumerate(ULTRANET_LAYERS):
+        stats[f"bn_{i}"]["mean"] = rng.normal(0, 0.05, feat).astype(
+            np.float32)
+        stats[f"bn_{i}"]["var"] = rng.uniform(0.5, 1.5, feat).astype(
+            np.float32)
+        params[f"bn_{i}"]["scale"] = rng.uniform(0.5, 1.5, feat).astype(
+            np.float32)
+        params[f"bn_{i}"]["bias"] = rng.normal(0, 0.1, feat).astype(
+            np.float32)
+    return params, stats
+
+
+def ultra_layers(model, x, train, inputs=None):
+    """Per block of ``model`` on ``x``: (its input, BN output, activation
+    after the quantizer and pool). With ``inputs``, block i takes
+    ``inputs[i]`` (another run's) instead of its own previous output."""
+    from quantized_vit_tpu_torch.models import ULTRANET_LAYERS
+    from quantized_vit_tpu_torch.models.ultranet import max_pool_2x2
+    from quantized_vit_tpu_torch.quant import quantize_activation
+
+    rows, act = [], x
+    for i, (_, _, pool) in enumerate(ULTRANET_LAYERS):
+        if inputs is not None:
+            act = inputs[i]
+        bn = getattr(model, f"bn_{i}")(getattr(model, f"conv_{i}")(act),
+                                       train)
+        out = quantize_activation(bn, model.a_bit)
+        rows.append((act, bn, max_pool_2x2(out) if pool else out))
+        act = rows[-1][2]
+    return rows
+
+
+def ultra_level_flips(got, want, what, fails):
+    """Levels of two BN outputs (the card's, the CPU's): equal but where
+    the CPU's value lies within ULTRA_TIE levels of a half-level, there at
+    most one apart. Returns the count of positions that differ."""
+    pre = np.clip(want.astype(np.float64), 0, 1) * 15
+    g = np.round(np.clip(got, 0, 1) * 15)
+    w = np.round(np.clip(want, 0, 1) * 15)
+    d = np.abs(g - w)
+    tie = np.abs(pre - np.floor(pre) - 0.5) < ULTRA_TIE
+    if d.max(initial=0) > 1 or ((d > 0) & ~tie).any():
+        fails.append(f"{what}: levels differ off a tie "
+                     f"({int(((d > 0) & ~tie).sum())} positions)")
+    return int((d > 0).sum())
+
+
+def bf16_ultranet_forward(params, stats, x):
+    """A yardstick the port never calls: UltraNet's architecture as plain
+    bf16 cuDNN convs (channels last) with the BN folded to a scale and a
+    shift, a clamp to [0, 1] in place of the activation quantizer and no
+    weight quantizer."""
+    from quantized_vit_tpu_torch.models import ULTRANET_LAYERS
+
+    bf = torch.bfloat16
+    layers = []
+    for i, (_, _, pool) in enumerate(ULTRANET_LAYERS):
+        k = params[f"conv_{i}"]["kernel"].permute(3, 2, 0, 1).to(bf)
+        a = params[f"bn_{i}"]["scale"] * torch.rsqrt(
+            stats[f"bn_{i}"]["var"] + 1e-5)
+        b = params[f"bn_{i}"]["bias"] - stats[f"bn_{i}"]["mean"] * a
+        layers.append((k.contiguous(memory_format=torch.channels_last),
+                       a.to(bf)[:, None, None], b.to(bf)[:, None, None],
+                       pool))
+    n = len(ULTRANET_LAYERS)
+    k8 = params[f"conv_{n}"]["kernel"].permute(3, 2, 0, 1).to(bf)
+    b8 = params[f"conv_{n}"]["bias"].to(bf)
+    xb = x.permute(0, 3, 1, 2).to(bf).contiguous(
+        memory_format=torch.channels_last)
+
+    def fwd():
+        h = xb
+        for k, a, b, pool in layers:
+            h = torch.clamp(torch.nn.functional.conv2d(h, k, padding=1) * a
+                            + b, 0, 1)
+            if pool:
+                h = torch.nn.functional.max_pool2d(h, 2)
+        return torch.nn.functional.conv2d(h, k8, b8)
+
+    return fwd
+
+
+def _npz_members(path):
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in sorted(z.namelist())}
+
+
+def ultranet_phase(dev, record):
+    """Phase 11 (the module docstring's item 11): UltraNet on the card
+    against the CPU, its subnet, the integer artifact, the FPGA headers
+    and the reference npz; each check fails the run."""
+    import copy
+    import tempfile
+
+    from quantized_vit_tpu_torch.artifact import (export_ultranet_hls,
+                                                  export_ultranet_int,
+                                                  generate_ultranet_config,
+                                                  hls_texts,
+                                                  load_ultranet_artifact,
+                                                  save_ultranet_artifact,
+                                                  UltraNetExportConfig,
+                                                  write_hls)
+    from quantized_vit_tpu_torch.models.ultranet import channels_of
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.interop import export_reference_ultranet
+    from quantized_vit_tpu_torch.models import (UltraNetInt,
+                                                ultranet_apply,
+                                                ultranet_params_from_jax)
+
+    t_phase = time.time()
+    fails = []
+    rec = {"hw": list(ULTRA_HW), "batch": ULTRA_BATCH,
+           "check_batch": ULTRA_CHECK_BATCH}
+    params, stats = ultra_trees(0)
+    rng = np.random.default_rng(11)
+    x_np = rng.random((ULTRA_BATCH, *ULTRA_HW, 3)).astype(np.float32)
+    xc_np = x_np[:ULTRA_CHECK_BATCH]
+
+    def on(device, dtype=torch.float32):
+        m = ultranet_params_from_jax(params, stats, device=device)
+        return m.to(dtype)
+
+    # 1. each block on the CPU's input activation, eval and train
+    rec["layers"] = {}
+    for train in (False, True):
+        cpu, card = on("cpu"), on(dev)
+        with torch.no_grad():
+            ref = ultra_layers(cpu, torch.from_numpy(xc_np), train)
+            got = ultra_layers(card, None, train, inputs=[
+                r[0].to(dev) for r in ref])
+        tol = ULTRA_BN_TOL[int(train)]
+        diffs, flips = [], 0
+        for i, (r, g) in enumerate(zip(ref, got)):
+            want, have = r[1].numpy(), g[1].cpu().numpy()
+            diffs.append(float(np.abs(have - want).max()))
+            flips += ultra_level_flips(have, want, f"bn_{i} train={train}",
+                                       fails)
+        if max(diffs) > tol:
+            fails.append(f"BN outputs (train={train}) {max(diffs):.3g} > "
+                         f"{tol}")
+        row = {"bn_max_abs_diff": max(diffs), "level_flips_at_ties": flips}
+        if train:
+            st = {k: float(np.abs(v.cpu().numpy() - dict(
+                cpu.named_buffers())[k].numpy()).max() / max(float(np.abs(
+                    dict(cpu.named_buffers())[k].numpy()).max()), 1e-30))
+                for k, v in card.named_buffers()}
+            row["running_stats_rel"] = max(st.values())
+            if row["running_stats_rel"] > 1e-5:
+                fails.append(f"running statistics {row['running_stats_rel']}")
+        rec["layers"]["train" if train else "eval"] = row
+        log(f"[ultranet layers, train={train}] BN max |diff| "
+            f"{max(diffs):.3g} (tol {tol}), level flips at ties {flips}"
+            + (f", running stats rel {row['running_stats_rel']:.3g}"
+               if train else ""))
+    # the whole net end to end in f64: eval outputs, train outputs, the
+    # updated running statistics and the gradients of sum(p^2)
+    e2e = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        m = on(device, torch.float64)
+        xd = torch.from_numpy(xc_np).to(device, torch.float64)
+        leaves = dict(m.named_parameters())
+        with torch.no_grad():
+            io, p_eval = m(xd)
+        p_train = m(xd, train=True)
+        grads = torch.autograd.grad((p_train ** 2).sum(),
+                                    list(leaves.values()))
+        e2e[name] = {"io": io, "p_eval": p_eval, "p_train": p_train.detach(),
+                     "stats": dict(m.named_buffers()),
+                     "grads": dict(zip(leaves, grads))}
+    worst = {}
+    for key in ("io", "p_eval", "p_train"):
+        a, b = e2e["card"][key].cpu(), e2e["cpu"][key]
+        worst[key] = float((a - b).abs().max() / b.abs().max())
+    for key in ("stats", "grads"):
+        worst[key] = max(float((e2e["card"][key][k].cpu() - v).norm()
+                               / max(float(v.norm()), 1e-300))
+                         for k, v in e2e["cpu"][key].items())
+    rec["f64_rel"] = worst
+    log(f"[ultranet f64 end to end] card vs CPU, relative: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    if max(worst.values()) > ULTRA_F64_TOL:
+        fails.append(f"f64 end to end {worst}")
+    del e2e
+
+    # the card's model at batch 32, f32
+    model = on(dev)
+    x = torch.from_numpy(x_np).to(dev)
+    with torch.no_grad():
+        io, p = model(x)
+    if tuple(p.shape) != (ULTRA_BATCH, 6, ULTRA_HW[0] // 16,
+                          ULTRA_HW[1] // 16, 6) or not bool(
+                              torch.isfinite(io).all()):
+        fails.append(f"eval forward {tuple(p.shape)}")
+    tparams = model.param_tree()
+    tstats = model.batch_stats_tree()
+
+    # 2. GETA's random zeroing, the subnet and its costs
+    oto = OTO(model, tparams, batch_stats=tstats)
+    zeroed = oto.random_set_zero_groups(target_group_sparsity=ULTRA_SPARSITY,
+                                        seed=0)
+    sub, sp, ss = oto.construct_subnet(zeroed)
+    macs = (oto.compute_macs(tparams), oto.compute_macs(sp))
+    with torch.no_grad():
+        sio, s_p = ultranet_apply(sub, sp, ss, x)
+    rec["subnet"] = {"channels": list(sub.channels), "macs": list(macs),
+                     "bops": [oto.compute_bops(tparams),
+                              oto.compute_bops(sp)]}
+    log(f"[ultranet subnet] channels {sub.channels}, MACs {macs[0]:.4g} -> "
+        f"{macs[1]:.4g} a sample")
+    if not macs[1] < macs[0] or not bool(torch.isfinite(sio).all()) or \
+            tuple(s_p.shape) != tuple(p.shape):
+        fails.append(f"subnet {rec['subnet']}")
+
+    # 3. the integer artifact: export on the card, save, load, run
+    exp = UltraNetExportConfig(input_shape=(*ULTRA_HW, 3))
+    work = tempfile.mkdtemp(prefix="ultranet_", dir=OUT_DIR)
+    art_dir = os.path.join(work, "artifact")
+    save_ultranet_artifact(art_dir, tparams, tstats, exp)
+    tables, meta = load_ultranet_artifact(art_dir, device=dev)
+    int_model = UltraNetInt(device=dev).load_int_params(tables)
+    x_lv = torch.round(torch.clamp(x, 0, 1) * 255).to(torch.int32)
+    with torch.no_grad():
+        iio, ip = int_model(x_lv)
+    cpu_tables = {k: v.cpu() for k, v in tables.items()}
+    cio, cp = UltraNetInt(device="cpu").load_int_params(cpu_tables)(
+        x_lv.cpu())
+    box_rel = float(((iio.cpu() - cio).abs() / cio.abs().clamp_min(1.0))
+                    .max())
+    own = export_ultranet_int({k: {kk: vv.detach().cpu() for kk, vv in
+                                   v.items()} for k, v in tparams.items()},
+                              {k: {kk: vv.cpu() for kk, vv in v.items()}
+                               for k, v in tstats.items()}, exp)
+    table_flips = sum(int((own[k] != cpu_tables[k]).sum()) for k in own)
+    rec["int"] = {"p_bit_equal": bool(torch.equal(ip.cpu(), cp)),
+                  "box_rel": box_rel, "meta_model": meta["model"],
+                  "tables_vs_cpu_export_differ": table_flips,
+                  "p_abs_max": float(cp.abs().max())}
+    log(f"[ultranet int] raw predictions bit-equal to the CPU's "
+        f"{rec['int']['p_bit_equal']}, boxes rel {box_rel:.3g}; the CPU's "
+        f"own export differs at {table_flips} table entries (ties)")
+    if not rec["int"]["p_bit_equal"] or box_rel > 1e-6 or \
+            meta["model"] != "ultranet":
+        fails.append(f"integer forward {rec['int']}")
+
+    # the native packer (built with g++ at its first use here) on the
+    # tables' kernel levels, against its numpy path
+    from quantized_vit_tpu_torch.artifact import native
+
+    t0 = time.time()
+    rec["native"] = {"available": native.native_available(),
+                     "first_use_s": round(time.time() - t0, 2)}
+    lv = np.concatenate([cpu_tables[f"conv_{i}_kernel_int"].reshape(
+        -1, 16).numpy() for i in range(4, 8)]).astype(np.int8)
+    rec["native"]["pack_equal"] = bool(
+        np.array_equal(native.pack_int4_host(lv),
+                       native.pack_int4_host(lv, native=False))
+        and np.array_equal(native.unpack_int4_host(
+            native.pack_int4_host(lv)), lv))
+    log(f"[ultranet native packer] built and loaded in "
+        f"{rec['native']['first_use_s']} s (available "
+        f"{rec['native']['available']}); pack/unpack equal to numpy "
+        f"{rec['native']['pack_equal']}")
+    if not rec["native"]["pack_equal"]:
+        fails.append("native packer")
+
+    # 4. the FPGA headers and the reference npz, card against CPU
+    card_texts = export_ultranet_hls(tparams, tstats,
+                                     os.path.join(work, "hls_card"), exp)
+    texts = hls_texts(cpu_tables, generate_ultranet_config(
+        exp, channels=channels_of(tparams)))
+    write_hls(os.path.join(work, "hls_cpu"), texts,
+              params["conv_8"]["bias"])
+    same = {f: open(os.path.join(work, "hls_card", f), "rb").read()
+            == open(os.path.join(work, "hls_cpu", f), "rb").read()
+            for f in ("param.h", "config.h", "last_bias.npy",
+                      "last_bias.bin")}
+    npz_card, cfg_card = export_reference_ultranet(
+        tparams, tstats, os.path.join(work, "npz_card"),
+        input_shape=(3, *ULTRA_HW))
+    npz_cpu, cfg_cpu = export_reference_ultranet(
+        params, stats, os.path.join(work, "npz_cpu"),
+        input_shape=(3, *ULTRA_HW))
+    same["npz"] = _npz_members(npz_card) == _npz_members(npz_cpu)
+    same["config.json"] = open(cfg_card, "rb").read() == open(
+        cfg_cpu, "rb").read()
+    same["texts"] = card_texts == texts
+    rec["files_identical"] = same
+    log(f"[ultranet files] card vs CPU byte-identical: {same}")
+    if not all(same.values()):
+        fails.append(f"files {same}")
+
+    # timings at batch ULTRA_BATCH
+    train_model = copy.deepcopy(model)
+    leaves = list(train_model.parameters())
+
+    def train_step():
+        pt = train_model(x, train=True)
+        return torch.autograd.grad((pt ** 2).sum(), leaves)
+
+    def eval_fwd():
+        with torch.no_grad():
+            return model(x)
+
+    def int_fwd():
+        with torch.no_grad():
+            return int_model(x_lv)
+
+    def sub_fwd():
+        with torch.no_grad():
+            return ultranet_apply(sub, sp, ss, x)
+
+    bf16_fwd = bf16_ultranet_forward(tparams, tstats, x)
+    ms = {"int_forward": cuda_ms(int_fwd), "float_eval": cuda_ms(eval_fwd),
+          "train_step": cuda_ms(train_step), "subnet_eval": cuda_ms(sub_fwd),
+          "bf16_cudnn_yardstick": cuda_ms(bf16_fwd)}
+    rec["ms"] = ms
+    clock = "events" if dev.type == "cuda" else "host clock"
+    for k, v in ms.items():
+        log(f"[ultranet ms] {k} {v:.3f} ms at batch {ULTRA_BATCH}, "
+            f"{ULTRA_HW[0]}x{ULTRA_HW[1]} ({clock}; {record['nvidia_smi']})")
+    # where the time goes: one traced call each, kernels grouped by name
+    rec["split"] = {}
+    for k, fn in (("int_forward", int_fwd), ("float_eval", eval_fwd),
+                  ("train_step", train_step)):
+        _, kern = traced(fn)
+        if not kern:
+            continue
+        by = {}
+        for e in kern:
+            t = by.setdefault(e.name, [0.0, 0])
+            t[0] += e.device_time_total / 1e3
+            t[1] += 1
+        total = sum(v[0] for v in by.values())
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:5]
+        rec["split"][k] = {"kernel_ms": total, "kernels": len(kern),
+                           "top": [(n[:60], round(v[0], 4), v[1])
+                                   for n, v in top]}
+        log(f"[ultranet split] {k}: {len(kern)} kernels, {total:.3f} ms on "
+            f"the card; top " + ", ".join(f"{n[:48]} {v[0]:.3f}x{v[1]}"
+                                          for n, v in top))
+    shutil_rmtree(work)
+    rec["phase_s"] = round(time.time() - t_phase, 1)
+    record["ultranet"] = rec
+    log(f"[ultranet] phase {rec['phase_s']} s")
+    if fails:
+        raise Failed("phase 11: " + "; ".join(fails))
+
+
+def shutil_rmtree(path):
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
 
 
 if __name__ == "__main__":

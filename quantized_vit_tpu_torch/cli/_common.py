@@ -71,13 +71,26 @@ def build_model(args, quant, device="cuda", seed: int = 0):
 
 def load_params_any(path: str, device="cuda") -> Tuple:
     """(params, step, extra) of a checkpoint of the port
-    (``opt.checkpoint``), its tensors on ``device``. A reference PyTorch
-    ``.pt``/``.pth`` file needs the interop converters, not ported."""
+    (``opt.checkpoint``), its tensors on ``device``, or of a reference
+    PyTorch ``.pt``/``.pth`` file whose keys are ``layers.{i}.*``: the
+    UltraNet Sequential, its BN statistics under ``extra["batch_stats"]``.
+    Any other ``.pt`` file (a ViT state dict) needs the ViT converters of
+    interop/, not ported."""
     if path.endswith((".pt", ".pth")):
+        from ..artifact.ultranet import as_tensors
+        from ..device import resolve_device
+        from ..interop import load_torch_checkpoint, ultranet_params_from_torch
+
+        resolve_device(device)
+        sd = load_torch_checkpoint(path)
+        if any(k.startswith("layers.") for k in sd):
+            params, stats = ultranet_params_from_torch(sd)
+            return (as_tensors(params, device), 0,
+                    {"batch_stats": as_tensors(stats, device)})
         raise NotImplementedError(
-            f"{path}: reading a reference PyTorch checkpoint needs interop/, "
-            "not ported (ROADMAP.md, modules to port, 'Other model "
-            "families, interop, auto-discovery')")
+            f"{path}: reading a reference ViT checkpoint needs interop/'s "
+            "ViT converters, not ported (ROADMAP.md, modules to port, "
+            "'Other model families, interop, auto-discovery')")
     from ..opt.checkpoint import load_checkpoint
 
     return load_checkpoint(path, device=device)

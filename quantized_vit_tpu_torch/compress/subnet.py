@@ -5,20 +5,23 @@ params tree into a dense sub-network and a config with per-block widths.
 Redundant groups are found by a zero-norm scan in group space; each
 block's qkv out rows follow its kept heads, proj's in-dim the same heads,
 fc1's out rows the kept hidden units and fc2's in-dim the same units. The
-residual stream and the head are unprunable. The other model families'
-subnets are not ported (ROADMAP.md, modules to port, 'Other model
-families, interop, auto-discovery'); UltraNet's layer table comes with
-them.
+residual stream and the head are unprunable. UltraNet's subnet
+(``construct_subnet_ultranet``, ``compress/subnet.py:278``) slices each
+conv's out-channels, its BN's params and running statistics, and the next
+conv's in-dim. The other model families' subnets are not ported
+(ROADMAP.md, modules to port, 'Other model families, interop,
+auto-discovery').
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..models.ultranet import ULTRANET_LAYERS
 from ..models.vit import ViTConfig
 from ..opt.groups import (NodeGroup, Transform, get_path, group_sq_norms,
                           has_path, kept_indices_for_axis, set_path)
@@ -27,7 +30,7 @@ from ..opt.groups import (NodeGroup, Transform, get_path, group_sq_norms,
 def kept_groups(group: NodeGroup, params, tol: float = 0.0) -> np.ndarray:
     """Indices of non-zero (kept) groups by L2-norm scan (zero norm =>
     redundant)."""
-    norms = torch.sqrt(group_sq_norms(group, params)).cpu().numpy()
+    norms = torch.sqrt(group_sq_norms(group, params)).detach().cpu().numpy()
     return np.nonzero(norms > tol)[0]
 
 
@@ -105,3 +108,38 @@ def construct_subnet_vit(cfg: ViTConfig, params,
     new_cfg = dataclasses.replace(cfg, heads_per_block=tuple(heads_pb),
                                   hidden_per_block=tuple(hidden_pb))
     return new_cfg, params
+
+
+def construct_subnet_ultranet(params, groups: Sequence[NodeGroup],
+                              batch_stats: Optional[Any] = None
+                              ) -> Tuple[Tuple[int, ...], Any,
+                                         Optional[Any]]:
+    """Slice UltraNet's conv channels: conv_i's out-dim, bn_i's scale,
+    bias and running statistics, and conv_{i+1}'s in-dim. Returns
+    (per-conv widths, params, batch_stats)."""
+    by_id = {g.id: g for g in groups}
+    n = len(ULTRANET_LAYERS)
+    channels: List[int] = []
+    prev_idx = None
+    for i in range(n + 1):
+        if prev_idx is not None:
+            params = _slice_layer_in(params, f"conv_{i}", prev_idx)
+        if i == n:
+            break
+        g = by_id.get(f"conv_{i}")
+        feat = get_path(params, f"conv_{i}/kernel").shape[-1]
+        idx = (_kept_nonempty(g, params) if g is not None and g.is_prunable
+               else np.arange(feat))
+        channels.append(len(idx))
+        params = _slice_layer_out(params, f"conv_{i}", idx)
+        for nm in ("scale", "bias"):
+            if has_path(params, f"bn_{i}/{nm}"):
+                params = set_path(params, f"bn_{i}/{nm}", _take(
+                    get_path(params, f"bn_{i}/{nm}"), idx, 0))
+        if batch_stats is not None:
+            for nm in ("mean", "var"):
+                if has_path(batch_stats, f"bn_{i}/{nm}"):
+                    batch_stats = set_path(batch_stats, f"bn_{i}/{nm}", _take(
+                        get_path(batch_stats, f"bn_{i}/{nm}"), idx, 0))
+        prev_idx = idx
+    return tuple(channels), params, batch_stats

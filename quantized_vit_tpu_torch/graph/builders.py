@@ -10,6 +10,11 @@ config over flax's param paths:
 - pre_logits and head, next to the output: unprunable;
 - each quantized layer's d/q_m/t scalars ride along as NO_PRUNE entries.
 
+UltraNet (``ultranet_node_groups``): per conv block a channel group (the
+conv kernel's out-dim, BN scale/bias as ACCESSORY); the next conv's
+in-dim follows at compression. The final 1x1 conv feeds the YOLO head:
+unprunable.
+
 The other model families' builders are not ported yet (ROADMAP.md,
 modules to port, 'Other model families, interop, auto-discovery').
 """
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from ..models.ultranet import ULTRANET_LAYERS, ULTRANET_OUT_CHANNELS
 from ..models.vit import ViTConfig
 from ..opt.groups import (NodeGroup, ParamEntry, Transform, get_path,
                           has_path)
@@ -101,6 +107,30 @@ def vit_node_groups(cfg: ViTConfig, params,
         groups.append(NodeGroup(
             id="head", entries=_layer_entries(params, "head", Transform.OUT),
             num_groups=cfg.num_classes, is_prunable=False))
+    return groups
+
+
+def ultranet_node_groups(params, batch_stats=None) -> List[NodeGroup]:
+    """Channel groups of UltraNet: conv_i's out-channels with bn_i's
+    scale/bias. The running statistics live in the ``batch_stats`` tree;
+    compression slices them by the same kept indices."""
+    groups: List[NodeGroup] = []
+    n = len(ULTRANET_LAYERS)
+    for i in range(n):
+        # the width from the kernel, so a compressed subnet regroups
+        feat = get_path(params, f"conv_{i}/kernel").shape[-1]
+        entries = [ParamEntry(f"conv_{i}/kernel", Transform.OUT)]
+        entries += [ParamEntry(f"bn_{i}/{nm}", Transform.ACCESSORY)
+                    for nm in ("scale", "bias")
+                    if has_path(params, f"bn_{i}/{nm}")]
+        groups.append(NodeGroup(id=f"conv_{i}", entries=entries,
+                                num_groups=feat, is_prunable=True))
+    entries = [ParamEntry(f"conv_{n}/kernel", Transform.OUT)]
+    if has_path(params, f"conv_{n}/bias"):
+        entries.append(ParamEntry(f"conv_{n}/bias", Transform.ACCESSORY))
+    groups.append(NodeGroup(id=f"conv_{n}", entries=entries,
+                            num_groups=ULTRANET_OUT_CHANNELS,
+                            is_prunable=False))
     return groups
 
 

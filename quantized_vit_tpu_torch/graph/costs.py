@@ -5,8 +5,9 @@ weight size and average bit width (port of
 The walk is over the params tree itself (flax paths, torch tensors), so a
 compressed subnet reports its reduced cost directly. A layer's bit widths
 come from its learned quantizer scalars (32 where it has none); BOPs =
-MACs x w_bit x a_bit. The other model families' reports come with
-their models (ROADMAP.md, modules to port, 'Other model families,
+MACs x w_bit x a_bit. UltraNet's report (``ultranet_cost_report``)
+takes its fixed DoReFa bit widths. The other model families' reports come
+with their models (ROADMAP.md, modules to port, 'Other model families,
 interop, auto-discovery'); ``graph.OTO`` refuses those models.
 """
 
@@ -16,6 +17,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from ..models.ultranet import ULTRANET_LAYERS
 from ..models.vit import ViTConfig
 from ..opt.groups import get_path, has_path
 
@@ -113,3 +115,22 @@ def vit_cost_report(cfg: ViTConfig, params) -> Dict[str, Any]:
                         *_layer_bits(params, name), kk.numel())
     return _finish(report, params)
 
+
+
+def ultranet_cost_report(params, img_hw: Tuple[int, int] = (160, 320),
+                         w_bit: int = 4, a_bit: int = 4) -> Dict[str, Any]:
+    """Per-sample MACs/BOPs of a (possibly pruned) UltraNet: the first
+    conv takes 8-bit image levels, the others ``a_bit`` activations."""
+    report = {"per_layer": {}, "total_macs": 0.0, "total_bops": 0.0,
+              "quantized_weight_bits": 0.0}
+    h, w = img_hw
+    n = len(ULTRANET_LAYERS)
+    for i in range(n + 1):
+        k = get_path(params, f"conv_{i}/kernel")
+        kh, kw, cin, cout = k.shape
+        in_bits = 8 if i == 0 else a_bit
+        _accumulate(report, f"conv_{i}", float(h * w * kh * kw * cin * cout),
+                    float(w_bit), float(in_bits), int(np.prod(k.shape)))
+        if i < n and ULTRANET_LAYERS[i][2]:
+            h, w = h // 2, w // 2
+    return _finish(report, params)

@@ -1,7 +1,8 @@
 """OTO facade over node groups, the GETA / HESSO / HESSO-CRIC optimizers,
-subnet construction and the cost metrics (``quantized_vit_tpu/graph/oto.py``), for the ViT
-family; the other model families are in ROADMAP.md, modules to port,
-'Other model families, interop, auto-discovery'.
+subnet construction and the cost metrics (``quantized_vit_tpu/graph/oto.py``),
+for the ViT family and UltraNet; the other model families are in
+ROADMAP.md, modules to port, 'Other model families, interop,
+auto-discovery'.
 """
 
 from __future__ import annotations
@@ -11,12 +12,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.ultranet import UltraNet
+from ..models.ultranet import params_from_jax as ultranet_for_params
 from ..models.vit import ViTConfig, VisionTransformer, model_for_params
 from ..opt import (GETA, HESSO, HESSOCRIC, GETAConfig, HESSOConfig,
                    HESSOCRICConfig, NodeGroup)
 from ..opt.groups import Transform, get_path, group_mask_for_param, set_path
-from .builders import mark_unprunable, vit_node_groups
-from .costs import vit_cost_report
+from .builders import mark_unprunable, ultranet_node_groups, vit_node_groups
+from .costs import ultranet_cost_report, vit_cost_report
 
 
 class OTO:
@@ -30,21 +33,34 @@ class OTO:
         new_model, new_params = oto.construct_subnet(params)
 
     ``params`` is a params tree with flax's paths (default: the model's
-    own ``param_tree()``)."""
+    own ``param_tree()``). For UltraNet (``kind == "ultranet"``) the BN
+    running statistics come as ``batch_stats`` (default: the model's
+    ``batch_stats_tree()``), and ``construct_subnet`` returns
+    ``(model, params, batch_stats)``."""
 
-    def __init__(self, model, params=None):
-        if not isinstance(model, VisionTransformer):
+    def __init__(self, model, params=None, batch_stats=None):
+        if not isinstance(model, (VisionTransformer, UltraNet)):
             raise NotImplementedError(
                 f"no node-group builder ported for {type(model).__name__}: "
-                "the port has the ViT family only; the other families and "
-                "the automatic grouping are in ROADMAP.md, modules to "
-                "port, 'Other model families, interop, auto-discovery'")
+                "the port has the ViT family and UltraNet; the other "
+                "families (ResNet, MobileNet, the separate-q/k/v "
+                "Transformer, the autoencoder, LoRA) and the automatic "
+                "grouping are in ROADMAP.md, modules to port, 'Other model "
+                "families, interop, auto-discovery'")
         self.model = model
         self.params = model.param_tree() if params is None else params
-        self.kind = "vit"
-        self.cfg: ViTConfig = model.cfg
-        self.node_groups: List[NodeGroup] = vit_node_groups(self.cfg,
-                                                            self.params)
+        self.batch_stats = batch_stats
+        if isinstance(model, VisionTransformer):
+            self.kind = "vit"
+            self.cfg: Optional[ViTConfig] = model.cfg
+            self.node_groups: List[NodeGroup] = vit_node_groups(
+                self.cfg, self.params)
+        else:
+            self.kind = "ultranet"
+            self.cfg = None
+            if batch_stats is None:
+                self.batch_stats = model.batch_stats_tree()
+            self.node_groups = ultranet_node_groups(self.params)
         self._optimizer = None
 
     def mark_unprunable_by_param_names(self, names: Sequence[str]):
@@ -71,15 +87,27 @@ class OTO:
     # compression
     # ------------------------------------------------------------------
 
-    def construct_subnet(self, params=None):
-        """Slice the group-sparse net into a dense subnet:
+    def construct_subnet(self, params=None, batch_stats=None):
+        """Slice the group-sparse net into a dense subnet. ViT:
         (VisionTransformer of the config with per-block widths, new
-        params). The model holds the new params' tensors themselves
-        (``models.model_for_params``); ``models.apply`` runs it on them,
-        as the JAX package runs its module on the params it returns."""
-        from ..compress import construct_subnet_vit
+        params); the model holds the new params' tensors themselves
+        (``models.model_for_params``) and ``models.apply`` runs it on them,
+        as the JAX package runs its module on the params it returns.
+        UltraNet: (UltraNet at the kept widths, new params, new
+        batch_stats); the model holds copies of both trees and
+        ``models.ultranet_apply`` runs it on the trees."""
+        from ..compress import construct_subnet_ultranet, construct_subnet_vit
 
         params = self.params if params is None else params
+        if self.kind == "ultranet":
+            _, new_params, new_stats = construct_subnet_ultranet(
+                params, self.node_groups,
+                self.batch_stats if batch_stats is None else batch_stats)
+            model = ultranet_for_params(
+                new_params, new_stats,
+                device=new_params["conv_0"]["kernel"].device,
+                w_bit=self.model.w_bit, a_bit=self.model.a_bit)
+            return model, new_params, new_stats
         new_cfg, new_params = construct_subnet_vit(self.cfg, params,
                                                    self.node_groups)
         return model_for_params(new_cfg, new_params), new_params
@@ -95,7 +123,8 @@ class OTO:
         cached = getattr(self, "_report_cache", None)
         if cached is not None and cached[0] is params:
             return cached[1]
-        rep = vit_cost_report(self.cfg, params)
+        rep = (ultranet_cost_report(params) if self.kind == "ultranet"
+               else vit_cost_report(self.cfg, params))
         self._report_cache = (params, rep)
         return rep
 

@@ -144,10 +144,13 @@ def test_datasets_equal_jax(tmp_path):
         assert np.array_equal(got.labels, want.labels)
 
 
-def test_unported_inputs_name_their_item():
+def test_unported_inputs_name_their_item(tmp_path):
+    # a reference ViT state dict (UltraNet's ``layers.{i}`` ones load)
+    torch.save({"blocks.0.attn.qkv.weight": torch.zeros(6, 2)},
+               tmp_path / "model.pt")
     with pytest.raises(NotImplementedError, match="interop"):
-        common.load_params_any("model.pt", device="cpu")
-    for target in ("ultranet", "hls", "refnpz", "torch", "onnx"):
+        common.load_params_any(str(tmp_path / "model.pt"), device="cpu")
+    for target in ("torch", "onnx"):
         with pytest.raises(NotImplementedError, match="Other model families"):
             texport.main([target, "--checkpoint", "c", "--out", "o"])
 

@@ -3,7 +3,9 @@ vit_cost_report``) and the OTO metrics over it (``compute_macs``,
 ``compute_bops``, ``compute_num_params``, ``compute_weight_size``,
 ``compute_average_bit_width``) against the JAX package, on the tiny
 quantized ViT with per-layer bit widths (``tests/torch_a1_params.py``),
-its float twin, and compressed subnets. Integers exact. Floats within
+its float twin, and compressed subnets, and UltraNet's report (``ultranet_cost_report``, the
+fixed DoReFa bit widths) on its full net and a subnet, exact. Integers
+exact. Floats within
 1e-12 relative where both packages take a layer's bit width from one
 function (``bit_width`` patched in both to the same numpy formula): the
 walk, the MAC counts and the sums in Python's float order. With each
@@ -115,13 +117,51 @@ def test_vit_cost_report_own_bit_widths(base, case):
         assert got[k] == pytest.approx(want[k], rel=1e-6, abs=0.0)
 
 
-@pytest.mark.parametrize("case", ["trained", "subnet"])
+def _ultranet_trees(case):
+    from tests import torch_ultranet_params as U
+
+    _, params, stats, _ = U.trained_like(0, batch=1)
+    if case == "ultranet":
+        return U, params, stats
+    joto, _, jz, _ = U.zeroed(params, stats, 2, 0.4, 2)
+    _, jp, js = joto.construct_subnet(jz)
+    return U, U.numpy_tree(jax_tree_np(jp)), U.numpy_tree(jax_tree_np(js))
+
+
+def jax_tree_np(tree):
+    import jax
+
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("case", ["trained", "subnet", "ultranet",
+                                  "ultranet_subnet"])
 def test_oto_metrics_equal(base, case, shared_bits):
     from quantized_vit_tpu.graph import OTO as JOTO
     from quantized_vit_tpu.models import VisionTransformer as JV
     from quantized_vit_tpu_torch.graph import OTO
     from quantized_vit_tpu_torch.models import VisionTransformer
 
+    if case.startswith("ultranet"):
+        from quantized_vit_tpu.graph.costs import ultranet_cost_report as jur
+        from quantized_vit_tpu.models import UltraNet as JU
+        from quantized_vit_tpu_torch.graph import ultranet_cost_report
+
+        U, params, stats = _ultranet_trees(case)
+        tp = U.torch_tree(params)
+        want = jur(params)
+        _close(ultranet_cost_report(tp), want)
+        assert list(ultranet_cost_report(tp)["per_layer"]) == list(
+            want["per_layer"])
+        joto = JOTO(JU(), params, batch_stats=stats)
+        oto = OTO(U.port_model(params, stats), tp)
+        for name in METRICS:
+            _close(getattr(oto, name)(tp), getattr(joto, name)(params))
+        full = ultranet_cost_report(U.torch_tree(
+            U.trained_like(0, batch=1)[1]))
+        assert (want["total_macs"] < full["total_macs"]) == (
+            case == "ultranet_subnet")
+        return
     jcfg, jp = _trees(base, case)
     tp = A.torch_tree(jp)
     joto = JOTO(JV(jcfg), jp)

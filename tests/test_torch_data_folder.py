@@ -10,6 +10,7 @@ the JAX package's ValueError on both sides."""
 
 import numpy as np
 import pytest
+import torch
 
 from quantized_vit_tpu.cli import _common as jcommon
 from quantized_vit_tpu.utils import data as jdata
@@ -110,6 +111,9 @@ def test_cli_folder_datasets_equal_jax(tree):
                 assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
 
 
-def test_cli_checkpoint_formats_still_refused():
+def test_cli_checkpoint_formats_still_refused(tmp_path):
+    # a reference ViT state dict (UltraNet's ``layers.{i}`` ones load)
+    torch.save({"blocks.0.attn.qkv.weight": torch.zeros(6, 2)},
+               tmp_path / "model.pth")
     with pytest.raises(NotImplementedError, match="'Other model families"):
-        common.load_params_any("model.pth", device="cpu")
+        common.load_params_any(str(tmp_path / "model.pth"), device="cpu")

@@ -9,7 +9,10 @@ and a pruned fc2 of odd depth (int8 beside an int4 fc1). The saved
 artifact loads in both packages; the exported subnet's plain-path logits
 equal the JAX XLA forward's within 1e-4 (the parity contract of
 ``tests/test_torch_vit_int4.py``); the latency entry refuses a
-non-uniform subnet in both packages and takes a uniform one."""
+non-uniform subnet in both packages and takes a uniform one. UltraNet's
+integer tables (``artifact/ultranet.py:export_ultranet_int``) on its full
+net and on a subnet: ``inc``, ``bias`` and the last bias bit-equal, the
+weight levels equal off rounding ties (tanh differs by ulps)."""
 
 import warnings
 
@@ -138,3 +141,30 @@ def test_latency_entry_uniform_only(base):
                                    float_dtype=torch.bfloat16,
                                    images_layout="nhwc")
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["ultranet", "ultranet_subnet"])
+def test_export_ultranet_tables(case):
+    import jax
+
+    from quantized_vit_tpu.artifact import export_ultranet_int as juexport
+    from quantized_vit_tpu_torch.artifact import export_ultranet_int
+
+    from tests import torch_ultranet_params as U
+
+    _, params, stats, _ = U.trained_like(0, batch=1)
+    if case == "ultranet_subnet":
+        joto, _, jz, _ = U.zeroed(params, stats, 1, 0.4, 2)
+        _, params, stats = joto.construct_subnet(jz)
+        params, stats = (jax.tree.map(np.asarray, t) for t in (params, stats))
+    want = jax.tree.map(np.asarray, juexport(params, stats))
+    got = export_ultranet_int(U.torch_tree(params), U.torch_tree(stats))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k.endswith("kernel_int"):
+            th = np.tanh(params[k[:6]]["kernel"].astype(np.float64))
+            U.held_at_ties(w, g, th / np.abs(th).max() * 7, k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)

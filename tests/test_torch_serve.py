@@ -218,6 +218,9 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
         "exp_pro": (64, 64, 256), "exp_pro2": (64, 64, 256),
         "exp_epilogue": (64, 64, 256), "exp_fc1": (64, 64, 256),
         "exp_attn": (2, 224, 208, 2, 16), "exp_attn2": (4, 32, 2, 16, 27)})
+    # phase 11: UltraNet at the JAX tests' 32 x 64, batch 4
+    monkeypatch.setattr(chip_smoke, "ULTRA_HW", (32, 64))
+    monkeypatch.setattr(chip_smoke, "ULTRA_BATCH", 4)
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
@@ -359,6 +362,14 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # ViT-H/14 with packed int4 on the chain (K2 at the model width)
     assert {("chain_vith14,bf16,int4-packed", b) for b in (1, 2)} <= routes
     assert ("block_vith14,f32,int8-stored", 4) in routes
+    # phase 11: every UltraNet check held; the subnet costs less; the
+    # five timings taken
+    ultra = record["ultranet"]
+    assert ultra["int"]["p_bit_equal"] and all(
+        ultra["files_identical"].values())
+    assert ultra["subnet"]["macs"][1] < ultra["subnet"]["macs"][0]
+    assert set(ultra["ms"]) == {"int_forward", "float_eval", "train_step",
+                                "subnet_eval", "bf16_cudnn_yardstick"}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in record["kernels"])

@@ -2,13 +2,17 @@
 methods around it (``graph/oto.py``: ``construct_subnet``,
 ``random_set_zero_groups``, ``cluster_node_groups``, ``visualize``)
 against the JAX package on the tiny quantized ViT
-(``tests/torch_a1_params.py``). Exact: the same groups zeroed, the same
-per-block widths, the sliced params bit for bit, the same clusters and
-DOT text. Also the per-block kernel limits of the serving forward
-(``serve.kernel_limits``)."""
+(``tests/torch_a1_params.py``) and on UltraNet
+(``tests/torch_ultranet_params.py``, ``construct_subnet_ultranet`` with
+its batch stats). Exact: the same groups zeroed, the same per-block
+widths, the sliced params (and UltraNet's running statistics) bit for
+bit, the same clusters and DOT text; UltraNet's subnet forward equal to
+the zeroed full net's within 1e-5. Also the per-block kernel limits of
+the serving forward (``serve.kernel_limits``)."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,7 @@ from quantized_vit_tpu_torch.models import (ViTConfig, VisionTransformer,
 from quantized_vit_tpu_torch.serve import kernel_limits
 
 from tests import torch_a1_params as A
+from tests import torch_ultranet_params as U
 
 torch.set_num_threads(1)
 
@@ -114,3 +119,56 @@ def test_kernel_limits_read_each_block():
     heads = dataclasses.replace(ok, heads_per_block=(6,) * 11 + (11,))
     assert kernel_limits(heads, latency=True) == []
     assert kernel_limits(odd) == [] and kernel_limits(odd, batch=3) == []
+
+
+@pytest.fixture(scope="module")
+def ultranet():
+    _, params, stats, x = U.trained_like(0, batch=2)
+    return params, stats, x
+
+
+@pytest.mark.parametrize("seed,target,div", [(0, None, 1), (2, 0.5, 2)])
+def test_construct_subnet_ultranet_equal(ultranet, seed, target, div):
+    """The same channels zeroed and kept, the sliced params and batch
+    stats bit-equal; the OTO facade's model at the kept widths, whose
+    eval forward on the subnet's trees gives the JAX subnet's raw
+    predictions within 1e-5 (not the zeroed full net's: DoReFa divides a
+    kernel by its max |tanh|, and the sliced in-dim rows of the next conv
+    leave that max)."""
+    from quantized_vit_tpu.compress import construct_subnet_ultranet as jsub
+    from quantized_vit_tpu_torch.compress import construct_subnet_ultranet
+    from quantized_vit_tpu_torch.models import UltraNet, ultranet_apply
+
+    params, stats, x = ultranet
+    joto, oto, jz, tz = U.zeroed(params, stats, seed, target, div)
+    assert U.trees_equal(jz, tz) and not U.trees_equal(params, tz)
+    for g, jg in zip(oto.node_groups, joto.node_groups):
+        np.testing.assert_array_equal(kept_groups(g, tz), jkept(jg, jz))
+    jch, jp, js = jsub(jz, joto.node_groups, joto.batch_stats)
+    ch, tp, ts = construct_subnet_ultranet(tz, oto.node_groups,
+                                           oto.batch_stats)
+    assert ch == jch and min(ch) < 64
+    assert U.trees_equal(jp, tp) and U.trees_equal(js, ts)
+    model, tp2, ts2 = oto.construct_subnet(tz)
+    assert isinstance(model, UltraNet) and model.channels == ch
+    assert U.trees_equal(jp, tp2) and U.trees_equal(js, ts2)
+    assert U.trees_equal(jp, model.param_tree())
+    from quantized_vit_tpu.models import UltraNet as JU
+
+    _, want = jax.jit(JU(channels=jch).apply)(
+        {"params": jp, "batch_stats": js}, x)
+    with torch.no_grad():
+        _, got = ultranet_apply(model, tp2, ts2, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ultranet_cluster_and_visualize_equal(ultranet):
+    params, stats, _ = ultranet
+    joto, oto = U.otos(params, stats)
+    for k in (1, 2, 3):
+        assert {c: [g.id for g in gs] for c, gs in
+                oto.cluster_node_groups(k).items()} == {
+            c: [g.id for g in gs] for c, gs in
+            joto.cluster_node_groups(k).items()}
+    assert oto.visualize() == joto.visualize()
