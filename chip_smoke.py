@@ -6848,6 +6848,7 @@ def ultranet_phase(dev, record):
     against the CPU, its subnet, the integer artifact, the FPGA headers
     and the reference npz; each check fails the run."""
     import copy
+    import shutil
     import tempfile
 
     from quantized_vit_tpu_torch.artifact import (export_ultranet_hls,
@@ -7010,14 +7011,15 @@ def ultranet_phase(dev, record):
     lv = np.concatenate([cpu_tables[f"conv_{i}_kernel_int"].reshape(
         -1, 16).numpy() for i in range(4, 8)]).astype(np.int8)
     rec["native"]["pack_equal"] = bool(
-        np.array_equal(native.pack_int4_host(lv),
-                       native.pack_int4_host(lv, native=False))
+        np.array_equal(native.pack_int4_host(lv), native._pack_int4_np(lv))
         and np.array_equal(native.unpack_int4_host(
             native.pack_int4_host(lv)), lv))
     log(f"[ultranet native packer] built and loaded in "
         f"{rec['native']['first_use_s']} s (available "
         f"{rec['native']['available']}); pack/unpack equal to numpy "
         f"{rec['native']['pack_equal']}")
+    if dev.type == "cuda" and not rec["native"]["available"]:
+        fails.append("native packer did not build or load")
     if not rec["native"]["pack_equal"]:
         fails.append("native packer")
 
@@ -7096,18 +7098,12 @@ def ultranet_phase(dev, record):
         log(f"[ultranet split] {k}: {len(kern)} kernels, {total:.3f} ms on "
             f"the card; top " + ", ".join(f"{n[:48]} {v[0]:.3f}x{v[1]}"
                                           for n, v in top))
-    shutil_rmtree(work)
+    shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = round(time.time() - t_phase, 1)
     record["ultranet"] = rec
     log(f"[ultranet] phase {rec['phase_s']} s")
     if fails:
         raise Failed("phase 11: " + "; ".join(fails))
-
-
-def shutil_rmtree(path):
-    import shutil
-
-    shutil.rmtree(path, ignore_errors=True)
 
 
 if __name__ == "__main__":

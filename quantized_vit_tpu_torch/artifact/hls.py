@@ -27,9 +27,8 @@ import numpy as np
 
 from ..models.ultranet import (ULTRANET_LAYERS, ULTRANET_OUT_CHANNELS,
                                channels_of)
-from ..quant.integer import bn_act_quantize_int, weight_quantize_int
 from .ultranet import (UltraNetExportConfig, as_tensors,
-                       generate_ultranet_config)
+                       export_ultranet_int, generate_ultranet_config)
 
 # per-layer SIMD/PE memory geometry of conv_0..conv_8
 # (ultranet_param_gen.py:21-22)
@@ -182,7 +181,7 @@ def hls_texts(int_params: Dict[str, Any], table: List[Dict[str, Any]],
     layer's PE degrades to gcd(out channels, PE), so a pruned width
     still tiles; config.h carries the effective PE."""
     n = len(ULTRANET_LAYERS)
-    arr = {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+    arr = {k: np.asarray(v.detach().cpu() if hasattr(v, "cpu") else v)
            for k, v in int_params.items()}
     widths = [int(arr[f"conv_{i}_kernel_int"].shape[-1]) for i in range(n)]
     pe = [math.gcd(ch, int(p)) for ch, p in zip(widths, pe)] + [
@@ -228,20 +227,8 @@ def export_ultranet_hls(params: Dict[str, Any], batch_stats: Dict[str, Any],
     exp = exp or UltraNetExportConfig()
     params, batch_stats = as_tensors(params), as_tensors(batch_stats)
     table = generate_ultranet_config(exp, channels=channels_of(params))
-    int_params: Dict[str, Any] = {}
-    for i, e in enumerate(table):
-        name = e["name"]
-        int_params[f"{name}_kernel_int"] = weight_quantize_int(
-            params[name]["kernel"], bit=e["w_bit"])
-        if i < len(ULTRANET_LAYERS):
-            inc, bias = bn_act_quantize_int(
-                params[f"bn_{i}"]["scale"], params[f"bn_{i}"]["bias"],
-                batch_stats[f"bn_{i}"]["mean"], batch_stats[f"bn_{i}"]["var"],
-                exp.eps, w_bit=e["w_bit"], in_bit=e["in_bit"],
-                out_bit=e["out_bit"], l_shift=e["l_shift"])
-            int_params[f"{name}_inc"] = inc
-            int_params[f"{name}_bias_int"] = bias
-    texts = hls_texts(int_params, table, simd, pe)
+    texts = hls_texts(export_ultranet_int(params, batch_stats, exp), table,
+                      simd, pe)
     last = params[f"conv_{len(ULTRANET_LAYERS)}"]["bias"]
     write_hls(out_dir, texts, last.detach().cpu().numpy())
     return texts

@@ -14,75 +14,34 @@ its numpy path, as the JAX package's does; both give the same bytes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import queue
-import subprocess
 import threading
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 
+from ._gxx import load_library
+
 _SRC = Path(__file__).resolve().parent / "_native" / "batchprep.cc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_build_failed = False
+_SO = "libqvtbatchprep.so"
 
 
-def _so_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_ROOT / digest / "libqvtbatchprep.so"
+def _bind(lib: ctypes.CDLL) -> None:
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i64 = ctypes.c_int64
+    lib.qvt_normalize_u8_to_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), f32p, i64, i64, f32p, f32p]
+    lib.qvt_gather_rows_f32.argtypes = [
+        f32p, ctypes.POINTER(ctypes.c_int64), f32p, i64, i64]
+    lib.qvt_patchify_f32.argtypes = [f32p, f32p, i64, i64, i64, i64, i64]
+    for fn in (lib.qvt_normalize_u8_to_f32, lib.qvt_gather_rows_f32,
+               lib.qvt_patchify_f32):
+        fn.restype = None
 
 
-def _build(so: Path) -> bool:
-    # compile to a per-pid temporary name and rename (atomic on POSIX):
-    # another process racing the build never loads a half-written library
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    for cmd in (
-        ["g++", "-O3", "-shared", "-fPIC", "-fopenmp", str(_SRC), "-o", tmp],
-        ["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o", tmp],
-    ):
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            os.replace(tmp, so)
-            return True
-        except (subprocess.SubprocessError, FileNotFoundError, OSError):
-            continue
-    return False
-
-
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _build_failed
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if _build_failed:
-            return None
-        so = _so_path()
-        if not so.exists() and not _build(so):
-            _build_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError:
-            _build_failed = True
-            return None
-        f32p = ctypes.POINTER(ctypes.c_float)
-        i64 = ctypes.c_int64
-        lib.qvt_normalize_u8_to_f32.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), f32p, i64, i64, f32p, f32p]
-        lib.qvt_gather_rows_f32.argtypes = [
-            f32p, ctypes.POINTER(ctypes.c_int64), f32p, i64, i64]
-        lib.qvt_patchify_f32.argtypes = [f32p, f32p, i64, i64, i64, i64,
-                                         i64]
-        for fn in (lib.qvt_normalize_u8_to_f32, lib.qvt_gather_rows_f32,
-                   lib.qvt_patchify_f32):
-            fn.restype = None
-        _lib = lib
-        return _lib
+def _load():
+    return load_library(_SRC, _SO, _bind)
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -14,6 +14,7 @@ import pytest
 from quantized_vit_tpu.utils import native_prep as jnp_prep
 from quantized_vit_tpu.utils.data import ArrayDataset as JArrayDataset
 from quantized_vit_tpu_torch.utils import native_prep as prep
+from quantized_vit_tpu_torch.utils._gxx import BUILD_ROOT, so_path
 from quantized_vit_tpu_torch.utils.data import ArrayDataset
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -34,8 +35,8 @@ def path(request, monkeypatch):
 def test_source_is_the_jax_packages_and_builds_outside_the_package():
     with open(prep._SRC, "rb") as f, open(jnp_prep._SRC, "rb") as g:
         assert f.read() == g.read()
-    so = prep._so_path()
-    assert so.parent.parent == prep.BUILD_ROOT
+    so = so_path(prep._SRC, prep._SO)
+    assert so.parent.parent == BUILD_ROOT
     assert "build" in so.parts and "quantized_vit_tpu_torch" not in so.parts
 
 

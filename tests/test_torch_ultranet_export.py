@@ -51,6 +51,7 @@ from quantized_vit_tpu_torch.interop import (export_reference_ultranet,
 from quantized_vit_tpu_torch.models import UltraNet, UltraNetInt
 from quantized_vit_tpu_torch.opt.checkpoint import save_checkpoint
 from quantized_vit_tpu_torch.quant import weight_quantize_int
+from quantized_vit_tpu_torch.utils._gxx import so_path
 
 from tests import torch_ultranet_params as U
 
@@ -215,23 +216,21 @@ def test_native_packer_matches_numpy():
     tree); pack, unpack and the level quantizer equal their numpy paths
     and the JAX package's functions."""
     assert native.native_available()
-    so = native._so_path()
+    so = so_path(native._SRC, native._SO)
     assert so.exists() and "build" in so.parts and "native" in so.parts
     assert not list((native._SRC.parent).glob("*.so"))
     rng = np.random.default_rng(9)
     lv = rng.integers(-8, 8, (96, 40)).astype(np.int8)
     packed = native.pack_int4_host(lv)
-    np.testing.assert_array_equal(packed,
-                                  native.pack_int4_host(lv, native=False))
+    np.testing.assert_array_equal(packed, native._pack_int4_np(lv))
     np.testing.assert_array_equal(packed, jnative.pack_int4_host(lv))
     np.testing.assert_array_equal(native.unpack_int4_host(packed), lv)
-    np.testing.assert_array_equal(
-        native.unpack_int4_host(packed, native=False), lv)
+    np.testing.assert_array_equal(native._unpack_int4_np(packed), lv)
     w = rng.standard_normal((64, 48)).astype(np.float32)
     scale = rng.uniform(0.05, 0.3, 48).astype(np.float32)
     q = native.quantize_levels_host(w, scale, -8, 7)
     np.testing.assert_array_equal(
-        q, native.quantize_levels_host(w, scale, -8, 7, native=False))
+        q, native._quantize_levels_np(w, scale, -8, 7))
     np.testing.assert_array_equal(q, jnative.quantize_levels_host(
         w, scale, -8, 7))
     with pytest.raises(ValueError, match="even"):
