@@ -5,8 +5,10 @@ points that the JAX package's bench and tools drive, FSDP serving with
 in-kernel weight gathers, tensor-parallel and column-FSDP serving
 (processes sharing the card), the ViT-B/16 QAT + GETA training
 path, multi-device training (DP x TP, checkpoints, elastic recovery,
-GPipe), and UltraNet end to end (float, subnet, integer artifact, FPGA
-headers).
+GPipe), UltraNet end to end (float, subnet, integer artifact, FPGA
+headers), and the other model families (ResNet, MobileNet, the
+separate-q/k/v Transformer, the conv autoencoder, LoRA) trained through K7
+and compressed.
 
 Run from the repository root (no arguments; one CUDA card):
 
@@ -220,6 +222,26 @@ Phases, in order; any failure exits non-zero:
    the integer forward, the float eval forward, the train step (train
    forward and backward), the subnet's forward, and plain bf16 cuDNN
    convs of the same architecture without quantizers (a yardstick).
+12. the other model families (``models/{resnet,mobilenet,transformer,
+   autoencoder,lora}.py``; their only kernel is K7, at every quantized
+   layer's two quantizers), f32 with TF32 off: ResNet-20 and MobileNet on
+   32 x 32 x 3 at batch 128, the BERT-base encoder at 128 tokens and
+   batch 32 with a ragged mask, the U-Net autoencoder at 64 x 64 and batch
+   32, each: three GETA QAT steps with K7 (its launches a step counted,
+   one step traced with torch.profiler: two a quantized layer), one step
+   against the plain chain (as phase 6: losses equal, gradients
+   bit-identical, the quantizers' within 1e-5 of their summands' L1
+   mass), the card against the CPU at batch 4 with the
+   quantizers at 8 bits (each quantized layer on the CPU's input: levels
+   equal off ties, the product within FAMILY_CPU_TOL; the whole net in
+   f64), GETA's random zeroing at 0.4 and ``construct_subnet`` (the
+   subnet's forward equal to the zeroed model's in f64, its MACs lower),
+   and the eval forward and train step timed (the eval forward and a
+   GETA step traced once); the Llama-style block (BERT-base
+   widths, 4 kv heads, RoPE, SwiGLU, causal, depth 2) compressed the same
+   way; LoRA at 768 -> 3072 on 4096 rows and a 30522 x 768 embedding (the
+   merge lossless, HESSO zeroing lora_b's columns with the base's, timed);
+   ``model_to_quantize_model`` on ResNet-20 at 32 bits.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -340,6 +362,41 @@ ULTRA_SPARSITY = 0.4
 ULTRA_BN_TOL = (1e-4, 1e-3)
 ULTRA_TIE = 1e-3
 ULTRA_F64_TOL = 1e-9
+# phase 12: the other model families at the repo's configurations' full
+# widths: ResNet-20 (He et al. 2016 §4.2) and MobileNet on CIFAR's 32 x 32
+# x 3, the BERT-base encoder (Devlin et al. 2019) at 128 tokens with a
+# ragged mask, the U-Net autoencoder at 64 x 64, LoRA at BERT-base's MLP
+# and vocabulary; FAMILY_STEPS GETA QAT steps each (warmup, then a pruning
+# window from step 2; the quantizers from 32 bits); the checks against the
+# CPU at FAMILY_CHECK_BATCH; the random zeroing at FAMILY_SPARSITY
+CIFAR_HW, CIFAR_BATCH = 32, 128
+BERT_SEQ, BERT_BATCH = 128, 32
+AE_HW, AE_BATCH = 64, 32
+LORA_DIMS = (768, 3072, 30522)  # LoraDense in -> out; the embedding's vocab
+LORA_ROWS, LORA_RANK = 4096, 8
+# a rehearsal shrinks these configurations
+RESNET_KW: dict = {}
+BERT_KW: dict = {}
+FAMILY_STEPS = 3
+FAMILY_CHECK_BATCH = 4
+FAMILY_SPARSITY = 0.4
+FAMILY_GETA_KW = dict(lr=1e-5, lr_quant=1e-3, variant="adam",
+                      target_group_sparsity=0.4, start_projection_step=1,
+                      projection_steps=1, projection_periods=1,
+                      start_pruning_step=1, pruning_steps=2,
+                      pruning_periods=1, max_bit_wt=32.0, max_bit_act=32.0,
+                      min_bit_wt=4.0, min_bit_act=4.0)
+# a layer's product on the CPU's quantized operands, card against CPU,
+# relative to its largest magnitude (ULTRA_BN_TOL's eval bound); levels
+# within FAMILY_TIE of a half-level may differ by one; the f64 run end to
+# end within FAMILY_F64_TOL; a subnet's forward within FAMILY_SUBNET_TOL of
+# the zeroed model's (relative, floor 1; in f64, where only the summation
+# order differs: in f32 cuBLAS and cuDNN pick other algorithms for the
+# sliced shapes: 1e-5-5e-5 apart at ResNet-20 and BERT-base on an H100)
+FAMILY_CPU_TOL = 1e-4
+FAMILY_TIE = 1e-3
+FAMILY_F64_TOL = 1e-9
+FAMILY_SUBNET_TOL = 1e-5
 
 
 def log(*a):
@@ -443,6 +500,7 @@ def run(record):
     mesh_phase(dev, record, parity, arts, peaks)
     train_mesh_phase(dev, record, arts)
     ultranet_phase(dev, record)
+    families_phase(dev, record)
 
 
 def main_cfg():
@@ -7082,22 +7140,13 @@ def ultranet_phase(dev, record):
     rec["split"] = {}
     for k, fn in (("int_forward", int_fwd), ("float_eval", eval_fwd),
                   ("train_step", train_step)):
-        _, kern = traced(fn)
-        if not kern:
+        sp = kernel_split(traced(fn)[1], top=5)
+        if sp is None:
             continue
-        by = {}
-        for e in kern:
-            t = by.setdefault(e.name, [0.0, 0])
-            t[0] += e.device_time_total / 1e3
-            t[1] += 1
-        total = sum(v[0] for v in by.values())
-        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:5]
-        rec["split"][k] = {"kernel_ms": total, "kernels": len(kern),
-                           "top": [(n[:60], round(v[0], 4), v[1])
-                                   for n, v in top]}
-        log(f"[ultranet split] {k}: {len(kern)} kernels, {total:.3f} ms on "
-            f"the card; top " + ", ".join(f"{n[:48]} {v[0]:.3f}x{v[1]}"
-                                          for n, v in top))
+        rec["split"][k] = sp
+        log(f"[ultranet split] {k}: {sp['kernels']} kernels, "
+            f"{sp['kernel_ms']:.3f} ms on the card; top " + ", ".join(
+                f"{n[:48]} {ms:.3f}x{c}" for n, ms, c in sp["top"]))
     shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = round(time.time() - t_phase, 1)
     record["ultranet"] = rec
@@ -7105,6 +7154,599 @@ def ultranet_phase(dev, record):
     if fails:
         raise Failed("phase 11: " + "; ".join(fails))
 
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the other model families
+# ---------------------------------------------------------------------------
+
+
+class Family:
+    """One family's run: the model class and its config (quantizers on
+    with K7, ``fused_vjp``), its inputs and targets as numpy, the forward
+    keywords of a training and an eval forward, and its loss."""
+
+    def __init__(self, name, cls, cfg, inputs, target, train_kw, eval_kw,
+                 loss, bn=False):
+        self.name, self.cls, self.cfg = name, cls, cfg
+        self.inputs, self.target = inputs, target
+        self.train_kw, self.eval_kw = train_kw, eval_kw
+        self.loss, self.bn = loss, bn
+
+    def model(self, params, stats, cfg=None):
+        """A model of ``cfg`` (default the family's) holding the trees'
+        tensors (built on the meta device)."""
+        from quantized_vit_tpu_torch.models import bind_tree
+
+        return bind_tree(self.cls(cfg or self.cfg, device="meta"), params,
+                         stats)
+
+    def forward(self, model, params, stats, inputs, train):
+        """(output, new batch_stats or None)."""
+        from quantized_vit_tpu_torch.models import apply_variables
+
+        kw = self.train_kw if train else self.eval_kw
+        mutable = train and self.bn
+        out = apply_variables(model, params, *inputs, batch_stats=stats,
+                              mutable=mutable, **kw)
+        return out if mutable else (out, None)
+
+    def check_inputs(self, n, device, dtype=None):
+        out = []
+        for a in self.inputs:
+            t = torch.from_numpy(np.ascontiguousarray(a[:n])).to(device)
+            out.append(t.to(dtype) if dtype is not None
+                       and t.is_floating_point() else t)
+        return out
+
+
+def reconstruction(out, x):
+    return torch.mean(torch.square(out - x))
+
+
+def family_specs():
+    """ResNet-20 and MobileNet on CIFAR's 32 x 32 x 3 at batch 128, the
+    BERT-base encoder at 128 tokens and batch 32 with a ragged mask, the
+    U-Net autoencoder at 64 x 64 and batch 32 (seeded numpy data)."""
+    from quantized_vit_tpu_torch import models as M
+
+    q = M.QuantConfig(enabled=True, fused_vjp=True)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((CIFAR_BATCH, CIFAR_HW, CIFAR_HW, 3),
+                            dtype=np.float32)
+    y = rng.integers(0, 10, CIFAR_BATCH)
+    bert = M.TransformerConfig(**{**dict(
+        vocab_size=30522, max_len=512, embed_dim=768, depth=12,
+        num_heads=12, num_classes=2), **BERT_KW, "quant": q})
+    tokens = rng.integers(0, bert.vocab_size, (BERT_BATCH, BERT_SEQ))
+    lengths = rng.integers(BERT_SEQ // 4, BERT_SEQ + 1, BERT_BATCH)
+    mask = (np.arange(BERT_SEQ)[None] < lengths[:, None]).astype(np.int64)
+    ae_x = rng.standard_normal((AE_BATCH, AE_HW, AE_HW, 3), dtype=np.float32)
+    kw = ({"deterministic": False}, {"deterministic": True})
+    cross_entropy = torch.nn.functional.cross_entropy
+    return [
+        Family("resnet20", M.ResNet, M.ResNetConfig(**{**dict(
+            stage_sizes=(3, 3, 3), widths=(16, 32, 64)), **RESNET_KW,
+            "quant": q}), (x,), y, *kw, cross_entropy, bn=True),
+        Family("mobilenet", M.MobileNet, M.MobileNetConfig(quant=q), (x,), y,
+               *kw, cross_entropy, bn=True),
+        Family("bert_base", M.TransformerEncoder, bert, (tokens, mask),
+               rng.integers(0, 2, BERT_BATCH), *kw, cross_entropy),
+        Family("autoencoder", M.ConvAutoencoder, M.AutoencoderConfig(
+            skip_concat=True, quant=q), (ae_x,), ae_x, {}, {},
+            reconstruction),
+    ]
+
+
+def quant_layers(model):
+    from quantized_vit_tpu_torch.models.layers import _QuantLayer
+
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, _QuantLayer)}
+
+
+def family_levels(cpu_m, card_m, x_cpu, dev, what, fails):
+    """Each quantizer of one layer on the same input on the card and on
+    the CPU: levels equal but where the CPU's pre-value lies within
+    FAMILY_TIE levels of a half-level, there one apart. Returns (flips,
+    the CPU's quantized operands: activation, weight)."""
+    flips, ops = 0, {}
+    for suffix, inp in (("act", x_cpu), ("wt", cpu_m.kernel.detach())):
+        if suffix == "act" and not cpu_m.config.quantize_acts:
+            ops[suffix] = inp
+            continue
+        with torch.no_grad():
+            q_c = cpu_m._quantize(inp, suffix)
+            q_g = card_m._quantize(inp.to(dev), suffix).cpu()
+        d = float(getattr(cpu_m, f"d_quant_{suffix}"))
+        t = float(getattr(cpu_m, f"t_quant_{suffix}"))
+        q_m = float(getattr(cpu_m, f"q_m_{suffix}"))
+        a = inp.double().abs()
+        pre = torch.where(a >= q_m, torch.full_like(a, abs(q_m) + 1e-6),
+                          a) ** t / d
+        lc, lg = torch.round(q_c.double() / d), torch.round(q_g.double() / d)
+        diff = (lc - lg).abs()
+        tie = (pre - pre.floor() - 0.5).abs() < FAMILY_TIE
+        if diff.max() > 1 or bool(((diff > 0) & ~tie).any()):
+            fails.append(f"{what} {suffix}: levels differ off a tie")
+        flips += int((diff > 0).sum())
+        ops[suffix] = q_c
+    return flips, ops
+
+
+def family_card_vs_cpu(fam, params, stats, dev, fails):
+    """The card's eval forward against the CPU's at FAMILY_CHECK_BATCH, as
+    phase 11 holds UltraNet's: the quantizers at 8 bits (d from each
+    weight's range), each quantized layer on the CPU's input (levels
+    equal off ties; its product on the CPU's quantized operands within
+    FAMILY_CPU_TOL of its largest magnitude), and the whole net in f64
+    within FAMILY_F64_TOL."""
+    from quantized_vit_tpu_torch.models import init_quant_params_tree, tree_map
+
+    p8 = init_quant_params_tree(tree_map(lambda v: v.detach(), params), 8.0)
+    cpu_p = tree_map(lambda v: v.cpu(), p8)
+    cpu_s = None if stats is None else tree_map(lambda v: v.cpu(), stats)
+    cpu = fam.model(cpu_p, cpu_s)
+    card = fam.model(p8, stats)
+    caps = {}
+    layers = quant_layers(cpu)
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, n=n: caps.__setitem__(n, a[0].detach()))
+        for n, m in layers.items()]
+    with torch.no_grad():
+        fam.forward(cpu, cpu_p, cpu_s, fam.check_inputs(FAMILY_CHECK_BATCH,
+                                                        "cpu"), False)
+    for h in hooks:
+        h.remove()
+    card_layers = quant_layers(card)
+    flips, worst = 0, 0.0
+    for n, x in caps.items():
+        f, ops = family_levels(layers[n], card_layers[n], x, dev,
+                               f"{fam.name}/{n}", fails)
+        flips += f
+        outs = []
+        for m, device in ((layers[n], "cpu"), (card_layers[n], dev)):
+            cfg = m.config
+            m.config = dataclasses.replace(cfg, enabled=False)
+            try:
+                with torch.no_grad():
+                    outs.append(torch.func.functional_call(
+                        m, {"kernel": ops["wt"].to(device)},
+                        (ops["act"].to(device),)).cpu())
+            finally:
+                m.config = cfg
+        worst = max(worst, float((outs[1] - outs[0]).abs().max()
+                                 / outs[0].abs().max().clamp_min(1e-30)))
+    if worst > FAMILY_CPU_TOL:
+        fails.append(f"{fam.name}: a layer's product {worst:.3g} > "
+                     f"{FAMILY_CPU_TOL}")
+    # the whole net in f64
+    f64 = torch.float64
+    ys = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda v: v.to(device, f64), p8)
+        s = None if stats is None else tree_map(lambda v: v.to(device, f64),
+                                                stats)
+        m = fam.model(p, s)
+        with torch.no_grad():
+            ys.append(fam.forward(m, p, s, fam.check_inputs(
+                FAMILY_CHECK_BATCH, device, f64), False)[0].cpu())
+    rel64 = float((ys[1] - ys[0]).abs().max() / ys[0].abs().max())
+    if not rel64 <= FAMILY_F64_TOL:
+        fails.append(f"{fam.name}: f64 end to end {rel64:.3g}")
+    return {"layers": len(caps), "level_flips_at_ties": flips,
+            "layer_product_rel": worst, "f64_rel": rel64}
+
+
+class FamilyGrads:
+    """The face of a TrainLoop that ``compare_plain_step`` reads: one
+    training forward's loss and gradients for a family at ``cfg`` (with
+    K7 or the plain chain), the BatchNorms on the batch's statistics."""
+
+    def __init__(self, fam, cfg, stats):
+        self.fam, self.cfg, self.stats = fam, cfg, stats
+
+    def loss_and_grads(self, params, inputs, target):
+        from quantized_vit_tpu_torch.models import (flatten_tree,
+                                                    unflatten_tree)
+
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in flatten_tree(params).items()}
+        tree = unflatten_tree(leaves)
+        model = self.fam.model(tree, self.stats, self.cfg)
+        out, _ = self.fam.forward(model, tree, self.stats, inputs, True)
+        loss = self.fam.loss(out, target)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), None, unflatten_tree(dict(zip(leaves, g)))
+
+
+def subnet_vs_zeroed(zero_fn, sub_fn, zero_trees, sub_trees, inputs):
+    """The subnet's forward against the zeroed model's on the same inputs,
+    relative to the output's largest magnitude (floor 1): in f64 (the
+    check: the zeroed rows add exact zeros, so the two differ only in
+    summation order) and in f32 (recorded: the library picks other
+    algorithms for the sliced shapes, so f32 sums round differently)."""
+    from quantized_vit_tpu_torch.models import tree_map
+
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        def cast(t):
+            return None if t is None else tree_map(lambda v: v.to(dtype), t)
+
+        x = [v.to(dtype) if v.is_floating_point() else v for v in inputs]
+        with torch.no_grad():
+            y0 = zero_fn(cast(zero_trees[0]), cast(zero_trees[1]), x)
+            y1 = sub_fn(cast(sub_trees[0]), cast(sub_trees[1]), x)
+        out.append(float((y1 - y0).abs().max()
+                         / y0.abs().max().clamp_min(1.0)))
+    return tuple(out)
+
+
+def kernel_split(kern, top: int = 3):
+    """A trace's kernels (``traced``'s events): their count, summed
+    device ms and the ``top`` names that took the most (ms, launches);
+    None off the card."""
+    if not kern:
+        return None
+    by = {}
+    for e in kern:
+        t = by.setdefault(e.name, [0.0, 0])
+        t[0] += e.device_time_total / 1e3
+        t[1] += 1
+    most = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"kernels": len(kern),
+            "kernel_ms": sum(v[0] for v in by.values()),
+            "top": [(n[:60], round(v[0], 4), v[1]) for n, v in most]}
+
+
+def family_qat(fam, dev, rec, fails, smi):
+    """Phase 12's run of one QAT family: FAMILY_STEPS GETA steps with K7
+    (its launches a step, one step traced), the plain chain against K7,
+    the card against the CPU, the random zeroing and the subnet, and the
+    timings. Returns the trained params and statistics."""
+    from quantized_vit_tpu_torch.graph import OTO
+    from quantized_vit_tpu_torch.models import (flatten_tree,
+                                                init_quant_params_tree,
+                                                tree_map, unflatten_tree)
+    from quantized_vit_tpu_torch.ops import _build
+
+    t0 = time.time()
+    model = fam.cls(fam.cfg, seed=0, device=dev)
+    params = init_quant_params_tree(tree_map(
+        lambda p: p.detach().clone(), model.param_tree()), init_bits=32.0)
+    stats = (tree_map(lambda b: b.clone(), model.batch_stats_tree())
+             if fam.bn else None)
+    n_layers = len(quant_layers(model))
+    want = 2 * n_layers  # a weight and an activation quantizer a layer
+    inputs = fam.check_inputs(len(fam.inputs[0]), dev)
+    target = torch.from_numpy(np.asarray(fam.target)).to(dev)
+    oto = OTO(model, params, batch_stats=stats)
+    opt = oto.geta(**FAMILY_GETA_KW)
+
+    def loss_grads(p, s):
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in flatten_tree(p).items()}
+        out, new = fam.forward(model, unflatten_tree(leaves), s, inputs,
+                               True)
+        loss = fam.loss(out, target)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), unflatten_tree(dict(zip(leaves, g))), new
+
+    def step(p, s):
+        loss, g, new = loss_grads(p, s)
+        return opt.step(p, opt.clip_grads(g)), new, float(loss)
+
+    losses, per_step, geta_ms, trace, split = [], [], [], None, {}
+    secs = {"setup": time.time() - t0}
+    for i in range(FAMILY_STEPS):
+        n0 = _build.LAUNCHES["quant_bwd"]
+        if i == 1:  # one step under torch.profiler's CUDA trace
+            (params, new, loss), kern = traced(lambda: step(params, stats))
+            trace = k7_in_trace(kern)
+            split["geta_step"] = kernel_split(kern)
+            del kern
+        else:
+            loss, g, new = loss_grads(params, stats)
+            sync()
+            t1 = time.perf_counter()
+            params = opt.step(params, opt.clip_grads(g))
+            sync()
+            geta_ms.append((time.perf_counter() - t1) * 1e3)
+            loss = float(loss)
+        stats = new if fam.bn else None
+        losses.append(loss)
+        per_step.append(_build.LAUNCHES["quant_bwd"] - n0)
+    secs["steps"] = time.time() - t0 - sum(secs.values())
+    row = {"quant_layers": n_layers, "k7_per_step_expected": want,
+           "k7_per_step": per_step, "losses": losses,
+           "geta_step_ms": geta_ms,
+           "k7_traced_step": None if trace is None else trace["launches"],
+           "k7_traced_device_ms": None if trace is None
+           else trace["device_ms"]}
+    if not all(np.isfinite(losses)):
+        fails.append(f"{fam.name}: losses {losses}")
+    if dev.type == "cuda" and (any(n != want for n in per_step)
+                               or trace is None
+                               or trace["launches"] != want or want == 0):
+        fails.append(f"{fam.name}: K7 launches a step {per_step}, traced "
+                     f"{row['k7_traced_step']}, want {want}")
+
+    # the plain chain against K7 on one step, as phase 6 holds it (cuDNN
+    # on its deterministic algorithms, so the two backwards sum alike)
+    plain_cfg = dataclasses.replace(fam.cfg, quant=dataclasses.replace(
+        fam.cfg.quant, fused_vjp=False))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        row["plain_vs_k7"], _ = compare_plain_step(
+            FamilyGrads(fam, fam.cfg, stats),
+            FamilyGrads(fam, plain_cfg, stats), params, inputs, target)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if not row["plain_vs_k7"]["ok"]:
+        fails.append(f"{fam.name}: plain chain vs K7 {row['plain_vs_k7']}")
+
+    secs["plain_vs_k7"] = time.time() - t0 - sum(secs.values())
+    # the card against the CPU
+    row["card_vs_cpu"] = family_card_vs_cpu(fam, params, stats, dev, fails)
+    secs["card_vs_cpu"] = time.time() - t0 - sum(secs.values())
+
+    # GETA's random zeroing, the subnet and its MACs
+    zeroed = oto.random_set_zero_groups(
+        params, target_group_sparsity=FAMILY_SPARSITY, seed=0)
+    sub = (oto.construct_subnet(zeroed, batch_stats=stats) if fam.bn
+           else oto.construct_subnet(zeroed))
+    sub_model, sub_params = sub[0], sub[1]
+    sub_stats = sub[2] if fam.bn else None
+    rel, rel32 = subnet_vs_zeroed(
+        lambda p, s_, x: fam.forward(model, p, s_, x, False)[0],
+        lambda p, s_, x: fam.forward(sub_model, p, s_, x, False)[0],
+        (zeroed, stats), (sub_params, sub_stats), inputs)
+    macs = (oto.compute_macs(params), oto.compute_macs(sub_params))
+    row["subnet"] = {"macs": list(macs), "forward_rel": rel,
+                     "forward_rel_f32": rel32,
+                     "params": [sum(v.numel() for v in flatten_tree(t)
+                                    .values()) for t in (params,
+                                                         sub_params)]}
+    if not rel <= FAMILY_SUBNET_TOL or not macs[1] < macs[0]:
+        fails.append(f"{fam.name}: subnet {row['subnet']}")
+
+    # timings at the full batch
+    def eval_fwd():
+        with torch.no_grad():
+            return fam.forward(model, params, stats, inputs, False)
+
+    def train_step():
+        return loss_grads(params, stats)
+
+    secs["subnet"] = time.time() - t0 - sum(secs.values())
+    row["ms"] = {"eval_forward": cuda_ms(eval_fwd),
+                 "train_step": cuda_ms(train_step)}
+    split["eval_forward"] = kernel_split(traced(eval_fwd)[1])
+    row["split"] = split
+    secs["timing"] = time.time() - t0 - sum(secs.values())
+    row["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    row["phase_s"] = round(time.time() - t0, 1)
+    rec[fam.name] = row
+    clock = "events" if dev.type == "cuda" else "host clock"
+    log(f"[families] {fam.name}: eval forward {row['ms']['eval_forward']:.3f}"
+        f" ms, train step (forward + backward) {row['ms']['train_step']:.3f}"
+        f" ms at batch {len(fam.inputs[0])} ({clock}); K7 a step "
+        f"{per_step} (want {want}, traced {row['k7_traced_step']}, "
+        f"{row['k7_traced_device_ms']} ms on the card); plain "
+        f"vs K7 loss equal {row['plain_vs_k7']['loss_equal']}, grads "
+        f"{row['plain_vs_k7']['grads_bit_identical']}/"
+        f"{row['plain_vs_k7']['grads_other']} bit-identical; card vs CPU "
+        f"{row['card_vs_cpu']}; subnet MACs {macs[0]:.4g} -> "
+        f"{macs[1]:.4g}, forward rel {rel:.3g} (f64; f32 {rel32:.3g}); "
+        f"{row['phase_s']} s {row['seconds']} ({smi})")
+    for k, sp in row["split"].items():
+        if sp is not None:
+            log(f"  {fam.name} {k}: {sp['kernels']} kernels, "
+                f"{sp['kernel_ms']:.3f} ms on the card; top " + ", ".join(
+                    f"{n[:40]} {ms:.3f}x{c}" for n, ms, c in sp["top"]))
+
+
+def llama_compression(dev, rec, fails):
+    """The Llama-style block (BERT-base widths, GQA with 4 kv heads, RoPE,
+    SwiGLU, causal) at depth 2: the random zeroing at kv-head
+    granularity, the subnet (gate rows with fc1's, heads_per_block in
+    query heads), its forward against the zeroed model's, its MACs."""
+    from quantized_vit_tpu_torch import models as M
+    from quantized_vit_tpu_torch.graph import OTO
+
+    cfg = M.TransformerConfig(**{**dict(
+        vocab_size=30522, max_len=512, embed_dim=768, depth=2,
+        num_heads=12, num_classes=2), **BERT_KW, "num_kv_heads": 4,
+        "rope": True, "mlp_type": "swiglu", "causal": True,
+        "quant": M.QuantConfig(enabled=True, fused_vjp=True)})
+    model = M.TransformerEncoder(cfg, seed=1, device=dev)
+    params = M.init_quant_params_tree(model.param_tree(), init_bits=8.0)
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))).to(dev)
+    oto = OTO(model, params)
+    # one of the four kv heads a block: whole query groups go with it
+    zeroed = oto.random_set_zero_groups(target_group_sparsity=FAMILY_SPARSITY,
+                                        num_group_divisible=1, seed=0)
+    sub, sp = oto.construct_subnet(zeroed)
+    rel, rel32 = subnet_vs_zeroed(
+        lambda p, _, x: M.apply_variables(model, p, *x),
+        lambda p, _, x: M.apply_variables(sub, p, *x),
+        (zeroed, None), (sp, None), [tokens])
+    macs = (oto.compute_macs(params), oto.compute_macs(sp))
+    g = cfg.q_per_kv
+    row = {"heads_per_block": list(sub.cfg.heads_per_block),
+           "hidden_per_block": list(sub.cfg.hidden_per_block),
+           "macs": list(macs), "forward_rel": rel, "forward_rel_f32": rel32,
+           "gate_follows_fc1": all(
+               sp[f"blocks_{i}"]["gate"]["kernel"].shape
+               == sp[f"blocks_{i}"]["fc1"]["kernel"].shape
+               for i in range(cfg.depth))}
+    rec["llama_block"] = row
+    log(f"[families] llama block: heads {row['heads_per_block']}, hidden "
+        f"{row['hidden_per_block']}, MACs {macs[0]:.4g} -> {macs[1]:.4g}, "
+        f"subnet forward rel {rel:.3g} (f64; f32 {rel32:.3g})")
+    if (not rel <= FAMILY_SUBNET_TOL or not macs[1] < macs[0]
+            or any(h % g for h in sub.cfg.heads_per_block)
+            or not row["gate_follows_fc1"]
+            or min(sub.cfg.heads_per_block) == cfg.num_heads):
+        fails.append(f"llama block: {row}")
+
+
+def lora_checks(dev, rec, fails):
+    """LoRA: a LoraDense 768 -> 3072 of rank 8 on LORA_ROWS rows and a
+    LoraEmbedding 30522 x 768 of rank 8 (random adapters from seeds):
+    ``merge_lora`` lossless (the merged layer's output within 1e-5 of the
+    adapter's, relative), a HESSO run on the adapters' gradients (the base
+    frozen by ``lora_grad_mask``) that zeroes lora_b's columns with the
+    base's, the card against the CPU, and the timings. LoRA layers carry
+    no quantizer (the JAX package's are float): no K7 here."""
+    from quantized_vit_tpu_torch.graph import (lora_embedding_entries,
+                                               lora_layer_entries)
+    from quantized_vit_tpu_torch.models import (LoraDense, LoraEmbedding,
+                                                flatten_tree,
+                                                lora_grad_mask, merge_lora,
+                                                tree_map, unflatten_tree)
+    from quantized_vit_tpu_torch.opt import HESSO, HESSOConfig, NodeGroup
+
+    t0 = time.time()
+    fin, fout, vocab = LORA_DIMS
+    rng = np.random.default_rng(14)
+    layers = {
+        "dense": (LoraDense(fin, fout, rank=LORA_RANK, seed=2, device=dev),
+                  torch.from_numpy(rng.standard_normal(
+                      (LORA_ROWS, fin), dtype=np.float32)).to(dev),
+                  lora_layer_entries),
+        "embedding": (LoraEmbedding(vocab, fin, rank=LORA_RANK, seed=3,
+                                    device=dev),
+                      torch.from_numpy(rng.integers(0, vocab, LORA_ROWS))
+                      .to(dev), lora_embedding_entries)}
+    for name, (layer, inp, entries) in layers.items():
+        with torch.no_grad():  # trained-like adapters
+            for p in (layer.lora_a, layer.lora_b):
+                p.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape), dtype=np.float32) * 0.05))
+        row = {}
+        tree = layer.param_tree()
+        with torch.no_grad():
+            y = layer(inp)
+            merged = merge_lora({"l": tree},
+                                default_scaling=layer.scaling)["l"]
+            y_m = (inp @ merged["kernel"] + merged["bias"] if name == "dense"
+                   else merged["embedding"][inp])
+            y_cpu = layer.to("cpu")(inp[:FAMILY_CHECK_BATCH].cpu())
+            layer.to(dev)
+        row["merge_rel"] = float((y_m - y).abs().max() / y.abs().max())
+        row["card_vs_cpu_rel"] = float(
+            (y[:FAMILY_CHECK_BATCH].cpu() - y_cpu).abs().max()
+            / y_cpu.abs().max())
+        if row["merge_rel"] > 1e-5 or row["card_vs_cpu_rel"] > FAMILY_CPU_TOL:
+            fails.append(f"lora {name}: {row}")
+        # HESSO on the adapters' gradients, the base frozen
+        tree = tree_map(lambda v: v.detach().clone(), layer.param_tree())
+        mask = flatten_tree(lora_grad_mask(tree))
+        n = fout if name == "dense" else fin
+        group = NodeGroup(id=name, entries=entries({name: tree}, name),
+                          num_groups=n)
+        opt = HESSO([group], {name: tree}, HESSOConfig(
+            lr=1e-3, target_group_sparsity=0.25, start_pruning_step=1,
+            pruning_steps=2, pruning_periods=1))
+        p = {name: tree}
+        target = torch.zeros_like(y)
+
+        def grads(p):
+            leaves = {k: v.detach().requires_grad_(mask[k])
+                      for k, v in flatten_tree(p[name]).items()}
+            out = torch.func.functional_call(layer, leaves, (inp,))
+            loss = torch.mean(torch.square(out - target))
+            trainable = [k for k in leaves if mask[k]]
+            g = dict(zip(trainable, torch.autograd.grad(
+                loss, [leaves[k] for k in trainable])))
+            return {name: unflatten_tree({
+                k: g.get(k, torch.zeros_like(v)) for k, v in leaves.items()})}
+
+        for _ in range(3):
+            p = opt.step(p, grads(p))
+        base = p[name]["kernel" if name == "dense" else "embedding"]
+        zero_cols = base.abs().sum(0) == 0
+        row["hesso_zero_columns"] = int(zero_cols.sum())
+        row["lora_b_zero_with_base"] = bool(
+            (p[name]["lora_b"].abs().sum(0)[zero_cols] == 0).all())
+        if (row["hesso_zero_columns"] != int(0.25 * n)
+                or not row["lora_b_zero_with_base"]):
+            fails.append(f"lora {name} HESSO: {row}")
+
+        def eval_fwd():
+            with torch.no_grad():
+                return layer(inp)
+
+        adapters = [layer.lora_a, layer.lora_b]
+
+        def train_step():
+            return torch.autograd.grad(
+                torch.mean(torch.square(layer(inp))), adapters)
+
+        row["ms"] = {"eval_forward": cuda_ms(eval_fwd),
+                     "train_step": cuda_ms(train_step)}
+        rec[f"lora_{name}"] = row
+        log(f"[families] lora {name}: eval forward "
+            f"{row['ms']['eval_forward']:.3f} ms, train step (adapters' "
+            f"gradients) {row['ms']['train_step']:.3f} ms at {LORA_ROWS} "
+            f"rows; merge rel {row['merge_rel']:.3g}, card vs CPU "
+            f"{row['card_vs_cpu_rel']:.3g}, HESSO zeroed "
+            f"{row['hesso_zero_columns']} columns with lora_b "
+            f"{row['lora_b_zero_with_base']}")
+    rec["lora_s"] = round(time.time() - t0, 1)
+
+
+def converter_check(dev, rec, fails):
+    """``model_to_quantize_model`` on a float ResNet-20: its twin with
+    weight quantizers at 32 bits gives the float model's eval forward
+    (within 1e-5 of its largest magnitude)."""
+    from quantized_vit_tpu_torch import models as M
+
+    cfg = M.ResNetConfig(**{**dict(stage_sizes=(3, 3, 3),
+                                   widths=(16, 32, 64)), **RESNET_KW})
+    model = M.ResNet(cfg, seed=4, device=dev)
+    qm, qp = M.model_to_quantize_model(
+        model, model.param_tree(), quant=M.QuantConfig(
+            enabled=True, quantize_acts=False), init_bits=32.0)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (CIFAR_BATCH, CIFAR_HW, CIFAR_HW, 3), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        y, yq = model(x), qm(x)
+    rel = float((yq - y).abs().max() / y.abs().max())
+    rec["model_to_quantize_model"] = {
+        "quant_layers": len(M.collect_quant_params(qp)), "forward_rel": rel}
+    log(f"[families] model_to_quantize_model: ResNet-20 at 32 bits, "
+        f"{rec['model_to_quantize_model']['quant_layers']} quantized layers,"
+        f" forward rel {rel:.3g}")
+    if not rel <= 1e-5:
+        fails.append(f"model_to_quantize_model: {rel}")
+
+
+def families_phase(dev, record):
+    """Phase 12 (the module docstring's item 12): ResNet-20, MobileNet,
+    the BERT-base encoder and the U-Net autoencoder trained through K7,
+    each held against the plain chain and the CPU, compressed and timed;
+    the Llama-style block's compression; LoRA; the converter. Each check
+    fails the run."""
+    t0 = time.time()
+    fails, rec = [], {}
+    for fam in family_specs():
+        family_qat(fam, dev, rec, fails, record["nvidia_smi"])
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    llama_compression(dev, rec, fails)
+    lora_checks(dev, rec, fails)
+    converter_check(dev, rec, fails)
+    rec["phase_s"] = round(time.time() - t0, 1)
+    record["families"] = rec
+    log(f"[families] phase {rec['phase_s']} s")
+    if fails:
+        raise Failed("phase 12: " + "; ".join(fails[:8]))
 
 if __name__ == "__main__":
     sys.exit(main())

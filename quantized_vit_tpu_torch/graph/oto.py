@@ -1,8 +1,10 @@
 """OTO facade over node groups, the GETA / HESSO / HESSO-CRIC optimizers,
 subnet construction and the cost metrics (``quantized_vit_tpu/graph/oto.py``),
-for the ViT family and UltraNet; the other model families are in
-ROADMAP.md, modules to port, 'Other model families, interop,
-auto-discovery'.
+for the ViT family, UltraNet, ResNet, MobileNet, the separate-q/k/v
+Transformer and the conv autoencoder (LoRA layers take their entries from
+``builders.lora_layer_entries`` into groups of their own). The automatic
+grouping of any other model is in ROADMAP.md, modules to port, 'Other
+model families, interop, auto-discovery' (item 6d).
 """
 
 from __future__ import annotations
@@ -12,14 +14,36 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.autoencoder import ConvAutoencoder
+from ..models.mobilenet import MobileNet
+from ..models.resnet import ResNet
+from ..models.transformer import TransformerEncoder
 from ..models.ultranet import UltraNet
 from ..models.ultranet import params_from_jax as ultranet_for_params
-from ..models.vit import ViTConfig, VisionTransformer, model_for_params
+from ..models.layers import bind_tree
+from ..models.vit import VisionTransformer
 from ..opt import (GETA, HESSO, HESSOCRIC, GETAConfig, HESSOConfig,
                    HESSOCRICConfig, NodeGroup)
 from ..opt.groups import Transform, get_path, group_mask_for_param, set_path
-from .builders import mark_unprunable, ultranet_node_groups, vit_node_groups
-from .costs import ultranet_cost_report, vit_cost_report
+from .builders import (autoencoder_node_groups, mark_unprunable,
+                       mobilenet_node_groups, resnet_node_groups,
+                       transformer_node_groups, ultranet_node_groups,
+                       vit_node_groups)
+from .costs import (autoencoder_cost_report, mobilenet_cost_report,
+                    resnet_cost_report, transformer_cost_report,
+                    ultranet_cost_report, vit_cost_report)
+
+# model class -> (kind, node-group builder over (cfg, params), cost report
+# over (cfg, params)); UltraNet's take no config
+_FAMILIES = {
+    VisionTransformer: ("vit", vit_node_groups, vit_cost_report),
+    ResNet: ("resnet", resnet_node_groups, resnet_cost_report),
+    MobileNet: ("mobilenet", mobilenet_node_groups, mobilenet_cost_report),
+    TransformerEncoder: ("transformer", transformer_node_groups,
+                         transformer_cost_report),
+    ConvAutoencoder: ("autoencoder", autoencoder_node_groups,
+                      autoencoder_cost_report),
+}
 
 
 class OTO:
@@ -33,34 +57,38 @@ class OTO:
         new_model, new_params = oto.construct_subnet(params)
 
     ``params`` is a params tree with flax's paths (default: the model's
-    own ``param_tree()``). For UltraNet (``kind == "ultranet"``) the BN
-    running statistics come as ``batch_stats`` (default: the model's
-    ``batch_stats_tree()``), and ``construct_subnet`` returns
-    ``(model, params, batch_stats)``."""
+    own ``param_tree()``). For the families with BatchNorms (UltraNet,
+    ResNet, MobileNet) the running statistics come as ``batch_stats``
+    (default: the model's ``batch_stats_tree()``), and
+    ``construct_subnet`` returns ``(model, params, batch_stats)``."""
 
     def __init__(self, model, params=None, batch_stats=None):
-        if not isinstance(model, (VisionTransformer, UltraNet)):
+        family = next((f for cls, f in _FAMILIES.items()
+                       if isinstance(model, cls)), None)
+        if family is None and not isinstance(model, UltraNet):
             raise NotImplementedError(
                 f"no node-group builder ported for {type(model).__name__}: "
-                "the port has the ViT family and UltraNet; the other "
-                "families (ResNet, MobileNet, the separate-q/k/v "
-                "Transformer, the autoencoder, LoRA) and the automatic "
-                "grouping are in ROADMAP.md, modules to port, 'Other model "
-                "families, interop, auto-discovery'")
+                "the port has the ViT family, UltraNet, ResNet, MobileNet, "
+                "the separate-q/k/v Transformer and the conv autoencoder "
+                "(LoRA layers through builders.lora_layer_entries); the "
+                "automatic grouping of other models (item 6d) is in "
+                "ROADMAP.md, modules to port, 'Other model families, "
+                "interop, auto-discovery'")
         self.model = model
         self.params = model.param_tree() if params is None else params
         self.batch_stats = batch_stats
-        if isinstance(model, VisionTransformer):
-            self.kind = "vit"
-            self.cfg: Optional[ViTConfig] = model.cfg
-            self.node_groups: List[NodeGroup] = vit_node_groups(
-                self.cfg, self.params)
-        else:
+        if family is None:
             self.kind = "ultranet"
             self.cfg = None
-            if batch_stats is None:
-                self.batch_stats = model.batch_stats_tree()
-            self.node_groups = ultranet_node_groups(self.params)
+            self.node_groups: List[NodeGroup] = ultranet_node_groups(
+                self.params)
+        else:
+            self.kind, builder, self._cost_report = family
+            self.cfg = model.cfg
+            self.node_groups = builder(self.cfg, self.params)
+        if batch_stats is None and self.kind in ("ultranet", "resnet",
+                                                 "mobilenet"):
+            self.batch_stats = model.batch_stats_tree()
         self._optimizer = None
 
     def mark_unprunable_by_param_names(self, names: Sequence[str]):
@@ -88,29 +116,44 @@ class OTO:
     # ------------------------------------------------------------------
 
     def construct_subnet(self, params=None, batch_stats=None):
-        """Slice the group-sparse net into a dense subnet. ViT:
-        (VisionTransformer of the config with per-block widths, new
-        params); the model holds the new params' tensors themselves
-        (``models.model_for_params``) and ``models.apply`` runs it on them,
-        as the JAX package runs its module on the params it returns.
-        UltraNet: (UltraNet at the kept widths, new params, new
-        batch_stats); the model holds copies of both trees and
-        ``models.ultranet_apply`` runs it on the trees."""
-        from ..compress import construct_subnet_ultranet, construct_subnet_vit
+        """Slice the group-sparse net into a dense subnet. The returned
+        model holds the returned trees' tensors themselves (built on the
+        meta device, ``models.bind_tree``; ``models.apply`` /
+        ``models.apply_variables`` run it on them), as the JAX package
+        runs its module on the trees it returns, but UltraNet's, which
+        holds copies. ViT, Transformer,
+        autoencoder: (model of the subnet's config, params); ResNet,
+        MobileNet, UltraNet: (model, params, batch_stats)."""
+        from ..compress import (construct_subnet_autoencoder,
+                                construct_subnet_mobilenet,
+                                construct_subnet_resnet,
+                                construct_subnet_transformer,
+                                construct_subnet_ultranet,
+                                construct_subnet_vit)
 
         params = self.params if params is None else params
+        stats = self.batch_stats if batch_stats is None else batch_stats
         if self.kind == "ultranet":
             _, new_params, new_stats = construct_subnet_ultranet(
-                params, self.node_groups,
-                self.batch_stats if batch_stats is None else batch_stats)
+                params, self.node_groups, stats)
             model = ultranet_for_params(
                 new_params, new_stats,
                 device=new_params["conv_0"]["kernel"].device,
                 w_bit=self.model.w_bit, a_bit=self.model.a_bit)
             return model, new_params, new_stats
-        new_cfg, new_params = construct_subnet_vit(self.cfg, params,
-                                                   self.node_groups)
-        return model_for_params(new_cfg, new_params), new_params
+        if self.kind in ("resnet", "mobilenet"):
+            fn = (construct_subnet_resnet if self.kind == "resnet"
+                  else construct_subnet_mobilenet)
+            new_cfg, new_params, new_stats = fn(self.cfg, params,
+                                                self.node_groups, stats)
+            return (bind_tree(type(self.model)(new_cfg, device="meta"),
+                              new_params, new_stats), new_params, new_stats)
+        fn = {"vit": construct_subnet_vit,
+              "transformer": construct_subnet_transformer,
+              "autoencoder": construct_subnet_autoencoder}[self.kind]
+        new_cfg, new_params = fn(self.cfg, params, self.node_groups)
+        return (bind_tree(type(self.model)(new_cfg, device="meta"),
+                          new_params), new_params)
 
     # ------------------------------------------------------------------
     # cost metrics
@@ -124,7 +167,7 @@ class OTO:
         if cached is not None and cached[0] is params:
             return cached[1]
         rep = (ultranet_cost_report(params) if self.kind == "ultranet"
-               else vit_cost_report(self.cfg, params))
+               else self._cost_report(self.cfg, params))
         self._report_cache = (params, rep)
         return rep
 

@@ -11,8 +11,14 @@ dense/conv layers.
 
 Parameters are created uninitialised-but-valid (flax's initializers with a
 ``torch.Generator``: they cannot draw JAX's numbers); a model takes real
-weights through ``models/vit.py:params_from_jax`` or a checkpoint, and the
+weights through its family's ``params_from_jax`` or a checkpoint, and the
 quantizer scalars through :func:`init_quant_params_tree`.
+
+Also here: the transposed conv (``QuantConvTranspose``, JAX's
+``lax.conv_transpose``), flax's ``BatchNorm`` and ``GroupNorm``, the
+functions every family's params tree goes through (:class:`TreeModule`,
+:func:`bind_tree`, :func:`apply_variables`) and
+:func:`model_to_quantize_model`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -98,6 +105,16 @@ def _trunc_normal(shape, std, gen, device):
         return torch.empty(shape, dtype=torch.float32, device=device)
     t = torch.empty(shape, dtype=torch.float32)
     nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+    return t.to(device)
+
+
+def _normal(shape, std, gen, device):
+    """A normal draw from a torch generator; on the meta device a shape
+    with no values."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    t = torch.empty(shape, dtype=torch.float32)
+    nn.init.normal_(t, std=std, generator=gen)
     return t.to(device)
 
 
@@ -256,6 +273,154 @@ class QuantConv(_QuantLayer):
         return y
 
 
+def _transpose_pads(k: int, s: int, padding) -> Tuple[int, int]:
+    """The (low, high) pads of one spatial dim of ``lax.conv_transpose``
+    (``jax._src.lax.convolution._conv_transpose_padding``) on the input
+    dilated by the stride."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    else:
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
+    return pad_a, pad_len - pad_a
+
+
+def conv_transpose_nhwc(x, kernel_hwio, strides: Sequence[int],
+                        padding: str = "SAME"):
+    """``lax.conv_transpose(x, kernel, strides, padding, ("NHWC", "HWIO",
+    "NHWC"))`` with ``transpose_kernel=False``: a conv (cross-correlation)
+    of the input dilated by the stride, padded by :func:`_transpose_pads`,
+    with the kernel as it is: neither flipped nor its in/out axes swapped
+    (``F.conv_transpose2d`` would do both)."""
+    xc = x.permute(0, 3, 1, 2)
+    b, c, h, w = xc.shape
+    kh, kw = kernel_hwio.shape[:2]
+    sh, sw = strides
+    if sh > 1 or sw > 1:
+        xd = xc.new_zeros((b, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+        xd[:, :, ::sh, ::sw] = xc
+        xc = xd
+    (t, bo), (l, r) = (_transpose_pads(kh, sh, padding),
+                       _transpose_pads(kw, sw, padding))
+    y = F.conv2d(F.pad(xc, (l, r, t, bo)), kernel_hwio.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+class QuantConvTranspose(_QuantLayer):
+    """Transposed conv with LSFQ weight (+activation) fake-quantization;
+    NHWC input, HWIO kernel [kh, kw, in, out] (flax ``kaiming_normal``
+    init), so pruning its out-channels is Transform.OUT as for a conv. The
+    product is :func:`conv_transpose_nhwc` in the input's dtype (the JAX
+    layer applies no ``matmul_dtype`` cast)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Sequence[int], strides: Sequence[int] = (1, 1),
+                 padding: str = "SAME",
+                 config: QuantConfig = QuantConfig.off(),
+                 use_bias: bool = True, gen=None, device="cuda"):
+        kh, kw = kernel_size
+        std = math.sqrt(2.0 / (kh * kw * in_channels)) / 0.87962566103423978
+        super().__init__((kh, kw, in_channels, features), features, config,
+                         use_bias, std, gen, device)
+        self.strides = tuple(strides)
+        self.padding = padding
+
+    def forward(self, x):
+        kernel = self._quant_weight(self.kernel)
+        x = self._quant_input(x)
+        y = conv_transpose_nhwc(x, kernel, self.strides, self.padding)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+# ---------------------------------------------------------------------------
+# flax's normalizations over the last (channel) axis
+# ---------------------------------------------------------------------------
+
+
+class _BNParams(nn.Module):
+    """``scale``/``bias`` params and ``mean``/``var`` running buffers of a
+    channels-last BatchNorm."""
+
+    def __init__(self, features: int, device):
+        super().__init__()
+        device = resolve_device(device)
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+
+class BatchNorm(_BNParams):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last
+    axis: in training the batch statistics with the fast variance
+    ``E[x^2] - E[x]^2`` (biased, clipped at 0) and the running update ``ra
+    = 0.9 * ra + 0.1 * batch`` in place; in eval the running statistics;
+    then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, device="cuda"):
+        super().__init__(features, device)
+        self.momentum, self.eps = momentum, eps
+
+    def forward(self, x, train: bool = False):
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            mean = torch.mean(x, dim=axes)
+            mean2 = torch.mean(x * x, dim=axes)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean
+                                + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var
+                               + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = x - mean
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return y * mul + self.bias
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon=1e-6)`` on NHWC (or any
+    channels-last) input: per sample and group of C/G adjacent channels,
+    f32 statistics over the spatial axes and the group's channels with the
+    fast variance ``E[x^2] - E[x]^2`` clipped at 0 (f64 input: f64), then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` with scale and bias
+    per channel. GroupNorm(C) is InstanceNorm, GroupNorm(1) a LayerNorm
+    over every axis but the batch."""
+
+    def __init__(self, features: int, num_groups: int = 32,
+                 eps: float = 1e-6, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        if num_groups <= 0 or features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{features} channels")
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        c, g = x.shape[-1], self.num_groups
+        xg = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+            *x.shape[:-1], g, c // g)
+        axes = tuple(range(1, x.ndim - 1)) + (x.ndim,)
+        mean = xg.mean(axes)
+        mean2 = (xg * xg).mean(axes)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (c,)
+        mean = mean.repeat_interleave(c // g, dim=-1).reshape(shape)
+        var = var.repeat_interleave(c // g, dim=-1).reshape(shape)
+        y = x - mean
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return y * mul + self.bias
+
+
 # ---------------------------------------------------------------------------
 # functions over a params tree ({name: tensor or subtree}, flax's paths)
 # ---------------------------------------------------------------------------
@@ -353,3 +518,163 @@ def bitwidth_dict(params):
             entry["act_bit"] = 32.0
         out[path] = entry
     return out
+
+
+# ---------------------------------------------------------------------------
+# a model's params tree: flax's paths over the module's own parameters
+# ---------------------------------------------------------------------------
+
+
+def copy_tree_into(mine: Dict[str, torch.Tensor], tree, what: str) -> None:
+    """Copy a tree (tensors or numpy arrays) into ``mine`` ({flax path:
+    tensor}); paths and shapes must match."""
+    flat = flatten_tree(tree)
+    if set(flat) != set(mine):
+        raise ValueError(
+            f"{what} tree differs from the model: missing "
+            f"{sorted(set(mine) - set(flat))[:5]}, unexpected "
+            f"{sorted(set(flat) - set(mine))[:5]}")
+    for path, t in mine.items():
+        v = flat[path]
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.array(v))
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch at {path}: {tuple(v.shape)} "
+                             f"vs {tuple(t.shape)}")
+        t.copy_(v.to(t.dtype))
+
+
+class TreeModule(nn.Module):
+    """A model whose parameters are named by flax's paths
+    (``blocks_3/attn/q/kernel``) and whose BatchNorms' running statistics
+    form flax's ``batch_stats`` tree (``stem_bn/mean``)."""
+
+    def params_by_path(self) -> Dict[str, nn.Parameter]:
+        return {k.replace(".", "/"): v for k, v in self.named_parameters()}
+
+    def param_tree(self):
+        """The parameters as flax's nested params dict (the Parameters
+        themselves, not copies)."""
+        return unflatten_tree(self.params_by_path())
+
+    def stats_by_path(self) -> Dict[str, torch.Tensor]:
+        return {f"{name.replace('.', '/')}/{b}": getattr(m, b)
+                for name, m in self.named_modules()
+                if isinstance(m, _BNParams) for b in ("mean", "var")}
+
+    def batch_stats_tree(self):
+        """The running statistics as flax's ``batch_stats`` dict (the
+        buffers themselves); empty without a BatchNorm."""
+        return unflatten_tree(self.stats_by_path())
+
+    @torch.no_grad()
+    def load_param_tree(self, tree) -> None:
+        """Copy a params tree (tensors or numpy arrays, flax paths and
+        layouts) into the parameters; paths and shapes must match."""
+        copy_tree_into(self.params_by_path(), tree, "params")
+
+    @torch.no_grad()
+    def load_batch_stats(self, tree) -> None:
+        copy_tree_into(self.stats_by_path(), tree, "batch_stats")
+
+
+def batch_stats_from_jax(model: TreeModule, stats) -> TreeModule:
+    """``model`` with the JAX package's ``batch_stats`` tree (numpy
+    leaves) copied into its BatchNorms' running statistics."""
+    model.load_batch_stats(stats)
+    return model
+
+
+def bind_tree(model: nn.Module, params, batch_stats=None) -> nn.Module:
+    """``model``, built on the meta device, holding the tensors of the
+    params tree (and of the ``batch_stats`` tree) themselves: nothing
+    drawn or copied; the quantizers' clip constants are made on the
+    leaves' device."""
+    flat = flatten_tree(params)
+    dev = next(iter(flat.values())).device
+    for path, t in flat.items():
+        mod, _, name = path.rpartition("/")
+        setattr(model.get_submodule(mod.replace("/", ".")), name,
+                nn.Parameter(t.detach(), requires_grad=t.requires_grad))
+    for path, t in flatten_tree(batch_stats or {}).items():
+        mod, _, name = path.rpartition("/")
+        setattr(model.get_submodule(mod.replace("/", ".")), name, t)
+    for m in model.modules():
+        if isinstance(m, _QuantLayer) and m.config.enabled:
+            m.register_clips(dev)
+    left = [k for k, v in list(model.named_parameters())
+            + list(model.named_buffers()) if v.is_meta]
+    if left:
+        raise KeyError(f"params / batch_stats trees lack {left}")
+    return model
+
+
+def apply_variables(model: nn.Module, params, *args, batch_stats=None,
+                    mutable: bool = False, **kwargs):
+    """flax's ``model.apply({"params": params, "batch_stats":
+    batch_stats}, *args, mutable=["batch_stats"] if mutable, **kwargs)``:
+    the forward of ``model`` with its parameters (and BatchNorm
+    statistics) taken from the trees; gradients flow to the params tree's
+    tensors. With ``mutable`` returns ``(out, new_batch_stats)``, the
+    given trees untouched (a training forward updates copies)."""
+    flat = {k.replace("/", "."): v for k, v in flatten_tree(params).items()}
+    bufs = dict(model.named_buffers())
+    stats = {k.replace("/", "."): v.clone() if mutable else v
+             for k, v in flatten_tree(batch_stats or {}).items()}
+    bufs.update(stats)
+    out = torch.func.functional_call(model, {**bufs, **flat}, args, kwargs,
+                                     strict=True)
+    if not mutable:
+        return out
+    return out, unflatten_tree({k.replace(".", "/"): v
+                                for k, v in stats.items()})
+
+
+def model_to_quantize_model(model, params, example_input=None,
+                            quant: Optional[QuantConfig] = None,
+                            init_bits: float = 32.0):
+    """A float model and its params tree -> its quantized twin and params:
+    the model rebuilt with ``quant`` (default ``QuantConfig()``) in its
+    config (on the meta device: nothing drawn), every float leaf taken
+    from ``params`` by path (a shape off the twin's raises ``ValueError``
+    naming the path), the new quantizer scalars set from the weights by
+    :func:`init_quant_params_tree` (q_m = max|W|, d = q_m /
+    (2^(init_bits-1) - 1), t = 1). The twin holds the returned tree's
+    tensors and copies of ``model``'s BatchNorm statistics. Works for
+    every family whose config carries a ``quant`` field (ViT, ResNet,
+    MobileNet, the Transformer, the autoencoder); ``example_input`` is
+    taken for the JAX function's signature (the shapes come from the
+    config). Returns (quant_model, quant_params)."""
+    quant = quant or QuantConfig(enabled=True)
+    if not hasattr(model, "cfg") or not hasattr(model.cfg, "quant"):
+        raise ValueError(
+            f"{type(model).__name__} has no quant-bearing config; construct "
+            "the quantized variant directly")
+    qmodel = type(model)(dataclasses.replace(model.cfg, quant=quant),
+                         device="meta")
+    src = flatten_tree(params)
+    leaf = next(iter(src.values()))
+    dev = leaf.device if isinstance(leaf, torch.Tensor) else torch.device(
+        "cpu")
+    flat = {}
+    for path, p in qmodel.params_by_path().items():
+        have = src.get(path)
+        if have is None:  # a new quantizer scalar, set just below
+            flat[path] = torch.ones(tuple(p.shape), dtype=p.dtype,
+                                    device=dev)
+            continue
+        if tuple(np.shape(have)) != tuple(p.shape):
+            raise ValueError(f"shape mismatch at {path}: source "
+                             f"{tuple(np.shape(have))} vs quant model "
+                             f"{tuple(p.shape)}")
+        flat[path] = (have.detach().clone() if isinstance(
+            have, torch.Tensor) else torch.from_numpy(np.array(have))).to(dev)
+    qparams = init_quant_params_tree(unflatten_tree(flat),
+                                     init_bits=init_bits)
+    stats = (unflatten_tree({k: v.detach().clone() for k, v in
+                             model.stats_by_path().items()})
+             if isinstance(model, TreeModule) else None)
+    bind_tree(qmodel, qparams, stats)
+    for p in qmodel.parameters():
+        p.requires_grad_(True)
+    return qmodel, qmodel.param_tree()

@@ -12,7 +12,8 @@ names, paths and layouts.
 - :class:`UltraNetInt`: the folded-BN integer forward of the export
   artifact (integer conv levels, ``(inc, bias)`` requantization tables).
 
-The BatchNorm is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, not
+The BatchNorm is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+(``models/layers.py:BatchNorm``, shared with ResNet and MobileNet), not
 PyTorch's: batch statistics with the fast variance ``E[x^2] - E[x]^2``
 (biased, clipped at 0), ``y = (x - mean) * (rsqrt(var + eps) * scale) +
 bias``, and the running update ``ra = 0.9 * ra + 0.1 * batch``.
@@ -45,7 +46,8 @@ from ..device import resolve_device
 from ..quant.dorefa import (fold_batchnorm, fold_batchnorm_affine,
                             quantize_activation, quantize_weight)
 from ..quant.integer import requantize_int
-from .layers import _same_pads, _trunc_normal, flatten_tree, unflatten_tree
+from .layers import (BatchNorm, TreeModule, _BNParams, _same_pads,
+                     _trunc_normal, apply_variables, flatten_tree)
 
 # (features, kernel, maxpool_after) per conv block
 ULTRANET_LAYERS = (
@@ -141,19 +143,6 @@ class DoReFaDense(nn.Module):
         return y
 
 
-class _BNParams(nn.Module):
-    """``scale``/``bias`` params and ``mean``/``var`` running buffers of a
-    channels-last BatchNorm."""
-
-    def __init__(self, features: int, device):
-        super().__init__()
-        device = resolve_device(device)
-        self.scale = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
-        self.register_buffer("mean", torch.zeros(features, device=device))
-        self.register_buffer("var", torch.ones(features, device=device))
-
-
 class DoReFaBatchNorm(_BNParams):
     """BatchNorm2d_Q: gamma, beta and the RUNNING statistics folded into a
     quantized affine ``w_q * x + b_q``, in training as in eval; the
@@ -193,33 +182,6 @@ class DoReFaBatchNorm1d(_BNParams):
         return x * w + b
 
 
-class BatchNorm(_BNParams):
-    """flax ``nn.BatchNorm`` over the last axis (see the module doc). In
-    training the running buffers take the update in place."""
-
-    def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, device="cuda"):
-        super().__init__(features, device)
-        self.momentum, self.eps = momentum, eps
-
-    def forward(self, x, train: bool = False):
-        if train:
-            axes = tuple(range(x.ndim - 1))
-            mean = torch.mean(x, dim=axes)
-            mean2 = torch.mean(x * x, dim=axes)
-            var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean
-                                + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var
-                               + (1 - self.momentum) * var)
-        else:
-            mean, var = self.mean, self.var
-        y = x - mean
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return y * mul + self.bias
-
-
 def yolo_decode(p, img_size, anchors=ULTRANET_ANCHORS, num_outputs: int = 6):
     """YOLOLayer decode. ``p`` [B, ny, nx, na*no] (NHWC conv output);
     returns ``(io, p_raw)``: io [B, na*ny*nx, no] (boxes in pixels,
@@ -246,7 +208,7 @@ def _widths(channels) -> Tuple[int, ...]:
                  for i, (feat, _, _) in enumerate(ULTRANET_LAYERS))
 
 
-class UltraNet(nn.Module):
+class UltraNet(TreeModule):
     """UltraNetQua, the W4A4 DoReFa QAT network. ``channels`` overrides the
     per-conv widths (a compressed subnet). Weights are drawn from ``seed``
     with flax's initializers (not JAX's numbers) on ``device`` (the GPU
@@ -287,47 +249,14 @@ class UltraNet(nn.Module):
             return yolo_decode(x, img_size)[1]
         return yolo_decode(x, img_size)
 
-    # -- flax's trees ------------------------------------------------------
-
-    def param_tree(self):
-        """The parameters as flax's params dict (the Parameters
-        themselves)."""
-        return unflatten_tree({k.replace(".", "/"): v
-                               for k, v in self.named_parameters()})
-
-    def batch_stats_tree(self):
-        """The running statistics as flax's ``batch_stats`` dict (the
-        buffers themselves)."""
-        return unflatten_tree({k.replace(".", "/"): v
-                               for k, v in self.named_buffers()})
-
     @torch.no_grad()
     def load_trees(self, params, batch_stats=None) -> None:
         """Copy a params tree (and a ``batch_stats`` tree) of tensors or
         numpy arrays, flax paths and layouts, into the model; paths and
         shapes must match."""
-        _copy_into(dict(self.named_parameters()), params, "params")
+        self.load_param_tree(params)
         if batch_stats is not None:
-            _copy_into(dict(self.named_buffers()), batch_stats,
-                       "batch_stats")
-
-
-def _copy_into(mine: Dict[str, torch.Tensor], tree, what: str) -> None:
-    mine = {k.replace(".", "/"): v for k, v in mine.items()}
-    flat = flatten_tree(tree)
-    if set(flat) != set(mine):
-        raise ValueError(
-            f"{what} tree differs from the model: missing "
-            f"{sorted(set(mine) - set(flat))[:5]}, unexpected "
-            f"{sorted(set(flat) - set(mine))[:5]}")
-    for path, t in mine.items():
-        v = flat[path]
-        if not isinstance(v, torch.Tensor):
-            v = torch.from_numpy(np.array(v))
-        if tuple(v.shape) != tuple(t.shape):
-            raise ValueError(f"shape mismatch at {path}: {tuple(v.shape)} "
-                             f"vs {tuple(t.shape)}")
-        t.copy_(v.to(t.dtype))
+            self.load_batch_stats(batch_stats)
 
 
 def ultranet_apply(model: UltraNet, params, batch_stats, x,
@@ -336,15 +265,8 @@ def ultranet_apply(model: UltraNet, params, batch_stats, x,
     train=train, mutable=["batch_stats"] if train)``: eval returns
     ``(io, p)``; train returns ``(p, new_batch_stats)``, the given trees
     untouched. Gradients flow to the params tree's tensors."""
-    flat = {k.replace("/", "."): v for k, v in flatten_tree(params).items()}
-    stats = {k.replace("/", "."): v.clone()
-             for k, v in flatten_tree(batch_stats).items()}
-    out = torch.func.functional_call(model, {**flat, **stats}, (x,),
-                                     {"train": train}, strict=True)
-    if not train:
-        return out
-    return out, unflatten_tree({k.replace(".", "/"): v
-                                for k, v in stats.items()})
+    return apply_variables(model, params, x, batch_stats=batch_stats,
+                           mutable=train, train=train)
 
 
 def channels_of(params) -> Tuple[int, ...]:

@@ -31,8 +31,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import (QuantConfig, QuantConv, QuantDense, _mm_cast,
-                     _QuantLayer, _trunc_normal, flatten_tree, unflatten_tree)
+from .layers import (QuantConfig, QuantConv, QuantDense, TreeModule,
+                     _mm_cast, _trunc_normal, apply_variables, bind_tree,
+                     flatten_tree, unflatten_tree)
 
 
 def _quant_off() -> Dict[str, Any]:
@@ -121,8 +122,8 @@ def gelu(x):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(epsilon=1e-6)``: f32 statistics with the fast
-    variance E[x^2] - E[x]^2 clipped at 0, then
+    """flax ``nn.LayerNorm(epsilon=1e-6)``: f32 statistics (f64 for f64
+    input) with the fast variance E[x^2] - E[x]^2 clipped at 0, then
     (x - mean) * (rsqrt(var + eps) * scale) + bias."""
 
     def __init__(self, dim: int, eps: float = 1e-6, device="cuda"):
@@ -133,7 +134,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x):
-        x = x.to(torch.float32)
+        # at least f32, as flax promotes (f64 stays f64)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x.mean(-1, keepdim=True)
         mean2 = (x * x).mean(-1, keepdim=True)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
@@ -230,7 +232,7 @@ class Block(nn.Module):
         return x + drop_path(h, self.rate, deterministic, generator)
 
 
-class VisionTransformer(nn.Module):
+class VisionTransformer(TreeModule):
     """The ViT of ``cfg`` (``cfg.quant`` selects the quantizers). Weights
     are drawn from ``seed`` with flax's initializers (not JAX's numbers),
     on ``device`` (the GPU unless the caller asks for the CPU)."""
@@ -281,48 +283,14 @@ class VisionTransformer(nn.Module):
             x = self.head(x)
         return x
 
-    # -- the path-keyed view of the parameters --------------------------------
-
-    def params_by_path(self) -> Dict[str, nn.Parameter]:
-        """{'blocks_3/attn/qkv/kernel': Parameter, ...}: flax's paths."""
-        return {k.replace(".", "/"): v for k, v in self.named_parameters()}
-
-    def param_tree(self):
-        """The parameters as flax's nested params dict (the Parameters
-        themselves, not copies)."""
-        return unflatten_tree(self.params_by_path())
-
-    @torch.no_grad()
-    def load_param_tree(self, tree) -> None:
-        """Copy a params tree (tensors or numpy arrays, flax paths and
-        layouts) into the parameters; paths and shapes must match."""
-        mine = self.params_by_path()
-        flat = flatten_tree(tree)
-        if set(flat) != set(mine):
-            missing = sorted(set(mine) - set(flat))
-            extra = sorted(set(flat) - set(mine))
-            raise ValueError(f"params tree differs from the model: missing "
-                             f"{missing[:5]}, unexpected {extra[:5]}")
-        for path, p in mine.items():
-            v = flat[path]
-            if not isinstance(v, torch.Tensor):
-                v = torch.from_numpy(np.array(v))
-            if tuple(v.shape) != tuple(p.shape):
-                raise ValueError(f"shape mismatch at {path}: "
-                                 f"{tuple(v.shape)} vs {tuple(p.shape)}")
-            p.copy_(v.to(p.dtype))
-
 
 def apply(model: nn.Module, params, x, deterministic: bool = True,
           generator=None):
     """flax's ``model.apply({"params": params}, x)``: the forward of
     ``model`` with its parameters taken from the params tree ``params``
     (gradients flow to the tree's tensors)."""
-    flat = {k.replace("/", "."): v for k, v in flatten_tree(params).items()}
-    flat.update(model.named_buffers())
-    return torch.func.functional_call(
-        model, flat, (x,), {"deterministic": deterministic,
-                            "generator": generator}, strict=True)
+    return apply_variables(model, params, x, deterministic=deterministic,
+                           generator=generator)
 
 
 def model_for_params(cfg: ViTConfig, params) -> VisionTransformer:
@@ -330,20 +298,7 @@ def model_for_params(cfg: ViTConfig, params) -> VisionTransformer:
     ``params`` themselves: built on the meta device (nothing drawn or
     copied), each parameter then bound to its leaf and the quantizers'
     clip constants made on the leaves' device."""
-    flat = flatten_tree(params)
-    dev = next(iter(flat.values())).device
-    model = VisionTransformer(cfg, device="meta")
-    for path, t in flat.items():
-        mod, _, name = path.rpartition("/")
-        setattr(model.get_submodule(mod.replace("/", ".")), name,
-                nn.Parameter(t.detach(), requires_grad=t.requires_grad))
-    for m in model.modules():
-        if isinstance(m, _QuantLayer) and m.config.enabled:
-            m.register_clips(dev)
-    left = [k for k, v in model.named_parameters() if v.is_meta]
-    if left:
-        raise KeyError(f"params tree lacks {left}")
-    return model
+    return bind_tree(VisionTransformer(cfg, device="meta"), params)
 
 
 def params_from_jax(tree, cfg: ViTConfig, device="cuda"

@@ -42,9 +42,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "quantized_vit_tpu" or m.startswith("quantized_vit_tpu.")
              or m == "tools" or m.startswith("tools."))
-# the training slice's modules, the FSDP slice's and UltraNet's (its
-# quantizers, model, artifact, HLS headers, native packer, interop) are
-# among those scanned
+# the training slice's modules, the FSDP slice's, UltraNet's (its
+# quantizers, model, artifact, HLS headers, native packer, interop) and
+# the other model families' are among those scanned
 slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
           "models.vit", "opt.groups", "graph.builders", "opt.importance",
           "opt.geta", "graph.oto", "utils.losses", "utils.guards",
@@ -56,7 +56,9 @@ slice_ = {"quant.lsfq", "quant.bitwidth", "ops.quant_vjp", "models.layers",
           "tools.exp_fc1", "quant.dorefa", "quant.integer",
           "models.ultranet", "artifact.ultranet", "artifact.hls",
           "artifact.native", "interop", "interop.npz_export",
-          "interop.torch_import"}
+          "interop.torch_import", "models.resnet", "models.mobilenet",
+          "models.transformer", "models.autoencoder", "models.lora",
+          "graph.costs", "compress.subnet"}
 missing = {m for m in slice_ if pkg.__name__ + "." + m not in mods}
 print(len(mods), "modules;", "loaded:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(mods) < 42 else 0)

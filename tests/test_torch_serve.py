@@ -186,7 +186,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     wrappers take their plain versions there, so the comparisons are
     trivially equal; what this checks is the script's control flow), the
     training phase included: 13 GETA steps through warmup, range
-    projection, two pruning periods and fix, to the target sparsity."""
+    projection, two pruning periods and fix, to the target sparsity; and
+    phase 12's model families at small batches and widths."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
@@ -221,6 +222,15 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     # phase 11: UltraNet at the JAX tests' 32 x 64, batch 4
     monkeypatch.setattr(chip_smoke, "ULTRA_HW", (32, 64))
     monkeypatch.setattr(chip_smoke, "ULTRA_BATCH", 4)
+    # phase 12: the families at small batches; ResNet at one block a
+    # stage, the encoder and the Llama-style block at width 64, 2 blocks
+    for name, value in (("CIFAR_BATCH", 8), ("BERT_BATCH", 2),
+                        ("BERT_SEQ", 16), ("AE_BATCH", 2), ("AE_HW", 16),
+                        ("LORA_DIMS", (64, 96, 500)), ("LORA_ROWS", 64),
+                        ("RESNET_KW", dict(stage_sizes=(1, 1, 1))),
+                        ("BERT_KW", dict(vocab_size=1000, embed_dim=64,
+                                         depth=2, num_heads=4))):
+        monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path / "art"))
     monkeypatch.setattr(chip_smoke, "TRAIN_CKPT", str(tmp_path / "ckpt"))
     monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
@@ -373,3 +383,18 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in record["kernels"])
+    # phase 12: each family's steps, its plain-chain step, the card-vs-CPU
+    # checks, its subnet; LoRA, the Llama-style block and the converter
+    fam = record["families"]
+    for name in ("resnet20", "mobilenet", "bert_base", "autoencoder"):
+        r = fam[name]
+        assert len(r["losses"]) == chip_smoke.FAMILY_STEPS
+        assert r["plain_vs_k7"]["ok"] and r["plain_vs_k7"]["loss_equal"]
+        assert r["card_vs_cpu"]["layers"] == r["quant_layers"]
+        assert r["subnet"]["macs"][1] < r["subnet"]["macs"][0]
+        assert set(r["ms"]) == {"eval_forward", "train_step"}
+    assert fam["resnet20"]["quant_layers"] == 10  # one block a stage here
+    assert fam["llama_block"]["gate_follows_fc1"]
+    assert fam["lora_dense"]["lora_b_zero_with_base"]
+    assert fam["lora_embedding"]["lora_b_zero_with_base"]
+    assert fam["model_to_quantize_model"]["forward_rel"] <= 1e-5
