@@ -8,11 +8,16 @@ path, multi-device training (DP x TP, checkpoints, elastic recovery,
 GPipe), UltraNet end to end (float, subnet, integer artifact, FPGA
 headers), and the other model families (ResNet, MobileNet, the
 separate-q/k/v Transformer, the conv autoencoder, LoRA) trained through K7
-and compressed.
+and compressed, and interop and the automatic grouping (a reference ViT
+``.pt`` through the CLIs onto the serving path, the traced-graph grouping
+at the families' configurations, a discovered-group QAT run compressed).
 
 Run from the repository root (no arguments; one CUDA card):
 
     python3 chip_smoke.py
+
+``--phase 13`` runs the build and phase 13 alone (its record printed in
+place of the kernel rows).
 
 Phases, in order; any failure exits non-zero:
 
@@ -242,6 +247,23 @@ Phases, in order; any failure exits non-zero:
    way; LoRA at 768 -> 3072 on 4096 rows and a 30522 x 768 embedding (the
    merge lossless, HESSO zeroing lora_b's columns with the base's, timed);
    ``model_to_quantize_model`` on ResNet-20 at 32 bits.
+13. interop and the automatic grouping (``interop/``, ``graph/tracer.py``,
+   ``graph/autogroups.py``, ``compress/auto.py``; no kernel of their own):
+   the ViT-B/16 QAT tree (LSFQ at INTEROP_BITS, seed 0) written as a
+   reference ``.pt`` and read back by ``load_params_any`` (bit-equal),
+   exported by ``cli.export vit`` (the artifact byte-equal to the source
+   tree's) and served at BATCH on the block route (K1, K4, K3 + K1 + K2 a
+   block; launches counted; logits bit-equal to the source artifact's),
+   int4-packed as the CLI writes it and int8-stored; ``cli.export torch``
+   into the reference-shaped torch ViT, its f32 logits at
+   INTEROP_TORCH_BATCH against the port's float forward and the CPU's run
+   (TF32 off); the ONNX export's contract; discovery equal to the
+   declarative builders on ResNet-20, MobileNet and UltraNet (at
+   ULTRA_HW), ``validate_node_groups`` and conservative discovery on
+   ViT-B/16 (make_fx's host ms and node counts recorded); LSFQ ResNet-20
+   with discovered groups: FAMILY_STEPS GETA steps through K7, then
+   ``construct_subnet_auto`` bit-equal to ``construct_subnet_resnet``, the
+   compressed forward within AUTO_SUBNET_TOL of the sparse one.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -254,6 +276,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -397,6 +420,16 @@ FAMILY_CPU_TOL = 1e-4
 FAMILY_TIE = 1e-3
 FAMILY_F64_TOL = 1e-9
 FAMILY_SUBNET_TOL = 1e-5
+# phase 13: the ViT-B/16 QAT tree's quantizers at INTEROP_BITS; the
+# reference-shaped torch module against the port's float forward at
+# INTEROP_TORCH_BATCH within INTEROP_TOL (rtol and atol); the compressed
+# ResNet-20's eval forward within AUTO_SUBNET_TOL of the sparse one
+# (relative, floor 1)
+INTEROP_BITS = 4.0
+INTEROP_TORCH_BATCH = 8
+INTEROP_TOL = 1e-4
+AUTO_SUBNET_TOL = 1e-4
+INTEROP_DIR = os.path.join(ROOT, "build", "smoke_interop")
 
 
 def log(*a):
@@ -407,7 +440,13 @@ class Failed(Exception):
     pass
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="drive the port on one GPU")
+    ap.add_argument("--phase", type=int, choices=[13], default=None,
+                    help="run the build and this phase alone")
+    only = ap.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card", file=sys.stderr)
@@ -424,7 +463,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     record = {"device": torch.cuda.get_device_name(0)}
     try:
-        run(record)
+        run(record, only)
     except Failed as e:
         log(f"FAILED: {e}")
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -432,7 +471,8 @@ def main() -> int:
         return 1
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
-    print(json.dumps({"kernels": record["kernels"]}))
+    print(json.dumps({"kernels": record["kernels"]} if only is None
+                     else {"interop": record["interop"]}, default=str))
     print(record["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -443,7 +483,8 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 
 
-def run(record):
+def run(record, only=None):
+    """Every phase in order; ``only=13``: the build and phase 13."""
     from quantized_vit_tpu_torch.ops import _build
 
     dev = torch.device(DEV)
@@ -476,6 +517,9 @@ def run(record):
             if "registers" in ln:
                 log("  ptxas:", ln)
 
+    if only == 13:
+        interop_autogroups_phase(dev, record)
+        return
     parity = Parity(dev)
     parity.run_all(main_cfg())
     record["parity"] = parity.rows
@@ -501,6 +545,7 @@ def run(record):
     train_mesh_phase(dev, record, arts)
     ultranet_phase(dev, record)
     families_phase(dev, record)
+    interop_autogroups_phase(dev, record)
 
 
 def main_cfg():
@@ -7747,6 +7792,403 @@ def families_phase(dev, record):
     log(f"[families] phase {rec['phase_s']} s")
     if fails:
         raise Failed("phase 12: " + "; ".join(fails[:8]))
+
+# ---------------------------------------------------------------------------
+# phase 13: interop and the automatic grouping
+# ---------------------------------------------------------------------------
+
+
+def same_trees(a, b) -> bool:
+    """Two trees of tensors with the same paths, shapes, dtypes and
+    bits."""
+    from quantized_vit_tpu_torch.models import flatten_tree
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    return set(fa) == set(fb) and all(
+        fa[k].dtype == fb[k].dtype and tuple(fa[k].shape) == tuple(
+            fb[k].shape) and torch.equal(fa[k].cpu(), fb[k].cpu())
+        for k in fa)
+
+
+def same_files(a, b) -> bool:
+    """Two directories with the same file names and bytes."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| over max |want| (floor 1)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+
+def interop_serving(dev, rec, fails, smi):
+    """Phase 13 (a): the ViT-B/16 QAT tree (LSFQ at INTEROP_BITS, seed 0)
+    through a reference ``.pt``: read back by ``load_params_any``,
+    exported by ``cli.export vit`` and served at BATCH on the block route
+    (K1, K4, then K3 + K1 proj + K2 a block), the int4-packed artifact the
+    CLI writes and the int8-stored one of the same tree; then ``cli.export
+    torch`` into the reference-shaped torch ViT against the port's float
+    forward, and the ONNX export's contract. Returns the QAT tree and its
+    config (for the discovery checks)."""
+    from quantized_vit_tpu_torch import models as M
+    from quantized_vit_tpu_torch.artifact import load_vit_int4_artifact
+    from quantized_vit_tpu_torch.cli import _common as common
+    from quantized_vit_tpu_torch.cli import export as texport
+    from quantized_vit_tpu_torch.interop import vit_params_to_torch
+    from quantized_vit_tpu_torch.interop.torch_model import (
+        build_torch_vit, export_onnx, load_interchange)
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.opt.checkpoint import save_checkpoint
+    from quantized_vit_tpu_torch.serve import (export_vit_int4,
+                                               prepare_kernels,
+                                               vit_int4_forward)
+    from quantized_vit_tpu_torch.utils import patchify_batch
+
+    cfg = dataclasses.replace(main_cfg(), quant=M.QuantConfig(enabled=True))
+    model = M.VisionTransformer(cfg, seed=0, device=dev)
+    params = M.init_quant_params_tree(M.tree_map(
+        lambda p: p.detach().clone(), model.param_tree()), INTEROP_BITS)
+    del model
+    shutil.rmtree(INTEROP_DIR, ignore_errors=True)
+    os.makedirs(INTEROP_DIR)
+    pt = os.path.join(INTEROP_DIR, "vit_b16.pt")
+    t0 = time.perf_counter()
+    torch.save({k: torch.from_numpy(v) for k, v in
+                vit_params_to_torch(params).items()}, pt)
+    tree, _, _ = common.load_params_any(pt, device=DEV)
+    sync()
+    rec["pt_round_trip_s"] = time.perf_counter() - t0
+    rec["pt_bytes"] = os.path.getsize(pt)
+    rec["pt_tree_bit_equal"] = same_trees(tree, params)
+    if not rec["pt_tree_bit_equal"]:
+        fails.append("the .pt round trip changed the tree")
+
+    # cli.export vit of the .pt and of the source tree's checkpoint
+    src = os.path.join(INTEROP_DIR, "source")
+    save_checkpoint(src, params)
+    flags = ["--model", "vit_b16", "--img-size", str(cfg.img_size),
+             "--num-classes", str(cfg.num_classes), "--device", DEV]
+    arts = {}
+    for name, ck in (("pt", pt), ("source", src)):
+        arts[name] = os.path.join(INTEROP_DIR, f"art_{name}")
+        texport.main(["vit", "--checkpoint", ck, "--out", arts[name]]
+                     + flags)
+    rec["artifacts_byte_equal"] = same_files(arts["pt"], arts["source"])
+    if not rec["artifacts_byte_equal"]:
+        fails.append("cli.export vit: the .pt's artifact differs from the "
+                     "source tree's")
+
+    rng = np.random.default_rng(13)
+    images = rng.standard_normal(
+        (BATCH, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    x = torch.from_numpy(patchify_batch(images, cfg.patch_size)).to(dev)
+    kw = dict(float_dtype=torch.bfloat16, images_layout="patches")
+    want = expected_launches(cfg.depth)
+
+    def serve(art, acfg):
+        plan = prepare_kernels(art, acfg) if dev.type == "cuda" else None
+        _build.reset_launches()
+        y = vit_int4_forward(art, x, acfg, plan=plan, **kw)
+        sync()
+        return y, dict(_build.LAUNCHES)
+
+    rows = {}
+    loaded = {k: load_vit_int4_artifact(d, device=DEV)
+              for k, d in arts.items()}
+    stored = {"pt": export_vit_int4(cfg, tree, pack_weights=False),
+              "source": export_vit_int4(cfg, params, pack_weights=False)}
+    for fmt, pair in (("int4-packed", loaded),
+                      ("int8-stored", {k: (a, cfg)
+                                       for k, a in stored.items()})):
+        (y_pt, n_pt), (y_src, n_src) = (serve(*pair["pt"]),
+                                        serve(*pair["source"]))
+        art, acfg = pair["pt"]
+        with torch.no_grad():
+            plain = vit_int4_forward(art, x, acfg, use_kernels=False, **kw)
+        row = {"launches": {k: v for k, v in n_pt.items() if v},
+               "logits_bit_equal": bool(torch.equal(
+            y_pt, y_src)), "vs_plain_max_abs": float(
+            (y_pt - plain).abs().max()),
+            "shape_ok": tuple(y_pt.shape) == (BATCH, cfg.num_classes)
+            and bool(torch.isfinite(y_pt).all())}
+        rows[fmt] = row
+        if dev.type == "cuda" and (n_pt != want or n_src != want):
+            fails.append(f"interop {fmt}: launches {n_pt} / {n_src} != "
+                         f"{want}")
+        if not (row["logits_bit_equal"] and row["shape_ok"]
+                and row["vs_plain_max_abs"] <= LOGIT_TOL):
+            fails.append(f"interop {fmt}: {row}")
+    rec["serve"] = rows
+    del loaded, stored
+
+    # cli.export torch -> the reference-shaped module on the card and the
+    # CPU, against the port's float forward (TF32 off)
+    tdir = os.path.join(INTEROP_DIR, "torch")
+    texport.main(["torch", "--checkpoint", pt, "--out", tdir] + flags)
+    with open(os.path.join(tdir, "arch.json")) as f:
+        arch = json.load(f)
+    sd = {k: v.numpy() for k, v in torch.load(
+        os.path.join(tdir, "model.pt")).items()}
+    card = load_interchange(build_torch_vit(arch, device=DEV), sd).eval()
+    cpu = load_interchange(build_torch_vit(arch, device="cpu"), sd).eval()
+    float_tree = M.unflatten_tree({
+        k: v for k, v in M.flatten_tree(tree).items()
+        if k.rsplit("/", 1)[-1] not in M.QUANT_PARAM_NAMES})
+    port_float = M.model_for_params(
+        dataclasses.replace(cfg, quant=M.QuantConfig.off()), float_tree)
+    xf = torch.from_numpy(images[:INTEROP_TORCH_BATCH]).to(dev)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            y_card = card(xf.permute(0, 3, 1, 2))
+            y_port = port_float(xf, deterministic=True)
+            y_cpu = cpu(xf.cpu().permute(0, 3, 1, 2))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rec["torch_module"] = {
+        "vs_port_float_max_abs": float((y_card - y_port).abs().max()),
+        "vs_cpu_max_abs": float((y_card.cpu() - y_cpu).abs().max()),
+        "logit_absmax": float(y_port.abs().max())}
+    for name, ref in (("port float", y_port), ("cpu", y_cpu.to(dev))):
+        if not torch.allclose(y_card, ref, rtol=INTEROP_TOL,
+                              atol=INTEROP_TOL):
+            fails.append(f"torch module vs {name}: {rec['torch_module']}")
+
+    # the ONNX export: a file with the onnx package, else its RuntimeError
+    try:
+        import onnx  # noqa: F401
+        rec["onnx_present"] = True
+    except ImportError:
+        rec["onnx_present"] = False
+    onnx_path = os.path.join(INTEROP_DIR, "vit_b16.onnx")
+    try:
+        export_onnx(onnx_path, card, cfg.img_size, cfg.in_channels)
+        rec["onnx"] = os.path.getsize(onnx_path)
+        if not rec["onnx_present"] or rec["onnx"] == 0:
+            fails.append(f"onnx: wrote {rec['onnx']} bytes with onnx "
+                         f"present {rec['onnx_present']}")
+    except RuntimeError as e:
+        rec["onnx"] = str(e)[:80]
+        if rec["onnx_present"] or "onnx" not in str(e):
+            fails.append(f"onnx: {e}")
+    del card, cpu, port_float
+    log(f"[interop] ViT-B/16 LSFQ {INTEROP_BITS:g}-bit through a reference "
+        f".pt ({rec['pt_bytes']} bytes): round trip "
+        f"{rec['pt_round_trip_s']:.2f} s, tree bit-equal "
+        f"{rec['pt_tree_bit_equal']}; cli.export vit artifacts byte-equal "
+        f"{rec['artifacts_byte_equal']}; served b{BATCH} {rows}; torch "
+        f"module {rec['torch_module']}; onnx present {rec['onnx_present']}"
+        f" -> {rec['onnx']} ({smi})")
+    return cfg, tree
+
+
+def trace_ms(model, params, x, stats=None, **kw):
+    """(make_fx's host ms, node count, the graph) of one trace of
+    ``apply_variables``, which the discovery then walks."""
+    from quantized_vit_tpu_torch.graph import trace_apply
+
+    t0 = time.perf_counter()
+    graph = trace_apply(model, params, x, stats, kw)
+    sync()
+    return (time.perf_counter() - t0) * 1e3, len(graph.nodes), graph
+
+
+def discovery_checks(dev, rec, fails, vit_cfg, vit_tree, smi):
+    """Phase 13 (b): the discovered groups equal the declarative builders'
+    on ResNet-20 and MobileNet (phase 12's configurations) and UltraNet at
+    ULTRA_HW; on ViT-B/16's QAT forward at batch 1 the declared groups
+    cover the trace, and discovery stays conservative."""
+    from quantized_vit_tpu_torch import models as M
+    from quantized_vit_tpu_torch.graph import (discover_node_groups,
+                                               mobilenet_node_groups,
+                                               resnet_node_groups,
+                                               ultranet_node_groups,
+                                               validate_node_groups,
+                                               vit_node_groups)
+
+    def as_sets(groups):
+        return {(tuple(sorted((e.path, e.transform.value)
+                              for e in g.entries)),
+                 g.num_groups, g.is_prunable) for g in groups}
+
+    specs = {f.name: f for f in family_specs()[:2]}
+    ultra = M.UltraNet(device=dev)
+    cases = [(name, M.ResNet(f.cfg, seed=0, device=dev) if name ==
+              "resnet20" else M.MobileNet(f.cfg, seed=0, device=dev),
+              (1, CIFAR_HW, CIFAR_HW, 3), {"deterministic": True})
+             for name, f in specs.items()]
+    cases.append(("ultranet", ultra, (1, *ULTRA_HW, 3), {"train": False}))
+    rows = {}
+    for name, model, shape, kw in cases:
+        params = M.tree_map(lambda p: p.detach(), model.param_tree())
+        stats = model.batch_stats_tree()
+        x = torch.zeros(shape, device=dev)
+        ms, nodes, graph = trace_ms(model, params, x, stats, **kw)
+        groups = discover_node_groups(model, params, x, batch_stats=stats,
+                                      model_kwargs=kw, graph=graph)
+        declared = (ultranet_node_groups(params) if name == "ultranet"
+                    else (resnet_node_groups if name == "resnet20"
+                          else mobilenet_node_groups)(model.cfg, params))
+        rows[name] = {"make_fx_ms": ms, "nodes": nodes,
+                      "groups": len(groups),
+                      "equals_declared": as_sets(groups) == as_sets(
+                          declared)}
+        if not rows[name]["equals_declared"]:
+            fails.append(f"discovery on {name} differs from its builder")
+    del ultra, cases
+
+    vmodel = M.model_for_params(vit_cfg, vit_tree)
+    x1 = torch.zeros(1, vit_cfg.img_size, vit_cfg.img_size, 3, device=dev)
+    ms, nodes, graph = trace_ms(vmodel, vit_tree, x1, deterministic=True)
+    val = validate_node_groups(graph, vit_node_groups(vit_cfg, vit_tree),
+                               vit_tree)
+    groups = discover_node_groups(vmodel, vit_tree, x1,
+                                  model_kwargs={"deterministic": True},
+                                  graph=graph)
+    del graph
+    by_kernel = {e.path: g for g in groups for e in g.entries}
+    fixed = ["blocks_0/attn/qkv/kernel", "patch_embed/proj/kernel",
+             "head/kernel"]
+    fc1 = [by_kernel[f"blocks_{i}/mlp/fc1/kernel"]
+           for i in range(vit_cfg.depth)]
+    rows["vit_b16"] = {
+        "make_fx_ms": ms, "nodes": nodes, "groups": len(groups),
+        "validate": val,
+        "unprunable": {p: not by_kernel[p].is_prunable for p in fixed},
+        "fc1_groups": sorted({(g.is_prunable, g.num_groups) for g in fc1})}
+    if val != {"missing": [], "uncovered": []}:
+        fails.append(f"ViT-B/16 validate_node_groups: {val}")
+    if not all(rows["vit_b16"]["unprunable"].values()) or any(
+            not g.is_prunable or g.num_groups != vit_cfg.block_hidden(i)
+            for i, g in enumerate(fc1)):
+        fails.append(f"ViT-B/16 discovery not conservative: "
+                     f"{rows['vit_b16']}")
+    rec["discovery"] = rows
+    for name, r in rows.items():
+        log(f"[discovery] {name}: make_fx {r['make_fx_ms']:.1f} ms host, "
+            f"{r['nodes']} nodes, {r['groups']} groups " + (
+                f"equal to the builder's {r['equals_declared']}"
+                if "equals_declared" in r else
+                f"validate {r['validate']}, unprunable {r['unprunable']}, "
+                f"fc1 (prunable, groups) {r['fc1_groups']}") + f" ({smi})")
+
+
+def auto_qat_checks(dev, rec, fails, smi):
+    """Phase 13 (c): LSFQ ResNet-20 (``fused_vjp``: K7 at every quantizer)
+    with its groups from ``discover_node_groups``: FAMILY_STEPS GETA steps
+    at CIFAR_BATCH, then ``construct_subnet_auto`` against
+    ``construct_subnet_resnet`` on the same sparse tree (bit-equal), and
+    the compressed eval forward against the sparse one (TF32 off)."""
+    from quantized_vit_tpu_torch import models as M
+    from quantized_vit_tpu_torch.compress import (construct_subnet_auto,
+                                                  construct_subnet_resnet,
+                                                  kept_groups)
+    from quantized_vit_tpu_torch.graph import (discover_node_groups,
+                                               resnet_node_groups)
+    from quantized_vit_tpu_torch.ops import _build
+    from quantized_vit_tpu_torch.opt import GETA, GETAConfig
+
+    fam = family_specs()[0]
+    model = fam.cls(fam.cfg, seed=0, device=dev)
+    params = M.init_quant_params_tree(M.tree_map(
+        lambda p: p.detach().clone(), model.param_tree()), init_bits=32.0)
+    stats = M.tree_map(lambda b: b.clone(), model.batch_stats_tree())
+    want = 2 * len(quant_layers(model))
+    inputs = fam.check_inputs(len(fam.inputs[0]), dev)
+    target = torch.from_numpy(np.asarray(fam.target)).to(dev)
+    groups, plan = discover_node_groups(
+        model, params, inputs[0][:1], batch_stats=stats,
+        model_kwargs=fam.eval_kw, return_plan=True)
+    opt = GETA(groups, params, GETAConfig(**FAMILY_GETA_KW))
+    per_step, losses = [], []
+    for _ in range(FAMILY_STEPS):
+        n0 = _build.LAUNCHES["quant_bwd"]
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in M.flatten_tree(params).items()}
+        out, stats = fam.forward(model, M.unflatten_tree(leaves), stats,
+                                 inputs, True)
+        loss = fam.loss(out, target)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        params = opt.step(params, opt.clip_grads(
+            M.unflatten_tree(dict(zip(leaves, g)))))
+        sync()
+        per_step.append(_build.LAUNCHES["quant_bwd"] - n0)
+        losses.append(float(loss.detach()))
+    zero_groups = sum(int(g.num_groups - len(kept_groups(g, params)))
+                      for g in groups if g.is_prunable)
+    new, shapes, new_stats = construct_subnet_auto(params, groups, plan,
+                                                   batch_stats=stats)
+    new_cfg, ref, ref_stats = construct_subnet_resnet(
+        fam.cfg, params, resnet_node_groups(fam.cfg, params), stats)
+    sub = M.bind_tree(M.ResNet(new_cfg, device="meta"), new, new_stats)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            y_sparse = fam.forward(model, params, stats, inputs, False)[0]
+            y_sub = sub(inputs[0], **fam.eval_kw)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    row = {"k7_per_step": per_step, "k7_per_step_expected": want,
+           "losses": losses, "zeroed_groups": zero_groups,
+           "params": [sum(v.numel() for v in M.flatten_tree(t).values())
+                      for t in (params, new)],
+           "tree_bit_equal": same_trees(new, ref),
+           "stats_bit_equal": same_trees(new_stats, ref_stats),
+           "forward_rel": rel_diff(y_sub, y_sparse)}
+    rec["auto_qat"] = row
+    if dev.type == "cuda" and any(n != want for n in per_step):
+        fails.append(f"auto QAT: K7 launches a step {per_step}, want {want}")
+    if not (row["tree_bit_equal"] and row["stats_bit_equal"]
+            and row["forward_rel"] <= AUTO_SUBNET_TOL
+            and all(np.isfinite(losses))):
+        fails.append(f"auto QAT subnet: {row}")
+    log(f"[auto QAT] ResNet-20 LSFQ b{CIFAR_BATCH}, discovered groups: K7 a "
+        f"step {per_step} (want {want}), losses {losses}, zeroed groups "
+        f"{zero_groups}, params {row['params'][0]} -> {row['params'][1]}, "
+        f"construct_subnet_auto bit-equal to construct_subnet_resnet "
+        f"{row['tree_bit_equal']} (stats {row['stats_bit_equal']}), "
+        f"compressed vs sparse forward {row['forward_rel']:.3g} ({smi})")
+
+
+def interop_autogroups_phase(dev, record):
+    """Phase 13 (the module docstring's item 13): interop on the main
+    path, discovery at the families' configurations, auto QAT and
+    compression. Each check fails the run."""
+    t0 = time.time()
+    fails, rec = [], {}
+    smi = record["nvidia_smi"]
+    cfg, tree = interop_serving(dev, rec, fails, smi)
+    rec["interop_s"] = round(time.time() - t0, 1)
+    discovery_checks(dev, rec, fails, cfg, tree, smi)
+    del tree
+    rec["discovery_s"] = round(time.time() - t0 - rec["interop_s"], 1)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    auto_qat_checks(dev, rec, fails, smi)
+    rec["phase_s"] = round(time.time() - t0, 1)
+    record["interop"] = rec
+    log(f"[interop] phase {rec['phase_s']} s (interop {rec['interop_s']} s,"
+        f" discovery {rec['discovery_s']} s)")
+    if fails:
+        raise Failed("phase 13: " + "; ".join(fails[:8]))
+
 
 if __name__ == "__main__":
     sys.exit(main())

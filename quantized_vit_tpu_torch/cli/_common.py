@@ -71,15 +71,17 @@ def build_model(args, quant, device="cuda", seed: int = 0):
 
 def load_params_any(path: str, device="cuda") -> Tuple:
     """(params, step, extra) of a checkpoint of the port
-    (``opt.checkpoint``), its tensors on ``device``, or of a reference
-    PyTorch ``.pt``/``.pth`` file whose keys are ``layers.{i}.*``: the
-    UltraNet Sequential, its BN statistics under ``extra["batch_stats"]``.
-    Any other ``.pt`` file (a ViT state dict) needs the ViT converters of
-    interop/, not ported."""
+    (``opt.checkpoint``) or of a reference PyTorch ``.pt``/``.pth`` file,
+    its tensors on ``device``. A torch payload is classified by its keys:
+    ``layers.{i}.*`` is UltraNet's Sequential (mymodel.py:71-124), its BN
+    statistics under ``extra["batch_stats"]``; anything else converts as a
+    ViT state dict (plain or QAT-quantized, unknown keys skipped)."""
     if path.endswith((".pt", ".pth")):
         from ..artifact.ultranet import as_tensors
         from ..device import resolve_device
-        from ..interop import load_torch_checkpoint, ultranet_params_from_torch
+        from ..interop import (load_torch_checkpoint,
+                               ultranet_params_from_torch,
+                               vit_params_from_torch)
 
         resolve_device(device)
         sd = load_torch_checkpoint(path)
@@ -87,10 +89,7 @@ def load_params_any(path: str, device="cuda") -> Tuple:
             params, stats = ultranet_params_from_torch(sd)
             return (as_tensors(params, device), 0,
                     {"batch_stats": as_tensors(stats, device)})
-        raise NotImplementedError(
-            f"{path}: reading a reference ViT checkpoint needs interop/'s "
-            "ViT converters, not ported (ROADMAP.md, modules to port, "
-            "'Other model families, interop, auto-discovery')")
+        return vit_params_from_torch(sd, strict=False, device=device), 0, {}
     from ..opt.checkpoint import load_checkpoint
 
     return load_checkpoint(path, device=device)

@@ -2,9 +2,10 @@
 subnet construction and the cost metrics (``quantized_vit_tpu/graph/oto.py``),
 for the ViT family, UltraNet, ResNet, MobileNet, the separate-q/k/v
 Transformer and the conv autoencoder (LoRA layers take their entries from
-``builders.lora_layer_entries`` into groups of their own). The automatic
-grouping of any other model is in ROADMAP.md, modules to port, 'Other
-model families, interop, auto-discovery' (item 6d).
+``builders.lora_layer_entries`` into groups of their own), and for any
+other model given an example input: its groups then come from the traced
+graph (``graph/autogroups.py``), its subnet from ``compress/auto.py`` and
+its costs from the trace.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..models.resnet import ResNet
 from ..models.transformer import TransformerEncoder
 from ..models.ultranet import UltraNet
 from ..models.ultranet import params_from_jax as ultranet_for_params
-from ..models.layers import bind_tree
+from ..models.layers import TreeModule, bind_tree, unflatten_tree
 from ..models.vit import VisionTransformer
 from ..opt import (GETA, HESSO, HESSOCRIC, GETAConfig, HESSOConfig,
                    HESSOCRICConfig, NodeGroup)
@@ -60,24 +61,43 @@ class OTO:
     own ``param_tree()``). For the families with BatchNorms (UltraNet,
     ResNet, MobileNet) the running statistics come as ``batch_stats``
     (default: the model's ``batch_stats_tree()``), and
-    ``construct_subnet`` returns ``(model, params, batch_stats)``."""
+    ``construct_subnet`` returns ``(model, params, batch_stats)``.
 
-    def __init__(self, model, params=None, batch_stats=None):
+    Any other model needs ``example_input`` (and the ``model_kwargs`` its
+    forward takes): its groups are discovered on the trace of
+    ``models.apply_variables(model, params, example_input, batch_stats=
+    batch_stats, **model_kwargs)`` (``kind == "auto"``)."""
+
+    def __init__(self, model, params=None, batch_stats=None,
+                 example_input=None, model_kwargs=None):
         family = next((f for cls, f in _FAMILIES.items()
                        if isinstance(model, cls)), None)
-        if family is None and not isinstance(model, UltraNet):
-            raise NotImplementedError(
-                f"no node-group builder ported for {type(model).__name__}: "
-                "the port has the ViT family, UltraNet, ResNet, MobileNet, "
-                "the separate-q/k/v Transformer and the conv autoencoder "
-                "(LoRA layers through builders.lora_layer_entries); the "
-                "automatic grouping of other models (item 6d) is in "
-                "ROADMAP.md, modules to port, 'Other model families, "
-                "interop, auto-discovery'")
+        auto = family is None and not isinstance(model, UltraNet)
+        if auto and example_input is None:
+            raise ValueError(
+                f"no node-group builder registered for {type(model).__name__};"
+                " pass example_input= for automatic discovery, or pass "
+                "groups explicitly to GETA/HESSO")
         self.model = model
-        self.params = model.param_tree() if params is None else params
+        if params is None:
+            params = (model.param_tree() if isinstance(model, TreeModule)
+                      else unflatten_tree({k.replace(".", "/"): v for k, v
+                                           in model.named_parameters()}))
+        self.params = params
         self.batch_stats = batch_stats
-        if family is None:
+        self._example_input = example_input
+        self._model_kwargs = model_kwargs
+        if auto:
+            from .autogroups import discover_node_groups
+
+            self.kind = "auto"
+            self.cfg = getattr(model, "cfg", None)
+            self.node_groups, self.group_edges, self._auto_plan = (
+                discover_node_groups(
+                    model, self.params, example_input,
+                    batch_stats=batch_stats, model_kwargs=model_kwargs,
+                    return_edges=True, return_plan=True))
+        elif family is None:
             self.kind = "ultranet"
             self.cfg = None
             self.node_groups: List[NodeGroup] = ultranet_node_groups(
@@ -115,7 +135,8 @@ class OTO:
     # compression
     # ------------------------------------------------------------------
 
-    def construct_subnet(self, params=None, batch_stats=None):
+    def construct_subnet(self, params=None, batch_stats=None,
+                         model_builder=None):
         """Slice the group-sparse net into a dense subnet. The returned
         model holds the returned trees' tensors themselves (built on the
         meta device, ``models.bind_tree``; ``models.apply`` /
@@ -123,7 +144,15 @@ class OTO:
         runs its module on the trees it returns, but UltraNet's, which
         holds copies. ViT, Transformer,
         autoencoder: (model of the subnet's config, params); ResNet,
-        MobileNet, UltraNet: (model, params, batch_stats)."""
+        MobileNet, UltraNet: (model, params, batch_stats).
+
+        A discovered model (``kind == "auto"``): the in-dim links come
+        from the discovery's walk (``compress.construct_subnet_auto``);
+        returns ``(params, shapes[, batch_stats])``, ``shapes`` mapping each
+        stem layer to its sliced kernel shape, or with ``model_builder`` (a
+        callable ``shapes -> module``) ``(model, params[,
+        batch_stats])``; the batch statistics come back when they were
+        given."""
         from ..compress import (construct_subnet_autoencoder,
                                 construct_subnet_mobilenet,
                                 construct_subnet_resnet,
@@ -133,6 +162,15 @@ class OTO:
 
         params = self.params if params is None else params
         stats = self.batch_stats if batch_stats is None else batch_stats
+        if self.kind == "auto":
+            from ..compress.auto import construct_subnet_auto
+
+            new_params, shapes, new_stats = construct_subnet_auto(
+                params, self.node_groups, self._auto_plan, batch_stats=stats)
+            tail = (new_stats,) if stats is not None else ()
+            if model_builder:
+                return (model_builder(shapes), new_params) + tail
+            return (new_params, shapes) + tail
         if self.kind == "ultranet":
             _, new_params, new_stats = construct_subnet_ultranet(
                 params, self.node_groups, stats)
@@ -166,9 +204,39 @@ class OTO:
         cached = getattr(self, "_report_cache", None)
         if cached is not None and cached[0] is params:
             return cached[1]
-        rep = (ultranet_cost_report(params) if self.kind == "ultranet"
-               else self._cost_report(self.cfg, params))
+        if self.kind == "auto":
+            rep = self._auto_report(params)
+        elif self.kind == "ultranet":
+            rep = ultranet_cost_report(params)
+        else:
+            rep = self._cost_report(self.cfg, params)
         self._report_cache = (params, rep)
+        return rep
+
+    def _auto_report(self, params) -> Dict[str, Any]:
+        """The trace's MACs and BOPs; the weight size and average bit
+        width over the tree's leaves (a stem's kernel at its learned
+        width, every other leaf at 32 bits)."""
+        from .autogroups import trace_cost_report
+        from .costs import _layer_bits, _leaf_sizes
+
+        rep = trace_cost_report(self.model, params, self._example_input,
+                                batch_stats=self.batch_stats,
+                                model_kwargs=self._model_kwargs)
+        sizes = _leaf_sizes(params)
+        num_params = sum(v for k, v in sizes.items()
+                         if not any(q in k for q in ("d_quant", "q_m_",
+                                                     "t_quant")))
+        bits = 0.0
+        counted = 0
+        for layer in rep["per_layer"]:
+            ksize = sizes.get(f"{layer}/kernel", 0)
+            bits += ksize * _layer_bits(params, layer)[0]
+            counted += ksize
+        bits += (num_params - counted) * 32.0
+        rep["num_params"] = num_params
+        rep["weight_size_bits"] = bits
+        rep["average_bit_width"] = bits / max(num_params, 1)
         return rep
 
     def compute_macs(self, params=None) -> float:
@@ -256,8 +324,10 @@ class OTO:
         return params
 
     def visualize(self, out_path: Optional[str] = None) -> str:
-        """The node-group structure as Graphviz DOT text (layout-order
-        invisible edges, as for the JAX package's declared families)."""
+        """The node-group structure as Graphviz DOT text: a discovered
+        model's dataflow edges between groups (stem-to-stem data
+        dependencies recorded by the discovery), else layout-order
+        invisible edges."""
         lines = ["digraph node_groups {", "  rankdir=TB;",
                  '  node [shape=box, fontname="helvetica"];']
         for g in self.node_groups:
@@ -267,9 +337,14 @@ class OTO:
             lines.append(
                 f'  "{g.id}" [label="{label}", style=filled,'
                 f' fillcolor={color}];')
-        ordered = [g.id for g in self.node_groups]
-        for a, b in zip(ordered, ordered[1:]):
-            lines.append(f'  "{a}" -> "{b}" [style=invis];')
+        edges = getattr(self, "group_edges", None)
+        if edges:
+            for a, b in edges:
+                lines.append(f'  "{a}" -> "{b}";')
+        else:
+            ordered = [g.id for g in self.node_groups]
+            for a, b in zip(ordered, ordered[1:]):
+                lines.append(f'  "{a}" -> "{b}" [style=invis];')
         lines.append("}")
         dot = "\n".join(lines)
         if out_path:

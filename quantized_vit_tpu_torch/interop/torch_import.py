@@ -1,13 +1,19 @@
 """Reference PyTorch state dicts <-> params trees
-(``quantized_vit_tpu/interop/torch_import.py``), the UltraNet half: the
-payload normalizer, the ``.pt`` loader and the UltraNet converters. The
-ViT converters come with the rest of interop/ (ROADMAP.md, modules to
-port, 'Other model families, interop, auto-discovery').
+(``quantized_vit_tpu/interop/torch_import.py``): the payload normalizer,
+the ``.pt`` loader, and the ViT and UltraNet converters.
 
 The converters are name and layout translators on numpy arrays, as the
-JAX package's: a conv ``weight`` [O, I, kh, kw] becomes ``kernel`` [kh,
-kw, I, O] (HWIO), a BatchNorm's ``weight`` ``scale``, its running
-statistics the ``batch_stats`` tree's ``mean``/``var``.
+JAX package's (torch -> params tree):
+
+- Linear ``weight`` [out, in]           -> ``kernel`` [in, out]
+- Conv2d ``weight`` [O, I, kh, kw]      -> ``kernel`` [kh, kw, I, O] (HWIO)
+- LayerNorm/BatchNorm ``weight``        -> ``scale``; BN running statistics
+                                           -> the ``batch_stats`` tree's
+                                           ``mean``/``var``
+- quant scalars ``d_quant_wt`` etc.
+  (quant_layers.py:315-325)             -> same name, shape (1,)
+- ``blocks.{i}.`` (vit_model.py:270-276) -> ``blocks_{i}/``
+- ``pre_logits.fc`` (vit_model.py:268)   -> ``pre_logits``
 """
 
 from __future__ import annotations
@@ -19,6 +25,15 @@ import numpy as np
 import torch
 
 from ..models.ultranet import ULTRANET_LAYERS
+
+# quant scalar names registered by QuantizeMixin.init_quantization
+# (quant_layers.py:315-325); the same names in the params tree
+QUANT_PARAM_NAMES = (
+    "d_quant_wt", "q_m_wt", "t_quant_wt",
+    "d_quant_act", "q_m_act", "t_quant_act",
+)
+
+_BLOCKS_RE = re.compile(r"^blocks\.(\d+)\.")
 
 
 def _to_numpy(v: Any) -> np.ndarray:
@@ -68,6 +83,118 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
     """
     obj = torch.load(path, map_location="cpu", weights_only=False)
     return normalize_state_dict(obj)
+
+
+# ---------------------------------------------------------------------------
+# ViT
+# ---------------------------------------------------------------------------
+
+
+def _set_path(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = value
+
+
+def _vit_key_to_flax(key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """One torch state-dict entry -> (params tree '/'-path, translated
+    array)."""
+    key = _BLOCKS_RE.sub(lambda m: f"blocks_{m.group(1)}.", key)
+    key = key.replace("pre_logits.fc.", "pre_logits.")
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf == "weight":
+        if arr.ndim == 4:       # conv OIHW -> HWIO
+            leaf = "kernel"
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif arr.ndim == 2:     # linear [out, in] -> [in, out]
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        else:                   # LayerNorm / BatchNorm gain
+            leaf = "scale"
+    elif leaf in QUANT_PARAM_NAMES:
+        arr = arr.reshape(1)
+    elif leaf != "bias" and len(parts) > 1:
+        # cls_token / pos_embed are single-part keys, taken by the caller
+        raise KeyError(key)
+    return "/".join(parts[:-1] + [leaf]), arr
+
+
+def _vit_numpy_tree(state_dict: Mapping[str, Any],
+                    strict: bool) -> Dict[str, Any]:
+    sd = normalize_state_dict(state_dict)
+    params: Dict[str, Any] = {}
+    unknown = []
+    for key, arr in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key in ("cls_token", "pos_embed"):
+            params[key] = arr
+            continue
+        try:
+            path, value = _vit_key_to_flax(key, arr)
+        except KeyError:
+            unknown.append(key)
+            continue
+        _set_path(params, path, value)
+    if unknown and strict:
+        raise KeyError(f"unmapped state-dict keys: {unknown}")
+    return params
+
+
+def vit_params_from_torch(state_dict: Mapping[str, Any], strict: bool = True,
+                          device="cuda") -> Dict[str, Any]:
+    """Reference ViT state dict -> params tree of
+    :class:`quantized_vit_tpu_torch.models.VisionTransformer`, its leaves
+    tensors on ``device`` (the card unless the caller asks for the CPU),
+    the form ``opt.checkpoint.load_checkpoint`` gives.
+
+    Takes plain fp32 checkpoints (vit_model.py) and QAT checkpoints whose
+    Linear/Conv2d were swapped for Quantize* twins (quant_model.py:15-82):
+    the quant scalars land beside each layer's ``kernel``, where
+    ``init_quant_params_tree`` puts them. With ``strict`` (default),
+    unknown keys raise; otherwise they are skipped (checkpoints carrying
+    extra buffers)."""
+    from ..artifact.ultranet import as_tensors
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    return as_tensors(_vit_numpy_tree(state_dict, strict), dev)
+
+
+def vit_params_to_torch(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """ViT params tree (tensors or numpy arrays) -> reference-style state
+    dict of numpy arrays: the exact inverse of
+    :func:`vit_params_from_torch`. ``{k: torch.from_numpy(v)}`` of it loads
+    into the reference's module (``load_state_dict``) or into
+    ``interop.torch_model.build_torch_vit``'s."""
+    out: Dict[str, np.ndarray] = {}
+
+    def visit(node: Mapping[str, Any], prefix: str) -> None:
+        for k, v in node.items():
+            path = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, Mapping):
+                visit(v, path)
+                continue
+            arr = _to_numpy(v)
+            leaf = path.rsplit(".", 1)[-1]
+            base = path.rsplit(".", 1)[0] if "." in path else ""
+            if leaf == "kernel":
+                key = f"{base}.weight"
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            elif leaf == "scale":
+                key = f"{base}.weight"
+            else:
+                key = path
+            key = re.sub(r"^blocks_(\d+)\.",
+                         lambda m: f"blocks.{m.group(1)}.", key)
+            if key.startswith("pre_logits."):
+                key = key.replace("pre_logits.", "pre_logits.fc.", 1)
+            out[key] = arr
+
+    visit(params, "")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -145,14 +145,39 @@ def test_datasets_equal_jax(tmp_path):
 
 
 def test_unported_inputs_name_their_item(tmp_path):
-    # a reference ViT state dict (UltraNet's ``layers.{i}`` ones load)
-    torch.save({"blocks.0.attn.qkv.weight": torch.zeros(6, 2)},
-               tmp_path / "model.pt")
-    with pytest.raises(NotImplementedError, match="interop"):
-        common.load_params_any(str(tmp_path / "model.pt"), device="cpu")
-    for target in ("torch", "onnx"):
-        with pytest.raises(NotImplementedError, match="Other model families"):
-            texport.main([target, "--checkpoint", "c", "--out", "o"])
+    """The inputs the port once refused load and export: a reference ViT
+    state dict of a QAT vit_tiny_test read by ``load_params_any`` (the
+    tree back bit for bit), exported by the ``torch`` target (the same
+    dict back) and by the ``onnx`` target (a file, or without the
+    ``onnx`` package its RuntimeError)."""
+    from quantized_vit_tpu_torch.interop import vit_params_to_torch
+    from quantized_vit_tpu_torch.models import flatten_tree, tree_map
+
+    args = ttrain.parse_args(TINY_FLAGS)
+    model, _ = common.build_model(args, QuantConfig(enabled=True),
+                                  device="cpu")
+    params = tree_map(lambda p: p.detach().clone(), model.param_tree())
+    sd = vit_params_to_torch(params)
+    pt = str(tmp_path / "model.pt")
+    torch.save({k: torch.from_numpy(v.copy()) for k, v in sd.items()}, pt)
+    tree, _, _ = common.load_params_any(pt, device="cpu")
+    flat = flatten_tree(params)
+    assert all(torch.equal(v, flat[k]) for k, v in flatten_tree(tree).items())
+    flags = ["--model", "vit_tiny_test", "--img-size", "32", "--checkpoint",
+             pt, "--device", "cpu"]
+    texport.main(["torch"] + flags + ["--out", str(tmp_path / "t")])
+    back = torch.load(tmp_path / "t" / "model.pt")
+    assert list(back) == list(sd)
+    assert all(np.array_equal(back[k].numpy(), v) for k, v in sd.items())
+    onnx_argv = ["onnx"] + flags + ["--out", str(tmp_path / "m.onnx")]
+    try:
+        import onnx  # noqa: F401
+    except ImportError:
+        with pytest.raises(RuntimeError, match="onnx"):
+            texport.main(onnx_argv)
+    else:
+        texport.main(onnx_argv)
+        assert (tmp_path / "m.onnx").stat().st_size > 0
 
 
 def test_train_on_image_folder_equals_jax(tmp_path):

@@ -112,8 +112,32 @@ def test_cli_folder_datasets_equal_jax(tree):
 
 
 def test_cli_checkpoint_formats_still_refused(tmp_path):
-    # a reference ViT state dict (UltraNet's ``layers.{i}`` ones load)
-    torch.save({"blocks.0.attn.qkv.weight": torch.zeros(6, 2)},
-               tmp_path / "model.pth")
-    with pytest.raises(NotImplementedError, match="'Other model families"):
-        common.load_params_any(str(tmp_path / "model.pth"), device="cpu")
+    """A reference ViT state dict in a ``.pth`` (UltraNet's ``layers.{i}``
+    ones too) loads as the JAX CLI's reader loads it: the same tree, its
+    leaves tensors on the device asked for. A payload that is no state
+    dict is still refused, with the JAX reader's TypeError."""
+    from quantized_vit_tpu_torch.models import flatten_tree
+
+    rng = np.random.default_rng(0)
+    sd = {"blocks.0.attn.qkv.weight": rng.standard_normal((6, 2)),
+          "blocks.0.attn.qkv.bias": rng.standard_normal(6),
+          "blocks.0.norm1.weight": rng.standard_normal(2),
+          "cls_token": rng.standard_normal((1, 1, 2))}
+    torch.save({k: torch.from_numpy(v.astype(np.float32))
+                for k, v in sd.items()}, tmp_path / "model.pth")
+    path = str(tmp_path / "model.pth")
+    got, step, extra = common.load_params_any(path, device="cpu")
+    want, jstep, jextra = jcommon.load_params_any(path)
+    assert (step, extra) == (jstep, jextra) == (0, {})
+    got, want = flatten_tree(got), flatten_tree(want)
+    assert set(got) == set(want) == {"blocks_0/attn/qkv/kernel",
+                                     "blocks_0/attn/qkv/bias",
+                                     "blocks_0/norm1/scale", "cls_token"}
+    for k, v in want.items():
+        assert isinstance(got[k], torch.Tensor)
+        assert np.array_equal(got[k].numpy(), v), k
+    torch.save(3.0, tmp_path / "bad.pth")
+    for load in (lambda p: common.load_params_any(p, device="cpu"),
+                 jcommon.load_params_any):
+        with pytest.raises(TypeError, match="cannot interpret"):
+            load(str(tmp_path / "bad.pth"))

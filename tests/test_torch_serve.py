@@ -187,7 +187,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     trivially equal; what this checks is the script's control flow), the
     training phase included: 13 GETA steps through warmup, range
     projection, two pruning periods and fix, to the target sparsity; and
-    phase 12's model families at small batches and widths."""
+    phase 12's model families at small batches and widths; phase 13's
+    interop and automatic grouping at the same sizes."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
@@ -240,6 +241,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     from quantized_vit_tpu_torch.cli import eval as ceval
     monkeypatch.setattr(ceval, "model_config", lambda args, quant: ViTConfig(
         **dict(SMALL, embed_dim=128), quant=quant))
+    # phase 13's cli.export runs the vit_b16 preset too
+    from quantized_vit_tpu_torch.cli import export as cexport
+    monkeypatch.setattr(cexport, "model_config", lambda args, quant:
+                        ViTConfig(**dict(SMALL, embed_dim=128), quant=quant))
+    monkeypatch.setattr(chip_smoke, "INTEROP_DIR", str(tmp_path / "interop"))
     record = {"device": "cpu"}
     chip_smoke.run(record)
     names = [k["name"] for k in record["kernels"]]
@@ -398,3 +404,20 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert fam["lora_dense"]["lora_b_zero_with_base"]
     assert fam["lora_embedding"]["lora_b_zero_with_base"]
     assert fam["model_to_quantize_model"]["forward_rel"] <= 1e-5
+    # phase 13: the reference .pt through the CLIs onto both artifacts'
+    # serving, the torch module, discovery, the discovered-group QAT run
+    inter = record["interop"]
+    assert inter["pt_tree_bit_equal"] and inter["artifacts_byte_equal"]
+    assert set(inter["serve"]) == {"int4-packed", "int8-stored"}
+    assert all(r["logits_bit_equal"] for r in inter["serve"].values())
+    assert inter["torch_module"]["vs_port_float_max_abs"] <= 1e-4
+    assert "onnx" in str(inter["onnx"]) or inter["onnx_present"]
+    disc = inter["discovery"]
+    assert all(disc[m]["equals_declared"]
+               for m in ("resnet20", "mobilenet", "ultranet"))
+    assert disc["vit_b16"]["validate"] == {"missing": [], "uncovered": []}
+    assert disc["vit_b16"]["fc1_groups"] == [(True, 512)]
+    auto = inter["auto_qat"]
+    assert auto["tree_bit_equal"] and auto["stats_bit_equal"]
+    assert auto["zeroed_groups"] > 0 and auto["forward_rel"] <= 1e-4
+    assert len(auto["losses"]) == chip_smoke.FAMILY_STEPS
