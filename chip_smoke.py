@@ -16,8 +16,9 @@ Run from the repository root (no arguments; one CUDA card):
 
     python3 chip_smoke.py
 
-``--phase 13`` runs the build and phase 13 alone (its record printed in
-place of the kernel rows).
+``--phase N`` runs the build and phase N alone, for the phases that need
+no earlier phase's output (11, 12 and 13; ``phases_alone``); its record is
+printed under its own key beside the (empty) kernel rows.
 
 Phases, in order; any failure exits non-zero:
 
@@ -263,7 +264,7 @@ Phases, in order; any failure exits non-zero:
    ViT-B/16 (make_fx's host ms and node counts recorded); LSFQ ResNet-20
    with discovered groups: FAMILY_STEPS GETA steps through K7, then
    ``construct_subnet_auto`` bit-equal to ``construct_subnet_resnet``, the
-   compressed forward within AUTO_SUBNET_TOL of the sparse one.
+   compressed forward within FAMILY_SUBNET_TOL of the sparse one in f64.
 
 It prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` reports them, then ``{"ok": true, "device": {...}}`` as the
@@ -423,12 +424,10 @@ FAMILY_SUBNET_TOL = 1e-5
 # phase 13: the ViT-B/16 QAT tree's quantizers at INTEROP_BITS; the
 # reference-shaped torch module against the port's float forward at
 # INTEROP_TORCH_BATCH within INTEROP_TOL (rtol and atol); the compressed
-# ResNet-20's eval forward within AUTO_SUBNET_TOL of the sparse one
-# (relative, floor 1)
+# ResNet-20's eval forward within FAMILY_SUBNET_TOL of the sparse one
 INTEROP_BITS = 4.0
 INTEROP_TORCH_BATCH = 8
 INTEROP_TOL = 1e-4
-AUTO_SUBNET_TOL = 1e-4
 INTEROP_DIR = os.path.join(ROOT, "build", "smoke_interop")
 
 
@@ -444,8 +443,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="drive the port on one GPU")
-    ap.add_argument("--phase", type=int, choices=[13], default=None,
-                    help="run the build and this phase alone")
+    ap.add_argument("--phase", type=int, choices=sorted(phases_alone()),
+                    default=None, help="run the build and this phase alone")
     only = ap.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -471,8 +470,11 @@ def main(argv=None) -> int:
         return 1
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
-    print(json.dumps({"kernels": record["kernels"]} if only is None
-                     else {"interop": record["interop"]}, default=str))
+    line = {"kernels": record.get("kernels", [])}
+    if only is not None:
+        key = phases_alone()[only][0]
+        line[key] = record[key]
+    print(json.dumps(line, default=str))
     print(record["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -483,8 +485,17 @@ def main(argv=None) -> int:
 # ---------------------------------------------------------------------------
 
 
+def phases_alone():
+    """{phase: (its record's key, its function)} of the phases that need
+    no earlier phase's output."""
+    return {11: ("ultranet", ultranet_phase),
+            12: ("families", families_phase),
+            13: ("interop", interop_autogroups_phase)}
+
+
 def run(record, only=None):
-    """Every phase in order; ``only=13``: the build and phase 13."""
+    """Every phase in order; ``only``: the build and that phase of
+    ``phases_alone``."""
     from quantized_vit_tpu_torch.ops import _build
 
     dev = torch.device(DEV)
@@ -517,8 +528,8 @@ def run(record, only=None):
             if "registers" in ln:
                 log("  ptxas:", ln)
 
-    if only == 13:
-        interop_autogroups_phase(dev, record)
+    if only is not None:
+        phases_alone()[only][1](dev, record)
         return
     parity = Parity(dev)
     parity.run_all(main_cfg())
@@ -7823,11 +7834,6 @@ def same_files(a, b) -> bool:
     return True
 
 
-def rel_diff(got, want) -> float:
-    """max |got - want| over max |want| (floor 1)."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
-    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
-
 
 def interop_serving(dev, rec, fails, smi):
     """Phase 13 (a): the ViT-B/16 QAT tree (LSFQ at INTEROP_BITS, seed 0)
@@ -8090,7 +8096,8 @@ def auto_qat_checks(dev, rec, fails, smi):
     with its groups from ``discover_node_groups``: FAMILY_STEPS GETA steps
     at CIFAR_BATCH, then ``construct_subnet_auto`` against
     ``construct_subnet_resnet`` on the same sparse tree (bit-equal), and
-    the compressed eval forward against the sparse one (TF32 off)."""
+    the compressed eval forward against the sparse one (as phase 12's
+    subnets: in f64, f32 recorded)."""
     from quantized_vit_tpu_torch import models as M
     from quantized_vit_tpu_torch.compress import (construct_subnet_auto,
                                                   construct_subnet_resnet,
@@ -8132,30 +8139,23 @@ def auto_qat_checks(dev, rec, fails, smi):
                                                    batch_stats=stats)
     new_cfg, ref, ref_stats = construct_subnet_resnet(
         fam.cfg, params, resnet_node_groups(fam.cfg, params), stats)
-    sub = M.bind_tree(M.ResNet(new_cfg, device="meta"), new, new_stats)
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            y_sparse = fam.forward(model, params, stats, inputs, False)[0]
-            y_sub = sub(inputs[0], **fam.eval_kw)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
+    sub = fam.model(new, new_stats, new_cfg)
+    rel, rel32 = subnet_vs_zeroed(
+        lambda p, s_, x: fam.forward(model, p, s_, x, False)[0],
+        lambda p, s_, x: fam.forward(sub, p, s_, x, False)[0],
+        (params, stats), (new, new_stats), inputs)
     row = {"k7_per_step": per_step, "k7_per_step_expected": want,
            "losses": losses, "zeroed_groups": zero_groups,
            "params": [sum(v.numel() for v in M.flatten_tree(t).values())
                       for t in (params, new)],
            "tree_bit_equal": same_trees(new, ref),
            "stats_bit_equal": same_trees(new_stats, ref_stats),
-           "forward_rel": rel_diff(y_sub, y_sparse)}
+           "forward_rel": rel, "forward_rel_f32": rel32}
     rec["auto_qat"] = row
     if dev.type == "cuda" and any(n != want for n in per_step):
         fails.append(f"auto QAT: K7 launches a step {per_step}, want {want}")
     if not (row["tree_bit_equal"] and row["stats_bit_equal"]
-            and row["forward_rel"] <= AUTO_SUBNET_TOL
+            and row["forward_rel"] <= FAMILY_SUBNET_TOL
             and all(np.isfinite(losses))):
         fails.append(f"auto QAT subnet: {row}")
     log(f"[auto QAT] ResNet-20 LSFQ b{CIFAR_BATCH}, discovered groups: K7 a "
@@ -8163,7 +8163,8 @@ def auto_qat_checks(dev, rec, fails, smi):
         f"{zero_groups}, params {row['params'][0]} -> {row['params'][1]}, "
         f"construct_subnet_auto bit-equal to construct_subnet_resnet "
         f"{row['tree_bit_equal']} (stats {row['stats_bit_equal']}), "
-        f"compressed vs sparse forward {row['forward_rel']:.3g} ({smi})")
+        f"compressed vs sparse forward {rel:.3g} in f64, {rel32:.3g} in f32 "
+        f"({smi})")
 
 
 def interop_autogroups_phase(dev, record):

@@ -51,7 +51,8 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
-from ..models.layers import apply_variables, flatten_tree
+from ..models.layers import (QUANT_PARAM_NAMES, apply_variables,
+                             flatten_tree)
 from ..opt.groups import NodeGroup, ParamEntry, Transform
 from .tracer import TracedGraph, TraceNode
 
@@ -118,8 +119,7 @@ def _layer_of(path: str) -> str:
 
 def _is_quant_scalar(path: str) -> bool:
     """Quant scalars never prune and never count as accessories."""
-    name = path.rsplit("/", 1)[-1]
-    return name.startswith(("d_quant", "q_m", "t_quant"))
+    return path.rsplit("/", 1)[-1] in QUANT_PARAM_NAMES
 
 
 def _build_provenance(graph: TracedGraph) -> Dict[str, Set[str]]:
@@ -214,8 +214,9 @@ def discover_node_groups(model, params, example_input,
     ``return_edges``: also return the sorted (producer group, consumer
     group) data dependencies. ``return_plan``: also return ``{kernel_path:
     StemPlan}``, the in-dim links of generic physical compression
-    (compress/auto.py). ``graph``: :func:`trace_apply` of the same
-    arguments, made before, walked instead of tracing again."""
+    (compress/auto.py). ``graph``: :func:`trace_apply` of these same
+    arguments (the same ``params`` above all), made before, walked instead
+    of tracing again; nothing checks that it matches them."""
     if graph is None:
         graph = trace_apply(model, params, example_input, batch_stats,
                             model_kwargs)
@@ -373,8 +374,7 @@ def discover_node_groups(model, params, example_input,
                     added.add(path)
                     entries.append(ParamEntry(path, tf))
             layer = _layer_of(s.kernel_path)
-            for q in ("d_quant_wt", "q_m_wt", "t_quant_wt",
-                      "d_quant_act", "q_m_act", "t_quant_act"):
+            for q in QUANT_PARAM_NAMES:
                 qp = f"{layer}/{q}"
                 if qp in shapes and qp not in added:
                     added.add(qp)
@@ -418,19 +418,16 @@ def discover_node_groups(model, params, example_input,
 
 def trace_cost_report(model, params, example_input,
                       batch_stats=None,
-                      model_kwargs: Optional[dict] = None,
-                      graph: Optional[TracedGraph] = None) -> Dict[str, Any]:
+                      model_kwargs: Optional[dict] = None) -> Dict[str, Any]:
     """Analytic cost report from the trace, for any model: per stem, MACs
     = prod(out_shape) * prod(kernel_shape[:-1]) / batch (independent of
     the output's layout), BOPs = MACs * w_bit * a_bit from the layer's
     learned quant scalars (32 where absent); ``total_macs`` is per example
-    (divided by the input's leading dim). ``graph``: as
-    :func:`discover_node_groups` takes it."""
+    (divided by the input's leading dim)."""
     from .costs import _layer_bits
 
-    if graph is None:
-        graph = trace_apply(model, params, example_input, batch_stats,
-                            model_kwargs)
+    graph = trace_apply(model, params, example_input, batch_stats,
+                        model_kwargs)
     shapes = _param_shapes(params)
     batch = int(np.shape(example_input)[0]) or 1
     provenance = _build_provenance(graph)

@@ -32,13 +32,11 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from ..models.layers import QUANT_PARAM_NAMES
 from ..models.ultranet import ULTRANET_LAYERS, ULTRANET_OUT_CHANNELS
 from ..models.vit import ViTConfig
 from ..opt.groups import (NodeGroup, ParamEntry, Transform, get_path,
                           has_path)
-
-_QUANT_NAMES = ("d_quant_wt", "q_m_wt", "t_quant_wt",
-                "d_quant_act", "q_m_act", "t_quant_act")
 
 
 def _layer_entries(params, layer: str, kernel_tf: Transform,
@@ -48,7 +46,7 @@ def _layer_entries(params, layer: str, kernel_tf: Transform,
     if has_path(params, f"{layer}/bias"):
         out.append(ParamEntry(f"{layer}/bias", bias_tf))
     if with_quant:
-        for q in _QUANT_NAMES:
+        for q in QUANT_PARAM_NAMES:
             if has_path(params, f"{layer}/{q}"):
                 out.append(ParamEntry(f"{layer}/{q}", Transform.NO_PRUNE))
     return out
@@ -94,7 +92,7 @@ def vit_node_groups(cfg: ViTConfig, params,
                 *([ParamEntry(f"{qkv}/bias", Transform.QKV_HEADS)]
                   if has_path(params, f"{qkv}/bias") else []),
                 *[ParamEntry(f"{qkv}/{q}", Transform.NO_PRUNE)
-                  for q in _QUANT_NAMES if has_path(params, f"{qkv}/{q}")],
+                  for q in QUANT_PARAM_NAMES if has_path(params, f"{qkv}/{q}")],
             ],
             num_groups=heads_i, num_heads=heads_i,
             is_prunable=f"blocks_{i}/attn" not in unprunable_extra))
@@ -262,7 +260,7 @@ def transformer_node_groups(cfg, params) -> List[NodeGroup]:
             if has_path(params, f"{layer}/bias"):
                 entries.append(ParamEntry(f"{layer}/bias", Transform.HEADS))
             entries += [ParamEntry(f"{layer}/{q}", Transform.NO_PRUNE)
-                        for q in _QUANT_NAMES
+                        for q in QUANT_PARAM_NAMES
                         if has_path(params, f"{layer}/{q}")]
         groups.append(NodeGroup(id=f"blocks_{i}/attn", entries=entries,
                                 num_groups=kv_i, num_heads=kv_i,

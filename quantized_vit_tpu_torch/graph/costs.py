@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.layers import QUANT_PARAM_NAMES
 from ..models.ultranet import ULTRANET_LAYERS
 from ..models.vit import ViTConfig
 from ..opt.groups import get_path, has_path
@@ -70,9 +71,8 @@ def _accumulate(report: Dict[str, Any], layer: str, macs: float,
 
 def _finish(report, params):
     sizes = _leaf_sizes(params)
-    quant_names = ("d_quant", "q_m_", "t_quant")
     num_params = sum(v for k, v in sizes.items()
-                     if not any(q in k for q in quant_names))
+                     if k.rsplit("/", 1)[-1] not in QUANT_PARAM_NAMES)
     counted = sum(report["per_layer"][lay]["params"]
                   for lay in report["per_layer"])
     # params outside quantized layers (LN, biases, embeddings) count at 32b

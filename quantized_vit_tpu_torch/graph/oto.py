@@ -21,7 +21,7 @@ from ..models.resnet import ResNet
 from ..models.transformer import TransformerEncoder
 from ..models.ultranet import UltraNet
 from ..models.ultranet import params_from_jax as ultranet_for_params
-from ..models.layers import TreeModule, bind_tree, unflatten_tree
+from ..models.layers import TreeModule, bind_tree
 from ..models.vit import VisionTransformer
 from ..opt import (GETA, HESSO, HESSOCRIC, GETAConfig, HESSOConfig,
                    HESSOCRICConfig, NodeGroup)
@@ -80,9 +80,11 @@ class OTO:
                 "groups explicitly to GETA/HESSO")
         self.model = model
         if params is None:
-            params = (model.param_tree() if isinstance(model, TreeModule)
-                      else unflatten_tree({k.replace(".", "/"): v for k, v
-                                           in model.named_parameters()}))
+            if not isinstance(model, TreeModule):
+                raise ValueError(
+                    f"{type(model).__name__} holds no params tree; pass "
+                    "params= (flax paths, kernels [..., in, out])")
+            params = model.param_tree()
         self.params = params
         self.batch_stats = batch_stats
         self._example_input = example_input
@@ -217,7 +219,7 @@ class OTO:
         """The trace's MACs and BOPs; the weight size and average bit
         width over the tree's leaves (a stem's kernel at its learned
         width, every other leaf at 32 bits)."""
-        from .autogroups import trace_cost_report
+        from .autogroups import _is_quant_scalar, trace_cost_report
         from .costs import _layer_bits, _leaf_sizes
 
         rep = trace_cost_report(self.model, params, self._example_input,
@@ -225,8 +227,7 @@ class OTO:
                                 model_kwargs=self._model_kwargs)
         sizes = _leaf_sizes(params)
         num_params = sum(v for k, v in sizes.items()
-                         if not any(q in k for q in ("d_quant", "q_m_",
-                                                     "t_quant")))
+                         if not _is_quant_scalar(k))
         bits = 0.0
         counted = 0
         for layer in rep["per_layer"]:

@@ -121,9 +121,16 @@ class TracedGraph:
         """Trace ``fn(*example_args)``; if ``params`` (a tree) is the
         first argument, the graph's inputs from it are labeled with its
         '/'-joined paths."""
+        from torch._guards import TracingContext, tracing
+        from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.fx.experimental.proxy_tensor import make_fx
 
-        gm = make_fx(fn)(*example_args)
+        # make_fx records each real output's metadata as a fake tensor and,
+        # with no fake mode in context, makes a new FakeTensorMode (and its
+        # traceback) a node: one mode for the whole trace halves its time
+        with tracing(TracingContext(FakeTensorMode(
+                allow_fallback_kernels=True))):
+            gm = make_fx(fn)(*example_args)
         labels: Dict[Any, str] = {}
         placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
         if params is not None:

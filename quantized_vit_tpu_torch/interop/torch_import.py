@@ -24,14 +24,8 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.layers import QUANT_PARAM_NAMES
 from ..models.ultranet import ULTRANET_LAYERS
-
-# quant scalar names registered by QuantizeMixin.init_quantization
-# (quant_layers.py:315-325); the same names in the params tree
-QUANT_PARAM_NAMES = (
-    "d_quant_wt", "q_m_wt", "t_quant_wt",
-    "d_quant_act", "q_m_act", "t_quant_act",
-)
 
 _BLOCKS_RE = re.compile(r"^blocks\.(\d+)\.")
 

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..models.layers import QUANT_PARAM_NAMES
 
 
 class _Attention(nn.Module):
@@ -154,15 +155,15 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
         put(p, lambda c: nn.init.trunc_normal_(c, std=0.02, generator=gen))
 
 
-def build_torch_vit(cfg: Mapping[str, Any], device="cuda",
-                    seed: int = 0) -> TorchViT:
+def build_torch_vit(cfg: Mapping[str, Any], device="cuda") -> TorchViT:
     """Reference-shaped torch ViT (vit_model.py:211-328) from an arch dict
     (the ``arch.json`` that ``cli.export torch`` writes,
     ``dataclasses.asdict`` of a ViTConfig), on ``device`` (the card unless
     the caller asks for the CPU). A compressed subnet's per-block head
     counts and MLP widths come from its ``heads_per_block`` and
-    ``hidden_per_block``. The weights are drawn from ``seed`` until
-    :func:`load_interchange` loads real ones.
+    ``hidden_per_block``. The weights are drawn from a generator seeded
+    with 0 (never the global one) until :func:`load_interchange` loads
+    real ones.
 
     Module names are the reference's: ``patch_embed.proj``,
     ``blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}``,
@@ -184,7 +185,7 @@ def build_torch_vit(cfg: Mapping[str, Any], device="cuda",
             classes=int(cfg.get("num_classes", 1000)),
             rep=cfg.get("representation_size"))
     model = model.to_empty(device=dev)
-    _init_weights(model, torch.Generator().manual_seed(seed))
+    _init_weights(model, torch.Generator().manual_seed(0))
     return model
 
 
@@ -199,8 +200,7 @@ def load_interchange(model: nn.Module, state: Mapping[str, Any]):
     state = {k: (v if isinstance(v, torch.Tensor)
                  else torch.from_numpy(np.array(v))).to(dev)
              for k, v in state.items()
-             if not any(s in k for s in ("d_quant", "q_m", "t_quant",
-                                         "clip_val", "q_s"))}
+             if k.rsplit(".", 1)[-1] not in QUANT_PARAM_NAMES}
     res = model.load_state_dict(state, strict=False)
     if res.missing_keys:
         raise KeyError(

@@ -136,8 +136,6 @@ def test_discovery_walks_a_given_trace():
                                graph=graph, **pt)
     assert N.content(got[0]) == N.content(want[0]) and got[1] == want[1]
     assert N.plan_rows(got[2], True) == N.plan_rows(want[2], True)
-    rep = trace_cost_report(pm, pp, xt, model_kwargs=pkw, graph=graph, **pt)
-    assert rep == trace_cost_report(pm, pp, xt, model_kwargs=pkw, **pt)
 
 
 @pytest.mark.parametrize("name", ["ultranet", "mobilenet", "resnet8",
@@ -316,5 +314,11 @@ def test_one_channel_input_conv_is_not_depthwise():
 def test_oto_without_family_or_input_raises_jax_error():
     with pytest.raises(ValueError, match="example_input"):
         OTO(torch.nn.Linear(3, 3))
+    # a plain module's weights are [out, in] / OIHW, not the flax layout
+    # discovery reads: it must come with a params tree
+    mlp = torch.nn.Sequential(torch.nn.Linear(3, 8), torch.nn.ReLU(),
+                              torch.nn.Linear(8, 4))
+    with pytest.raises(ValueError, match="params="):
+        OTO(mlp, example_input=torch.zeros(2, 3))
     with pytest.raises(ValueError, match="no stems|stems"):
         discover_node_groups(torch.nn.ReLU(), {}, torch.zeros(2, 3))

@@ -419,5 +419,6 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert disc["vit_b16"]["fc1_groups"] == [(True, 512)]
     auto = inter["auto_qat"]
     assert auto["tree_bit_equal"] and auto["stats_bit_equal"]
-    assert auto["zeroed_groups"] > 0 and auto["forward_rel"] <= 1e-4
+    assert auto["zeroed_groups"] > 0
+    assert auto["forward_rel"] <= chip_smoke.FAMILY_SUBNET_TOL
     assert len(auto["losses"]) == chip_smoke.FAMILY_STEPS
