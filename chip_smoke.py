@@ -113,7 +113,9 @@ Phases, in order; any failure exits non-zero:
    where a library transcendental or rcp.approx enters), each timed
    (events; the device time of each tool's reported mode), its plain
    version and the tool's yardstick (``torch._int_mm`` at the GEMM's
-   shape, bf16 ``scaled_dot_product_attention``);
+   shape, bf16 ``scaled_dot_product_attention``), each tool's count of
+   bit-exact modes logged; then K18's ten modes at ``EXP_ATTN_EDGES``
+   (bf16 K/V rows past 208 keys, narrow heads, ragged tiles);
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
@@ -3014,6 +3016,13 @@ ABLATIONS = {
 }
 # a tool's shape when not the root tool's (a CPU rehearsal cuts them)
 ABLATION_SHAPES: dict = {}
+# K18 (exp_attn) beyond the tool's shape, on the card: (images, queries,
+# keys, heads, head_dim, x's scale): bf16 K/V rows past 208 keys, heads of
+# 8-40, ragged query tiles, one key, scores of a wider range
+EXP_ATTN_EDGES = ((2, 256, 256, 3, 64, 0.1), (2, 300, 216, 2, 64, 0.1),
+                  (1, 250, 250, 2, 64, 1.0), (3, 37, 37, 2, 8, 0.1),
+                  (2, 100, 90, 3, 40, 0.1), (2, 224, 208, 2, 64, 1.0),
+                  (2, 17, 1, 1, 16, 0.1))
 
 
 def ablations_phase(dev, record, parity):
@@ -3024,7 +3033,8 @@ def ablations_phase(dev, record, parity):
     after (one launch a mode); then each mode's kernel against its plain
     version (a parity row), then the tool's own timings
     (``tools/_ablation.py``: the launch by events and by device time, the
-    plain version, the bound) and its yardstick.
+    plain version, the bound) and its yardstick; on the card, K18 at
+    :data:`EXP_ATTN_EDGES` (:func:`exp_attn_edges`).
     """
     import importlib
 
@@ -3048,14 +3058,19 @@ def ablations_phase(dev, record, parity):
                         "bit_exact": r["bit_exact"], "ok": r["ok"]})
             modes[m.mode] = dict(r, **_ablation.measure(m))
         y = _ablation.measure_yard(t) or {}
+        exact = sum(v["bit_exact"] for v in modes.values())
         out[tool] = {"launches": launches[tool], "modes": modes,
+                     "bit_exact_modes": exact,
                      "yardstick": t.yard_name,
                      "yardstick_us": y.get("us"),
                      "yardstick_device_us": y.get("device_us")}
         log(f"[ablations {tool}] " + "; ".join(
             f"{k} {v['us']:.1f} us (max {v['max_abs_err']})"
             for k, v in modes.items()) + f"; {t.yard_name} "
-            + ("n/a" if not y else f"{y['us']:.1f} us"))
+            + ("n/a" if not y else f"{y['us']:.1f} us")
+            + f"; {exact} of {len(modes)} modes bit-exact")
+    if dev.type == "cuda":
+        out["exp_attn_edges"] = exp_attn_edges(dev, parity)
     bad = [f for f in parity.failures if f.split(" ")[0] in ABLATIONS]
     if bad:
         raise Failed("ablation parity: " + "; ".join(bad[:8]))
@@ -3063,6 +3078,38 @@ def ablations_phase(dev, record, parity):
     record["ablations"] = out
     log(f"[ablations] phase {out['phase_s']} s")
     return out
+
+
+def exp_attn_edges(dev, parity):
+    """K18 at :data:`EXP_ATTN_EDGES`, every mode against exp_attn_plain
+    on seeded x (the tool's levels contract), a parity row each; returns
+    (rows, bit-exact rows). Launched outside any path's count."""
+    from quantized_vit_tpu_torch.ops import ablations as ab
+    from quantized_vit_tpu_torch.tools import _ablation
+
+    rows = exact = 0
+    for b, nq, nk, h, hd, scale in EXP_ATTN_EDGES:
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (b, nq, 3 * h * hd)) * scale).to(torch.bfloat16).to(dev)
+        kw = dict(heads=h, n_keys=nk)
+        rows_dt = "f64" if nk <= ab.ATTN_F64_KEYS else "bf16"
+        for mode in ab.EXP_ATTN_MODES:
+            call = lambda mode=mode: ab.exp_attn(x, mode, **kw)
+            r = _ablation.check(_ablation.Mode(
+                mode, call, call,
+                lambda mode=mode: ab.exp_attn_plain(x, mode, **kw),
+                bytes=0, ops=0, kind="bf16", levels=True))
+            parity.add({"kernel": "exp_attn",
+                        "case": f"{mode} b{b} n{nq} keys{nk} h{h}x{hd} "
+                                f"x{scale} ({rows_dt} rows)",
+                        "check": r["contract"],
+                        "max_abs_err": float(r["max_abs_err"]),
+                        "share_differ": r["share_differ"],
+                        "bit_exact": r["bit_exact"], "ok": r["ok"]})
+            rows += 1
+            exact += r["bit_exact"]
+    log(f"[ablations exp_attn edges] {exact} of {rows} bit-exact")
+    return {"rows": rows, "bit_exact": exact}
 
 
 def ablation_kernel_rows(record, abl):

@@ -45,6 +45,10 @@ SOURCES = ("fused_quant_matmul.cu", "fused_mlp.cu", "attention_block.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
+# a source's own flags: attn_ablation.cu's twenty heavily unrolled
+# instantiations compile in parallel within the one nvcc (its longest
+# build; tools/exp_attn_design.py --builds times it with and without)
+SOURCE_FLAGS = {"attn_ablation.cu": ["--split-compile=0"]}
 # the phase-stamped variant (csrc/qvt_common.cuh, QVT_PROBE)
 PROBE_FLAGS = ["-DQVT_PROBE"]
 _flags = list(NVCC_FLAGS)
@@ -99,6 +103,7 @@ def use_probe_build() -> None:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(_flags).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -125,8 +130,8 @@ def build_all() -> Path:
         if lib.exists():
             continue
         tmp = out / f"{lib.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *_flags, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / src)]
+        cmd = [_nvcc(), *_flags, *SOURCE_FLAGS.get(src, ()), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / src)]
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

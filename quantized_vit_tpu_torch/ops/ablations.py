@@ -498,6 +498,10 @@ def exp_attn2_plain(qkv, d, *, heads, n_valid=ATTN_N_VALID):
 
 ATTN_MAX_KEYS = 256
 ATTN_MAX_HD = 64
+# the most keys (rounded up to 16) whose K and V rows K18 keeps as f64 (its
+# f64 instantiation holds a warp's scores of 26 key tiles of 8 in
+# registers); past them the rows stay bf16
+ATTN_F64_KEYS = 208
 
 
 def attn_kernel_limit(n: int, n_keys: int, head_dim: int) -> Optional[str]:
@@ -526,7 +530,10 @@ def _attn_library():
 
 def run_exp_attn(x, mode, *, heads, n_keys):
     """Launches ``exp_attn``'s kernel for ``mode`` on a CUDA x
-    [B, N, 3*H*hd] bf16, counted under ``exp_attn``."""
+    [B, N, 3*H*hd] bf16, counted under ``exp_attn``: one block a (head,
+    image), both products on the FP64 tensor cores
+    (``csrc/attn_ablation.cu``; K and V as f64 rows up to
+    :data:`ATTN_F64_KEYS` keys, else bf16 rows)."""
     _build.require_cuda("exp_attn", x)
     code = EXP_ATTN_CODES[_mode(EXP_ATTN_MODES, "exp_attn", mode)]
     b, n, width = x.shape

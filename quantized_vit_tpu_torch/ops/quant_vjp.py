@@ -14,7 +14,8 @@ ViT head's [768, 1000] weight included.
 
 The plain version, :func:`lsfq_nonlinear_bwd_plain`, is the same backward
 as a chain of PyTorch ops whose three sums are taken the way K7 takes them:
-the same f32 terms, summed in f64 and rounded once to f32. It is the
+the same f32 terms, summed in f64 and rounded once to f32 (f64 terms
+stay f64, as the JAX package's sums do under x64). It is the
 backward of the non-fused quantizer (``fused_vjp=False``, the JAX default)
 on any device, and K7's plain version on the CPU.
 """
@@ -60,18 +61,20 @@ def nonlinear_bwd_terms(x, g, d, q_m, t, *, clip_lo, clip_hi, q_s=0.0):
     return grad_x, g * sgn * gd, g * gqm, g * sgn * gt
 
 
-def sum_f32(term: torch.Tensor) -> torch.Tensor:
-    """The f32 summands added in f64, rounded once to f32 (K7's sums)."""
-    return term.sum(dtype=torch.float64).to(torch.float32)
+def scalar_sum(term: torch.Tensor) -> torch.Tensor:
+    """The summands added in f64 and rounded once to f32 (K7's sums); f64
+    summands (an f64 run, as the JAX package's under x64) stay f64."""
+    return term.sum(dtype=torch.float64).to(
+        torch.promote_types(term.dtype, torch.float32))
 
 
 def lsfq_nonlinear_bwd_plain(x, g, d, q_m, t, *, clip_lo, clip_hi,
                              q_s=0.0):
     """(grad_x, grad_d, grad_q_m, grad_t): grad_x like x, the rest f32
-    scalars."""
+    scalars (f64 for f64 operands)."""
     grad_x, td, tqm, tt = nonlinear_bwd_terms(
         x, g, d, q_m, t, clip_lo=clip_lo, clip_hi=clip_hi, q_s=q_s)
-    return grad_x, sum_f32(td), sum_f32(tqm), sum_f32(tt)
+    return grad_x, scalar_sum(td), scalar_sum(tqm), scalar_sum(tt)
 
 
 def grid_blocks(n: int) -> int:

@@ -15,8 +15,8 @@
 
 ``d``, ``q_m``, ``t`` are one-element tensors (the layers' (1,) params);
 their gradients are sums over x, reshaped to the param. Every sum is taken
-as K7 takes it: f32 terms added in f64, rounded once to f32
-(``ops/quant_vjp.py:sum_f32``).
+as K7 takes it: f32 terms added in f64, rounded once to f32; f64 terms
+stay f64 (``ops/quant_vjp.py:scalar_sum``).
 """
 
 from __future__ import annotations
@@ -129,8 +129,8 @@ def _linear_scalar_grads(x, g, d, q_m, q_s):
     gd = torch.where(x_abs >= q_m, torch.round(r_top) - r_top, gd)
     gd = torch.where(x_abs <= q_s, 0.0, gd)
     gqm = torch.where(x_abs <= q_m, 0.0, sgn)
-    return (_shaped(_qv.sum_f32(g * sgn * gd), d),
-            _shaped(_qv.sum_f32(g * gqm), q_m))
+    return (_shaped(_qv.scalar_sum(g * sgn * gd), d),
+            _shaped(_qv.scalar_sum(g * gqm), q_m))
 
 
 class _Linear(torch.autograd.Function):

@@ -6,14 +6,18 @@ seed:
 
     python3 -m quantized_vit_tpu_torch.tools.exp_attn [mode ...] [--device cpu]
 
-Modes: full, no_mask, no_max, no_exp, matmuls_only, sum_only, recip
-(rcp.approx.f32), no_sum; mxu_sum (the row sums from the P.V loop as a
-product with ones) and transposed (scores held [keys][queries]) compute
-full's function. For each mode: the parity against the plain version,
-the kernel's us per launch (events and device time), its bound and the
-FP64 tensor cores' ceiling, the plain version's time; then bf16
-``scaled_dot_product_attention`` at [8, 12, 224, 64], a yardstick an
-exact kernel cannot match.
+The kernel runs both products on the FP64 tensor cores (mma.sync m16n8k4
+.f64), one block a (head, image) with K and V staged once as f64 rows, a
+warp's scores and p in its registers. Modes: full, no_mask, no_max,
+no_exp, matmuls_only, sum_only, recip (rcp.approx.f32), no_sum; mxu_sum
+(the row sums from the P.V MMA as one more n8 column of ones) and
+transposed (S^T = K Q^T, reduced over the MMA's other axis) compute full's
+function, so ``full`` minus a mode is that stage's cost on this design.
+For each mode: the parity against the plain version, the kernel's us per
+launch (events and device time), its bound and the FP64 tensor cores'
+ceiling, the plain version's time; then bf16
+``scaled_dot_product_attention`` at [8, 12, 224, 64], a yardstick an exact
+kernel cannot match.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ and cost report against the JAX package, on the CPU at
 ``mobilenet_small`` (32 x 32 x 3, batch 2), the JAX model's weights and
 BN statistics carried across by ``params_from_jax``.
 
-Tolerances as ``tests/test_torch_resnet.py`` states them (train mode with
-weight quantizers only, for the reason given there). Each of the JAX
+Tolerances as ``tests/test_torch_resnet.py`` states them (train mode in
+f32 with weight quantizers only, for the reason given there; the W+A train
+mode in f64 on both sides within ``F64_TOL``). Each of the JAX
 package's ``tests/models/test_mobilenet.py`` tests has its case here."""
 
 import functools
@@ -37,6 +38,8 @@ torch.set_num_threads(1)
 
 QUANTS = {"off": JQ.off(), "wa": JQ(enabled=True),
           "w_only": JQ(enabled=True, quantize_acts=False)}
+# the (quant, train) cases held in f64 (tests/test_torch_resnet.py)
+F64_CASES = {("wa", True)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,27 +75,37 @@ def _japply(jm, params, stats, x, train=False):
 
 @pytest.mark.parametrize("quant,train", [
     ("off", False), ("wa", False), ("w_only", False), ("off", True),
-    ("w_only", True)])
+    ("w_only", True), ("wa", True)])
 def test_forward_matches_jax(quant, train):
     jm, params, stats, x, model = _setup(quant)
+    f64 = (quant, train) in F64_CASES
+    tol = F.F64_TOL if f64 else 1e-5
+    if f64:
+        params, stats, x = F.to_f64(params), F.to_f64(stats), x.astype(
+            np.float64)
     xt = torch.from_numpy(x)
     with torch.no_grad():
         if train:
-            y, new = apply_variables(model, model.param_tree(), xt,
-                                     batch_stats=model.batch_stats_tree(),
+            # f64: the f64 trees; else the port model's own
+            ptree = F.torch_tree(params) if f64 else model.param_tree()
+            stree = (F.torch_tree(stats) if f64
+                     else model.batch_stats_tree())
+            y, new = apply_variables(model, ptree, xt, batch_stats=stree,
                                      mutable=True, deterministic=False)
             jy, jnew = _japply(jm, params, stats, x, train=True)
             got = flatten_tree(new)
             for k, v in flatten_tree(jnew).items():
-                np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-5,
-                                           atol=1e-5)
+                np.testing.assert_allclose(got[k].numpy(), v, rtol=tol,
+                                           atol=tol)
         else:
             y, jy = model(xt), _japply(jm, params, stats, x)
-    np.testing.assert_allclose(y.numpy(), jy, rtol=1e-5, atol=1e-5)
+    assert y.dtype == (torch.float64 if f64 else torch.float32)
+    np.testing.assert_allclose(y.numpy(), jy, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["chain", "k7_plain"])
-@pytest.mark.parametrize("quant,train", [("wa", False), ("w_only", True)])
+@pytest.mark.parametrize("quant,train", [("wa", False), ("w_only", True),
+                                         ("wa", True)])
 def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
     """The gradients of one QAT loss (mean squared logits, the JAX test's)
     on every leaf; ``fused``: K7's plain version here, the JAX package's
@@ -100,6 +113,10 @@ def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
     take K7 as any other weight."""
     jm = jmobilenet(quant=JQ(**{**vars(QUANTS[quant]), "fused_vjp": fused}))
     _, params, stats, x, _ = _setup(quant)
+    f64 = (quant, train) in F64_CASES
+    if f64:
+        params, stats, x = F.to_f64(params), F.to_f64(stats), x.astype(
+            np.float64)
     model = MobileNet(F.port_cfg(jm.cfg, MobileNetConfig), device="cpu")
 
     def jloss(p):
@@ -116,10 +133,10 @@ def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
 
     jv, jg = F.jax_value_and_grads(jloss, params)
     v, g, masses = F.port_value_and_grads(tloss, params, monkeypatch)
-    np.testing.assert_allclose(v, jv, rtol=1e-5)
+    np.testing.assert_allclose(v, jv, rtol=F.F64_TOL if f64 else 1e-5)
     # stem, three depthwise and three pointwise convs, head
     assert len(masses) == 3 * (2 if quant == "wa" else 1) * 8
-    F.assert_grads_close(g, jg, masses)
+    F.assert_grads_close(g, jg, masses, f64=f64)
 
 
 def test_depthwise_conv_shapes_and_forward():

@@ -10,13 +10,16 @@ statistics too; the gradients of a QAT loss as
 configs exact; cost reports within 1e-9 relative. Each of the JAX
 package's ``tests/models/test_resnet.py`` tests has its case here.
 
-Train mode (BatchNorms on the batch's statistics) runs with weight
+Train mode (BatchNorms on the batch's statistics) runs in f32 with weight
 quantizers only. At init the activation quantizers' q_m comes from the
 weights' range and clips most activations, so some channels reach a
 train-mode BatchNorm nearly constant, and its fast variance ``E[x^2] -
 E[x]^2`` cancels: the port's own f32 gradients there differ from its f64
 ones by 5-8%, so f32 sums in XLA's order and PyTorch's cannot agree to
-1e-5. In eval mode the W+A net is held to JAX's."""
+1e-5. The W+A train mode, the one a GETA run trains in, runs in f64 on
+both sides (params, statistics and input as f64 numpy), the forward, the
+statistics and every gradient within ``F64_TOL`` (1e-9;
+``tests/torch_family_params.py``)."""
 
 import functools
 
@@ -50,6 +53,8 @@ torch.set_num_threads(1)
 QUANTS = {"off": JQ.off(), "wa": JQ(enabled=True),
           "w_only": JQ(enabled=True, quantize_acts=False)}
 LABELS = np.array([3, 7])
+# the (quant, train) cases held in f64 (the module docstring)
+F64_CASES = {("wa", True)}
 
 
 def _x(seed=0, batch=2):
@@ -88,28 +93,39 @@ def _japply(jm, params, stats, x, train=False):
 
 @pytest.mark.parametrize("quant,train", [
     ("off", False), ("wa", False), ("w_only", False), ("off", True),
-    ("w_only", True)])
+    ("w_only", True), ("wa", True)])
 def test_forward_matches_jax(quant, train):
     jm, params, stats, x, model = _setup(quant)
+    f64 = (quant, train) in F64_CASES
+    tol = F.F64_TOL if f64 else 1e-5
+    if f64:
+        params, stats, x = F.to_f64(params), F.to_f64(stats), x.astype(
+            np.float64)
     xt = torch.from_numpy(x)
     with torch.no_grad():
         if train:
-            y, new = apply_variables(model, model.param_tree(), xt,
-                                     batch_stats=model.batch_stats_tree(),
+            # f64: the f64 trees; else the port model's own
+            ptree = F.torch_tree(params) if f64 else model.param_tree()
+            stree = (F.torch_tree(stats) if f64
+                     else model.batch_stats_tree())
+            y, new = apply_variables(model, ptree, xt, batch_stats=stree,
                                      mutable=True, deterministic=False)
             jy, jnew = _japply(jm, params, stats, x, train=True)
             for k, v in flatten_tree(jnew).items():
                 np.testing.assert_allclose(
-                    flatten_tree(new)[k].numpy(), v, rtol=1e-5, atol=1e-5)
+                    flatten_tree(new)[k].numpy(), v, rtol=tol, atol=tol)
             # the given trees stay as they were
-            assert F.trees_equal(stats, model.batch_stats_tree())
+            assert F.trees_equal(stats, stree if f64
+                                 else model.batch_stats_tree())
         else:
             y, jy = model(xt), _japply(jm, params, stats, x)
-    np.testing.assert_allclose(y.numpy(), jy, rtol=1e-5, atol=1e-5)
+    assert y.dtype == (torch.float64 if f64 else torch.float32)
+    np.testing.assert_allclose(y.numpy(), jy, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["chain", "k7_plain"])
-@pytest.mark.parametrize("quant,train", [("wa", False), ("w_only", True)])
+@pytest.mark.parametrize("quant,train", [("wa", False), ("w_only", True),
+                                         ("wa", True)])
 def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
     """One QAT loss (cross entropy) and the gradient of every leaf;
     ``fused`` runs K7's plain version here against the JAX package's
@@ -117,8 +133,12 @@ def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
     q = JQ(**{**vars(QUANTS[quant]), "fused_vjp": fused})
     jm = jresnet8(quant=q)
     _, params, stats, x, _ = _setup(quant)
+    f64 = (quant, train) in F64_CASES
+    if f64:
+        params, stats, x = F.to_f64(params), F.to_f64(stats), x.astype(
+            np.float64)
     model = ResNet(F.port_cfg(jm.cfg, ResNetConfig), device="cpu")
-    onehot = np.eye(10, dtype=np.float32)[LABELS]
+    onehot = np.eye(10, dtype=x.dtype)[LABELS]
 
     def jloss(p):
         y = jm.apply({"params": p, "batch_stats": stats}, x,
@@ -137,11 +157,11 @@ def test_qat_grads_match_jax(quant, train, fused, monkeypatch):
 
     jv, jg = F.jax_value_and_grads(jloss, params)
     v, g, masses = F.port_value_and_grads(tloss, params, monkeypatch)
-    np.testing.assert_allclose(v, jv, rtol=1e-5)
+    np.testing.assert_allclose(v, jv, rtol=F.F64_TOL if f64 else 1e-5)
     # 10 quantized layers (stem, 6 block convs, 2 downsample convs, head),
     # one or two quantizers each
     assert len(masses) == 3 * (2 if quant == "wa" else 1) * 10
-    F.assert_grads_close(g, jg, masses)
+    F.assert_grads_close(g, jg, masses, f64=f64)
 
 
 def test_params_from_jax_round_trip_is_exact():

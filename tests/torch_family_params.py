@@ -12,7 +12,16 @@ BN scale's under a loss that barely reaches it, ~1e-10, carries its sums'
 rounding only); q_m and t within 1e-5 of the L1 mass of their
 gradient's summands (K7's contract); d within 2e-3 of it, because the
 residual ``round(p/d) - p/d`` moves by ulp(p)/d when the pre-quant value
-p moves by one ulp."""
+p moves by one ulp.
+
+The W+A train mode (BatchNorms on the batch's statistics, activation
+quantizers on) runs in float64 on both sides (:func:`to_f64`): in f32 a
+channel that reaches a BatchNorm nearly constant cancels in its fast
+variance ``E[x^2] - E[x]^2``, and f32 sums in XLA's order and PyTorch's
+cannot agree there. In f64 the forward, the statistics, the loss and
+every gradient (each scalar's within :data:`F64_TOL` of its summands' L1
+mass, each other leaf's within :data:`F64_TOL` of its largest magnitude)
+agree within :data:`F64_TOL`."""
 
 import dataclasses
 
@@ -30,6 +39,7 @@ from quantized_vit_tpu_torch.models import (QuantConfig, flatten_tree,
 from quantized_vit_tpu_torch.ops import quant_vjp as tqv
 
 SCALARS = ("d_quant", "q_m", "t_quant")
+F64_TOL = 1e-9
 
 
 def jax_vars(model, *inputs, **kw):
@@ -55,6 +65,12 @@ def trained_like_stats(stats, seed: int):
         k: (rng.normal(0, 0.1, np.shape(v)) if k.endswith("mean")
             else rng.uniform(0.5, 1.5, np.shape(v))).astype(np.float32)
         for k, v in flatten_tree(stats).items()})
+
+
+def to_f64(tree):
+    """A numpy tree with every leaf as float64 (the same values)."""
+    return unflatten_tree({k: np.asarray(v, np.float64)
+                           for k, v in flatten_tree(tree).items()})
 
 
 def torch_tree(tree):
@@ -151,15 +167,19 @@ def record_masses(monkeypatch, named):
     return masses
 
 
-def assert_grads_close(grads, jgrads, masses):
-    """The module docstring's gradient tolerances; returns the count of
-    leaves compared."""
+def assert_grads_close(grads, jgrads, masses, f64=False):
+    """The module docstring's gradient tolerances (``f64``: those of the
+    float64 runs); returns the count of leaves compared."""
     assert set(grads) == set(jgrads)
     for k, want in jgrads.items():
         got = grads[k]
         assert np.isfinite(got).all(), k
         leaf = k.rsplit("/", 1)[-1]
-        if leaf.startswith("d_quant"):
+        if f64:
+            assert got.dtype == want.dtype == np.float64, k
+            tol = F64_TOL * (masses[k] if leaf.startswith(SCALARS)
+                             else float(np.abs(want).max()))
+        elif leaf.startswith("d_quant"):
             tol = 2e-3 * masses[k]
         elif leaf.startswith(SCALARS):
             tol = 1e-5 * masses[k]
