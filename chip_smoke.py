@@ -115,7 +115,10 @@ Phases, in order; any failure exits non-zero:
    version and the tool's yardstick (``torch._int_mm`` at the GEMM's
    shape, bf16 ``scaled_dot_product_attention``), each tool's count of
    bit-exact modes logged; then K18's ten modes at ``EXP_ATTN_EDGES``
-   (bf16 K/V rows past 208 keys, narrow heads, ragged tiles);
+   (bf16 K/V rows past 208 keys, narrow heads, ragged tiles) and K19 at
+   ``EXP_ATTN2_EDGES`` (keys past its 256-key ring, ragged chunks and
+   tiles, heads of 8 and 40, one key, no mask, scores past the clamp),
+   each family's bit-exact rows logged;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
    requests at max batch 8 on the artifact saved by the port's writer;
@@ -3023,6 +3026,17 @@ EXP_ATTN_EDGES = ((2, 256, 256, 3, 64, 0.1), (2, 300, 216, 2, 64, 0.1),
                   (1, 250, 250, 2, 64, 1.0), (3, 37, 37, 2, 8, 0.1),
                   (2, 100, 90, 3, 40, 0.1), (2, 224, 208, 2, 64, 1.0),
                   (2, 17, 1, 1, 16, 0.1))
+# K19 (exp_attn2) beyond the tool's shape, on the card: (images, tokens,
+# n_valid, heads, head_dim, x's scale, J): keys past the ring's 256 (the
+# keys streamed again a round of tiles), a key count off the 8-key chunk
+# and ragged query tiles, heads of 8 and 40, one key, no mask, scores past
+# the clamp at 100 (p up to 2^100: f64 sums no longer exact, the levels
+# contract)
+EXP_ATTN2_EDGES = ((2, 300, 290, 2, 64, 0.1, 1), (2, 250, 233, 3, 64, 0.1, 2),
+                   (4, 37, 37, 2, 8, 0.1, 4), (2, 100, 90, 3, 40, 0.1, 1),
+                   (2, 17, 1, 1, 16, 0.1, 2), (2, 64, 64, 2, 64, 0.1, 1),
+                   (2, 224, 197, 2, 64, 8.0, 1),
+                   (4, 520, 515, 2, 64, 0.1, 4))
 
 
 def ablations_phase(dev, record, parity):
@@ -3034,7 +3048,8 @@ def ablations_phase(dev, record, parity):
     version (a parity row), then the tool's own timings
     (``tools/_ablation.py``: the launch by events and by device time, the
     plain version, the bound) and its yardstick; on the card, K18 at
-    :data:`EXP_ATTN_EDGES` (:func:`exp_attn_edges`).
+    :data:`EXP_ATTN_EDGES` (:func:`exp_attn_edges`) and K19 at
+    :data:`EXP_ATTN2_EDGES` (:func:`exp_attn2_edges`).
     """
     import importlib
 
@@ -3071,6 +3086,7 @@ def ablations_phase(dev, record, parity):
             + f"; {exact} of {len(modes)} modes bit-exact")
     if dev.type == "cuda":
         out["exp_attn_edges"] = exp_attn_edges(dev, parity)
+        out["exp_attn2_edges"] = exp_attn2_edges(dev, parity)
     bad = [f for f in parity.failures if f.split(" ")[0] in ABLATIONS]
     if bad:
         raise Failed("ablation parity: " + "; ".join(bad[:8]))
@@ -3110,6 +3126,37 @@ def exp_attn_edges(dev, parity):
             exact += r["bit_exact"]
     log(f"[ablations exp_attn edges] {exact} of {rows} bit-exact")
     return {"rows": rows, "bit_exact": exact}
+
+
+def exp_attn2_edges(dev, parity):
+    """K19 at :data:`EXP_ATTN2_EDGES`, each row's J against
+    exp_attn2_plain on seeded qkv (the tool's levels contract), a parity
+    row each; returns (rows, bit-exact rows, the blocks of K19's kernel an
+    SM holds). Launched outside any path's count."""
+    from quantized_vit_tpu_torch.ops import ablations as ab
+    from quantized_vit_tpu_torch.tools import _ablation
+
+    rows = exact = 0
+    for b, n, nv, h, hd, scale, j in EXP_ATTN2_EDGES:
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (b, n, 3 * h * hd)) * scale).to(torch.bfloat16).to(dev)
+        kw = dict(heads=h, n_valid=nv)
+        call = lambda: ab.exp_attn2(x, 0.05, j_imgs=j, **kw)
+        r = _ablation.check(_ablation.Mode(
+            str(j), call, call, lambda: ab.exp_attn2_plain(x, 0.05, **kw),
+            bytes=0, ops=0, kind="bf16", levels=True))
+        parity.add({"kernel": "exp_attn2",
+                    "case": f"J {j} b{b} n{n} valid{nv} h{h}x{hd} x{scale}",
+                    "check": r["contract"],
+                    "max_abs_err": float(r["max_abs_err"]),
+                    "share_differ": r["share_differ"],
+                    "bit_exact": r["bit_exact"], "ok": r["ok"]})
+        rows += 1
+        exact += r["bit_exact"]
+    bps = ab.exp_attn2_blocks_per_sm()
+    log(f"[ablations exp_attn2 edges] {exact} of {rows} bit-exact; "
+        f"{bps} blocks an SM (the design's 3)")
+    return {"rows": rows, "bit_exact": exact, "blocks_per_sm": bps}
 
 
 def ablation_kernel_rows(record, abl):

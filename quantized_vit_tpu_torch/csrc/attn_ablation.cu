@@ -17,9 +17,8 @@
 // K19 replaces tools/exp_attn2.py:kernel (pallas_call, exp_attn2.py:64):
 // K6's attention (attention_qkv.cu; the proj quantizer's levels, exp2
 // clamped at 100, no row max, sum(p) + 1e-30) with J images a TPU
-// program. Here a block takes the same (query tile, head) item of J
-// images, one after another, through K6's tile (qkv_attention.cuh:
-// qkv_attn_tile): J = 1 is K6's grid, J = 2 and 4 coarsen it.
+// program. Here a block takes its share of the query tiles of J images of
+// one head, one image after another (K19's design below).
 //
 // Bound on this card (3.35 TB/s; 989 TFLOP/s bf16; the FP64 tensor cores'
 // 67 TFLOP/s, the ceiling of an exact kernel):
@@ -28,6 +27,32 @@
 //       FP64 ceiling 17.1 us
 //   K19 at B 32, N 224, nk 208: 4.58 GFLOP; 36.96 MB (11.03 us, bytes);
 //       FP64 ceiling 68.4 us
+//
+// K19's design: no row max, so a query tile's keys stream through p and
+// P.V chunk by chunk with no row ever whole. Blocks of 4 warps (128
+// threads), 3 blocks an SM (launch bounds 128, 3: at most 168 registers;
+// 74,836 bytes of shared memory a block), so 3 warps a sub-partition; a
+// warp owns one 16-row query tile at a time. The grid (S, heads, B / J),
+// S = min(J, query tiles), gives every J 384 blocks of 14 tile-tasks at
+// the tool's shape (tasks (j, t) with (j nmt + t) % S == share, the u-th
+// to warp u % 4: 4, 4, 3, 3 tiles a warp), one wave at 3 blocks on 132
+// SMs, at most 12 tiles on a sub-partition. K and V arrive raw (bf16) by
+// TMA, a 32-row K box and V box a ring slot in the 128-byte swizzle (3-D
+// tensor map [B][nk][3 heads hd]: rows past nk read as zeros), 7 slots
+// (224 keys), each stage's bytes on a full mbarrier; the last warp done
+// with a slot (a shared counter) starts its next stage, so the ring runs
+// ahead with no block barrier, and each image's keys are read from device
+// memory once a block (when they fit the ring; else once a round of 4
+// tiles). Only keys up to the last key tile with a real key are read. A
+// warp stages its q tile (times q_mul, rounded to bf16) as the high words
+// of their f64 values (the low words are zero), so q needs no conversion
+// at the MMA; it streams 16 keys at a time: the scores of two key tiles as
+// two m16n8k8 .f64 chains (K's B fragments by ldmatrix, widened bf16 ->
+// f64 at each use), p = exp2f(min(s, 100)) into the f64 row sums and, as
+// bf16 pairs, straight into P.V's A fragments, then P.V on m16n8k8 with
+// V^T fragments by ldmatrix.trans. The f64 output accumulator (16 x 64)
+// stays in registers across all keys. Numerics as the plain version's,
+// -fmad=false.
 //
 // K18's design: the FP64 tensor cores bound it, so both products run on
 // mma.sync m16n8k4 .f64 (qvt::dmma; products of bf16 values are exact in
@@ -66,6 +91,7 @@
 #include <algorithm>
 
 #include "qkv_attention.cuh"
+#include "wgmma_int8.cuh"
 
 namespace {
 
@@ -666,29 +692,465 @@ cudaError_t launch_attn(const AttnArgs& a, bool f64, cudaStream_t st) {
              : launch_attn_as<MODE, __nv_bfloat16>(a, st);
 }
 
-// K19: item (query tile, head) of images blockIdx.z * J .. + J - 1
-template <int R>
-__global__ void __launch_bounds__(qvt::QA_NT, 2)
-    attn2_kernel(qvt::QkvAttnArgs a, int J) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  qvt::PhaseClock clk;
-  for (int j = 0; j < J; ++j) {
-    if (j) __syncthreads();  // the last item's output copy read smem
-    qvt::qkv_attn_tile<__nv_bfloat16, R, HDM, false, false>(
-        a, blockIdx.x * R, blockIdx.y, blockIdx.z * J + j, smem, clk);
+// ---------------------------------------------------------------------------
+// K19: blocks of 4 warps, a warp streaming its 16-row query tiles over the
+// keys 16 at a time, K and V raw in a ring of 32-key slots fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int A2_NW = 4, A2_NT = 32 * A2_NW;
+constexpr int A2_SEG = 32;   // keys a ring slot
+constexpr int A2_NSLOT = 7;  // slots: 224 keys resident at once
+// a slot: the K box, then the V box, each 32 rows of 64 bf16 (128 bytes)
+// in TMA's 128-byte swizzle (16-byte piece p of row r at p ^ (r % 8)); a
+// warp's q tile: 16 rows of 64 f64 high words (256 bytes), 16-byte chunk
+// c of row r at (c & 8) | ((c & 7) ^ (r % 8))
+constexpr int A2_BOX = A2_SEG * 128;
+constexpr int A2_SLOT = 2 * A2_BOX;
+constexpr int A2_QT = 16 * 256;
+// 1 KB to align the ring to 1024 bytes, the ring, the warps' q tiles, a
+// full mbarrier and an arrival count a slot (mirrored by
+// tests/test_torch_attn2_layout.py); three blocks share an SM's 228 KB
+// (1 KB of each block's reserved)
+constexpr int A2_SMEM =
+    1024 + A2_NSLOT * A2_SLOT + A2_NW * A2_QT + A2_NSLOT * (8 + 4);
+static_assert(3 * (A2_SMEM + 1024) <= 233472,
+              "K19's ring does not let three blocks share an SM");
+
+struct Attn2Args {
+  CUtensorMap kv;  // qkv as [B][nk][3 heads hd] bf16, boxes 32 x 64
+  const __nv_bfloat16* qkv;
+  int8_t* out;
+  const float* prm;  // out_d
+  int n, nv, heads, hd;
+  int J;    // images a block
+  int S;    // shares of an image group's tasks (blockIdx.x)
+  int nmt;  // query tiles of 16 rows
+  int nkr;  // the keys read: up to the last key tile with a real key
+  int ns;   // 32-key ring slots of those keys
+  float q_mul, top;
+};
+
+__device__ __forceinline__ void a2_ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void a2_ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the bf16 in the low (e = 0) or high half of w as an f64 MMA operand
+__device__ __forceinline__ double bf_f64(uint32_t w, int e) {
+  return static_cast<double>(bf_half(w, e));
+}
+// d = a.b + d on the FP64 tensor cores, m16n8k8 (g = lane / 4, t = lane
+// % 4): a = A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; b =
+// B[t][g], B[t + 4][g]; d as qvt::dmma's (fp64_mma.cuh). Products of bf16
+// values are exact in f64, so the deeper form changes only the order of
+// the f64 additions; it takes half the instructions of two m16n8k4.
+__device__ __forceinline__ void dmma8(double (&d)[4], const double (&a)[4],
+                                      const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+// two f32 as a pair of bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// a block's ring: its shared-memory address (the slots, then the warps' q
+// tiles, the full mbarriers and the arrival counts at constant offsets)
+// and its stages
+constexpr int A2_FULL = A2_NSLOT * A2_SLOT + A2_NW * A2_QT;
+constexpr int A2_CNT = A2_FULL + 8 * A2_NSLOT;
+struct A2Ring {
+  uint32_t ring;
+  int total;    // stages of the block: J images x passes x slots
+  int per_img;  // stages an image
+};
+
+// stage k (the keys of slot k % ns of image k / per_img) into ring slot k %
+// A2_NSLOT: two TMA boxes (K, V; rows past nk zero), on the slot's full
+// mbarrier; one thread starts it
+__device__ __forceinline__ void a2_stage(const Attn2Args& a, const A2Ring& R,
+                                         int k, int h) {
+  const int slot = k % A2_NSLOT;
+  const int b = blockIdx.z * a.J + k / R.per_img;
+  const int r0 = (k % a.ns) * A2_SEG, HD = a.heads * a.hd;
+  const uint32_t bar = R.ring + A2_FULL + 8 * slot,
+                 dst = R.ring + slot * A2_SLOT;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(2 * A2_BOX)
+               : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+            dst + v * A2_BOX),
+        "l"(reinterpret_cast<uint64_t>(&a.kv)), "r"(bar),
+        "r"((1 + v) * HD + h * a.hd), "r"(r0), "r"(b)
+        : "memory");
+}
+
+// until the slot's phase of this parity has landed; a wait that outlasts
+// 10 s traps, so a broken protocol faults the launch instead of holding
+// the card
+__device__ __forceinline__ void a2_wait(const A2Ring& R, int slot,
+                                        uint32_t parity) {
+  const uint32_t bar = R.ring + A2_FULL + 8 * slot;
+  uint32_t done = 0, polls = 0;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++polls & 1023) == 0) {
+      const uint64_t now = qvt::wg::globaltimer_ns();
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > 10000000000ull)
+        __trap();
+    }
   }
 }
 
-template <int R>
-cudaError_t launch_attn2(const qvt::QkvAttnArgs& a, int J,
-                         cudaStream_t st) {
-  auto kern = attn2_kernel<R>;
-  constexpr int smem = qvt::qkv_attn_smem(R, HDM, 2);
+// this warp is done with stage k; the last of the block's warps to be done
+// refills its slot with stage k + A2_NSLOT
+__device__ __forceinline__ void a2_done(const Attn2Args& a, const A2Ring& R,
+                                        int k, int h, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    const uint32_t cnt = R.ring + A2_CNT + 4 * (k % A2_NSLOT);
+    int old;
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "r"(cnt)
+                 : "memory");
+    if (old == A2_NW - 1) {
+      asm volatile("st.relaxed.cta.shared::cta.u32 [%0], 0;\n" ::"r"(cnt)
+                   : "memory");
+      if (k + A2_NSLOT < R.total) a2_stage(a, R, k + A2_NSLOT, h);
+    }
+  }
+  __syncwarp();
+}
+
+// JT (1 or 2) key tiles of 8 keys (rows 8 apart at `kt` in a slot: K, then
+// V A2_BOX bytes on) for the 16-row query tile at `qt`. The scores of each
+// key tile are an MMA chain over the head's octets m, k-lane t of octet m
+// being head columns 8 m + 2 t (t) and + 1 (t + 4): the pair ldmatrix
+// gives a thread of K's row, and the two q words of the same columns. p =
+// exp2(min(s, 100)) for the real keys goes into the row sums (f32 values,
+// f64 sums) and, rounded to bf16, into P.V's A fragments straight from the
+// D fragments: element q of key tile j is row g + 8 (q / 2), key 8 j + 2 t
+// + q % 2, P.V's k-lane t + 4 (q % 2) of key tile j. `lk`: this lane's row
+// of an ldmatrix of K (row lane % 8 of key tile lane / 8 % 2; xs = lane %
+// 8 << 4, its swizzle); `lq`, `qx`: the same in the q tile (row lane % 8 +
+// 8 (lane / 8 % 2), chunk parity lane / 16).
+template <int HDC, int JT>
+__device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
+                                        uint32_t lk, uint32_t lq,
+                                        uint32_t xs, uint32_t qx, int key0,
+                                        int nv, int HDT, double (&o)[8][4],
+                                        double (&rs)[2]) {
+  double sd[JT][4];
+#pragma unroll
+  for (int j = 0; j < JT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sd[j][q] = 0.0;
+  const uint32_t lane_oct = (threadIdx.x & 31) >> 3;  // a lane's matrix
+#pragma unroll
+  for (int m0 = 0; m0 < 8; m0 += 2) {
+    if (m0 >= HDT) break;
+    // kb[x]: key tile x % 2, octet m0 + x / 2
+    uint32_t kb[4];
+    a2_ldsm(kb, kt + lk + (((m0 + (lane_oct >> 1)) << 4) ^ xs));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + i;
+      if (m >= HDT) break;
+      // q's f64 high words of octet m: qw[2 e + hh] is row g + 8 hh, head
+      // column 8 m + 2 t + e
+      uint32_t qw[4];
+      a2_ldsm(qw, qt + lq + ((((2 * m) & 8) | (((2 * m) & 7) ^ qx)) << 4));
+      const double qa[4] = {
+          __hiloint2double(qw[0], 0), __hiloint2double(qw[1], 0),
+          __hiloint2double(qw[2], 0), __hiloint2double(qw[3], 0)};
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const double kk[2] = {bf_f64(kb[2 * i + j], 0),
+                              bf_f64(kb[2 * i + j], 1)};
+        dmma8(sd[j], qa, kk);
+      }
+    }
+  }
+  uint32_t pp[JT][2];
+#pragma unroll
+  for (int j = 0; j < JT; ++j) {
+    float p[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      p[q] = key0 + 8 * j + (q & 1) < nv
+                 ? exp2f(fminf(static_cast<float>(sd[j][q]), 100.f))
+                 : 0.f;
+      rs[q >> 1] += static_cast<double>(p[q]);
+    }
+    pp[j][0] = bf2(p[0], p[1]);
+    pp[j][1] = bf2(p[2], p[3]);
+  }
+  // P.V a key tile at a time: its V^T fragments of all the head's octets
+  // (.trans: a thread gets keys 2 t, 2 t + 1 of column g), its A fragment
+  // once for them
+#pragma unroll
+  for (int j = 0; j < JT; ++j) {
+    const uint32_t vt = kt + A2_BOX + j * 1024 + (xs << 3);
+    uint32_t vb[2][4];
+    a2_ldsm_t(vb[0], vt + ((lane_oct << 4) ^ xs));
+    if (HDT > 4) a2_ldsm_t(vb[1], vt + (((4 + lane_oct) << 4) ^ xs));
+    const double pa[4] = {bf_f64(pp[j][0], 0), bf_f64(pp[j][1], 0),
+                          bf_f64(pp[j][0], 1), bf_f64(pp[j][1], 1)};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= HDT) break;
+      const double vv[2] = {bf_f64(vb[nt >> 2][nt & 3], 0),
+                            bf_f64(vb[nt >> 2][nt & 3], 1)};
+      dmma8(o[nt], pa, vv);
+    }
+  }
+}
+
+// query tile mt of image b, its keys from stages k0 .. k0 + ns - 1 (slot
+// by slot, 16 keys a step); `last`: this warp's last tile over those
+// stages (it releases each slot after use). `qt`: this warp's q tile in
+// shared memory. HDC: the head's 8-column tiles, fixed at compile time
+// (8: the tool's heads of 64; 0: a.hd / 8 at run time).
+template <int HDC>
+__device__ __forceinline__ void a2_tile(const Attn2Args& a, const A2Ring& R,
+                                        uint32_t qt, int mt, int b, int h,
+                                        int k0, bool last, float d,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int n = a.n, hd = a.hd, HD = a.heads * hd;
+  const int HDT = HDC ? HDC : hd / 8;
+  const long long W = 3LL * HD;
+  // q times q_mul, rounded to bf16, as the high words of its f64 values
+  // (the low words are zero) into the warp's q tile: row r, 16-byte chunk
+  // 2 o + e holds head columns 8 o + e, + 2, + 4, + 6, at chunk (c & 8) |
+  // ((c & 7) ^ (r % 8)); lane takes the octets (row, o) lane, lane + 32,
+  // ... of the 16 x 8 (zeros past n and past the head)
+  __syncwarp();  // the last tile's ldmatrix reads are done
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = lane + 32 * u, r = i >> 3, oc = i & 7;
+    const int row = 16 * mt + r;
+    uint32_t hw[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) hw[c] = 0u;
+    if (row < n && oc < HDT) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+          a.qkv + (static_cast<long long>(b) * n + row) * W + h * hd +
+          8 * oc));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        hw[c] = static_cast<uint32_t>(__double2hiint(static_cast<double>(
+            bfr(bf_half(w[c >> 1], c & 1) * a.q_mul))));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 2 * oc + e;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       qt + r * 256 + (((ch & 8) | ((ch & 7) ^ (r & 7))) << 4)),
+                   "r"(hw[e]), "r"(hw[2 + e]), "r"(hw[4 + e]), "r"(hw[6 + e])
+                   : "memory");
+    }
+  }
+  __syncwarp();
+  // this lane's ldmatrix rows: of K, row lane % 8 of key tile lane / 8 %
+  // 2 (xs: its swizzle); of q, row lane % 8 + 8 (lane / 8 % 2), chunk parity
+  // lane / 16 (qx: its swizzle)
+  const uint32_t x = lane & 7, xs = x << 4, qx = x ^ (lane >> 4);
+  const uint32_t lk2 = (((lane >> 3) & 1) * 8 + x) * 128;
+  const uint32_t lq = (x + 8 * ((lane >> 3) & 1)) * 256;
+  double o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[nt][q] = 0.0;
+  double rs[2] = {0.0, 0.0};
+  int slot = k0 % A2_NSLOT;
+  uint32_t parity = (k0 / A2_NSLOT) & 1;
+  for (int s = 0; s < a.ns; ++s) {
+    a2_wait(R, slot, parity);
+    const uint32_t sb = R.ring + slot * A2_SLOT;
+    // the slot's key tiles that hold a real key, two at a time
+    const int key0 = 32 * s + 2 * t, kts = min(4, (a.nkr - 32 * s + 7) >> 3);
+#pragma unroll
+    for (int j2 = 0; j2 < 2; ++j2) {
+      const int left = kts - 2 * j2;
+      if (left >= 2)
+        a2_keys<HDC, 2>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
+                        a.nv, HDT, o, rs);
+      else if (left == 1)
+        a2_keys<HDC, 1>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
+                        a.nv, HDT, o, rs);
+    }
+    if (last) a2_done(a, R, k0 + s, h, lane);
+    if (++slot == A2_NSLOT) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    double v = rs[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const float inv = 1.0f / ((static_cast<float>(v) + 1e-30f) * d);
+    const int r = 16 * mt + g + 8 * i;
+    if (r >= n) continue;
+    int8_t* orow = a.out + (static_cast<long long>(b) * n + r) * HD +
+                   h * hd + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= HDT) break;
+      int lv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        lv[e] = static_cast<int>(fminf(
+            fmaxf(rintf(static_cast<float>(o[nt][2 * i + e]) * inv), -a.top),
+            a.top));
+      *reinterpret_cast<uint16_t*>(orow + 8 * nt) =
+          static_cast<uint16_t>((lv[0] & 0xFF) | ((lv[1] & 0xFF) << 8));
+    }
+  }
+}
+
+// block (share, head, image group): the share's tasks, (image j, tile t)
+// with (j nmt + t) % S == share, in order, J images one after another;
+// the block's u-th task goes to warp u % 4
+template <int HDC>
+__global__ void __launch_bounds__(A2_NT, 3)
+    attn2_kernel(const __grid_constant__ Attn2Args a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int h = blockIdx.y, share = blockIdx.x, S = a.S, nmt = a.nmt;
+  // all of an image's keys fit the ring: one pass, a warp's tiles one after
+  // another over the resident slots; else a pass a round of 4 tasks (one a
+  // warp), the keys streamed again for each
+  const int passes = a.ns <= A2_NSLOT ? 1 : ((nmt + S - 1) / S + 3) >> 2;
+  A2Ring R;
+  R.ring = (qvt::wg::smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t qt = R.ring + A2_NSLOT * A2_SLOT + warp * A2_QT;
+  R.per_img = passes * a.ns;
+  R.total = a.J * R.per_img;
+  if (threadIdx.x < A2_NSLOT) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     R.ring + A2_FULL + 8 * threadIdx.x)
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(R.ring + A2_CNT +
+                                                 4 * threadIdx.x)
+                 : "memory");
+  }
+  qvt::wg::mbar_fence_init();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < min(A2_NSLOT, R.total); ++k) a2_stage(a, R, k, h);
+  const float d = __ldg(a.prm);
+  for (int j = 0, k0 = 0, U = 0; j < a.J; ++j) {
+    const int b = blockIdx.z * a.J + j;
+    const int r = ((share - j * nmt) % S + S) % S;  // the share's first tile
+    const int cnt = (nmt - r + S - 1) / S;         // and its tiles
+    const int first = U + ((warp - U) & 3);        // this warp's first task
+    for (int p = 0; p < passes; ++p, k0 += a.ns) {
+      const int lo = passes == 1 ? first : first + 4 * p;
+      const int hi = passes == 1 ? U + cnt : min(U + cnt, U + 4 * p + 4);
+      if (lo >= hi)
+        for (int s = 0; s < a.ns; ++s) {
+          a2_wait(R, (k0 + s) % A2_NSLOT, ((k0 + s) / A2_NSLOT) & 1);
+          a2_done(a, R, k0 + s, h, lane);
+        }
+      for (int u = lo; u < hi; u += 4)
+        a2_tile<HDC>(a, R, qt, r + S * (u - U), b, h, k0, u + 4 >= hi, d,
+                     lane);
+    }
+    U += cnt;
+  }
+}
+
+// qkv as a 3-D tensor [B][nk][3 heads hd] for TMA: the rows of an image
+// past nk read as zeros, boxes of 32 rows x 64 columns in the 128-byte
+// swizzle
+int a2_encode(CUtensorMap* map, const void* qkv, int B, int n, int nk,
+              int width) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(nk),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(n) * width * 2};
+  const cuuint32_t box[3] = {64, A2_SEG, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K19's shared memory above 48 KB, and all of the SM's as shared memory
+// (three blocks' rings)
+template <typename K>
+cudaError_t a2_setup(K kern) {
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, A2_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <int HDC>
+cudaError_t launch_attn2(const Attn2Args& a, int B, cudaStream_t st) {
+  auto kern = attn2_kernel<HDC>;
+  const cudaError_t e = a2_setup(kern);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((a.n + R - 1) / R, a.heads, a.B / J), qvt::QA_NT, smem, st>>>(
-      a, J);
+  kern<<<dim3(a.S, a.heads, B / a.J), A2_NT, A2_SMEM, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -739,43 +1201,51 @@ extern "C" int qvt_exp_attn(const void* x, void* out, int B, int n, int nk,
   return static_cast<int>(e);
 }
 
-// K19. qkv [B][n][3 * heads * hd] bf16 (hd <= 64, a multiple of 8); out
-// [B][n][heads * hd] int8, 8-byte aligned; prm: out_d, out_t (f32 device
-// memory); nk key rows, n_valid of them real; rows: the query tile (64,
-// 32 or 16: ops/attention.py:qkv_attn_tile_rows); J images a block (B % J
-// == 0); q_mul = sm_scale * log2(e) as f32.
+// K19. qkv [B][n][3 * heads * hd] bf16, 16-byte aligned (hd <= 64, a
+// multiple of 8); out [B][n][heads * hd] int8, 2-byte aligned; prm: out_d
+// (f32 device memory); nk key rows, n_valid of them real; J images a block
+// (B % J == 0); q_mul = sm_scale * log2(e) as f32.
 extern "C" int qvt_exp_attn2(const void* qkv, void* out, const void* prm,
                              int B, int n, int heads, int hd, int n_valid,
-                             int nk, int rows, int J, float q_mul,
-                             int out_top, void* stream) {
-  if (hd > HDM || hd < 8 || hd % 8 || nk > n || n_valid > nk || J < 1 ||
-      B % J || B / J > 65535 || heads > 65535 ||
-      (rows != 64 && rows != 32 && rows != 16) ||
-      (reinterpret_cast<uintptr_t>(out) & 7) || out_top < 1)
+                             int nk, int J, float q_mul, int out_top,
+                             void* stream) {
+  if (B < 1 || n < 1 || heads < 1 || hd > HDM || hd < 8 || hd % 8 ||
+      nk < 0 || nk > n || n_valid > nk || J < 1 || B % J ||
+      B / J > 65535 || heads > 65535 || out_top < 1 ||
+      (reinterpret_cast<uintptr_t>(qkv) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  qvt::QkvAttnArgs a;
-  a.qkv = qkv;
-  a.qkv_dt = qvt::DT_BF16;
-  a.out = out;
-  a.out_dt = qvt::DT_INT8;
-  a.out_mode = qvt::QA_OUT_LEVELS;
-  a.out_es = 1;
+  Attn2Args a;
+  if (nk > 0) {
+    const int e = a2_encode(&a.kv, qkv, B, n, nk, 3 * heads * hd);
+    if (e) return e;
+  }
+  a.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  a.out = static_cast<int8_t*>(out);
   a.prm = static_cast<const float*>(prm);
-  a.B = B;
   a.n = n;
+  a.nv = n_valid;
   a.heads = heads;
   a.hd = hd;
-  a.n_valid = n_valid;
-  a.nk = nk;
+  a.J = J;
+  a.nmt = (n + 15) / 16;
+  a.S = std::min(J, a.nmt);
+  a.nkr = std::min(nk, (std::max(n_valid, 0) + 7) / 8 * 8);
+  a.ns = (a.nkr + A2_SEG - 1) / A2_SEG;
   a.q_mul = q_mul;
-  a.sm_scale = 1.f;  // read by int_attention only
-  a.out_top = static_cast<float>(out_top);
-  a.int_attn = false;
-  a.qkv_vec = (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
-  a.out_vec = hd % 16 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  a.top = static_cast<float>(out_top);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = rows == 64   ? launch_attn2<64>(a, J, st)
-                  : rows == 32 ? launch_attn2<32>(a, J, st)
-                               : launch_attn2<16>(a, J, st);
-  return static_cast<int>(e);
+  return static_cast<int>(hd == HDM ? launch_attn2<HDM / 8>(a, B, st)
+                                    : launch_attn2<0>(a, B, st));
+}
+
+// the blocks of K19's kernel an SM holds at once (the card's occupancy
+// calculator), or a negative CUDA error
+extern "C" int qvt_exp_attn2_blocks_per_sm() {
+  int nb = 0;
+  cudaError_t e = a2_setup(attn2_kernel<HDM / 8>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, attn2_kernel<HDM / 8>, A2_NT, A2_SMEM);
+  return e == cudaSuccess ? nb : -static_cast<int>(e);
 }

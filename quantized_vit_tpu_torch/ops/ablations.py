@@ -52,8 +52,7 @@ import torch
 
 from . import _build
 from .attention import (_card_shape, _n_keys, _qkv_head_dim,
-                        _raise_if, attention_qkv_plain, plan_attention_qkv,
-                        qkv_attn_tile_rows, qkv_kernel_limit)
+                        _raise_if, attention_qkv_plain, plan_attention_qkv)
 from .fused import (_ERF_COEFS, _SQRT2, _erf_f32, _f32, _gelu_f32,
                     _gelu_quant_folded, _layernorm_f32, _quantize_f32,
                     sum_f32)
@@ -516,15 +515,40 @@ def attn_kernel_limit(n: int, n_keys: int, head_dim: int) -> Optional[str]:
     return None
 
 
+# the most image groups and heads K19's grid takes (its z and y extents)
+ATTN2_MAX_GRID = 65535
+
+
+def attn2_kernel_limit(b: int, n: int, n_valid: int, heads: int,
+                       head_dim: int, j_imgs: int) -> Optional[str]:
+    """Why ``exp_attn2``'s kernel cannot take these shapes, or None: heads
+    of 8-64 in multiples of 8, n_valid <= N, J dividing B, at most
+    :data:`ATTN2_MAX_GRID` image groups and heads. Its keys stream through
+    a ring of 32-key slots, so any token and key count fits."""
+    if (b < 1 or n < 1 or heads < 1 or head_dim < 8
+            or head_dim > ATTN_MAX_HD or head_dim % 8 or n_valid > n):
+        return (f"exp_attn2: needs head_dim 8-{ATTN_MAX_HD}, a multiple of "
+                f"8, and n_valid <= N; got B {b}, N {n}, n_valid {n_valid}, "
+                f"{heads} heads of {head_dim}")
+    if j_imgs < 1 or b % j_imgs:
+        return (f"exp_attn2: {b} images do not split into blocks of "
+                f"{j_imgs}")
+    if b // j_imgs > ATTN2_MAX_GRID or heads > ATTN2_MAX_GRID:
+        return (f"exp_attn2: at most {ATTN2_MAX_GRID} image groups and "
+                f"heads; got {b // j_imgs} and {heads}")
+    return None
+
+
 def _attn_library():
     lib = _build.library("attn_ablation")
     if lib.qvt_exp_attn.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
         lib.qvt_exp_attn.argtypes = [P, P, I, I, I, I, I, I, I, I, F, P]
         lib.qvt_exp_attn.restype = I
-        lib.qvt_exp_attn2.argtypes = [P, P, P, I, I, I, I, I, I, I, I, F, I,
-                                      P]
+        lib.qvt_exp_attn2.argtypes = [P, P, P, I, I, I, I, I, I, I, F, I, P]
         lib.qvt_exp_attn2.restype = I
+        lib.qvt_exp_attn2_blocks_per_sm.argtypes = []
+        lib.qvt_exp_attn2_blocks_per_sm.restype = I
     return lib
 
 
@@ -561,31 +585,40 @@ def exp_attn(x, mode, *, heads, n_keys):
 
 def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID):
     """Launches ``exp_attn2``'s kernel on a CUDA qkv [B, N, 3*H*hd] bf16
-    for a call site prepared by :func:`plan_exp_attn2`: K6's tile
-    (``csrc/qkv_attention.cuh``) over the (query tile, head) items of
-    ``j_imgs`` images a block, at K6's query tile for the card; counted
-    under ``exp_attn2``."""
+    for a call site prepared by :func:`plan_exp_attn2`, counted under
+    ``exp_attn2`` (``csrc/attn_ablation.cu``): blocks of 4 warps, a block
+    its share of the query tiles of ``j_imgs`` images of one head, one
+    image after another; K and V raw in a ring of 32-key slots fed by
+    TMA, read once per block; a warp streams a 16-row query tile over the
+    keys with both products on the FP64 tensor cores (m16n8k8), p passed
+    from registers, no block barrier in the key loop."""
     _build.require_cuda("exp_attn2", qkv)
     b, n, width = qkv.shape
     hd = _qkv_head_dim(width, plan.heads)
-    _raise_if(qkv_kernel_limit(hd))
-    if qkv.dtype != torch.bfloat16 or hd > ATTN_MAX_HD:
-        raise TypeError("exp_attn2: bf16 qkv, heads of at most 64")
-    if j_imgs < 1 or b % j_imgs:
-        raise ValueError(f"exp_attn2: {b} images do not split into blocks "
-                         f"of {j_imgs}")
-    rows = qkv_attn_tile_rows(b, n, plan.heads, hd, 2,
-                              *_card_shape(qkv.device.index))
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError("exp_attn2: bf16 qkv")
+    _raise_if(attn2_kernel_limit(b, n, n_valid, plan.heads, hd, j_imgs))
     qkv = qkv.contiguous()
+    if qkv.data_ptr() % 16:  # TMA reads from a 16-byte aligned base
+        qkv = qkv.clone()
     out = torch.empty((b, n, plan.heads * hd), dtype=torch.int8,
                       device=qkv.device)
     rc = _attn_library().qvt_exp_attn2(
         qkv.data_ptr(), out.data_ptr(), plan.prm.data_ptr(), b, n,
-        plan.heads, hd, n_valid, _n_keys(n, n_valid, 2), rows, j_imgs,
+        plan.heads, hd, n_valid, _n_keys(n, n_valid, 2), j_imgs,
         plan.q_mul, plan.out_top, _build.stream())
     _build.check(rc, "exp_attn2")
     _build.count_launch("exp_attn2")
     return out
+
+
+def exp_attn2_blocks_per_sm() -> int:
+    """The blocks of ``exp_attn2``'s kernel an SM of the current card holds
+    at once (the card's occupancy calculator; the design's 3)."""
+    n = _attn_library().qvt_exp_attn2_blocks_per_sm()
+    if n <= 0:
+        raise RuntimeError(f"exp_attn2: occupancy query failed ({-n})")
+    return n
 
 
 def plan_exp_attn2(device, d, heads):

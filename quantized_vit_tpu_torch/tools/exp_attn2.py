@@ -6,11 +6,16 @@ shape (32 images of 224 rows, 197 real tokens, 12 heads of 64, qkv N(0,
 
     python3 -m quantized_vit_tpu_torch.tools.exp_attn2 [J ...] [--device cpu]
 
-J in 1, 2, 4: a block takes the same (query tile, head) item of J images
-one after another; J = 1 is K6's grid. Every J computes one function,
-K6's (``ops/attention.py:attention_qkv_plain``). Output as
-``exp_attn``'s; the yardstick is bf16 ``scaled_dot_product_attention`` at
-[32, 12, 224, 64].
+J in 1, 2, 4: a block takes its share of the query tiles of J images of
+one head, one image after another (the grid has min(J, query tiles)
+shares, so every J gives 384 blocks at the tool's shape); each image's K
+and V are read once a block, through a TMA-fed ring, and a warp streams
+a 16-row query tile over the keys on the FP64 tensor cores. Every J
+computes one function, K6's (``ops/attention.py:attention_qkv_plain``).
+Output as ``exp_attn``'s; the yardstick is bf16
+``scaled_dot_product_attention`` at [32, 12, 224, 64]. CPU tests of the
+kernel's maps and order: ``tests/test_torch_attn2_layout.py``; its edge
+shapes on the card: ``chip_smoke.py`` phase 3d (``EXP_ATTN2_EDGES``).
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""The measurements behind K18's design (``csrc/attn_ablation.cu``), on
-the card:
+"""The measurements behind K18's and K19's designs
+(``csrc/attn_ablation.cu``), on the card:
 
 - the FP64 tensor cores' rate (``mma.sync`` m16n8k4 .f64) with 2, 4 and 8
   independent accumulators a warp, and with 8 and one other instruction
   interleaved a MMA: an f32 -> f64 conversion (also one per two MMAs), an
   f64 -> f32 conversion, a 64-bit shared-memory load (the MMA's B), a
   16-byte shared-memory load per two MMAs (its halves their Bs; both loads
-  at the same index, wrapped at a power of two), an ``expf``. 132 blocks
+  at the same index, wrapped at a power of two), an ``expf``, and a bf16
+  -> f64 operand built by integer operations (also one per two MMAs);
+  the m16n8k8 and m16n8k16 .f64 forms alone (K19's). 132 blocks
   of 256 threads, the loop from registers; cycles a MMA a sub-partition
-  at the data sheet's 1.98 GHz;
+  at the data sheet's 1.98 GHz (an m16n8k4's work: the deeper forms count
+  2 and 4);
 - with ``--builds``: the build of ``attn_ablation.cu`` alone, with and
   without ``--split-compile=0`` (``ops/_build.py:SOURCE_FLAGS``).
 
@@ -43,11 +46,36 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2],
       : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
       : "d"(a[0]), "d"(a[1]), "d"(b));
 }
+// the deeper f64 forms K19 runs (attn_ablation.cu:dmma8, dmma16)
+__device__ __forceinline__ void dmma8(double (&d)[4], const double (&a)[4],
+                                      const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[8],
+                                       const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+// a bf16 -> f64 operand built by integer operations (a route measured for
+// K19's design and not taken): the half e of w times 2^-896
+__device__ __forceinline__ double bits_f64(unsigned w, int e) {
+  const int x = static_cast<int>(e ? w : w << 16);
+  return __hiloint2double((x >> 3) & static_cast<int>(0x8FFFE000u), 0);
+}
 // KIND 0: MMAs alone; 1: + an f32 -> f64 conversion a MMA; 2: + an f64 ->
 // f32 conversion a MMA; 3: + a 64-bit shared load a MMA (its B); 4: + an
 // expf a MMA; 5: + a 16-byte shared load per two MMAs (.x the first's B,
-// .y the second's); 6: + an f32 -> f64 conversion per two MMAs. KIND 3 and
-// 5 load at the same index ix
+// .y the second's); 6: + an f32 -> f64 conversion per two MMAs; 7: + a
+// bf16 -> f64 built by integer operations a MMA (the halves of a word in
+// turn); 8: + one per two MMAs; 9, 10: the m16n8k8 and m16n8k16 forms
+// alone. KIND 3 and 5 load at the same index ix
 template <int CH, int KIND>
 __global__ void __launch_bounds__(256, 1) probe(double* out, int iters,
                                                 float f) {
@@ -79,7 +107,18 @@ __global__ void __launch_bounds__(256, 1) probe(double* out, int iters,
         b = (c & 1) ? v2.y : v2.x;
       }
       if (KIND == 6 && (c & 1) == 0) b = static_cast<double>(fx + c);
-      dmma(acc[c], a, b);
+      if (KIND == 7) b = bits_f64(__float_as_uint(fx) + c, c & 1);
+      if (KIND == 8 && (c & 1) == 0) b = bits_f64(__float_as_uint(fx) + c, 0);
+      if (KIND == 9) {
+        const double a4[4] = {a[0], a[1], a[0], a[1]}, b2[2] = {b, b};
+        dmma8(acc[c], a4, b2);
+      } else if (KIND == 10) {
+        const double a8[8] = {a[0], a[1], a[0], a[1], a[0], a[1], a[0], a[1]};
+        const double b4[4] = {b, b, b, b};
+        dmma16(acc[c], a8, b4);
+      } else {
+        dmma(acc[c], a, b);
+      }
     }
     fx += 1e-7f;
   }
@@ -94,7 +133,7 @@ __global__ void __launch_bounds__(256, 1) probe(double* out, int iters,
     return (int)cudaGetLastError();                                     \
   }
 RUN(8, 0) RUN(4, 0) RUN(2, 0) RUN(8, 1) RUN(8, 6) RUN(8, 2) RUN(8, 3)
-RUN(8, 5) RUN(8, 4)
+RUN(8, 5) RUN(8, 4) RUN(8, 7) RUN(8, 8) RUN(8, 9) RUN(8, 10)
 """
 
 CASES = ((8, 0, "MMAs alone, 8 chains a warp"),
@@ -102,7 +141,13 @@ CASES = ((8, 0, "MMAs alone, 8 chains a warp"),
          (8, 1, "+ f32 -> f64 a MMA"), (8, 6, "+ f32 -> f64 per two MMAs"),
          (8, 2, "+ f64 -> f32 a MMA"), (8, 3, "+ 64-bit shared load a MMA"),
          (8, 5, "+ 16-byte shared load per two MMAs"),
-         (8, 4, "+ expf a MMA"))
+         (8, 4, "+ expf a MMA"),
+         (8, 7, "+ bf16 -> f64 from bits a MMA"),
+         (8, 8, "+ bf16 -> f64 from bits per two MMAs"),
+         (8, 9, "m16n8k8 MMAs alone, 8 chains"),
+         (8, 10, "m16n8k16 MMAs alone, 8 chains"))
+# the k-depth of each case's MMA (its FLOP: 16 x 8 x depth x 2)
+DEPTH = {9: 8, 10: 16}
 ITERS = 4096
 BLOCKS, WARPS = 132, 8
 
@@ -134,7 +179,8 @@ def mma_rates(dev) -> list:
         e.record()
         torch.cuda.synchronize(dev)
         us = s.elapsed_time(e) / 10 * 1e3
-        mmas = ITERS * ch  # a warp's; two warps a sub-partition
+        # a warp's MMAs in m16n8k4 units; two warps a sub-partition
+        mmas = ITERS * ch * DEPTH.get(kind, 4) // 4
         rows.append({"case": what, "us": us,
                      "tflops": BLOCKS * WARPS * mmas * 1024 / us / 1e6,
                      "cycles_per_mma": us * 1e-6 * 1.98e9 / (2 * mmas)})
@@ -168,7 +214,8 @@ def main(argv=None) -> int:
     print(card(), flush=True)
     for r in mma_rates(dev):
         print(f"{r['case']}: {r['us']:.1f} us, {r['tflops']:.1f} TFLOP/s, "
-              f"{r['cycles_per_mma']:.1f} cycles a MMA a sub-partition",
+              f"{r['cycles_per_mma']:.1f} cycles an m16n8k4's work a "
+              f"sub-partition",
               flush=True)
     if args.builds:
         b = build_seconds()
