@@ -105,12 +105,19 @@ def _slot_tiles(nkr, s):
 
 @pytest.mark.parametrize("nk,nv", [(1, 1), (37, 37), (208, 197),
                                    (300, 290), (20, 0)])
-def test_maps_take_each_index_once(nk, nv):
-    """Every (image, query tile) once over the grid, for J = 1, 2, 4, the
-    tiles of a warp in order of images; every key read staged once a
-    pass; each warp done with every stage exactly once; every key read
-    once a tile over its slots' key tiles, from the stage and row the
-    kernel reads; the keys left out are past n_valid."""
+@pytest.mark.parametrize("head_dim", [8, 40, 64])
+def test_maps_take_each_index_once(head_dim, nk, nv):
+    """Every (image, query tile) once over the grid (a block a head), for
+    J = 1, 2, 4, the tiles of a warp in order of images; every key read
+    staged once a pass; each warp done with every stage exactly once;
+    every key read once a tile over its slots' key tiles, from the stage
+    and row the kernel reads; the keys left out are past n_valid; every
+    head column once over the scores' k-lanes (t, t + 4 of octet m: 8 m +
+    2 t, + 1) and over P.V's column tiles, for the head's octets alone."""
+    hdt = head_dim // 8
+    cols = [8 * m + 2 * t + e for m in range(hdt) for t in range(4)
+            for e in range(2)]
+    assert sorted(cols) == list(range(head_dim))
     n = max(nk, 37)
     nkr = _nkr(nk, nv)
     assert nkr >= min(nk, nv) and (nkr == nk or nkr - nv < 8)
