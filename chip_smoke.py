@@ -116,8 +116,9 @@ Phases, in order; any failure exits non-zero:
    shape, bf16 ``scaled_dot_product_attention``), each tool's count of
    bit-exact modes logged; then K18's ten modes at ``EXP_ATTN_EDGES``
    (bf16 K/V rows past 208 keys, narrow heads, ragged tiles) and K19 at
-   ``EXP_ATTN2_EDGES`` (keys past its 256-key ring, ragged chunks and
-   tiles, heads of 8 and 40, one key, no mask, scores past the clamp),
+   ``EXP_ATTN2_EDGES`` (keys past its 224-key ring, ragged chunks and
+   tiles, heads of 8 and 40, one key, no key, no mask, scores past the
+   clamp, a qkv off 16-byte alignment),
    each family's bit-exact rows logged;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
@@ -3027,16 +3028,22 @@ EXP_ATTN_EDGES = ((2, 256, 256, 3, 64, 0.1), (2, 300, 216, 2, 64, 0.1),
                   (2, 100, 90, 3, 40, 0.1), (2, 224, 208, 2, 64, 1.0),
                   (2, 17, 1, 1, 16, 0.1))
 # K19 (exp_attn2) beyond the tool's shape, on the card: (images, tokens,
-# n_valid, heads, head_dim, x's scale, J): keys past the ring's 256 (the
-# keys streamed again a round of tiles), a key count off the 8-key chunk
-# and ragged query tiles, heads of 8 and 40, one key, no mask, scores past
-# the clamp at 100 (p up to 2^100: f64 sums no longer exact, the levels
-# contract)
-EXP_ATTN2_EDGES = ((2, 300, 290, 2, 64, 0.1, 1), (2, 250, 233, 3, 64, 0.1, 2),
-                   (4, 37, 37, 2, 8, 0.1, 4), (2, 100, 90, 3, 40, 0.1, 1),
-                   (2, 17, 1, 1, 16, 0.1, 2), (2, 64, 64, 2, 64, 0.1, 1),
-                   (2, 224, 197, 2, 64, 8.0, 1),
-                   (4, 520, 515, 2, 64, 0.1, 4))
+# n_valid, heads, head_dim, x's scale, J, qkv's offset in elements into
+# its storage): keys past the ring's 224 (the keys streamed again a round
+# of tiles), a key count off the 8-key chunk and ragged query tiles, heads
+# of 8 and 40, one key, no key at all (no TMA map encoded), no mask,
+# scores past the clamp at 100 (p up to 2^100: f64 sums no longer exact,
+# the levels contract), a qkv that is not 16-byte aligned (the wrapper's
+# copy)
+EXP_ATTN2_EDGES = ((2, 300, 290, 2, 64, 0.1, 1, 0),
+                   (2, 250, 233, 3, 64, 0.1, 2, 0),
+                   (4, 37, 37, 2, 8, 0.1, 4, 0),
+                   (2, 100, 90, 3, 40, 0.1, 1, 0),
+                   (2, 17, 1, 1, 16, 0.1, 2, 0), (2, 20, 0, 1, 8, 0.1, 1, 0),
+                   (2, 64, 64, 2, 64, 0.1, 1, 0),
+                   (2, 224, 197, 2, 64, 8.0, 1, 0),
+                   (4, 520, 515, 2, 64, 0.1, 4, 0),
+                   (2, 224, 197, 3, 64, 0.1, 2, 1))
 
 
 def ablations_phase(dev, record, parity):
@@ -3131,32 +3138,35 @@ def exp_attn_edges(dev, parity):
 def exp_attn2_edges(dev, parity):
     """K19 at :data:`EXP_ATTN2_EDGES`, each row's J against
     exp_attn2_plain on seeded qkv (the tool's levels contract), a parity
-    row each; returns (rows, bit-exact rows, the blocks of K19's kernel an
-    SM holds). Launched outside any path's count."""
+    row each; returns (rows, bit-exact rows). Launched outside any path's
+    count."""
     from quantized_vit_tpu_torch.ops import ablations as ab
     from quantized_vit_tpu_torch.tools import _ablation
 
     rows = exact = 0
-    for b, n, nv, h, hd, scale, j in EXP_ATTN2_EDGES:
-        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (b, n, 3 * h * hd)) * scale).to(torch.bfloat16).to(dev)
+    for b, n, nv, h, hd, scale, j, off in EXP_ATTN2_EDGES:
+        shape = (b, n, 3 * h * hd)
+        src = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            shape) * scale).to(torch.bfloat16).to(dev)
+        x = torch.empty(src.numel() + off, dtype=torch.bfloat16,
+                        device=dev)[off:].view(shape)
+        x.copy_(src)
         kw = dict(heads=h, n_valid=nv)
         call = lambda: ab.exp_attn2(x, 0.05, j_imgs=j, **kw)
         r = _ablation.check(_ablation.Mode(
             str(j), call, call, lambda: ab.exp_attn2_plain(x, 0.05, **kw),
             bytes=0, ops=0, kind="bf16", levels=True))
         parity.add({"kernel": "exp_attn2",
-                    "case": f"J {j} b{b} n{n} valid{nv} h{h}x{hd} x{scale}",
+                    "case": f"J {j} b{b} n{n} valid{nv} h{h}x{hd} x{scale}"
+                            f" offset {off}",
                     "check": r["contract"],
                     "max_abs_err": float(r["max_abs_err"]),
                     "share_differ": r["share_differ"],
                     "bit_exact": r["bit_exact"], "ok": r["ok"]})
         rows += 1
         exact += r["bit_exact"]
-    bps = ab.exp_attn2_blocks_per_sm()
-    log(f"[ablations exp_attn2 edges] {exact} of {rows} bit-exact; "
-        f"{bps} blocks an SM (the design's 3)")
-    return {"rows": rows, "bit_exact": exact, "blocks_per_sm": bps}
+    log(f"[ablations exp_attn2 edges] {exact} of {rows} bit-exact")
+    return {"rows": rows, "bit_exact": exact}
 
 
 def ablation_kernel_rows(record, abl):

@@ -25,8 +25,9 @@
 //   K18 at B 8, N 224, nk 208, 12 heads of 64: 1.15 GFLOP; 9.24 MB (q
 //       at 224 rows, k and v at 208, the int8 levels: 2.76 us, bytes);
 //       FP64 ceiling 17.1 us
-//   K19 at B 32, N 224, nk 208: 4.58 GFLOP; 36.96 MB (11.03 us, bytes);
-//       FP64 ceiling 68.4 us
+//   K19 at B 32, N 224, nk 208, 197 real keys: 4.34 GFLOP; 35.88 MB (q
+//       at 224 rows, k and v at the 197 real keys, the levels: 10.71 us,
+//       bytes); FP64 ceiling 64.7 us
 //
 // K19's design: no row max, so a query tile's keys stream through p and
 // P.V chunk by chunk with no row ever whole. Blocks of 4 warps (128
@@ -88,10 +89,11 @@
 // bf16, a true division, rintf. The mode is a template argument: a stage
 // switched off costs nothing.
 
+#include <cuda.h>  // CUtensorMap and its enums (no driver library linked)
+
 #include <algorithm>
 
 #include "qkv_attention.cuh"
-#include "wgmma_int8.cuh"
 
 namespace {
 
@@ -743,8 +745,29 @@ __device__ __forceinline__ void a2_ldsm_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+// QVT_A2_OFF: a build with one of K19's stages switched off or swapped,
+// for timing only (tools/exp_attn_design.py --stages; 0, none, in the
+// kernels' own build): 1 exp2f (p = min(s, 100)); 2 the bf16 -> f64
+// operand conversions (the bits moved, not converted); 3 the scores'
+// MMAs (and so their loads); 4 P.V's MMAs (and so V's loads); 5 the
+// operands built by integer operations (sign, exponent + 896, mantissa;
+// subnormals converted: every finite bf16 exactly) in place of the
+// conversion. Only 0 and 5 compute the function.
+#ifndef QVT_A2_OFF
+#define QVT_A2_OFF 0
+#endif
+constexpr int A2_OFF = QVT_A2_OFF;
+
 // the bf16 in the low (e = 0) or high half of w as an f64 MMA operand
 __device__ __forceinline__ double bf_f64(uint32_t w, int e) {
+  if (A2_OFF == 2) return __hiloint2double(e ? w : w << 16, 0);
+  if (A2_OFF == 5) {
+    const uint32_t x = e ? w & 0xFFFF0000u : w << 16, ex = x & 0x7F800000u;
+    if (ex == 0 && (x & 0x007F0000u))
+      return static_cast<double>(__uint_as_float(x));
+    const int hi = (static_cast<int>(x) >> 3) & static_cast<int>(0x8FFFE000u);
+    return __hiloint2double(hi + (ex ? 896 << 20 : 0), 0);
+  }
   return static_cast<double>(bf_half(w, e));
 }
 // d = a.b + d on the FP64 tensor cores, m16n8k8 (g = lane / 4, t = lane
@@ -821,7 +844,8 @@ __device__ __forceinline__ void a2_wait(const A2Ring& R, int slot,
         : "memory");
     if (done) return;
     if ((++polls & 1023) == 0) {
-      const uint64_t now = qvt::wg::globaltimer_ns();
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
       if (t0 == 0)
         t0 = now;
       else if (now - t0 > 10000000000ull)
@@ -863,7 +887,7 @@ __device__ __forceinline__ void a2_done(const Attn2Args& a, const A2Ring& R,
 // of an ldmatrix of K (row lane % 8 of key tile lane / 8 % 2; xs = lane %
 // 8 << 4, its swizzle); `lq`, `qx`: the same in the q tile (row lane % 8 +
 // 8 (lane / 8 % 2), chunk parity lane / 16).
-template <int HDC, int JT>
+template <int JT>
 __device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
                                         uint32_t lk, uint32_t lq,
                                         uint32_t xs, uint32_t qx, int key0,
@@ -896,7 +920,7 @@ __device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
       for (int j = 0; j < JT; ++j) {
         const double kk[2] = {bf_f64(kb[2 * i + j], 0),
                               bf_f64(kb[2 * i + j], 1)};
-        dmma8(sd[j], qa, kk);
+        if (A2_OFF != 3) dmma8(sd[j], qa, kk);
       }
     }
   }
@@ -906,9 +930,9 @@ __device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
     float p[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      p[q] = key0 + 8 * j + (q & 1) < nv
-                 ? exp2f(fminf(static_cast<float>(sd[j][q]), 100.f))
-                 : 0.f;
+      const float s = fminf(static_cast<float>(sd[j][q]), 100.f);
+      p[q] = key0 + 8 * j + (q & 1) < nv ? (A2_OFF == 1 ? s : exp2f(s))
+                                         : 0.f;
       rs[q >> 1] += static_cast<double>(p[q]);
     }
     pp[j][0] = bf2(p[0], p[1]);
@@ -930,7 +954,7 @@ __device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
       if (nt >= HDT) break;
       const double vv[2] = {bf_f64(vb[nt >> 2][nt & 3], 0),
                             bf_f64(vb[nt >> 2][nt & 3], 1)};
-      dmma8(o[nt], pa, vv);
+      if (A2_OFF != 4) dmma8(o[nt], pa, vv);
     }
   }
 }
@@ -939,7 +963,8 @@ __device__ __forceinline__ void a2_keys(uint32_t kt, uint32_t qt,
 // by slot, 16 keys a step); `last`: this warp's last tile over those
 // stages (it releases each slot after use). `qt`: this warp's q tile in
 // shared memory. HDC: the head's 8-column tiles, fixed at compile time
-// (8: the tool's heads of 64; 0: a.hd / 8 at run time).
+// (8: the tool's heads of 64, 2-4% faster than the run-time width on the
+// H100 in turns, tools/exp_attn2.py; 0: a.hd / 8 at run time).
 template <int HDC>
 __device__ __forceinline__ void a2_tile(const Attn2Args& a, const A2Ring& R,
                                         uint32_t qt, int mt, int b, int h,
@@ -1005,11 +1030,11 @@ __device__ __forceinline__ void a2_tile(const Attn2Args& a, const A2Ring& R,
     for (int j2 = 0; j2 < 2; ++j2) {
       const int left = kts - 2 * j2;
       if (left >= 2)
-        a2_keys<HDC, 2>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
-                        a.nv, HDT, o, rs);
+        a2_keys<2>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
+                   a.nv, HDT, o, rs);
       else if (left == 1)
-        a2_keys<HDC, 1>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
-                        a.nv, HDT, o, rs);
+        a2_keys<1>(sb + 2048 * j2, qt, lk2, lq, xs, qx, key0 + 16 * j2,
+                   a.nv, HDT, o, rs);
     }
     if (last) a2_done(a, R, k0 + s, h, lane);
     if (++slot == A2_NSLOT) {
@@ -1057,7 +1082,8 @@ __global__ void __launch_bounds__(A2_NT, 3)
   // warp), the keys streamed again for each
   const int passes = a.ns <= A2_NSLOT ? 1 : ((nmt + S - 1) / S + 3) >> 2;
   A2Ring R;
-  R.ring = (qvt::wg::smem_u32(smem) + 1023) & ~1023u;
+  R.ring = (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) &
+           ~1023u;
   const uint32_t qt = R.ring + A2_NSLOT * A2_SLOT + warp * A2_QT;
   R.per_img = passes * a.ns;
   R.total = a.J * R.per_img;
@@ -1069,7 +1095,7 @@ __global__ void __launch_bounds__(A2_NT, 3)
                                                  4 * threadIdx.x)
                  : "memory");
   }
-  qvt::wg::mbar_fence_init();
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
   if (threadIdx.x == 0)
     for (int k = 0; k < min(A2_NSLOT, R.total); ++k) a2_stage(a, R, k, h);
@@ -1134,21 +1160,15 @@ int a2_encode(CUtensorMap* map, const void* qkv, int B, int n, int nk,
 
 // K19's shared memory above 48 KB, and all of the SM's as shared memory
 // (three blocks' rings)
-template <typename K>
-cudaError_t a2_setup(K kern) {
+template <int HDC>
+cudaError_t launch_attn2(const Attn2Args& a, int B, cudaStream_t st) {
+  auto kern = attn2_kernel<HDC>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, A2_SMEM);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
-  return e;
-}
-
-template <int HDC>
-cudaError_t launch_attn2(const Attn2Args& a, int B, cudaStream_t st) {
-  auto kern = attn2_kernel<HDC>;
-  const cudaError_t e = a2_setup(kern);
   if (e != cudaSuccess) return e;
   kern<<<dim3(a.S, a.heads, B / a.J), A2_NT, A2_SMEM, st>>>(a);
   return cudaGetLastError();
@@ -1237,15 +1257,4 @@ extern "C" int qvt_exp_attn2(const void* qkv, void* out, const void* prm,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(hd == HDM ? launch_attn2<HDM / 8>(a, B, st)
                                     : launch_attn2<0>(a, B, st));
-}
-
-// the blocks of K19's kernel an SM holds at once (the card's occupancy
-// calculator), or a negative CUDA error
-extern "C" int qvt_exp_attn2_blocks_per_sm() {
-  int nb = 0;
-  cudaError_t e = a2_setup(attn2_kernel<HDM / 8>);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, attn2_kernel<HDM / 8>, A2_NT, A2_SMEM);
-  return e == cudaSuccess ? nb : -static_cast<int>(e);
 }

@@ -101,6 +101,14 @@ def use_probe_build() -> None:
         _LIBS.clear()
 
 
+def use_library(stem: str, path) -> None:
+    """Load the library at ``path`` in place of ``csrc/<stem>.cu``'s own
+    from now on (a probe's variant build, ``tools/exp_attn_design.py
+    --stages``)."""
+    with _LOCK:
+        _LIBS[stem] = ctypes.CDLL(str(path))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(_flags).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())

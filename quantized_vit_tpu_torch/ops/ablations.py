@@ -547,8 +547,6 @@ def _attn_library():
         lib.qvt_exp_attn.restype = I
         lib.qvt_exp_attn2.argtypes = [P, P, P, I, I, I, I, I, I, I, F, I, P]
         lib.qvt_exp_attn2.restype = I
-        lib.qvt_exp_attn2_blocks_per_sm.argtypes = []
-        lib.qvt_exp_attn2_blocks_per_sm.restype = I
     return lib
 
 
@@ -610,15 +608,6 @@ def run_exp_attn2(plan, qkv, *, j_imgs, n_valid=ATTN_N_VALID):
     _build.check(rc, "exp_attn2")
     _build.count_launch("exp_attn2")
     return out
-
-
-def exp_attn2_blocks_per_sm() -> int:
-    """The blocks of ``exp_attn2``'s kernel an SM of the current card holds
-    at once (the card's occupancy calculator; the design's 3)."""
-    n = _attn_library().qvt_exp_attn2_blocks_per_sm()
-    if n <= 0:
-        raise RuntimeError(f"exp_attn2: occupancy query failed ({-n})")
-    return n
 
 
 def plan_exp_attn2(device, d, heads):

@@ -37,7 +37,6 @@ def build(dev, modes=MODES, shape=None) -> Tool:
     rng = np.random.default_rng(0)
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * hd)) * 0.1).to(
         torch.bfloat16).to(dev)
-    nk = ab._n_keys(n, nv, 2)
     kw = dict(heads=h, n_valid=nv)
     cuda = dev.type == "cuda"
     plan = ab.plan_exp_attn2(dev, 0.05, h) if cuda else None
@@ -50,9 +49,11 @@ def build(dev, modes=MODES, shape=None) -> Tool:
                                                   n_valid=nv))
             if cuda else call,
             lambda: ab.exp_attn2_plain(qkv, 0.05, **kw),
-            # q at every row, k and v at the first nk; the int8 levels
-            bytes=b * (n + 2 * nk) * h * hd * 2 + b * n * h * hd,
-            ops=4 * b * h * n * nk * hd, kind="bf16"))
+            # q at every row, k and v at the nv real keys (the masked
+            # ones add nothing, and the kernel reads them only up to its
+            # last 8-key tile); the int8 levels
+            bytes=b * (n + 2 * nv) * h * hd * 2 + b * n * h * hd,
+            ops=4 * b * h * n * nv * hd, kind="bf16"))
     return Tool(out, sdpa_yard(b, h, n, hd, dev) if cuda else None,
                 "sdpa_bf16")
 

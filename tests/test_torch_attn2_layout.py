@@ -257,6 +257,33 @@ def test_bf16_operands_convert_exactly():
     assert np.isfinite(top * top) and (top * top) / top == top
 
 
+def test_integer_built_operands():
+    """The bf16 -> f64 operand built by integer operations, as
+    ``attn_ablation.cu:bf_f64`` builds it at ``QVT_A2_OFF`` 5 and
+    ``tools/exp_attn_design.py:bits_f64_exact`` times it (sign, exponent +
+    896, mantissa; subnormals converted), is every finite bf16 exactly;
+    the probe's stand-in without the bias (``bits_f64``) is every finite
+    bf16 times 2^-896, so it times less work than the route."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    x = bits << np.uint32(16)
+    f32 = x.view(np.float32)
+    finite = np.isfinite(f32)
+    field = (x.view(np.int32) >> 3) & np.int32(np.uint32(0x8FFFE000).view(
+        np.int32))
+    ex = x & np.uint32(0x7F800000)
+    sub = (ex == 0) & ((x & np.uint32(0x007F0000)) != 0)
+    hi = (field + np.where(ex != 0, 896 << 20, 0).astype(np.int32)).view(
+        np.uint32)
+    built = (hi.astype(np.uint64) << np.uint64(32)).view(np.float64)
+    built = np.where(sub, f32.astype(np.float64), built)
+    want = f32[finite].astype(np.float64)
+    assert np.array_equal(built[finite].view(np.uint64),
+                          want.view(np.uint64))
+    stand_in = (field.view(np.uint32).astype(np.uint64)
+                << np.uint64(32)).view(np.float64)
+    assert np.array_equal(stand_in[finite], want * 2.0 ** -896)
+
+
 @functools.lru_cache(maxsize=None)
 def _tool_qkv():
     """The root tool's qkv (seed 0, N(0, 0.1^2) in bf16), its first four
