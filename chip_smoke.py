@@ -118,7 +118,10 @@ Phases, in order; any failure exits non-zero:
    (bf16 K/V rows past 208 keys, narrow heads, ragged tiles) and K19 at
    ``EXP_ATTN2_EDGES`` (keys past its 224-key ring, ragged chunks and
    tiles, heads of 8 and 40, one key, no key, no mask, scores past the
-   clamp, a qkv off 16-byte alignment),
+   clamp, a qkv off 16-byte alignment) and K17 (and one K16 row) at
+   ``EXP_PRO2_EDGES`` (M off the token panel and under one, N off 8,
+   K 80 and 1280 and a depth past the panel's window, random g and b with
+   clipped levels, the bias and folded modes), each bit-exact,
    each family's bit-exact rows logged;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
@@ -3046,6 +3049,24 @@ EXP_ATTN2_EDGES = ((2, 300, 290, 2, 64, 0.1, 1, 0),
                    (2, 224, 197, 3, 64, 0.1, 2, 1))
 
 
+# K17 (exp_pro2) and K16 (exp_pro) beyond the tools' shape, on the card:
+# (tool, mode, M, K, N, x's scale, random g and b): M off the 112-token
+# panel (1000) and under one (17), N = 1540 (a multiple of 4, not of 8),
+# K = 80 (under one 128-level step) and 1280 (ViT-H/14's width), K = 3072
+# (a panel held a window of steps at a time), g ~ N(0, 16) and b ~ N(0, 4)
+# (levels clipped and not), the bias and folded modes, K16's quant
+EXP_PRO2_EDGES = (("exp_pro2", "lean", 1000, 768, 3072, 2.0, False),
+                  ("exp_pro2", "lean", 17, 768, 3072, 2.0, False),
+                  ("exp_pro2", "bias", 1000, 768, 1540, 2.0, True),
+                  ("exp_pro2", "vscale", 300, 80, 3072, 1.0, True),
+                  ("exp_pro2", "folded", 1040, 1280, 5120, 1.0, True),
+                  ("exp_pro2", "bias", 2000, 768, 3072, 1.0, True),
+                  ("exp_pro2", "folded", 1000, 1280, 1540, 1.0, True),
+                  ("exp_pro2", "lean", 300, 3072, 768, 1.0, True),
+                  ("exp_pro", "quant", 1000, 768, 1540, 4.0, False),
+                  ("exp_pro", "ln_quant", 17, 80, 64, 1.0, True))
+
+
 def ablations_phase(dev, record, parity):
     """Phase 3d: every mode of the six ablation tools
     (``quantized_vit_tpu_torch/tools/exp_*.py``) at the root tools'
@@ -3055,8 +3076,9 @@ def ablations_phase(dev, record, parity):
     version (a parity row), then the tool's own timings
     (``tools/_ablation.py``: the launch by events and by device time, the
     plain version, the bound) and its yardstick; on the card, K18 at
-    :data:`EXP_ATTN_EDGES` (:func:`exp_attn_edges`) and K19 at
-    :data:`EXP_ATTN2_EDGES` (:func:`exp_attn2_edges`).
+    :data:`EXP_ATTN_EDGES` (:func:`exp_attn_edges`), K19 at
+    :data:`EXP_ATTN2_EDGES` (:func:`exp_attn2_edges`) and K17 and K16 at
+    :data:`EXP_PRO2_EDGES` (:func:`exp_pro2_edges`).
     """
     import importlib
 
@@ -3094,6 +3116,7 @@ def ablations_phase(dev, record, parity):
     if dev.type == "cuda":
         out["exp_attn_edges"] = exp_attn_edges(dev, parity)
         out["exp_attn2_edges"] = exp_attn2_edges(dev, parity)
+        out["exp_pro2_edges"] = exp_pro2_edges(dev, parity)
     bad = [f for f in parity.failures if f.split(" ")[0] in ABLATIONS]
     if bad:
         raise Failed("ablation parity: " + "; ".join(bad[:8]))
@@ -3166,6 +3189,57 @@ def exp_attn2_edges(dev, parity):
         rows += 1
         exact += r["bit_exact"]
     log(f"[ablations exp_attn2 edges] {exact} of {rows} bit-exact")
+    return {"rows": rows, "bit_exact": exact}
+
+
+def exp_pro2_edges(dev, parity):
+    """K17 and K16 at :data:`EXP_PRO2_EDGES`, each row's mode through its
+    wrapper against fc1_ablation_plain on seeded inputs (bit-exact), a
+    parity row each; returns (rows, bit-exact rows). Launched outside any
+    path's count."""
+    from quantized_vit_tpu_torch.ops import ablations as ab
+    from quantized_vit_tpu_torch.tools import _ablation
+
+    rows = exact = 0
+    for tool, mode, m, k, n, scale, rand_gb in EXP_PRO2_EDGES:
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.standard_normal((m, k)) * scale).to(
+            torch.bfloat16).to(dev)
+        w = torch.from_numpy(rng.integers(-16, 17, (k, n)).astype(
+            np.int8)).to(dev)
+        if rand_gb:
+            g = rng.standard_normal(k) * 4.0
+            b = rng.standard_normal(k) * 2.0
+        else:
+            g, b = np.full(k, 20.0), np.zeros(k)
+        g, b = (torch.from_numpy(v.astype(np.float32)).to(dev)
+                for v in (g, b))
+        sc = torch.from_numpy((rng.uniform(0.5, 1.5, n) * 1e-3).astype(
+            np.float32)).to(dev)
+        bias = torch.from_numpy((rng.standard_normal(n) * 0.5).astype(
+            np.float32)).to(dev)
+        if tool == "exp_pro2":
+            v = ab.EXP_PRO2_MODES[mode]
+            call = lambda: ab.exp_pro2(x, w, g, b, mode, scale=sc, bias=bias)
+            plain = lambda: ab.fc1_ablation_plain(
+                x, w, v, ln_g=g, ln_b=b, scale=sc if v.vscale else ab.SCALE,
+                bias=bias if v.bias else None)
+        else:
+            v = ab.EXP_PRO_MODES[mode]
+            call = lambda: ab.exp_pro(x, w, g, b, mode)
+            plain = lambda: ab.fc1_ablation_plain(x, w, v, ln_g=g, ln_b=b)
+        r = _ablation.check(_ablation.Mode(mode, call, call, plain, bytes=0,
+                                           ops=0, kind="int8"))
+        parity.add({"kernel": tool,
+                    "case": f"{mode} M{m} K{k} N{n} x{scale}"
+                            f"{' random g, b' if rand_gb else ''}",
+                    "check": r["contract"],
+                    "max_abs_err": float(r["max_abs_err"]),
+                    "share_differ": r["share_differ"],
+                    "bit_exact": r["bit_exact"], "ok": r["ok"]})
+        rows += 1
+        exact += r["bit_exact"]
+    log(f"[ablations exp_pro2 edges] {exact} of {rows} bit-exact")
     return {"rows": rows, "bit_exact": exact}
 
 

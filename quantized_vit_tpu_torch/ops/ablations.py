@@ -44,6 +44,7 @@ tensors do.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -191,10 +192,11 @@ def fc1_prologue_plain(x, prologue, *, ln_g=None, ln_b=None):
 def int_acc(lv, w, fmt="int8"):
     """The exact int32 ``lv @ W`` of int8 levels and int8 (or packed int4,
     ``quant/packing.py``'s layout) weights: ``torch._int_mm`` on the card
-    where it takes the shape, else a float64 product."""
+    where it takes the shape (cuBLAS refused K = 80 on an H100), else a
+    float64 product."""
     wl = unpack_int4(w, axis=0) if fmt == "int4" else w
     m, k = lv.shape
-    if lv.is_cuda and m > 16 and k % 8 == 0 and wl.shape[1] % 8 == 0:
+    if lv.is_cuda and m > 16 and k % 32 == 0 and wl.shape[1] % 8 == 0:
         return torch._int_mm(lv.contiguous(), wl.contiguous())
     return int_dot(lv, wl)
 
@@ -277,14 +279,213 @@ def fc1_ablation_plain(x, w, variant: Fc1Variant, *, fmt="int8",
 # ---------------------------------------------------------------------------
 
 
+# The float-prologue kernel (csrc/fc1_ablation.cu:fc1_ln_kernel): the
+# panels' token counts it is built for, a tile's features, a step's depth
+# bytes, a warpgroup's ring stages at most, the dynamic shared memory a
+# block may take, the epilogue's byte-stage row, the block's threads
+FC1_LN_NW = (64, 112)
+FC1_LN_WINDOW_NW = 64  # the one panel size built for a window of the panel
+FC1_LN_TILE = 64
+FC1_LN_BK = 128
+FC1_LN_MAX_STAGES = 8
+FC1_LN_SMEM = 231424
+FC1_LN_EPI_RS = 80
+FC1_LN_THREADS = 288
+# The picker's model of an SM's rates (estimates, not fitted to this
+# kernel): int8 MACs and L2 -> shared bytes a us (K10-K12's fit,
+# ops/int4_matmul.py), outputs of the erf-GELU epilogue a us (~30 lane
+# operations an output at 128 lanes and ~1.75 GHz), LayerNorm elements a
+# us (two f64 conversions an element at 16 a clock)
+FC1_LN_MACS_US = 7_000_000
+FC1_LN_L2_BYTES_US = 74_000
+FC1_LN_OUT_US = 7_500
+FC1_LN_ROW_US = 14_000
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fc1Layout:
+    """The float-prologue kernel's work split (:func:`fc1_ln_layout`): a
+    panel of ``nw`` tokens x ``f`` output features an item, the items of
+    a panel consecutive (panel-major) and dealt to ``grid`` blocks in
+    contiguous runs; ``win`` steps of 128 levels of the panel held in
+    shared memory at once (all of them, or a window: then ``f`` is 128,
+    one tile a warpgroup); ``stages`` of a warpgroup's weight ring."""
+
+    m: int
+    k: int
+    n: int
+    nw: int
+    f: int
+    win: int
+    stages: int
+    sms: int
+
+    @property
+    def steps(self) -> int:
+        return _cdiv(self.k, FC1_LN_BK)
+
+    @property
+    def tiles(self) -> int:
+        """Tiles of 64 features across N (the last one ragged)."""
+        return _cdiv(self.n, FC1_LN_TILE)
+
+    @property
+    def panels(self) -> int:
+        return _cdiv(self.m, self.nw)
+
+    @property
+    def nf(self) -> int:
+        """Items a panel: feature ranges of ``f``."""
+        return _cdiv(self.tiles * FC1_LN_TILE, self.f)
+
+    @property
+    def items(self) -> int:
+        return self.panels * self.nf
+
+    @property
+    def grid(self) -> int:
+        return min(self.items, self.sms)
+
+    @property
+    def whole(self) -> bool:
+        return self.win >= self.steps
+
+    @property
+    def waves(self) -> int:
+        """The most items a block takes."""
+        return _cdiv(self.items, self.grid)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The launch's dynamic shared memory: the 1024-byte alignment, the
+        panel window, two rings, a full and an empty barrier a stage at
+        most for each, two byte stages (``csrc/fc1_ablation.cu:ln_smem``)."""
+        return _ln_smem(self.nw, self.win, self.stages)
+
+    def item(self, i: int):
+        """(first token, first feature, tiles of 64 features) of item i."""
+        p, fr = divmod(i, self.nf)
+        f0 = fr * self.f
+        return (p * self.nw, f0,
+                min(self.f // FC1_LN_TILE, self.tiles - f0 // FC1_LN_TILE))
+
+    def tile_order(self, i: int):
+        """Item i's tiles (of 64 features, from its first) in the kernel's
+        order: from the panel's index mod their count on, so the items of
+        one feature range start apart (a window of the panel: in
+        order)."""
+        p = i // self.nf
+        n = self.item(i)[2]
+        rot = p % n if self.whole else 0
+        return [(j + rot) % n for j in range(n)]
+
+    def block_items(self, b: int) -> range:
+        """Block b's items, a contiguous run."""
+        return range(b * self.items // self.grid,
+                     (b + 1) * self.items // self.grid)
+
+    def weight_bytes(self) -> int:
+        """Bytes of the weight copy the items read through L2 (each item
+        its features' boxes)."""
+        rows = sum(self.item(i)[2] for i in range(self.nf)) * FC1_LN_TILE
+        return self.panels * rows * self.steps * FC1_LN_BK
+
+
+def _ln_smem(nw: int, win: int, stages: int) -> int:
+    return (1024 + win * nw * FC1_LN_BK
+            + 2 * stages * FC1_LN_TILE * FC1_LN_BK
+            + 2 * 2 * FC1_LN_MAX_STAGES * 8 + 2 * nw * FC1_LN_EPI_RS)
+
+
+def _ln_fit(nw: int, steps: int):
+    """(win, stages) of a panel of ``nw`` tokens at ``steps`` steps: the
+    most of the panel that fits beside two rings of two stages, then as
+    many stages as fit; None if not even one step does."""
+    stage2 = 2 * FC1_LN_TILE * FC1_LN_BK
+    free = FC1_LN_SMEM - _ln_smem(nw, 0, 0)
+    win = min(steps, (free - 2 * stage2) // (nw * FC1_LN_BK))
+    if win < 1:
+        return None
+    stages = min(FC1_LN_MAX_STAGES, (free - win * nw * FC1_LN_BK) // stage2)
+    return win, stages
+
+
+def _ln_makespan(lay: Fc1Layout) -> float:
+    """The model's time of the busiest block of ``lay``: each distinct
+    panel's levels (each window's, in window mode), then its tiles, each
+    the longest of its products, its weight bytes from L2 and its epilogue
+    (the ping-pong hides the shorter ones)."""
+    rows_us = lay.nw * lay.k / FC1_LN_ROW_US * _cdiv(lay.steps, lay.win)
+    tile_us = max(FC1_LN_TILE * lay.nw * lay.k / FC1_LN_MACS_US,
+                  FC1_LN_TILE * lay.steps * FC1_LN_BK / FC1_LN_L2_BYTES_US,
+                  FC1_LN_TILE * lay.nw / FC1_LN_OUT_US)
+    full_tiles = lay.f // FC1_LN_TILE
+    short = full_tiles - lay.item(lay.nf - 1)[2]  # the last range's shortfall
+    worst = 0.0
+    for b in range(lay.grid):
+        r = lay.block_items(b)
+        if not len(r):
+            continue
+        i0, i1 = r.start, r.stop
+        panels = (i1 - 1) // lay.nf - i0 // lay.nf + 1
+        tiles = (i1 - i0) * full_tiles - (i1 // lay.nf - i0 // lay.nf) * short
+        if not lay.whole:
+            panels = i1 - i0  # every item computes its windows again
+        worst = max(worst, panels * rows_us + tiles * tile_us)
+    return worst
+
+
+@functools.lru_cache(maxsize=None)
+def fc1_ln_layout(m: int, k: int, n: int, sms: int = 132) -> Fc1Layout:
+    """The float-prologue kernel's work split for x [m, k] against a
+    weight [k, n] on a card of ``sms`` SMs, one block an SM: of every
+    panel size in :data:`FC1_LN_NW` whose panel fits beside its rings (or
+    :data:`FC1_LN_WINDOW_NW`'s, a window of it at a time), and every
+    feature range ``f`` (a multiple of 64; 128 in window mode), the one
+    whose busiest block the model (:func:`_ln_makespan`) finishes first;
+    ties to the larger panel and the fewer items. At the tools' shape
+    (7168 x 768 x 3072, 132 SMs): 112 tokens x 1536 features, 128 items in
+    one wave, the weight read 64 times (151 MB through L2)."""
+    steps = _cdiv(k, FC1_LN_BK)
+    tiles = _cdiv(n, FC1_LN_TILE)
+    best = None
+    for nw in sorted(FC1_LN_NW, reverse=True):
+        fit = _ln_fit(nw, steps)
+        if fit is None:
+            continue
+        win, stages = fit
+        if win < steps:
+            if nw != FC1_LN_WINDOW_NW:
+                continue
+            fs = [2 * FC1_LN_TILE]
+        else:
+            fs = sorted({_cdiv(tiles, nf) * FC1_LN_TILE
+                         for nf in range(1, tiles + 1)}, reverse=True)
+        for f in fs:
+            lay = Fc1Layout(m, k, n, nw, f, win, stages, sms)
+            t = _ln_makespan(lay)
+            if best is None or t < best[0] * (1 - 1e-9):
+                best = (t, lay)
+    if best is None:
+        raise ValueError(f"fc1_ablation: no panel fits K {k}")
+    return best[1]
+
+
 @dataclasses.dataclass(frozen=True)
 class Fc1Plan:
     """An fc1 ablation call site of M rows, prepared once by
-    :func:`plan_fc1`: the weight in the kernels' n-major layout
-    (:func:`~._build.n_major`), the variant, its f32 vectors on the device
+    :func:`plan_fc1`: the weight in the kernels' layout (n-major,
+    :func:`~._build.n_major`; for a float prologue in swizzled boxes,
+    :func:`fc1_ln_weight`), the variant, its f32 vectors on the device
     (the scale vector, the bias, the LayerNorm g and b, where it has
-    them), the level scratch (float prologues), the output every launch
-    writes, and the card's SM count; so a launch is the library call."""
+    them), the output every
+    launch writes, the card's SM count, and for a float prologue the work
+    split and the kernel's host state (made once); so a launch is the
+    library call."""
 
     w_t: torch.Tensor
     int4: bool
@@ -298,15 +499,17 @@ class Fc1Plan:
     ln_g: Optional[torch.Tensor]
     ln_b: Optional[torch.Tensor]
     prm: torch.Tensor
-    lv: Optional[torch.Tensor]
     out: torch.Tensor
     sms: int
+    layout: Optional[Fc1Layout] = None
+    state: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
 
 def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
              bias=None, ln_g=None, ln_b=None) -> Fc1Plan:
     """The call site of ``variant`` on M rows with w [K, N] int8 (or
-    packed int4 [K/2, N]) on the card; operands as
+    packed int4 [K/2, N], levels in only) on the card; operands as
     :func:`fc1_ablation_plain`."""
     _build.require_cuda("fc1_ablation", w)
     if w.dtype != torch.int8 or fmt not in ("int8", "int4"):
@@ -315,6 +518,10 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
     pair = (variant.prologue, variant.epilogue)
     if pair not in FC1_BUILT:
         raise ValueError(f"fc1_ablation: no kernel built for {pair}")
+    if fmt == "int4" and variant.prologue != "levels":
+        raise ValueError("fc1_ablation: packed int4 weights take int8 "
+                         "levels in (the float prologues' kernel reads "
+                         "int8 weights)")
     k = w.shape[0] * (2 if fmt == "int4" else 1)
     n = w.shape[1]
     _raise_if(fc1_kernel_limit(m, k, n, fmt))
@@ -324,24 +531,73 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
         vec = torch.broadcast_to(_f32(scale, dev).reshape(-1),
                                  (n,)).contiguous()
     b = _f32(bias, dev).reshape(-1).contiguous() if variant.bias else None
-    g = bb = lv = None
+    g = bb = None
     if variant.prologue == "ln":
         g = _f32(ln_g, dev).reshape(-1).contiguous()
         bb = _f32(ln_b, dev).reshape(-1).contiguous()
-    if variant.prologue != "levels":
-        lv = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sms = _card_shape(dev.index)[0]
+    layout = state = None
+    if variant.prologue == "levels":
+        w_t = _build.n_major(w)
+    else:
+        w_t = fc1_ln_weight(w, k, n)
+        layout = fc1_ln_layout(m, k, n, sms)
+        state = _fc1_ln_state(w_t, layout)
     return Fc1Plan(
-        w_t=_build.n_major(w), int4=fmt == "int4", m=m, k=k, n=n,
-        variant=variant, scale=0.0 if variant.vscale else float(scale),
-        vec=vec, bias=b, ln_g=g, ln_b=bb, prm=_unit_params(dev.index),
-        lv=lv, out=torch.empty((m, n), dtype=torch.int8, device=dev),
-        sms=_card_shape(dev.index)[0])
+        w_t=w_t, int4=fmt == "int4", m=m, k=k, n=n, variant=variant,
+        scale=0.0 if variant.vscale else float(scale), vec=vec, bias=b,
+        ln_g=g, ln_b=bb, prm=_unit_params(dev.index),
+        out=torch.empty((m, n), dtype=torch.int8, device=dev), sms=sms,
+        layout=layout, state=state)
+
+
+def fc1_ln_weight(w, k: int, n: int) -> torch.Tensor:
+    """The float-prologue kernel's copy of an int8 weight [K, N]: the
+    n-major levels cut into boxes of 64 features x 128 levels of depth
+    (zeros past N and K), box (f, s) the ``f * steps + s``-th 8 KB, each
+    box's rows of 128 bytes under the 128-byte swizzle that wgmma's
+    descriptors read (16-byte piece p of row r at p ^ (r % 8)): a ring
+    stage is one contiguous bulk copy. [np / 64 * steps * 64, 128]."""
+    steps = _cdiv(k, FC1_LN_BK)
+    np_ = _cdiv(n, FC1_LN_TILE) * FC1_LN_TILE
+    wt = torch.zeros((np_, steps * FC1_LN_BK), dtype=torch.int8,
+                     device=w.device)
+    wt[:n, :k] = w.transpose(0, 1)
+    boxes = wt.reshape(np_ // FC1_LN_TILE, FC1_LN_TILE, steps, 8, 16)
+    boxes = boxes.permute(0, 2, 1, 3, 4)  # [f][s][row][piece][16]
+    rows = torch.arange(FC1_LN_TILE, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (rows[:, None] % 8)
+    idx = src[None, None, :, :, None].expand(boxes.shape)
+    return torch.gather(boxes, 3, idx).reshape(-1, FC1_LN_BK).contiguous()
+
+
+def _fc1_ln_state(w_t, layout: Fc1Layout):
+    """The float-prologue kernel's host state for its weight copy ``w_t``
+    (:func:`fc1_ln_weight`) at ``layout``: the layout checked, the grid
+    sized."""
+    lib = _fc1_library()
+    state = ctypes.create_string_buffer(lib.qvt_fc1_ln_state_bytes())
+    _build.check(lib.qvt_fc1_ln_prepare(
+        ctypes.addressof(state), w_t.data_ptr(),
+        _cdiv(layout.n, FC1_LN_TILE) * FC1_LN_TILE, layout.m, layout.k,
+        layout.n, layout.nw, layout.f, layout.win, layout.stages),
+        "fc1_ablation")
+    return state
+
+
+def fc1_plan_at(plan: Fc1Plan, layout: Fc1Layout) -> Fc1Plan:
+    """``plan`` (a float prologue's) at another work split of its shape
+    (``tools/fc1_design.py``)."""
+    if (layout.m, layout.k, layout.n) != (plan.m, plan.k, plan.n):
+        raise ValueError(f"layout {layout} does not fit the plan")
+    return dataclasses.replace(plan, layout=layout,
+                               state=_fc1_ln_state(plan.w_t, layout))
 
 
 def fc1_kernel_limit(m: int, k: int, n: int, fmt: str) -> Optional[str]:
-    """Why the fc1 ablation kernel cannot take these shapes, or None: it
-    reads x's levels and the weight in 16-byte pieces (K % 16 == 0; packed
-    int4 K/2 % 16 == 0) and stores four levels at a time (N % 4 == 0)."""
+    """Why the fc1 ablation kernels cannot take these shapes, or None: they
+    read x's levels and the weight in 16-byte pieces (K % 16 == 0; packed
+    int4 K/2 % 16 == 0) and store four levels at a time (N % 4 == 0)."""
     if k % 16 or (fmt == "int4" and (k // 2) % 16) or n % 4 or m < 1:
         return (f"fc1_ablation: needs K % 16 == 0 (packed int4: K/2 % 16 == "
                 f"0) and N % 4 == 0, got M {m}, K {k}, N {n} ({fmt})")
@@ -350,18 +606,25 @@ def fc1_kernel_limit(m: int, k: int, n: int, fmt: str) -> Optional[str]:
 
 def _fc1_library():
     lib = _build.library("fc1_ablation")
-    fn = lib.qvt_fc1_ablation
-    if fn.argtypes is None:
+    if lib.qvt_fc1_ablation.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
-        fn.argtypes = ([P, I, P, I, I] + [P] * 6 + [F] * 4 + [P]
-                       + [I] * 7 + [P])
-        fn.restype = I
+        lib.qvt_fc1_ablation.argtypes = ([P, P, I, I, P, P] + [F] * 3
+                                         + [P] + [I] * 5 + [P])
+        lib.qvt_fc1_ablation.restype = I
+        lib.qvt_fc1_ln_state_bytes.argtypes = []
+        lib.qvt_fc1_ln_state_bytes.restype = I
+        lib.qvt_fc1_ln_prepare.argtypes = [P, P] + [I] * 8
+        lib.qvt_fc1_ln_prepare.restype = I
+        lib.qvt_fc1_ln.argtypes = ([P, P, I] + [P] * 5 + [F] * 4 + [P]
+                                   + [I] * 4 + [P])
+        lib.qvt_fc1_ln.restype = I
     return lib
 
 
 def run_fc1(plan: Fc1Plan, x, counter: str):
     """Launches the fc1 ablation kernel of ``plan`` on a CUDA x [M, K]
-    (int8 levels, or bf16/f32 for a float prologue), counted under
+    (int8 levels: K1's tile; bf16/f32 for a float prologue: the wgmma
+    kernel with the levels built in shared memory), counted under
     ``counter`` (the tool's name); returns the plan's int8 output [M, N],
     which the plan's next launch overwrites."""
     _build.require_cuda(counter, x)
@@ -374,13 +637,21 @@ def run_fc1(plan: Fc1Plan, x, counter: str):
                         f"bf16 or f32 x for a float prologue")
     x = x.contiguous()
     v = plan.variant
-    code = _fc1_library().qvt_fc1_ablation(
-        x.data_ptr(), _build.dtype_code(x.dtype), plan.w_t.data_ptr(),
-        int(plan.int4), plan.k, _build.ptr(plan.vec), _build.ptr(plan.bias),
-        _build.ptr(plan.ln_g), _build.ptr(plan.ln_b), plan.prm.data_ptr(),
-        _build.ptr(plan.lv), plan.scale, INV_D, OUT_D, LN_EPS,
-        plan.out.data_ptr(), plan.m, plan.n, FC1_PROLOGUES[v.prologue],
-        FC1_EPILOGUES[v.epilogue], TOP, TOP, plan.sms, _build.stream())
+    lib = _fc1_library()
+    if v.prologue == "levels":
+        code = lib.qvt_fc1_ablation(
+            x.data_ptr(), plan.w_t.data_ptr(), int(plan.int4), plan.k,
+            _build.ptr(plan.vec), _build.ptr(plan.bias), plan.scale, INV_D,
+            OUT_D, plan.out.data_ptr(), plan.m, plan.n,
+            FC1_EPILOGUES[v.epilogue], TOP, plan.sms, _build.stream())
+    else:
+        code = lib.qvt_fc1_ln(
+            ctypes.addressof(plan.state), x.data_ptr(),
+            _build.dtype_code(x.dtype), _build.ptr(plan.vec),
+            _build.ptr(plan.bias), _build.ptr(plan.ln_g),
+            _build.ptr(plan.ln_b), plan.prm.data_ptr(), plan.scale, INV_D,
+            OUT_D, LN_EPS, plan.out.data_ptr(), FC1_PROLOGUES[v.prologue],
+            FC1_EPILOGUES[v.epilogue], TOP, TOP, _build.stream())
     _build.check(code, counter)
     _build.count_launch(counter)
     return plan.out
@@ -388,8 +659,8 @@ def run_fc1(plan: Fc1Plan, x, counter: str):
 
 @functools.lru_cache(maxsize=None)
 def _unit_params(index: int) -> torch.Tensor:
-    """d = t = 1 for the prologues' quantizer (csrc/gemm_phases.cuh:
-    row_levels reads them from device memory): levels of x itself."""
+    """d = t = 1 for the prologues' quantizer (csrc/fc1_ablation.cu:
+    fc1_ln_kernel reads them from device memory): levels of x itself."""
     return torch.ones((2,), dtype=torch.float32,
                       device=torch.device("cuda", index))
 
