@@ -81,15 +81,15 @@
 // What holds it on an H100 (tools/fc1_design.py --stages; PERF.md row
 // 17): the weight stream and the steps that do not hide under it. The
 // ring with x's loads alone takes about half the kernel's time (~27 GB/s
-// an SM), and as long when every stage reads the same L2-hot box: its
-// depth and the L2-to-shared latency bound it, not L2's bytes. The
-// LayerNorm, the products, the epilogue's arithmetic and its stores each
-// add to it, since a ring of ~1 tile a warpgroup (the panel takes 84 KB)
-// frees a stage only once its products are done. Measured and not kept:
-// clusters of 2 and 4 blocks sharing each box by a multicast copy (each
-// block half the box into both: 2.2-2.7x and 6.5x slower, the ring alone
-// 3.8x slower at 2), half a panel a warpgroup with both reading each
-// stage, 64-token panels.
+// an SM), as long when every stage reads the same L2-hot box (not L2's
+// bytes) and with one 15-stage ring for both warpgroups (not its depth).
+// The LayerNorm, the products, the epilogue's arithmetic and its stores
+// each add to it, since a stage is freed only once its products are done.
+// Measured and not kept: clusters of 2 and 4 blocks sharing each box by a
+// multicast copy (each block half the box into both: 2.2-2.7x and 6.5x
+// slower, the ring alone 3.8x slower at 2), that shared 15-stage ring
+// (4% slower), half a panel a warpgroup with both reading each stage,
+// 64-token panels.
 //
 // The levels-in modes (K16 int8_in, K20, K21): fc1_kernel, K1's tile
 // (int8_gemm.cuh:gemm_tile: a three-stage cp.async ring, ldmatrix,
