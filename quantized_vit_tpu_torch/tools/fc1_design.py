@@ -53,14 +53,14 @@ from ._ablation import card
 # add), one int -> f32 conversion, one shared-memory byte store. The
 # card's issue: 128 lanes a clock an SM, 132 SMs, at most 1.98 GHz (H100
 # SXM data sheet).
-EPI_ISSUE_PER_OUTPUT = 21 + 1 + 1
+EPI_SLOTS_PER_OUTPUT = 21 + 1 + 1
 SMS, LANES, CLOCK = 132, 128, 1.98e9
 
 
 def epilogue_floor_us(m: int, n: int) -> float:
     """The least time the erf-GELU epilogue's instructions take to issue
     on an H100 for an m x n output (all SMs, every clock, no stall)."""
-    return m * n * EPI_ISSUE_PER_OUTPUT / (SMS * LANES) / CLOCK * 1e6
+    return m * n * EPI_SLOTS_PER_OUTPUT / (SMS * LANES) / CLOCK * 1e6
 
 
 # QVT_F1_OFF's builds of fc1_ablation.cu (0: the kernels' own)
