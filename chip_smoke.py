@@ -120,8 +120,9 @@ Phases, in order; any failure exits non-zero:
    tiles, heads of 8 and 40, one key, no key, no mask, scores past the
    clamp, a qkv off 16-byte alignment) and K17 (and one K16 row) at
    ``EXP_PRO2_EDGES`` (M off the token panel and under one, N off 8,
-   K 80 and 1280 and a depth past the panel's window, random g and b with
-   clipped levels, the bias and folded modes), each bit-exact,
+   K 80 and 1280, a depth that one window of the 64-token panel holds
+   and one past that window, random g and b with clipped levels, the
+   bias and folded modes), each bit-exact,
    each family's bit-exact rows logged;
 4. the serving CLI's forward behind a batcher: single requests and pairs
    (buckets 1 and 2, the chain through K6), then the CLI's own burst of 64
@@ -3063,6 +3064,7 @@ EXP_PRO2_EDGES = (("exp_pro2", "lean", 1000, 768, 3072, 2.0, False),
                   ("exp_pro2", "bias", 2000, 768, 3072, 1.0, True),
                   ("exp_pro2", "folded", 1000, 1280, 1540, 1.0, True),
                   ("exp_pro2", "lean", 300, 3072, 768, 1.0, True),
+                  ("exp_pro2", "bias", 500, 2048, 1540, 1.0, True),
                   ("exp_pro", "quant", 1000, 768, 1540, 4.0, False),
                   ("exp_pro", "ln_quant", 17, 80, 64, 1.0, True))
 

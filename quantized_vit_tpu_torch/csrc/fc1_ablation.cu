@@ -36,14 +36,14 @@
 // of two consumer warpgroups and a producer warp (288 threads), no level
 // scratch and no grid barrier (the first K16/K17 ran K1's design: the
 // levels of every row into a scratch [M][K], a grid barrier, then K1's
-// mma.sync tile). An item is a panel of NW tokens (64 or 112) x a range
-// of F output features (a multiple of 64); the items go to the blocks in
-// contiguous runs, panel-major, so a block that holds several items of
-// one panel computes its levels once. The work split
-// (ops/ablations.py:fc1_ln_layout) weighs the products, the weight's L2
-// bytes (F x K a panel, read again by each panel) and the waves: at the
-// tools' shape NW 112 and F 1536, 128 items in one wave, 151 MB of weight
-// and 22 MB of x through L2 (the old tile read ~264 MB).
+// mma.sync tile). An item is a panel of NW tokens x a range of F output
+// features (a multiple of 64); the items go to the blocks in contiguous
+// runs, panel-major, so a block that holds several items of one panel
+// computes its levels once. The work split (ops/ablations.py:
+// fc1_ln_layout) picks F from the waves and the weight's L2 bytes (F x K
+// a panel, read again by each panel): at the tools' shape NW 112 and F
+// 1536, 128 items in one wave, 151 MB of weight and 22 MB of x through L2
+// (the old tile read ~264 MB).
 //   1. The panel's levels: the consumer warps take its rows four at a
 //      time, a warp a row (gemm_phases.cuh:row_levels' arithmetic: the
 //      LayerNorm moments as f64 sums rounded once, 1/sqrtf, the clip and
@@ -51,23 +51,23 @@
 //      operand: [step][token][128 bytes] under the 128-byte swizzle
 //      (wgmma_int8.cuh), zeros past K and past M; then
 //      fence.proxy.async.shared::cta and a consumer barrier. The producer
-//      is already streaming the weight meanwhile. Where the whole panel
-//      does not fit beside the rings (K > 1536 at 112 tokens), a 64-token
-//      instantiation holds a window of steps at a time, each window's
-//      levels computed again from x, an item then two tiles, one a
-//      warpgroup, summed over the windows.
+//      is already streaming the weight meanwhile. A panel of 112 tokens is
+//      held whole up to K 1536; deeper, a 64-token instantiation holds a
+//      window of steps at a time, each window's levels computed again from
+//      x, an item then two tiles, one a warpgroup, summed over the
+//      windows.
 //   2. The products: a tile is 64 features x NW tokens, outT = W lvT on
 //      wgmma m64nNk32 (the weight the A operand from its ring, the panel
-//      the B operand, both through descriptors). The plan keeps the
-//      weight in boxes of 64 features x 128 levels, each already in the
-//      swizzled layout (ops/ablations.py:fc1_ln_weight), so a ring stage
-//      is one contiguous 8 KB bulk copy by the TMA unit (cp.async.bulk,
-//      completing on the stage's full mbarrier); one ring a warpgroup,
-//      filled in the tiles' order, each stage freed by its warps'
-//      arrivals on its empty mbarrier. A warpgroup keeps one product
-//      group in flight and frees each stage as the next one's products go
-//      out. The items of one feature range start their tiles at different
-//      places (the panel's index mod the tiles).
+//      the B operand, both through descriptors). The weight's n-major copy
+//      (ops/int4_matmul.py:kernel_weight, as K10's) comes by TMA from a
+//      CUtensorMap encoded once a plan: a ring stage is one box of 64
+//      features x 128 levels under the 128-byte swizzle, zeros past the
+//      copy, completing on the stage's full mbarrier; one ring a
+//      warpgroup, filled in the tiles' order, each stage freed by its
+//      warps' arrivals on its empty mbarrier. A warpgroup keeps one
+//      product group in flight and frees each stage as the next one's
+//      products go out. The items of one feature range start their tiles
+//      at different places (the panel's index mod the tiles).
 //   3. Ping-pong: the tiles of a block alternate between the warpgroups,
 //      and a warpgroup issues its tile's products only after the other
 //      has issued its previous tile's (two named barriers), so one
@@ -404,10 +404,10 @@ constexpr int L_MAX_STAGES = 8, L_SMEM = 231424, L_EPI_RS = 80;
 constexpr int L_CBAR = 1, L_WBAR = 2, L_OBAR = 4;
 
 struct LnArgs {
-  // the weight copy in its boxes: [np / 64][steps][64 rows][128 bytes],
-  // each box's rows under the 128-byte swizzle (ops/ablations.py:
-  // fc1_ln_weight), one contiguous 8 KB box a ring stage
-  const uint8_t* wb;
+  // the weight's n-major copy [np][wb] (ops/int4_matmul.py:kernel_weight),
+  // boxes of 64 features x 128 levels under the 128-byte swizzle, zeros
+  // past the copy: one box a ring stage
+  CUtensorMap tm_w;
   const void* x;     // [M][K] bf16 or f32, 16-byte aligned
   int x_dt;
   const float* ln_g;  // [K] (LayerNorm)
@@ -441,18 +441,6 @@ __device__ __forceinline__ void turn_wait(int w) {
 __device__ __forceinline__ void turn_give(int w) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(L_OBAR + w), "n"(L_CT)
                : "memory");
-}
-
-// a contiguous bulk copy of `bytes` (a multiple of 16) from device memory
-// at `src` into `dst`, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(wg::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-      "r"(wg::smem_u32(bar))
-      : "memory");
 }
 
 // item i's first token and feature, its tiles of 64 features, and the
@@ -647,11 +635,11 @@ __device__ __forceinline__ void panel_levels(const LnArgs& a, int t0, int s0,
 }
 
 // The producer (one thread): the weight boxes of this block's tiles, in
-// the consumers' order, each into its warpgroup's ring
-template <int NW>
+// the consumers' order, each into its warpgroup's ring (WHOLE: the tiles
+// alternate between the rings; else an item's tile w is warpgroup w's)
+template <int NW, bool WHOLE>
 __device__ __forceinline__ void ln_produce(const LnArgs& a, uint8_t* ring,
                                            uint64_t* full, uint64_t* empty) {
-  const bool whole = a.win >= a.steps;
   int i0, i1;
   block_items(a, i0, i1);
   uint32_t u[2] = {0u, 0u};
@@ -661,17 +649,14 @@ __device__ __forceinline__ void ln_produce(const LnArgs& a, uint8_t* ring,
     for (int s0 = 0; s0 < a.steps; s0 += a.win) {
       const int s1 = min(s0 + a.win, a.steps);
       for (int j = 0; j < t.ntile; ++j, ++q) {
-        const int w = whole ? q & 1 : j;
-        const long long box =
-            static_cast<long long>(t.f0 / L_TILE + (whole ? t.tile(j) : j)) *
-            a.steps;
+        const int w = WHOLE ? q & 1 : j;
+        const int f = ONE_BOX ? 0 : t.f0 + (WHOLE ? t.tile(j) : j) * L_TILE;
         for (int ks = s0; ks < s1; ++ks, ++u[w]) {
           const int s = u[w] % a.stages, b = w * L_MAX_STAGES + s;
           wg::mbar_wait(&empty[b], ((u[w] / a.stages) & 1) ^ 1);
           wg::mbar_arrive_tx(&full[b], L_STAGE);
-          bulk_load(ring + (w * a.stages + s) * L_STAGE,
-                    a.wb + (ONE_BOX ? 0 : (box + ks) * L_STAGE), L_STAGE,
-                    &full[b]);
+          wg::tma_load_2d(ring + (w * a.stages + s) * L_STAGE, &a.tm_w,
+                          ONE_BOX ? 0 : ks * L_BK, f, &full[b]);
         }
       }
     }
@@ -865,7 +850,7 @@ __device__ __forceinline__ void ln_consume(const LnArgs& a, uint8_t* panel,
 
 template <int PRO, int EP, int NW, bool WHOLE>
 __global__ void __launch_bounds__(L_NT, 1)
-    fc1_ln_kernel(const LnArgs a) {
+    fc1_ln_kernel(const __grid_constant__ LnArgs a) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* panel = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -883,7 +868,7 @@ __global__ void __launch_bounds__(L_NT, 1)
   }
   __syncthreads();
   if (warp == L_CT / 32) {
-    if (lane == 0) ln_produce<NW>(a, ring, full, empty);
+    if (lane == 0) ln_produce<NW, WHOLE>(a, ring, full, empty);
   } else {
     ln_consume<PRO, EP, NW, WHOLE>(
         a, panel, ring, full, empty,
@@ -893,9 +878,12 @@ __global__ void __launch_bounds__(L_NT, 1)
 
 using LnKernel = void (*)(LnArgs);
 
-// the instantiation of (prologue, epilogue, panel tokens, the panel held
-// whole), null where not built (ops/ablations.py:FC1_BUILT, FC1_LN_NW;
-// a window of the panel at 64 tokens only)
+// the panel sizes built: held whole (ops/ablations.py:FC1_LN_NW), and a
+// window of the panel at a time (FC1_LN_WINDOW_NW)
+constexpr int L_NW = 112, L_WINDOW_NW = 64;
+
+// the instantiation of (prologue, epilogue) at panel size nw, null where
+// not built (ops/ablations.py:FC1_BUILT)
 template <int NW, bool WHOLE>
 LnKernel ln_kernel_nw(int pro, int ep) {
   if (pro == PRO_LN && ep == EP_GELU_ERF)
@@ -907,10 +895,9 @@ LnKernel ln_kernel_nw(int pro, int ep) {
   return nullptr;
 }
 
-LnKernel ln_kernel(int pro, int ep, int nw, bool whole) {
-  if (!whole) return nw == 64 ? ln_kernel_nw<64, false>(pro, ep) : nullptr;
-  if (nw == 64) return ln_kernel_nw<64, true>(pro, ep);
-  if (nw == 112) return ln_kernel_nw<112, true>(pro, ep);
+LnKernel ln_kernel(int pro, int ep, int nw) {
+  if (nw == L_NW) return ln_kernel_nw<L_NW, true>(pro, ep);
+  if (nw == L_WINDOW_NW) return ln_kernel_nw<L_WINDOW_NW, false>(pro, ep);
   return nullptr;
 }
 
@@ -921,12 +908,17 @@ int ln_smem(int nw, int win, int stages) {
          2 * 2 * L_MAX_STAGES * 8 + 2 * nw * L_EPI_RS;
 }
 
-// The host's part, once a plan (qvt_fc1_ln_prepare): the layout and the
-// grid
+// The host's part, once a plan (qvt_fc1_ln_prepare): the weight's map,
+// the layout and the grid
 struct LnState {
-  const uint8_t* wb;
+  CUtensorMap tm_w;
   int M, K, N, nw, F, nf, items, steps, win, stages, tiles, smem, grid;
 };
+
+LnState* ln_state_of(void* p) {
+  return reinterpret_cast<LnState*>((reinterpret_cast<uintptr_t>(p) + 63) &
+                                    ~uintptr_t(63));
+}
 
 }  // namespace
 
@@ -982,36 +974,40 @@ extern "C" int qvt_fc1_ablation(const void* x, const void* w, int w_int4,
 }
 
 // Bytes of the float-prologue kernel's host state a caller allocates for
-// one plan.
+// one plan (a CUtensorMap is 64-byte aligned: the state starts at the
+// first 64-byte boundary of the buffer).
 extern "C" int qvt_fc1_ln_state_bytes() {
-  return static_cast<int>(sizeof(LnState));
+  return static_cast<int>(sizeof(LnState)) + 64;
 }
 
-// Once a plan (ops/ablations.py:fc1_ln_layout): checks the layout and
-// sizes the grid on the current device. wb: the plan's weight copy in its
-// boxes (ops/ablations.py:fc1_ln_weight: [np / 64][steps][64][128] int8
-// levels, np a multiple of 64 and at least N, 16-byte aligned); nw: the
-// panel's tokens (64, 112); F: features an item (a multiple of 64; 128
-// when win < the panel's steps); win: steps of the panel held at once;
-// stages: a warpgroup's ring (2 .. 8).
-extern "C" int qvt_fc1_ln_prepare(void* state, const void* wb, int np, int M,
-                                  int K, int N, int nw, int F, int win,
-                                  int stages) {
-  LnState* s = static_cast<LnState*>(state);
+// Once a plan (ops/ablations.py:fc1_ln_layout): checks the layout, encodes
+// the weight's map and sizes the grid on the current device. w: the plan's
+// n-major weight copy [np][wb] int8 levels (ops/int4_matmul.py:
+// kernel_weight: wb a multiple of 16, at least 128 and K; np a multiple of
+// 64, at least N; 16-byte aligned); nw: the panel's tokens (112: the panel
+// held whole, win == its steps; 64: a window of win steps at a time, F
+// 128); F: features an item (a multiple of 64); stages: a warpgroup's ring
+// (2 .. 8).
+extern "C" int qvt_fc1_ln_prepare(void* state, const void* w, int wb, int np,
+                                  int M, int K, int N, int nw, int F,
+                                  int win, int stages) {
+  LnState* s = ln_state_of(state);
   const int steps = (K + L_BK - 1) / L_BK;
   const int tiles = (N + L_TILE - 1) / L_TILE;
   const long long panels = (M + static_cast<long long>(nw) - 1) / nw;
   const int nf = F > 0 ? (tiles * L_TILE + F - 1) / F : 0;
-  const bool whole = win >= steps;
-  if (ln_kernel(PRO_LN, EP_GELU_ERF, nw, whole) == nullptr || M < 1 ||
-      K < 16 || K % 16 || N < 4 || N % 4 || np < N || np % L_TILE ||
-      F < L_TILE || F % L_TILE || win < 1 || win > steps ||
-      (!whole && F != 2 * L_TILE) || stages < 2 || stages > L_MAX_STAGES ||
-      panels * nf > (1 << 30) || ln_smem(nw, win, stages) > L_SMEM ||
-      (reinterpret_cast<uintptr_t>(wb) & 15))
+  if (ln_kernel(PRO_LN, EP_GELU_ERF, nw) == nullptr || M < 1 || K < 16 ||
+      K % 16 || N < 4 || N % 4 || wb % 16 || wb < L_BK || wb < K ||
+      np < N || np % L_TILE || F < L_TILE || F % L_TILE || win < 1 ||
+      win > steps || (nw == L_NW && win != steps) ||
+      (nw == L_WINDOW_NW && F != 2 * L_TILE) || stages < 2 ||
+      stages > L_MAX_STAGES || panels * nf > (1 << 30) ||
+      ln_smem(nw, win, stages) > L_SMEM ||
+      (reinterpret_cast<uintptr_t>(w) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   std::memset(static_cast<void*>(s), 0, sizeof(LnState));
-  s->wb = static_cast<const uint8_t*>(wb);
+  const int e = qvt::encode_tiled_int8(&s->tm_w, w, wb, np, wb, L_TILE);
+  if (e) return e;
   s->M = M;
   s->K = K;
   s->N = N;
@@ -1027,7 +1023,7 @@ extern "C" int qvt_fc1_ln_prepare(void* state, const void* wb, int np, int M,
   cudaError_t ce = cudaSuccess;
   for (int pro : {PRO_QUANT, PRO_LN})
     for (int ep : {EP_GELU_ERF, EP_FOLDED}) {
-      const LnKernel k = ln_kernel(pro, ep, nw, whole);
+      const LnKernel k = ln_kernel(pro, ep, nw);
       if (k != nullptr && ce == cudaSuccess)
         ce = cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1054,12 +1050,11 @@ extern "C" int qvt_fc1_ln(void* state, const void* x, int x_dt,
                           float scale_s, float inv_d, float out_d, float eps,
                           void* out, int prologue, int epilogue, int act_top,
                           int out_top, void* stream) {
-  const LnState* s = static_cast<const LnState*>(state);
+  const LnState* s = ln_state_of(state);
   auto mis16 = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
-  const LnKernel k =
-      ln_kernel(prologue, epilogue, s->nw, s->win >= s->steps);
+  const LnKernel k = ln_kernel(prologue, epilogue, s->nw);
   if (k == nullptr || (x_dt != qvt::DT_BF16 && x_dt != qvt::DT_F32) ||
       mis16(x) || mis16(scale_v) || mis16(bias) || prm == nullptr ||
       (reinterpret_cast<uintptr_t>(out) & 3) ||
@@ -1068,7 +1063,7 @@ extern "C" int qvt_fc1_ln(void* state, const void* x, int x_dt,
       (epilogue == EP_FOLDED && !(out_d > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   LnArgs a;
-  a.wb = s->wb;
+  a.tm_w = s->tm_w;
   a.x = x;
   a.x_dt = x_dt;
   a.ln_g = static_cast<const float*>(ln_g);

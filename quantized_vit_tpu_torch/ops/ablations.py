@@ -57,6 +57,7 @@ from .attention import (_card_shape, _n_keys, _qkv_head_dim,
 from .fused import (_ERF_COEFS, _SQRT2, _erf_f32, _f32, _gelu_f32,
                     _gelu_quant_folded, _layernorm_f32, _quantize_f32,
                     sum_f32)
+from .int4_matmul import kernel_weight
 from .reference import int_dot
 from ..quant.packing import unpack_int4
 
@@ -280,19 +281,21 @@ def fc1_ablation_plain(x, w, variant: Fc1Variant, *, fmt="int8",
 
 
 # The float-prologue kernel (csrc/fc1_ablation.cu:fc1_ln_kernel): the
-# panels' token counts it is built for, a tile's features, a step's depth
-# bytes, a warpgroup's ring stages at most, the dynamic shared memory a
-# block may take, the epilogue's byte-stage row, the block's threads
-FC1_LN_NW = (64, 112)
-FC1_LN_WINDOW_NW = 64  # the one panel size built for a window of the panel
+# panel's tokens when it is held whole (up to K 1536) and when a window of
+# it is (deeper), a tile's features, a step's depth bytes, a warpgroup's
+# ring stages at most, the dynamic shared memory a block may take, the
+# epilogue's byte-stage row, the block's threads
+FC1_LN_NW = 112
+FC1_LN_WINDOW_NW = 64
 FC1_LN_TILE = 64
 FC1_LN_BK = 128
 FC1_LN_MAX_STAGES = 8
 FC1_LN_SMEM = 231424
 FC1_LN_EPI_RS = 80
 FC1_LN_THREADS = 288
-# The picker's model of an SM's rates (estimates, not fitted to this
-# kernel): int8 MACs and L2 -> shared bytes a us (K10-K12's fit,
+# The feature-range picker's model of an SM's rates (estimates, not fitted
+# to this kernel; it weighs the waves against the panels' LayerNorm): int8
+# MACs and L2 -> shared bytes a us (K10-K12's fit,
 # ops/int4_matmul.py), outputs of the erf-GELU epilogue a us (~30 lane
 # operations an output at 128 lanes and ~1.75 GHz), LayerNorm elements a
 # us (two f64 conversions an element at 16 a clock)
@@ -312,8 +315,9 @@ class Fc1Layout:
     panel of ``nw`` tokens x ``f`` output features an item, the items of
     a panel consecutive (panel-major) and dealt to ``grid`` blocks in
     contiguous runs; ``win`` steps of 128 levels of the panel held in
-    shared memory at once (all of them, or a window: then ``f`` is 128,
-    one tile a warpgroup); ``stages`` of a warpgroup's weight ring."""
+    shared memory at once (all of them at :data:`FC1_LN_NW` tokens; a
+    window at :data:`FC1_LN_WINDOW_NW`, ``f`` then 128, one tile a
+    warpgroup); ``stages`` of a warpgroup's weight ring."""
 
     m: int
     k: int
@@ -352,7 +356,8 @@ class Fc1Layout:
 
     @property
     def whole(self) -> bool:
-        return self.win >= self.steps
+        """The panel held whole (else a window of it at a time)."""
+        return self.nw == FC1_LN_NW
 
     @property
     def waves(self) -> int:
@@ -404,12 +409,10 @@ def _ln_smem(nw: int, win: int, stages: int) -> int:
 def _ln_fit(nw: int, steps: int):
     """(win, stages) of a panel of ``nw`` tokens at ``steps`` steps: the
     most of the panel that fits beside two rings of two stages, then as
-    many stages as fit; None if not even one step does."""
+    many stages as fit."""
     stage2 = 2 * FC1_LN_TILE * FC1_LN_BK
     free = FC1_LN_SMEM - _ln_smem(nw, 0, 0)
     win = min(steps, (free - 2 * stage2) // (nw * FC1_LN_BK))
-    if win < 1:
-        return None
     stages = min(FC1_LN_MAX_STAGES, (free - win * nw * FC1_LN_BK) // stage2)
     return win, stages
 
@@ -442,36 +445,28 @@ def _ln_makespan(lay: Fc1Layout) -> float:
 @functools.lru_cache(maxsize=None)
 def fc1_ln_layout(m: int, k: int, n: int, sms: int = 132) -> Fc1Layout:
     """The float-prologue kernel's work split for x [m, k] against a
-    weight [k, n] on a card of ``sms`` SMs, one block an SM: of every
-    panel size in :data:`FC1_LN_NW` whose panel fits beside its rings (or
-    :data:`FC1_LN_WINDOW_NW`'s, a window of it at a time), and every
-    feature range ``f`` (a multiple of 64; 128 in window mode), the one
-    whose busiest block the model (:func:`_ln_makespan`) finishes first;
-    ties to the larger panel and the fewer items. At the tools' shape
-    (7168 x 768 x 3072, 132 SMs): 112 tokens x 1536 features, 128 items in
-    one wave, the weight read 64 times (151 MB through L2)."""
+    weight [k, n] on a card of ``sms`` SMs, one block an SM. Where a panel
+    of :data:`FC1_LN_NW` tokens fits whole beside its rings (K <= 1536),
+    the feature range ``f`` (a multiple of 64) whose busiest block the
+    model (:func:`_ln_makespan`) finishes first, ties to the fewer items;
+    deeper, a window of a :data:`FC1_LN_WINDOW_NW`-token panel at a time,
+    ``f`` 128. At the tools' shape (7168 x 768 x 3072, 132 SMs): 112
+    tokens x 1536 features, 128 items in one wave, the weight read 64
+    times (151 MB through L2)."""
     steps = _cdiv(k, FC1_LN_BK)
+    win, stages = _ln_fit(FC1_LN_NW, steps)
+    if win < steps:
+        win, stages = _ln_fit(FC1_LN_WINDOW_NW, steps)
+        return Fc1Layout(m, k, n, FC1_LN_WINDOW_NW, 2 * FC1_LN_TILE, win,
+                         stages, sms)
     tiles = _cdiv(n, FC1_LN_TILE)
     best = None
-    for nw in sorted(FC1_LN_NW, reverse=True):
-        fit = _ln_fit(nw, steps)
-        if fit is None:
-            continue
-        win, stages = fit
-        if win < steps:
-            if nw != FC1_LN_WINDOW_NW:
-                continue
-            fs = [2 * FC1_LN_TILE]
-        else:
-            fs = sorted({_cdiv(tiles, nf) * FC1_LN_TILE
-                         for nf in range(1, tiles + 1)}, reverse=True)
-        for f in fs:
-            lay = Fc1Layout(m, k, n, nw, f, win, stages, sms)
-            t = _ln_makespan(lay)
-            if best is None or t < best[0] * (1 - 1e-9):
-                best = (t, lay)
-    if best is None:
-        raise ValueError(f"fc1_ablation: no panel fits K {k}")
+    for f in sorted({_cdiv(tiles, nf) * FC1_LN_TILE
+                     for nf in range(1, tiles + 1)}, reverse=True):
+        lay = Fc1Layout(m, k, n, FC1_LN_NW, f, win, stages, sms)
+        t = _ln_makespan(lay)
+        if best is None or t < best[0] * (1 - 1e-9):
+            best = (t, lay)
     return best[1]
 
 
@@ -479,8 +474,8 @@ def fc1_ln_layout(m: int, k: int, n: int, sms: int = 132) -> Fc1Layout:
 class Fc1Plan:
     """An fc1 ablation call site of M rows, prepared once by
     :func:`plan_fc1`: the weight in the kernels' layout (n-major,
-    :func:`~._build.n_major`; for a float prologue in swizzled boxes,
-    :func:`fc1_ln_weight`), the variant, its f32 vectors on the device
+    :func:`~._build.n_major`; for a float prologue K10's copy,
+    :func:`~.int4_matmul.kernel_weight`), the variant, its f32 vectors on the device
     (the scale vector, the bias, the LayerNorm g and b, where it has
     them), the output every
     launch writes, the card's SM count, and for a float prologue the work
@@ -540,7 +535,7 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
     if variant.prologue == "levels":
         w_t = _build.n_major(w)
     else:
-        w_t = fc1_ln_weight(w, k, n)
+        w_t = kernel_weight(w, fmt, k, n)[0]
         layout = fc1_ln_layout(m, k, n, sms)
         state = _fc1_ln_state(w_t, layout)
     return Fc1Plan(
@@ -551,37 +546,16 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
         layout=layout, state=state)
 
 
-def fc1_ln_weight(w, k: int, n: int) -> torch.Tensor:
-    """The float-prologue kernel's copy of an int8 weight [K, N]: the
-    n-major levels cut into boxes of 64 features x 128 levels of depth
-    (zeros past N and K), box (f, s) the ``f * steps + s``-th 8 KB, each
-    box's rows of 128 bytes under the 128-byte swizzle that wgmma's
-    descriptors read (16-byte piece p of row r at p ^ (r % 8)): a ring
-    stage is one contiguous bulk copy. [np / 64 * steps * 64, 128]."""
-    steps = _cdiv(k, FC1_LN_BK)
-    np_ = _cdiv(n, FC1_LN_TILE) * FC1_LN_TILE
-    wt = torch.zeros((np_, steps * FC1_LN_BK), dtype=torch.int8,
-                     device=w.device)
-    wt[:n, :k] = w.transpose(0, 1)
-    boxes = wt.reshape(np_ // FC1_LN_TILE, FC1_LN_TILE, steps, 8, 16)
-    boxes = boxes.permute(0, 2, 1, 3, 4)  # [f][s][row][piece][16]
-    rows = torch.arange(FC1_LN_TILE, device=w.device)
-    src = torch.arange(8, device=w.device)[None, :] ^ (rows[:, None] % 8)
-    idx = src[None, None, :, :, None].expand(boxes.shape)
-    return torch.gather(boxes, 3, idx).reshape(-1, FC1_LN_BK).contiguous()
-
-
 def _fc1_ln_state(w_t, layout: Fc1Layout):
     """The float-prologue kernel's host state for its weight copy ``w_t``
-    (:func:`fc1_ln_weight`) at ``layout``: the layout checked, the grid
-    sized."""
+    (:func:`~.int4_matmul.kernel_weight`) at ``layout``: the layout
+    checked, the weight's tensor map encoded, the grid sized."""
     lib = _fc1_library()
     state = ctypes.create_string_buffer(lib.qvt_fc1_ln_state_bytes())
     _build.check(lib.qvt_fc1_ln_prepare(
-        ctypes.addressof(state), w_t.data_ptr(),
-        _cdiv(layout.n, FC1_LN_TILE) * FC1_LN_TILE, layout.m, layout.k,
-        layout.n, layout.nw, layout.f, layout.win, layout.stages),
-        "fc1_ablation")
+        ctypes.addressof(state), w_t.data_ptr(), w_t.shape[1],
+        w_t.shape[0], layout.m, layout.k, layout.n, layout.nw, layout.f,
+        layout.win, layout.stages), "fc1_ablation")
     return state
 
 
@@ -613,7 +587,7 @@ def _fc1_library():
         lib.qvt_fc1_ablation.restype = I
         lib.qvt_fc1_ln_state_bytes.argtypes = []
         lib.qvt_fc1_ln_state_bytes.restype = I
-        lib.qvt_fc1_ln_prepare.argtypes = [P, P] + [I] * 8
+        lib.qvt_fc1_ln_prepare.argtypes = [P, P] + [I] * 9
         lib.qvt_fc1_ln_prepare.restype = I
         lib.qvt_fc1_ln.argtypes = ([P, P, I] + [P] * 5 + [F] * 4 + [P]
                                    + [I] * 4 + [P])

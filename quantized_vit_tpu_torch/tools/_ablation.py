@@ -104,25 +104,27 @@ def events_us(fn, iters=20, warmup=3, short_iters=200):
     return statistics.median(s.elapsed_time(e) for s, e in pairs) * 1e3
 
 
-def device_us(fn, reps=20):
+def device_us(fn, reps=20, tries=5):
     """The device time of the kernels of one call (torch.profiler's CUDA
-    trace, the mean of ``reps``); None without a card or if the trace
-    holds none."""
+    trace, the mean of ``reps``); None without a card or if no trace of
+    ``tries`` is whole. A trace now and then comes back empty or with
+    some kernels dropped: one whose count of device events is not a whole
+    multiple of ``reps`` is taken again."""
     if not torch.cuda.is_available():
         return None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back empty: retry
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        tot = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-        if tot > 0:
-            return tot / reps
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if times and len(times) % reps == 0 and sum(times) > 0:
+            return sum(times) / reps
     return None
 
 

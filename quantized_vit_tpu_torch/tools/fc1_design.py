@@ -7,9 +7,9 @@ modes also run), on the card:
   ``ptxas.log``), and the erf-GELU epilogue's issue floor counted from the
   source (:func:`epilogue_floor_us`);
 - the work split ``ops/ablations.py:fc1_ln_layout`` picks at the tool's
-  shape, and K17 ``lean`` at its neighbours, other panel sizes and
-  feature ranges (device time; each checked against the picked one's
-  bits);
+  shape, and K17 ``lean`` at its neighbours, the 112-token panel at other
+  feature ranges and the 64-token window instantiation (device time and
+  events; each checked against the picked one's bits);
 - with ``--stages``: K17 ``lean`` at the tool's shape built with each of
   the kernel's stages switched off in turn (``QVT_F1_OFF``: 1 the
   prologue, each level the low byte of x's element; 2 the products, the
@@ -18,14 +18,16 @@ modes also run), on the card:
   and x's loads alone; 7 the ping-pong's turns; 8 every weight box from
   one place in L2; 9 both 6 and 8), all built at once into
   ``build/kernels/fc1_design/``, device time in turns with the kernels'
-  own build (the variants in order, then back, twice over).
+  own build (the variants in order, then back, twice over; device time
+  and events, each through the same launch).
 
 ::
 
     python3 -m quantized_vit_tpu_torch.tools.fc1_design [--stages]
 
 Device times are torch.profiler's (``tools/_ablation.py:device_us``, the
-mean of 20 launches). Prints the card's name and power limit first and
+mean of 20 launches, a trace with kernels dropped taken again); events
+the median of 20 (``events_us``). Prints the card's name and power limit first and
 one JSON object last.
 """
 
@@ -108,23 +110,23 @@ def _lean(dev):
 
 
 def layouts(dev) -> list:
-    """K17 lean at the picked layout and its neighbours (each panel size
-    at feature ranges of 768, 1536 and 3072), each launched on the tool's
-    inputs through a plan at that layout; bits against the picked
-    one's."""
+    """K17 lean at the picked layout and its neighbours (the whole panel
+    at feature ranges of 768, 1536 and 3072; the window instantiation,
+    its one window the whole depth), each launched on the tool's inputs
+    through a plan at that layout; bits against the picked one's."""
     m, k, n = exp_pro2.M, exp_pro2.K, exp_pro2.N
     _, x, w, g, b = exp_pro.inputs(dev, m, k, n, False)
     plan = ab.plan_fc1(w, ab.EXP_PRO2_MODES["lean"], m, ln_g=g, ln_b=b)
     pick = plan.layout
     want = ab.run_fc1(plan, x, "exp_pro2").clone()
     cands = [pick]
-    for nw in ab.FC1_LN_NW:
-        win, stages = ab._ln_fit(nw, pick.steps)
-        for f in (768, 1536, 3072):
-            lay = dataclasses.replace(pick, nw=nw, f=f, win=win,
-                                      stages=stages)
-            if lay not in cands:
-                cands.append(lay)
+    for f in (768, 1536, 3072):
+        lay = dataclasses.replace(pick, f=f)
+        if lay not in cands:
+            cands.append(lay)
+    win, stages = ab._ln_fit(ab.FC1_LN_WINDOW_NW, pick.steps)
+    cands.append(dataclasses.replace(pick, nw=ab.FC1_LN_WINDOW_NW, f=128,
+                                     win=win, stages=stages))
     rows = []
     for lay in cands:
         p = ab.fc1_plan_at(plan, lay)
@@ -134,14 +136,16 @@ def layouts(dev) -> list:
                      "picked": lay == pick,
                      "model_us": ab._ln_makespan(lay),
                      "device_us": _ablation.device_us(call),
+                     "events_us": _ablation.events_us(call),
                      "same_bits": bool(torch.equal(call(), want))})
     return rows
 
 
 def stage_times(dev, rounds=2) -> list:
     """K17 lean at the tool's shape with each stage switched off (all
-    variants built at once, one ``nvcc`` each), device time in turns.
-    Returns (label, [us a turn], levels as the plain version's)."""
+    variants built at once, one ``nvcc`` each), device time and events in
+    turns. Returns (label, [device us a turn], [events us a turn], levels
+    as the plain version's)."""
     out_dir = _build.BUILD_ROOT / "fc1_design"
     out_dir.mkdir(parents=True, exist_ok=True)
     own = _build.build_all() / "fc1_ablation.so"
@@ -164,6 +168,7 @@ def stage_times(dev, rounds=2) -> list:
     mode = _lean(dev)
     want = mode.plain()
     times = {off: [] for off, _ in STAGES}
+    ev = {off: [] for off, _ in STAGES}
     exact = {}
     order = [off for off, _ in STAGES]
     try:
@@ -173,9 +178,15 @@ def stage_times(dev, rounds=2) -> list:
                 m = _lean(dev)  # a plan's host state is its library's
                 exact[off] = bool(torch.equal(m.launch(), want))
                 times[off].append(_ablation.device_us(m.launch))
+                ev[off].append(_ablation.events_us(m.launch))
     finally:
         _build.use_library("fc1_ablation", own)
-    return [(label, times[off], exact[off]) for off, label in STAGES]
+    return [(label, times[off], ev[off], exact[off])
+            for off, label in STAGES]
+
+
+def _us(u) -> str:
+    return "n/a" if u is None else f"{u:.1f}"
 
 
 def main(argv=None) -> int:
@@ -199,17 +210,20 @@ def main(argv=None) -> int:
         print(f"K17 lean nw {r['nw']} f {r['f']} "
               f"({r['items']} items, {r['waves']} waves"
               f"{', picked' if r['picked'] else ''}): "
-              f"device {r['device_us']:.1f} us, model "
+              f"device {_us(r['device_us'])} us, events "
+              f"{r['events_us']:.1f} us, model "
               f"{r['model_us']:.1f} us, bits "
               f"{'equal' if r['same_bits'] else 'DIFFER'}", flush=True)
     ok = all(r["same_bits"] for r in out["layouts"])
     if args.stages:
         out["stages"] = []
-        for label, us, same in stage_times(dev):
+        for label, us, evs, same in stage_times(dev):
             out["stages"].append({"stage": label, "device_us": us,
-                                  "exact": same})
-            ts = " / ".join("n/a" if u is None else f"{u:.1f}" for u in us)
-            print(f"K17 lean, {label}: device {ts} us in turns; levels "
+                                  "events_us": evs, "exact": same})
+            ts = " / ".join(_us(u) for u in us)
+            es = " / ".join(_us(u) for u in evs)
+            print(f"K17 lean, {label}: device {ts} us, events {es} us in "
+                  f"turns; levels "
                   f"{'equal to' if same else 'unlike'} the plain version's",
                   flush=True)
     print(json.dumps(out), flush=True)

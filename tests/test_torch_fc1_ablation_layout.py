@@ -6,11 +6,14 @@ items and tiles, and each tile's depth by its windows; the shared memory
 within the card's 227 KB at every depth; one wave at the tools' shape on
 132 SMs (and the waves it claims elsewhere); the panel's swizzled layout
 and the epilogue's fragment-to-byte-stage map, each a bijection; a CPU
-mirror of the kernel's order (levels, the weight read from its swizzled
-boxes, tiles over windows, the epilogue in fragment order) bit-equal to
-the plain version; and
-``fc1_kernel_limit`` refusing and admitting exactly what it did before
-the redesign. No JAX: the plain versions are held to the root tools'
+mirror of the kernel's order (levels, the weight read in its TMA boxes,
+tiles over windows, the epilogue in fragment order) bit-equal to the
+plain version; float32 copies of the kernel's rounding
+(``round_clip_byte``: the clip, then the magic add, its low byte) and
+of its erf-GELU and folded levels (``level_fast``, ``erf_clamped``)
+equal to the plain version's at ties, at the tops, past them and at the
+erf clamp's edges; and ``fc1_kernel_limit`` refusing and admitting
+exactly what it did before the redesign. No JAX: the plain versions are held to the root tools'
 Pallas kernels in ``tests/test_torch_ablations.py``."""
 
 import re
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from quantized_vit_tpu_torch.ops import ablations as ab
+from quantized_vit_tpu_torch.ops.int4_matmul import kernel_weight
 
 torch.set_num_threads(1)
 
@@ -32,6 +36,8 @@ SHAPES = [TOOL, (1000, 768, 1540), (17, 768, 3072), (300, 80, 3072),
           (1040, 1280, 5120), (300, 3072, 768), (1, 16, 4),
           (2000, 768, 3072), (1664, 768, 3072), (113, 4096, 260),
           (7, 30000, 8)]
+# the panel sizes built: a window of the panel, the panel whole
+BUILT_NW = (ab.FC1_LN_WINDOW_NW, ab.FC1_LN_NW)
 
 
 def _constants():
@@ -52,15 +58,14 @@ def test_constants_match_the_source():
     assert c["L_SMEM"] == ab.FC1_LN_SMEM
     assert c["L_EPI_RS"] == ab.FC1_LN_EPI_RS
     assert c["L_NT"] == ab.FC1_LN_THREADS
-    built = tuple(int(v) for v in re.findall(
-        r"if \(nw == (\d+)\) return ln_kernel_nw<\d+, true>", SRC))
-    assert built == ab.FC1_LN_NW
-    window = re.findall(r"nw == (\d+) \? ln_kernel_nw<\d+, false>", SRC)
-    assert [int(v) for v in window] == [ab.FC1_LN_WINDOW_NW]
+    assert c["L_NW"] == ab.FC1_LN_NW
+    assert c["L_WINDOW_NW"] == ab.FC1_LN_WINDOW_NW
+    assert "ln_kernel_nw<L_NW, true>" in SRC
+    assert "ln_kernel_nw<L_WINDOW_NW, false>" in SRC
     # the shared-memory formula of the source at every built panel
     body = re.search(r"int ln_smem\(int nw, int win, int stages\) \{\s*"
                      r"return ([^;]+);", SRC).group(1).replace("\n", " ")
-    for nw in ab.FC1_LN_NW:
+    for nw in BUILT_NW:
         for win, stages in ((1, 2), (6, 7), (12, 8)):
             assert eval(body, {}, dict(c, nw=nw, win=win, stages=stages)) \
                 == ab._ln_smem(nw, win, stages)
@@ -148,7 +153,7 @@ def test_kernel_limit_unchanged():
                         _limit_before(m, k, n, fmt), (m, k, n, fmt)
 
 
-@pytest.mark.parametrize("nw", ab.FC1_LN_NW)
+@pytest.mark.parametrize("nw", BUILT_NW)
 def test_panel_layout_is_the_swizzle_wgmma_reads(nw):
     """panel_levels' stores (a 16-level unit u of row r at window step s,
     physical piece (u % 8) ^ (r % 8)) fill the window's bytes once, and the
@@ -191,7 +196,7 @@ def _fragments(hw):
     return out
 
 
-@pytest.mark.parametrize("nw", ab.FC1_LN_NW)
+@pytest.mark.parametrize("nw", BUILT_NW)
 def test_epilogue_stage_map(nw):
     """Every (feature, token) of a warpgroup's tile once, each at stage
     byte tok * 80 + feature; the stores of a warp's 32 lanes for one
@@ -228,15 +233,18 @@ def _mirror(x, w, v, lay, **kw):
     kp = lay.steps * 128
     lvp = torch.zeros((lay.panels * lay.nw, kp), dtype=torch.int64)
     lvp[:m, :k] = lv
-    # the kernel's weight boxes, read back through the swizzle
-    steps = lay.steps
-    boxes = ab.fc1_ln_weight(w, k, n).reshape(lay.tiles, steps, 64, 8, 16)
-    rows = torch.arange(64)
-    pieces = torch.arange(8)[None, :] ^ (rows[:, None] % 8)
-    logical = torch.gather(boxes, 3, pieces[None, None, :, :, None].expand(
-        boxes.shape))  # the swizzle is its own inverse
-    wp = logical.permute(1, 3, 4, 0, 2).reshape(kp, lay.tiles * 64).to(
-        torch.int64)
+    # the kernel's TMA boxes of the plan's weight copy: 64 features x 128
+    # levels at (64 f, 128 s), zeros past the copy
+    w_t, depth = kernel_weight(w, "int8", k, n)
+    assert depth >= k and depth % 16 == 0 and depth >= 128
+    assert w_t.shape[0] >= n and w_t.shape[0] % 64 == 0
+    wp = torch.zeros((lay.tiles * 64, kp), dtype=torch.int64)
+    for f in range(lay.tiles):
+        for s in range(lay.steps):
+            box = w_t[64 * f:64 * f + 64, 128 * s:128 * s + 128]
+            wp[64 * f:64 * f + box.shape[0],
+               128 * s:128 * s + box.shape[1]] = box
+    wp = wp.T
     scale = kw.get("scale", ab.SCALE)
     out = torch.full((m, n), 99, dtype=torch.int8)
     hw = lay.nw
@@ -303,3 +311,93 @@ def test_mirror_of_the_kernel_order_is_the_plain_version(mode, m, k, n, sms):
     got = _mirror(x, w, v, lay, **kw)
     want = ab.fc1_ablation_plain(x, w, v, **kw)
     assert torch.equal(got, want)
+
+
+# float32 copies of the kernel's rounding and erf-GELU / folded levels
+# (csrc/fc1_ablation.cu: round_clip_byte, erf_clamped, level_fast), in
+# numpy's float32, which neither fuses nor reorders
+F = np.float32
+C2 = F(0.7071067811865476)
+ERF = [F(1.6343068626e-04), F(-4.6024812456e-03), F(5.0755384214e-02),
+       F(-2.8632930819e-01), F(1.0820510812e+00)]
+
+
+def _round_clip_byte(r, top):
+    """fminf(fmaxf(r, -top), top) + 1.5 * 2^23, the low byte of its bits
+    (NaN clips to -top: fmaxf takes the number)."""
+    c = np.fmin(np.fmax(r, F(-top)), F(top))
+    bits = (c + F(ab.MAGIC)).astype(F).view(np.uint32)
+    return (bits & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def _erf_clamped(v):
+    v2 = v * v
+    acc = ERF[0]
+    for c in ERF[1:]:
+        acc = acc * v2 + c
+    return acc * v
+
+
+def _level_fast(y, epilogue):
+    inv_d, top = F(ab.INV_D), F(ab.TOP)
+    if epilogue == "gelu_erf":
+        z = np.fmin(np.fmax(y * C2, F(-3)), F(3))
+        w = z * C2 * inv_d
+        return _round_clip_byte(w + w * _erf_clamped(z), top)
+    c2 = F(0.70710678118654757) / F(ab.OUT_D)
+    w = y * c2
+    e = _erf_clamped(np.fmin(np.fmax(y, F(-3)), F(3)))
+    return _round_clip_byte(w + w * e, top)
+
+
+def _ties_and_tops():
+    """Half-integer ties, their float32 neighbours, the tops, past them."""
+    h = np.arange(-9, 9, dtype=F) + F(0.5)
+    r = np.concatenate([h, np.nextafter(h, F(-np.inf)),
+                        np.nextafter(h, F(np.inf)),
+                        np.arange(-9, 10, dtype=F),
+                        [F(-0.0), F(1e-30), F(-1e-30), F(2**22), F(-2**22),
+                         F(1e10), F(-1e10), F(np.inf), F(-np.inf)]])
+    return r.astype(F)
+
+
+def test_round_clip_byte_is_the_plain_rounding():
+    """clip before the magic add equals the plain versions' round, then
+    clip (the epilogue's ``_levels(round(pre))`` and the prologues'
+    ``clamp(round(v))``) at every tie, at and past the tops; NaN goes to
+    -top (the plain version's f32 -> int8 cast of NaN is undefined)."""
+    assert "__fadd_rn(fminf(fmaxf(r, -top), top), MAGIC))" in SRC
+    r = _ties_and_tops()
+    got = torch.from_numpy(_round_clip_byte(r, ab.TOP))
+    rt = torch.from_numpy(r)
+    assert torch.equal(got, ab._levels(torch.round(rt)))
+    assert torch.equal(got, ab.fc1_prologue_plain(rt, "quant"))
+    assert _round_clip_byte(np.array([np.nan], F), ab.TOP)[0] == -ab.TOP
+
+
+@pytest.mark.parametrize("epilogue", ["gelu_erf", "folded"])
+def test_level_fast_is_the_plain_epilogue(epilogue):
+    """The kernel's erf-GELU and folded levels at a dense sweep of y, at
+    the erf clamp's edges (y * C2 = +-3, y = +-3) and their float32
+    neighbours, where the level is a tie and far past the tops."""
+    fast = SRC[SRC.index("uint32_t level_fast("):]
+    fast = re.sub(r"\s+", " ", fast[:fast.index("} else {")])
+    assert ("const float z = fminf(fmaxf(y * C2, -3.0f), 3.0f); const float "
+            "e = erf_clamped(z); const float w = z * C2 * a.inv_d; return "
+            "round_clip_byte(w + w * e, a.out_top);") in fast
+    assert ("const float e = erf_clamped(fminf(fmaxf(y, -3.0f), 3.0f)); "
+            "const float w = y * a.c2; return round_clip_byte(w + w * e, "
+            "a.out_top);") in fast
+    edge = np.array([3 / C2, -3 / C2, 3, -3], F)
+    edges = np.concatenate([edge, np.nextafter(edge, F(np.inf)),
+                            np.nextafter(edge, F(-np.inf))])
+    sweep = np.linspace(-12, 12, 480001, dtype=F)
+    y = np.concatenate([sweep, edges, _ties_and_tops() / F(ab.INV_D),
+                        np.array([1e3, -1e3, 1e30, -1e30, 0, -0.0], F)])
+    y = y[np.isfinite(y)].astype(F)  # y: an int32 sum times a finite scale
+    got = torch.from_numpy(_level_fast(y, epilogue))
+    want = ab.fc1_epilogue_plain(torch.from_numpy(y), epilogue)[1]
+    assert torch.equal(got, want)
+    # the sweep reaches the top and every level down to GELU's least
+    assert set(got.tolist()) == set(range(int(got.min()), ab.TOP + 1))
+    assert int(got.min()) < 0
