@@ -58,16 +58,16 @@
 //      windows.
 //   2. The products: a tile is 64 features x NW tokens, outT = W lvT on
 //      wgmma m64nNk32 (the weight the A operand from its ring, the panel
-//      the B operand, both through descriptors). The weight's n-major copy
-//      (ops/int4_matmul.py:kernel_weight, as K10's) comes by TMA from a
-//      CUtensorMap encoded once a plan: a ring stage is one box of 64
-//      features x 128 levels under the 128-byte swizzle, zeros past the
-//      copy, completing on the stage's full mbarrier; one ring a
-//      warpgroup, filled in the tiles' order, each stage freed by its
-//      warps' arrivals on its empty mbarrier. A warpgroup keeps one
-//      product group in flight and frees each stage as the next one's
-//      products go out. The items of one feature range start their tiles
-//      at different places (the panel's index mod the tiles).
+//      the B operand, both through descriptors). The plan keeps the
+//      weight in boxes of 64 features x 128 levels, each already in the
+//      swizzled layout (ops/ablations.py:fc1_ln_weight), so a ring stage
+//      is one contiguous 8 KB bulk copy by the TMA unit (cp.async.bulk,
+//      completing on the stage's full mbarrier); one ring a warpgroup,
+//      filled in the tiles' order, each stage freed by its warps'
+//      arrivals on its empty mbarrier. A warpgroup keeps one product
+//      group in flight and frees each stage as the next one's products go
+//      out. The items of one feature range start their tiles at different
+//      places (the panel's index mod the tiles).
 //   3. Ping-pong: the tiles of a block alternate between the warpgroups,
 //      and a warpgroup issues its tile's products only after the other
 //      has issued its previous tile's (two named barriers), so one
@@ -80,16 +80,18 @@
 //      the magic add, no float-to-int conversion (round_clip_byte).
 // What holds it on an H100 (tools/fc1_design.py --stages; PERF.md row
 // 17): the weight stream and the steps that do not hide under it. The
-// ring with x's loads alone takes about half the kernel's time (~27 GB/s
-// an SM), as long when every stage reads the same L2-hot box (not L2's
-// bytes) and with one 15-stage ring for both warpgroups (not its depth).
-// The LayerNorm, the products, the epilogue's arithmetic and its stores
-// each add to it, since a stage is freed only once its products are done.
-// Measured and not kept: clusters of 2 and 4 blocks sharing each box by a
-// multicast copy (each block half the box into both: 2.2-2.7x and 6.5x
-// slower, the ring alone 3.8x slower at 2), that shared 15-stage ring
-// (4% slower), half a panel a warpgroup with both reading each stage,
-// 64-token panels.
+// ring with x's loads alone takes about half the kernel's time, as long
+// when every stage reads the same L2-hot box (not L2's bytes) and with
+// one 15-stage ring for both warpgroups (not its depth). The LayerNorm,
+// the products, the epilogue's arithmetic and its stores each add to it,
+// since a stage is freed only once its products are done. Measured and
+// not kept: the weight by a 2-D TMA tensor map (64 x 128 boxes of the
+// n-major copy, or of unswizzled 8 KB boxes, the TMA unit swizzling
+// them), 4-5% slower than the bulk copy either way; clusters of 2 and 4
+// blocks sharing each box by a multicast copy (2.2-2.7x and 6.5x
+// slower); that shared 15-stage ring (4% slower); half a panel a
+// warpgroup with both reading each stage; a whole 64-token panel at the
+// depths the 112-token one takes.
 //
 // The levels-in modes (K16 int8_in, K20, K21): fc1_kernel, K1's tile
 // (int8_gemm.cuh:gemm_tile: a three-stage cp.async ring, ldmatrix,
@@ -404,10 +406,10 @@ constexpr int L_MAX_STAGES = 8, L_SMEM = 231424, L_EPI_RS = 80;
 constexpr int L_CBAR = 1, L_WBAR = 2, L_OBAR = 4;
 
 struct LnArgs {
-  // the weight's n-major copy [np][wb] (ops/int4_matmul.py:kernel_weight),
-  // boxes of 64 features x 128 levels under the 128-byte swizzle, zeros
-  // past the copy: one box a ring stage
-  CUtensorMap tm_w;
+  // the weight copy in its boxes: [np / 64][steps][64 rows][128 bytes],
+  // each box's rows under the 128-byte swizzle (ops/ablations.py:
+  // fc1_ln_weight), one contiguous 8 KB box a ring stage
+  const uint8_t* wb;
   const void* x;     // [M][K] bf16 or f32, 16-byte aligned
   int x_dt;
   const float* ln_g;  // [K] (LayerNorm)
@@ -441,6 +443,18 @@ __device__ __forceinline__ void turn_wait(int w) {
 __device__ __forceinline__ void turn_give(int w) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(L_OBAR + w), "n"(L_CT)
                : "memory");
+}
+
+// a contiguous bulk copy of `bytes` (a multiple of 16) from device memory
+// at `src` into `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(wg::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(wg::smem_u32(bar))
+      : "memory");
 }
 
 // item i's first token and feature, its tiles of 64 features, and the
@@ -650,13 +664,16 @@ __device__ __forceinline__ void ln_produce(const LnArgs& a, uint8_t* ring,
       const int s1 = min(s0 + a.win, a.steps);
       for (int j = 0; j < t.ntile; ++j, ++q) {
         const int w = WHOLE ? q & 1 : j;
-        const int f = ONE_BOX ? 0 : t.f0 + (WHOLE ? t.tile(j) : j) * L_TILE;
+        const long long box =
+            static_cast<long long>(t.f0 / L_TILE + (WHOLE ? t.tile(j) : j)) *
+            a.steps;
         for (int ks = s0; ks < s1; ++ks, ++u[w]) {
           const int s = u[w] % a.stages, b = w * L_MAX_STAGES + s;
           wg::mbar_wait(&empty[b], ((u[w] / a.stages) & 1) ^ 1);
           wg::mbar_arrive_tx(&full[b], L_STAGE);
-          wg::tma_load_2d(ring + (w * a.stages + s) * L_STAGE, &a.tm_w,
-                          ONE_BOX ? 0 : ks * L_BK, f, &full[b]);
+          bulk_load(ring + (w * a.stages + s) * L_STAGE,
+                    a.wb + (ONE_BOX ? 0 : (box + ks) * L_STAGE), L_STAGE,
+                    &full[b]);
         }
       }
     }
@@ -908,17 +925,12 @@ int ln_smem(int nw, int win, int stages) {
          2 * 2 * L_MAX_STAGES * 8 + 2 * nw * L_EPI_RS;
 }
 
-// The host's part, once a plan (qvt_fc1_ln_prepare): the weight's map,
-// the layout and the grid
+// The host's part, once a plan (qvt_fc1_ln_prepare): the layout and the
+// grid
 struct LnState {
-  CUtensorMap tm_w;
+  const uint8_t* wb;
   int M, K, N, nw, F, nf, items, steps, win, stages, tiles, smem, grid;
 };
-
-LnState* ln_state_of(void* p) {
-  return reinterpret_cast<LnState*>((reinterpret_cast<uintptr_t>(p) + 63) &
-                                    ~uintptr_t(63));
-}
 
 }  // namespace
 
@@ -974,40 +986,36 @@ extern "C" int qvt_fc1_ablation(const void* x, const void* w, int w_int4,
 }
 
 // Bytes of the float-prologue kernel's host state a caller allocates for
-// one plan (a CUtensorMap is 64-byte aligned: the state starts at the
-// first 64-byte boundary of the buffer).
+// one plan.
 extern "C" int qvt_fc1_ln_state_bytes() {
-  return static_cast<int>(sizeof(LnState)) + 64;
+  return static_cast<int>(sizeof(LnState));
 }
 
-// Once a plan (ops/ablations.py:fc1_ln_layout): checks the layout, encodes
-// the weight's map and sizes the grid on the current device. w: the plan's
-// n-major weight copy [np][wb] int8 levels (ops/int4_matmul.py:
-// kernel_weight: wb a multiple of 16, at least 128 and K; np a multiple of
-// 64, at least N; 16-byte aligned); nw: the panel's tokens (112: the panel
-// held whole, win == its steps; 64: a window of win steps at a time, F
-// 128); F: features an item (a multiple of 64); stages: a warpgroup's ring
-// (2 .. 8).
-extern "C" int qvt_fc1_ln_prepare(void* state, const void* w, int wb, int np,
-                                  int M, int K, int N, int nw, int F,
-                                  int win, int stages) {
-  LnState* s = ln_state_of(state);
+// Once a plan (ops/ablations.py:fc1_ln_layout): checks the layout and
+// sizes the grid on the current device. w: the plan's weight copy in its
+// boxes (ops/ablations.py:fc1_ln_weight: [np / 64][steps][64][128] int8
+// levels, each box's rows swizzled, np a multiple of 64 and at least N,
+// 16-byte aligned); nw: the panel's tokens (112: the panel held whole, win
+// == its steps; 64: a window of win steps at a time, F 128); F: features
+// an item (a multiple of 64); stages: a warpgroup's ring (2 .. 8).
+extern "C" int qvt_fc1_ln_prepare(void* state, const void* w, int np, int M,
+                                  int K, int N, int nw, int F, int win,
+                                  int stages) {
+  LnState* s = static_cast<LnState*>(state);
   const int steps = (K + L_BK - 1) / L_BK;
   const int tiles = (N + L_TILE - 1) / L_TILE;
   const long long panels = (M + static_cast<long long>(nw) - 1) / nw;
   const int nf = F > 0 ? (tiles * L_TILE + F - 1) / F : 0;
   if (ln_kernel(PRO_LN, EP_GELU_ERF, nw) == nullptr || M < 1 || K < 16 ||
-      K % 16 || N < 4 || N % 4 || wb % 16 || wb < L_BK || wb < K ||
-      np < N || np % L_TILE || F < L_TILE || F % L_TILE || win < 1 ||
-      win > steps || (nw == L_NW && win != steps) ||
+      K % 16 || N < 4 || N % 4 || np < N || np % L_TILE || F < L_TILE ||
+      F % L_TILE || win < 1 || win > steps || (nw == L_NW && win != steps) ||
       (nw == L_WINDOW_NW && F != 2 * L_TILE) || stages < 2 ||
       stages > L_MAX_STAGES || panels * nf > (1 << 30) ||
       ln_smem(nw, win, stages) > L_SMEM ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   std::memset(static_cast<void*>(s), 0, sizeof(LnState));
-  const int e = qvt::encode_tiled_int8(&s->tm_w, w, wb, np, wb, L_TILE);
-  if (e) return e;
+  s->wb = static_cast<const uint8_t*>(w);
   s->M = M;
   s->K = K;
   s->N = N;
@@ -1050,7 +1058,7 @@ extern "C" int qvt_fc1_ln(void* state, const void* x, int x_dt,
                           float scale_s, float inv_d, float out_d, float eps,
                           void* out, int prologue, int epilogue, int act_top,
                           int out_top, void* stream) {
-  const LnState* s = ln_state_of(state);
+  const LnState* s = static_cast<const LnState*>(state);
   auto mis16 = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
@@ -1063,7 +1071,7 @@ extern "C" int qvt_fc1_ln(void* state, const void* x, int x_dt,
       (epilogue == EP_FOLDED && !(out_d > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   LnArgs a;
-  a.tm_w = s->tm_w;
+  a.wb = s->wb;
   a.x = x;
   a.x_dt = x_dt;
   a.ln_g = static_cast<const float*>(ln_g);

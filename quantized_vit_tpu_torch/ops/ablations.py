@@ -57,7 +57,6 @@ from .attention import (_card_shape, _n_keys, _qkv_head_dim,
 from .fused import (_ERF_COEFS, _SQRT2, _erf_f32, _f32, _gelu_f32,
                     _gelu_quant_folded, _layernorm_f32, _quantize_f32,
                     sum_f32)
-from .int4_matmul import kernel_weight
 from .reference import int_dot
 from ..quant.packing import unpack_int4
 
@@ -474,8 +473,8 @@ def fc1_ln_layout(m: int, k: int, n: int, sms: int = 132) -> Fc1Layout:
 class Fc1Plan:
     """An fc1 ablation call site of M rows, prepared once by
     :func:`plan_fc1`: the weight in the kernels' layout (n-major,
-    :func:`~._build.n_major`; for a float prologue K10's copy,
-    :func:`~.int4_matmul.kernel_weight`), the variant, its f32 vectors on the device
+    :func:`~._build.n_major`; for a float prologue in swizzled boxes,
+    :func:`fc1_ln_weight`), the variant, its f32 vectors on the device
     (the scale vector, the bias, the LayerNorm g and b, where it has
     them), the output every
     launch writes, the card's SM count, and for a float prologue the work
@@ -535,7 +534,7 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
     if variant.prologue == "levels":
         w_t = _build.n_major(w)
     else:
-        w_t = kernel_weight(w, fmt, k, n)[0]
+        w_t = fc1_ln_weight(w, k, n)
         layout = fc1_ln_layout(m, k, n, sms)
         state = _fc1_ln_state(w_t, layout)
     return Fc1Plan(
@@ -546,16 +545,37 @@ def plan_fc1(w, variant: Fc1Variant, m: int, *, fmt="int8", scale=SCALE,
         layout=layout, state=state)
 
 
+def fc1_ln_weight(w, k: int, n: int) -> torch.Tensor:
+    """The float-prologue kernel's copy of an int8 weight [K, N]: the
+    n-major levels cut into boxes of 64 features x 128 levels of depth
+    (zeros past N and K), box (f, s) the ``f * steps + s``-th 8 KB, each
+    box's rows of 128 bytes under the 128-byte swizzle that wgmma's
+    descriptors read (16-byte piece p of row r at p ^ (r % 8)): a ring
+    stage is one contiguous bulk copy. [np / 64 * steps * 64, 128]."""
+    steps = _cdiv(k, FC1_LN_BK)
+    np_ = _cdiv(n, FC1_LN_TILE) * FC1_LN_TILE
+    wt = torch.zeros((np_, steps * FC1_LN_BK), dtype=torch.int8,
+                     device=w.device)
+    wt[:n, :k] = w.transpose(0, 1)
+    boxes = wt.reshape(np_ // FC1_LN_TILE, FC1_LN_TILE, steps, 8, 16)
+    boxes = boxes.permute(0, 2, 1, 3, 4)  # [f][s][row][piece][16]
+    rows = torch.arange(FC1_LN_TILE, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (rows[:, None] % 8)
+    idx = src[None, None, :, :, None].expand(boxes.shape)
+    return torch.gather(boxes, 3, idx).reshape(-1, FC1_LN_BK).contiguous()
+
+
 def _fc1_ln_state(w_t, layout: Fc1Layout):
     """The float-prologue kernel's host state for its weight copy ``w_t``
-    (:func:`~.int4_matmul.kernel_weight`) at ``layout``: the layout
-    checked, the weight's tensor map encoded, the grid sized."""
+    (:func:`fc1_ln_weight`) at ``layout``: the layout checked, the grid
+    sized."""
     lib = _fc1_library()
     state = ctypes.create_string_buffer(lib.qvt_fc1_ln_state_bytes())
     _build.check(lib.qvt_fc1_ln_prepare(
-        ctypes.addressof(state), w_t.data_ptr(), w_t.shape[1],
-        w_t.shape[0], layout.m, layout.k, layout.n, layout.nw, layout.f,
-        layout.win, layout.stages), "fc1_ablation")
+        ctypes.addressof(state), w_t.data_ptr(),
+        _cdiv(layout.n, FC1_LN_TILE) * FC1_LN_TILE, layout.m, layout.k,
+        layout.n, layout.nw, layout.f, layout.win, layout.stages),
+        "fc1_ablation")
     return state
 
 
@@ -587,7 +607,7 @@ def _fc1_library():
         lib.qvt_fc1_ablation.restype = I
         lib.qvt_fc1_ln_state_bytes.argtypes = []
         lib.qvt_fc1_ln_state_bytes.restype = I
-        lib.qvt_fc1_ln_prepare.argtypes = [P, P] + [I] * 9
+        lib.qvt_fc1_ln_prepare.argtypes = [P, P] + [I] * 8
         lib.qvt_fc1_ln_prepare.restype = I
         lib.qvt_fc1_ln.argtypes = ([P, P, I] + [P] * 5 + [F] * 4 + [P]
                                    + [I] * 4 + [P])

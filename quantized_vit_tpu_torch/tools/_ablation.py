@@ -128,6 +128,29 @@ def device_us(fn, reps=20, tries=5):
     return None
 
 
+def batch_us(fn, n=20, batches=5):
+    """us a call of ``n`` calls queued back to back between two CUDA
+    events, the median of ``batches``: the card's time a call with the
+    gaps between launches, the host's submit time hidden where a call
+    outlasts it; no profiler, so no trace to drop kernels. None without a
+    card."""
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(batches):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) * 1e3 / n)
+    return statistics.median(per)
+
+
 def level_diff(got, want):
     """(largest level difference, share of positions that differ)."""
     d = (got.to(torch.int32) - want.to(torch.int32)).abs()

@@ -9,7 +9,7 @@ modes also run), on the card:
 - the work split ``ops/ablations.py:fc1_ln_layout`` picks at the tool's
   shape, and K17 ``lean`` at its neighbours, the 112-token panel at other
   feature ranges and the 64-token window instantiation (device time and
-  events; each checked against the picked one's bits);
+  back-to-back launches; each checked against the picked one's bits);
 - with ``--stages``: K17 ``lean`` at the tool's shape built with each of
   the kernel's stages switched off in turn (``QVT_F1_OFF``: 1 the
   prologue, each level the low byte of x's element; 2 the products, the
@@ -19,15 +19,17 @@ modes also run), on the card:
   one place in L2; 9 both 6 and 8), all built at once into
   ``build/kernels/fc1_design/``, device time in turns with the kernels'
   own build (the variants in order, then back, twice over; device time
-  and events, each through the same launch).
+  and back-to-back launches, each through the same launch).
 
 ::
 
     python3 -m quantized_vit_tpu_torch.tools.fc1_design [--stages]
 
 Device times are torch.profiler's (``tools/_ablation.py:device_us``, the
-mean of 20 launches, a trace with kernels dropped taken again); events
-the median of 20 (``events_us``). Prints the card's name and power limit first and
+mean of 20 launches, a trace with kernels dropped taken again, "n/a"
+when no trace of five is whole); "batch" times are 20 launches queued
+back to back between two CUDA events (``batch_us``, the median of 5), so
+no trace can drop a kernel. Prints the card's name and power limit first and
 one JSON object last.
 """
 
@@ -136,16 +138,16 @@ def layouts(dev) -> list:
                      "picked": lay == pick,
                      "model_us": ab._ln_makespan(lay),
                      "device_us": _ablation.device_us(call),
-                     "events_us": _ablation.events_us(call),
+                     "batch_us": _ablation.batch_us(call),
                      "same_bits": bool(torch.equal(call(), want))})
     return rows
 
 
 def stage_times(dev, rounds=2) -> list:
     """K17 lean at the tool's shape with each stage switched off (all
-    variants built at once, one ``nvcc`` each), device time and events in
-    turns. Returns (label, [device us a turn], [events us a turn], levels
-    as the plain version's)."""
+    variants built at once, one ``nvcc`` each), device time and
+    back-to-back launches in turns. Returns (label, [device us a turn],
+    [batch us a turn], levels as the plain version's)."""
     out_dir = _build.BUILD_ROOT / "fc1_design"
     out_dir.mkdir(parents=True, exist_ok=True)
     own = _build.build_all() / "fc1_ablation.so"
@@ -178,7 +180,7 @@ def stage_times(dev, rounds=2) -> list:
                 m = _lean(dev)  # a plan's host state is its library's
                 exact[off] = bool(torch.equal(m.launch(), want))
                 times[off].append(_ablation.device_us(m.launch))
-                ev[off].append(_ablation.events_us(m.launch))
+                ev[off].append(_ablation.batch_us(m.launch))
     finally:
         _build.use_library("fc1_ablation", own)
     return [(label, times[off], ev[off], exact[off])
@@ -210,8 +212,8 @@ def main(argv=None) -> int:
         print(f"K17 lean nw {r['nw']} f {r['f']} "
               f"({r['items']} items, {r['waves']} waves"
               f"{', picked' if r['picked'] else ''}): "
-              f"device {_us(r['device_us'])} us, events "
-              f"{r['events_us']:.1f} us, model "
+              f"device {_us(r['device_us'])} us, batch "
+              f"{r['batch_us']:.1f} us, model "
               f"{r['model_us']:.1f} us, bits "
               f"{'equal' if r['same_bits'] else 'DIFFER'}", flush=True)
     ok = all(r["same_bits"] for r in out["layouts"])
@@ -219,10 +221,10 @@ def main(argv=None) -> int:
         out["stages"] = []
         for label, us, evs, same in stage_times(dev):
             out["stages"].append({"stage": label, "device_us": us,
-                                  "events_us": evs, "exact": same})
+                                  "batch_us": evs, "exact": same})
             ts = " / ".join(_us(u) for u in us)
             es = " / ".join(_us(u) for u in evs)
-            print(f"K17 lean, {label}: device {ts} us, events {es} us in "
+            print(f"K17 lean, {label}: device {ts} us, batch {es} us in "
                   f"turns; levels "
                   f"{'equal to' if same else 'unlike'} the plain version's",
                   flush=True)

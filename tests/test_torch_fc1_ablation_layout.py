@@ -6,15 +6,15 @@ items and tiles, and each tile's depth by its windows; the shared memory
 within the card's 227 KB at every depth; one wave at the tools' shape on
 132 SMs (and the waves it claims elsewhere); the panel's swizzled layout
 and the epilogue's fragment-to-byte-stage map, each a bijection; a CPU
-mirror of the kernel's order (levels, the weight read in its TMA boxes,
-tiles over windows, the epilogue in fragment order) bit-equal to the
-plain version; float32 copies of the kernel's rounding
-(``round_clip_byte``: the clip, then the magic add, its low byte) and
-of its erf-GELU and folded levels (``level_fast``, ``erf_clamped``)
-equal to the plain version's at ties, at the tops, past them and at the
-erf clamp's edges; and ``fc1_kernel_limit`` refusing and admitting
-exactly what it did before the redesign. No JAX: the plain versions are held to the root tools'
-Pallas kernels in ``tests/test_torch_ablations.py``."""
+mirror of the kernel's order (levels, the weight read from its swizzled
+boxes, tiles over windows, the epilogue in fragment order) bit-equal to
+the plain version; float32 copies of the kernel's rounding
+(``round_clip_byte``: the clip, then the magic add, its low byte) and of
+its erf-GELU and folded levels (``level_fast``, ``erf_clamped``) equal
+to the plain version's at ties, at the tops, past them and at the erf
+clamp's edges; and ``fc1_kernel_limit`` refusing and admitting exactly
+what it did before the redesign. No JAX: the plain versions are held to
+the root tools' Pallas kernels in ``tests/test_torch_ablations.py``."""
 
 import re
 from pathlib import Path
@@ -24,7 +24,6 @@ import pytest
 import torch
 
 from quantized_vit_tpu_torch.ops import ablations as ab
-from quantized_vit_tpu_torch.ops.int4_matmul import kernel_weight
 
 torch.set_num_threads(1)
 
@@ -233,18 +232,15 @@ def _mirror(x, w, v, lay, **kw):
     kp = lay.steps * 128
     lvp = torch.zeros((lay.panels * lay.nw, kp), dtype=torch.int64)
     lvp[:m, :k] = lv
-    # the kernel's TMA boxes of the plan's weight copy: 64 features x 128
-    # levels at (64 f, 128 s), zeros past the copy
-    w_t, depth = kernel_weight(w, "int8", k, n)
-    assert depth >= k and depth % 16 == 0 and depth >= 128
-    assert w_t.shape[0] >= n and w_t.shape[0] % 64 == 0
-    wp = torch.zeros((lay.tiles * 64, kp), dtype=torch.int64)
-    for f in range(lay.tiles):
-        for s in range(lay.steps):
-            box = w_t[64 * f:64 * f + 64, 128 * s:128 * s + 128]
-            wp[64 * f:64 * f + box.shape[0],
-               128 * s:128 * s + box.shape[1]] = box
-    wp = wp.T
+    # the kernel's weight boxes, read back through the swizzle
+    steps = lay.steps
+    boxes = ab.fc1_ln_weight(w, k, n).reshape(lay.tiles, steps, 64, 8, 16)
+    rows = torch.arange(64)
+    pieces = torch.arange(8)[None, :] ^ (rows[:, None] % 8)
+    logical = torch.gather(boxes, 3, pieces[None, None, :, :, None].expand(
+        boxes.shape))  # the swizzle is its own inverse
+    wp = logical.permute(1, 3, 4, 0, 2).reshape(kp, lay.tiles * 64).to(
+        torch.int64)
     scale = kw.get("scale", ab.SCALE)
     out = torch.full((m, n), 99, dtype=torch.int8)
     hw = lay.nw
