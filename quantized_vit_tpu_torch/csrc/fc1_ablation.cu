@@ -867,7 +867,7 @@ __device__ __forceinline__ void ln_consume(const LnArgs& a, uint8_t* panel,
 
 template <int PRO, int EP, int NW, bool WHOLE>
 __global__ void __launch_bounds__(L_NT, 1)
-    fc1_ln_kernel(const __grid_constant__ LnArgs a) {
+    fc1_ln_kernel(const LnArgs a) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* panel = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
